@@ -18,7 +18,21 @@ Phases:
    written by a minimal baseline TIFF writer here and read back through
    the port's TiffDirVolume): every block in the kernel domain and routed
    through the kernels, 512 u16 output planes, beads sharper than in the
-   input, manifest complete.
+   input, manifest complete;
+5. the DWT kernel K5 against its plain version (strided conv1d) on the
+   card: db9 on both axes at the destripe CLI's padded tile batches
+   (8, 2688, 2688) and (8, 2304, 2688), coif15 and db3 at (8, 2688, 2688),
+   a row shorter than the filter (n = 16, db9), and one 2D level as the
+   destripe path runs it; max |K5 - plain| / max |plain| <= 1e-5 (f32);
+   times by CUDA events after a warm call;
+6. the pystripe CLI end to end with process_images' stage-1 settings
+   (sigma 250/250, db9, reflect, bidirectional, dark 100, batch 8) on a
+   synthetic tile tree (2 x 2 stacks x 64 planes of 2000 x 2000 and one
+   stack x 16 planes of 1600 x 2000 u16: a smooth field with beads and
+   multiplicative stripes along x and y, from a numpy seed): rc 0 (no
+   failed tile), 272 u16 outputs of the input shapes, stripe power down
+   more than 3x, K5 launched batches x 3 x levels times, and 8 sampled
+   tiles within 1 count of the same chain with the plain DWT on the card.
 
 The script exits non-zero when there is no CUDA device, when the port is
 not beside it, or when any phase fails.  On success its last two lines
@@ -46,9 +60,17 @@ KERNELS = {
     "radix2_stage_inv_otf": ("K4", "ipp_tpu/ops/pallas_fft.py:208"),
 }
 SOURCE = "ipp_tpu_torch/csrc/fft_walk.cu"
+DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cu",
+              "ipp_tpu/ops/pallas_dwt.py:80 (dwt_analysis_pallas, axis -1); "
+              "scripts/dwt_ykernel_exp.py:87 (dwt_y_pallas, axis -2)")
 NITER = 10
 VOL_SHAPE = (512, 1024, 1024)  # the phase-4 series, z planes x y x x
 N_BEADS = 4000
+# the phase-6 tile tree: (stacks, planes, tile shape)
+TILE_STACKS = [(4, 64, (2000, 2000)), (1, 16, (1600, 2000))]
+STAGE1 = ["--sigma1", "250", "--sigma2", "250", "--wavelet", "db9",
+          "--padding-mode", "reflect", "--bidirectional", "--dark", "100",
+          "--batch-size", "8"]
 
 
 def say(msg: str) -> None:
@@ -354,6 +376,259 @@ def phase_cli(torch, dev, psf_zyx, record):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+DWT_MAIN_SHAPE = (8, 2688, 2688)
+
+
+def phase_dwt(torch, dev, record):
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import wavelets as wv
+
+    rng = np.random.default_rng(5)
+    cases = [("db9", DWT_MAIN_SHAPE, -1), ("db9", DWT_MAIN_SHAPE, -2),
+             ("db9", (8, 2304, 2688), -1), ("db9", (8, 2304, 2688), -2),
+             ("coif15", DWT_MAIN_SHAPE, -1), ("coif15", DWT_MAIN_SHAPE, -2),
+             ("db3", DWT_MAIN_SHAPE, -1), ("db3", DWT_MAIN_SHAPE, -2),
+             ("db9", (8, 336, 16), -1), ("db9", (8, 16, 336), -2),
+             ("db9", DWT_MAIN_SHAPE, "level")]
+    rows, bad = [], []
+    x_main = None
+    for name, shape, axis in cases:
+        if shape == DWT_MAIN_SHAPE and x_main is not None:
+            x = x_main
+        else:
+            x = torch.from_numpy(
+                rng.standard_normal(shape, dtype=np.float32)).to(dev)
+            if shape == DWT_MAIN_SHAPE:
+                x_main = x
+        taps = wv.filter_taps(name, dev)
+        if axis == "level":   # one 2D level of wavedec2: x, then y twice
+            def kfn():
+                a1, d1 = cd.dwt_analysis(x, taps, -1)
+                return cd.dwt_analysis(a1, taps, -2) + \
+                    cd.dwt_analysis(d1, taps, -2)
+
+            def pfn():
+                a1, d1 = cd.dwt_analysis_plain(x, taps, -1)
+                return cd.dwt_analysis_plain(a1, taps, -2) + \
+                    cd.dwt_analysis_plain(d1, taps, -2)
+        else:
+            def kfn():
+                return cd.dwt_analysis(x, taps, axis)
+
+            def pfn():
+                return cd.dwt_analysis_plain(x, taps, axis)
+        got, ref = kfn(), pfn()
+        torch.cuda.synchronize()
+        abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        scale = max(float(r.abs().max()) for r in ref)
+        rel = abs_err / max(scale, 1e-30)
+        ms, plain_ms = time_ms(torch, kfn, 10), time_ms(torch, pfn, 10)
+        rows.append(dict(wavelet=name, shape=list(shape), axis=axis,
+                         taps=int(taps.shape[1]), max_abs_err=abs_err,
+                         rel_err=rel, ms=ms, plain_ms=plain_ms))
+        say(f"  K5 dwt_analysis {name:<6s} {str(shape):<16s} axis "
+            f"{str(axis):<5s} rel {rel:.2e} abs {abs_err:.2e}  kernel "
+            f"{ms:8.3f} ms  plain {plain_ms:8.3f} ms")
+        if not rel <= 1e-5:
+            bad.append(f"{name} {shape} axis {axis}: rel {rel:.3e}")
+        del got, ref
+    record["dwt"] = rows
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("K5 != plain: " + "; ".join(bad))
+
+
+# -- phase 6 -----------------------------------------------------------------
+
+def striped_tile(rng, field):
+    """One u16 tile: the smooth field plus 3000 beads (a pixel and its four
+    neighbours), times stripes along x (rows) and along y (columns), each
+    on ~15% of the lines at +-30%, plus gaussian noise."""
+    import numpy as np
+
+    h, w = field.shape
+    img = field.copy()
+    n = 3000
+    ys, xs = rng.integers(2, h - 2, n), rng.integers(2, w - 2, n)
+    amp = rng.uniform(2000, 8000, n).astype(np.float32)
+    for dy, dx, f in ((0, 0, 1.0), (1, 0, 0.5), (-1, 0, 0.5), (0, 1, 0.5),
+                      (0, -1, 0.5)):
+        np.add.at(img, (ys + dy, xs + dx), amp * f)
+    rows = 1 + 0.3 * rng.standard_normal((h, 1), dtype=np.float32) \
+        * (rng.random((h, 1)) < 0.15)
+    cols = 1 + 0.3 * rng.standard_normal((1, w), dtype=np.float32) \
+        * (rng.random((1, w)) < 0.15)
+    img = img * np.clip(rows, 0.3, None) * np.clip(cols, 0.3, None)
+    img += rng.standard_normal((h, w), dtype=np.float32) * 15
+    return np.clip(img, 0, 65535).astype(np.uint16)
+
+
+def make_tile_tree(root, seed=11):
+    """The phase-6 tile tree, written by the smoke's own TIFF writer;
+    returns {stack dir: (planes, tile shape)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    jobs, stacks = [], {}
+    k = 0
+    for n_stacks, planes, (h, w) in TILE_STACKS:
+        yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+        xx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+        for _ in range(n_stacks):
+            d = root / f"Ex_488_Em_525/{100000 + 1000 * k}/{100000 + 1000 * k}_200000"
+            d.mkdir(parents=True)
+            field = 600 + 1400 * np.exp(
+                -((yy - 0.3 - 0.1 * k) ** 2 + (xx - 0.45) ** 2) / 0.08)
+            stacks[d] = (planes, (h, w))
+            for z in range(planes):
+                jobs.append((d / f"{z * 20:06d}.tif", field, seed + 1000 * k + z))
+            k += 1
+
+    def one(job):
+        path, field, s = job
+        write_u16_tiff(path, striped_tile(np.random.default_rng(s), field))
+
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(one, j) for j in jobs]:
+            f.result()
+    return stacks
+
+
+def stripe_power(torch, vol):
+    """Mean |line mean - 31-line moving average| of log1p, along x (row
+    means) and along y (column means), of a (z, h, w) stack on the card."""
+    v = torch.log1p(vol.float())
+    out = []
+    for d in (-1, -2):
+        m = v.mean(d)
+        k = 31
+        sm = torch.nn.functional.avg_pool1d(torch.nn.functional.pad(
+            m[:, None], (k // 2, k // 2), mode="replicate"), k, 1)[:, 0]
+        out.append(float((m - sm).abs().mean()))
+    return out
+
+
+def phase_destripe_cli(torch, dev, record):
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import destripe as dsm
+    from ipp_tpu_torch.ops import wavelets as wv
+    from ipp_tpu_torch.ops.process import ProcessConfig, _chain, process_img
+    from ipp_tpu_torch.pipeline import deconvolve as pdc
+    from ipp_tpu_torch.pipeline import pystripe_cli as psc
+    from ipp_tpu_torch.utils.transfer import upload
+
+    work = ROOT / "build" / "chip_smoke_tiles"
+    shutil.rmtree(work, ignore_errors=True)
+    src, dst = work / "input", work / "output"
+    t0 = time.perf_counter()
+    stacks = make_tile_tree(src)
+    t_data = time.perf_counter() - t0
+    n_tiles = sum(p for p, _ in stacks.values())
+    n_px = sum(p * h * w for p, (h, w) in stacks.values())
+    per_shape = {}   # the executor batches tiles by shape
+    for planes, shape in stacks.values():
+        per_shape[shape] = per_shape.get(shape, 0) + planes
+    batches = {shape: -(-n // 8) for shape, n in per_shape.items()}
+    levels = {shape: dsm._plan_padding(shape, (250.0, 250.0), 0, "db9")[3]
+              for shape in per_shape}
+    want = sum(b * 3 * levels[shape] for shape, b in batches.items())
+    batches = sum(batches.values())
+    say(f"  input: {n_tiles} tiles ({n_px * 2 / 1e9:.2f} GB u16) in "
+        f"{len(stacks)} stacks written in {t_data:.1f} s; levels {levels}; "
+        f"{batches} batches of 8 -> expect {want} K5 launches")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cd.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = psc.main(["-i", str(src), "-o", str(dst), *STAGE1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cd.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rate = n_px / wall / 1e6
+    card = card_line()
+    say(f"  CLI rc {rc}: {n_tiles} tiles in {wall:.1f} s, {rate:.1f} Mpix/s "
+        f"({card}); K5 launches {launches['dwt_analysis']}; "
+        f"torch.cuda.max_memory_allocated {peak}")
+    rec = record["destripe_cli"] = dict(
+        tiles=n_tiles, pixels=n_px, batches=batches, levels=str(levels),
+        wall_s=wall, mpix_s=rate, data_s=t_data, launches=launches,
+        want_launches=want, peak_mem_bytes=peak, card=card, rc=rc)
+    # rc 0 <=> the executor counted no failed tile (pystripe_cli.main)
+    if rc != 0:
+        raise AssertionError(f"CLI rc {rc}: some tiles failed")
+    if launches["dwt_analysis"] != want:
+        raise AssertionError(f"K5 launches {launches} != {want}")
+    powers_in, powers_out, sampled = [], [], {}
+    for d, (planes, shape) in stacks.items():
+        out_d = dst / d.relative_to(src)
+        outs = sorted(out_d.glob("*.tif"))
+        if len(outs) != planes:
+            raise AssertionError(f"{out_d}: {len(outs)} outputs, want {planes}")
+        box = ((0, planes), (0, shape[0]), (0, shape[1]))
+        a = pdc.TiffDirVolume(d).read_block(box)
+        b = pdc.TiffDirVolume(out_d).read_block(box)
+        if b.dtype != np.uint16 or b.shape != a.shape:
+            raise AssertionError(f"{out_d}: output {b.dtype} {b.shape}")
+        ta = torch.from_numpy(a.view(np.int16)).to(dev).to(torch.int32) & 0xFFFF
+        tb = torch.from_numpy(b.view(np.int16)).to(dev).to(torch.int32) & 0xFFFF
+        powers_in.append(stripe_power(torch, ta))
+        powers_out.append(stripe_power(torch, tb))
+        del ta, tb
+        if shape not in sampled:   # 4 planes of each tile shape
+            sampled[shape] = (a[:4], b[:4])
+            if len(sampled) == 1:  # a whole batch, for the chain's time
+                batch8 = a[:8]
+    p_in = np.mean(powers_in, axis=0)
+    p_out = np.mean(powers_out, axis=0)
+    drop = float(p_in.sum() / max(p_out.sum(), 1e-30))
+    say(f"  stripe power (along x, along y): input {p_in[0]:.3e} "
+        f"{p_in[1]:.3e}, output {p_out[0]:.3e} {p_out[1]:.3e}: "
+        f"{drop:.1f}x lower")
+    # 8 sampled tiles (4 of each shape) through the same chain with the
+    # plain DWT on the card
+    cfg = ProcessConfig(sigma=(250.0, 250.0), wavelet="db9",
+                        padding_mode="reflect", bidirectional=True,
+                        dark=100.0)
+    # and the device time of the chain on one uploaded batch of 8, with K5
+    # and with the plain DWT (CUDA events; no host IO)
+    xb = upload(batch8, dev)
+    u16 = np.dtype(np.uint16)
+    chain_ms = time_ms(torch, lambda: _chain(xb, cfg, u16), 5)
+    saved = wv.dwt_analysis
+    wv.dwt_analysis = cd.dwt_analysis_plain
+    try:
+        diffs = [int(np.abs(process_img(a, cfg).astype(np.int64)
+                            - b.astype(np.int64)).max())
+                 for a, b in sampled.values()]
+        chain_plain_ms = time_ms(torch, lambda: _chain(xb, cfg, u16), 5)
+    finally:
+        wv.dwt_analysis = saved
+    del xb
+    say(f"  8 sampled tiles, CLI (K5) vs plain DWT on the card: max |diff| "
+        f"{max(diffs)} counts")
+    dev_s = batches * chain_ms / 1e3
+    say(f"  device chain per batch of 8 {batch8.shape[1:]} tiles: "
+        f"{chain_ms:.2f} ms with K5, {chain_plain_ms:.2f} ms with the plain "
+        f"DWT; x {batches} batches = {dev_s:.2f} s of the {wall:.1f} s wall")
+    rec.update(stripe_power_in=p_in.tolist(), stripe_power_out=p_out.tolist(),
+               stripe_drop=drop, sample_max_diff=max(diffs),
+               chain_ms=chain_ms, chain_plain_ms=chain_plain_ms,
+               device_s_est=dev_s)
+    if not drop > 3:
+        raise AssertionError(f"stripe power dropped only {drop:.2f}x")
+    if max(diffs) > 1:
+        raise AssertionError(f"sampled tiles differ by {max(diffs)} counts")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # -- main ---------------------------------------------------------------------
 
 def main() -> int:
@@ -422,6 +697,9 @@ def main() -> int:
           phase_rl_block, torch, dev, record)
     phase(4, f"CLI on a {VOL_SHAPE} u16 series", phase_cli, torch, dev, psf,
           record)
+    phase(5, "K5 dwt_analysis vs plain", phase_dwt, torch, dev, record)
+    phase(6, "pystripe CLI on a 272-tile tree", phase_destripe_cli, torch, dev,
+          record)
     record["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     say(f"torch.cuda.max_memory_allocated {record['max_memory_allocated']}")
     out_dir = ROOT / "chiprun_out"
@@ -444,6 +722,14 @@ def main() -> int:
             replaces=replaces, launches=record["cli"]["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=at["ms"], plain_ms=at["plain_ms"]))
+    main = [r for r in record["dwt"]
+            if r["axis"] == "level" and r["shape"] == list(DWT_MAIN_SHAPE)][0]
+    kernels.append(dict(
+        name=DWT_KERNEL[0], route="cuda", source=DWT_KERNEL[1],
+        replaces=DWT_KERNEL[2],
+        launches=record["destripe_cli"]["launches"]["dwt_analysis"],
+        max_abs_err=max(r["max_abs_err"] for r in record["dwt"]),
+        ms=main["ms"], plain_ms=main["plain_ms"]))
     if any(k["launches"] == 0 for k in kernels):
         say("FAIL: a kernel of the path was never launched")
         return 1

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 `ipp_tpu_torch/csrc/*.cu` compile on first use into one shared library
-with a plain C interface:
+with a plain C interface: every source to an object file, all nvcc
+processes started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/ipp_tpu_torch/lib...so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c -o build/ipp_tpu_torch/<src>.o csrc/<src>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o lib...so *.o
 
 The library name carries a hash of the sources, so an edit rebuilds; the
 build goes to `build/ipp_tpu_torch/` at the repository root (listed in
@@ -49,6 +51,7 @@ _SIGNATURES = {
                          _L, _P],
     "ipp_radix2_stage_inv_otf": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _P],
+    "ipp_dwt_analysis": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
 }
 
 
@@ -68,21 +71,42 @@ def _nvcc() -> str:
                        "kernels of ipp_tpu_torch cannot be built")
 
 
+def _run(cmds):
+    """Run nvcc commands side by side; raise with the stderr of the first
+    that fails.  Returns their joined compiler output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        logs.append(err + out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, err)
+    if failed is not None:
+        cmd, rc, err = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+    return "".join(logs)
+
+
 def _build(target: Path) -> str:
     nvcc = _nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f".{target.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *_ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}")
-    os.replace(tmp, target)
-    log = proc.stderr + proc.stdout
+    tag = f"{target.stem}.{os.getpid()}"
+    objs = [target.with_name(f".{tag}.{src.stem}.o")
+            for src in sorted(_CSRC.glob("*.cu"))]
+    tmp = target.with_name(f".{tag}.tmp")
+    try:
+        log = _run([[nvcc, *_ARCH, "-std=c++17", "-O3", "-Xcompiler",
+                     "-fPIC", "-Xptxas", "-v", "-c", "-o", str(obj),
+                     str(src)]
+                    for obj, src in zip(objs, sorted(_CSRC.glob("*.cu")))])
+        log += _run([[nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                      *[str(o) for o in objs]]])
+        os.replace(tmp, target)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
     target.with_suffix(".log").write_text(log)
     return log
 
@@ -98,7 +122,7 @@ def load_library() -> ctypes.CDLL:
         for p in _sources():
             h.update(p.name.encode())
             h.update(p.read_bytes())
-        target = _BUILD_DIR / f"libipp_fft_walk_{h.hexdigest()[:16]}.so"
+        target = _BUILD_DIR / f"libipp_tpu_torch_{h.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
         built = not target.exists()
         log = _build(target) if built else ""

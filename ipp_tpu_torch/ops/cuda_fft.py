@@ -144,14 +144,17 @@ def _shape(name: str, t: torch.Tensor, shape) -> None:
                          f"{tuple(t.shape)}")
 
 
-def _launch(name: str, device: torch.device, fn, *args) -> None:
+def _launch(name: str, device: torch.device, fn, *args,
+            counts: Optional[Dict[str, int]] = None) -> None:
+    """Launch on the current stream of `device`, raise on a refused
+    launch, then count it in `counts` (default: this module's LAUNCHES)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, "
                            f"cudaGetLastError() = {err}")
-    LAUNCHES[name] += 1
+    (LAUNCHES if counts is None else counts)[name] += 1
 
 
 def _empty(shape, like: torch.Tensor) -> torch.Tensor:

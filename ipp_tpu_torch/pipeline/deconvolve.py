@@ -8,8 +8,10 @@ Blocks are overlap-save: the FFT work shape equals the halo-padded block
 shape, circular wraparound lands in the discarded halo (4x the PSF
 half-extent).  Per block, on the device: u16 upload, optional gaussian
 prefilter, dark subtraction, Richardson-Lucy, crop to the core and u16
-quantisation with the block's range; then the brick cache (manifest
-written before the brick) and plane-streamed reassembly.  Bricks and
+quantisation with the block's range (with `--destripe-sigma`: the
+z-destripe of each xz slice through `filter_streaks`, db9, and f32
+bricks, as the reference); then the brick cache (manifest written before
+the brick) and plane-streamed reassembly.  Bricks and
 `blocks_manifest.json` keep the reference's format, so either package can
 `--resume` a run of the other.
 
@@ -40,6 +42,7 @@ from ipp_tpu.utils.progress import ProgressReporter
 from ..ops.fftutil import next_fast_len
 from ..ops.matmul_fft import in_kernel_domain
 from ..utils.device import resolve_device
+from ..utils.transfer import HostArray, upload
 
 __all__ = ["BlockPlan", "autosplit", "deconvolve_volume", "build_parser",
            "main"]
@@ -299,50 +302,22 @@ def _block_stats(core: np.ndarray, clip_percentile: float):
     return float(lb), float(ub)
 
 
-def _upload(block: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host block -> f32 on the device.  u16 travels as its 16 bits (an
-    int16 view; torch has no general uint16 arithmetic) and widens there."""
-    if block.dtype == np.uint16:
-        t = torch.from_numpy(np.ascontiguousarray(block).view(np.int16))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        return t.to(torch.int32).bitwise_and_(0xFFFF).to(torch.float32)
-    t = torch.from_numpy(np.ascontiguousarray(block, np.float32))
-    return t.to(device)
+def _crop(dec: torch.Tensor, halo, uni_shape) -> torch.Tensor:
+    """The uniform max core of a block (the halo never leaves the device)."""
+    return dec[tuple(slice(h, h + (u - 2 * h))
+                     for h, u in zip(halo, uni_shape))]
 
 
-def _finish(dec: torch.Tensor, halo, uni_shape):
-    """Device tail: crop to the uniform max core and quantise to u16 with
-    the block's range (halves the transfer and the brick IO); returns
-    (u16 codes as int16 bits, [qmin, qmax]) still on the device."""
-    crop = tuple(slice(h, h + (u - 2 * h)) for h, u in zip(halo, uni_shape))
-    core = dec[crop]
+def _finish(core: torch.Tensor):
+    """Quantise a core to u16 with its range (halves the transfer and the
+    brick IO); returns (u16 codes, as int32 on the device, [qmin, qmax])."""
     qmin, qmax = torch.min(core), torch.max(core)
     s = 65535.0 / torch.clamp(qmax - qmin, min=1e-30)
     q = torch.clamp(torch.round((core - qmin) * s), 0, 65535).to(torch.int32)
-    q = torch.where(q > 32767, q - 65536, q).to(torch.int16)
     return q, torch.stack([qmin, qmax])
 
 
-def _to_host(q: torch.Tensor, mm: torch.Tensor):
-    """Start the device->host copy into pinned memory; returns (codes,
-    range, event) — wait on the event before reading (None on the CPU)."""
-    if q.device.type != "cuda":
-        return q, mm, None
-    hq = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
-    hm = torch.empty(mm.shape, dtype=mm.dtype, pin_memory=True)
-    hq.copy_(q, non_blocking=True)
-    hm.copy_(mm, non_blocking=True)
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(q.device))
-    return hq, hm, ev
-
-
-def _unsupported(destripe_sigma, adaptive_psf, mesh) -> None:
-    if destripe_sigma:
-        raise NotImplementedError(
-            "--destripe-sigma needs filter_streaks, not yet ported "
-            "(ROADMAP.md queue 1, item 8: destripe tile chain)")
+def _unsupported(adaptive_psf, mesh) -> None:
     if adaptive_psf:
         raise NotImplementedError(
             "--adaptive-psf needs richardson_lucy_wiener, not yet ported "
@@ -382,11 +357,12 @@ def deconvolve_volume(
 ) -> Path:
     """End-to-end volume deconvolution on one device (the LsDeconv CLI
     semantics; the reference's single-device branch).  `batch_blocks` has
-    no effect on one device; `destripe_sigma`, `adaptive_psf` and a mesh
-    raise NotImplementedError until their ports land."""
+    no effect on one device; `adaptive_psf` and a mesh raise
+    NotImplementedError until their ports land."""
     from ..ops.deconv import gauss3d, richardson_lucy
+    from ..ops.destripe import filter_streaks
 
-    _unsupported(destripe_sigma, adaptive_psf, mesh)
+    _unsupported(adaptive_psf, mesh)
     dev = resolve_device(device)
     log = log or Logger()
     vol = TiffDirVolume(input_dir)
@@ -427,12 +403,15 @@ def deconvolve_volume(
         prog.step()
 
     def save_core(plan: BlockPlan, core: np.ndarray, qrange):
-        qmin, qmax = float(qrange[0]), float(qrange[1])
-        lb, ub = np.percentile(core, [100.0 - clip_percentile,
-                                      clip_percentile])
-        s = (qmax - qmin) / 65535.0
-        lb, ub = lb * s + qmin, ub * s + qmin
-        quant[str(plan.index)] = [qmin, qmax]
+        if qrange is not None:
+            qmin, qmax = float(qrange[0]), float(qrange[1])
+            lb, ub = np.percentile(core, [100.0 - clip_percentile,
+                                          clip_percentile])
+            s = (qmax - qmin) / 65535.0
+            lb, ub = lb * s + qmin, ub * s + qmin
+            quant[str(plan.index)] = [qmin, qmax]
+        else:  # the z-destripe path keeps f32 bricks, as the reference
+            lb, ub = _block_stats(core, clip_percentile)
         stats["min"] = min(stats["min"], float(lb))
         stats["max"] = max(stats["max"], float(ub))
         # manifest BEFORE brick: a crash between the two leaves a quant
@@ -442,7 +421,8 @@ def deconvolve_volume(
             {"stats": stats, "quant": quant, "n_blocks": len(plans),
              "vol_shape": vol.shape}))
         np.save(brick_dir / f"block_{plan.index:05d}.npy",
-                core.astype(np.uint16))
+                core.astype(np.uint16 if qrange is not None
+                            else np.float32))
         prog.step()
 
     uni = fft_work_shape(plans, halo, planned)
@@ -453,13 +433,11 @@ def deconvolve_volume(
         lag = OneInFlight()  # device->host of block i overlaps RL of i+1
 
         def drain(item):
-            plan, hq, hm, ev = item
-            if ev is not None:
-                ev.synchronize()
-            core = hq.numpy().view(np.uint16)
+            plan, core, qrange = item
             core_sz = [hi - lo for lo, hi in plan.core]
-            core = core[:core_sz[0], :core_sz[1], :core_sz[2]]
-            save_core(plan, core, hm.tolist())
+            core = np.asarray(core)[:core_sz[0], :core_sz[1], :core_sz[2]]
+            save_core(plan, core,
+                      None if qrange is None else np.asarray(qrange).tolist())
 
         try:
             for i, plan in enumerate(todo):
@@ -467,7 +445,9 @@ def deconvolve_volume(
                 next_fut = (read_pool.submit(read_block_uniform, vol,
                                              todo[i + 1], uni)
                             if i + 1 < len(todo) else None)
-                x = _upload(block, dev)
+                if block.dtype != np.uint16:  # any other type as f32
+                    block = np.asarray(block, np.float32)
+                x = upload(block, dev).to(torch.float32)
                 if gaussian_sigma is not None:
                     x = gauss3d(x, gaussian_sigma)
                 if dark > 0:
@@ -477,8 +457,22 @@ def deconvolve_volume(
                     stop_criterion=stop_criterion,
                     regularize_interval=regularize_interval,
                     fft_shape=fft_shape, classic=classic_rl)
-                q, mm = _finish(dec, halo, uni)
-                prev = lag.put((plan,) + _to_host(q, mm))
+                core = _crop(dec, halo, uni)
+                if destripe_sigma:
+                    # z-destripe each xz slice of the block's own core
+                    # (reference filter_subband_3d_z.m), before the range
+                    # is final: f32 goes back, no quantisation
+                    sz = [hi - lo for lo, hi in plan.core]
+                    core = filter_streaks(
+                        core[:sz[0], :sz[1], :sz[2]].permute(1, 0, 2),
+                        sigma=(destripe_sigma, destripe_sigma),
+                        wavelet="db9").permute(1, 0, 2)
+                    outs = (HostArray(core.contiguous()), None)
+                else:
+                    q, mm = _finish(core)
+                    outs = (HostArray(q), HostArray(mm))
+                prev = lag.put((plan,) + outs,
+                               *[o for o in outs if o is not None])
                 if prev is not None:
                     drain(prev)
             for item in lag.flush():
@@ -581,7 +575,8 @@ def build_parser():
                    metavar=("Z", "Y", "X"))
     p.add_argument("--dark", type=float, default=0.0)
     p.add_argument("--destripe-sigma", type=float, default=0.0,
-                   help="not yet ported: raises NotImplementedError")
+                   help="z-destripe sigma of each block's xz slices "
+                        "(db9); 0 turns it off")
     p.add_argument("--bit-depth", type=int, default=16, choices=[8, 16])
     p.add_argument("--amplification", type=float, default=1.0)
     p.add_argument("--clip-percentile", type=float, default=99.999)
@@ -617,7 +612,7 @@ def main(argv=None) -> int:
     from ..ops.psf import make_psf
 
     args = build_parser().parse_args(argv)
-    _unsupported(args.destripe_sigma, args.adaptive_psf, None)
+    _unsupported(args.adaptive_psf, None)
     dev = resolve_device()
     log = Logger()
     psf_xyz, fwhm_xy, fwhm_z = make_psf(

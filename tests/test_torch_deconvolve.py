@@ -17,6 +17,7 @@ from ipp_tpu.ops.psf import make_psf
 from ipp_tpu.pipeline import deconvolve as J
 from ipp_tpu_torch.ops.matmul_fft import in_kernel_domain
 from ipp_tpu_torch.pipeline import deconvolve as P
+from ipp_tpu_torch.utils.transfer import HostArray, upload
 
 VOL = (40, 48, 200)      # both planners: one block by default, 18 at 0.2 Mvox
 PSF_SHAPE = (13, 9, 9)   # the CLI's default optics
@@ -107,12 +108,14 @@ def test_autosplit_halo_ladder_and_strict_gate():
 
 def test_upload_and_quantise_keep_u16_exact():
     block = np.array([[[0, 1, 32767, 32768, 65534, 65535]]], np.uint16)
-    x = P._upload(block, torch.device("cpu"))
-    assert x.dtype == torch.float32
-    np.testing.assert_array_equal(x.numpy(), block.astype(np.float32))
+    x = upload(block, torch.device("cpu"))
+    assert x.dtype == torch.int32
+    np.testing.assert_array_equal(x.numpy(), block.astype(np.int32))
+    np.testing.assert_array_equal(np.asarray(HostArray(x)), block)
     dec = torch.linspace(3.0, 9.0, 4 * 4 * 4).reshape(4, 4, 4)
-    q, mm = P._finish(dec, (1, 1, 1), (4, 4, 4))
-    codes = q.numpy().view(np.uint16)
+    q, mm = P._finish(P._crop(dec, (1, 1, 1), (4, 4, 4)))
+    codes = np.asarray(HostArray(q))
+    assert codes.dtype == np.uint16
     core = dec[1:3, 1:3, 1:3].numpy()
     lo, hi = core.min(), core.max()
     ref = np.clip(np.rint((core - lo) * np.float32(65535.0 / (hi - lo))),
@@ -164,8 +167,26 @@ def test_port_resumes_a_jax_brick_cache(series, psf, tmp_path):
     assert diff <= 1e-3 * 65535, diff
 
 
-@pytest.mark.parametrize("flag", [["--destripe-sigma", "1.0"],
-                                  ["--adaptive-psf"]])
+def test_destripe_sigma_matches_the_jax_twin(series, psf, tmp_path):
+    """--destripe-sigma: each block's xz slices z-destriped (db9), f32
+    bricks; output within 1e-3 of full scale of the JAX CLI's."""
+    out_p, out_j = tmp_path / "port", tmp_path / "jax"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert P.main(["-i", str(series), "-o", str(out_p), "--niter", "3",
+                       "--destripe-sigma", "1.0"]) == 0
+        J.deconvolve_volume(series, out_j, psf, niter=3, mesh=False,
+                            destripe_sigma=1.0)
+    a, b = _read(out_p), _read(out_j)
+    assert a.shape == b.shape == VOL and a.dtype == np.uint16
+    diff = np.abs(a.astype(np.int64) - b.astype(np.int64)).max()
+    assert diff <= 1e-3 * 65535, diff
+    man = json.loads((out_p / "blocks_manifest.json").read_text())
+    assert man["quant"] == {} and man["params"]["destripe_sigma"] == 1.0
+    assert np.load(out_p / "bricks" / "block_00000.npy").dtype == np.float32
+
+
+@pytest.mark.parametrize("flag", [["--adaptive-psf"]])
 def test_unported_flags_fail_loudly(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.main(["-i", str(tmp_path), "-o", str(tmp_path / "o"), *flag])

@@ -13,7 +13,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ipp_tpu_torch"
 SHARED = {"ipp_tpu", "ipp_tpu.io.tiff", "ipp_tpu.native",
           "ipp_tpu.utils.lagged", "ipp_tpu.utils.log",
-          "ipp_tpu.utils.progress"}
+          "ipp_tpu.utils.progress", "ipp_tpu.parallel.executor",
+          "ipp_tpu.parallel.sandbox", "ipp_tpu.utils.memory",
+          "ipp_tpu.utils.iostat", "ipp_tpu.io.dcimg", "ipp_tpu.io.raw"}
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(

@@ -32,7 +32,28 @@ Phases:
    multiplicative stripes along x and y, from a numpy seed): rc 0 (no
    failed tile), 272 u16 outputs of the input shapes, stripe power down
    more than 3x, K5 launched batches x 3 x levels times, and 8 sampled
-   tiles within 1 count of the same chain with the plain DWT on the card.
+   tiles within 1 count of the same chain with the plain DWT on the card;
+7. the batched walk: each batched kernel form (K1 and K2 on a batch, K4
+   with one OTF wrapped over the batch) against its plain version at
+   (4, 256, 1056, 256) (the CLI's block shape, four blocks: the group one
+   mesh step forms on four devices) and (1, 512, 512, 512) (one block, as
+   the sharded RL runs per device), max |kernel - plain| / max |plain|
+   <= 1e-5, kernel and plain times by CUDA events after a warm call; then
+   richardson_lucy_batched on four such blocks (9^3 gaussian PSF, 10
+   iterations): exact launch counts of the batched forms, each block
+   within 1e-5 of max of its single-block richardson_lucy (edge taper off
+   on both: the batched taper blurs whole blocks), the torch.fft
+   route within rtol=2e-3, atol=2e-1 on the inner region, and an
+   early-stop run whose per-block iteration counts equal the single-block
+   runs; and richardson_lucy_spatial on a 64^3 block, card vs CPU within
+   1e-4 of max;
+8. the deconvolution CLI with --adaptive-psf (blind-Wiener RL through
+   torch.fft) on the phase-4 series: 512 planes, manifest complete, beads
+   sharper than in the input;
+9. the FNT-cube CLI on 8 u16 cubes of 128^3 cut from the phase-4 series
+   (written by a minimal raw NRRD writer here), with --destripe (the
+   axial destripe through K5) and 10 RL iterations: 8 outputs of the
+   input shape and dtype, K5 launched.
 
 The script exits non-zero when there is no CUDA device, when the port is
 not beside it, or when any phase fails.  On success its last two lines
@@ -58,6 +79,17 @@ KERNELS = {
     "rdft_y_inv": ("K2", "ipp_tpu/ops/pallas_fft.py:604"),
     "radix2_stage": ("K3", "ipp_tpu/ops/pallas_fft.py:437"),
     "radix2_stage_inv_otf": ("K4", "ipp_tpu/ops/pallas_fft.py:208"),
+}
+BATCHED = {
+    "rdft_y_fwd_batched": (
+        "K1b", "ipp_tpu/ops/pallas_fft.py:498 (_v2_rfft_call); "
+        "ipp_tpu/ops/pallas_fft.py:772 (_v2_rfft_ratio_call)"),
+    "rdft_y_inv_batched": (
+        "K2b", "ipp_tpu/ops/pallas_fft.py:524 (_v2_irfft_call); "
+        "ipp_tpu/ops/pallas_fft.py:811 (_v2_irfft_mul_call)"),
+    "radix2_stage_inv_otf_batched": (
+        "K4b", "ipp_tpu/ops/pallas_fft.py:301 (_fused_stage_otf_call, one "
+        "OTF wrapped over the batch)"),
 }
 SOURCE = "ipp_tpu_torch/csrc/fft_walk.cu"
 DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cu",
@@ -148,6 +180,28 @@ def kernel_cases(torch, plan, rng, dev):
     ]
 
 
+def check_case(torch, tag, name, variant, shape, kfn, pfn, reps, rows, bad):
+    """One kernel against its plain version on the same inputs: max
+    |kernel - plain| / max |plain| <= 1e-5, then both timed."""
+    got, ref = kfn(), pfn()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    scale = max(float(r.abs().max()) for r in ref)
+    rel = abs_err / max(scale, 1e-30)
+    del got, ref
+    ms, plain_ms = time_ms(torch, kfn, reps), time_ms(torch, pfn, reps)
+    rows.append(dict(kernel=name, variant=variant, shape=list(shape),
+                     max_abs_err=abs_err, rel_err=rel, ms=ms,
+                     plain_ms=plain_ms))
+    say(f"  {tag} {name:<28s} {variant:<6s} {str(shape):<20s} rel "
+        f"{rel:.2e} abs {abs_err:.2e}  kernel {ms:9.3f} ms  plain "
+        f"{plain_ms:9.3f} ms")
+    if not rel <= 1e-5:
+        bad.append(f"{name}/{variant} at {shape}: rel {rel:.3e}")
+
+
 def phase_kernels(torch, dev, shapes, record):
     import numpy as np
 
@@ -158,25 +212,8 @@ def phase_kernels(torch, dev, shapes, record):
     for shape in shapes:
         plan = MatmulFFT3(shape, dev)
         for name, variant, kfn, pfn in kernel_cases(torch, plan, rng, dev):
-            got, ref = kfn(), pfn()
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-            scale = max(float(r.abs().max()) for r in ref)
-            rel = abs_err / max(scale, 1e-30)
-            reps = 3 if np.prod(shape) > 2 ** 27 else 5
-            ms, plain_ms = time_ms(torch, kfn, reps), time_ms(torch, pfn, reps)
-            row = dict(kernel=name, variant=variant, shape=list(shape),
-                       max_abs_err=abs_err, rel_err=rel, ms=ms,
-                       plain_ms=plain_ms)
-            rows.append(row)
-            say(f"  {KERNELS[name][0]} {name:<22s} {variant:<6s} "
-                f"{str(shape):<18s} rel {rel:.2e} abs {abs_err:.2e}  "
-                f"kernel {ms:9.3f} ms  plain {plain_ms:9.3f} ms")
-            if not rel <= 1e-5:
-                bad.append(f"{name}/{variant} at {shape}: rel {rel:.3e}")
-            del got, ref
+            check_case(torch, KERNELS[name][0], name, variant, shape, kfn,
+                       pfn, 3 if np.prod(shape) > 2 ** 27 else 5, rows, bad)
         del plan
         torch.cuda.empty_cache()
     record["kernels"] = rows
@@ -209,8 +246,9 @@ def phase_rl_block(torch, dev, record):
     cf.reset_launch_counts()
     walk, t_walk0 = run(None)
     counts = dict(cf.LAUNCHES)
-    want = {"rdft_y_fwd": 2 * NITER + 1, "rdft_y_inv": 2 * NITER,
-            "radix2_stage": 6 * NITER + 2, "radix2_stage_inv_otf": 2 * NITER}
+    want = {k: 0 for k in counts}   # the batched forms: none
+    want.update(rdft_y_fwd=2 * NITER + 1, rdft_y_inv=2 * NITER,
+                radix2_stage=6 * NITER + 2, radix2_stage_inv_otf=2 * NITER)
     fft, t_fft0 = run("fft")
     _, t_walk = run(None)
     _, t_fft = run("fft")
@@ -310,7 +348,7 @@ def make_series(torch, dev, psf_zyx, out_dir, seed=7):
     return host, beads
 
 
-def phase_cli(torch, dev, psf_zyx, record):
+def phase_cli(torch, dev, psf_zyx, record, shared):
     import numpy as np
 
     from ipp_tpu_torch.ops import cuda_fft as cf
@@ -323,6 +361,7 @@ def phase_cli(torch, dev, psf_zyx, record):
     t0 = time.perf_counter()
     host, beads = make_series(torch, dev, psf_zyx, src)
     t_data = time.perf_counter() - t0
+    shared.update(src=src, host=host, beads=beads)   # phases 8 and 9
     vol_shape = host.shape
     plans, halo, planned = pdc.autosplit(vol_shape, psf_zyx.shape,
                                          strict_accuracy=True,
@@ -349,9 +388,10 @@ def phase_cli(torch, dev, psf_zyx, record):
         peak_mem_bytes=torch.cuda.max_memory_allocated())
     say(f"  CLI rc {rc}: {nb} blocks in {wall:.1f} s, "
         f"{vox / wall / 1e6:.2f} core Mvox/s; launches {counts}")
-    want = {"rdft_y_fwd": nb * (2 * NITER + 1), "rdft_y_inv": nb * 2 * NITER,
-            "radix2_stage": nb * (6 * NITER + 2),
-            "radix2_stage_inv_otf": nb * 2 * NITER}
+    want = {k: 0 for k in counts}   # one block at a time: no batched form
+    want.update(rdft_y_fwd=nb * (2 * NITER + 1), rdft_y_inv=nb * 2 * NITER,
+                radix2_stage=nb * (6 * NITER + 2),
+                radix2_stage_inv_otf=nb * 2 * NITER)
     if rc != 0 or counts != want:
         raise AssertionError(f"not every block ran the kernel walk: "
                              f"{counts} != {want}")
@@ -373,7 +413,7 @@ def phase_cli(torch, dev, psf_zyx, record):
         f"input {w_in:.3f}, output {w_out:.3f}")
     if not w_out < w_in:
         raise AssertionError("beads are not sharper than in the input")
-    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(dst, ignore_errors=True)
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -629,6 +669,351 @@ def phase_destripe_cli(torch, dev, record):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+def batched_cases(torch, plan, nb, gen, dev):
+    """(kernel, variant, kernel_fn, plain_fn) for every batched form at
+    this plan's work shape and nb blocks."""
+    from ipp_tpu_torch.ops import cuda_fft as cf
+
+    nz, ny, nx = plan.shape
+    kp = plan.kp
+
+    def t(*shape, lo=0.0, hi=1.0):
+        return (torch.rand(shape, generator=gen, device=dev) * (hi - lo)
+                + lo)
+
+    x, den, mul = (t(nb, nz, ny, nx), t(nb, nz, ny, nx, lo=0.5),
+                   t(nb, nz, ny, nx))
+    sr, si = t(nb, kp, nz, nx, lo=-1), t(nb, kp, nz, nx, lo=-1)
+    or_, oi = t(kp * nz, nx, lo=-1), t(kp * nz, nx, lo=-1)
+    r2, i2 = sr.view(-1, nx), si.view(-1, nx)
+    ix = plan._x[False]
+    return [
+        ("rdft_y_fwd_batched", "plain",
+         lambda: cf.rdft_y_fwd_batched(x, plan._rfwd),
+         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd)),
+        ("rdft_y_fwd_batched", "ratio",
+         lambda: cf.rdft_y_fwd_batched(x, plan._rfwd, den),
+         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd, den)),
+        ("rdft_y_inv_batched", "plain",
+         lambda: cf.rdft_y_inv_batched(sr, si, plan._rinv),
+         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv)),
+        ("rdft_y_inv_batched", "mul",
+         lambda: cf.rdft_y_inv_batched(sr, si, plan._rinv, mul),
+         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv, mul)),
+        ("radix2_stage_inv_otf_batched", "otf",
+         lambda: cf.radix2_stage_inv_otf_batched(r2, i2, or_, oi, *ix, False),
+         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, False)),
+        ("radix2_stage_inv_otf_batched", "conj",
+         lambda: cf.radix2_stage_inv_otf_batched(r2, i2, or_, oi, *ix, True),
+         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, True)),
+    ]
+
+
+def bead_blocks(torch, dev, gen, nb, shape, psf):
+    """nb blocks on a floor of 1 with beads of rising density and
+    amplitude, blurred by the PSF: blocks that converge at different
+    iterations."""
+    import numpy as np
+
+    from ipp_tpu_torch.ops.deconv import _make_otf
+
+    n = int(np.prod(shape))
+    blocks = torch.ones((nb,) + tuple(shape), device=dev)
+    for b in range(nb):
+        count = int(20 * 3 ** b * n / 393216)
+        idx = [torch.randint(0, s_, (count,), generator=gen, device=dev)
+               for s_ in shape]
+        blocks[b].index_put_(tuple(idx), torch.full(
+            (count,), 3.0 * 10 ** b, device=dev), accumulate=True)
+    otf = _make_otf(psf / psf.sum(), shape)
+    dims = (-3, -2, -1)
+    return torch.fft.irfftn(torch.fft.rfftn(blocks, dim=dims) * otf,
+                            s=shape, dim=dims).clamp_(min=0).contiguous()
+
+
+def phase_batched(torch, dev, shape, record):
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.deconv import (_rl_fft_iterations,
+                                          richardson_lucy,
+                                          richardson_lucy_batched,
+                                          richardson_lucy_spatial)
+    from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
+    from ipp_tpu_torch.ops.psf import gaussian_psf
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows, bad = [], []
+    for bshape in [(4,) + tuple(shape), (1, 512, 512, 512)]:
+        nb = bshape[0]
+        plan = MatmulFFT3(bshape[1:], dev)
+        for name, variant, kfn, pfn in batched_cases(torch, plan, nb, gen,
+                                                      dev):
+            check_case(torch, BATCHED[name][0], name, variant, bshape, kfn,
+                       pfn, 3, rows, bad)
+        del plan
+        torch.cuda.empty_cache()
+    record["batched_kernels"] = rows
+    if bad:
+        raise AssertionError("batched kernel != plain: " + "; ".join(bad))
+
+    nb, halo = 4, 16
+    psf = torch.from_numpy(gaussian_psf((9, 9, 9), (2.0, 2.0, 2.0))).to(dev)
+    vols = torch.rand((nb,) + tuple(shape), generator=gen, device=dev) * 1000
+    vox = float(np.prod(shape))
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    cf.reset_launch_counts()
+    walk, t_walk = run(lambda: richardson_lucy_batched(
+        vols, psf, niter=NITER, fft_shape=shape))
+    counts = dict(cf.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want.update(rdft_y_fwd=1, radix2_stage=6 * NITER + 2,
+                rdft_y_fwd_batched=2 * NITER, rdft_y_inv_batched=2 * NITER,
+                radix2_stage_inv_otf_batched=2 * NITER)
+    fft, t_fft = run(lambda: richardson_lucy_batched(
+        vols, psf, niter=NITER, fft_shape=shape, route="fft"))
+    inner = (slice(None),) + (slice(halo, -halo),) * 3
+    a, b = walk[inner], fft[inner]
+    excess = float(((a - b).abs() - (0.2 + 2e-3 * b.abs())).max())
+    rel_fft = float((a - b).abs().max() / b.abs().max())
+    finite = bool(torch.isfinite(walk).all())
+    del walk, fft, a, b
+    # per block against richardson_lucy; edge_taper off on both sides,
+    # since the batched taper blurs whole blocks and the single one slabs
+    nt, t_nt = run(lambda: richardson_lucy_batched(
+        vols, psf, niter=NITER, fft_shape=shape, edge_taper=False))
+    rel_blocks, equal, t_single = [], [], 0.0
+    for i in range(nb):
+        one, t1 = run(lambda: richardson_lucy(
+            vols[i], psf, niter=NITER, fft_shape=shape, edge_taper=False))
+        t_single += t1
+        rel_blocks.append(float((nt[i] - one).abs().max() / one.abs().max()))
+        equal.append(bool(torch.equal(nt[i], one)))
+    del nt, one
+    # early stop on blocks that converge at different iterations: the RL
+    # loop itself, which reports the iterations each block ran, against
+    # the same loop on each block alone and the public batched call
+    es_vols = bead_blocks(torch, dev, gen, nb, shape, psf)
+    es_kw = dict(niter=NITER, fft_shape=tuple(shape), lam=0.0,
+                 stop_criterion=1.0, regularize_interval=0, classic=True)
+    psf_n = psf / psf.sum()
+    (es, iters), t_es = run(lambda: _rl_fft_iterations(es_vols, psf_n,
+                                                       **es_kw))
+    public = richardson_lucy_batched(es_vols, psf, niter=NITER,
+                                     fft_shape=shape, edge_taper=False,
+                                     stop_criterion=1.0)
+    rel_es = [float((public - es).abs().max() / es.abs().max())]
+    single_iters = []
+    for i in range(nb):
+        one, k = _rl_fft_iterations(es_vols[i], psf_n, **es_kw)
+        single_iters.append(k)
+        rel_es.append(float((es[i] - one).abs().max() / one.abs().max()))
+    del es, es_vols, one, vols, public
+    torch.cuda.empty_cache()
+    record["batched_rl"] = dict(
+        blocks=nb, shape=list(shape), niter=NITER, launches=counts,
+        want_launches=want, walk_s=t_walk, fft_s=t_fft,
+        walk_mvox_s=nb * vox / t_walk / 1e6, fft_mvox_s=nb * vox / t_fft / 1e6,
+        no_taper_batched_s=t_nt, no_taper_single_sum_s=t_single,
+        no_taper_batched_mvox_s=nb * vox / t_nt / 1e6,
+        no_taper_single_mvox_s=nb * vox / t_single / 1e6,
+        rel_fft=rel_fft, tol_excess=excess, rel_blocks=rel_blocks,
+        bitwise_equal=equal, early_stop_iters=iters,
+        single_iters=single_iters, rel_early_stop=rel_es, es_s=t_es,
+        peak_mem_bytes=peak)
+    say(f"  launches {counts}")
+    say(f"  batched walk {t_walk:.3f} s for {nb} blocks "
+        f"({nb * vox / t_walk / 1e6:.1f} Mvox/s of work shape), torch.fft "
+        f"{t_fft:.3f} s ({nb * vox / t_fft / 1e6:.1f}); max |walk-fft|/max|fft| "
+        f"{rel_fft:.2e}, tolerance excess {excess:.3e}; peak {peak}")
+    say(f"  no taper: batched {t_nt:.3f} s vs {nb} single blocks "
+        f"{t_single:.3f} s; per block rel {max(rel_blocks):.2e}, "
+        f"bitwise equal {equal}")
+    say(f"  early stop (1%): batched iterations {iters}, single {single_iters}"
+        f", rel {max(rel_es):.2e}, {t_es:.3f} s")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    if not excess <= 0:
+        raise AssertionError("walk vs torch.fft outside rtol=2e-3, atol=2e-1")
+    if not finite:
+        raise AssertionError("non-finite batched RL output")
+    if not max(rel_blocks) <= 1e-5:
+        raise AssertionError(f"batched != single blocks: {rel_blocks}")
+    if iters != single_iters or not max(rel_es) <= 1e-5:
+        raise AssertionError(f"early stop: {iters} vs {single_iters}, "
+                             f"rel {rel_es}")
+    # spatial RL (direct cuDNN convolutions, TF32 off) on the card against
+    # the same call on the CPU
+    small = torch.rand((64, 64, 64), generator=gen, device=dev) * 1000
+    psf5 = torch.from_numpy(gaussian_psf((5, 5, 5), (1.2, 1.2, 1.2)))
+    sp, t_sp = run(lambda: richardson_lucy_spatial(small, psf5.to(dev),
+                                                   niter=4))
+    ref = richardson_lucy_spatial(small.cpu(), psf5, niter=4)
+    rel_sp = float((sp.cpu() - ref).abs().max() / ref.abs().max())
+    record["batched_rl"].update(spatial_rel=rel_sp, spatial_s=t_sp)
+    say(f"  richardson_lucy_spatial (64^3, 5^3 PSF, 4 iterations) card vs "
+        f"CPU rel {rel_sp:.2e}, {t_sp:.3f} s")
+    if not rel_sp <= 1e-4:
+        raise AssertionError(f"spatial RL card vs CPU rel {rel_sp:.3e}")
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+def phase_adaptive_cli(torch, dev, record, shared):
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.pipeline import deconvolve as pdc
+
+    if "src" not in shared:
+        raise AssertionError("phase 4 wrote no series")
+    src, host, beads = shared["src"], shared["host"], shared["beads"]
+    dst = src.parent / "output_adaptive"
+    vol_shape = host.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = pdc.main(["-i", str(src), "-o", str(dst), "--niter", str(NITER),
+                   "--adaptive-psf"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    vox = float(np.prod(vol_shape))
+    outs = sorted(dst.glob("img_*.tif"))
+    man = json.loads((dst / "blocks_manifest.json").read_text())
+    nb = man.get("n_blocks")
+    rec = record["adaptive_cli"] = dict(
+        rc=rc, planes=len(outs), n_blocks=nb, wall_s=wall,
+        core_mvox_s=vox / wall / 1e6, launches=dict(cf.LAUNCHES),
+        peak_mem_bytes=peak, card=card_line())
+    say(f"  CLI --adaptive-psf rc {rc}: {nb} blocks, {len(outs)} planes in "
+        f"{wall:.1f} s, {vox / wall / 1e6:.2f} core Mvox/s ({rec['card']}); "
+        f"walk launches {rec['launches']} (the Wiener RL runs on torch.fft); "
+        f"peak {peak}")
+    if rc != 0 or len(outs) != vol_shape[0]:
+        raise AssertionError(f"rc {rc}, {len(outs)} planes")
+    if (nb != record.get("cli", {}).get("n_blocks", nb)
+            or len(man.get("quant", {})) != nb or "finished" not in man):
+        raise AssertionError("manifest incomplete")
+    out = pdc.TiffDirVolume(dst).read_block(tuple((0, s) for s in vol_shape))
+    if out.dtype != np.uint16 or out.shape != vol_shape:
+        raise AssertionError(f"output {out.dtype} {out.shape}")
+    w_in = float(np.median(bead_widths(host, beads)))
+    w_out = float(np.median(bead_widths(out, beads)))
+    rec.update(bead_width_in=w_in, bead_width_out=w_out)
+    say(f"  bead equivalent width (x, voxels, median of {len(beads)}): "
+        f"input {w_in:.3f}, output {w_out:.3f}")
+    if not w_out < w_in:
+        raise AssertionError("beads are not sharper than in the input")
+    shutil.rmtree(dst, ignore_errors=True)
+
+
+# -- phase 9 -----------------------------------------------------------------
+
+FNT_CUBE, FNT_CUBES = 128, 8   # the converter's default --fnt-cube edge
+
+
+def write_nrrd_u16(path: Path, a) -> None:
+    """A raw little-endian uint16 NRRD of a 3-D array."""
+    z, y, x = a.shape
+    head = (f"NRRD0004\ntype: uint16\ndimension: 3\nsizes: {x} {y} {z}\n"
+            f"encoding: raw\nendian: little\n\n")
+    with open(path, "wb") as f:
+        f.write(head.encode("ascii"))
+        f.write(a.astype("<u2", copy=False).tobytes())
+
+
+def read_nrrd_3d(path: Path):
+    """(array, header) of a raw or gzip NRRD of u16 / f32 voxels."""
+    import gzip
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        header = {}
+        for line in iter(f.readline, b""):
+            text = line.decode("ascii").strip()
+            if not text:
+                break
+            if ":" in text and not text.startswith("#"):
+                k, v = text.split(":", 1)
+                header[k.strip()] = v.strip()
+        data = f.read()
+    if header.get("encoding") in ("gzip", "gz"):
+        data = gzip.decompress(data)
+    dtype = {"uint16": "<u2", "float": "<f4"}[header["type"]]
+    sizes = [int(s) for s in header["sizes"].split()][::-1]
+    return np.frombuffer(data, dtype).reshape(sizes), header
+
+
+def phase_fnt(torch, dev, record, shared):
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.pipeline import fnt_cubes as fnt
+
+    if "host" not in shared:
+        raise AssertionError("phase 4 wrote no series")
+    host = shared["host"]
+    work = ROOT / "build" / "chip_smoke_fnt"
+    shutil.rmtree(work, ignore_errors=True)
+    src, dst = work / "input", work / "output"
+    src.mkdir(parents=True)
+    e = FNT_CUBE
+    Z, Y, X = host.shape
+    corners = [(z, y, x) for z in (Z // 4, Z // 2) for y in (Y // 4, Y // 2)
+               for x in (X // 4, X // 2)][:FNT_CUBES]
+    cubes = {}
+    for i, (z, y, x) in enumerate(corners):
+        cubes[f"cube_{i:03d}.nrrd"] = host[z:z + e, y:y + e, x:x + e]
+        write_nrrd_u16(src / f"cube_{i:03d}.nrrd", cubes[f"cube_{i:03d}.nrrd"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cd.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = fnt.main(["-i", str(src), "-o", str(dst), "--destripe",
+                   "--niter", str(NITER)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5 = cd.LAUNCHES["dwt_analysis"]
+    peak = torch.cuda.max_memory_allocated()
+    vox = FNT_CUBES * e ** 3
+    rec = record["fnt_cli"] = dict(
+        rc=rc, cubes=FNT_CUBES, edge=e, wall_s=wall, mvox_s=vox / wall / 1e6,
+        k5_launches=k5, peak_mem_bytes=peak, card=card_line())
+    say(f"  FNT CLI rc {rc}: {FNT_CUBES} cubes of {e}^3 u16 in {wall:.2f} s, "
+        f"{vox / wall / 1e6:.2f} Mvox/s ({rec['card']}); K5 launches {k5}; "
+        f"peak {peak}")
+    outs = sorted(dst.glob("*.nrrd"))
+    if rc != 0 or len(outs) != FNT_CUBES:
+        raise AssertionError(f"rc {rc}, {len(outs)} output cubes")
+    changed = 0
+    for p in outs:
+        a, _ = read_nrrd_3d(p)
+        if a.dtype != np.uint16 or a.shape != (e, e, e):
+            raise AssertionError(f"{p.name}: {a.dtype} {a.shape}")
+        changed += int(not np.array_equal(a, cubes[p.name]))
+    rec["changed"] = changed
+    if k5 < 1:
+        raise AssertionError("K5 never launched: no axial destripe ran")
+    if changed != FNT_CUBES:
+        raise AssertionError(f"only {changed} cubes differ from the input")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # -- main ---------------------------------------------------------------------
 
 def main() -> int:
@@ -695,13 +1080,24 @@ def main() -> int:
           shapes, record)
     phase(3, "richardson_lucy (512,512,512): walk vs torch.fft",
           phase_rl_block, torch, dev, record)
+    shared = {}   # the phase-4 series, reused by phases 8 and 9
     phase(4, f"CLI on a {VOL_SHAPE} u16 series", phase_cli, torch, dev, psf,
-          record)
+          record, shared)
     phase(5, "K5 dwt_analysis vs plain", phase_dwt, torch, dev, record)
     phase(6, "pystripe CLI on a 272-tile tree", phase_destripe_cli, torch, dev,
           record)
-    record["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    say(f"torch.cuda.max_memory_allocated {record['max_memory_allocated']}")
+    phase(7, f"batched walk at (4,) + {tuple(cli_shape)} and (1, 512, 512, "
+          "512), richardson_lucy_batched", phase_batched, torch, dev,
+          tuple(cli_shape), record)
+    phase(8, "CLI --adaptive-psf on the phase-4 series", phase_adaptive_cli,
+          torch, dev, record, shared)
+    phase(9, f"FNT-cube CLI on {FNT_CUBES} u16 cubes of {FNT_CUBE}^3",
+          phase_fnt, torch, dev, record, shared)
+    shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
+    peaks = {k: v["peak_mem_bytes"] for k, v in record.items()
+             if isinstance(v, dict) and "peak_mem_bytes" in v}
+    say(f"peak device memory by phase (torch.cuda.max_memory_allocated, "
+        f"bytes): {peaks}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1,
@@ -720,6 +1116,15 @@ def main() -> int:
         kernels.append(dict(
             name=f"{tag} {name}", route="cuda", source=SOURCE,
             replaces=replaces, launches=record["cli"]["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=at["ms"], plain_ms=at["plain_ms"]))
+    for name, (tag, replaces) in BATCHED.items():
+        rows = [r for r in record["batched_kernels"] if r["kernel"] == name]
+        at = [r for r in rows if r["shape"] == [4] + main_shape][0]
+        kernels.append(dict(
+            name=f"{tag} {name}", route="cuda", source=SOURCE,
+            replaces=replaces,
+            launches=record["batched_rl"]["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=at["ms"], plain_ms=at["plain_ms"]))
     main = [r for r in record["dwt"]

@@ -4,14 +4,14 @@ The JAX package `ipp_tpu` stays the reference: every port function here is
 held against its `ipp_tpu` twin in `tests/test_torch_*.py`.  This package
 imports `torch` and never `jax`.  Host code that imports no jax is shared
 with the reference as it is (`ipp_tpu.io.tiff`, `ipp_tpu.io.dcimg`,
-`ipp_tpu.io.raw`, `ipp_tpu.native`, `ipp_tpu.parallel.executor`,
+`ipp_tpu.io.raw`, `ipp_tpu.io.nrrd`, `ipp_tpu.native`, `ipp_tpu.parallel.executor`,
 `ipp_tpu.parallel.sandbox`, `ipp_tpu.utils.iostat`, `ipp_tpu.utils.lagged`,
 `ipp_tpu.utils.log`, `ipp_tpu.utils.memory`, `ipp_tpu.utils.progress`).
 
 Layout mirrors `ipp_tpu/`: `ops/` (DFT matrices, the hand-written CUDA
 kernels of the FFT walk and of the DWT and their wrappers,
 Richardson-Lucy, wavelets, destripe, the tile chain), `pipeline/` (the
-deconvolution and pystripe CLIs), `utils/` (device and precision policy,
+deconvolution, FNT-cube and pystripe CLIs), `utils/` (device and precision policy,
 host <-> device transfers), `csrc/` (the CUDA C++ sources, built with
 nvcc on first use).
 """

@@ -1,4 +1,4 @@
-// The four kernels of the FFT convolve walk (v2-t layout), for Hopper.
+// The four kernels of the FFT convolve walk, for Hopper.
 //
 // The walk of one circular convolution of a (nz, ny, nx) f32 volume:
 //   (nz, ny, nx)  --K1 y real DFT (optionally of num / max(den, eps))-->
@@ -9,6 +9,15 @@
 //   (kp, nz, nx)  --K2 inverse y real DFT (optionally |mul * y|)--> volume
 // kp = round8(ny/2 + 1).  Spectra along z and x stay in the radix-2
 // permuted order (X[2k+s] at s*m + k); the OTF comes from the same walk.
+//
+// A batch of nb volumes (nb, nz, ny, nx) runs the same walk with each
+// block's spectrum kp-major, (nb, kp, nz, nx): K1 stores and K2 loads
+// with a batch stride, K3 sees nb*kp planes, and K4 wraps its OTF rows
+// modulo one block's kp*nz, so one unbatched OTF serves every block.  The
+// TPU's batched kernels wrote plane-major (nb*nz, kp, nx) instead, which
+// Mosaic's block rule forced (pallas_fft.py:563-575), and paid an XLA
+// transpose on each side of the z stage; a CUDA store has no such rule.
+// For nb = 1 the layout is the unbatched (kp, nz, nx).
 //
 // Each kernel is one GEMM against a constant DFT matrix (fft_walk.cuh)
 // with its prologue/epilogue fused, so the ratio, the butterflies and the
@@ -29,8 +38,11 @@ using namespace ippfft;
 // ---------------------------------------------------------------------------
 // K1 — replaces ipp_tpu/ops/pallas_fft.py `_v2_rfft_call_t` (kernel
 // `_v2_rfft_kernel_t`) and, with RATIO, `_v2_rfft_ratio_call_t`
-// (`_v2_rfft_ratio_kernel_t`).  Per z: C (2kp x nx) = fwd (2kp x ny) @ x[z]
-// (ny x nx), rows [0, kp) to re[:, z, :], rows [kp, 2kp) to im[:, z, :].
+// (`_v2_rfft_ratio_kernel_t`); over a batch (grid z = nb*nz) it replaces
+// `_v2_rfft_call` (`_v2_rfft_kernel`) and `_v2_rfft_ratio_call`
+// (`_v2_rfft_ratio_kernel`).  Per plane a = b*nz + z: C (2kp x nx) =
+// fwd (2kp x ny) @ x[a] (ny x nx), rows [0, kp) to re[b, :, z, :], rows
+// [kp, 2kp) to im[b, :, z, :].
 // fwd's rows kx..kp-1 are zero, so those outputs are exactly 0.  With
 // RATIO the input is num / max(den, FLT_EPSILON), formed in the load.
 // Bound: FMA issue (2kp * ny * nz * nx FMAs); the x tile is read once per
@@ -42,10 +54,11 @@ rdft_y_fwd(const float* __restrict__ num, const float* __restrict__ den,
            float* __restrict__ im, int nz, int ny, int nx, int kp) {
   __shared__ float sa[BK * BMP];
   __shared__ float sb[BK * BNP];
-  const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM, z = blockIdx.z;
+  const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM, a = blockIdx.z;
+  const int b = a / nz, z = a - b * nz;
   const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
   const int M = 2 * kp;
-  const i64 zoff = (i64)z * ny * nx;
+  const i64 zoff = (i64)a * ny * nx;
   float acc[TM][TN];
   zero(acc);
   for (int k0 = 0; k0 < ny; k0 += BK) {
@@ -65,8 +78,8 @@ rdft_y_fwd(const float* __restrict__ num, const float* __restrict__ den,
   for (int i = 0; i < TM; ++i) {
     const int r = r0 + ty * TM + i;
     if (r >= M) continue;
-    float* dst = r < kp ? re + ((i64)r * nz + z) * nx
-                        : im + ((i64)(r - kp) * nz + z) * nx;
+    float* dst = r < kp ? re + (((i64)b * kp + r) * nz + z) * nx
+                        : im + (((i64)b * kp + r - kp) * nz + z) * nx;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = c0 + tx * TN + j;
@@ -77,9 +90,12 @@ rdft_y_fwd(const float* __restrict__ num, const float* __restrict__ den,
 
 // ---------------------------------------------------------------------------
 // K2 — replaces `_v2_irfft_call_t` (`_v2_irfft_kernel_t`) and, with MUL,
-// `_v2_irfft_mul_call_t` (`_v2_irfft_mul_kernel_t`).  Per z: y (ny x nx) =
-// inv (ny x 2kp) @ [re[:, z, :]; im[:, z, :]] (Hermitian fold, 1/ny in
-// inv); with MUL the output is |mul[z] * y| (the RL update, decon.m:171).
+// `_v2_irfft_mul_call_t` (`_v2_irfft_mul_kernel_t`); over a batch it
+// replaces `_v2_irfft_call` (`_v2_irfft_kernel`) and `_v2_irfft_mul_call`
+// (`_v2_irfft_mul_kernel`).  Per plane a = b*nz + z: y (ny x nx) =
+// inv (ny x 2kp) @ [re[b, :, z, :]; im[b, :, z, :]] (Hermitian fold, 1/ny
+// in inv); with MUL the output is |mul[a] * y| (the RL update,
+// decon.m:171).
 // Bound: FMA issue (ny * 2kp * nz * nx FMAs).
 template <bool MUL>
 __global__ void __launch_bounds__(NT)
@@ -88,23 +104,25 @@ rdft_y_inv(const float* __restrict__ re, const float* __restrict__ im,
            float* __restrict__ out, int nz, int ny, int nx, int kp) {
   __shared__ float sa[BK * BMP];
   __shared__ float sb[BK * BNP];
-  const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM, z = blockIdx.z;
+  const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM, a = blockIdx.z;
+  const int b = a / nz, z = a - b * nz;
   const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
   const int K = 2 * kp;
+  const i64 boff = (i64)b * kp;
   float acc[TM][TN];
   zero(acc);
   for (int k0 = 0; k0 < K; k0 += BK) {
     load_a_tile(sa, inv, ny, K, r0, k0);
     load_b_tile(sb, k0, c0, [&](int k, int c) -> float {
       if (k >= K || c >= nx) return 0.f;
-      return k < kp ? re[((i64)k * nz + z) * nx + c]
-                    : im[((i64)(k - kp) * nz + z) * nx + c];
+      return k < kp ? re[((boff + k) * nz + z) * nx + c]
+                    : im[((boff + k - kp) * nz + z) * nx + c];
     });
     __syncthreads();
     mma_real(acc, sa, sb, ty, tx);
     __syncthreads();
   }
-  const i64 zoff = (i64)z * ny * nx;
+  const i64 zoff = (i64)a * ny * nx;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = r0 + ty * TM + i;
@@ -183,7 +201,13 @@ radix2_fwd(const float* __restrict__ xr, const float* __restrict__ xi,
 // `fused_stage_inv_otf` -> `_fused_stage_otf_call` (kernel
 // `_make_stage_inv_otf_kernel(conj)`): the input is first multiplied by
 // otf_re +/- i*otf_im (conj for the RL adjoint), in the load, so the
-// spectral product never reaches device memory.
+// spectral product never reaches device memory.  Data column c (a row of
+// the (rows, n) operand) takes OTF row c % orows, as
+// `_fused_stage_otf_call` wraps its OTF blocks (pallas_fft.py:296-300):
+// a batch of blocks shares one block's OTF without a broadcast copy.
+// orows is the data's row count or a multiple of BN, so a column tile
+// lies in one OTF period and the wrap is one offset per thread block,
+// not a modulo per loaded element.
 // v_s[k] = sum_t Minv_s[k, t] x[s*m + t] for both s in one block, then
 // out[k] = (v0 + v1)/2, out[m+k] = (v0 - v1)/2 (1/m lives in Minv).
 // Bound: FMA issue (2 m^2 complex terms per column); K4 also reads the
@@ -194,13 +218,14 @@ radix2_inv(const float* __restrict__ xr, const float* __restrict__ xi,
            const float* __restrict__ otr, const float* __restrict__ oti,
            const float* __restrict__ mr, const float* __restrict__ mi,
            float* __restrict__ rr, float* __restrict__ ii, int n, int ncols,
-           i64 bs, i64 ldk, i64 ldc) {
+           i64 bs, i64 ldk, i64 ldc, int orows) {
   __shared__ float sa[4][BK * BMP];   // Mr0, Mi0, Mr1, Mi1
   __shared__ float sb[4][BK * BNP];   // x0 re, x0 im, x1 re, x1 im
   const int m = n / 2;
   const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
   const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
   const i64 base = (i64)blockIdx.z * bs;
+  const i64 owrap = base + (i64)(c0 / orows) * orows * ldc;
   float a0r[TM][TN], a0i[TM][TN], a1r[TM][TN], a1i[TM][TN];
   zero(a0r);
   zero(a0i);
@@ -219,8 +244,9 @@ radix2_inv(const float* __restrict__ xr, const float* __restrict__ xi,
         const i64 a = base + (i64)(s * m + t) * ldk + (i64)c * ldc;
         const float vr = xr[a], vi = xi[a];
         if (!OTF) return make_float2(vr, vi);
-        const float o_r = otr[a];
-        const float o_i = CONJ ? -oti[a] : oti[a];
+        const i64 o = a - owrap;
+        const float o_r = otr[o];
+        const float o_i = CONJ ? -oti[o] : oti[o];
         return make_float2(vr * o_r - vi * o_i, vr * o_i + vi * o_r);
       });
     }
@@ -256,10 +282,11 @@ static inline unsigned cdiv(long long a, long long b) {
 extern "C" {
 
 // den == nullptr: plain y DFT of num; otherwise of num / max(den, eps).
+// num, den: (nb, nz, ny, nx); re, im: (nb, kp, nz, nx).
 int ipp_rdft_y_fwd(const float* num, const float* den, const float* fwd,
-                   float* re, float* im, int nz, int ny, int nx, int kp,
-                   void* stream) {
-  const dim3 grid(cdiv(nx, BN), cdiv(2 * kp, BM), nz);
+                   float* re, float* im, int nb, int nz, int ny, int nx,
+                   int kp, void* stream) {
+  const dim3 grid(cdiv(nx, BN), cdiv(2 * kp, BM), nb * nz);
   cudaStream_t st = (cudaStream_t)stream;
   if (den) {
     rdft_y_fwd<true><<<grid, NT, 0, st>>>(num, den, fwd, re, im, nz, ny, nx, kp);
@@ -270,10 +297,11 @@ int ipp_rdft_y_fwd(const float* num, const float* den, const float* fwd,
 }
 
 // mul == nullptr: plain inverse y DFT; otherwise |mul * y|.
+// re, im: (nb, kp, nz, nx); mul, out: (nb, nz, ny, nx).
 int ipp_rdft_y_inv(const float* re, const float* im, const float* inv,
-                   const float* mul, float* out, int nz, int ny, int nx, int kp,
-                   void* stream) {
-  const dim3 grid(cdiv(nx, BN), cdiv(ny, BM), nz);
+                   const float* mul, float* out, int nb, int nz, int ny,
+                   int nx, int kp, void* stream) {
+  const dim3 grid(cdiv(nx, BN), cdiv(ny, BM), nb * nz);
   cudaStream_t st = (cudaStream_t)stream;
   if (mul) {
     rdft_y_inv<true><<<grid, NT, 0, st>>>(re, im, inv, mul, out, nz, ny, nx, kp);
@@ -303,25 +331,27 @@ int ipp_radix2_stage(const float* xr, const float* xi, const float* mr,
     if (ldk == 1) return (int)cudaErrorNotSupported;
     const dim3 grid(cdiv(ncols, BN), m / BM, batch);
     radix2_inv<false, false, false><<<grid, NT, 0, st>>>(
-        xr, xi, nullptr, nullptr, mr, mi, rr, ii, n, ncols, bs, ldk, ldc);
+        xr, xi, nullptr, nullptr, mr, mi, rr, ii, n, ncols, bs, ldk, ldc, 1);
   }
   return (int)cudaGetLastError();
 }
 
-// OTF product + inverse radix-2 stage along the last axis of (rows, n).
+// OTF product + inverse radix-2 stage along the last axis of (rows, n);
+// the OTF is (orows, n), rows a multiple of orows, and orows == rows or
+// a multiple of BN (64).
 int ipp_radix2_stage_inv_otf(const float* xr, const float* xi, const float* otr,
                              const float* oti, const float* mr, const float* mi,
-                             float* rr, float* ii, int conj, int rows, int n,
-                             void* stream) {
+                             float* rr, float* ii, int conj, int rows,
+                             int orows, int n, void* stream) {
   const int m = n / 2;
   const dim3 grid(cdiv(rows, BN), m / BM, 1);
   cudaStream_t st = (cudaStream_t)stream;
   if (conj) {
     radix2_inv<true, true, true><<<grid, NT, 0, st>>>(
-        xr, xi, otr, oti, mr, mi, rr, ii, n, rows, 0, 1, n);
+        xr, xi, otr, oti, mr, mi, rr, ii, n, rows, 0, 1, n, orows);
   } else {
     radix2_inv<true, true, false><<<grid, NT, 0, st>>>(
-        xr, xi, otr, oti, mr, mi, rr, ii, n, rows, 0, 1, n);
+        xr, xi, otr, oti, mr, mi, rr, ii, n, rows, 0, 1, n, orows);
   }
   return (int)cudaGetLastError();
 }

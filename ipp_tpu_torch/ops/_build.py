@@ -45,12 +45,12 @@ _L = ctypes.c_longlong
 # (name, argtypes) of every C entry point; pointers and the stream are
 # c_void_p so ctypes never truncates them to 32 bits
 _SIGNATURES = {
-    "ipp_rdft_y_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ipp_rdft_y_inv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ipp_rdft_y_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ipp_rdft_y_inv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ipp_radix2_stage": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                          _L, _P],
     "ipp_radix2_stage_inv_otf": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _P],
+                                 _I, _I, _P],
     "ipp_dwt_analysis": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
 }
 

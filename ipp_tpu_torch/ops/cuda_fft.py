@@ -1,15 +1,24 @@
 """Wrappers of the FFT-walk CUDA kernels, each beside its plain version.
 
-One wrapper per kernel of `csrc/fft_walk.cu`; together they replace the
-seven Pallas entry points of the reference's v2-t convolve walk
-(ipp_tpu/ops/pallas_fft.py):
+One wrapper per kernel form of `csrc/fft_walk.cu`; together they replace
+the eleven Pallas entry points of the reference's v2 convolve walk
+(ipp_tpu/ops/pallas_fft.py), unbatched (v2-t) and batched:
 
-| wrapper                | kernel | Pallas entry points replaced               |
-|------------------------|--------|--------------------------------------------|
-| `rdft_y_fwd`           | K1     | `_v2_rfft_call_t`, `_v2_rfft_ratio_call_t` |
-| `rdft_y_inv`           | K2     | `_v2_irfft_call_t`, `_v2_irfft_mul_call_t` |
-| `radix2_stage`         | K3     | `_v2_stage_call` (fwd, inv), `fused_stage` |
-| `radix2_stage_inv_otf` | K4     | `fused_stage_inv_otf`                      |
+| wrapper                        | kernel | Pallas entry points replaced        |
+|--------------------------------|--------|-------------------------------------|
+| `rdft_y_fwd`                   | K1     | `_v2_rfft_call_t`, `_v2_rfft_ratio_call_t` |
+| `rdft_y_inv`                   | K2     | `_v2_irfft_call_t`, `_v2_irfft_mul_call_t` |
+| `radix2_stage`                 | K3     | `_v2_stage_call` (fwd, inv), `fused_stage` |
+| `radix2_stage_inv_otf`         | K4     | `fused_stage_inv_otf`               |
+| `rdft_y_fwd_batched`           | K1     | `_v2_rfft_call`, `_v2_rfft_ratio_call` |
+| `rdft_y_inv_batched`           | K2     | `_v2_irfft_call`, `_v2_irfft_mul_call` |
+| `radix2_stage_inv_otf_batched` | K4     | `fused_stage_inv_otf` with one OTF wrapped over a batch |
+
+The batched forms take a batch of nb volumes (nb, nz, ny, nx) and keep
+each block's spectrum kp-major, (nb, kp, nz, nx), where the TPU kernels
+wrote plane-major (nb*nz, kp, nx) and paid an XLA transpose each side of
+the z stage (csrc/fft_walk.cu says why CUDA need not).  K3 needs no
+batched form: it already takes any number of planes or rows.
 
 Rules every wrapper keeps:
 - a CPU tensor goes to the plain PyTorch version (`*_plain`, the same
@@ -18,7 +27,8 @@ Rules every wrapper keeps:
 - device, dtype (f32), shape and contiguity are checked before a launch,
   and the C function's cudaGetLastError() is checked after it;
 - `LAUNCHES[name]` counts kernel launches (never plain calls), so a run
-  can show that its main path went through the kernels.
+  can show that its main path went through the kernels; the batched
+  forms count under their own names.
 """
 
 from __future__ import annotations
@@ -29,15 +39,19 @@ import numpy as np
 import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "rdft_y_fwd",
-           "rdft_y_fwd_plain", "rdft_y_inv", "rdft_y_inv_plain",
-           "radix2_stage", "radix2_stage_plain", "radix2_stage_inv_otf",
-           "radix2_stage_inv_otf_plain"]
+           "rdft_y_fwd_batched", "rdft_y_fwd_plain", "rdft_y_inv",
+           "rdft_y_inv_batched", "rdft_y_inv_plain", "radix2_stage",
+           "radix2_stage_plain", "radix2_stage_inv_otf",
+           "radix2_stage_inv_otf_batched", "radix2_stage_inv_otf_plain"]
 
 EPS = float(np.finfo(np.float32).eps)
 _GRID_MAX = 65535  # gridDim.y / gridDim.z limit
+_BN = 64           # the kernels' column tile (csrc/fft_walk.cuh BN)
 
-LAUNCHES: Dict[str, int] = {"rdft_y_fwd": 0, "rdft_y_inv": 0,
-                            "radix2_stage": 0, "radix2_stage_inv_otf": 0}
+LAUNCHES: Dict[str, int] = {
+    "rdft_y_fwd": 0, "rdft_y_inv": 0, "radix2_stage": 0,
+    "radix2_stage_inv_otf": 0, "rdft_y_fwd_batched": 0,
+    "rdft_y_inv_batched": 0, "radix2_stage_inv_otf_batched": 0}
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -51,21 +65,22 @@ def reset_launch_counts() -> None:
 
 def rdft_y_fwd_plain(x: torch.Tensor, fwd: torch.Tensor,
                      den: Optional[torch.Tensor] = None) -> Pair:
-    """(nz, ny, nx) -> re, im (kp, nz, nx): the y real DFT against the
-    stacked fold fwd (2kp, ny); with `den`, of x / max(den, eps)."""
+    """(..., nz, ny, nx) -> re, im (..., kp, nz, nx): the y real DFT
+    against the stacked fold fwd (2kp, ny), each block's spectrum
+    kp-major; with `den`, of x / max(den, eps)."""
     if den is not None:
         x = x / torch.clamp(den, min=EPS)
-    y = torch.matmul(fwd, x)                      # (nz, 2kp, nx)
+    y = torch.matmul(fwd, x)                      # (..., nz, 2kp, nx)
     kp = fwd.shape[0] // 2
-    return (y[:, :kp].transpose(0, 1).contiguous(),
-            y[:, kp:].transpose(0, 1).contiguous())
+    return (y[..., :kp, :].transpose(-3, -2).contiguous(),
+            y[..., kp:, :].transpose(-3, -2).contiguous())
 
 
 def rdft_y_inv_plain(re: torch.Tensor, im: torch.Tensor, inv: torch.Tensor,
                      mul: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """re, im (kp, nz, nx) -> (nz, ny, nx): the inverse y real DFT through
-    the Hermitian fold inv (ny, 2kp); with `mul`, |mul * y|."""
-    both = torch.cat([re, im], 0).transpose(0, 1)  # (nz, 2kp, nx)
+    """re, im (..., kp, nz, nx) -> (..., nz, ny, nx): the inverse y real
+    DFT through the Hermitian fold inv (ny, 2kp); with `mul`, |mul * y|."""
+    both = torch.cat([re, im], -3).transpose(-3, -2)  # (..., nz, 2kp, nx)
     y = torch.matmul(inv, both)
     return torch.abs(mul * y) if mul is not None else y
 
@@ -105,10 +120,15 @@ def radix2_stage_inv_otf_plain(re: torch.Tensor, im: torch.Tensor,
                                mr_t: torch.Tensor, mi_t: torch.Tensor,
                                conj: bool) -> Pair:
     """(re + i*im) * (otf_re +/- i*otf_im), then the inverse stage along
-    the last axis of (R, n)."""
+    the last axis of (R, n).  The OTF has R or fewer rows: data row r
+    takes OTF row r % orows (one block's OTF serves a batch)."""
+    rows, n = re.shape
+    o_r = otf_re
     o_i = -otf_im if conj else otf_im
-    xr = re * otf_re - im * o_i
-    xi = re * o_i + im * otf_re
+    shape = (rows // o_r.shape[0],) + tuple(o_r.shape)
+    a_r, a_i = re.reshape(shape), im.reshape(shape)
+    xr = (a_r * o_r - a_i * o_i).reshape(rows, n)
+    xi = (a_r * o_i + a_i * o_r).reshape(rows, n)
     return radix2_stage_plain(xr, xi, mr_t, mi_t, False, -1)
 
 
@@ -144,6 +164,18 @@ def _shape(name: str, t: torch.Tensor, shape) -> None:
                          f"{tuple(t.shape)}")
 
 
+def _ndim(name: str, t: torch.Tensor, ndim: int, what: str) -> None:
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {what}, got shape "
+                         f"{tuple(t.shape)}")
+
+
+def _grid(name: str, what: str, n: int) -> None:
+    if n > _GRID_MAX:
+        raise ValueError(f"{name}: {what}={n} exceeds the grid limit "
+                         f"{_GRID_MAX}")
+
+
 def _launch(name: str, device: torch.device, fn, *args,
             counts: Optional[Dict[str, int]] = None) -> None:
     """Launch on the current stream of `device`, raise on a refused
@@ -163,46 +195,87 @@ def _empty(shape, like: torch.Tensor) -> torch.Tensor:
 
 # -- wrappers ----------------------------------------------------------------
 
-def rdft_y_fwd(x: torch.Tensor, fwd: torch.Tensor,
-               den: Optional[torch.Tensor] = None) -> Pair:
-    """K1: see `rdft_y_fwd_plain`."""
-    name = "rdft_y_fwd"
-    if not _on_cuda(name, x, fwd, den):
-        return rdft_y_fwd_plain(x, fwd, den)
-    nz, ny, nx = x.shape
+def _rdft_y_fwd(name: str, x: torch.Tensor, fwd: torch.Tensor,
+                den: Optional[torch.Tensor]) -> Pair:
+    """K1 on (nb, nz, ny, nx) CUDA tensors -> (nb, kp, nz, nx) each."""
+    nb, nz, ny, nx = x.shape
     kp = fwd.shape[0] // 2
     _shape(name, fwd, (2 * kp, ny))
     if den is not None:
         _shape(name, den, x.shape)
-    if nz > _GRID_MAX:
-        raise ValueError(f"{name}: nz={nz} exceeds the grid limit")
-    re, im = _empty((kp, nz, nx), x), _empty((kp, nz, nx), x)
+    _grid(name, "nb*nz", nb * nz)
+    re, im = _empty((nb, kp, nz, nx), x), _empty((nb, kp, nz, nx), x)
     _launch(name, x.device, _lib().ipp_rdft_y_fwd, x.data_ptr(),
             den.data_ptr() if den is not None else None, fwd.data_ptr(),
-            re.data_ptr(), im.data_ptr(), nz, ny, nx, kp)
+            re.data_ptr(), im.data_ptr(), nb, nz, ny, nx, kp)
     return re, im
 
 
-def rdft_y_inv(re: torch.Tensor, im: torch.Tensor, inv: torch.Tensor,
-               mul: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2: see `rdft_y_inv_plain`."""
-    name = "rdft_y_inv"
-    if not _on_cuda(name, re, im, inv, mul):
-        return rdft_y_inv_plain(re, im, inv, mul)
-    kp, nz, nx = re.shape
+def rdft_y_fwd(x: torch.Tensor, fwd: torch.Tensor,
+               den: Optional[torch.Tensor] = None) -> Pair:
+    """K1 on one volume (nz, ny, nx) -> (kp, nz, nx): see
+    `rdft_y_fwd_plain`."""
+    name = "rdft_y_fwd"
+    _ndim(name, x, 3, "(nz, ny, nx)")
+    if not _on_cuda(name, x, fwd, den):
+        return rdft_y_fwd_plain(x, fwd, den)
+    re, im = _rdft_y_fwd(name, x[None], fwd,
+                         None if den is None else den[None])
+    return re[0], im[0]
+
+
+def rdft_y_fwd_batched(x: torch.Tensor, fwd: torch.Tensor,
+                       den: Optional[torch.Tensor] = None) -> Pair:
+    """K1 on a batch (nb, nz, ny, nx) -> (nb, kp, nz, nx): see
+    `rdft_y_fwd_plain`."""
+    name = "rdft_y_fwd_batched"
+    _ndim(name, x, 4, "(nb, nz, ny, nx)")
+    if not _on_cuda(name, x, fwd, den):
+        return rdft_y_fwd_plain(x, fwd, den)
+    return _rdft_y_fwd(name, x, fwd, den)
+
+
+def _rdft_y_inv(name: str, re: torch.Tensor, im: torch.Tensor,
+                inv: torch.Tensor, mul: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """K2 on (nb, kp, nz, nx) CUDA tensors -> (nb, nz, ny, nx)."""
+    nb, kp, nz, nx = re.shape
     ny = inv.shape[0]
     _shape(name, im, re.shape)
     _shape(name, inv, (ny, 2 * kp))
     if mul is not None:
-        _shape(name, mul, (nz, ny, nx))
-    if nz > _GRID_MAX:
-        raise ValueError(f"{name}: nz={nz} exceeds the grid limit")
-    out = _empty((nz, ny, nx), re)
+        _shape(name, mul, (nb, nz, ny, nx))
+    _grid(name, "nb*nz", nb * nz)
+    out = _empty((nb, nz, ny, nx), re)
     _launch(name, re.device, _lib().ipp_rdft_y_inv, re.data_ptr(),
             im.data_ptr(), inv.data_ptr(),
             mul.data_ptr() if mul is not None else None, out.data_ptr(),
-            nz, ny, nx, kp)
+            nb, nz, ny, nx, kp)
     return out
+
+
+def rdft_y_inv(re: torch.Tensor, im: torch.Tensor, inv: torch.Tensor,
+               mul: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2 on one spectrum (kp, nz, nx) -> (nz, ny, nx): see
+    `rdft_y_inv_plain`."""
+    name = "rdft_y_inv"
+    _ndim(name, re, 3, "(kp, nz, nx)")
+    if not _on_cuda(name, re, im, inv, mul):
+        return rdft_y_inv_plain(re, im, inv, mul)
+    return _rdft_y_inv(name, re[None], im[None], inv,
+                       None if mul is None else mul[None])[0]
+
+
+def rdft_y_inv_batched(re: torch.Tensor, im: torch.Tensor,
+                       inv: torch.Tensor,
+                       mul: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2 on a batch of spectra (nb, kp, nz, nx) -> (nb, nz, ny, nx): see
+    `rdft_y_inv_plain`."""
+    name = "rdft_y_inv_batched"
+    _ndim(name, re, 4, "(nb, kp, nz, nx)")
+    if not _on_cuda(name, re, im, inv, mul):
+        return rdft_y_inv_plain(re, im, inv, mul)
+    return _rdft_y_inv(name, re, im, inv, mul)
 
 
 def _stage_mats_ok(name: str, n: int, mr_t, mi_t) -> None:
@@ -235,12 +308,34 @@ def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
         (ncols, n), batch = re.shape, 1
         bs, ldk, ldc = 0, 1, n
     _stage_mats_ok(name, n, mr_t, mi_t)
-    if batch > _GRID_MAX:
-        raise ValueError(f"{name}: batch={batch} exceeds the grid limit")
+    _grid(name, "batch", batch)
     rr, ii = _empty(re.shape, re), _empty(re.shape, re)
     _launch(name, re.device, _lib().ipp_radix2_stage, re.data_ptr(),
             im.data_ptr(), mr_t.data_ptr(), mi_t.data_ptr(), rr.data_ptr(),
             ii.data_ptr(), int(bool(forward)), batch, n, ncols, bs, ldk, ldc)
+    return rr, ii
+
+
+def _radix2_stage_inv_otf(name: str, re, im, otf_re, otf_im, mr_t, mi_t,
+                          conj: bool) -> Pair:
+    """K4 on (rows, n) CUDA data and an (orows, n) OTF, rows a multiple
+    of orows and orows == rows or a multiple of the column tile (the
+    kernel wraps the OTF once per tile)."""
+    rows, n = re.shape
+    orows = otf_re.shape[0]
+    _shape(name, im, re.shape)
+    _shape(name, otf_im, otf_re.shape)
+    if otf_re.dim() != 2 or otf_re.shape[1] != n or orows == 0 \
+            or rows % orows or (orows != rows and orows % _BN):
+        raise ValueError(f"{name}: the OTF {tuple(otf_re.shape)} must be "
+                         f"(orows, {n}) with orows dividing {rows}, and "
+                         f"equal to it or a multiple of {_BN}")
+    _stage_mats_ok(name, n, mr_t, mi_t)
+    rr, ii = _empty(re.shape, re), _empty(re.shape, re)
+    _launch(name, re.device, _lib().ipp_radix2_stage_inv_otf, re.data_ptr(),
+            im.data_ptr(), otf_re.data_ptr(), otf_im.data_ptr(),
+            mr_t.data_ptr(), mi_t.data_ptr(), rr.data_ptr(), ii.data_ptr(),
+            int(bool(conj)), rows, orows, n)
     return rr, ii
 
 
@@ -251,18 +346,27 @@ def radix2_stage_inv_otf(re: torch.Tensor, im: torch.Tensor,
     """K4: see `radix2_stage_inv_otf_plain`.  All of re, im, otf_re,
     otf_im are (R, n): the unbatched walk's OTF matches the data rows."""
     name = "radix2_stage_inv_otf"
-    if re.dim() != 2:
-        raise ValueError(f"{name}: expected (R, n), got {tuple(re.shape)}")
+    _ndim(name, re, 2, "(R, n)")
+    _shape(name, otf_re, re.shape)
     if not _on_cuda(name, re, im, otf_re, otf_im, mr_t, mi_t):
         return radix2_stage_inv_otf_plain(re, im, otf_re, otf_im, mr_t,
                                           mi_t, conj)
-    rows, n = re.shape
-    for t in (im, otf_re, otf_im):
-        _shape(name, t, re.shape)
-    _stage_mats_ok(name, n, mr_t, mi_t)
-    rr, ii = _empty(re.shape, re), _empty(re.shape, re)
-    _launch(name, re.device, _lib().ipp_radix2_stage_inv_otf, re.data_ptr(),
-            im.data_ptr(), otf_re.data_ptr(), otf_im.data_ptr(),
-            mr_t.data_ptr(), mi_t.data_ptr(), rr.data_ptr(), ii.data_ptr(),
-            int(bool(conj)), rows, n)
-    return rr, ii
+    return _radix2_stage_inv_otf(name, re, im, otf_re, otf_im, mr_t, mi_t,
+                                 conj)
+
+
+def radix2_stage_inv_otf_batched(re: torch.Tensor, im: torch.Tensor,
+                                 otf_re: torch.Tensor, otf_im: torch.Tensor,
+                                 mr_t: torch.Tensor, mi_t: torch.Tensor,
+                                 conj: bool) -> Pair:
+    """K4 with an OTF period: re, im (nb * R, n), the OTF (R, n), data row
+    r taking OTF row r % R, so one block's OTF serves nb blocks without a
+    broadcast copy (`_fused_stage_otf_call`'s wrapped OTF blocks).  See
+    `radix2_stage_inv_otf_plain`."""
+    name = "radix2_stage_inv_otf_batched"
+    _ndim(name, re, 2, "(rows, n)")
+    if not _on_cuda(name, re, im, otf_re, otf_im, mr_t, mi_t):
+        return radix2_stage_inv_otf_plain(re, im, otf_re, otf_im, mr_t,
+                                          mi_t, conj)
+    return _radix2_stage_inv_otf(name, re, im, otf_re, otf_im, mr_t, mi_t,
+                                 conj)

@@ -1,12 +1,16 @@
 """Richardson-Lucy deconvolution on PyTorch (port of ipp_tpu/ops/deconv.py
-lines 72-480: gauss3d, make_taper, edge_taper_3d, pad_to_shape, unpad,
+lines 72-665: gauss3d, make_taper, edge_taper_3d, pad_to_shape, unpad,
 fft_shape_for, _tikhonov_kernel, _conv3d_zero, _make_otf, _make_convolver,
-_rl_fft_iterations, richardson_lucy).
+_rl_fft_iterations, richardson_lucy, richardson_lucy_batched,
+richardson_lucy_wiener, richardson_lucy_spatial).
 
 The RL loop runs eagerly as a Python loop (the reference's
 lax.while_loop); early stop reads the relative norm change on the host,
-one scalar per iteration.  Each convolution takes one of two routes, chosen
-by the FFT work shape alone before anything launches:
+one scalar per block and iteration.  A batch of blocks (B, D, H, W) runs
+the same loop; with early stop each block freezes once it has converged
+and the loop ends when all have (the reference's vmapped while_loop).
+Each convolution takes one of two routes, chosen by the FFT work shape
+alone before anything launches:
 
 - "walk": the hand-written CUDA kernel walk of ops/matmul_fft.py, for
   shapes inside its kernel domain (the reference's MXU v2 walk);
@@ -32,7 +36,9 @@ from .fftutil import next_fast_len
 from .matmul_fft import MatmulFFT3, in_kernel_domain
 
 __all__ = ["gauss3d", "make_taper", "edge_taper_3d", "pad_to_shape",
-           "unpad", "fft_shape_for", "conv_route", "richardson_lucy"]
+           "unpad", "fft_shape_for", "conv_route", "richardson_lucy",
+           "richardson_lucy_batched", "richardson_lucy_wiener",
+           "richardson_lucy_spatial"]
 
 _EPS = float(np.finfo(np.float32).eps)
 _log = logging.getLogger(__name__)
@@ -70,14 +76,15 @@ def _conv1d_axis(vol: torch.Tensor, taps: np.ndarray, axis: int
 
 
 def gauss3d(vol: torch.Tensor, sigma) -> torch.Tensor:
-    """Separable 3D gaussian, replicate boundary (reference gauss3d_gpu.cu;
-    MATLAB-compatible kernel size)."""
+    """Separable 3D gaussian over the last three axes, replicate boundary
+    (reference gauss3d_gpu.cu; MATLAB-compatible kernel size); leading
+    axes are a batch (the reference's gauss3d_batched)."""
     if np.isscalar(sigma):
         sigma = (float(sigma),) * 3
     out = vol
     for ax, s in enumerate(sigma):
         if s > 0:
-            out = _conv1d_axis(out, _gauss_kernel(s), ax)
+            out = _conv1d_axis(out, _gauss_kernel(s), ax - 3)
     return out
 
 
@@ -148,11 +155,13 @@ def _fft_conv_same(vol: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
     return full[sl]
 
 
-def edge_taper_3d(vol: torch.Tensor, psf: torch.Tensor) -> torch.Tensor:
+def edge_taper_3d(vol: torch.Tensor, psf: torch.Tensor,
+                  face_slabs: bool = True) -> torch.Tensor:
     """bll = mask*bl + (1-mask)*blur(bl) with separable ramps of width
     max(8, psf_dim/2) per axis (reference edgetaper_3d.m:1-46).  The blur
     is needed only within taper_width of a face, so it runs on the six
-    face slabs (each extended by the PSF support)."""
+    face slabs (each extended by the PSF support); face_slabs=False blurs
+    the full volume, as the reference's batched RL does."""
     psf = psf / psf.sum()
     tws = [min(max(8, int(round(psf.shape[d] / 2))), vol.shape[d] // 2)
            for d in range(3)]
@@ -162,8 +171,9 @@ def edge_taper_3d(vol: torch.Tensor, psf: torch.Tensor) -> torch.Tensor:
         shape[d] = vol.shape[d]
         taper = torch.from_numpy(make_taper(vol.shape[d], tws[d]))
         mask = mask * taper.to(vol.device).reshape(shape)
-    if any(tw + k > s for tw, k, s in zip(tws, psf.shape, vol.shape)):
-        # a slab would not fit: blur the full volume
+    if (not face_slabs
+            or any(tw + k > s for tw, k, s in zip(tws, psf.shape, vol.shape))):
+        # asked for, or a slab would not fit: blur the full volume
         blur = _fft_conv_same(vol, psf)
         return mask * vol + (1.0 - mask) * blur
     out = mask * vol
@@ -206,11 +216,14 @@ def fft_shape_for(shape: Sequence[int], psf_shape: Sequence[int]
 
 
 def pad_to_shape(vol: torch.Tensor, target: Sequence[int]):
-    """Centre zero-pad to target (reference pad_block_to_fft_shape,
-    decon.m:323-345).  Returns (padded, pad_pre, pad_post)."""
-    missing = [int(t) - s for t, s in zip(target, vol.shape)]
+    """Centre zero-pad the last len(target) axes to target (reference
+    pad_block_to_fft_shape, decon.m:323-345); leading axes are a batch.
+    Returns (padded, pad_pre, pad_post)."""
+    missing = [int(t) - s
+               for t, s in zip(target, vol.shape[vol.dim() - len(target):])]
     if any(m < 0 for m in missing):
-        raise ValueError(f"cannot pad {tuple(vol.shape)} to {tuple(target)}")
+        raise ValueError(f"cannot pad {tuple(vol.shape)} to "
+                         f"{tuple(target)}")
     pre = [m // 2 for m in missing]
     post = [m - p for m, p in zip(missing, pre)]
     pads = []
@@ -220,8 +233,10 @@ def pad_to_shape(vol: torch.Tensor, target: Sequence[int]):
 
 
 def unpad(vol: torch.Tensor, pre: Sequence[int], post: Sequence[int]):
-    sl = tuple(slice(p, s - q) for p, q, s in zip(pre, post, vol.shape))
-    return vol[sl]
+    """Undo `pad_to_shape` on the last len(pre) axes."""
+    tail = vol.shape[vol.dim() - len(pre):]
+    return vol[(Ellipsis,) + tuple(slice(p, s - q)
+                                   for p, q, s in zip(pre, post, tail))]
 
 
 def _tikhonov_kernel() -> np.ndarray:
@@ -232,14 +247,15 @@ def _tikhonov_kernel() -> np.ndarray:
 
 
 def _conv3d_zero(vol: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
-    """3D 'same' convolution with zero boundary (MATLAB convn 'same');
-    TF32 is off by the package's precision policy."""
+    """3D 'same' convolution with zero boundary (MATLAB convn 'same') over
+    the last three axes, each leading index a block; TF32 is off by the
+    package's precision policy."""
     kd, kh, kw = kern.shape
-    vp = F.pad(vol[None, None], (kw // 2, kw - 1 - kw // 2,
-                                 kh // 2, kh - 1 - kh // 2,
-                                 kd // 2, kd - 1 - kd // 2))
+    vp = F.pad(vol.reshape((-1, 1) + tuple(vol.shape[-3:])),
+               (kw // 2, kw - 1 - kw // 2, kh // 2, kh - 1 - kh // 2,
+                kd // 2, kd - 1 - kd // 2))
     w = torch.flip(kern, dims=(0, 1, 2))[None, None].to(vol.dtype)
-    return F.conv3d(vp, w)[0, 0]
+    return F.conv3d(vp, w).reshape(vol.shape)
 
 
 def _rolled_psf(psf: torch.Tensor, fft_shape) -> torch.Tensor:
@@ -260,7 +276,8 @@ def _make_convolver(psf: torch.Tensor, fft_shape, route: Optional[str] = None):
     convolution; `conv_conj_ratio(num, den)` the adjoint convolution of
     num / max(den, eps) (decon.m:169); `update(bl, num, den)` the full RL
     step |bl * conv^T(ratio)| (decon.m:169-171), fused into the kernels on
-    the walk route."""
+    the walk route.  Inputs may carry leading batch dims; both routes
+    transform the last three axes only and share one block's OTF."""
     fft_shape = tuple(int(s) for s in fft_shape)
     if conv_route(fft_shape, psf.device, route) == "walk":
         plan = MatmulFFT3(fft_shape, psf.device)
@@ -279,13 +296,16 @@ def _make_convolver(psf: torch.Tensor, fft_shape, route: Optional[str] = None):
         return conv, conv_conj_ratio, update
     otf = _make_otf(psf, fft_shape)
     otf_c = torch.conj_physical(otf)
+    dims = (-3, -2, -1)
 
     def conv(x):
-        return torch.fft.irfftn(torch.fft.rfftn(x) * otf, s=fft_shape)
+        return torch.fft.irfftn(torch.fft.rfftn(x, dim=dims) * otf,
+                                s=fft_shape, dim=dims)
 
     def conv_conj_ratio(num, den):
         ratio = num / torch.clamp(den, min=_EPS)
-        return torch.fft.irfftn(torch.fft.rfftn(ratio) * otf_c, s=fft_shape)
+        return torch.fft.irfftn(torch.fft.rfftn(ratio, dim=dims) * otf_c,
+                                s=fft_shape, dim=dims)
 
     def update(bl, num, den):
         return torch.abs(bl * conv_conj_ratio(num, den))
@@ -293,20 +313,36 @@ def _make_convolver(psf: torch.Tensor, fft_shape, route: Optional[str] = None):
     return conv, conv_conj_ratio, update
 
 
+def _block_norms(bl: torch.Tensor) -> torch.Tensor:
+    """The L2 norm of a (D, H, W) block, or of each block of a (B, D, H, W)
+    batch, each reduced on its own: a block's norm, and so its early-stop
+    decision, does not depend on the batch it runs in."""
+    if bl.dim() == 3:
+        return torch.linalg.vector_norm(bl)[None]
+    return torch.stack([torch.linalg.vector_norm(b) for b in bl])
+
+
 def _rl_fft_iterations(bl, psf, *, niter, fft_shape, lam, stop_criterion,
                        regularize_interval, classic, route=None):
-    """The deconFFT loop (decon.m:127-204); returns (estimate, iterations
-    run).  classic=False is the reference's scheme (the ratio numerator
-    is the current estimate, decon.m:169); classic=True keeps the observed
-    volume as numerator (textbook RL).  Early stop: after iteration i > 1,
-    stop once the relative L2-norm change is <= stop_criterion percent."""
+    """The deconFFT loop (decon.m:127-204) on a (D, H, W) block or a
+    (B, D, H, W) batch; returns (estimate, iterations run): an int for a
+    block, a list of one count per block for a batch.  classic=False is
+    the reference's scheme (the ratio numerator is the current estimate,
+    decon.m:169); classic=True keeps the observed volume as numerator
+    (textbook RL).  Early stop: after iteration i > 1, a block stops once
+    its relative L2-norm change is <= stop_criterion percent; in a batch
+    it then keeps its estimate while the others go on, and the loop ends
+    when every block has stopped (the reference's vmapped while_loop)."""
     conv, conv_conj_ratio, update = _make_convolver(psf, fft_shape, route)
     R = torch.from_numpy(_tikhonov_kernel()).to(bl.device)
     apply_reg = 0 < regularize_interval < niter
     y_obs = bl
-    delta_prev = torch.linalg.vector_norm(bl) if stop_criterion > 0 else None
+    active = [True] * (bl.shape[0] if bl.dim() == 4 else 1)
+    iters = [0] * len(active)
+    delta_prev = _block_norms(bl) if stop_criterion > 0 else None
     i = 1
-    while i <= niter:
+    while i <= niter and any(active):
+        prev = bl
         if not apply_reg:  # common path: one fully fused RL step
             num_src = y_obs if classic else bl
             bl = update(bl, num_src, conv(bl))
@@ -323,15 +359,30 @@ def _rl_fft_iterations(bl, psf, *, niter, fft_shape, lam, stop_criterion,
             else:
                 bl = bl * buf
             bl = torch.abs(bl)
+        if not all(active):  # stopped blocks keep their estimate
+            keep = torch.tensor(active, device=bl.device).view(-1, 1, 1, 1)
+            bl = torch.where(keep, bl, prev)
+        iters = [i if a else k for a, k in zip(active, iters)]
         i += 1
         if stop_criterion > 0:
-            delta_cur = torch.linalg.vector_norm(bl)
+            delta_cur = _block_norms(bl)
             rel = (torch.abs(delta_prev - delta_cur)
-                   / torch.clamp(delta_prev, min=_EPS) * 100.0)
+                   / torch.clamp(delta_prev, min=_EPS) * 100.0).tolist()
             delta_prev = delta_cur
-            if i > 2 and float(rel) <= stop_criterion:
-                break
-    return bl, i - 1
+            if i > 2:
+                active = [a and not r <= stop_criterion
+                          for a, r in zip(active, rel)]
+    return bl, (iters if bl.dim() == 4 else iters[0])
+
+
+def _inputs(vol, psf, device):
+    """vol and the unit-sum psf as f32 tensors on `device`, else on vol's
+    device when vol is a tensor, else on the package's resolved device."""
+    if device is None and isinstance(vol, torch.Tensor):
+        device = vol.device
+    dev = resolve_device(device)
+    psf = _as_f32(psf, dev)
+    return _as_f32(vol, dev), psf / psf.sum()
 
 
 def richardson_lucy(vol, psf, niter: int = 10, lam: float = 0.0,
@@ -346,14 +397,9 @@ def richardson_lucy(vol, psf, niter: int = 10, lam: float = 0.0,
     else on vol's device when vol is a tensor, else on the package's
     resolved device.  `route` forces the convolution route ("walk" or
     "fft"); by default the work shape decides."""
-    if device is None and isinstance(vol, torch.Tensor):
-        device = vol.device
-    dev = resolve_device(device)
-    vol = _as_f32(vol, dev)
-    psf = _as_f32(psf, dev)
+    vol, psf = _inputs(vol, psf, device)
     if fft_shape is None:
         fft_shape = fft_shape_for(vol.shape, psf.shape)
-    psf = psf / psf.sum()
     if edge_taper:
         vol = edge_taper_3d(vol, psf)
     vol, pre, post = pad_to_shape(vol, fft_shape)
@@ -364,3 +410,126 @@ def richardson_lucy(vol, psf, niter: int = 10, lam: float = 0.0,
         regularize_interval=int(regularize_interval), classic=bool(classic),
         route=route)
     return unpad(out, pre, post)
+
+
+def richardson_lucy_batched(vols, psf, niter: int = 10, lam: float = 0.0,
+                            regularize_interval: int = 0,
+                            fft_shape: Optional[Tuple[int, int, int]] = None,
+                            edge_taper: bool = True, sharding=None,
+                            classic: bool = True, stop_criterion: float = 0.0,
+                            device=None, route: Optional[str] = None
+                            ) -> torch.Tensor:
+    """Richardson-Lucy over a batch of equal-shape blocks (B, D, H, W) on
+    one device (reference richardson_lucy_batched, deconv.py:482-552): one
+    walk over the whole batch, through the batched kernel forms on the
+    walk route, with one OTF for every block.  Each block's edge taper
+    blurs its full volume (face_slabs=False).  stop_criterion > 0 stops
+    each block at its own iteration (see `_rl_fft_iterations`).
+
+    `sharding` (a placement over a device mesh) is not ported: anything
+    but None raises."""
+    if sharding is not None:
+        raise NotImplementedError(
+            "richardson_lucy_batched over a device mesh (sharding=...) is "
+            "not yet ported (ROADMAP.md queue 1, item 13: multi-GPU)")
+    vols, psf = _inputs(vols, psf, device)
+    if vols.dim() != 4:
+        raise ValueError(f"expected a (B, D, H, W) batch, got "
+                         f"{tuple(vols.shape)}")
+    if fft_shape is None:
+        fft_shape = fft_shape_for(vols.shape[1:], psf.shape)
+    if edge_taper:
+        vols = torch.stack([edge_taper_3d(v, psf, face_slabs=False)
+                            for v in vols])
+    vols, pre, post = pad_to_shape(vols, fft_shape)
+    out, _ = _rl_fft_iterations(
+        vols.contiguous(), psf, niter=int(niter),
+        fft_shape=tuple(int(s) for s in fft_shape), lam=float(lam),
+        stop_criterion=float(stop_criterion),
+        regularize_interval=int(regularize_interval), classic=bool(classic),
+        route=route)
+    return unpad(out, pre, post)
+
+
+def richardson_lucy_wiener(vol, psf, niter: int = 10, lam: float = 0.0,
+                           regularize_interval: int = 0,
+                           fft_shape: Optional[Tuple[int, int, int]] = None,
+                           edge_taper: bool = True, device=None):
+    """Blind RL with a Wiener PSF refinement after every update
+    (reference richardson_lucy_wiener, deconv.py:555-635, itself
+    deconFFT_Wiener, decon.m:206-321, with its two repairs: the observed
+    spectrum stays the model's target, and the PSF is cropped after an
+    fftshift).  Complex FFTs over the three axes (torch.fft, cuFFT on the
+    card):
+        otf_new = F{obs} . conj(F{cur}) / max(|F{cur}|^2, eps),
+    cropped to the PSF extent, clamped non-negative, renormalised, and
+    blended 0.7 old + 0.3 new.  Returns (deconvolved, refined psf)."""
+    vol, psf = _inputs(vol, psf, device)
+    if fft_shape is None:
+        fft_shape = fft_shape_for(vol.shape, psf.shape)
+    fft_shape = tuple(int(s) for s in fft_shape)
+    if edge_taper:
+        vol = edge_taper_3d(vol, psf)
+    bl, pre, post = pad_to_shape(vol, fft_shape)
+    R = torch.from_numpy(_tikhonov_kernel()).to(bl.device)
+    psf_shape = tuple(psf.shape)
+    center = tuple((f - p) // 2 for f, p in zip(fft_shape, psf_shape))
+    crop = tuple(slice(c, c + s) for c, s in zip(center, psf_shape))
+
+    f_obs = torch.fft.fftn(bl)
+    f_prev = f_obs
+    for i in range(1, int(niter) + 1):
+        is_reg = (0 < regularize_interval < niter and i > 1
+                  and i % regularize_interval == 0)
+        if is_reg:
+            bl = gauss3d(bl, 0.5)
+            f_prev = torch.fft.fftn(bl)
+        otf = torch.fft.fftn(_rolled_psf(psf, fft_shape))
+        buf = torch.clamp(torch.fft.ifftn(f_prev * otf).real, min=_EPS)
+        buf = torch.fft.ifftn(torch.fft.fftn(bl / buf)
+                              * torch.conj_physical(otf)).real
+        if is_reg and lam > 0 and i < niter:
+            bl = bl * buf * (1.0 - lam) + _conv3d_zero(bl, R) * lam
+        else:
+            bl = bl * buf
+        bl = torch.abs(bl)
+        if i < niter:
+            f_cur = torch.fft.fftn(bl)
+            denom = torch.clamp((f_cur * torch.conj_physical(f_cur)).real,
+                                min=_EPS)
+            otf_new = f_obs * torch.conj_physical(f_cur) / denom
+            psf_full = torch.fft.fftshift(torch.fft.ifftn(otf_new).real)
+            new_psf = torch.clamp(psf_full[crop], min=0.0)
+            total = new_psf.sum()
+            new_psf = torch.where(total > 0,
+                                  new_psf / torch.clamp(total, min=_EPS), psf)
+            psf = 0.7 * psf + 0.3 * new_psf
+            psf = psf / torch.clamp(psf.sum(), min=_EPS)
+            f_prev = f_cur
+    return unpad(bl, pre, post), psf
+
+
+def richardson_lucy_spatial(vol, psf, niter: int = 10, lam: float = 0.0,
+                            regularize_interval: int = 0, device=None
+                            ) -> torch.Tensor:
+    """Spatial-domain RL (reference richardson_lucy_spatial,
+    deconv.py:638-665; deconSpatial, decon.m:26-125): direct zero-boundary
+    3D convolutions with the PSF and its flip (cuDNN in full f32 on the
+    card, TF32 off).  Practical for small PSFs."""
+    vol, psf = _inputs(vol, psf, device)
+    psf_inv = torch.flip(psf, dims=(0, 1, 2))
+    R = torch.from_numpy(_tikhonov_kernel()).to(vol.device)
+    bl = edge_taper_3d(vol, psf)
+    for i in range(1, int(niter) + 1):
+        is_reg = (0 < regularize_interval < niter and 1 < i < niter
+                  and i % regularize_interval == 0)
+        if is_reg:
+            bl = gauss3d(bl, 0.5)
+        buf = bl / torch.clamp(_conv3d_zero(bl, psf), min=_EPS)
+        buf = _conv3d_zero(buf, psf_inv)
+        if is_reg and lam > 0:
+            bl = bl * buf * (1.0 - lam) + _conv3d_zero(bl, R) * lam
+        else:
+            bl = bl * buf
+        bl = torch.abs(bl)
+    return bl

@@ -1,4 +1,4 @@
-"""The v2-t FFT convolve walk (port of ipp_tpu/ops/mxu_fft.py MatmulFFT3,
+"""The v2 FFT convolve walk (port of ipp_tpu/ops/mxu_fft.py MatmulFFT3,
 its v2 part: `__init__`, `_fwd_packed_v2`, `_convolve_v2`, `otf_packed`,
 `convolve`).
 
@@ -12,6 +12,11 @@ The spectrum stays in the radix-2 permuted order along z and x
 (X[2k+s] at s*m + k, ipp_tpu/ops/pallas_fft.py:267-271), so the OTF must
 come from the same walk: `otf_packed` runs the PSF through it.  An OTF from
 torch.fft fed to `convolve` would be silently wrong.
+
+Volumes with leading batch dims (..., nz, ny, nx) take the batched forms
+of K1, K2 and K4 (the reference's non-`t` kernels, chosen there whenever
+`lead != ()`): the spectrum is (..., kp, nz, nx), K3 sees all blocks'
+planes at once, and one unbatched OTF (kp, nz, nx) serves every block.
 
 The walk takes only shapes inside the kernel domain of the reference
 (mxu_fft.py:321-323): x and z multiples of 256, y a multiple of 8 and at
@@ -79,17 +84,26 @@ class MatmulFFT3:
                    for f in (True, False)}
 
     def _fwd(self, x: torch.Tensor, ratio_num=None) -> Pair:
-        """(nz, ny, nx) -> spectrum (kp, Z, X); with `ratio_num` the
-        transform input is ratio_num / max(x, eps), formed inside K1."""
+        """(..., nz, ny, nx) -> spectrum (..., kp, Z, X); with `ratio_num`
+        the transform input is ratio_num / max(x, eps), formed inside K1.
+        A leading batch takes K1's batched form."""
         nz, ny, nx = self.shape
+        lead = tuple(x.shape[:-3])
+        rfft = cuda_fft.rdft_y_fwd
+        if lead:
+            rfft = cuda_fft.rdft_y_fwd_batched
+            x = x.reshape(-1, nz, ny, nx)
         if ratio_num is not None:
-            re, im = cuda_fft.rdft_y_fwd(ratio_num, self._rfwd, den=x)
+            re, im = rfft(ratio_num.reshape(x.shape), self._rfwd, den=x)
         else:
-            re, im = cuda_fft.rdft_y_fwd(x, self._rfwd)
-        re, im = cuda_fft.radix2_stage(re, im, *self._z[True], True, 1)
+            re, im = rfft(x, self._rfwd)
+        re, im = cuda_fft.radix2_stage(re.view(-1, nz, nx),
+                                       im.view(-1, nz, nx), *self._z[True],
+                                       True, 1)
         re, im = cuda_fft.radix2_stage(re.view(-1, nx), im.view(-1, nx),
                                        *self._x[True], True, -1)
-        return re.view(self.kp, nz, nx), im.view(self.kp, nz, nx)
+        shape = lead + (self.kp, nz, nx)
+        return re.view(shape), im.view(shape)
 
     def otf_packed(self, psf_rolled: torch.Tensor) -> Pair:
         """OTF of an origin-centred padded PSF, in the walk's layout."""
@@ -101,14 +115,26 @@ class MatmulFFT3:
         """Circular convolution irfftn(rfftn(x) * OTF) (conj: with the
         conjugate OTF, the adjoint).  With `ratio_num` the transformed
         volume is ratio_num / max(x, eps); with `mul_abs` the output is
-        |mul_abs * conv| — together the fused RL update."""
+        |mul_abs * conv| — together the fused RL update.  x may carry
+        leading batch dims; the OTF is one block's (or as many blocks')."""
         nz, ny, nx = self.shape
         re, im = self._fwd(x, ratio_num)
+        lead = tuple(re.shape[:-3])
         otf_re, otf_im = otf
-        rr, ii = cuda_fft.radix2_stage_inv_otf(
-            re.view(-1, nx), im.view(-1, nx), otf_re.reshape(-1, nx),
-            otf_im.reshape(-1, nx), *self._x[False], conj)
-        rr, ii = cuda_fft.radix2_stage(rr.view(self.kp, nz, nx),
-                                       ii.view(self.kp, nz, nx),
-                                       *self._z[False], False, 1)
-        return cuda_fft.rdft_y_inv(rr, ii, self._rinv, mul=mul_abs)
+        inv_x = (cuda_fft.radix2_stage_inv_otf_batched if lead
+                 else cuda_fft.radix2_stage_inv_otf)
+        rr, ii = inv_x(re.view(-1, nx), im.view(-1, nx),
+                       otf_re.reshape(-1, nx), otf_im.reshape(-1, nx),
+                       *self._x[False], conj)
+        rr, ii = cuda_fft.radix2_stage(rr.view(-1, nz, nx),
+                                       ii.view(-1, nz, nx), *self._z[False],
+                                       False, 1)
+        if not lead:
+            return cuda_fft.rdft_y_inv(rr.view(self.kp, nz, nx),
+                                       ii.view(self.kp, nz, nx), self._rinv,
+                                       mul=mul_abs)
+        spec = (-1, self.kp, nz, nx)
+        out = cuda_fft.rdft_y_inv_batched(
+            rr.view(spec), ii.view(spec), self._rinv,
+            mul=None if mul_abs is None else mul_abs.reshape(-1, nz, ny, nx))
+        return out.view(lead + (nz, ny, nx))

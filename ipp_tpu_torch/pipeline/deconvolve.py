@@ -7,7 +7,9 @@ deconvolve_volume, build_parser and main).
 Blocks are overlap-save: the FFT work shape equals the halo-padded block
 shape, circular wraparound lands in the discarded halo (4x the PSF
 half-extent).  Per block, on the device: u16 upload, optional gaussian
-prefilter, dark subtraction, Richardson-Lucy, crop to the core and u16
+prefilter, dark subtraction, Richardson-Lucy (with `--adaptive-psf` the
+blind-Wiener RL, `richardson_lucy_wiener`, each block from the given
+PSF, as the reference), crop to the core and u16
 quantisation with the block's range (with `--destripe-sigma`: the
 z-destripe of each xz slice through `filter_streaks`, db9, and f32
 bricks, as the reference); then the brick cache (manifest written before
@@ -317,15 +319,16 @@ def _finish(core: torch.Tensor):
     return q, torch.stack([qmin, qmax])
 
 
-def _unsupported(adaptive_psf, mesh) -> None:
-    if adaptive_psf:
-        raise NotImplementedError(
-            "--adaptive-psf needs richardson_lucy_wiener, not yet ported "
-            "(ROADMAP.md queue 1, item 7: remaining deconvolution variants)")
-    if mesh is not None and mesh is not False:
-        raise NotImplementedError(
-            "a multi-GPU mesh is not yet ported (ROADMAP.md queue 1, "
-            "item 13: multi-GPU)")
+def _refuse_mesh(adaptive_psf, mesh) -> None:
+    if mesh is None or mesh is False:
+        return
+    if adaptive_psf:  # the reference's guard (deconvolve.py:460-463)
+        raise ValueError(
+            "adaptive_psf runs the per-block blind-Wiener path and cannot "
+            "combine with an explicit multi-device mesh; pass mesh=None")
+    raise NotImplementedError(
+        "a multi-GPU mesh is not yet ported (ROADMAP.md queue 1, "
+        "item 13: multi-GPU)")
 
 
 def deconvolve_volume(
@@ -357,12 +360,12 @@ def deconvolve_volume(
 ) -> Path:
     """End-to-end volume deconvolution on one device (the LsDeconv CLI
     semantics; the reference's single-device branch).  `batch_blocks` has
-    no effect on one device; `adaptive_psf` and a mesh raise
-    NotImplementedError until their ports land."""
-    from ..ops.deconv import gauss3d, richardson_lucy
+    no effect on one device; a mesh raises NotImplementedError until its
+    port lands (with `adaptive_psf`, ValueError, as the reference)."""
+    from ..ops.deconv import gauss3d, richardson_lucy, richardson_lucy_wiener
     from ..ops.destripe import filter_streaks
 
-    _unsupported(adaptive_psf, mesh)
+    _refuse_mesh(adaptive_psf, mesh)
     dev = resolve_device(device)
     log = log or Logger()
     vol = TiffDirVolume(input_dir)
@@ -452,11 +455,17 @@ def deconvolve_volume(
                     x = gauss3d(x, gaussian_sigma)
                 if dark > 0:
                     x = torch.clamp(x - dark, min=0.0)
-                dec = richardson_lucy(
-                    x, psf_t, niter=niter, lam=lam,
-                    stop_criterion=stop_criterion,
-                    regularize_interval=regularize_interval,
-                    fft_shape=fft_shape, classic=classic_rl)
+                if adaptive_psf:
+                    dec, _ = richardson_lucy_wiener(
+                        x, psf_t, niter=niter, lam=lam,
+                        regularize_interval=regularize_interval,
+                        fft_shape=fft_shape)
+                else:
+                    dec = richardson_lucy(
+                        x, psf_t, niter=niter, lam=lam,
+                        stop_criterion=stop_criterion,
+                        regularize_interval=regularize_interval,
+                        fft_shape=fft_shape, classic=classic_rl)
                 core = _crop(dec, halo, uni)
                 if destripe_sigma:
                     # z-destripe each xz slice of the block's own core
@@ -591,7 +600,8 @@ def build_parser():
                    help="blocks per device batch on a multi-device mesh "
                         "(no effect on one device)")
     p.add_argument("--adaptive-psf", action="store_true",
-                   help="not yet ported: raises NotImplementedError")
+                   help="blind Wiener PSF re-estimation per iteration "
+                        "(reference deconFFT_Wiener)")
     p.add_argument("--cache-drive", "--cache-dir", type=Path, default=None,
                    help="brick cache location (default OUTPUT/bricks)")
     p.add_argument("--start-block", type=int, default=0,
@@ -612,7 +622,6 @@ def main(argv=None) -> int:
     from ..ops.psf import make_psf
 
     args = build_parser().parse_args(argv)
-    _unsupported(args.adaptive_psf, None)
     dev = resolve_device()
     log = Logger()
     psf_xyz, fwhm_xy, fwhm_z = make_psf(

@@ -36,20 +36,23 @@ def psf():
     return np.transpose(p, (2, 1, 0))
 
 
-@pytest.fixture(scope="module")
-def series(tmp_path_factory):
+def _write_series(d, shape):
     """Blurred, Poisson-noised beads as a z-plane u16 TIFF series."""
     from scipy.ndimage import gaussian_filter
 
     rng = np.random.default_rng(11)
-    truth = np.full(VOL, 100.0)
-    idx = tuple(rng.integers(0, s, 60) for s in VOL)
+    truth = np.full(shape, 100.0)
+    idx = tuple(rng.integers(0, s, 60) for s in shape)
     truth[idx] += rng.uniform(20000, 40000, 60)
     vol = rng.poisson(gaussian_filter(truth, (2.5, 1.2, 1.2))).clip(0, 65535)
-    d = tmp_path_factory.mktemp("series")
     for z, plane in enumerate(vol.astype(np.uint16)):
         tio.imwrite(d / f"img_{z:06d}.tif", plane)
     return d
+
+
+@pytest.fixture(scope="module")
+def series(tmp_path_factory):
+    return _write_series(tmp_path_factory.mktemp("series"), VOL)
 
 
 def _read(d):
@@ -186,10 +189,50 @@ def test_destripe_sigma_matches_the_jax_twin(series, psf, tmp_path):
     assert np.load(out_p / "bricks" / "block_00000.npy").dtype == np.float32
 
 
+def test_adaptive_psf_matches_the_jax_twin(psf, tmp_path):
+    """--adaptive-psf: per-block blind-Wiener RL from the optics PSF;
+    output within 1e-3 of full scale of the JAX CLI's.  The PSF estimate
+    depends on the whole padded block, so the volume is one whose work
+    shape both planners agree on (the JAX planner's TPU cost model keeps
+    a 256-wide x axis where the port's takes the tight 224 for VOL).
+    Three iterations: blind PSF re-estimation grows f32 rounding ~10x per
+    iteration (see tests/test_torch_rl_variants.py)."""
+    shape = VOL[:2] + (232,)
+    (tmp_path / "series").mkdir()
+    series = _write_series(tmp_path / "series", shape)
+    work = []
+    for mod in (P, J):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            plans, halo, planned = mod.autosplit(shape, psf.shape,
+                                                 strict_accuracy=True)
+        work.append(mod.fft_work_shape(plans, halo, planned))
+    assert work[0] == work[1]
+    out_p, out_j = tmp_path / "port", tmp_path / "jax"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert P.main(["-i", str(series), "-o", str(out_p), "--niter", "3",
+                       "--adaptive-psf"]) == 0
+        J.deconvolve_volume(series, out_j, psf, niter=3, mesh=False,
+                            adaptive_psf=True)
+    a, b = _read(out_p), _read(out_j)
+    assert a.shape == b.shape == shape and a.dtype == np.uint16
+    diff = np.abs(a.astype(np.int64) - b.astype(np.int64)).max()
+    assert diff <= 1e-3 * 65535, diff
+    plain = tmp_path / "plain"
+    assert P.main(["-i", str(series), "-o", str(plain), "--niter", "3"]) == 0
+    assert not np.array_equal(a, _read(plain))   # the Wiener path ran
+
+
 @pytest.mark.parametrize("flag", [["--adaptive-psf"]])
-def test_unported_flags_fail_loudly(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.main(["-i", str(tmp_path), "-o", str(tmp_path / "o"), *flag])
+def test_unported_flags_fail_loudly(flag, psf, tmp_path):
+    """--adaptive-psf is ported; with a mesh, which is not, it still
+    fails loudly, with the reference's guard."""
+    args = P.build_parser().parse_args(
+        ["-i", str(tmp_path), "-o", str(tmp_path / "o"), *flag])
+    with pytest.raises(ValueError, match="mesh"):
+        P.deconvolve_volume(args.input, args.output, psf, mesh=object(),
+                            adaptive_psf=args.adaptive_psf)
 
 
 def test_a_mesh_fails_loudly(psf, tmp_path):

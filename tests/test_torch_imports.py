@@ -15,7 +15,8 @@ SHARED = {"ipp_tpu", "ipp_tpu.io.tiff", "ipp_tpu.native",
           "ipp_tpu.utils.lagged", "ipp_tpu.utils.log",
           "ipp_tpu.utils.progress", "ipp_tpu.parallel.executor",
           "ipp_tpu.parallel.sandbox", "ipp_tpu.utils.memory",
-          "ipp_tpu.utils.iostat", "ipp_tpu.io.dcimg", "ipp_tpu.io.raw"}
+          "ipp_tpu.utils.iostat", "ipp_tpu.io.dcimg", "ipp_tpu.io.raw",
+          "ipp_tpu.io.nrrd"}
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(

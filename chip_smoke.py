@@ -12,13 +12,14 @@ Phases:
 3. richardson_lucy on one (512,512,512) block (16-voxel halo, 9^3
    gaussian PSF, 10 iterations): the kernel walk against the torch.fft
    route, inner region within rtol=2e-3, atol=2e-1, and exact launch
-   counts (K1 = 2n+1, K2 = 2n, K3 = 6n+2, K4 = 2n);
+   counts (K1 = 2n+1, K2 = 2n, K3 = 6n+2, K4 = 2n, and K7 for the edge
+   taper's six slab blurs);
 4. the deconvolution CLI end to end on a synthetic 512 x 1024 x 1024 u16
    TIFF series (PSF-blurred, Poisson-noised beads from a numpy seed,
    written by a minimal baseline TIFF writer here and read back through
    the port's TiffDirVolume): every block in the kernel domain and routed
-   through the kernels, 512 u16 output planes, beads sharper than in the
-   input, manifest complete;
+   through the kernels (the taper slabs through K7), 512 u16 output
+   planes, beads sharper than in the input, manifest complete;
 5. the DWT kernel K5 against its plain version (strided conv1d) on the
    card: db9 on both axes at the destripe CLI's padded tile batches
    (8, 2688, 2688) and (8, 2304, 2688), coif15 and db3 at (8, 2688, 2688),
@@ -53,18 +54,42 @@ Phases:
 9. the FNT-cube CLI on 8 u16 cubes of 128^3 cut from the phase-4 series
    (written by a minimal raw NRRD writer here), with --destripe (the
    axial destripe through K5) and 10 RL iterations: 8 outputs of the
-   input shape and dtype, K5 launched.
+   input shape and dtype, K5 launched, and exact walk launch counts (the
+   cubes' work shape (136, 136, 136) takes the v1 walk: K7 for RL and
+   the taper);
+10. the v1 walk (work shapes outside the v2 domain): K6 (the inverse
+   radix-2 stage over the last axis) and K7 (the dense complex DFT)
+   against their plain versions at every stage the paths run them: the
+   phase-4 taper slabs, (136, 136, 136) and (256, 1152, 1152), plus K6 at
+   (256, 1024, 264); max |kernel - plain| / max |plain| <= 1e-5; the v1
+   convolve (and the fused RL update) against torch.fft at (256, 1024,
+   264) and (256, 1152, 1152), <= 1e-4 of max, exact launch counts; and
+   richardson_lucy on a (248, 1100, 1100) block (9^3 gaussian PSF, 10
+   iterations, work shape (256, 1152, 1152)) on the walk1 route against
+   the torch.fft route at the same work shape, within 1e-3 of max on the
+   core, exact launch counts.
 
-The script exits non-zero when there is no CUDA device, when the port is
-not beside it, or when any phase fails.  On success its last two lines
-are the kernels' JSON record and {"ok": true, "device": {...}}.  Details
-go to chiprun_out/chip_smoke.json; scratch data to build/chip_smoke/
-(removed at the end).
+Every kernel case records its time, its plain version's, one PyTorch
+library call's that computes the same function (torch.matmul, torch.fft,
+F.conv1d; timed here only, the port never calls it) and its bound: the
+larger of the function's FLOPs over the f32 peak (a matrix product's for
+K1, K2 and K7, an FFT's 5 n log2 n per transform for K3, K4 and K6, the
+taps' for K5) and its bytes (each input read once, each output written
+once) over the HBM rate.  The edge taper's slab blurs take the v1 walk on
+the card, so phases 3, 4, 7 and 9 count their K7 launches too.
+
+Phases 8 and 9 read phase 4's series.  The script exits non-zero when
+there is no CUDA device, when the port is not beside it, or when any
+phase fails.  On success its last two lines are the kernels' JSON record
+and {"ok": true, "device": {...}}.
+Details go to chiprun_out/chip_smoke.json; scratch data to
+build/chip_smoke/ (removed at the end).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import struct
 import subprocess
@@ -91,10 +116,21 @@ BATCHED = {
         "K4b", "ipp_tpu/ops/pallas_fft.py:301 (_fused_stage_otf_call, one "
         "OTF wrapped over the batch)"),
 }
+V1 = {
+    "radix2_stage_inv_last": (
+        "K6", "ipp_tpu/ops/pallas_fft.py:252 (_fused_stage_call, "
+        "forward=False: kernel _stage_inv_kernel :191)"),
+    "cplx_matmul": (
+        "K7", "ipp_tpu/ops/pallas_fft.py:66 (_fused_call via "
+        "fused_cplx_matmul: inline kernel :54)"),
+}
 SOURCE = "ipp_tpu_torch/csrc/fft_walk.cu"
 DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cu",
               "ipp_tpu/ops/pallas_dwt.py:80 (dwt_analysis_pallas, axis -1); "
               "scripts/dwt_ykernel_exp.py:87 (dwt_y_pallas, axis -2)")
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): f32 FMA outside the
+# tensor cores, and HBM3
+F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 NITER = 10
 VOL_SHAPE = (512, 1024, 1024)  # the phase-4 series, z planes x y x x
 N_BEADS = 4000
@@ -134,17 +170,128 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return a.elapsed_time(b) / reps
 
 
+def bound(flops: float, nbytes: float):
+    """(bound ms, "operations" or "bytes"): the least time the card could
+    take for this work, the larger of FLOPs over the f32 peak and bytes
+    over the HBM rate."""
+    t_op, t_mem = flops / F32_FLOPS, nbytes / HBM_BYTES_S
+    return max(t_op, t_mem) * 1e3, ("operations" if t_op >= t_mem
+                                    else "bytes")
+
+
+# The work of one call of each kernel form, (FLOPs, bytes), counted for the
+# function it computes: a product against an arbitrary matrix where the
+# wrapper takes one (K1, K2, K7, as torch.matmul computes it), an FFT's
+# 5 n log2 n FLOPs per complex transform of length n where the function is
+# a DFT along an axis (K3, K4, K6, as torch.fft computes it); each input
+# read once, each output written once.
+
+def work_rdft(vox: int, ny: int, kp: int, extra_streams: int):
+    """K1 / K2 on vox = nz*ny*nx voxels: (2kp x ny) products per column;
+    `extra_streams` more volumes read (the ratio's den, the update's
+    mul)."""
+    cols = vox // ny
+    return (2.0 * 2 * kp * ny * cols,
+            4.0 * (vox * (1 + extra_streams) + 2 * kp * cols + 2 * kp * ny))
+
+
+def work_stage(rows_x_n: int, n: int, otf_elems: int = 0):
+    """K3 / K4 / K6 over rows_x_n complex values along an axis of length
+    n: a length-n DFT of each row at the FFT's count (the kernels do two
+    (n/2)^2 complex products per row instead), and with an OTF its
+    product and its two f32 streams."""
+    m = n // 2
+    return (5.0 * rows_x_n * math.log2(n) + 6.0 * otf_elems,
+            4.0 * (4 * rows_x_n + 2 * 2 * m * m + 2 * otf_elems))
+
+
+def work_cplx(rows: int, k: int, n: int):
+    """K7: three (rows x k) @ (k x n) real products and their sums."""
+    return (2.0 * 3 * rows * k * n + rows * k + 2.0 * rows * n,
+            4.0 * (2 * rows * k + 3 * k * n + 2 * rows * n))
+
+
+def work_dwt(elems: int, taps: int):
+    """K5: one level of two taps-long filters at stride 2 over elems."""
+    return 2.0 * elems * taps, 4.0 * (2 * elems + 2 * taps)
+
+
+def walk_launches(shape, forward: int, inverse: int):
+    """Kernel launches of `forward` transforms and `inverse` transforms
+    (each with its OTF product) at a work shape, on the walk that takes it
+    on the card: v2 inside its domain, v1 outside."""
+    from ipp_tpu_torch.ops.matmul_fft import in_kernel_domain, stage_axes
+
+    if in_kernel_domain(shape):
+        return {"rdft_y_fwd": forward, "radix2_stage": 2 * forward + inverse,
+                "radix2_stage_inv_otf": inverse, "rdft_y_inv": inverse}
+    z, y = stage_axes(shape)
+    dense = (not z) + (not y)
+    return {"radix2_stage": forward * (z + y),
+            "radix2_stage_inv_last": inverse * z,
+            "radix2_stage_inv_otf": inverse * y,
+            "cplx_matmul": (forward + inverse) * dense}
+
+
+def taper_work_shapes(vol_shape, psf_shape, face_slabs: bool = True):
+    """The FFT work shape of every blur ops.deconv.edge_taper_3d runs on a
+    volume: one per face slab (each slab the taper width plus the PSF
+    support deep), or one of the whole volume; each rounded as
+    _fft_conv_same rounds it (edge padding, full convolution, multiples
+    of 8)."""
+    tws = [min(max(8, int(round(p / 2))), s // 2)
+           for p, s in zip(psf_shape, vol_shape)]
+
+    def work(shape):
+        return tuple(-(-(s + 2 * (k // 2) + k - 1) // 8) * 8
+                     for s, k in zip(shape, psf_shape))
+
+    if not face_slabs or any(tw + k > s for tw, k, s in
+                             zip(tws, psf_shape, vol_shape)):
+        return [work(vol_shape)]
+    out = []
+    for d in range(3):
+        slab = list(vol_shape)
+        slab[d] = tws[d] + psf_shape[d]
+        out += [work(slab)] * 2
+    return out
+
+
+def add_launches(want, *counts):
+    for c in counts:
+        for k, v in c.items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def taper_launches(vol_shape, psf_shape, face_slabs: bool = True):
+    """Launches of one edge taper on the card: an OTF and a convolve per
+    blur."""
+    return add_launches({}, *(walk_launches(s, 2, 1) for s in
+                              taper_work_shapes(vol_shape, psf_shape,
+                                                face_slabs)))
+
+
+def rl_launches(fft_shape, niter: int):
+    """Launches of richardson_lucy's loop on the walk: the OTF, then two
+    convolves per iteration."""
+    return walk_launches(fft_shape, 1 + 2 * niter, 2 * niter)
+
+
 # -- phase 2 -----------------------------------------------------------------
 
 def kernel_cases(torch, plan, rng, dev):
-    """(kernel, variant, kernel_fn, plain_fn) for every variant on the
-    walk, at this plan's work shape."""
+    """(kernel, variant, kernel_fn, plain_fn, library_fn, work) for every
+    variant on the walk, at this plan's work shape; library_fn is one
+    PyTorch call of the same function (the kernel's fused prologue or
+    epilogue aside)."""
     import numpy as np
 
     from ipp_tpu_torch.ops import cuda_fft as cf
 
     nz, ny, nx = plan.shape
     kp = plan.kp
+    vox = nz * ny * nx
 
     def t(*shape, lo=0.0, hi=1.0):
         a = rng.random(shape, dtype=np.float32) * (hi - lo) + lo
@@ -156,33 +303,48 @@ def kernel_cases(torch, plan, rng, dev):
     fz, iz = plan._z[True], plan._z[False]
     fx, ix = plan._x[True], plan._x[False]
     r2, i2 = sr.view(-1, nx), si.view(-1, nx)
+    both = torch.cat([sr, si], 0).transpose(0, 1).contiguous()  # (nz, 2kp, nx)
+    c = torch.complex(sr, si)
+    c2 = c.view(-1, nx)
+    spec = kp * nz * nx
     return [
         ("rdft_y_fwd", "plain", lambda: cf.rdft_y_fwd(x, plan._rfwd),
-         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd)),
+         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd),
+         lambda: torch.matmul(plan._rfwd, x), work_rdft(vox, ny, kp, 0)),
         ("rdft_y_fwd", "ratio", lambda: cf.rdft_y_fwd(x, plan._rfwd, den),
-         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd, den)),
+         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd, den),
+         lambda: torch.matmul(plan._rfwd, x), work_rdft(vox, ny, kp, 1)),
         ("rdft_y_inv", "plain", lambda: cf.rdft_y_inv(sr, si, plan._rinv),
-         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv)),
+         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv),
+         lambda: torch.matmul(plan._rinv, both), work_rdft(vox, ny, kp, 0)),
         ("rdft_y_inv", "mul", lambda: cf.rdft_y_inv(sr, si, plan._rinv, mul),
-         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv, mul)),
+         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv, mul),
+         lambda: torch.matmul(plan._rinv, both), work_rdft(vox, ny, kp, 1)),
         ("radix2_stage", "fwd_z", lambda: cf.radix2_stage(sr, si, *fz, True, 1),
-         lambda: cf.radix2_stage_plain(sr, si, *fz, True, 1)),
+         lambda: cf.radix2_stage_plain(sr, si, *fz, True, 1),
+         lambda: torch.fft.fft(c, dim=1), work_stage(spec, nz)),
         ("radix2_stage", "fwd_x", lambda: cf.radix2_stage(r2, i2, *fx, True, -1),
-         lambda: cf.radix2_stage_plain(r2, i2, *fx, True, -1)),
+         lambda: cf.radix2_stage_plain(r2, i2, *fx, True, -1),
+         lambda: torch.fft.fft(c2, dim=-1), work_stage(spec, nx)),
         ("radix2_stage", "inv_z", lambda: cf.radix2_stage(sr, si, *iz, False, 1),
-         lambda: cf.radix2_stage_plain(sr, si, *iz, False, 1)),
+         lambda: cf.radix2_stage_plain(sr, si, *iz, False, 1),
+         lambda: torch.fft.ifft(c, dim=1), work_stage(spec, nz)),
         ("radix2_stage_inv_otf", "otf",
          lambda: cf.radix2_stage_inv_otf(r2, i2, or_, oi, *ix, False),
-         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, False)),
+         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, False),
+         lambda: torch.fft.ifft(c2, dim=-1), work_stage(spec, nx, spec)),
         ("radix2_stage_inv_otf", "conj",
          lambda: cf.radix2_stage_inv_otf(r2, i2, or_, oi, *ix, True),
-         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, True)),
+         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, True),
+         lambda: torch.fft.ifft(c2, dim=-1), work_stage(spec, nx, spec)),
     ]
 
 
-def check_case(torch, tag, name, variant, shape, kfn, pfn, reps, rows, bad):
+def check_case(torch, tag, name, variant, shape, kfn, pfn, lfn, work, reps,
+               rows, bad):
     """One kernel against its plain version on the same inputs: max
-    |kernel - plain| / max |plain| <= 1e-5, then both timed."""
+    |kernel - plain| / max |plain| <= 1e-5; then the kernel, the plain
+    version and the library call timed, and the kernel's bound."""
     got, ref = kfn(), pfn()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -192,12 +354,16 @@ def check_case(torch, tag, name, variant, shape, kfn, pfn, reps, rows, bad):
     rel = abs_err / max(scale, 1e-30)
     del got, ref
     ms, plain_ms = time_ms(torch, kfn, reps), time_ms(torch, pfn, reps)
+    lib_ms = time_ms(torch, lfn, reps) if lfn is not None else None
+    bound_ms, bound_by = bound(*work)
     rows.append(dict(kernel=name, variant=variant, shape=list(shape),
                      max_abs_err=abs_err, rel_err=rel, ms=ms,
-                     plain_ms=plain_ms))
+                     plain_ms=plain_ms, library_ms=lib_ms, flops=work[0],
+                     bytes=work[1], bound_ms=bound_ms, bound_by=bound_by))
+    lib = "—" if lib_ms is None else f"{lib_ms:9.3f}"
     say(f"  {tag} {name:<28s} {variant:<6s} {str(shape):<20s} rel "
         f"{rel:.2e} abs {abs_err:.2e}  kernel {ms:9.3f} ms  plain "
-        f"{plain_ms:9.3f} ms")
+        f"{plain_ms:9.3f}  library {lib}  bound {bound_ms:8.3f} ({bound_by})")
     if not rel <= 1e-5:
         bad.append(f"{name}/{variant} at {shape}: rel {rel:.3e}")
 
@@ -211,9 +377,11 @@ def phase_kernels(torch, dev, shapes, record):
     rows, bad = [], []
     for shape in shapes:
         plan = MatmulFFT3(shape, dev)
-        for name, variant, kfn, pfn in kernel_cases(torch, plan, rng, dev):
+        for name, variant, kfn, pfn, lfn, work in kernel_cases(torch, plan,
+                                                                rng, dev):
             check_case(torch, KERNELS[name][0], name, variant, shape, kfn,
-                       pfn, 3 if np.prod(shape) > 2 ** 27 else 5, rows, bad)
+                       pfn, lfn, work, 3 if np.prod(shape) > 2 ** 27 else 5,
+                       rows, bad)
         del plan
         torch.cuda.empty_cache()
     record["kernels"] = rows
@@ -246,12 +414,15 @@ def phase_rl_block(torch, dev, record):
     cf.reset_launch_counts()
     walk, t_walk0 = run(None)
     counts = dict(cf.LAUNCHES)
-    want = {k: 0 for k in counts}   # the batched forms: none
-    want.update(rdft_y_fwd=2 * NITER + 1, rdft_y_inv=2 * NITER,
-                radix2_stage=6 * NITER + 2, radix2_stage_inv_otf=2 * NITER)
+    # the RL loop on the v2 walk (K1 2n+1, K2 2n, K3 6n+2, K4 2n) and the
+    # edge taper's six slab blurs on the v1 walk (K7); no batched form
+    want = add_launches({k: 0 for k in counts}, rl_launches(shape, NITER),
+                        taper_launches(shape, psf.shape))
     fft, t_fft0 = run("fft")
-    _, t_walk = run(None)
-    _, t_fft = run("fft")
+    # warm times: the better of two runs each (a single ~0.11 s torch.fft
+    # run now and then takes ~0.16 s)
+    t_walk = min(run(None)[1] for _ in range(2))
+    t_fft = min(run("fft")[1] for _ in range(2))
     inner = (slice(halo, -halo),) * 3
     a, b = walk[inner], fft[inner]
     excess = float(((a - b).abs() - (0.2 + 2e-3 * b.abs())).max())
@@ -366,8 +537,8 @@ def phase_cli(torch, dev, psf_zyx, record, shared):
     plans, halo, planned = pdc.autosplit(vol_shape, psf_zyx.shape,
                                          strict_accuracy=True,
                                          kernel_domain=True)
-    fft_shape = pdc._fft_shape_for_backend(
-        pdc.fft_work_shape(plans, halo, planned))
+    uni = pdc.fft_work_shape(plans, halo, planned)
+    fft_shape = pdc._fft_shape_for_backend(uni, dev)
     nb = len(plans)
     say(f"  input {vol_shape} u16 written in {t_data:.1f} s; plan: {nb} "
         f"blocks, halo {halo}, work shape {fft_shape}")
@@ -387,11 +558,14 @@ def phase_cli(torch, dev, psf_zyx, record, shared):
         core_mvox_s=vox / wall / 1e6, launches=counts,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
     say(f"  CLI rc {rc}: {nb} blocks in {wall:.1f} s, "
-        f"{vox / wall / 1e6:.2f} core Mvox/s; launches {counts}")
-    want = {k: 0 for k in counts}   # one block at a time: no batched form
-    want.update(rdft_y_fwd=nb * (2 * NITER + 1), rdft_y_inv=nb * 2 * NITER,
-                radix2_stage=nb * (6 * NITER + 2),
-                radix2_stage_inv_otf=nb * 2 * NITER)
+        f"{vox / wall / 1e6:.2f} core Mvox/s; launches {counts}; K7 (the "
+        f"taper slabs {sorted(set(taper_work_shapes(uni, psf_zyx.shape)))} "
+        f"on the v1 walk) {counts['cplx_matmul']}")
+    # per block: RL on the v2 walk and the taper's slab blurs on the v1
+    # walk; one block at a time, so no batched form
+    per_block = add_launches({}, rl_launches(fft_shape, NITER),
+                             taper_launches(uni, psf_zyx.shape))
+    want = {k: nb * per_block.get(k, 0) for k in counts}
     if rc != 0 or counts != want:
         raise AssertionError(f"not every block ran the kernel walk: "
                              f"{counts} != {want}")
@@ -445,6 +619,8 @@ def phase_dwt(torch, dev, record):
             if shape == DWT_MAIN_SHAPE:
                 x_main = x
         taps = wv.filter_taps(name, dev)
+        L = int(taps.shape[1])
+        lfn = None   # one level of three calls has no single library call
         if axis == "level":   # one 2D level of wavedec2: x, then y twice
             def kfn():
                 a1, d1 = cd.dwt_analysis(x, taps, -1)
@@ -455,24 +631,43 @@ def phase_dwt(torch, dev, record):
                 a1, d1 = cd.dwt_analysis_plain(x, taps, -1)
                 return cd.dwt_analysis_plain(a1, taps, -2) + \
                     cd.dwt_analysis_plain(d1, taps, -2)
+            f1, b1 = work_dwt(x.numel(), L)
+            work = (2 * f1, 2 * b1)   # x once, then both halves along y
         else:
             def kfn():
                 return cd.dwt_analysis(x, taps, axis)
 
             def pfn():
                 return cd.dwt_analysis_plain(x, taps, axis)
+            # the library call: one strided F.conv1d of both filters over
+            # the circular extension along the axis, built beforehand
+            rows_ = x if axis == -1 else x.transpose(-1, -2)
+            n = rows_.shape[-1]
+            ext = torch.cat([rows_] * (1 + -(-L // n)), -1)[..., :n + L]
+            ext = ext.reshape(-1, 1, n + L).contiguous()
+            w = taps.unsqueeze(1)
+
+            def lfn():
+                return torch.nn.functional.conv1d(ext, w, stride=2)
+            work = work_dwt(x.numel(), L)
         got, ref = kfn(), pfn()
         torch.cuda.synchronize()
         abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         scale = max(float(r.abs().max()) for r in ref)
         rel = abs_err / max(scale, 1e-30)
         ms, plain_ms = time_ms(torch, kfn, 10), time_ms(torch, pfn, 10)
+        lib_ms = time_ms(torch, lfn, 10) if lfn is not None else None
+        bound_ms, bound_by = bound(*work)
         rows.append(dict(wavelet=name, shape=list(shape), axis=axis,
-                         taps=int(taps.shape[1]), max_abs_err=abs_err,
-                         rel_err=rel, ms=ms, plain_ms=plain_ms))
+                         taps=L, max_abs_err=abs_err,
+                         rel_err=rel, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        lib = "—" if lib_ms is None else f"{lib_ms:8.3f}"
         say(f"  K5 dwt_analysis {name:<6s} {str(shape):<16s} axis "
             f"{str(axis):<5s} rel {rel:.2e} abs {abs_err:.2e}  kernel "
-            f"{ms:8.3f} ms  plain {plain_ms:8.3f} ms")
+            f"{ms:8.3f} ms  plain {plain_ms:8.3f}  library {lib}  bound "
+            f"{bound_ms:7.3f} ({bound_by})")
         if not rel <= 1e-5:
             bad.append(f"{name} {shape} axis {axis}: rel {rel:.3e}")
         del got, ref
@@ -672,12 +867,13 @@ def phase_destripe_cli(torch, dev, record):
 # -- phase 7 -----------------------------------------------------------------
 
 def batched_cases(torch, plan, nb, gen, dev):
-    """(kernel, variant, kernel_fn, plain_fn) for every batched form at
-    this plan's work shape and nb blocks."""
+    """(kernel, variant, kernel_fn, plain_fn, library_fn, work) for every
+    batched form at this plan's work shape and nb blocks."""
     from ipp_tpu_torch.ops import cuda_fft as cf
 
     nz, ny, nx = plan.shape
     kp = plan.kp
+    vox, spec = nb * nz * ny * nx, nb * kp * nz * nx
 
     def t(*shape, lo=0.0, hi=1.0):
         return (torch.rand(shape, generator=gen, device=dev) * (hi - lo)
@@ -689,25 +885,34 @@ def batched_cases(torch, plan, nb, gen, dev):
     or_, oi = t(kp * nz, nx, lo=-1), t(kp * nz, nx, lo=-1)
     r2, i2 = sr.view(-1, nx), si.view(-1, nx)
     ix = plan._x[False]
+    both = torch.cat([sr, si], 1).transpose(1, 2).contiguous()
+    c2 = torch.complex(r2, i2)
+    otf = kp * nz * nx
     return [
         ("rdft_y_fwd_batched", "plain",
          lambda: cf.rdft_y_fwd_batched(x, plan._rfwd),
-         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd)),
+         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd),
+         lambda: torch.matmul(plan._rfwd, x), work_rdft(vox, ny, kp, 0)),
         ("rdft_y_fwd_batched", "ratio",
          lambda: cf.rdft_y_fwd_batched(x, plan._rfwd, den),
-         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd, den)),
+         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd, den),
+         lambda: torch.matmul(plan._rfwd, x), work_rdft(vox, ny, kp, 1)),
         ("rdft_y_inv_batched", "plain",
          lambda: cf.rdft_y_inv_batched(sr, si, plan._rinv),
-         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv)),
+         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv),
+         lambda: torch.matmul(plan._rinv, both), work_rdft(vox, ny, kp, 0)),
         ("rdft_y_inv_batched", "mul",
          lambda: cf.rdft_y_inv_batched(sr, si, plan._rinv, mul),
-         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv, mul)),
+         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv, mul),
+         lambda: torch.matmul(plan._rinv, both), work_rdft(vox, ny, kp, 1)),
         ("radix2_stage_inv_otf_batched", "otf",
          lambda: cf.radix2_stage_inv_otf_batched(r2, i2, or_, oi, *ix, False),
-         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, False)),
+         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, False),
+         lambda: torch.fft.ifft(c2, dim=-1), work_stage(spec, nx, otf)),
         ("radix2_stage_inv_otf_batched", "conj",
          lambda: cf.radix2_stage_inv_otf_batched(r2, i2, or_, oi, *ix, True),
-         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, True)),
+         lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, True),
+         lambda: torch.fft.ifft(c2, dim=-1), work_stage(spec, nx, otf)),
     ]
 
 
@@ -750,10 +955,10 @@ def phase_batched(torch, dev, shape, record):
     for bshape in [(4,) + tuple(shape), (1, 512, 512, 512)]:
         nb = bshape[0]
         plan = MatmulFFT3(bshape[1:], dev)
-        for name, variant, kfn, pfn in batched_cases(torch, plan, nb, gen,
-                                                      dev):
+        for name, variant, kfn, pfn, lfn, work in batched_cases(
+                torch, plan, nb, gen, dev):
             check_case(torch, BATCHED[name][0], name, variant, bshape, kfn,
-                       pfn, 3, rows, bad)
+                       pfn, lfn, work, 3, rows, bad)
         del plan
         torch.cuda.empty_cache()
     record["batched_kernels"] = rows
@@ -782,6 +987,8 @@ def phase_batched(torch, dev, shape, record):
     want.update(rdft_y_fwd=1, radix2_stage=6 * NITER + 2,
                 rdft_y_fwd_batched=2 * NITER, rdft_y_inv_batched=2 * NITER,
                 radix2_stage_inv_otf_batched=2 * NITER)
+    # each block's full-volume taper blur, on the v1 walk
+    add_launches(want, *[taper_launches(shape, psf.shape, False)] * nb)
     fft, t_fft = run(lambda: richardson_lucy_batched(
         vols, psf, niter=NITER, fft_shape=shape, route="fft"))
     inner = (slice(None),) + (slice(halo, -halo),) * 3
@@ -963,7 +1170,10 @@ def phase_fnt(torch, dev, record, shared):
     import numpy as np
 
     from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.deconv import fft_shape_for
     from ipp_tpu_torch.pipeline import fnt_cubes as fnt
+    from ipp_tpu_torch.utils.log import Logger
 
     if "host" not in shared:
         raise AssertionError("phase 4 wrote no series")
@@ -983,20 +1193,35 @@ def phase_fnt(torch, dev, record, shared):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cd.reset_launch_counts()
+    cf.reset_launch_counts()
     t0 = time.perf_counter()
     rc = fnt.main(["-i", str(src), "-o", str(dst), "--destripe",
                    "--niter", str(NITER)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k5 = cd.LAUNCHES["dwt_analysis"]
+    walk = dict(cf.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    # per cube: RL at the cube's work shape and the face-slab taper, with
+    # the PSF the CLI builds from its default optics
+    a = fnt.build_parser().parse_args(["-i", str(src), "-o", str(dst)])
+    psf_shape = fnt._load_psf(
+        None, tuple(a.voxel), a.na, a.nimm, a.wavelength_ex,
+        a.wavelength_em, a.f_cylinder_lens, a.slit_width, False,
+        Logger()).shape
+    cube = (e, e, e)
+    want = add_launches({k: 0 for k in walk}, *[
+        rl_launches(fft_shape_for(cube, psf_shape, dev), NITER),
+        taper_launches(cube, psf_shape)] * FNT_CUBES)
     vox = FNT_CUBES * e ** 3
     rec = record["fnt_cli"] = dict(
         rc=rc, cubes=FNT_CUBES, edge=e, wall_s=wall, mvox_s=vox / wall / 1e6,
-        k5_launches=k5, peak_mem_bytes=peak, card=card_line())
+        k5_launches=k5, launches=walk, want_launches=want,
+        psf_shape=list(psf_shape), peak_mem_bytes=peak, card=card_line())
     say(f"  FNT CLI rc {rc}: {FNT_CUBES} cubes of {e}^3 u16 in {wall:.2f} s, "
         f"{vox / wall / 1e6:.2f} Mvox/s ({rec['card']}); K5 launches {k5}; "
-        f"peak {peak}")
+        f"K7 launches {walk['cplx_matmul']} (v1 walk); walk launches "
+        f"{walk}; peak {peak}")
     outs = sorted(dst.glob("*.nrrd"))
     if rc != 0 or len(outs) != FNT_CUBES:
         raise AssertionError(f"rc {rc}, {len(outs)} output cubes")
@@ -1009,9 +1234,206 @@ def phase_fnt(torch, dev, record, shared):
     rec["changed"] = changed
     if k5 < 1:
         raise AssertionError("K5 never launched: no axial destripe ran")
+    if walk != want:
+        raise AssertionError(f"walk launches {walk} != {want}")
     if changed != FNT_CUBES:
         raise AssertionError(f"only {changed} cubes differ from the input")
     shutil.rmtree(work, ignore_errors=True)
+
+
+# -- phase 10 ----------------------------------------------------------------
+
+V1_CONV_SHAPES = [(256, 1024, 264), (256, 1152, 1152)]
+V1_RL_BLOCK = (248, 1100, 1100)   # plans to the work shape (256, 1152, 1152)
+
+
+def v1_stage_cases(torch, plan, gen, dev, seen):
+    """(kernel, variant, (rows, n), kernel_fn, plain_fn, library_fn, work)
+    for every stage of the v1 walk at this plan's work shape that runs K3
+    (forward, radix-2 axes), K6 (the inverse over a radix-2 z) or K7 (the
+    dense axes, both directions), each (kernel, rows, n, direction) once
+    over the calls that share `seen`.  The operand is the stage's (rows, n)
+    data: z runs over (y, kxp, z), y over (Z, kxp, y).  The inverse over a
+    radix-2 y is K4, with the OTF product (phases 2 and 3)."""
+    from ipp_tpu_torch.ops import cuda_fft as cf
+
+    nz, ny, _ = plan.shape
+    for axis, n, rows in (("z", nz, ny * plan.kxp), ("y", ny, nz * plan.kxp)):
+        for forward in (True, False):
+            radix = plan._radix.get((axis, forward))
+            if radix is None:
+                name = "cplx_matmul"
+            elif forward:
+                name = "radix2_stage"
+            elif axis == "z":
+                name = "radix2_stage_inv_last"
+            else:
+                continue
+            if (name, rows, n, forward) in seen:
+                continue
+            seen.add((name, rows, n, forward))
+            re = torch.rand((rows, n), generator=gen, device=dev) - 0.5
+            im = torch.rand((rows, n), generator=gen, device=dev) - 0.5
+            c = torch.complex(re, im)
+            variant = (f"{axis} {'fwd' if forward else 'inv'} of "
+                       f"{tuple(plan.shape)}")
+            if radix is None:
+                mats = plan._dense[axis, forward]
+                cm = torch.complex(mats[0], mats[1])
+                yield (name, variant, (rows, n),
+                       lambda: cf.cplx_matmul(re, im, *mats),
+                       lambda: cf.cplx_matmul_plain(re, im, *mats),
+                       lambda: torch.matmul(c, cm), work_cplx(rows, n, n))
+            else:
+                lib = torch.fft.fft if forward else torch.fft.ifft
+                yield (name, variant, (rows, n),
+                       lambda: cf.radix2_stage(re, im, *radix, forward, -1),
+                       lambda: cf.radix2_stage_plain(re, im, *radix, forward,
+                                                     -1),
+                       lambda: lib(c, dim=-1), work_stage(rows * n, n))
+
+
+def rel_max(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_v1(torch, dev, slab_shapes, record):
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.deconv import (_rolled_psf, conv_route,
+                                          fft_shape_for, richardson_lucy)
+    from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
+    from ipp_tpu_torch.ops.psf import gaussian_psf
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    psf = torch.from_numpy(gaussian_psf((9, 9, 9), (2.0, 2.0, 2.0))).to(dev)
+    rl_shape = fft_shape_for(V1_RL_BLOCK, psf.shape, dev)
+    rows, bad, seen = [], [], set()
+    tags = {**KERNELS, **V1}
+    for shape in (list(dict.fromkeys(slab_shapes)) + [(136, 136, 136)]
+                  + V1_CONV_SHAPES[::-1]):
+        plan = MatmulFFT3(shape, dev)
+        for name, variant, op, kfn, pfn, lfn, work in v1_stage_cases(
+                torch, plan, gen, dev, seen):
+            check_case(torch, tags[name][0], name, variant, op, kfn, pfn,
+                       lfn, work, 3 if op[0] * op[1] > 2 ** 26 else 5, rows,
+                       bad)
+            rows[-1]["work_shape"] = list(shape)
+        del plan
+        torch.cuda.empty_cache()
+    rec = record["v1"] = dict(kernels=rows, rl_shape=list(rl_shape))
+    if bad:
+        raise AssertionError("v1 kernel != plain: " + "; ".join(bad))
+
+    # the v1 convolve (plain and the fused RL update) against torch.fft,
+    # with a gaussian PSF as the RL convolver builds it
+    eps = float(np.finfo(np.float32).eps)
+    convs = []
+    for shape in V1_CONV_SHAPES:
+        if conv_route(shape, dev) != "walk1":
+            raise AssertionError(f"{shape} does not take the v1 walk")
+        plan = MatmulFFT3(shape, dev)
+        x = torch.rand(shape, generator=gen, device=dev) * 100 + 1
+        num = torch.rand(shape, generator=gen, device=dev) * 100 + 1
+        mul = torch.rand(shape, generator=gen, device=dev)
+        k = _rolled_psf(psf / psf.sum(), shape).contiguous()
+        cf.reset_launch_counts()
+        otf = plan.otf_packed(k)
+        got = plan.convolve(x, otf)
+        torch.cuda.synchronize()
+        counts = dict(cf.LAUNCHES)
+        want = add_launches({n: 0 for n in counts}, walk_launches(shape, 2, 1))
+        fk = torch.fft.rfftn(k)
+        ref = torch.fft.irfftn(torch.fft.rfftn(x) * fk, s=shape)
+        rel = rel_max(got, ref)
+        del got, ref
+        got = plan.convolve(x, otf, conj=True, ratio_num=num, mul_abs=mul)
+        ref = torch.abs(mul * torch.fft.irfftn(
+            torch.fft.rfftn(num / torch.clamp(x, min=eps)) * torch.conj(fk),
+            s=shape))
+        rel_u = rel_max(got, ref)
+        del got, ref
+        ms = time_ms(torch, lambda: plan.convolve(x, otf), 3)
+        fft_ms = time_ms(torch, lambda: torch.fft.irfftn(
+            torch.fft.rfftn(x) * fk, s=shape), 3)
+        x_ms = None
+        if tuple(shape) == tuple(rl_shape):   # the x axis as a plain matmul
+            both = torch.matmul(x, plan._fx)
+            x_ms = [time_ms(torch, lambda: torch.matmul(x, plan._fx), 3),
+                    time_ms(torch, lambda: torch.matmul(both, plan._ix), 3)]
+            del both
+        convs.append(dict(shape=list(shape), rel=rel, rel_update=rel_u,
+                          launches=counts, ms=ms, fft_ms=fft_ms,
+                          x_matmul_ms=x_ms))
+        say(f"  v1 convolve {shape}: vs torch.fft rel {rel:.2e}, fused "
+            f"update rel {rel_u:.2e}; {ms:.2f} ms vs torch.fft {fft_ms:.2f} "
+            f"ms; launches {counts}" + (f"; x matmuls {x_ms[0]:.2f} / "
+                                        f"{x_ms[1]:.2f} ms" if x_ms else ""))
+        if counts != want:
+            bad.append(f"convolve {shape}: launches {counts} != {want}")
+        if not (rel <= 1e-4 and rel_u <= 1e-4):
+            bad.append(f"convolve {shape}: rel {rel:.3e} / {rel_u:.3e}")
+        del plan, x, num, mul, k, otf, fk
+        torch.cuda.empty_cache()
+    rec["convolve"] = convs
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+    # richardson_lucy on a block whose work shape leaves the v2 domain:
+    # walk1 (the default on the card) against torch.fft at the same shape
+    block = torch.rand(V1_RL_BLOCK, generator=gen, device=dev) * 1000
+    if conv_route(rl_shape, dev) != "walk1":
+        raise AssertionError(f"{rl_shape} does not take the v1 walk")
+
+    def run(route):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = richardson_lucy(block, psf, niter=NITER, fft_shape=rl_shape,
+                              route=route)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    cf.reset_launch_counts()
+    walk, t_walk0 = run(None)
+    counts = dict(cf.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = add_launches({n: 0 for n in counts}, rl_launches(rl_shape, NITER),
+                        taper_launches(V1_RL_BLOCK, psf.shape))
+    fft, t_fft0 = run("fft")
+    _, t_walk = run(None)
+    _, t_fft = run("fft")
+    halo = 16
+    inner = (slice(halo, -halo),) * 3
+    rel = rel_max(walk[inner], fft[inner])
+    finite = bool(torch.isfinite(walk).all())
+    del walk, fft, block
+    torch.cuda.empty_cache()
+    core = float(np.prod([s - 2 * halo for s in V1_RL_BLOCK]))
+    # the kernels' share: launches x the per-call times measured above
+    per_call = {(r["kernel"], r["variant"].split(" of ")[0]): r["ms"]
+                for r in rows if r["work_shape"] == list(rl_shape)}
+    rec["rl"] = dict(
+        block=list(V1_RL_BLOCK), work_shape=list(rl_shape), niter=NITER,
+        launches=counts, want_launches=want, walk_s=t_walk, fft_s=t_fft,
+        walk_first_s=t_walk0, fft_first_s=t_fft0,
+        walk_core_mvox_s=core / t_walk / 1e6,
+        fft_core_mvox_s=core / t_fft / 1e6, max_rel_diff=rel,
+        per_call_ms={" ".join(k): v for k, v in per_call.items()},
+        peak_mem_bytes=peak)
+    say(f"  RL {V1_RL_BLOCK} at {tuple(rl_shape)}: launches {counts}")
+    say(f"  walk1 {t_walk:.3f} s/block ({core / t_walk / 1e6:.1f} core "
+        f"Mvox/s), torch.fft {t_fft:.3f} s/block ({core / t_fft / 1e6:.1f}); "
+        f"{t_walk / t_fft:.1f}x; max |walk1-fft|/max|fft| on the core "
+        f"{rel:.2e}; per-call ms at the work shape {rec['rl']['per_call_ms']}"
+        f"; peak {peak}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    if not finite or not rel <= 1e-3:
+        raise AssertionError(f"walk1 RL vs torch.fft rel {rel:.3e} "
+                             f"(finite {finite})")
 
 
 # -- main ---------------------------------------------------------------------
@@ -1072,7 +1494,7 @@ def main() -> int:
                                          strict_accuracy=True,
                                          kernel_domain=True)
     cli_shape = pdc._fft_shape_for_backend(
-        pdc.fft_work_shape(plans, halo, planned))
+        pdc.fft_work_shape(plans, halo, planned), dev)
     shapes = [(256, 256, 256), (512, 512, 512), (768, 256, 768)]
     if tuple(cli_shape) not in shapes:
         shapes.append(tuple(cli_shape))
@@ -1093,6 +1515,9 @@ def main() -> int:
           torch, dev, record, shared)
     phase(9, f"FNT-cube CLI on {FNT_CUBES} u16 cubes of {FNT_CUBE}^3",
           phase_fnt, torch, dev, record, shared)
+    phase(10, f"the v1 walk: K6 and K7 vs plain, the v1 convolve, "
+          f"richardson_lucy on a {V1_RL_BLOCK} block", phase_v1, torch, dev,
+          taper_work_shapes(cli_shape, psf.shape), record)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
     peaks = {k: v["peak_mem_bytes"] for k, v in record.items()
              if isinstance(v, dict) and "peak_mem_bytes" in v}
@@ -1109,35 +1534,47 @@ def main() -> int:
         say(f"FAIL: phases {failed}")
         return 1
     main_shape = list(cli_shape)
+
+    def entry(tag, name, source, replaces, launches, rows, at):
+        return dict(
+            name=f"{tag} {name}", route="cuda", source=source,
+            replaces=replaces, launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=at["ms"],
+            plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+            bound_by=at["bound_by"], library_ms=at["library_ms"])
+
     kernels = []
     for name, (tag, replaces) in KERNELS.items():
         rows = [r for r in record["kernels"] if r["kernel"] == name]
         at = [r for r in rows if r["shape"] == main_shape][0]
-        kernels.append(dict(
-            name=f"{tag} {name}", route="cuda", source=SOURCE,
-            replaces=replaces, launches=record["cli"]["launches"][name],
-            max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=at["ms"], plain_ms=at["plain_ms"]))
+        kernels.append(entry(tag, name, SOURCE, replaces,
+                             record["cli"]["launches"][name], rows, at))
     for name, (tag, replaces) in BATCHED.items():
         rows = [r for r in record["batched_kernels"] if r["kernel"] == name]
         at = [r for r in rows if r["shape"] == [4] + main_shape][0]
-        kernels.append(dict(
-            name=f"{tag} {name}", route="cuda", source=SOURCE,
-            replaces=replaces,
-            launches=record["batched_rl"]["launches"][name],
-            max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=at["ms"], plain_ms=at["plain_ms"]))
-    main = [r for r in record["dwt"]
-            if r["axis"] == "level" and r["shape"] == list(DWT_MAIN_SHAPE)][0]
-    kernels.append(dict(
-        name=DWT_KERNEL[0], route="cuda", source=DWT_KERNEL[1],
-        replaces=DWT_KERNEL[2],
-        launches=record["destripe_cli"]["launches"]["dwt_analysis"],
-        max_abs_err=max(r["max_abs_err"] for r in record["dwt"]),
-        ms=main["ms"], plain_ms=main["plain_ms"]))
+        kernels.append(entry(tag, name, SOURCE, replaces,
+                             record["batched_rl"]["launches"][name], rows,
+                             at))
+    # K5 at the destripe CLI's padded tile batch, along x (one launch)
+    at = [r for r in record["dwt"] if r["axis"] == -1 and r["wavelet"] == "db9"
+          and r["shape"] == list(DWT_MAIN_SHAPE)][0]
+    tag, name = DWT_KERNEL[0].split()
+    kernels.append(entry(tag, name, DWT_KERNEL[1], DWT_KERNEL[2],
+                         record["destripe_cli"]["launches"]["dwt_analysis"],
+                         record["dwt"], at))
+    # K6 and K7 at the v1 RL block's work shape (K6: the inverse z stage,
+    # K7: the forward y stage), launches from that RL run
+    v1 = record["v1"]
+    rl_shape = v1["rl_shape"]
+    for name, (tag, replaces) in V1.items():
+        rows = [r for r in v1["kernels"] if r["kernel"] == name]
+        at = [r for r in rows if r["work_shape"] == rl_shape][0]
+        kernels.append(entry(tag, name, SOURCE, replaces,
+                             v1["rl"]["launches"][name], rows, at))
     if any(k["launches"] == 0 for k in kernels):
         say("FAIL: a kernel of the path was never launched")
         return 1
+    say(f"card: {card_line()}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,42 +2,31 @@
 
 The JAX package `ipp_tpu` stays the reference: every port function here is
 held against its `ipp_tpu` twin in `tests/test_torch_*.py`.  This package
-imports `torch` and never `jax`.  Host code that imports no jax is shared
-with the reference as it is (`ipp_tpu.io.tiff`, `ipp_tpu.io.dcimg`,
-`ipp_tpu.io.raw`, `ipp_tpu.io.nrrd`, `ipp_tpu.native`, `ipp_tpu.parallel.executor`,
-`ipp_tpu.parallel.sandbox`, `ipp_tpu.utils.iostat`, `ipp_tpu.utils.lagged`,
-`ipp_tpu.utils.log`, `ipp_tpu.utils.memory`, `ipp_tpu.utils.progress`).
+imports `torch` and never `jax`, and nothing of `ipp_tpu`: host code it
+needs from the reference is copied, keeping the reference's layout and
+names (`io/tiff.py`, `io/dcimg.py`, `io/nrrd.py`, `native/` with
+`fastio.cpp`, `parallel/executor.py`, `parallel/sandbox.py`,
+`utils/iostat.py`, `utils/lagged.py`, `utils/log.py`, `utils/memory.py`,
+`utils/progress.py`; the tests pin each copy to its original).
 
 Layout mirrors `ipp_tpu/`: `ops/` (DFT matrices, the hand-written CUDA
 kernels of the FFT walk and of the DWT and their wrappers,
 Richardson-Lucy, wavelets, destripe, the tile chain), `pipeline/` (the
-deconvolution, FNT-cube and pystripe CLIs), `utils/` (device and precision policy,
-host <-> device transfers), `csrc/` (the CUDA C++ sources, built with
-nvcc on first use).
-"""
+deconvolution, FNT-cube and pystripe CLIs), `io/`, `native/` and
+`parallel/` (host IO), `utils/` (device and precision policy, host <->
+device transfers, logging and progress), `csrc/` (the CUDA C++ sources,
+built with nvcc on first use).
 
-import os as _os
+Every FFT convolution takes one of three routes, chosen from its work
+shape and device before anything launches (`ops.deconv.conv_route`):
+"walk" (the v2 kernel walk, inside its domain, on any device), "walk1"
+(the v1 kernel walk, for every other shape on a CUDA device) and "fft"
+(torch.fft, for other shapes on the CPU).  On CPU tensors the walks run
+their kernels' plain PyTorch versions.
+"""
 
 from .utils.device import apply_precision_policy as _apply_precision_policy
 
 __version__ = "0.1.0"
 
 _apply_precision_policy()
-
-
-def _load_reference_package() -> None:
-    """Import the `ipp_tpu` package without letting it load jax.
-
-    `ipp_tpu/__init__.py` imports jax to apply IPP_TPU_PLATFORM when that
-    variable is set; the port reads the same variable for its own device
-    policy, so it is hidden while the reference package initialises.  The
-    host modules the port shares import no jax themselves."""
-    saved = _os.environ.pop("IPP_TPU_PLATFORM", None)
-    try:
-        import ipp_tpu  # noqa: F401
-    finally:
-        if saved is not None:
-            _os.environ["IPP_TPU_PLATFORM"] = saved
-
-
-_load_reference_package()

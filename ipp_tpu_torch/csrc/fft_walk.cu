@@ -1,4 +1,4 @@
-// The four kernels of the FFT convolve walk, for Hopper.
+// The kernels of the FFT convolve walks (K1-K4, K6, K7), for Hopper.
 //
 // The walk of one circular convolution of a (nz, ny, nx) f32 volume:
 //   (nz, ny, nx)  --K1 y real DFT (optionally of num / max(den, eps))-->
@@ -19,12 +19,23 @@
 // transpose on each side of the z stage; a CUDA store has no such rule.
 // For nb = 1 the layout is the unbatched (kp, nz, nx).
 //
+// Shapes outside the v2 walk's domain take the v1 walk (matmul_fft.py):
+// the x axis as a plain f32 matmul, then one complex DFT stage per axis
+// along the last axis of a layout that cycles (y, kxp, z) -> (Z, kxp, y).
+// A stage on an axis of a 256-multiple length (with a 512-multiple row
+// count) is a radix-2 stage: K3 forward, K6 inverse, or K4 where the OTF
+// product precedes the inverse y stage; any other axis takes the dense
+// DFT as one complex matmul, K7.
+//
 // Each kernel is one GEMM against a constant DFT matrix (fft_walk.cuh)
 // with its prologue/epilogue fused, so the ratio, the butterflies and the
 // spectral product never reach device memory.  What bounds them on the
 // card: the contraction depth is K = ny (K1), 2kp (K2) or m = n/2 (K3,
-// K4), at least 128, so every kernel does >= 32 FMAs per byte it moves and
-// is bound by f32 FMA issue and shared-memory reads, not HBM.  The design
+// K4, K6), at least 128, so every kernel does >= 32 FMAs per byte it moves
+// and is bound by f32 FMA issue and shared-memory reads, not HBM; K7's
+// depth is the axis length itself (40 to 1152): at n = 40 it does ~7.5
+// FMAs per byte, below the card's ~10 (67 TFLOP/s over 3.35 TB/s), and is
+// bound by HBM there.  The design
 // answers with 4x4 register tiles (4 FMAs per shared load); wgmma, TMA and
 // 3xTF32 splits are later work.
 //
@@ -197,7 +208,10 @@ radix2_fwd(const float* __restrict__ xr, const float* __restrict__ xi,
 
 // ---------------------------------------------------------------------------
 // K3 inverse — replaces `_v2_stage_call(forward=False)` (kernel
-// `_v2_stage_inv_kernel`, z: the middle axis).  K4 (OTF = true) replaces
+// `_v2_stage_inv_kernel`, z: the middle axis).  K6 (K_FAST, OTF = false)
+// replaces `_fused_stage_call(forward=False)` (kernel `_stage_inv_kernel`,
+// pallas_fft.py:191): the v1 walk's inverse stage over the last axis of
+// (R, n), K4 without its OTF prologue.  K4 (OTF = true) replaces
 // `fused_stage_inv_otf` -> `_fused_stage_otf_call` (kernel
 // `_make_stage_inv_otf_kernel(conj)`): the input is first multiplied by
 // otf_re +/- i*otf_im (conj for the RL adjoint), in the load, so the
@@ -211,7 +225,8 @@ radix2_fwd(const float* __restrict__ xr, const float* __restrict__ xi,
 // v_s[k] = sum_t Minv_s[k, t] x[s*m + t] for both s in one block, then
 // out[k] = (v0 + v1)/2, out[m+k] = (v0 - v1)/2 (1/m lives in Minv).
 // Bound: FMA issue (2 m^2 complex terms per column); K4 also reads the
-// OTF (two more f32 streams) once per column tile.
+// OTF (two more f32 streams) once per column tile.  The last-axis forms
+// (K4, K6) load along the contiguous axis and pay strided stores.
 template <bool K_FAST, bool OTF, bool CONJ>
 __global__ void __launch_bounds__(NT)
 radix2_inv(const float* __restrict__ xr, const float* __restrict__ xi,
@@ -273,6 +288,79 @@ radix2_inv(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 // ---------------------------------------------------------------------------
+// K7 — replaces `fused_cplx_matmul` -> `_fused_call` (its inline kernel,
+// pallas_fft.py:54-62; `_cplx_last` of mxu_fft.py:376-401 runs it with
+// IPP_TPU_FFT_FUSED=1): the dense complex DFT of every v1-walk axis that
+// is not a radix-2 stage axis, (rr + i*ii) = (re + i*im) @ (mr + i*mi) for
+// (M, K) data and (K, N) matrices, as Karatsuba's three real products in
+// one pass: t1 = re@mr, t2 = im@mi, t3 = (re+im)@(mr+mi) (mri holds
+// mr+mi), rr = t1 - t2, ii = t3 - t1 - t2.  re+im is formed in the shared-
+// memory load, so no sum reaches device memory; the three products share
+// one pass over the data.  K = N = the axis length, any size (40, 136,
+// 1072, 1152 on the CLIs' paths): ragged K and N are masked (zero-filled
+// tiles).  Data rows run on gridDim.x (up to ~10^6 rows), N on gridDim.y.
+// The data tile is the GEMM's A operand (rows of contiguous k), so loads
+// and the row-major stores are coalesced and no transpose is needed.
+// Bound: FMA issue (3 * M * K * N FMAs), as K1-K4; the 3-product form
+// issues a quarter fewer FMAs than the 4-product complex product.
+__global__ void __launch_bounds__(NT)
+cplx_matmul(const float* __restrict__ re, const float* __restrict__ im,
+            const float* __restrict__ mr, const float* __restrict__ mi,
+            const float* __restrict__ mri, float* __restrict__ rr,
+            float* __restrict__ ii, i64 M, int K, int N) {
+  __shared__ float sa[3][BK * BMP];   // data tiles: re, im, re + im
+  __shared__ float sb[3][BK * BNP];   // matrix tiles: mr, mi, mr + mi
+  const i64 r0 = (i64)blockIdx.x * BM;
+  const int c0 = blockIdx.y * BN;
+  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
+  float t1[TM][TN], t2[TM][TN], t3[TM][TN];
+  zero(t1);
+  zero(t2);
+  zero(t3);
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int e = threadIdx.x; e < BM * BK; e += NT) {
+      const int kk = e % BK;  // consecutive threads read consecutive k
+      const int r = e / BK;
+      const i64 gr = r0 + r;
+      const int gk = k0 + kk;
+      float vr = 0.f, vi = 0.f;
+      if (gr < M && gk < K) {
+        vr = re[gr * K + gk];
+        vi = im[gr * K + gk];
+      }
+      sa[0][kk * BMP + r] = vr;
+      sa[1][kk * BMP + r] = vi;
+      sa[2][kk * BMP + r] = vr + vi;
+    }
+    const float* mats[3] = {mr, mi, mri};
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float* B = mats[q];
+      load_b_tile(sb[q], k0, c0, [&](int k, int c) -> float {
+        return (k < K && c < N) ? B[(i64)k * N + c] : 0.f;
+      });
+    }
+    __syncthreads();
+    mma_real(t1, sa[0], sb[0], ty, tx);
+    mma_real(t2, sa[1], sb[1], ty, tx);
+    mma_real(t3, sa[2], sb[2], ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const i64 r = r0 + ty * TM + i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = c0 + tx * TN + j;
+      if (c >= N) continue;
+      rr[r * N + c] = t1[i][j] - t2[i][j];
+      ii[r * N + c] = t3[i][j] - t1[i][j] - t2[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C interface.
 
 static inline unsigned cdiv(long long a, long long b) {
@@ -312,8 +400,8 @@ int ipp_rdft_y_inv(const float* re, const float* im, const float* inv,
 }
 
 // Radix-2 stage along an axis of length n (n/2 a multiple of 64) over
-// `batch` x `ncols` columns.  ldk == 1 is the last-axis form (forward
-// only: the walk's inverse stages over x carry the OTF, K4).
+// `batch` x `ncols` columns.  ldk == 1 is the last-axis form: K3 forward,
+// K6 inverse.
 int ipp_radix2_stage(const float* xr, const float* xi, const float* mr,
                      const float* mi, float* rr, float* ii, int forward,
                      int batch, int n, int ncols, long long bs, long long ldk,
@@ -328,10 +416,14 @@ int ipp_radix2_stage(const float* xr, const float* xi, const float* mr,
       radix2_fwd<false><<<grid, NT, 0, st>>>(xr, xi, mr, mi, rr, ii, n, ncols, bs, ldk, ldc);
     }
   } else {
-    if (ldk == 1) return (int)cudaErrorNotSupported;
     const dim3 grid(cdiv(ncols, BN), m / BM, batch);
-    radix2_inv<false, false, false><<<grid, NT, 0, st>>>(
-        xr, xi, nullptr, nullptr, mr, mi, rr, ii, n, ncols, bs, ldk, ldc, 1);
+    if (ldk == 1) {
+      radix2_inv<true, false, false><<<grid, NT, 0, st>>>(
+          xr, xi, nullptr, nullptr, mr, mi, rr, ii, n, ncols, bs, ldk, ldc, 1);
+    } else {
+      radix2_inv<false, false, false><<<grid, NT, 0, st>>>(
+          xr, xi, nullptr, nullptr, mr, mi, rr, ii, n, ncols, bs, ldk, ldc, 1);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -353,6 +445,16 @@ int ipp_radix2_stage_inv_otf(const float* xr, const float* xi, const float* otr,
     radix2_inv<true, true, false><<<grid, NT, 0, st>>>(
         xr, xi, otr, oti, mr, mi, rr, ii, n, rows, 0, 1, n, orows);
   }
+  return (int)cudaGetLastError();
+}
+
+// K7: re, im (M, K); mr, mi, mri (K, N); rr, ii (M, N); all row-major.
+int ipp_cplx_matmul(const float* re, const float* im, const float* mr,
+                    const float* mi, const float* mri, float* rr, float* ii,
+                    long long M, int K, int N, void* stream) {
+  const dim3 grid(cdiv(M, BM), cdiv(N, BN), 1);
+  cplx_matmul<<<grid, NT, 0, (cudaStream_t)stream>>>(re, im, mr, mi, mri, rr,
+                                                     ii, M, K, N);
   return (int)cudaGetLastError();
 }
 

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "ipp_radix2_stage_inv_otf": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _P],
     "ipp_dwt_analysis": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
+    "ipp_cplx_matmul": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
 }
 
 

@@ -2,7 +2,8 @@
 
 One wrapper per kernel form of `csrc/fft_walk.cu`; together they replace
 the eleven Pallas entry points of the reference's v2 convolve walk
-(ipp_tpu/ops/pallas_fft.py), unbatched (v2-t) and batched:
+(ipp_tpu/ops/pallas_fft.py), unbatched (v2-t) and batched, and the two of
+its v1 walk (`_fused_stage_call(forward=False)`, `_fused_call`):
 
 | wrapper                        | kernel | Pallas entry points replaced        |
 |--------------------------------|--------|-------------------------------------|
@@ -13,6 +14,8 @@ the eleven Pallas entry points of the reference's v2 convolve walk
 | `rdft_y_fwd_batched`           | K1     | `_v2_rfft_call`, `_v2_rfft_ratio_call` |
 | `rdft_y_inv_batched`           | K2     | `_v2_irfft_call`, `_v2_irfft_mul_call` |
 | `radix2_stage_inv_otf_batched` | K4     | `fused_stage_inv_otf` with one OTF wrapped over a batch |
+| `radix2_stage(axis=-1, forward=False)` | K6 | `_fused_stage_call(forward=False)` |
+| `cplx_matmul`                  | K7     | `fused_cplx_matmul` -> `_fused_call`|
 
 The batched forms take a batch of nb volumes (nb, nz, ny, nx) and keep
 each block's spectrum kp-major, (nb, kp, nz, nx), where the TPU kernels
@@ -28,7 +31,7 @@ Rules every wrapper keeps:
   and the C function's cudaGetLastError() is checked after it;
 - `LAUNCHES[name]` counts kernel launches (never plain calls), so a run
   can show that its main path went through the kernels; the batched
-  forms count under their own names.
+  forms and K6 (`radix2_stage_inv_last`) count under their own names.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "rdft_y_fwd",
            "rdft_y_fwd_batched", "rdft_y_fwd_plain", "rdft_y_inv",
            "rdft_y_inv_batched", "rdft_y_inv_plain", "radix2_stage",
            "radix2_stage_plain", "radix2_stage_inv_otf",
-           "radix2_stage_inv_otf_batched", "radix2_stage_inv_otf_plain"]
+           "radix2_stage_inv_otf_batched", "radix2_stage_inv_otf_plain",
+           "cplx_matmul", "cplx_matmul_plain"]
 
 EPS = float(np.finfo(np.float32).eps)
 _GRID_MAX = 65535  # gridDim.y / gridDim.z limit
@@ -51,7 +55,8 @@ _BN = 64           # the kernels' column tile (csrc/fft_walk.cuh BN)
 LAUNCHES: Dict[str, int] = {
     "rdft_y_fwd": 0, "rdft_y_inv": 0, "radix2_stage": 0,
     "radix2_stage_inv_otf": 0, "rdft_y_fwd_batched": 0,
-    "rdft_y_inv_batched": 0, "radix2_stage_inv_otf_batched": 0}
+    "rdft_y_inv_batched": 0, "radix2_stage_inv_otf_batched": 0,
+    "radix2_stage_inv_last": 0, "cplx_matmul": 0}
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -130,6 +135,18 @@ def radix2_stage_inv_otf_plain(re: torch.Tensor, im: torch.Tensor,
     xr = (a_r * o_r - a_i * o_i).reshape(rows, n)
     xi = (a_r * o_i + a_i * o_r).reshape(rows, n)
     return radix2_stage_plain(xr, xi, mr_t, mi_t, False, -1)
+
+
+def cplx_matmul_plain(re: torch.Tensor, im: torch.Tensor, mr: torch.Tensor,
+                      mi: torch.Tensor, mri: torch.Tensor) -> Pair:
+    """(re + i*im) @ (mr + i*mi) for (M, K) data and (K, N) matrices as
+    Karatsuba's three real products (mri = mr + mi): t1 = re @ mr,
+    t2 = im @ mi, t3 = (re + im) @ mri; rr = t1 - t2, ii = t3 - t1 - t2
+    (mxu_fft.py:391-401)."""
+    t1 = torch.matmul(re, mr)
+    t2 = torch.matmul(im, mi)
+    t3 = torch.matmul(re + im, mri)
+    return t1 - t2, t3 - t1 - t2
 
 
 # -- launch plumbing ---------------------------------------------------------
@@ -288,16 +305,16 @@ def _stage_mats_ok(name: str, n: int, mr_t, mi_t) -> None:
 
 def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
                  mi_t: torch.Tensor, forward: bool, axis: int) -> Pair:
-    """K3: see `radix2_stage_plain`.  axis=1 takes (P, n, X), forward or
-    inverse; axis=-1 takes (R, n), forward only (the walk's inverse stage
-    over the last axis is K4, with the OTF product)."""
+    """K3, and K6 for the inverse over the last axis: see
+    `radix2_stage_plain`.  axis=1 takes (P, n, X), axis=-1 takes (R, n),
+    each forward or inverse.  The inverse over the last axis (the v1
+    walk's, without an OTF) counts as `radix2_stage_inv_last`."""
     name = "radix2_stage"
     if axis not in (1, -1) or re.dim() != (3 if axis == 1 else 2):
         raise ValueError(f"{name}: axis=1 needs (P, n, X), axis=-1 (R, n); "
                          f"got axis={axis}, shape {tuple(re.shape)}")
     if axis == -1 and not forward:
-        raise ValueError(f"{name}: no inverse stage over the last axis "
-                         "(use radix2_stage_inv_otf)")
+        name = "radix2_stage_inv_last"
     if not _on_cuda(name, re, im, mr_t, mi_t):
         return radix2_stage_plain(re, im, mr_t, mi_t, forward, axis)
     _shape(name, im, re.shape)
@@ -313,6 +330,30 @@ def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
     _launch(name, re.device, _lib().ipp_radix2_stage, re.data_ptr(),
             im.data_ptr(), mr_t.data_ptr(), mi_t.data_ptr(), rr.data_ptr(),
             ii.data_ptr(), int(bool(forward)), batch, n, ncols, bs, ldk, ldc)
+    return rr, ii
+
+
+def cplx_matmul(re: torch.Tensor, im: torch.Tensor, mr: torch.Tensor,
+                mi: torch.Tensor, mri: torch.Tensor) -> Pair:
+    """K7: the complex product (re + i*im) @ (mr + i*mi) of (M, K) data and
+    (K, N) matrices (mri = mr + mi), Karatsuba in one pass: see
+    `cplx_matmul_plain`."""
+    name = "cplx_matmul"
+    _ndim(name, re, 2, "(M, K)")
+    if not _on_cuda(name, re, im, mr, mi, mri):
+        return cplx_matmul_plain(re, im, mr, mi, mri)
+    rows, k = re.shape
+    n = mr.shape[-1]
+    _shape(name, im, re.shape)
+    for m in (mr, mi, mri):
+        _shape(name, m, (k, n))
+    if rows == 0 or k == 0 or n == 0:
+        raise ValueError(f"{name}: empty operand {(rows, k, n)}")
+    _grid(name, "N/64", -(-n // _BN))
+    rr, ii = _empty((rows, n), re), _empty((rows, n), re)
+    _launch(name, re.device, _lib().ipp_cplx_matmul, re.data_ptr(),
+            im.data_ptr(), mr.data_ptr(), mi.data_ptr(), mri.data_ptr(),
+            rr.data_ptr(), ii.data_ptr(), rows, k, n)
     return rr, ii
 
 

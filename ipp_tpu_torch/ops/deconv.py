@@ -9,15 +9,18 @@ lax.while_loop); early stop reads the relative norm change on the host,
 one scalar per block and iteration.  A batch of blocks (B, D, H, W) runs
 the same loop; with early stop each block freezes once it has converged
 and the loop ends when all have (the reference's vmapped while_loop).
-Each convolution takes one of two routes, chosen by the FFT work shape
-alone before anything launches:
+Each convolution takes one of three routes, chosen by the FFT work shape
+and the device before anything launches (`conv_route`):
 
-- "walk": the hand-written CUDA kernel walk of ops/matmul_fft.py, for
-  shapes inside its kernel domain (the reference's MXU v2 walk);
+- "walk": the v2 kernel walk of ops/matmul_fft.py, for shapes inside its
+  kernel domain, on any device (the reference's MXU v2 walk);
+- "walk1": the v1 kernel walk, for every other shape on a CUDA device
+  (what the reference's MXU branch runs on its accelerator);
 - "fft": torch.fft, the same math as the reference's XLA branch
-  (deconv.py:286-302), for every other shape.
+  (deconv.py:286-302), for every other shape on the CPU (the reference's
+  CPU backend).
 
-On CPU tensors the walk runs the kernels' plain PyTorch versions.
+On CPU tensors the walks run the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch.nn.functional as F
 
 from ..utils.device import resolve_device
 from .fftutil import next_fast_len
-from .matmul_fft import MatmulFFT3, in_kernel_domain
+from .matmul_fft import MatmulFFT3, in_kernel_domain, plan_shape
 
 __all__ = ["gauss3d", "make_taper", "edge_taper_3d", "pad_to_shape",
            "unpad", "fft_shape_for", "conv_route", "richardson_lucy",
@@ -108,37 +111,47 @@ def make_taper(dimsz: int, taper_width: int) -> np.ndarray:
     return taper
 
 
+_ROUTES = {"walk": "v2 kernel walk", "walk1": "v1 kernel walk",
+           "fft": "torch.fft"}
+
+
 def conv_route(fft_shape: Sequence[int], device: torch.device,
                route: Optional[str] = None) -> str:
-    """"walk" for work shapes in the kernel domain, else "fft"; `route`
-    forces one ("walk" raises for a shape outside the domain).  Logged
-    once per (shape, device, route)."""
+    """"walk" for work shapes in the v2 kernel domain; otherwise "walk1" on
+    a CUDA device and "fft" on the CPU.  `route` forces one: "walk" raises
+    for a shape outside the domain, "walk1" and "fft" take any shape.
+    Logged once per (shape, device, route)."""
     shape = tuple(int(s) for s in fft_shape)
+    device_type = torch.device(device).type
     if route is None:
-        route = "walk" if in_kernel_domain(shape) else "fft"
-    if route not in ("walk", "fft"):
+        route = ("walk" if in_kernel_domain(shape)
+                 else "walk1" if device_type == "cuda" else "fft")
+    if route not in _ROUTES:
         raise ValueError(f"unknown convolution route {route!r}")
     if route == "walk" and not in_kernel_domain(shape):
         raise ValueError(f"work shape {shape} is outside the kernel domain")
-    _log_route(shape, torch.device(device).type, route)
+    _log_route(shape, device_type, route)
     return route
 
 
 @lru_cache(maxsize=256)
 def _log_route(shape, device_type: str, route: str) -> None:
     _log.info("FFT work shape %s on %s: %s route", shape, device_type,
-              "kernel walk" if route == "walk" else "torch.fft")
+              _ROUTES[route])
 
 
-def _fft_conv_same(vol: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
+def _fft_conv_same(vol: torch.Tensor, kern: torch.Tensor,
+                   route: Optional[str] = None) -> torch.Tensor:
     """'same' conv via FFT with edge-replicate padding by kernel half-size;
-    routed like the RL convolutions (walk on kernel-domain shapes)."""
+    routed like the RL convolutions (a walk on multiple-of-8 shapes, as the
+    reference's MXU branch, deconv.py:219-229; torch.fft on the CPU outside
+    the v2 domain), or by `route` (see `conv_route`)."""
     hz, hy, hx = (k // 2 for k in kern.shape)
     vp = F.pad(vol[None, None], (hx, hx, hy, hy, hz, hz),
                mode="replicate")[0, 0]
     shape8 = tuple(-(-(s + k - 1) // 8) * 8
                    for s, k in zip(vp.shape, kern.shape))
-    if conv_route(shape8, vol.device) == "walk":
+    if conv_route(shape8, vol.device, route) != "fft":
         plan = MatmulFFT3(shape8, vol.device)
         kpad = vol.new_zeros(shape8)
         kpad[tuple(slice(0, k) for k in kern.shape)] = kern
@@ -156,12 +169,15 @@ def _fft_conv_same(vol: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
 
 
 def edge_taper_3d(vol: torch.Tensor, psf: torch.Tensor,
-                  face_slabs: bool = True) -> torch.Tensor:
+                  face_slabs: bool = True,
+                  route: Optional[str] = None) -> torch.Tensor:
     """bll = mask*bl + (1-mask)*blur(bl) with separable ramps of width
     max(8, psf_dim/2) per axis (reference edgetaper_3d.m:1-46).  The blur
     is needed only within taper_width of a face, so it runs on the six
     face slabs (each extended by the PSF support); face_slabs=False blurs
-    the full volume, as the reference's batched RL does."""
+    the full volume, as the reference's batched RL does.  `route` forces
+    the blurs' convolution route; by default each blur's work shape and
+    the device decide (`conv_route`)."""
     psf = psf / psf.sum()
     tws = [min(max(8, int(round(psf.shape[d] / 2))), vol.shape[d] // 2)
            for d in range(3)]
@@ -174,7 +190,7 @@ def edge_taper_3d(vol: torch.Tensor, psf: torch.Tensor,
     if (not face_slabs
             or any(tw + k > s for tw, k, s in zip(tws, psf.shape, vol.shape))):
         # asked for, or a slab would not fit: blur the full volume
-        blur = _fft_conv_same(vol, psf)
+        blur = _fft_conv_same(vol, psf, route)
         return mask * vol + (1.0 - mask) * blur
     out = mask * vol
     inv = 1.0 - mask
@@ -186,7 +202,8 @@ def edge_taper_3d(vol: torch.Tensor, psf: torch.Tensor,
             sl_read = [slice(None)] * 3
             sl_read[d] = (slice(0, ext) if side == 0
                           else slice(vol.shape[d] - ext, vol.shape[d]))
-            blur = _fft_conv_same(vol[tuple(sl_read)].contiguous(), psf)
+            blur = _fft_conv_same(vol[tuple(sl_read)].contiguous(), psf,
+                                  route)
             sl_keep = [slice(None)] * 3
             sl_keep[d] = slice(0, tw) if side == 0 else slice(ext - tw, ext)
             sl_write = [slice(None)] * 3
@@ -206,11 +223,20 @@ def edge_taper_3d(vol: torch.Tensor, psf: torch.Tensor,
     return out
 
 
-def fft_shape_for(shape: Sequence[int], psf_shape: Sequence[int]
-                  ) -> Tuple[int, int, int]:
-    """FFT work shape: block + PSF half-extents, rounded up to
-    2,3,5,7-smooth sizes (the reference's XLA-backend rule; the CLI passes
-    its overlap-save shape explicitly)."""
+def fft_shape_for(shape: Sequence[int], psf_shape: Sequence[int], device,
+                  route: Optional[str] = None) -> Tuple[int, int, int]:
+    """FFT work shape: block + PSF half-extents, rounded up for the route
+    that takes it (the reference's rule per backend, deconv.py:240-251):
+    `plan_shape` (multiples of 8, or of 128 within 5%) for the walks, that
+    is on a CUDA device or with a walk forced; 2,3,5,7-smooth sizes for
+    torch.fft on the CPU or with "fft" forced.  The CLI passes its
+    overlap-save shape explicitly."""
+    if route is None:
+        walks = torch.device(device).type == "cuda"
+    else:
+        walks = route != "fft"
+    if walks:
+        return plan_shape(shape, psf_shape)
     return tuple(next_fast_len(int(s) + int(p) // 2 * 2)
                  for s, p in zip(shape, psf_shape))
 
@@ -279,7 +305,7 @@ def _make_convolver(psf: torch.Tensor, fft_shape, route: Optional[str] = None):
     the walk route.  Inputs may carry leading batch dims; both routes
     transform the last three axes only and share one block's OTF."""
     fft_shape = tuple(int(s) for s in fft_shape)
-    if conv_route(fft_shape, psf.device, route) == "walk":
+    if conv_route(fft_shape, psf.device, route) != "fft":
         plan = MatmulFFT3(fft_shape, psf.device)
         otf = plan.otf_packed(_rolled_psf(psf, fft_shape))
 
@@ -385,6 +411,13 @@ def _inputs(vol, psf, device):
     return _as_f32(vol, dev), psf / psf.sum()
 
 
+def _taper_route(route: Optional[str]) -> Optional[str]:
+    """The taper blurs' route under an RL route: a forced "fft" or "walk1"
+    holds for them too; "walk" names the v2 domain, which their slab
+    shapes seldom fit, so they keep the default route."""
+    return None if route == "walk" else route
+
+
 def richardson_lucy(vol, psf, niter: int = 10, lam: float = 0.0,
                     stop_criterion: float = 0.0, regularize_interval: int = 0,
                     fft_shape: Optional[Tuple[int, int, int]] = None,
@@ -395,13 +428,13 @@ def richardson_lucy(vol, psf, niter: int = 10, lam: float = 0.0,
 
     vol/psf are (z, y, x) arrays or tensors; the work runs on `device`,
     else on vol's device when vol is a tensor, else on the package's
-    resolved device.  `route` forces the convolution route ("walk" or
-    "fft"); by default the work shape decides."""
+    resolved device.  `route` forces the convolution route ("walk",
+    "walk1" or "fft"); by default the work shape and the device decide."""
     vol, psf = _inputs(vol, psf, device)
     if fft_shape is None:
-        fft_shape = fft_shape_for(vol.shape, psf.shape)
+        fft_shape = fft_shape_for(vol.shape, psf.shape, vol.device, route)
     if edge_taper:
-        vol = edge_taper_3d(vol, psf)
+        vol = edge_taper_3d(vol, psf, route=_taper_route(route))
     vol, pre, post = pad_to_shape(vol, fft_shape)
     out, _ = _rl_fft_iterations(
         vol.contiguous(), psf, niter=int(niter),
@@ -437,9 +470,11 @@ def richardson_lucy_batched(vols, psf, niter: int = 10, lam: float = 0.0,
         raise ValueError(f"expected a (B, D, H, W) batch, got "
                          f"{tuple(vols.shape)}")
     if fft_shape is None:
-        fft_shape = fft_shape_for(vols.shape[1:], psf.shape)
+        fft_shape = fft_shape_for(vols.shape[1:], psf.shape, vols.device,
+                                  route)
     if edge_taper:
-        vols = torch.stack([edge_taper_3d(v, psf, face_slabs=False)
+        vols = torch.stack([edge_taper_3d(v, psf, face_slabs=False,
+                                          route=_taper_route(route))
                             for v in vols])
     vols, pre, post = pad_to_shape(vols, fft_shape)
     out, _ = _rl_fft_iterations(
@@ -466,7 +501,7 @@ def richardson_lucy_wiener(vol, psf, niter: int = 10, lam: float = 0.0,
     blended 0.7 old + 0.3 new.  Returns (deconvolved, refined psf)."""
     vol, psf = _inputs(vol, psf, device)
     if fft_shape is None:
-        fft_shape = fft_shape_for(vol.shape, psf.shape)
+        fft_shape = fft_shape_for(vol.shape, psf.shape, vol.device, "fft")
     fft_shape = tuple(int(s) for s in fft_shape)
     if edge_taper:
         vol = edge_taper_3d(vol, psf)

@@ -1,9 +1,10 @@
 """Constant DFT matrices of the FFT walk, built in numpy as f32.
 
 The same constructions as the reference (ipp_tpu/ops/mxu_fft.py:59-181
-`_dft_mats`, `_rdft_mats`, `_irdft_mats`, `_radix_fwd_mats`,
-`_radix_inv_mats`; ipp_tpu/ops/pallas_fft.py:148-162,378-410 `prep_*`),
-bit for bit.  The reference splits each matrix into bf16 hi/lo halves for
+`_dft_mats`, `_rdft_mats`, `_irdft_mats`, `_idft_mats`, `_radix_fwd_mats`,
+`_radix_inv_mats`, the Karatsuba triples and the kxp-padded x matrices of
+`MatmulFFT3.__init__` (:267-299); ipp_tpu/ops/pallas_fft.py:148-162,378-410
+`prep_*`), bit for bit.  The reference splits each matrix into bf16 hi/lo halves for
 3-pass MXU matmuls; the CUDA kernels multiply in plain f32, so the port
 keeps the f32 matrices themselves.
 
@@ -17,8 +18,9 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["dft_mats", "rdft_mats", "irdft_mats", "radix_fwd_mats",
-           "radix_inv_mats", "rfft_fold_mats", "stage_mats_t"]
+__all__ = ["dft_mats", "rdft_mats", "irdft_mats", "idft_mats",
+           "cplx_triple", "rfft_x_mats", "radix_fwd_mats", "radix_inv_mats",
+           "rfft_fold_mats", "stage_mats_t"]
 
 
 def _frozen(*arrays):
@@ -60,6 +62,42 @@ def irdft_mats(n: int) -> Tuple[np.ndarray, np.ndarray]:
     ai = wts[:, None] * np.sin(2 * np.pi * jk / n) / n
     return _frozen(np.ascontiguousarray(ar.astype(np.float32)),
                    np.ascontiguousarray(ai.astype(np.float32)))
+
+
+@lru_cache(maxsize=64)
+def idft_mats(n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Full inverse DFT matrices (1/n * conj(F)), float32 (n, n)."""
+    cr, ci = dft_mats(n)
+    return _frozen(np.ascontiguousarray(cr.T / n),
+                   np.ascontiguousarray(-ci.T / n))
+
+
+@lru_cache(maxsize=32)
+def cplx_triple(n: int, forward: bool
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(mr, mi, mr + mi) of the dense n-point DFT (forward) or its inverse:
+    the Karatsuba operands of a complex product along the last axis, the
+    sum formed in f32 (mxu_fft.py:267-272)."""
+    mr, mi = dft_mats(n) if forward else idft_mats(n)
+    return _frozen(mr, mi, mr + mi)
+
+
+@lru_cache(maxsize=16)
+def rfft_x_mats(n: int, kxp: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(fwd, inv) of the v1 walk's x axis with the half spectrum padded to
+    kxp (mxu_fft.py:286-299): fwd (n, 2*kxp) gives [re | im] columns, inv
+    (2*kxp, n) folds the stacked [re; im] rows back (1/n included).  The
+    padded frequencies kx..kxp-1 are columns / rows of exact zeros."""
+    kx = n // 2 + 1
+    fr, fi = rdft_mats(n)
+    fwd = np.zeros((n, 2 * kxp), np.float32)
+    fwd[:, :kx] = fr
+    fwd[:, kxp:kxp + kx] = fi
+    ar, ai = irdft_mats(n)
+    inv = np.zeros((2 * kxp, n), np.float32)
+    inv[:kx] = ar
+    inv[kxp:kxp + kx] = -ai
+    return _frozen(fwd, inv)
 
 
 @lru_cache(maxsize=64)

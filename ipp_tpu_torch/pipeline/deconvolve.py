@@ -36,14 +36,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ipp_tpu.io import tiff as tio
-from ipp_tpu.utils.lagged import OneInFlight
-from ipp_tpu.utils.log import Logger
-from ipp_tpu.utils.progress import ProgressReporter
-
+from ..io import tiff as tio
 from ..ops.fftutil import next_fast_len
 from ..ops.matmul_fft import in_kernel_domain
 from ..utils.device import resolve_device
+from ..utils.lagged import OneInFlight
+from ..utils.log import Logger
+from ..utils.progress import ProgressReporter
 from ..utils.transfer import HostArray, upload
 
 __all__ = ["BlockPlan", "autosplit", "deconvolve_volume", "build_parser",
@@ -231,7 +230,7 @@ class TiffDirVolume:
 
     def read_block(self, bounds) -> np.ndarray:
         (z0, z1), (y0, y1), (x0, x1) = bounds
-        from ipp_tpu import native
+        from .. import native
 
         # keep the native dtype: uploading u16 halves the host->device
         # traffic; the device converts to f32
@@ -257,11 +256,13 @@ def _uniform_shape(plans: List[BlockPlan], halo) -> Tuple[int, int, int]:
         for a in range(3))
 
 
-def _fft_shape_for_backend(uni):
-    """The uniform block shape where the kernel walk takes it (any such
-    size works; wraparound lands in the halo); otherwise 2,3,5,7-smooth
-    sizes for torch.fft, as the reference's XLA backend."""
-    if in_kernel_domain(uni):
+def _fft_shape_for_backend(uni, device):
+    """The uniform block shape where a kernel walk takes it: on a CUDA
+    device (as the reference's MXU backend, deconvolve.py:349-359), and
+    inside the v2 domain on the CPU (any such size works; wraparound lands
+    in the halo); otherwise 2,3,5,7-smooth sizes for torch.fft, as the
+    reference's XLA backend."""
+    if torch.device(device).type == "cuda" or in_kernel_domain(uni):
         return tuple(uni)
     return tuple(next_fast_len(int(u)) for u in uni)
 
@@ -430,7 +431,7 @@ def deconvolve_volume(
 
     uni = fft_work_shape(plans, halo, planned)
     if todo:
-        fft_shape = _fft_shape_for_backend(uni)
+        fft_shape = _fft_shape_for_backend(uni, dev)
         read_pool = ThreadPoolExecutor(max_workers=1)
         next_fut = read_pool.submit(read_block_uniform, vol, todo[0], uni)
         lag = OneInFlight()  # device->host of block i overlaps RL of i+1

@@ -2,7 +2,7 @@
 process_cubes, build_parser, main — the fnt_cube_processor equivalent).
 
 Every `.nrrd` cube under the input directory is read on the host (the
-shared `ipp_tpu.io.nrrd` codec), uploaded, optionally background-
+port's copy of the NRRD codec, `io/nrrd.py`), uploaded, optionally background-
 subtracted (a number, or 'auto': the cube's 1st percentile), divided by
 the contrast factor, gaussian-filtered, axially destriped (`--destripe`:
 rot90 on (y, x), `filter_streaks` db9 sigma 1 bidirectional through the
@@ -14,7 +14,7 @@ the cube's pitch (`--doubled_psf` stacks it twice along z), or from
 `--psf-file`.  Results are rounded and clipped to an integer input dtype
 and written with the input's space header; `--resume` skips cubes whose
 output exists.  One cube's result streams back while the next is read
-and processed (the shared `OneInFlight`).
+and processed (`utils.lagged.OneInFlight`).
 
 The reference's persistent XLA compile cache has no counterpart here:
 PyTorch runs eagerly and the kernels build once per process.
@@ -30,15 +30,14 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ipp_tpu.io.nrrd import read_nrrd, write_nrrd
-from ipp_tpu.utils.lagged import OneInFlight
-from ipp_tpu.utils.log import Logger
-from ipp_tpu.utils.progress import ProgressReporter
-
+from ..io.nrrd import read_nrrd, write_nrrd
 from ..ops.deconv import fft_shape_for, gauss3d, richardson_lucy
 from ..ops.destripe import filter_streaks
 from ..ops.psf import make_psf
 from ..utils.device import resolve_device
+from ..utils.lagged import OneInFlight
+from ..utils.log import Logger
+from ..utils.progress import ProgressReporter
 from ..utils.transfer import HostArray, upload
 
 __all__ = ["process_cubes", "build_parser", "main"]
@@ -54,7 +53,7 @@ def _load_psf(psf_file: Path, voxel_um, na, refractive_index, lambda_ex,
         if p.suffix == ".npy":
             psf = np.load(p)
         else:
-            from ipp_tpu.io.tiff import read_tiff_stack
+            from ..io.tiff import read_tiff_stack
 
             psf = read_tiff_stack(p)
         psf = np.asarray(psf, np.float32)
@@ -161,7 +160,7 @@ def process_cubes(
             x = filter_streaks(x, sigma=(destripe_sigma,) * 2)
         dec = x
         if deconvolve:
-            fft_shape = fft_shape_for(x.shape, psf.shape)
+            fft_shape = fft_shape_for(x.shape, psf.shape, dev)
             if gaussian_sigma > 0 and 0 < dg_iteration < niter:
                 # dg_iteration-long RL chunks with the user's gaussian
                 # between them (fnt_cube_processor.py:202-251)

@@ -3,8 +3,8 @@ ipp_tpu/pipeline/pystripe_cli.py: collect_tasks, batch_filter,
 build_parser, _resolve_compression and main).
 
 Destripe/flat/dark/8-bit a directory tree of tiles into a mirrored output
-tree, with resume and robust IO.  The host side is the reference's own
-streaming executor (`ipp_tpu.parallel.executor.run_tile_pipeline`: reader
+tree, with resume and robust IO.  The host side is the port's copy of the
+reference's streaming executor (`parallel.executor.run_tile_pipeline`: reader
 threads, batching by shape, one batch in flight, writer threads); each
 batch goes through the port's `process_batch_fn` (upload, the device
 chain with the DWT through the CUDA kernel K5, a `HostArray` handle back).
@@ -28,14 +28,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ipp_tpu.io import tiff as tio
-from ipp_tpu.parallel.executor import TileTask, run_tile_pipeline
-from ipp_tpu.utils.log import Logger
-
+from ..io import tiff as tio
 from ..ops.process import (ProcessConfig, _check_supported, _out_meta,
                            is_uniform_2d, needs_host_stats, process_batch_fn,
                            process_img)
+from ..parallel.executor import TileTask, run_tile_pipeline
 from ..utils.device import resolve_device
+from ..utils.log import Logger
 
 __all__ = ["batch_filter", "main"]
 
@@ -55,7 +54,7 @@ def collect_tasks(input_dir: Path, output_dir: Path,
     pystripe/core.py:1649-1684)."""
     tasks = []
     if z_step is not None:
-        from ipp_tpu.io.dcimg import DCIMGFile
+        from ..io.dcimg import DCIMGFile
 
         step_tenths = z_step * 10.0
         for p in sorted(input_dir.rglob("*.dcimg")):

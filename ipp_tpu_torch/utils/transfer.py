@@ -11,9 +11,9 @@ for a uint16 one, and int32 or uint32 host images are not taken.
 - `HostArray`: a device tensor on its way back to the host.
   `copy_to_host_async()` starts a non-blocking copy into pinned memory and
   records a CUDA event; `np.asarray(handle)` waits on that event only.
-  This is the handle the shared one-batch-in-flight fetch
-  (`ipp_tpu.utils.lagged.OneInFlight`, used by
-  `ipp_tpu.parallel.executor.run_tile_pipeline`) expects of a device array.
+  This is the handle the one-batch-in-flight fetch
+  (`utils.lagged.OneInFlight`, used by
+  `parallel.executor.run_tile_pipeline`) expects of a device array.
 """
 
 from __future__ import annotations

@@ -69,7 +69,7 @@ def test_pad_unpad_and_fft_shape_match_jax(rng):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert (pre, post) == (rpre, rpost)
     np.testing.assert_array_equal(dp.unpad(got, pre, post).numpy(), vol)
-    assert dp.fft_shape_for((100, 101, 97), (11, 11, 11)) == \
+    assert dp.fft_shape_for((100, 101, 97), (11, 11, 11), "cpu") == \
         tuple(dj.fft_shape_for((100, 101, 97), (11, 11, 11)))
 
 

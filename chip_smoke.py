@@ -4,11 +4,17 @@
     python3 chip_smoke.py
 
 Phases:
-1. build the CUDA kernels from ipp_tpu_torch/csrc with nvcc;
+1. build the CUDA kernels from ipp_tpu_torch/csrc with nvcc; registers
+   and spills of every kernel from ptxas;
 2. each kernel against its plain PyTorch version on the card, at the work
    shapes (256,256,256), (512,512,512), one with 768 axes, and the CLI's
    block shape; max |kernel - plain| / max |plain| must be <= 1e-5 (both
-   f32); kernel and plain times by CUDA events after a warm call;
+   f32); kernel and plain times by CUDA events after a warm call; then
+   every form of the stage FFT kernels (forward and inverse in both
+   layouts, K4 with the OTF and its conjugate, K4b with an OTF period,
+   K6) at each of their eight lengths 256 * j and a small row count, and
+   the dense stage kernels at n = 384, <= 1e-5 (correctness only), each
+   counted under its own name;
 3. richardson_lucy on one (512,512,512) block (16-voxel halo, 9^3
    gaussian PSF, 10 iterations): the kernel walk against the torch.fft
    route, inner region within rtol=2e-3, atol=2e-1, and exact launch
@@ -125,6 +131,10 @@ V1 = {
         "fused_cplx_matmul: inline kernel :54)"),
 }
 SOURCE = "ipp_tpu_torch/csrc/fft_walk.cu"
+# the radix-2 stages run their FFT kernels at every main-path shape
+STAGE_SOURCE = "ipp_tpu_torch/csrc/stage_fft.cuh"
+STAGE_KERNELS = {"radix2_stage", "radix2_stage_inv_otf",
+                 "radix2_stage_inv_otf_batched", "radix2_stage_inv_last"}
 DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cu",
               "ipp_tpu/ops/pallas_dwt.py:80 (dwt_analysis_pallas, axis -1); "
               "scripts/dwt_ykernel_exp.py:87 (dwt_y_pallas, axis -2)")
@@ -197,12 +207,12 @@ def work_rdft(vox: int, ny: int, kp: int, extra_streams: int):
 
 def work_stage(rows_x_n: int, n: int, otf_elems: int = 0):
     """K3 / K4 / K6 over rows_x_n complex values along an axis of length
-    n: a length-n DFT of each row at the FFT's count (the kernels do two
-    (n/2)^2 complex products per row instead), and with an OTF its
-    product and its two f32 streams."""
-    m = n // 2
+    n: a length-n DFT of each row at the FFT's count, the spectrum read
+    once and written once, and with an OTF its product and its two f32
+    streams.  The same work whatever implements it: no stage matrix or
+    twiddle table is counted."""
     return (5.0 * rows_x_n * math.log2(n) + 6.0 * otf_elems,
-            4.0 * (4 * rows_x_n + 2 * 2 * m * m + 2 * otf_elems))
+            4.0 * (4 * rows_x_n + 2 * otf_elems))
 
 
 def work_cplx(rows: int, k: int, n: int):
@@ -368,6 +378,112 @@ def check_case(torch, tag, name, variant, shape, kfn, pfn, lfn, work, reps,
         bad.append(f"{name}/{variant} at {shape}: rel {rel:.3e}")
 
 
+STAGE_DENSE_N = 384   # a stage length that keeps the dense kernels
+
+
+def stage_form_cases(torch, n, gen, dev):
+    """(form, counter, kernel_fn, plain_fn) for every form of the radix-2
+    stage at axis length n and a small row count: ragged against the
+    kernels' column and row tiles, the batched OTF with a period."""
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.dft_mats import stage_mats_t
+
+    def d(*shape):
+        return torch.rand(shape, generator=gen, device=dev) - 0.5
+
+    fwd, inv = (tuple(torch.tensor(m, device=dev)
+                      for m in stage_mats_t(n, f)) for f in (True, False))
+    zr, zi = d(3, n, 40), d(3, n, 40)
+    xr, xi, pr, pi = d(21, n), d(21, n), d(21, n), d(21, n)
+    br, bi, o_r, o_i = d(192, n), d(192, n), d(64, n), d(64, n)
+    return [
+        ("fwd z", "radix2_stage",
+         lambda: cf.radix2_stage(zr, zi, *fwd, True, 1),
+         lambda: cf.radix2_stage_plain(zr, zi, *fwd, True, 1)),
+        ("inv z", "radix2_stage",
+         lambda: cf.radix2_stage(zr, zi, *inv, False, 1),
+         lambda: cf.radix2_stage_plain(zr, zi, *inv, False, 1)),
+        ("fwd x", "radix2_stage",
+         lambda: cf.radix2_stage(xr, xi, *fwd, True, -1),
+         lambda: cf.radix2_stage_plain(xr, xi, *fwd, True, -1)),
+        ("K6 inv x", "radix2_stage_inv_last",
+         lambda: cf.radix2_stage(xr, xi, *inv, False, -1),
+         lambda: cf.radix2_stage_plain(xr, xi, *inv, False, -1)),
+        ("K4 otf", "radix2_stage_inv_otf",
+         lambda: cf.radix2_stage_inv_otf(xr, xi, pr, pi, *inv, False),
+         lambda: cf.radix2_stage_inv_otf_plain(xr, xi, pr, pi, *inv, False)),
+        ("K4 conj", "radix2_stage_inv_otf",
+         lambda: cf.radix2_stage_inv_otf(xr, xi, pr, pi, *inv, True),
+         lambda: cf.radix2_stage_inv_otf_plain(xr, xi, pr, pi, *inv, True)),
+        ("K4b period", "radix2_stage_inv_otf_batched",
+         lambda: cf.radix2_stage_inv_otf_batched(br, bi, o_r, o_i, *inv,
+                                                 True),
+         lambda: cf.radix2_stage_inv_otf_plain(br, bi, o_r, o_i, *inv, True)),
+    ]
+
+
+def phase_stage_forms(torch, dev, record):
+    """Every stage form at every length of the FFT route and at one dense
+    length: kernel vs plain <= 1e-5 of max, and each launch counted under
+    the name of the kernel that ran."""
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.dft_mats import STAGE_FFT_LENGTHS
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    rows, bad = [], []
+    for n in STAGE_FFT_LENGTHS + (STAGE_DENSE_N,):
+        dense = cf.stage_route(n) == "dense"
+        worst = 0.0
+        for form, counter, kfn, pfn in stage_form_cases(torch, n, gen, dev):
+            cf.reset_launch_counts()
+            got, ref = kfn(), pfn()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cf.LAUNCHES.items() if v}
+            rel = max(float((g - r).abs().max() / r.abs().max())
+                      for g, r in zip(got, ref))
+            worst = max(worst, rel)
+            rows.append(dict(n=n, form=form, rel_err=rel, launches=counts))
+            if counts != {counter + ("_dense" if dense else ""): 1}:
+                bad.append(f"n={n} {form}: launches {counts}")
+            if not rel <= 1e-5:
+                bad.append(f"n={n} {form}: rel {rel:.3e}")
+        say(f"  stage forms at n={n:<5d} ({'dense' if dense else 'fft'} "
+            f"kernels, 7 forms): worst rel {worst:.2e}")
+    cf.reset_launch_counts()
+    record["stage_forms"] = rows
+    if bad:
+        raise AssertionError("stage kernel != plain: " + "; ".join(bad))
+
+
+def ptxas_summary(log: str):
+    """One line per kernel of ptxas' -v report: name (template arguments of
+    the stage FFT kernels decoded), registers, spill bytes."""
+    import re
+
+    out, name = [], None
+    spill = ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"stage_fftILi(\d+)ELb([01])ELi(\d)E", name)
+            if t:
+                name = (f"stage_fft<{t.group(1)}, "
+                        f"{'last' if t.group(2) == '1' else 'middle'}, "
+                        f"{('FWD', 'INV', 'INV_OTF')[int(t.group(3))]}>")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spill {m.group(1)} / {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return out
+
+
 def phase_kernels(torch, dev, shapes, record):
     import numpy as np
 
@@ -387,6 +503,7 @@ def phase_kernels(torch, dev, shapes, record):
     record["kernels"] = rows
     if bad:
         raise AssertionError("kernel != plain: " + "; ".join(bad))
+    phase_stage_forms(torch, dev, record)
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1478,9 +1595,8 @@ def main() -> int:
         load_library()
         info = build_info()
         say(f"  built {info['path']} in {info['seconds']:.1f} s")
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  {line.strip()}")
+        for line in ptxas_summary(info["ptxas"]):
+            say(f"  {line}")
         record["build"] = info
 
     phase(1, "build the CUDA kernels", build)
@@ -1537,7 +1653,8 @@ def main() -> int:
 
     def entry(tag, name, source, replaces, launches, rows, at):
         return dict(
-            name=f"{tag} {name}", route="cuda", source=source,
+            name=f"{tag} {name}", route="cuda",
+            source=STAGE_SOURCE if name in STAGE_KERNELS else source,
             replaces=replaces, launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=at["ms"],
             plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],

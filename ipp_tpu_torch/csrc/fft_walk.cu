@@ -27,17 +27,27 @@
 // product precedes the inverse y stage; any other axis takes the dense
 // DFT as one complex matmul, K7.
 //
-// Each kernel is one GEMM against a constant DFT matrix (fft_walk.cuh)
-// with its prologue/epilogue fused, so the ratio, the butterflies and the
-// spectral product never reach device memory.  What bounds them on the
-// card: the contraction depth is K = ny (K1), 2kp (K2) or m = n/2 (K3,
-// K4, K6), at least 128, so every kernel does >= 32 FMAs per byte it moves
-// and is bound by f32 FMA issue and shared-memory reads, not HBM; K7's
-// depth is the axis length itself (40 to 1152): at n = 40 it does ~7.5
-// FMAs per byte, below the card's ~10 (67 TFLOP/s over 3.35 TB/s), and is
-// bound by HBM there.  The design
-// answers with 4x4 register tiles (4 FMAs per shared load); wgmma, TMA and
-// 3xTF32 splits are later work.
+// K1, K2 and K7 are each one GEMM against a constant DFT matrix
+// (fft_walk.cuh) with its prologue/epilogue fused, so the ratio and the RL
+// update never reach device memory.  What bounds them on the card: the
+// contraction depth is K = ny (K1) or 2kp (K2), at least 128, so they do
+// >= 32 FMAs per byte they move and are bound by the f32 FMA rate and
+// shared-memory reads, not HBM; K7's depth is the axis length itself (40
+// to 1152): at n = 40 it does ~7.5 FMAs per byte, below the card's ~10 (67
+// TFLOP/s over 3.35 TB/s), and is bound by HBM there.  The design answers
+// with 4x4 register tiles (4 FMAs per shared load); wgmma, TMA and 3xTF32
+// splits are later work.
+//
+// The radix-2 stages (K3, K4, K6) compute a whole n-point DFT per column:
+// one read and one write of the spectrum, 5 n log2 n FLOPs, so the function
+// is bound by bytes.  For the lengths the walks admit (256 * j up to 2048)
+// they are the FFT kernels of stage_fft.cuh (entries in stage_fft_fwd.cu,
+// stage_fft_inv.cu, stage_fft_otf.cu), which move each value once.  The
+// stage kernels in this file are the dense form, a butterfly and two
+// m x m complex products (m = n/2) as the TPU's matrix unit ran them: O(n)
+// FMAs per value, bound by the FMA rate at 8-10x the bytes' time.  They serve
+// every other stage length (multiples of 128: 128, 384, ..., and above
+// 2048); the wrappers choose by n alone (ops/cuda_fft.stage_route).
 //
 // Plain C interface for ctypes: each entry launches on the given stream
 // and returns cudaGetLastError() of its launch.
@@ -149,7 +159,8 @@ rdft_y_inv(const float* __restrict__ re, const float* __restrict__ im,
 }
 
 // ---------------------------------------------------------------------------
-// K3 forward — replaces `_v2_stage_call(forward=True)` (kernel
+// K3 forward, dense form (stage lengths outside 256 * j <= 2048; the FFT
+// form is stage_fft_fwd.cu) — replaces `_v2_stage_call(forward=True)` (kernel
 // `_v2_stage_fwd_kernel`, z: the middle axis of (kp, nz, nx)) and
 // `fused_stage(forward=True)` -> `_fused_stage_call` (`_stage_fwd_kernel`,
 // x: the last axis of (kp*nz, nx)).  Radix-2 decimation in frequency:
@@ -158,8 +169,9 @@ rdft_y_inv(const float* __restrict__ re, const float* __restrict__ im,
 // matrices (mr, mi hold M_s^T, stacked (2, m, m)).  A block owns one s and
 // 64 values of k.  m = n/2 need only be a multiple of 64 (768 -> 384).
 // Element (t, c) of batch b sits at b*bs + t*ldk + c*ldc; K_FAST marks the
-// last-axis form (ldk == 1).  Bound: FMA issue (2 m^2 complex terms per
-// column); the last-axis form also pays strided stores.
+// last-axis form (ldk == 1).  The function is bound by bytes (the spectrum
+// read and written once); this form is bound by the FMA rate (2 m^2 complex
+// terms per column), and its last-axis form also pays strided stores.
 template <bool K_FAST>
 __global__ void __launch_bounds__(NT)
 radix2_fwd(const float* __restrict__ xr, const float* __restrict__ xi,
@@ -207,7 +219,9 @@ radix2_fwd(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 // ---------------------------------------------------------------------------
-// K3 inverse — replaces `_v2_stage_call(forward=False)` (kernel
+// K3 inverse, K4 and K6, dense form (stage lengths outside 256 * j <= 2048;
+// the FFT forms are stage_fft_inv.cu and stage_fft_otf.cu).  K3 inverse
+// replaces `_v2_stage_call(forward=False)` (kernel
 // `_v2_stage_inv_kernel`, z: the middle axis).  K6 (K_FAST, OTF = false)
 // replaces `_fused_stage_call(forward=False)` (kernel `_stage_inv_kernel`,
 // pallas_fft.py:191): the v1 walk's inverse stage over the last axis of
@@ -224,9 +238,10 @@ radix2_fwd(const float* __restrict__ xr, const float* __restrict__ xi,
 // not a modulo per loaded element.
 // v_s[k] = sum_t Minv_s[k, t] x[s*m + t] for both s in one block, then
 // out[k] = (v0 + v1)/2, out[m+k] = (v0 - v1)/2 (1/m lives in Minv).
-// Bound: FMA issue (2 m^2 complex terms per column); K4 also reads the
-// OTF (two more f32 streams) once per column tile.  The last-axis forms
-// (K4, K6) load along the contiguous axis and pay strided stores.
+// The function is bound by bytes (the spectrum read and written once; K4
+// also reads the OTF, two more f32 streams); this form is bound by the FMA
+// rate (2 m^2 complex terms per column), and its last-axis forms (K4, K6)
+// load along the contiguous axis and pay strided stores.
 template <bool K_FAST, bool OTF, bool CONJ>
 __global__ void __launch_bounds__(NT)
 radix2_inv(const float* __restrict__ xr, const float* __restrict__ xi,

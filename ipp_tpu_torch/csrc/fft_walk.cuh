@@ -1,6 +1,8 @@
 // Tiled f32 GEMM core of the FFT walk kernels (fft_walk.cu).
 //
-// Every kernel of the walk is a product C = A @ B of a constant DFT matrix
+// Every kernel of fft_walk.cu (K1, K2, K7 and the dense form of the
+// radix-2 stages; the stages' FFT form is stage_fft.cuh and shares nothing
+// with this core) is a product C = A @ B of a constant DFT matrix
 // A (M x K, row-major, in device memory) against a batch of data columns
 // B (K x N), with a prologue that forms B from the inputs while loading it
 // (RL ratio, radix-2 butterfly, OTF product) and an epilogue that places C

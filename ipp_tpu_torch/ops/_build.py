@@ -51,6 +51,10 @@ _SIGNATURES = {
                          _L, _P],
     "ipp_radix2_stage_inv_otf": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _P],
+    "ipp_stage_fft_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _P],
+    "ipp_stage_fft_inv": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _P],
+    "ipp_stage_fft_inv_otf": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                              _P],
     "ipp_dwt_analysis": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
     "ipp_cplx_matmul": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
 }

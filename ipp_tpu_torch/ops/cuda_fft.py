@@ -1,6 +1,7 @@
 """Wrappers of the FFT-walk CUDA kernels, each beside its plain version.
 
-One wrapper per kernel form of `csrc/fft_walk.cu`; together they replace
+One wrapper per kernel form of `csrc/fft_walk.cu` and `csrc/stage_fft.cuh`;
+together they replace
 the eleven Pallas entry points of the reference's v2 convolve walk
 (ipp_tpu/ops/pallas_fft.py), unbatched (v2-t) and batched, and the two of
 its v1 walk (`_fused_stage_call(forward=False)`, `_fused_call`):
@@ -23,6 +24,13 @@ wrote plane-major (nb*nz, kp, nx) and paid an XLA transpose each side of
 the z stage (csrc/fft_walk.cu says why CUDA need not).  K3 needs no
 batched form: it already takes any number of planes or rows.
 
+The radix-2 stages (K3, K4, K4b, K6) have two kernels each, chosen by the
+axis length n alone (`stage_route`): the FFT kernels of csrc/stage_fft.cuh
+for n in `STAGE_FFT_LENGTHS` (256 * j up to 2048: every length the walks
+admit), the dense stage kernels of csrc/fft_walk.cu (a butterfly and two
+(n/2)^2 complex products) for any other multiple of 128.  It is a route by
+shape: nothing is caught and retried.
+
 Rules every wrapper keeps:
 - a CPU tensor goes to the plain PyTorch version (`*_plain`, the same
   function written with `torch.matmul`); a CUDA tensor launches the kernel
@@ -31,7 +39,9 @@ Rules every wrapper keeps:
   and the C function's cudaGetLastError() is checked after it;
 - `LAUNCHES[name]` counts kernel launches (never plain calls), so a run
   can show that its main path went through the kernels; the batched
-  forms and K6 (`radix2_stage_inv_last`) count under their own names.
+  forms and K6 (`radix2_stage_inv_last`) count under their own names,
+  and a launch of a dense stage kernel under its name with `_dense`
+  appended, so a run can show which stage kernel it went through.
 """
 
 from __future__ import annotations
@@ -41,7 +51,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "rdft_y_fwd",
+from .dft_mats import STAGE_FFT_LENGTHS, stage_twiddles
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "stage_route", "rdft_y_fwd",
            "rdft_y_fwd_batched", "rdft_y_fwd_plain", "rdft_y_inv",
            "rdft_y_inv_batched", "rdft_y_inv_plain", "radix2_stage",
            "radix2_stage_plain", "radix2_stage_inv_otf",
@@ -56,7 +68,10 @@ LAUNCHES: Dict[str, int] = {
     "rdft_y_fwd": 0, "rdft_y_inv": 0, "radix2_stage": 0,
     "radix2_stage_inv_otf": 0, "rdft_y_fwd_batched": 0,
     "rdft_y_inv_batched": 0, "radix2_stage_inv_otf_batched": 0,
-    "radix2_stage_inv_last": 0, "cplx_matmul": 0}
+    "radix2_stage_inv_last": 0, "cplx_matmul": 0,
+    "radix2_stage_dense": 0, "radix2_stage_inv_otf_dense": 0,
+    "radix2_stage_inv_otf_batched_dense": 0,
+    "radix2_stage_inv_last_dense": 0}
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -295,6 +310,24 @@ def rdft_y_inv_batched(re: torch.Tensor, im: torch.Tensor,
     return _rdft_y_inv(name, re, im, inv, mul)
 
 
+def stage_route(n: int) -> str:
+    """Which kernel a radix-2 stage along an axis of length n launches on
+    the card: "fft" (csrc/stage_fft.cuh) for the lengths 256 * j up to
+    2048, "dense" (csrc/fft_walk.cu) for any other multiple of 128."""
+    return "fft" if n in STAGE_FFT_LENGTHS else "dense"
+
+
+_twiddles: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _stage_twiddles(device: torch.device, n: int) -> torch.Tensor:
+    """The FFT kernels' (n, 2) twiddle table on `device`, uploaded once."""
+    key = (device, n)
+    if key not in _twiddles:
+        _twiddles[key] = torch.tensor(stage_twiddles(n), device=device)
+    return _twiddles[key]
+
+
 def _stage_mats_ok(name: str, n: int, mr_t, mi_t) -> None:
     if n % 128:
         raise ValueError(f"{name}: the stage axis must be a multiple of "
@@ -308,7 +341,10 @@ def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
     """K3, and K6 for the inverse over the last axis: see
     `radix2_stage_plain`.  axis=1 takes (P, n, X), axis=-1 takes (R, n),
     each forward or inverse.  The inverse over the last axis (the v1
-    walk's, without an OTF) counts as `radix2_stage_inv_last`."""
+    walk's, without an OTF) counts as `radix2_stage_inv_last`.  On the
+    card, n in `STAGE_FFT_LENGTHS` launches the FFT kernel (which does not
+    read mr_t, mi_t); any other multiple of 128 the dense kernel, counted
+    with `_dense` appended (`stage_route`)."""
     name = "radix2_stage"
     if axis not in (1, -1) or re.dim() != (3 if axis == 1 else 2):
         raise ValueError(f"{name}: axis=1 needs (P, n, X), axis=-1 (R, n); "
@@ -327,9 +363,18 @@ def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
     _stage_mats_ok(name, n, mr_t, mi_t)
     _grid(name, "batch", batch)
     rr, ii = _empty(re.shape, re), _empty(re.shape, re)
-    _launch(name, re.device, _lib().ipp_radix2_stage, re.data_ptr(),
-            im.data_ptr(), mr_t.data_ptr(), mi_t.data_ptr(), rr.data_ptr(),
-            ii.data_ptr(), int(bool(forward)), batch, n, ncols, bs, ldk, ldc)
+    if stage_route(n) == "fft":
+        lib = _lib()
+        _launch(name, re.device,
+                lib.ipp_stage_fft_fwd if forward else lib.ipp_stage_fft_inv,
+                re.data_ptr(), im.data_ptr(),
+                _stage_twiddles(re.device, n).data_ptr(), rr.data_ptr(),
+                ii.data_ptr(), int(axis == -1), batch, n, ncols)
+        return rr, ii
+    _launch(name + "_dense", re.device, _lib().ipp_radix2_stage,
+            re.data_ptr(), im.data_ptr(), mr_t.data_ptr(), mi_t.data_ptr(),
+            rr.data_ptr(), ii.data_ptr(), int(bool(forward)), batch, n,
+            ncols, bs, ldk, ldc)
     return rr, ii
 
 
@@ -360,23 +405,36 @@ def cplx_matmul(re: torch.Tensor, im: torch.Tensor, mr: torch.Tensor,
 def _radix2_stage_inv_otf(name: str, re, im, otf_re, otf_im, mr_t, mi_t,
                           conj: bool) -> Pair:
     """K4 on (rows, n) CUDA data and an (orows, n) OTF, rows a multiple
-    of orows and orows == rows or a multiple of the column tile (the
-    kernel wraps the OTF once per tile)."""
+    of orows.  The FFT kernel (n in `STAGE_FFT_LENGTHS`) takes the OTF row
+    of each data row by one modulo, so any such orows will do; the dense
+    kernel (any other n, counted with `_dense` appended) wraps the OTF
+    once per column tile and needs orows == rows or a multiple of the
+    tile."""
     rows, n = re.shape
     orows = otf_re.shape[0]
+    fft = stage_route(n) == "fft"
     _shape(name, im, re.shape)
     _shape(name, otf_im, otf_re.shape)
     if otf_re.dim() != 2 or otf_re.shape[1] != n or orows == 0 \
-            or rows % orows or (orows != rows and orows % _BN):
+            or rows % orows:
         raise ValueError(f"{name}: the OTF {tuple(otf_re.shape)} must be "
-                         f"(orows, {n}) with orows dividing {rows}, and "
-                         f"equal to it or a multiple of {_BN}")
+                         f"(orows, {n}) with orows dividing {rows}")
+    if not fft and orows != rows and orows % _BN:
+        raise ValueError(f"{name}: at n={n} (the dense stage kernel) the "
+                         f"OTF's {orows} rows must equal the data's {rows} "
+                         f"or be a multiple of {_BN}")
     _stage_mats_ok(name, n, mr_t, mi_t)
     rr, ii = _empty(re.shape, re), _empty(re.shape, re)
-    _launch(name, re.device, _lib().ipp_radix2_stage_inv_otf, re.data_ptr(),
-            im.data_ptr(), otf_re.data_ptr(), otf_im.data_ptr(),
-            mr_t.data_ptr(), mi_t.data_ptr(), rr.data_ptr(), ii.data_ptr(),
-            int(bool(conj)), rows, orows, n)
+    if fft:
+        _launch(name, re.device, _lib().ipp_stage_fft_inv_otf, re.data_ptr(),
+                im.data_ptr(), otf_re.data_ptr(), otf_im.data_ptr(),
+                _stage_twiddles(re.device, n).data_ptr(), rr.data_ptr(),
+                ii.data_ptr(), int(bool(conj)), rows, orows, n)
+        return rr, ii
+    _launch(name + "_dense", re.device, _lib().ipp_radix2_stage_inv_otf,
+            re.data_ptr(), im.data_ptr(), otf_re.data_ptr(),
+            otf_im.data_ptr(), mr_t.data_ptr(), mi_t.data_ptr(),
+            rr.data_ptr(), ii.data_ptr(), int(bool(conj)), rows, orows, n)
     return rr, ii
 
 
@@ -385,7 +443,8 @@ def radix2_stage_inv_otf(re: torch.Tensor, im: torch.Tensor,
                          mr_t: torch.Tensor, mi_t: torch.Tensor,
                          conj: bool) -> Pair:
     """K4: see `radix2_stage_inv_otf_plain`.  All of re, im, otf_re,
-    otf_im are (R, n): the unbatched walk's OTF matches the data rows."""
+    otf_im are (R, n): the unbatched walk's OTF matches the data rows.
+    The kernel is chosen by n (`stage_route`)."""
     name = "radix2_stage_inv_otf"
     _ndim(name, re, 2, "(R, n)")
     _shape(name, otf_re, re.shape)
@@ -403,7 +462,8 @@ def radix2_stage_inv_otf_batched(re: torch.Tensor, im: torch.Tensor,
     """K4 with an OTF period: re, im (nb * R, n), the OTF (R, n), data row
     r taking OTF row r % R, so one block's OTF serves nb blocks without a
     broadcast copy (`_fused_stage_otf_call`'s wrapped OTF blocks).  See
-    `radix2_stage_inv_otf_plain`."""
+    `radix2_stage_inv_otf_plain`; the kernel is chosen by n
+    (`stage_route`)."""
     name = "radix2_stage_inv_otf_batched"
     _ndim(name, re, 2, "(rows, n)")
     if not _on_cuda(name, re, im, otf_re, otf_im, mr_t, mi_t):

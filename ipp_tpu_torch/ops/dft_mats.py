@@ -20,7 +20,8 @@ import numpy as np
 
 __all__ = ["dft_mats", "rdft_mats", "irdft_mats", "idft_mats",
            "cplx_triple", "rfft_x_mats", "radix_fwd_mats", "radix_inv_mats",
-           "rfft_fold_mats", "stage_mats_t"]
+           "rfft_fold_mats", "stage_mats_t", "STAGE_FFT_LENGTHS",
+           "stage_fft_plan", "stage_twiddles"]
 
 
 def _frozen(*arrays):
@@ -156,3 +157,33 @@ def stage_mats_t(n: int, forward: bool) -> Tuple[np.ndarray, np.ndarray]:
     mr, mi = radix_fwd_mats(n, 2) if forward else radix_inv_mats(n, 2)
     return _frozen(np.ascontiguousarray(mr.transpose(0, 2, 1)),
                    np.ascontiguousarray(mi.transpose(0, 2, 1)))
+
+
+# -- the stage as an FFT (csrc/stage_fft.cuh) --------------------------------
+
+STAGE_FFT_LENGTHS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048)
+
+
+def stage_fft_plan(n: int) -> Tuple[int, ...]:
+    """Radices of the stage FFT kernel's passes for an axis of length n, in
+    order (csrc/stage_fft.cuh `radix`): 8, 8, then 4 or 8, then what is
+    left (3, 4, 5 or 7; the odd factor last, so every pass's stride is a
+    power of two)."""
+    if n not in STAGE_FFT_LENGTHS:
+        raise ValueError(f"no stage FFT plan for n={n}: the lengths are "
+                         f"{STAGE_FFT_LENGTHS}")
+    rest = n // 64
+    third = 8 if rest in (8, 24, 32) else 4
+    last = rest // third
+    return (8, 8, third) + ((last,) if last > 1 else ())
+
+
+@lru_cache(maxsize=16)
+def stage_twiddles(n: int) -> np.ndarray:
+    """(n, 2) f32 table of exp(-2*pi*i*j/n), j < n, as (re, im) pairs:
+    computed in float64 and rounded once.  The stage FFT kernel reads every
+    twiddle and every root of its odd-radix pass from it (conjugated for
+    the inverse)."""
+    w = np.exp(-2j * np.pi * np.arange(n) / n)
+    return _frozen(np.ascontiguousarray(
+        np.stack([w.real, w.imag], -1).astype(np.float32)))

@@ -249,5 +249,9 @@ def test_walk_convolve_on_the_card_matches_numpy(cuda, rng):
                            "radix2_stage": 5, "radix2_stage_inv_otf": 1,
                            "rdft_y_fwd_batched": 0, "rdft_y_inv_batched": 0,
                            "radix2_stage_inv_otf_batched": 0,
-                           "radix2_stage_inv_last": 0, "cplx_matmul": 0}
+                           "radix2_stage_inv_last": 0, "cplx_matmul": 0,
+                           "radix2_stage_dense": 0,
+                           "radix2_stage_inv_otf_dense": 0,
+                           "radix2_stage_inv_otf_batched_dense": 0,
+                           "radix2_stage_inv_last_dense": 0}
     assert rel(got.cpu().numpy(), _numpy_conv(x, k)) <= 1e-4

@@ -40,6 +40,9 @@ Phases:
    failed tile), 272 u16 outputs of the input shapes, stripe power down
    more than 3x, K5 launched batches x 3 x levels times, and 8 sampled
    tiles within 1 count of the same chain with the plain DWT on the card;
+   then one batch of 8 tiles through process_batch_fn with bleach
+   correction on (the first-order Butterworth filtfilt as a scan), the
+   card's result within 1 count of the CPU's, its device ms printed;
 7. the batched walk: each batched kernel form (K1 and K2 on a batch, K4
    with one OTF wrapped over the batch) against its plain version at
    (4, 256, 1056, 256) (the CLI's block shape, four blocks: the group one
@@ -64,23 +67,33 @@ Phases:
    cubes' work shape (136, 136, 136) takes the v1 walk: K7 for RL and
    the taper);
 10. the v1 walk (work shapes outside the v2 domain): K6 (the inverse
-   radix-2 stage over the last axis) and K7 (the dense complex DFT)
-   against their plain versions at every stage the paths run them: the
-   phase-4 taper slabs, (136, 136, 136) and (256, 1152, 1152), plus K6 at
-   (256, 1024, 264); max |kernel - plain| / max |plain| <= 1e-5; the v1
+   radix-2 stage over the last axis) and K7 (the dense-axis DFT as a
+   mixed-radix FFT kernel) against their plain versions at every stage the
+   paths run them: the taper slabs of the phase-4 block, of a 512^3 block
+   and of the (248, 1100, 1100) block, (136, 136, 136) and (256, 1152,
+   1152) (K7's nine lengths 40 ... 1152, forward and inverse), plus K6 at
+   (256, 1024, 264), and K7's dense kernel (any matrix, any length) at
+   (9792, 136); max |kernel - plain| / max |plain| <= 1e-5; the v1
    convolve (and the fused RL update) against torch.fft at (256, 1024,
    264) and (256, 1152, 1152), <= 1e-4 of max, exact launch counts; and
    richardson_lucy on a (248, 1100, 1100) block (9^3 gaussian PSF, 10
    iterations, work shape (256, 1152, 1152)) on the walk1 route against
    the torch.fft route at the same work shape, within 1e-3 of max on the
-   core, exact launch counts.
+   core, exact launch counts with no dense K7 launch, and the block's time
+   split by CUDA events into the x matmuls, the layout copies, the OTF
+   product, the RL arithmetic, the taper and the kernels;
+11. the canonical transforms MatmulFFT3.rfftn / irfftn / otf (natural
+   order, any shape) against torch.fft at (40, 136, 264), whose y and z
+   axes take K7's FFT kernel, and at (30, 50, 70), whose axes are no
+   multiples of 8 and take K7's dense kernel: <= 1e-5 of the spectrum's
+   max, exact launch counts of each kernel.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
 F.conv1d; timed here only, the port never calls it) and its bound: the
 larger of the function's FLOPs over the f32 peak (a matrix product's for
-K1, K2 and K7, an FFT's 5 n log2 n per transform for K3, K4 and K6, the
-taps' for K5) and its bytes (each input read once, each output written
+K1, K2 and K7's dense kernel, an FFT's 5 n log2 n per transform for K3,
+K4, K6 and K7, the taps' for K5) and its bytes (each input read once, each output written
 once) over the HBM rate.  The edge taper's slab blurs take the v1 walk on
 the card, so phases 3, 4, 7 and 9 count their K7 launches too.
 
@@ -128,9 +141,14 @@ V1 = {
         "forward=False: kernel _stage_inv_kernel :191)"),
     "cplx_matmul": (
         "K7", "ipp_tpu/ops/pallas_fft.py:66 (_fused_call via "
-        "fused_cplx_matmul: inline kernel :54)"),
+        "fused_cplx_matmul: inline kernel :54; the dense DFT of an axis)"),
 }
+# K7's dense kernel: any matrix, and the lengths without an FFT plan
+K7_DENSE = ("cplx_matmul_dense", "K7d", "ipp_tpu/ops/pallas_fft.py:66 "
+            "(_fused_call via fused_cplx_matmul: an arbitrary matrix)")
+K7_DENSE_CASE = (9792, 136)   # the FNT cubes' stage, held on the dense kernel
 SOURCE = "ipp_tpu_torch/csrc/fft_walk.cu"
+DFT_SOURCE = "ipp_tpu_torch/csrc/dft_fft.cuh"
 # the radix-2 stages run their FFT kernels at every main-path shape
 STAGE_SOURCE = "ipp_tpu_torch/csrc/stage_fft.cuh"
 STAGE_KERNELS = {"radix2_stage", "radix2_stage_inv_otf",
@@ -191,10 +209,10 @@ def bound(flops: float, nbytes: float):
 
 # The work of one call of each kernel form, (FLOPs, bytes), counted for the
 # function it computes: a product against an arbitrary matrix where the
-# wrapper takes one (K1, K2, K7, as torch.matmul computes it), an FFT's
-# 5 n log2 n FLOPs per complex transform of length n where the function is
-# a DFT along an axis (K3, K4, K6, as torch.fft computes it); each input
-# read once, each output written once.
+# wrapper takes one (K1, K2, K7's dense kernel, as torch.matmul computes
+# it), an FFT's 5 n log2 n FLOPs per complex transform of length n where
+# the function is a DFT along an axis (K3, K4, K6, K7, as torch.fft computes
+# it); each input read once, each output written once.
 
 def work_rdft(vox: int, ny: int, kp: int, extra_streams: int):
     """K1 / K2 on vox = nz*ny*nx voxels: (2kp x ny) products per column;
@@ -206,7 +224,7 @@ def work_rdft(vox: int, ny: int, kp: int, extra_streams: int):
 
 
 def work_stage(rows_x_n: int, n: int, otf_elems: int = 0):
-    """K3 / K4 / K6 over rows_x_n complex values along an axis of length
+    """K3 / K4 / K6 / K7 over rows_x_n complex values along an axis of length
     n: a length-n DFT of each row at the FFT's count, the spectrum read
     once and written once, and with an OTF its product and its two f32
     streams.  The same work whatever implements it: no stage matrix or
@@ -216,7 +234,8 @@ def work_stage(rows_x_n: int, n: int, otf_elems: int = 0):
 
 
 def work_cplx(rows: int, k: int, n: int):
-    """K7: three (rows x k) @ (k x n) real products and their sums."""
+    """K7's dense kernel: three (rows x k) @ (k x n) real products and
+    their sums."""
     return (2.0 * 3 * rows * k * n + rows * k + 2.0 * rows * n,
             4.0 * (2 * rows * k + 3 * k * n + 2 * rows * n))
 
@@ -229,7 +248,9 @@ def work_dwt(elems: int, taps: int):
 def walk_launches(shape, forward: int, inverse: int):
     """Kernel launches of `forward` transforms and `inverse` transforms
     (each with its OTF product) at a work shape, on the walk that takes it
-    on the card: v2 inside its domain, v1 outside."""
+    on the card: v2 inside its domain, v1 outside.  `cplx_matmul` is K7's
+    FFT kernel: the walks' dense axes are multiples of 8, so the callers,
+    which compare every counter, hold `cplx_matmul_dense` to 0."""
     from ipp_tpu_torch.ops.matmul_fft import in_kernel_domain, stage_axes
 
     if in_kernel_domain(shape):
@@ -472,6 +493,9 @@ def ptxas_summary(log: str):
                 name = (f"stage_fft<{t.group(1)}, "
                         f"{'last' if t.group(2) == '1' else 'middle'}, "
                         f"{('FWD', 'INV', 'INV_OTF')[int(t.group(3))]}>")
+            t = re.search(r"dft_lastILb([01])E", name)
+            if t:
+                name = f"dft_last<{('FWD', 'INV')[int(t.group(1))]}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -871,7 +895,8 @@ def phase_destripe_cli(torch, dev, record):
     from ipp_tpu_torch.ops import cuda_dwt as cd
     from ipp_tpu_torch.ops import destripe as dsm
     from ipp_tpu_torch.ops import wavelets as wv
-    from ipp_tpu_torch.ops.process import ProcessConfig, _chain, process_img
+    from ipp_tpu_torch.ops.process import (ProcessConfig, _chain,
+                                           process_batch_fn, process_img)
     from ipp_tpu_torch.pipeline import deconvolve as pdc
     from ipp_tpu_torch.pipeline import pystripe_cli as psc
     from ipp_tpu_torch.utils.transfer import upload
@@ -978,6 +1003,39 @@ def phase_destripe_cli(torch, dev, record):
         raise AssertionError(f"stripe power dropped only {drop:.2f}x")
     if max(diffs) > 1:
         raise AssertionError(f"sampled tiles differ by {max(diffs)} counts")
+    # bleach correction on: the same batch of 8 through the CLI's batch
+    # callable on the card and on the CPU
+    bcfg = ProcessConfig(sigma=(250.0, 250.0), wavelet="db9",
+                         padding_mode="reflect", bidirectional=True,
+                         dark=100.0, bleach_correction_frequency=0.01,
+                         bleach_correction_clip_min=6.0,
+                         bleach_correction_clip_med=7.0,
+                         bleach_correction_clip_max=8.5)
+    on_card = np.asarray(process_batch_fn(bcfg, dev)(batch8))
+    t0 = time.perf_counter()
+    on_cpu = np.asarray(process_batch_fn(bcfg, "cpu")(batch8))
+    cpu_s = time.perf_counter() - t0
+    plain_out = np.asarray(process_batch_fn(cfg, dev)(batch8))
+    bleach_diff = int(np.abs(on_card.astype(np.int64)
+                             - on_cpu.astype(np.int64)).max())
+    bleach_moved = float(np.abs(on_card.astype(np.float64)
+                                - plain_out.astype(np.float64)).mean())
+    xb = upload(batch8, dev)
+    bleach_ms = time_ms(torch, lambda: _chain(xb, bcfg, u16), 5)
+    del xb
+    say(f"  bleach correction on, one batch of 8 {batch8.shape[1:]} tiles: "
+        f"card vs CPU max |diff| {bleach_diff} counts; device chain "
+        f"{bleach_ms:.2f} ms ({chain_ms:.2f} without); mean |change| "
+        f"{bleach_moved:.1f} counts; the CPU took {cpu_s:.1f} s")
+    rec.update(bleach_max_diff=bleach_diff, bleach_chain_ms=bleach_ms,
+               bleach_mean_change=bleach_moved, bleach_cpu_s=cpu_s)
+    if (on_card.dtype != np.uint16 or on_card.shape != batch8.shape
+            or bleach_diff > 1):
+        raise AssertionError(f"bleach correction: card vs CPU differ by "
+                             f"{bleach_diff} counts ({on_card.dtype} "
+                             f"{on_card.shape})")
+    if not bleach_moved > 0:
+        raise AssertionError("bleach correction changed nothing")
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -1368,7 +1426,7 @@ def v1_stage_cases(torch, plan, gen, dev, seen):
     """(kernel, variant, (rows, n), kernel_fn, plain_fn, library_fn, work)
     for every stage of the v1 walk at this plan's work shape that runs K3
     (forward, radix-2 axes), K6 (the inverse over a radix-2 z) or K7 (the
-    dense axes, both directions), each (kernel, rows, n, direction) once
+    dense axes, both directions, as `_stage` calls it), each (kernel, rows, n, direction) once
     over the calls that share `seen`.  The operand is the stage's (rows, n)
     data: z runs over (y, kxp, z), y over (Z, kxp, y).  The inverse over a
     radix-2 y is K4, with the OTF product (phases 2 and 3)."""
@@ -1394,20 +1452,60 @@ def v1_stage_cases(torch, plan, gen, dev, seen):
             c = torch.complex(re, im)
             variant = (f"{axis} {'fwd' if forward else 'inv'} of "
                        f"{tuple(plan.shape)}")
+            lib = torch.fft.fft if forward else torch.fft.ifft
             if radix is None:
                 mats = plan._dense[axis, forward]
-                cm = torch.complex(mats[0], mats[1])
                 yield (name, variant, (rows, n),
-                       lambda: cf.cplx_matmul(re, im, *mats),
+                       lambda: cf.cplx_matmul(re, im, *mats, dft=forward),
                        lambda: cf.cplx_matmul_plain(re, im, *mats),
-                       lambda: torch.matmul(c, cm), work_cplx(rows, n, n))
+                       lambda: lib(c, dim=-1), work_stage(rows * n, n))
             else:
-                lib = torch.fft.fft if forward else torch.fft.ifft
                 yield (name, variant, (rows, n),
                        lambda: cf.radix2_stage(re, im, *radix, forward, -1),
                        lambda: cf.radix2_stage_plain(re, im, *radix, forward,
                                                      -1),
                        lambda: lib(c, dim=-1), work_stage(rows * n, n))
+
+
+def v1_parts_ms(torch, plan, x, otf, num, mul, eps):
+    """ms of each step of one v1 convolve that is plain PyTorch, on
+    tensors of the step's own shapes: the forward and inverse x matmuls,
+    the layout copies of a forward transform (four) and of an inverse (two
+    and the concatenation), the OTF product before the dense inverse y
+    stage, and the RL update's ratio and |mul * out|."""
+    k = plan.kxp
+    both = torch.matmul(x, plan._fx)                     # (z, y, 2k)
+    out = {"matmul_x_fwd": time_ms(torch, lambda: torch.matmul(x, plan._fx), 3),
+           "matmul_x_inv": time_ms(torch, lambda: torch.matmul(both, plan._ix),
+                                   3)}
+
+    def copies_fwd():
+        re = both[..., :k].movedim(-3, -1).contiguous()  # (y, k, z)
+        im = both[..., k:].movedim(-3, -1).contiguous()
+        return (re.transpose(-3, -1).contiguous(),       # (Z, k, y)
+                im.transpose(-3, -1).contiguous())
+
+    out["copies_fwd"] = time_ms(torch, copies_fwd, 3)
+    re, im = copies_fwd()
+    del both
+    otf_re, otf_im = otf
+
+    def product():
+        o_im = -otf_im
+        return re * otf_re - im * o_im, re * o_im + im * otf_re
+
+    out["otf_product"] = time_ms(torch, product, 3)
+
+    def copies_inv():
+        rr = re.transpose(-3, -1).contiguous()           # (y, k, Z)
+        ii = im.transpose(-3, -1).contiguous()
+        return torch.cat([rr.movedim(-1, -3), ii.movedim(-1, -3)], -1)
+
+    out["copies_inv"] = time_ms(torch, copies_inv, 3)
+    del re, im
+    out["ratio"] = time_ms(torch, lambda: num / torch.clamp(x, min=eps), 3)
+    out["abs_mul"] = time_ms(torch, lambda: torch.abs(mul * x), 3)
+    return out
 
 
 def rel_max(a, b) -> float:
@@ -1419,7 +1517,8 @@ def phase_v1(torch, dev, slab_shapes, record):
 
     from ipp_tpu_torch.ops import cuda_fft as cf
     from ipp_tpu_torch.ops.deconv import (_rolled_psf, conv_route,
-                                          fft_shape_for, richardson_lucy)
+                                          edge_taper_3d, fft_shape_for,
+                                          richardson_lucy)
     from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
     from ipp_tpu_torch.ops.psf import gaussian_psf
 
@@ -1429,6 +1528,9 @@ def phase_v1(torch, dev, slab_shapes, record):
     rl_shape = fft_shape_for(V1_RL_BLOCK, psf.shape, dev)
     rows, bad, seen = [], [], set()
     tags = {**KERNELS, **V1}
+    slab_shapes = (list(slab_shapes)
+                   + taper_work_shapes((512, 512, 512), psf.shape)
+                   + taper_work_shapes(V1_RL_BLOCK, psf.shape))
     for shape in (list(dict.fromkeys(slab_shapes)) + [(136, 136, 136)]
                   + V1_CONV_SHAPES[::-1]):
         plan = MatmulFFT3(shape, dev)
@@ -1440,7 +1542,26 @@ def phase_v1(torch, dev, slab_shapes, record):
             rows[-1]["work_shape"] = list(shape)
         del plan
         torch.cuda.empty_cache()
-    rec = record["v1"] = dict(kernels=rows, rl_shape=list(rl_shape))
+    # K7's dense kernel (`dft=None`: any matrix), on the FNT cubes' stage
+    m, n = K7_DENSE_CASE
+    re = torch.rand((m, n), generator=gen, device=dev) - 0.5
+    im = torch.rand((m, n), generator=gen, device=dev) - 0.5
+    mats = MatmulFFT3((n, n, n), dev)._dense["y", True]
+    c, cm = torch.complex(re, im), torch.complex(mats[0], mats[1])
+    dense_rows = []
+    cf.reset_launch_counts()
+    check_case(torch, K7_DENSE[1], K7_DENSE[0], "any matrix", (m, n),
+               lambda: cf.cplx_matmul(re, im, *mats),
+               lambda: cf.cplx_matmul_plain(re, im, *mats),
+               lambda: torch.matmul(c, cm), work_cplx(m, n, n), 5,
+               dense_rows, bad)
+    routed = {k: v for k, v in cf.LAUNCHES.items() if v}
+    if set(routed) != {K7_DENSE[0]}:
+        bad.append(f"dft=None launched {routed}, not the dense kernel")
+    del re, im, c, cm, mats
+    cf.reset_launch_counts()
+    rec = record["v1"] = dict(kernels=rows, rl_shape=list(rl_shape),
+                              dense=dense_rows)
     if bad:
         raise AssertionError("v1 kernel != plain: " + "; ".join(bad))
 
@@ -1476,11 +1597,13 @@ def phase_v1(torch, dev, slab_shapes, record):
         fft_ms = time_ms(torch, lambda: torch.fft.irfftn(
             torch.fft.rfftn(x) * fk, s=shape), 3)
         x_ms = None
-        if tuple(shape) == tuple(rl_shape):   # the x axis as a plain matmul
-            both = torch.matmul(x, plan._fx)
-            x_ms = [time_ms(torch, lambda: torch.matmul(x, plan._fx), 3),
-                    time_ms(torch, lambda: torch.matmul(both, plan._ix), 3)]
-            del both
+        if tuple(shape) == tuple(rl_shape):
+            # the convolve's steps that are no kernel of this port, each
+            # alone by CUDA events: the x axis as a plain matmul, the
+            # layout copies, the OTF product, the RL update's arithmetic
+            parts = v1_parts_ms(torch, plan, x, otf, num, mul, eps)
+            x_ms = [parts["matmul_x_fwd"], parts["matmul_x_inv"]]
+            rec["parts_ms"] = parts
         convs.append(dict(shape=list(shape), rel=rel, rel_update=rel_u,
                           launches=counts, ms=ms, fft_ms=fft_ms,
                           x_matmul_ms=x_ms))
@@ -1522,6 +1645,8 @@ def phase_v1(torch, dev, slab_shapes, record):
     fft, t_fft0 = run("fft")
     _, t_walk = run(None)
     _, t_fft = run("fft")
+    taper_ms = time_ms(torch, lambda: edge_taper_3d(block, psf / psf.sum()),
+                       2)
     halo = 16
     inner = (slice(halo, -halo),) * 3
     rel = rel_max(walk[inner], fft[inner])
@@ -1546,11 +1671,83 @@ def phase_v1(torch, dev, slab_shapes, record):
         f"{t_walk / t_fft:.1f}x; max |walk1-fft|/max|fft| on the core "
         f"{rel:.2e}; per-call ms at the work shape {rec['rl']['per_call_ms']}"
         f"; peak {peak}")
+    # where the block's time goes: transforms x per-call ms (an OTF and two
+    # convolves an iteration: 2n + 1 forward, 2n inverse; the fused update
+    # n times), the taper once, and what is left (padding, the loop's own
+    # arithmetic, allocation)
+    parts = rec.get("parts_ms")
+    if parts is not None:
+        fwd, inv = 2 * NITER + 1, 2 * NITER
+        split = {
+            "x matmuls": fwd * parts["matmul_x_fwd"] + inv * parts["matmul_x_inv"],
+            "layout copies": fwd * parts["copies_fwd"] + inv * parts["copies_inv"],
+            "OTF product": inv * parts["otf_product"],
+            "RL ratio and |mul*out|": inv * parts["ratio"] + NITER * parts["abs_mul"],
+            "K7 (y)": fwd * per_call.get(("cplx_matmul", "y fwd"), 0.0)
+            + inv * per_call.get(("cplx_matmul", "y inv"), 0.0),
+            "K3 + K6 (z)": fwd * per_call.get(("radix2_stage", "z fwd"), 0.0)
+            + inv * per_call.get(("radix2_stage_inv_last", "z inv"), 0.0),
+            "edge taper": taper_ms}
+        split = {k: v / 1e3 for k, v in split.items()}
+        split["other"] = t_walk - sum(split.values())
+        rec["rl"]["split_s"] = split
+        say("  walk1 block split (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) + f"; of {t_walk:.3f}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     if not finite or not rel <= 1e-3:
         raise AssertionError(f"walk1 RL vs torch.fft rel {rel:.3e} "
                              f"(finite {finite})")
+
+
+# -- phase 11 ----------------------------------------------------------------
+
+CANONICAL_SHAPES = [(40, 136, 264), (30, 50, 70)]
+
+
+def phase_canonical(torch, dev, record):
+    """MatmulFFT3.rfftn / irfftn / otf against torch.fft on the card: the
+    first shape's y and z take K7's FFT kernel, the second's its dense
+    kernel (no multiples of 8)."""
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rows, bad = [], []
+    for shape in CANONICAL_SHAPES:
+        route = {cf.dft_route(n) for n in shape[:2]}
+        name = "cplx_matmul" if route == {"fft"} else "cplx_matmul_dense"
+        plan = MatmulFFT3(shape, dev)
+        x = torch.rand((2,) + tuple(shape), generator=gen, device=dev)
+        cf.reset_launch_counts()
+        re, im = plan.rfftn(x)
+        back = plan.irfftn(re, im)
+        o_re, o_im = plan.otf(x[0])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cf.LAUNCHES.items() if v}
+        ref = torch.fft.rfftn(x, dim=(-3, -2, -1))
+        top = float(ref.abs().max())   # of the complex spectrum
+
+        def err(re_, im_, want):
+            return max(float((re_ - want.real).abs().max()),
+                       float((im_ - want.imag).abs().max())) / top
+
+        rel = max(err(re, im, ref), err(o_re, o_im, ref[0]))
+        rel_back = rel_max(back, x)
+        rows.append(dict(shape=list(shape), kernel=name, launches=counts,
+                         rel=rel, rel_round_trip=rel_back))
+        say(f"  rfftn / irfftn / otf at {shape} (2 volumes): vs torch.fft "
+            f"rel {rel:.2e}, round trip rel {rel_back:.2e}; launches "
+            f"{counts}")
+        if counts != {name: 6}:
+            bad.append(f"{shape}: launches {counts}, want 6 of {name}")
+        if not (rel <= 1e-5 and rel_back <= 1e-5):
+            bad.append(f"{shape}: rel {rel:.3e}, round trip {rel_back:.3e}")
+    cf.reset_launch_counts()
+    record["canonical"] = rows
+    if bad:
+        raise AssertionError("; ".join(bad))
 
 
 # -- main ---------------------------------------------------------------------
@@ -1634,6 +1831,8 @@ def main() -> int:
     phase(10, f"the v1 walk: K6 and K7 vs plain, the v1 convolve, "
           f"richardson_lucy on a {V1_RL_BLOCK} block", phase_v1, torch, dev,
           taper_work_shapes(cli_shape, psf.shape), record)
+    phase(11, f"rfftn / irfftn / otf vs torch.fft at {CANONICAL_SHAPES}",
+          phase_canonical, torch, dev, record)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
     peaks = {k: v["peak_mem_bytes"] for k, v in record.items()
              if isinstance(v, dict) and "peak_mem_bytes" in v}
@@ -1654,7 +1853,8 @@ def main() -> int:
     def entry(tag, name, source, replaces, launches, rows, at):
         return dict(
             name=f"{tag} {name}", route="cuda",
-            source=STAGE_SOURCE if name in STAGE_KERNELS else source,
+            source=(STAGE_SOURCE if name in STAGE_KERNELS
+                    else DFT_SOURCE if name == "cplx_matmul" else source),
             replaces=replaces, launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=at["ms"],
             plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
@@ -1680,7 +1880,7 @@ def main() -> int:
                          record["destripe_cli"]["launches"]["dwt_analysis"],
                          record["dwt"], at))
     # K6 and K7 at the v1 RL block's work shape (K6: the inverse z stage,
-    # K7: the forward y stage), launches from that RL run
+    # K7: the FFT kernel on the forward y stage), launches from that RL run
     v1 = record["v1"]
     rl_shape = v1["rl_shape"]
     for name, (tag, replaces) in V1.items():
@@ -1688,6 +1888,13 @@ def main() -> int:
         at = [r for r in rows if r["work_shape"] == rl_shape][0]
         kernels.append(entry(tag, name, SOURCE, replaces,
                              v1["rl"]["launches"][name], rows, at))
+    # K7's dense kernel: launches of phase 11's transforms at a shape with
+    # no FFT plan (0 on every other path, as the phases checked)
+    name, tag, replaces = K7_DENSE
+    dense_launches = sum(r["launches"].get(name, 0)
+                         for r in record["canonical"])
+    kernels.append(entry(tag, name, SOURCE, replaces, dense_launches,
+                         v1["dense"], v1["dense"][0]))
     if any(k["launches"] == 0 for k in kernels):
         say("FAIL: a kernel of the path was never launched")
         return 1

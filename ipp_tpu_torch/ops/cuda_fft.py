@@ -1,7 +1,7 @@
 """Wrappers of the FFT-walk CUDA kernels, each beside its plain version.
 
-One wrapper per kernel form of `csrc/fft_walk.cu` and `csrc/stage_fft.cuh`;
-together they replace
+One wrapper per kernel form of `csrc/fft_walk.cu`, `csrc/stage_fft.cuh` and
+`csrc/dft_fft.cuh`; together they replace
 the eleven Pallas entry points of the reference's v2 convolve walk
 (ipp_tpu/ops/pallas_fft.py), unbatched (v2-t) and batched, and the two of
 its v1 walk (`_fused_stage_call(forward=False)`, `_fused_call`):
@@ -31,6 +31,14 @@ admit), the dense stage kernels of csrc/fft_walk.cu (a butterfly and two
 (n/2)^2 complex products) for any other multiple of 128.  It is a route by
 shape: nothing is caught and retried.
 
+K7 has two kernels too.  Every call the walks make multiplies by the dense
+DFT matrix of an axis, `cplx_triple(n, forward)`, and says so with `dft=`:
+then the function is the n-point DFT along the last axis, and for n a
+multiple of 8 up to `DFT_FFT_MAX_N` (`dft_route`) the mixed-radix FFT
+kernel of csrc/dft_fft.cuh computes it without reading the matrices.  An
+arbitrary matrix (`dft=None`) and every other length take the dense
+Karatsuba kernel of csrc/fft_walk.cu, counted as `cplx_matmul_dense`.
+
 Rules every wrapper keeps:
 - a CPU tensor goes to the plain PyTorch version (`*_plain`, the same
   function written with `torch.matmul`); a CUDA tensor launches the kernel
@@ -41,24 +49,27 @@ Rules every wrapper keeps:
   can show that its main path went through the kernels; the batched
   forms and K6 (`radix2_stage_inv_last`) count under their own names,
   and a launch of a dense stage kernel under its name with `_dense`
-  appended, so a run can show which stage kernel it went through.
+  appended, so a run can show which stage kernel it went through;
+  `cplx_matmul` counts K7's FFT kernel, `cplx_matmul_dense` its dense one.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .dft_mats import STAGE_FFT_LENGTHS, stage_twiddles
+from .dft_mats import (DFT_FFT_MAX_N, DFT_FFT_RADICES, STAGE_FFT_LENGTHS,
+                       dft_fft_plan, stage_twiddles)
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "stage_route", "rdft_y_fwd",
-           "rdft_y_fwd_batched", "rdft_y_fwd_plain", "rdft_y_inv",
+__all__ = ["LAUNCHES", "reset_launch_counts", "stage_route", "dft_route",
+           "rdft_y_fwd", "rdft_y_fwd_batched", "rdft_y_fwd_plain", "rdft_y_inv",
            "rdft_y_inv_batched", "rdft_y_inv_plain", "radix2_stage",
            "radix2_stage_plain", "radix2_stage_inv_otf",
            "radix2_stage_inv_otf_batched", "radix2_stage_inv_otf_plain",
-           "cplx_matmul", "cplx_matmul_plain"]
+           "cplx_matmul", "cplx_matmul_plain", "dft_last_fft"]
 
 EPS = float(np.finfo(np.float32).eps)
 _GRID_MAX = 65535  # gridDim.y / gridDim.z limit
@@ -71,7 +82,7 @@ LAUNCHES: Dict[str, int] = {
     "radix2_stage_inv_last": 0, "cplx_matmul": 0,
     "radix2_stage_dense": 0, "radix2_stage_inv_otf_dense": 0,
     "radix2_stage_inv_otf_batched_dense": 0,
-    "radix2_stage_inv_last_dense": 0}
+    "radix2_stage_inv_last_dense": 0, "cplx_matmul_dense": 0}
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -378,27 +389,87 @@ def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
     return rr, ii
 
 
+def dft_route(n: int) -> str:
+    """Which kernel K7 launches on the card for the dense DFT of an axis of
+    length n (`cplx_matmul(..., dft=...)`): "fft" (csrc/dft_fft.cuh) for a
+    multiple of 8 up to `DFT_FFT_MAX_N` (two buffers of one row fit in
+    shared memory), "dense" (csrc/fft_walk.cu) for any other length."""
+    return "fft" if n >= 8 and n % 8 == 0 and n <= DFT_FFT_MAX_N else "dense"
+
+
+_dft_plans: Dict[Tuple[int, ...], Tuple[ctypes.Array, int, int]] = {}
+
+
+def _dft_plan(plan: Tuple[int, ...]) -> Tuple[ctypes.Array, int, int]:
+    """(radices as a C int array, passes, 1 if the last is the generic
+    pass) of a pass list."""
+    if plan not in _dft_plans:
+        _dft_plans[plan] = ((ctypes.c_int * len(plan))(*plan), len(plan),
+                            int(plan[-1] not in DFT_FFT_RADICES))
+    return _dft_plans[plan]
+
+
+def dft_last_fft(re: torch.Tensor, im: torch.Tensor, forward: bool,
+                 pad: int = -1, threads_per_row: int = 0,
+                 rows_per_block: int = 0,
+                 plan: Optional[Tuple[int, ...]] = None) -> Pair:
+    """K7's FFT kernel on (rows, n) CUDA planes: the n-point DFT (forward)
+    or inverse DFT with 1/n along the last axis, counted as `cplx_matmul`.
+    `pad`, `threads_per_row`, `rows_per_block` and `plan` override the
+    kernel's shared-memory pad, its block geometry and `dft_fft_plan(n)`
+    (a bench's knobs; -1, 0, 0 and None keep its own; the kernel refuses a
+    pass list it cannot run)."""
+    name = "cplx_matmul"
+    _ndim(name, re, 2, "(rows, n)")
+    _shape(name, im, re.shape)
+    rows, n = re.shape
+    if not _on_cuda(name, re, im) or dft_route(n) != "fft" or rows == 0:
+        raise ValueError(f"{name}: the FFT kernel takes CUDA planes of "
+                         f"(rows >= 1, n) with dft_route(n) == 'fft'; got "
+                         f"{tuple(re.shape)} on {re.device}")
+    radices, npass, generic = _dft_plan(
+        dft_fft_plan(n) if plan is None else tuple(plan))
+    rr, ii = _empty((rows, n), re), _empty((rows, n), re)
+    _launch(name, re.device, _lib().ipp_dft_last, re.data_ptr(),
+            im.data_ptr(), _stage_twiddles(re.device, n).data_ptr(),
+            rr.data_ptr(), ii.data_ptr(), int(not forward), rows, n, npass,
+            radices, generic, pad, threads_per_row, rows_per_block)
+    return rr, ii
+
+
 def cplx_matmul(re: torch.Tensor, im: torch.Tensor, mr: torch.Tensor,
-                mi: torch.Tensor, mri: torch.Tensor) -> Pair:
+                mi: torch.Tensor, mri: torch.Tensor,
+                dft: Optional[bool] = None) -> Pair:
     """K7: the complex product (re + i*im) @ (mr + i*mi) of (M, K) data and
-    (K, N) matrices (mri = mr + mi), Karatsuba in one pass: see
-    `cplx_matmul_plain`."""
+    (K, N) matrices (mri = mr + mi): see `cplx_matmul_plain`.  `dft=True`
+    (`False`) is the caller's statement that the matrices are
+    `cplx_triple(n, True)` (`False`), the dense forward (inverse) DFT of
+    the axis; K == N == n is checked, the values are not.  On the card the
+    length then chooses the kernel (`dft_route`): the FFT kernel, which does
+    not read the matrices, or the dense one-pass Karatsuba kernel, which
+    also serves any matrix with `dft=None` and counts as
+    `cplx_matmul_dense`."""
     name = "cplx_matmul"
     _ndim(name, re, 2, "(M, K)")
-    if not _on_cuda(name, re, im, mr, mi, mri):
-        return cplx_matmul_plain(re, im, mr, mi, mri)
     rows, k = re.shape
     n = mr.shape[-1]
+    if dft is not None and k != n:
+        raise ValueError(f"{name}: dft={dft} needs the square DFT matrix of "
+                         f"the axis, got K={k}, N={n}")
+    if not _on_cuda(name, re, im, mr, mi, mri):
+        return cplx_matmul_plain(re, im, mr, mi, mri)
     _shape(name, im, re.shape)
     for m in (mr, mi, mri):
         _shape(name, m, (k, n))
     if rows == 0 or k == 0 or n == 0:
         raise ValueError(f"{name}: empty operand {(rows, k, n)}")
+    if dft is not None and dft_route(n) == "fft":
+        return dft_last_fft(re, im, bool(dft))
     _grid(name, "N/64", -(-n // _BN))
     rr, ii = _empty((rows, n), re), _empty((rows, n), re)
-    _launch(name, re.device, _lib().ipp_cplx_matmul, re.data_ptr(),
-            im.data_ptr(), mr.data_ptr(), mi.data_ptr(), mri.data_ptr(),
-            rr.data_ptr(), ii.data_ptr(), rows, k, n)
+    _launch(name + "_dense", re.device, _lib().ipp_cplx_matmul,
+            re.data_ptr(), im.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+            mri.data_ptr(), rr.data_ptr(), ii.data_ptr(), rows, k, n)
     return rr, ii
 
 

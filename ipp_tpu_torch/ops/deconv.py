@@ -1,5 +1,5 @@
 """Richardson-Lucy deconvolution on PyTorch (port of ipp_tpu/ops/deconv.py
-lines 72-665: gauss3d, make_taper, edge_taper_3d, pad_to_shape, unpad,
+lines 72-665: gauss3d, gauss3d_batched, make_taper, edge_taper_3d, pad_to_shape, unpad,
 fft_shape_for, _tikhonov_kernel, _conv3d_zero, _make_otf, _make_convolver,
 _rl_fft_iterations, richardson_lucy, richardson_lucy_batched,
 richardson_lucy_wiener, richardson_lucy_spatial).
@@ -38,7 +38,7 @@ from ..utils.device import resolve_device
 from .fftutil import next_fast_len
 from .matmul_fft import MatmulFFT3, in_kernel_domain, plan_shape
 
-__all__ = ["gauss3d", "make_taper", "edge_taper_3d", "pad_to_shape",
+__all__ = ["gauss3d", "gauss3d_batched", "make_taper", "edge_taper_3d", "pad_to_shape",
            "unpad", "fft_shape_for", "conv_route", "richardson_lucy",
            "richardson_lucy_batched", "richardson_lucy_wiener",
            "richardson_lucy_spatial"]
@@ -89,6 +89,15 @@ def gauss3d(vol: torch.Tensor, sigma) -> torch.Tensor:
         if s > 0:
             out = _conv1d_axis(out, _gauss_kernel(s), ax - 3)
     return out
+
+
+def gauss3d_batched(vols: torch.Tensor, sigma) -> torch.Tensor:
+    """`gauss3d` over a (B, D, H, W) batch, each block filtered on its own
+    (the reference's public name; `gauss3d` itself takes leading axes)."""
+    if vols.dim() != 4:
+        raise ValueError(f"expected a (B, D, H, W) batch, got shape "
+                         f"{tuple(vols.shape)}")
+    return gauss3d(vols, sigma)
 
 
 def make_taper(dimsz: int, taper_width: int) -> np.ndarray:

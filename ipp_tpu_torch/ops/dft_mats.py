@@ -21,7 +21,8 @@ import numpy as np
 __all__ = ["dft_mats", "rdft_mats", "irdft_mats", "idft_mats",
            "cplx_triple", "rfft_x_mats", "radix_fwd_mats", "radix_inv_mats",
            "rfft_fold_mats", "stage_mats_t", "STAGE_FFT_LENGTHS",
-           "stage_fft_plan", "stage_twiddles"]
+           "stage_fft_plan", "stage_twiddles", "DFT_FFT_MAX_N",
+           "DFT_FFT_RADICES", "dft_fft_plan"]
 
 
 def _frozen(*arrays):
@@ -181,9 +182,43 @@ def stage_fft_plan(n: int) -> Tuple[int, ...]:
 @lru_cache(maxsize=16)
 def stage_twiddles(n: int) -> np.ndarray:
     """(n, 2) f32 table of exp(-2*pi*i*j/n), j < n, as (re, im) pairs:
-    computed in float64 and rounded once.  The stage FFT kernel reads every
-    twiddle and every root of its odd-radix pass from it (conjugated for
-    the inverse)."""
+    computed in float64 and rounded once, for any n.  The stage FFT kernel
+    reads every twiddle and every root of its odd-radix pass from it, the
+    dense-axis FFT kernel every twiddle and the roots of its generic pass
+    (conjugated for the inverse)."""
     w = np.exp(-2j * np.pi * np.arange(n) / n)
     return _frozen(np.ascontiguousarray(
         np.stack([w.real, w.imag], -1).astype(np.float32)))
+
+
+# -- a dense axis as an FFT (csrc/dft_fft.cuh) -------------------------------
+
+DFT_FFT_MAX_N = 12288                      # csrc/dft_fft.cuh MAX_N
+DFT_FFT_RADICES = (2, 3, 4, 5, 7, 8, 9, 16)  # the specialised butterflies
+
+
+@lru_cache(maxsize=256)
+def dft_fft_plan(n: int) -> Tuple[int, ...]:
+    """Radices of the dense-axis FFT kernel's passes for an axis of length
+    n = 2^a * m (a >= 3, m odd, n <= DFT_FFT_MAX_N), in order
+    (csrc/dft_fft.cuh): the passes of 2^a first, ceil(a / 4) of them, 8s
+    then 16s (8, 4 for a = 5); then 9 for every pair of threes in m, 3, and
+    every 5 and 7; and last what is left of m, if anything, as ONE generic
+    pass of that odd radix (11, 17, 67, 143, ...: the only radix outside
+    `DFT_FFT_RADICES`).  So every stride up to the first odd pass is a
+    power of two, and the generic pass reads no twiddle."""
+    n = int(n)
+    if n < 8 or n % 8 or n > DFT_FFT_MAX_N:
+        raise ValueError(f"no dense-axis FFT plan for n={n}: a multiple of "
+                         f"8 up to {DFT_FFT_MAX_N} is needed")
+    a = (n & -n).bit_length() - 1
+    m = n >> a
+    k = -(-a // 4)
+    plan = [8, 4] if a == 5 else [8] * (4 * k - a) + [16] * (a - 3 * k)
+    for r in (9, 3, 5, 7):
+        while m % r == 0:
+            plan.append(r)
+            m //= r
+    if m > 1:
+        plan.append(m)
+    return tuple(plan)

@@ -164,15 +164,21 @@ def butter_lowpass_coeffs(cutoff: float, order: int = 1) -> Tuple[np.ndarray, np
 
 def _iir1(x: torch.Tensor, b0: float, b1: float, a1: float, zi: float) -> torch.Tensor:
     """First-order IIR y[n] = -a1 y[n-1] + b0 x[n] + b1 x[n-1] along the
-    last axis, with scipy-style initial state zi * x[0]: the reference's
-    associative scan, run here as the sequential recurrence."""
+    last axis, with scipy-style initial state zi * x[0].  The recurrence
+    y[k] = u[k] + c y[k-1], c = -a1, is solved as a scan by doubling
+    (the reference runs an associative scan): after the step with shift s,
+    y[k] holds sum_{j < 2s} c^j u[k-j], so log2(n) whole-row steps replace
+    n single-sample ones.  c^s underflows to 0 for long rows, which only
+    ends the sum where its terms have vanished."""
     xm1 = torch.cat([torch.zeros_like(x[..., :1]), x[..., :-1]], dim=-1)
-    u = b0 * x + b1 * xm1
-    u[..., 0] += zi * x[..., 0]
-    ys = [u[..., 0]]
-    for k in range(1, u.shape[-1]):
-        ys.append(u[..., k] - a1 * ys[-1])
-    return torch.stack(ys, dim=-1)
+    y = b0 * x + b1 * xm1
+    y[..., 0] += zi * x[..., 0]
+    n, shift, coef = y.shape[-1], 1, -a1
+    while shift < n:
+        y = torch.cat([y[..., :shift],
+                       y[..., shift:] + coef * y[..., :-shift]], dim=-1)
+        shift, coef = 2 * shift, coef * coef
+    return y
 
 
 def filtfilt1(x: torch.Tensor, b: np.ndarray, a: np.ndarray) -> torch.Tensor:

@@ -39,6 +39,12 @@ radix-2 axes (X[2k+s] at s*m + k, ipp_tpu/ops/pallas_fft.py:267-271), so
 the OTF must come from the same walk: `otf_packed` runs the PSF through it.
 An OTF from torch.fft fed to `convolve` would be silently wrong.  On CPU
 tensors every kernel call takes its plain version.
+
+`rfftn`, `irfftn` and `otf` are the reference's canonical transforms
+(mxu_fft.py:499-527, 696-699): (..., nz, ny, nx) to (re, im) of shape
+(..., nz, ny, kx) in natural frequency order and back, for any shape.  x
+is a `torch.matmul` against the unpadded real-DFT matrices; y and z are the
+dense DFT of the axis moved last, K7.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ import numpy as np
 import torch
 
 from . import cuda_fft
-from .dft_mats import cplx_triple, rfft_fold_mats, rfft_x_mats, stage_mats_t
+from .dft_mats import (cplx_triple, irdft_mats, rdft_mats, rfft_fold_mats,
+                       rfft_x_mats, stage_mats_t)
 
 __all__ = ["MatmulFFT3", "in_kernel_domain", "load_packed_otf", "plan_shape",
            "stage_axes"]
@@ -112,10 +119,9 @@ class MatmulFFT3:
             raise ValueError(f"work shape {self.shape} is not 3-D")
         self.device = torch.device(device)
         self.v2 = in_kernel_domain(self.shape)
+        self._canon = None   # constants of rfftn / irfftn, made on first use
         nz, ny, nx = self.shape
-
-        def dev(a):  # a copy: the cached numpy constants are read-only
-            return torch.tensor(a, device=self.device)
+        dev = self._dev
 
         if self.v2:
             self.kp = _kp(ny)
@@ -140,6 +146,10 @@ class MatmulFFT3:
                 else:
                     self._dense[axis, f] = tuple(
                         dev(m) for m in cplx_triple(n, f))
+
+    def _dev(self, a) -> torch.Tensor:
+        """A device copy (the cached numpy constants are read-only)."""
+        return torch.tensor(a, device=self.device)
 
     # -- v2 --------------------------------------------------------------------
 
@@ -203,7 +213,8 @@ class MatmulFFT3:
             rr, ii = cuda_fft.radix2_stage(re2, im2, *radix, forward, -1)
         else:
             rr, ii = cuda_fft.cplx_matmul(re2, im2,
-                                          *self._dense[axis, forward])
+                                          *self._dense[axis, forward],
+                                          dft=forward)
         return rr.view(shape), ii.view(shape)
 
     def _fwd_v1(self, x: torch.Tensor) -> Pair:
@@ -246,6 +257,56 @@ class MatmulFFT3:
         both = torch.cat([rr.movedim(-1, -3), ii.movedim(-1, -3)], -1)
         out = torch.matmul(both, self._ix)               # (..., z, y, x)
         return torch.abs(mul_abs * out) if mul_abs is not None else out
+
+    # -- canonical layout --------------------------------------------------------
+
+    def _canonical(self) -> dict:
+        if self._canon is None:
+            nz, ny, nx = self.shape
+            fr, fi = rdft_mats(nx)
+            ar, ai = irdft_mats(nx)
+            self._canon = {
+                "fx": self._dev(np.concatenate([fr, fi], 1)),    # (nx, 2kx)
+                "ix": self._dev(np.concatenate([ar, -ai], 0)),   # (2kx, nx)
+                **{(axis, f): tuple(self._dev(m) for m in cplx_triple(n, f))
+                   for axis, n in ((-3, nz), (-2, ny)) for f in (True, False)}}
+        return self._canon
+
+    def _dft_axis(self, re: torch.Tensor, im: torch.Tensor, axis: int,
+                  forward: bool) -> Pair:
+        """The complex DFT along `axis` (-3 or -2) of (..., nz, ny, kx): the
+        axis moved last, K7, and moved back (a view)."""
+        re = re.transpose(axis, -1).contiguous()
+        im = im.transpose(axis, -1).contiguous()
+        shape = re.shape
+        n = shape[-1]
+        rr, ii = cuda_fft.cplx_matmul(re.view(-1, n), im.view(-1, n),
+                                      *self._canonical()[axis, forward],
+                                      dft=forward)
+        return (rr.view(shape).transpose(axis, -1),
+                ii.view(shape).transpose(axis, -1))
+
+    def rfftn(self, x: torch.Tensor) -> Pair:
+        """(..., nz, ny, nx) real -> (re, im) of shape (..., nz, ny, kx),
+        kx = nx // 2 + 1, frequencies in natural order."""
+        both = torch.matmul(x.to(self.device, torch.float32),
+                            self._canonical()["fx"])
+        kx = self.shape[2] // 2 + 1
+        re, im = both[..., :kx], both[..., kx:]
+        re, im = self._dft_axis(re, im, -2, True)
+        re, im = self._dft_axis(re, im, -3, True)
+        return re.contiguous(), im.contiguous()
+
+    def irfftn(self, re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+        """(re, im) of shape (..., nz, ny, kx) -> real (..., nz, ny, nx)."""
+        re, im = self._dft_axis(re, im, -3, False)
+        re, im = self._dft_axis(re, im, -2, False)
+        return torch.matmul(torch.cat([re, im], -1), self._canonical()["ix"])
+
+    def otf(self, psf_rolled: torch.Tensor) -> Pair:
+        """Forward transform of an origin-centred padded PSF in the
+        canonical (nz, ny, kx) layout; `convolve` needs `otf_packed`."""
+        return self.rfftn(psf_rolled)
 
     # -- public ------------------------------------------------------------------
 

@@ -266,7 +266,8 @@ def test_batched_walk_on_the_card_equals_the_per_block_walk(cuda, rng):
         "radix2_stage_inv_last": 0, "cplx_matmul": 0,
         "radix2_stage_dense": 0, "radix2_stage_inv_otf_dense": 0,
         "radix2_stage_inv_otf_batched_dense": 0,
-        "radix2_stage_inv_last_dense": 0}
+        "radix2_stage_inv_last_dense": 0,
+        "cplx_matmul_dense": 0}
     for b in range(2):
         one = plan.convolve(x[b], otf, conj=True, ratio_num=x[b],
                             mul_abs=x[b])

@@ -253,5 +253,6 @@ def test_walk_convolve_on_the_card_matches_numpy(cuda, rng):
                            "radix2_stage_dense": 0,
                            "radix2_stage_inv_otf_dense": 0,
                            "radix2_stage_inv_otf_batched_dense": 0,
-                           "radix2_stage_inv_last_dense": 0}
+                           "radix2_stage_inv_last_dense": 0,
+                           "cplx_matmul_dense": 0}
     assert rel(got.cpu().numpy(), _numpy_conv(x, k)) <= 1e-4

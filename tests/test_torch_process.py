@@ -110,6 +110,46 @@ def test_filtfilt_and_bleach_correction(tiles, max_method):
                                 max_method=max_method))
 
 
+@pytest.mark.parametrize("n", [150, 2000 + 2 * 6, 5])
+def test_iir1_scan_matches_the_reference_scan(n):
+    """`_iir1` (a scan by doubling) against the reference's associative
+    scan and the sample-by-sample recurrence, at a production row length
+    (2000 samples and filtfilt1's 6 + 6 of extension) as well as short
+    ones."""
+    rng = np.random.default_rng(n)
+    x = (7.0 + 0.3 * rng.standard_normal((4, n))).astype(np.float32)
+    b, a = JI.butter_lowpass_coeffs(0.02)
+    b0, b1, a1 = float(b[0]), float(b[1]), float(a[1])
+    zi = (b1 - b0 * a1) / (1.0 + a1)
+    got = PI._iir1(torch.from_numpy(x), b0, b1, a1, zi).numpy()
+    _close(got, JI._iir1(jnp.asarray(x), b0, b1, a1, zi))
+    u = b0 * x.astype(np.float64)
+    u[:, 1:] += b1 * x[:, :-1].astype(np.float64)
+    u[:, 0] += zi * x[:, 0]
+    ref = np.empty_like(u)
+    ref[:, 0] = u[:, 0]
+    for k in range(1, n):
+        ref[:, k] = u[:, k] - a1 * ref[:, k - 1]
+    _close(got, ref.astype(np.float32))
+
+
+@pytest.mark.parametrize("max_method", [False, True])
+def test_filtfilt_and_bleach_correction_at_a_production_row(max_method):
+    rng = np.random.default_rng(3)
+    h, w = 24, 2000
+    yy, xx = np.mgrid[:h, :w]
+    img = 1500 + 900 * np.sin(yy / 5.0) * np.cos(xx / 230.0) \
+        + rng.normal(0, 40, (h, w))
+    x = np.log1p(np.clip(img, 0, 65535).astype(np.float32))
+    b, a = JI.butter_lowpass_coeffs(0.02)
+    _close(PI.filtfilt1(torch.from_numpy(x), b, a).numpy(),
+           JI.filtfilt1(jnp.asarray(x), b, a))
+    _close(PI.correct_bleaching(torch.from_numpy(x), 0.02, 6.0, 7.2, 7.6,
+                                max_method=max_method).numpy(),
+           JI.correct_bleaching(jnp.asarray(x), 0.02, 6.0, 7.2, 7.6,
+                                max_method=max_method))
+
+
 def test_hist_match(tiles):
     src, tpl = tiles[0].astype(np.float32), tiles[1].astype(np.float32) * 2
     _close(PI.hist_match(torch.from_numpy(src), torch.from_numpy(tpl)).numpy(),

@@ -303,11 +303,13 @@ def test_k6_and_k7_match_plain_on_the_card(cuda, rng):
                              (333, 1072, True)):
         re, im = d(rows, n), d(rows, n)
         mats = [m.to(cuda) for m in map(t, cplx_triple(n, forward))]
-        pairs.append((cf.cplx_matmul(re, im, *mats),
-                      cf.cplx_matmul_plain(re, im, *mats)))
+        ref = cf.cplx_matmul_plain(re, im, *mats)
+        pairs.append((cf.cplx_matmul(re, im, *mats, dft=forward), ref))
+        pairs.append((cf.cplx_matmul(re, im, *mats), ref))   # any matrix
     torch.cuda.synchronize()
     assert cf.LAUNCHES["radix2_stage_inv_last"] == 2
-    assert cf.LAUNCHES["cplx_matmul"] == 3
+    assert cf.LAUNCHES["cplx_matmul"] == 3           # the FFT kernel
+    assert cf.LAUNCHES["cplx_matmul_dense"] == 3     # the dense kernel
     for got, ref in pairs:
         for g, r in zip(got, ref):
             assert rel(g.cpu().numpy(), r.cpu().numpy()) <= 1e-5
@@ -323,6 +325,7 @@ def test_v1_convolve_on_the_card_matches_numpy(shape, cuda, rng):
     got = plan.convolve(t(x).to(cuda), plan.otf_packed(t(k).to(cuda)))
     z, y = stage_axes(shape)
     assert cf.LAUNCHES["cplx_matmul"] == 3 * ((not z) + (not y))
+    assert cf.LAUNCHES["cplx_matmul_dense"] == 0
     assert cf.LAUNCHES["radix2_stage_inv_last"] == int(z)
     assert cf.LAUNCHES["radix2_stage_inv_otf"] == int(y)
     assert cf.LAUNCHES["radix2_stage"] == 2 * (z + y)

@@ -9,7 +9,13 @@ Phases:
 2. each kernel against its plain PyTorch version on the card, at the work
    shapes (256,256,256), (512,512,512), one with 768 axes, and the CLI's
    block shape; max |kernel - plain| / max |plain| must be <= 1e-5 (both
-   f32); kernel and plain times by CUDA events after a warm call; then
+   f32); kernel and plain times by CUDA events after a warm call; K1 and
+   K2 run their real-FFT kernels (`fold=True`) and, once per shape, their
+   dense GEMM kernels (no keyword), each counted under its own name; then
+   K1 and K2 (plain, ratio, mul) at the lengths ny = 8, 24, 40, 136, 536,
+   1120, 1152, 2008, 2048 that cover every radix of the plan, with a
+   single bright column, with junk in the rows and imaginary parts the
+   Hermitian fold ignores, and K1's padded rows held to exactly 0; then
    every form of the stage FFT kernels (forward and inverse in both
    layouts, K4 with the OTF and its conjugate, K4b with an OTF period,
    K6) at each of their eight lengths 256 * j and a small row count, and
@@ -92,8 +98,9 @@ Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
 F.conv1d; timed here only, the port never calls it) and its bound: the
 larger of the function's FLOPs over the f32 peak (a matrix product's for
-K1, K2 and K7's dense kernel, an FFT's 5 n log2 n per transform for K3,
-K4, K6 and K7, the taps' for K5) and its bytes (each input read once, each output written
+the dense kernels of K1, K2 and K7, an FFT's 5 n log2 n per complex
+transform for K3, K4, K6 and K7 and half that per real column for K1 and
+K2, the taps' for K5) and its bytes (each input read once, each output written
 once) over the HBM rate.  The edge taper's slab blurs take the v1 walk on
 the card, so phases 3, 4, 7 and 9 count their K7 launches too.
 
@@ -124,6 +131,16 @@ KERNELS = {
     "radix2_stage": ("K3", "ipp_tpu/ops/pallas_fft.py:437"),
     "radix2_stage_inv_otf": ("K4", "ipp_tpu/ops/pallas_fft.py:208"),
 }
+# the dense GEMM kernels of K1 and K2: any matrix, and shapes off the
+# real-FFT route; on no main path (their counters stay 0 there)
+RDFT_DENSE = {
+    "rdft_y_fwd_dense": (
+        "K1d", "ipp_tpu/ops/pallas_fft.py:579 (the y real DFT as a product "
+        "with an arbitrary (2kp, ny) matrix)"),
+    "rdft_y_inv_dense": (
+        "K2d", "ipp_tpu/ops/pallas_fft.py:604 (the inverse as a product "
+        "with an arbitrary (ny, 2kp) matrix)"),
+}
 BATCHED = {
     "rdft_y_fwd_batched": (
         "K1b", "ipp_tpu/ops/pallas_fft.py:498 (_v2_rfft_call); "
@@ -149,6 +166,10 @@ K7_DENSE = ("cplx_matmul_dense", "K7d", "ipp_tpu/ops/pallas_fft.py:66 "
 K7_DENSE_CASE = (9792, 136)   # the FNT cubes' stage, held on the dense kernel
 SOURCE = "ipp_tpu_torch/csrc/fft_walk.cu"
 DFT_SOURCE = "ipp_tpu_torch/csrc/dft_fft.cuh"
+# K1, K2 and their batched forms run their real-FFT kernels on every path
+RDFT_SOURCE = "ipp_tpu_torch/csrc/rdft_y.cuh"
+RDFT_KERNELS = {"rdft_y_fwd", "rdft_y_inv", "rdft_y_fwd_batched",
+                "rdft_y_inv_batched"}
 # the radix-2 stages run their FFT kernels at every main-path shape
 STAGE_SOURCE = "ipp_tpu_torch/csrc/stage_fft.cuh"
 STAGE_KERNELS = {"radix2_stage", "radix2_stage_inv_otf",
@@ -209,15 +230,25 @@ def bound(flops: float, nbytes: float):
 
 # The work of one call of each kernel form, (FLOPs, bytes), counted for the
 # function it computes: a product against an arbitrary matrix where the
-# wrapper takes one (K1, K2, K7's dense kernel, as torch.matmul computes
-# it), an FFT's 5 n log2 n FLOPs per complex transform of length n where
-# the function is a DFT along an axis (K3, K4, K6, K7, as torch.fft computes
-# it); each input read once, each output written once.
+# wrapper takes one (the dense kernels of K1, K2 and K7, as torch.matmul
+# computes it), an FFT's 5 n log2 n FLOPs per complex transform of length n
+# where the function is a DFT along an axis (K3, K4, K6, K7, and at half
+# that per real column K1 and K2, as torch.fft computes it); each input read
+# once, each output written once.
 
 def work_rdft(vox: int, ny: int, kp: int, extra_streams: int):
-    """K1 / K2 on vox = nz*ny*nx voxels: (2kp x ny) products per column;
-    `extra_streams` more volumes read (the ratio's den, the update's
-    mul)."""
+    """K1 / K2 on vox = nz*ny*nx voxels, the function: a real DFT of
+    length ny per column at 2.5 ny log2 ny FLOPs, the volume and the two
+    (kp, nz, nx) planes moved once; `extra_streams` more volumes read (the
+    ratio's den, the update's mul).  No matrix is counted."""
+    cols = vox // ny
+    return (2.5 * vox * math.log2(ny),
+            4.0 * (vox * (1 + extra_streams) + 2 * kp * cols))
+
+
+def work_rdft_dense(vox: int, ny: int, kp: int, extra_streams: int):
+    """The dense kernels of K1 / K2: a (2kp x ny) product per column with
+    a matrix the kernel must read."""
     cols = vox // ny
     return (2.0 * 2 * kp * ny * cols,
             4.0 * (vox * (1 + extra_streams) + 2 * kp * cols + 2 * kp * ny))
@@ -311,6 +342,40 @@ def rl_launches(fft_shape, niter: int):
 
 # -- phase 2 -----------------------------------------------------------------
 
+def rdft_cases(torch, cf, x, den, mul, sr, si, fwd, inv):
+    """(kernel, variant, kernel_fn, plain_fn, library_fn, work) of K1 and K2
+    on the real-FFT route (`fold=True`), each with and without its fused
+    stream: the unbatched wrappers on a (nz, ny, nx) volume and its (kp, nz,
+    nx) spectrum, the batched ones with a leading batch.  The library call
+    of K2 takes the half spectrum as torch.fft lays it out, (..., nz, kx,
+    nx), and gives K2's (..., nz, ny, nx)."""
+    batched = x.dim() == 4
+    k1, k2 = ((cf.rdft_y_fwd_batched, cf.rdft_y_inv_batched) if batched
+              else (cf.rdft_y_fwd, cf.rdft_y_inv))
+    n1, n2 = (("rdft_y_fwd_batched", "rdft_y_inv_batched") if batched
+              else ("rdft_y_fwd", "rdft_y_inv"))
+    ny, kp, vox = x.shape[-2], sr.shape[-3], x.numel()
+    kx = ny // 2 + 1
+    half = torch.complex(sr[..., :kx, :, :], si[..., :kx, :, :]).transpose(
+        -3, -2).contiguous()
+    return [
+        (n1, "plain", lambda: k1(x, fwd, fold=True),
+         lambda: cf.rdft_y_fwd_plain(x, fwd),
+         lambda: torch.fft.rfft(x, dim=-2), work_rdft(vox, ny, kp, 0)),
+        (n1, "ratio", lambda: k1(x, fwd, den, fold=True),
+         lambda: cf.rdft_y_fwd_plain(x, fwd, den),
+         lambda: torch.fft.rfft(x, dim=-2), work_rdft(vox, ny, kp, 1)),
+        (n2, "plain", lambda: k2(sr, si, inv, fold=True),
+         lambda: cf.rdft_y_inv_plain(sr, si, inv),
+         lambda: torch.fft.irfft(half, n=ny, dim=-2),
+         work_rdft(vox, ny, kp, 0)),
+        (n2, "mul", lambda: k2(sr, si, inv, mul, fold=True),
+         lambda: cf.rdft_y_inv_plain(sr, si, inv, mul),
+         lambda: torch.fft.irfft(half, n=ny, dim=-2),
+         work_rdft(vox, ny, kp, 1)),
+    ]
+
+
 def kernel_cases(torch, plan, rng, dev):
     """(kernel, variant, kernel_fn, plain_fn, library_fn, work) for every
     variant on the walk, at this plan's work shape; library_fn is one
@@ -338,19 +403,15 @@ def kernel_cases(torch, plan, rng, dev):
     c = torch.complex(sr, si)
     c2 = c.view(-1, nx)
     spec = kp * nz * nx
-    return [
-        ("rdft_y_fwd", "plain", lambda: cf.rdft_y_fwd(x, plan._rfwd),
-         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd),
-         lambda: torch.matmul(plan._rfwd, x), work_rdft(vox, ny, kp, 0)),
-        ("rdft_y_fwd", "ratio", lambda: cf.rdft_y_fwd(x, plan._rfwd, den),
-         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd, den),
-         lambda: torch.matmul(plan._rfwd, x), work_rdft(vox, ny, kp, 1)),
-        ("rdft_y_inv", "plain", lambda: cf.rdft_y_inv(sr, si, plan._rinv),
-         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv),
-         lambda: torch.matmul(plan._rinv, both), work_rdft(vox, ny, kp, 0)),
-        ("rdft_y_inv", "mul", lambda: cf.rdft_y_inv(sr, si, plan._rinv, mul),
-         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv, mul),
-         lambda: torch.matmul(plan._rinv, both), work_rdft(vox, ny, kp, 1)),
+    fwd, inv = plan._rfwd, plan._rinv
+    return rdft_cases(torch, cf, x, den, mul, sr, si, fwd, inv) + [
+        # the dense GEMM kernels: the route without the keyword
+        ("rdft_y_fwd_dense", "plain", lambda: cf.rdft_y_fwd(x, fwd),
+         lambda: cf.rdft_y_fwd_plain(x, fwd),
+         lambda: torch.matmul(fwd, x), work_rdft_dense(vox, ny, kp, 0)),
+        ("rdft_y_inv_dense", "plain", lambda: cf.rdft_y_inv(sr, si, inv),
+         lambda: cf.rdft_y_inv_plain(sr, si, inv),
+         lambda: torch.matmul(inv, both), work_rdft_dense(vox, ny, kp, 0)),
         ("radix2_stage", "fwd_z", lambda: cf.radix2_stage(sr, si, *fz, True, 1),
          lambda: cf.radix2_stage_plain(sr, si, *fz, True, 1),
          lambda: torch.fft.fft(c, dim=1), work_stage(spec, nz)),
@@ -371,6 +432,16 @@ def kernel_cases(torch, plan, rng, dev):
     ]
 
 
+def err_of_max(got, ref):
+    """(max |got - ref|, that over max |ref|) of a tensor or of a tuple of
+    tensors taken together: re and im of one spectrum share one scale."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    scale = max(float(r.abs().max()) for r in ref)
+    return abs_err, abs_err / max(scale, 1e-30)
+
+
 def check_case(torch, tag, name, variant, shape, kfn, pfn, lfn, work, reps,
                rows, bad):
     """One kernel against its plain version on the same inputs: max
@@ -378,11 +449,7 @@ def check_case(torch, tag, name, variant, shape, kfn, pfn, lfn, work, reps,
     version and the library call timed, and the kernel's bound."""
     got, ref = kfn(), pfn()
     torch.cuda.synchronize()
-    got = got if isinstance(got, tuple) else (got,)
-    ref = ref if isinstance(ref, tuple) else (ref,)
-    abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-    scale = max(float(r.abs().max()) for r in ref)
-    rel = abs_err / max(scale, 1e-30)
+    abs_err, rel = err_of_max(got, ref)
     del got, ref
     ms, plain_ms = time_ms(torch, kfn, reps), time_ms(torch, pfn, reps)
     lib_ms = time_ms(torch, lfn, reps) if lfn is not None else None
@@ -397,6 +464,105 @@ def check_case(torch, tag, name, variant, shape, kfn, pfn, lfn, work, reps,
         f"{plain_ms:9.3f}  library {lib}  bound {bound_ms:8.3f} ({bound_by})")
     if not rel <= 1e-5:
         bad.append(f"{name}/{variant} at {shape}: rel {rel:.3e}")
+
+
+# ny that cover every radix of the real-FFT kernels' plans: 8 and 16 alone,
+# 4, 2, 3, 5, 7, 9, and the generic pass at 17, 67 and 251
+RDFT_LENGTHS = (8, 24, 40, 136, 536, 1120, 1152, 2008, 2048)
+RDFT_PLANES, RDFT_NX = 128, 256
+
+
+def phase_rdft_forms(torch, dev, record):
+    """K1 and K2 at the lengths of RDFT_LENGTHS on (128, ny, 256) volumes:
+    kernel vs plain <= 1e-5 of max with the times, torch.fft and the bytes
+    bound; then, per length, a volume whose only bright column sits beside
+    dark ones, a spectrum with junk in the rows kx..kp-1 and in im at k = 0
+    and ny/2 (which the fold ignores), K1's padded rows exactly 0, and a
+    batch of three against the three single calls, bit for bit."""
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.dft_mats import dft_fft_plan, rfft_fold_mats
+    from ipp_tpu_torch.ops.matmul_fft import _kp
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    nz, nx = RDFT_PLANES, RDFT_NX
+    rows, bad, extra = [], [], []
+
+    def d(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    for ny in RDFT_LENGTHS:
+        kp, kx = _kp(ny), ny // 2 + 1
+        fwd, inv = (torch.tensor(m, device=dev)
+                    for m in rfft_fold_mats(ny, kp))
+        x, den, mul = d(nz, ny, nx), d(nz, ny, nx, lo=0.5), d(nz, ny, nx)
+        sr, si = d(kp, nz, nx, lo=-1), d(kp, nz, nx, lo=-1)
+        shape = (nz, ny, nx)
+        cf.reset_launch_counts()
+        for name, variant, kfn, pfn, lfn, work in rdft_cases(
+                torch, cf, x, den, mul, sr, si, fwd, inv):
+            check_case(torch, KERNELS[name][0], name, variant, shape, kfn,
+                       pfn, lfn, work, 5, rows, bad)
+            rows[-1]["plan"] = list(dft_fft_plan(ny))
+        # one bright column among dark ones: its pair partner's error is
+        # bounded by the tensor's max, and the dark columns' own values
+        # must still come out within that bound
+        xb = x * 1e-3
+        xb[:, :, 77] = x[:, :, 77] * 1e3
+        got = cf.rdft_y_fwd(xb, fwd, fold=True)
+        ref = cf.rdft_y_fwd_plain(xb, fwd)
+        rel_b = err_of_max(got, ref)[1]
+        zero_rows = all(bool((g[kx:] == 0).all()) for g in got)
+        edges = all(bool((got[1][k] == 0).all()) for k in (0, ny // 2))
+        back = cf.rdft_y_inv(*got, inv, fold=True)
+        rel_rt = rel_max(back, xb)
+        # junk where the Hermitian fold has zero columns
+        jr, ji = sr.clone(), si.clone()
+        jr[kx:], ji[kx:] = 1e6, -1e6
+        ji[0], ji[ny // 2] = 3e5, -7e5
+        rel_j = rel_max(cf.rdft_y_inv(jr, ji, inv, fold=True),
+                        cf.rdft_y_inv_plain(jr, ji, inv))
+        ci = si.clone()
+        ci[0], ci[ny // 2] = 0, 0
+        same = torch.equal(cf.rdft_y_inv(jr, ji, inv, fold=True),
+                           cf.rdft_y_inv(sr, ci, inv, fold=True))
+        # a batch of three against three single calls, bit for bit
+        xs = torch.stack([x, xb, den])[:, :8].contiguous()
+        bre, bim = cf.rdft_y_fwd_batched(xs, fwd, fold=True)
+        bout = cf.rdft_y_inv_batched(bre, bim, inv, mul=xs, fold=True)
+        equal = True
+        for i in range(3):
+            one = cf.rdft_y_fwd(xs[i], fwd, fold=True)
+            equal &= torch.equal(bre[i], one[0]) and torch.equal(bim[i], one[1])
+            equal &= torch.equal(bout[i], cf.rdft_y_inv(*one, inv, mul=xs[i],
+                                                        fold=True))
+        torch.cuda.synchronize()
+        dense = {k: v for k, v in cf.LAUNCHES.items()
+                 if v and k.endswith("_dense")}
+        extra.append(dict(ny=ny, plan=list(dft_fft_plan(ny)),
+                          bright_rel=rel_b, round_trip_rel=rel_rt,
+                          junk_rel=rel_j, junk_ignored=same,
+                          zero_rows=zero_rows, edges=edges,
+                          batch_equal=equal))
+        say(f"  K1/K2 forms at ny={ny:<5d} plan {dft_fft_plan(ny)}: bright "
+            f"column rel {rel_b:.2e}, round trip {rel_rt:.2e}, junk ignored "
+            f"rel {rel_j:.2e}, padded rows 0 {zero_rows}, edge im 0 {edges}, "
+            f"batch == singles {equal}")
+        if not (rel_b <= 1e-5 and rel_rt <= 1e-5 and rel_j <= 1e-5):
+            bad.append(f"ny={ny}: bright {rel_b:.3e}, round trip "
+                       f"{rel_rt:.3e}, junk {rel_j:.3e}")
+        if not (zero_rows and edges and equal and same):
+            bad.append(f"ny={ny}: padded rows 0 {zero_rows}, edge im 0 "
+                       f"{edges}, batch == singles {equal}, junk == no junk "
+                       f"bit for bit {same}")
+        if dense:
+            bad.append(f"ny={ny}: dense launches {dense}")
+        del x, den, mul, sr, si, xb, got, ref, back, jr, ji, ci, xs
+        torch.cuda.empty_cache()
+    cf.reset_launch_counts()
+    record["rdft_forms"] = dict(kernels=rows, checks=extra)
+    if bad:
+        raise AssertionError("K1/K2 real-FFT kernels: " + "; ".join(bad))
 
 
 STAGE_DENSE_N = 384   # a stage length that keeps the dense kernels
@@ -496,6 +662,11 @@ def ptxas_summary(log: str):
             t = re.search(r"dft_lastILb([01])E", name)
             if t:
                 name = f"dft_last<{('FWD', 'INV')[int(t.group(1))]}>"
+            t = re.search(r"rdft_y_(fwd|inv)_fftILb([01])E", name)
+            if t:
+                fused = {"fwd": "RATIO", "inv": "MUL"}[t.group(1)]
+                name = (f"rdft_y_{t.group(1)}_fft<"
+                        f"{fused if t.group(2) == '1' else 'plain'}>")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -513,20 +684,29 @@ def phase_kernels(torch, dev, shapes, record):
 
     from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
 
+    from ipp_tpu_torch.ops import cuda_fft as cf
+
     rng = np.random.default_rng(2)
     rows, bad = [], []
+    tags = {**KERNELS, **RDFT_DENSE}
     for shape in shapes:
         plan = MatmulFFT3(shape, dev)
         for name, variant, kfn, pfn, lfn, work in kernel_cases(torch, plan,
                                                                 rng, dev):
-            check_case(torch, KERNELS[name][0], name, variant, shape, kfn,
+            cf.reset_launch_counts()
+            check_case(torch, tags[name][0], name, variant, shape, kfn,
                        pfn, lfn, work, 3 if np.prod(shape) > 2 ** 27 else 5,
                        rows, bad)
+            routed = {k for k, v in cf.LAUNCHES.items() if v}
+            if routed != {name}:
+                bad.append(f"{name}/{variant} at {shape} launched {routed}")
         del plan
         torch.cuda.empty_cache()
+    cf.reset_launch_counts()
     record["kernels"] = rows
     if bad:
         raise AssertionError("kernel != plain: " + "; ".join(bad))
+    phase_rdft_forms(torch, dev, record)
     phase_stage_forms(torch, dev, record)
 
 
@@ -1048,7 +1228,7 @@ def batched_cases(torch, plan, nb, gen, dev):
 
     nz, ny, nx = plan.shape
     kp = plan.kp
-    vox, spec = nb * nz * ny * nx, nb * kp * nz * nx
+    spec = nb * kp * nz * nx
 
     def t(*shape, lo=0.0, hi=1.0):
         return (torch.rand(shape, generator=gen, device=dev) * (hi - lo)
@@ -1060,26 +1240,10 @@ def batched_cases(torch, plan, nb, gen, dev):
     or_, oi = t(kp * nz, nx, lo=-1), t(kp * nz, nx, lo=-1)
     r2, i2 = sr.view(-1, nx), si.view(-1, nx)
     ix = plan._x[False]
-    both = torch.cat([sr, si], 1).transpose(1, 2).contiguous()
     c2 = torch.complex(r2, i2)
     otf = kp * nz * nx
-    return [
-        ("rdft_y_fwd_batched", "plain",
-         lambda: cf.rdft_y_fwd_batched(x, plan._rfwd),
-         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd),
-         lambda: torch.matmul(plan._rfwd, x), work_rdft(vox, ny, kp, 0)),
-        ("rdft_y_fwd_batched", "ratio",
-         lambda: cf.rdft_y_fwd_batched(x, plan._rfwd, den),
-         lambda: cf.rdft_y_fwd_plain(x, plan._rfwd, den),
-         lambda: torch.matmul(plan._rfwd, x), work_rdft(vox, ny, kp, 1)),
-        ("rdft_y_inv_batched", "plain",
-         lambda: cf.rdft_y_inv_batched(sr, si, plan._rinv),
-         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv),
-         lambda: torch.matmul(plan._rinv, both), work_rdft(vox, ny, kp, 0)),
-        ("rdft_y_inv_batched", "mul",
-         lambda: cf.rdft_y_inv_batched(sr, si, plan._rinv, mul),
-         lambda: cf.rdft_y_inv_plain(sr, si, plan._rinv, mul),
-         lambda: torch.matmul(plan._rinv, both), work_rdft(vox, ny, kp, 1)),
+    return rdft_cases(torch, cf, x, den, mul, sr, si, plan._rfwd,
+                      plan._rinv) + [
         ("radix2_stage_inv_otf_batched", "otf",
          lambda: cf.radix2_stage_inv_otf_batched(r2, i2, or_, oi, *ix, False),
          lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, False),
@@ -1854,7 +2018,8 @@ def main() -> int:
         return dict(
             name=f"{tag} {name}", route="cuda",
             source=(STAGE_SOURCE if name in STAGE_KERNELS
-                    else DFT_SOURCE if name == "cplx_matmul" else source),
+                    else DFT_SOURCE if name == "cplx_matmul"
+                    else RDFT_SOURCE if name in RDFT_KERNELS else source),
             replaces=replaces, launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=at["ms"],
             plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
@@ -1862,6 +2027,15 @@ def main() -> int:
 
     kernels = []
     for name, (tag, replaces) in KERNELS.items():
+        rows = [r for r in record["kernels"] + record["rdft_forms"]["kernels"]
+                if r["kernel"] == name]
+        at = [r for r in rows if r["shape"] == main_shape][0]
+        kernels.append(entry(tag, name, SOURCE, replaces,
+                             record["cli"]["launches"][name], rows, at))
+    # the dense GEMM kernels of K1 and K2, held at the same shape through
+    # the route without the keyword: on no main path, so their count is 0
+    off_path = set(RDFT_DENSE)
+    for name, (tag, replaces) in RDFT_DENSE.items():
         rows = [r for r in record["kernels"] if r["kernel"] == name]
         at = [r for r in rows if r["shape"] == main_shape][0]
         kernels.append(entry(tag, name, SOURCE, replaces,
@@ -1895,8 +2069,13 @@ def main() -> int:
                          for r in record["canonical"])
     kernels.append(entry(tag, name, SOURCE, replaces, dense_launches,
                          v1["dense"], v1["dense"][0]))
-    if any(k["launches"] == 0 for k in kernels):
+    if any(k["launches"] == 0 for k in kernels
+           if k["name"].split()[1] not in off_path):
         say("FAIL: a kernel of the path was never launched")
+        return 1
+    if any(k["launches"] != 0 for k in kernels
+           if k["name"].split()[1] in off_path):
+        say("FAIL: the main path launched a dense kernel of K1 or K2")
         return 1
     say(f"card: {card_line()}")
     say(json.dumps({"kernels": kernels}))

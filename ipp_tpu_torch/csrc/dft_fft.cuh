@@ -7,8 +7,8 @@
 // O(n) multiply-adds per value, cheap on a matrix unit, bound by the FMA
 // rate on CUDA cores.  The function moves every value once in and once out
 // and needs 5 n log2 n FLOPs per row, so on this card it is bound by bytes;
-// this kernel does O(log n) work per value for the factors 2, 3, 5, 7 of n
-// and O(r) for what is left of it.
+// this kernel does O(log n) work per value for the factors 2, 3, 5, 7, 11, 13
+// of n and O(r) for what is left of it.
 //
 // Algorithm: Stockham autosort, decimation in frequency, mixed radix, as
 // stage_fft.cuh, with n, the pass list and the strides as run-time
@@ -22,8 +22,8 @@
 //
 // The plan (ops/dft_mats.dft_fft_plan, checked again by `plan_ok`): n =
 // 2^a * m, a >= 3, m odd.  First the passes of 2^a (8s, then 16s: ceil(a /
-// 4) of them; 8, 4 for a = 5), then 9, 3, 5, 7 for those factors of m, and
-// last ONE generic pass of radix r for what is left of m (11, 17, 67, any
+// 4) of them; 8, 4 for a = 5), then 9, 3, 5, 7, 11, 13 for those factors of
+// m, and last ONE generic pass of radix r for what is left of m (17, 67, any
 // odd r).  The kernel also takes 2 and 4 anywhere after the first pass.
 // This order keeps S a power of two for every pass up to the first odd one
 // (q and p are a mask and a shift there); the later odd passes divide by S
@@ -33,7 +33,7 @@
 // conflicts and store coalesced runs.  It pairs outputs k and r - k, whose roots are
 // conjugates: one root and two inputs serve four real sums.
 //
-// The butterflies of 3, 5, 7 and 9 are specialised: their roots are
+// The butterflies of 3, 5, 7, 9, 11 and 13 are specialised: their roots are
 // constants, and they pair inputs j and R - j the same way.  Radix 16 is
 // four radix-4 butterflies twice, radix 9 three radix-3 twice.
 //
@@ -81,7 +81,7 @@ struct Plan {
 
 __host__ __device__ constexpr bool special(int r) {
   return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8 || r == 9 ||
-         r == 16;
+         r == 11 || r == 13 || r == 16;
 }
 
 // A plan this kernel takes: the radices multiply to n, the first is 8 or
@@ -157,10 +157,23 @@ __host__ __device__ constexpr float rcos(int k) {
   if (R == 7)
     return k == 1 ? 0.62348980185873353053f
                   : k == 2 ? -0.22252093395631440429f : -0.90096886790241912624f;
-  // R == 9
-  return k == 1 ? 0.76604444311897803520f
-                : k == 2 ? 0.17364817766693034885f
-                         : k == 3 ? -0.5f : -0.93969262078590838405f;
+  if (R == 9)
+    return k == 1 ? 0.76604444311897803520f
+                  : k == 2 ? 0.17364817766693034885f
+                           : k == 3 ? -0.5f : -0.93969262078590838405f;
+  if (R == 11)
+    return k == 1 ? 0.84125353283118116886f
+                  : k == 2 ? 0.41541501300188642553f
+                           : k == 3 ? -0.14231483827328514044f
+                                    : k == 4 ? -0.65486073394528506406f
+                                             : -0.95949297361449738989f;
+  // R == 13
+  return k == 1 ? 0.88545602565320989590f
+                : k == 2 ? 0.56806474673115580251f
+                         : k == 3 ? 0.12053668025532305335f
+                                  : k == 4 ? -0.35460488704253562597f
+                                           : k == 5 ? -0.74851074817110109863f
+                                                    : -0.97094181742605202716f;
 }
 template <int R>
 __host__ __device__ constexpr float rsin(int k) {
@@ -178,6 +191,19 @@ __host__ __device__ constexpr float rsin(int k) {
                : k == 2 ? 0.98480775301220805937f
                         : k == 3 ? 0.86602540378443864676f
                                  : 0.34202014332566873304f;
+  if (R == 11)
+    s = k == 1 ? 0.54064081745559758211f
+               : k == 2 ? 0.90963199535451837141f
+                        : k == 3 ? 0.98982144188093273238f
+                                 : k == 4 ? 0.75574957435425828377f
+                                          : 0.28173255684142969771f;
+  if (R == 13)
+    s = k == 1 ? 0.46472317204376854566f
+               : k == 2 ? 0.82298386589365639458f
+                        : k == 3 ? 0.99270887409805399280f
+                                 : k == 4 ? 0.93501624268541482344f
+                                          : k == 5 ? 0.66312265824079520238f
+                                                   : 0.23931566428755776715f;
   return sign * s;
 }
 
@@ -349,16 +375,30 @@ __host__ __device__ inline PassArgs pass_args(int n, int R, int S) {
   return a;
 }
 
+// What fft_pass does to a butterfly's inputs once all are loaded, and to its
+// outputs before any is stored: nothing.
+struct NoHook {
+  template <int R>
+  __device__ __forceinline__ void operator()(int, int, float2 (&)[R]) const {}
+};
+
 // Thread j of its row's T runs butterflies j, j + T, ...: src(e) gives
 // element e of the pass input, dst(e, value) takes element e of its output.
-template <int R, bool INV, class Src, class Dst>
+// pre(i, NB, v) may change the R inputs v of butterfly i (elements i + k *
+// NB) after all of them are loaded, before the transform; post(base, S, v)
+// its R outputs (elements base + S * k) before any of them is stored.
+template <int R, bool INV, class Src, class Dst, class Pre = NoHook,
+          class Post = NoHook>
 __device__ __forceinline__ void fft_pass(int j, int T, PassArgs a,
                                                   const float2* __restrict__ tw,
-                                                  Src src, Dst dst) {
+                                                  Src src, Dst dst,
+                                                  Pre pre = Pre(),
+                                                  Post post = Post()) {
   for (int i = j; i < a.NB; i += T) {
     float2 v[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) v[k] = src(i + k * a.NB);
+    pre(i, a.NB, v);
     dft<R, INV>(v);
     int p, q;
     if (a.shift >= 0) {
@@ -378,6 +418,7 @@ __device__ __forceinline__ void fft_pass(int j, int T, PassArgs a,
       }
     }
     const int base = q + a.S * R * p;
+    post(base, a.S, v);
 #pragma unroll
     for (int k = 0; k < R; ++k) dst(base + a.S * k, v[k]);
   }
@@ -415,21 +456,25 @@ __device__ __forceinline__ void generic_pass(
   }
 }
 
-// One specialised pass chosen by its run-time radix.
-template <bool INV, class Src, class Dst>
+// One specialised pass chosen by its run-time radix; `post` as in fft_pass.
+template <bool INV, class Src, class Dst, class Post = NoHook>
 __device__ __forceinline__ void any_pass(int R, int j, int T,
                                                   PassArgs a,
                                                   const float2* tw, Src src,
-                                                  Dst dst) {
+                                                  Dst dst,
+                                                  Post post = Post()) {
+  const NoHook pre;
   switch (R) {
-    case 2: fft_pass<2, INV>(j, T, a, tw, src, dst); break;
-    case 3: fft_pass<3, INV>(j, T, a, tw, src, dst); break;
-    case 4: fft_pass<4, INV>(j, T, a, tw, src, dst); break;
-    case 5: fft_pass<5, INV>(j, T, a, tw, src, dst); break;
-    case 7: fft_pass<7, INV>(j, T, a, tw, src, dst); break;
-    case 8: fft_pass<8, INV>(j, T, a, tw, src, dst); break;
-    case 9: fft_pass<9, INV>(j, T, a, tw, src, dst); break;
-    case 16: fft_pass<16, INV>(j, T, a, tw, src, dst); break;
+    case 2: fft_pass<2, INV>(j, T, a, tw, src, dst, pre, post); break;
+    case 3: fft_pass<3, INV>(j, T, a, tw, src, dst, pre, post); break;
+    case 4: fft_pass<4, INV>(j, T, a, tw, src, dst, pre, post); break;
+    case 5: fft_pass<5, INV>(j, T, a, tw, src, dst, pre, post); break;
+    case 7: fft_pass<7, INV>(j, T, a, tw, src, dst, pre, post); break;
+    case 8: fft_pass<8, INV>(j, T, a, tw, src, dst, pre, post); break;
+    case 9: fft_pass<9, INV>(j, T, a, tw, src, dst, pre, post); break;
+    case 11: fft_pass<11, INV>(j, T, a, tw, src, dst, pre, post); break;
+    case 13: fft_pass<13, INV>(j, T, a, tw, src, dst, pre, post); break;
+    case 16: fft_pass<16, INV>(j, T, a, tw, src, dst, pre, post); break;
   }
 }
 

@@ -27,7 +27,18 @@
 // product precedes the inverse y stage; any other axis takes the dense
 // DFT as one complex matmul, K7.
 //
-// K1, K2 and K7 are each one GEMM against a constant DFT matrix
+// K1 and K2 compute a real DFT along y and its inverse: the volume and the
+// half spectrum cross device memory once, 2.5 ny log2 ny FLOPs a column, so
+// the function is bound by bytes.  For every shape the v2 walk admits (ny a
+// multiple of 8 up to 2048, nx even) they are the real-FFT kernels of
+// rdft_y.cuh (entries in rdft_y.cu), chosen by the wrappers when the caller
+// states that its matrix is the real-DFT fold (ops/cuda_fft.rdft_route).
+// The K1 and K2 in this file are the dense form, one GEMM against the
+// (2kp, ny) or (ny, 2kp) matrix as the TPU's matrix unit ran it: they serve
+// any other matrix and any other shape, as K7's dense form below serves any
+// complex matrix.
+//
+// The dense K1, K2 and K7 are each one GEMM against a constant matrix
 // (fft_walk.cuh) with its prologue/epilogue fused, so the ratio and the RL
 // update never reach device memory.  What bounds them on the card: the
 // contraction depth is K = ny (K1) or 2kp (K2), at least 128, so they do
@@ -35,8 +46,7 @@
 // shared-memory reads, not HBM; K7's depth is the axis length itself (40
 // to 1152): at n = 40 it does ~7.5 FMAs per byte, below the card's ~10 (67
 // TFLOP/s over 3.35 TB/s), and is bound by HBM there.  The design answers
-// with 4x4 register tiles (4 FMAs per shared load); wgmma, TMA and 3xTF32
-// splits are later work.
+// with 4x4 register tiles (4 FMAs per shared load).
 //
 // The radix-2 stages (K3, K4, K6) compute a whole n-point DFT per column:
 // one read and one write of the spectrum, 5 n log2 n FLOPs, so the function
@@ -57,8 +67,10 @@
 using namespace ippfft;
 
 // ---------------------------------------------------------------------------
-// K1 — replaces ipp_tpu/ops/pallas_fft.py `_v2_rfft_call_t` (kernel
-// `_v2_rfft_kernel_t`) and, with RATIO, `_v2_rfft_ratio_call_t`
+// K1, dense form (any (2kp, ny) matrix, and shapes off the real-FFT route;
+// the real-FFT form is rdft_y.cu) — replaces ipp_tpu/ops/pallas_fft.py
+// `_v2_rfft_call_t` (kernel `_v2_rfft_kernel_t`) and, with RATIO,
+// `_v2_rfft_ratio_call_t`
 // (`_v2_rfft_ratio_kernel_t`); over a batch (grid z = nb*nz) it replaces
 // `_v2_rfft_call` (`_v2_rfft_kernel`) and `_v2_rfft_ratio_call`
 // (`_v2_rfft_ratio_kernel`).  Per plane a = b*nz + z: C (2kp x nx) =
@@ -110,7 +122,8 @@ rdft_y_fwd(const float* __restrict__ num, const float* __restrict__ den,
 }
 
 // ---------------------------------------------------------------------------
-// K2 — replaces `_v2_irfft_call_t` (`_v2_irfft_kernel_t`) and, with MUL,
+// K2, dense form (the real-FFT form is rdft_y.cu) — replaces
+// `_v2_irfft_call_t` (`_v2_irfft_kernel_t`) and, with MUL,
 // `_v2_irfft_mul_call_t` (`_v2_irfft_mul_kernel_t`); over a batch it
 // replaces `_v2_irfft_call` (`_v2_irfft_kernel`) and `_v2_irfft_mul_call`
 // (`_v2_irfft_mul_kernel`).  Per plane a = b*nz + z: y (ny x nx) =

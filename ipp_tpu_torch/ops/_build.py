@@ -59,6 +59,10 @@ _SIGNATURES = {
     "ipp_cplx_matmul": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     "ipp_dft_last": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _I, _I, _I, _I,
                      _P],
+    "ipp_rdft_y_fwd_fft": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                           _I, _I, _I, _P],
+    "ipp_rdft_y_inv_fft": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                           _I, _I, _I, _P],
 }
 
 

@@ -1,7 +1,7 @@
 """Wrappers of the FFT-walk CUDA kernels, each beside its plain version.
 
-One wrapper per kernel form of `csrc/fft_walk.cu`, `csrc/stage_fft.cuh` and
-`csrc/dft_fft.cuh`; together they replace
+One wrapper per kernel form of `csrc/fft_walk.cu`, `csrc/stage_fft.cuh`,
+`csrc/dft_fft.cuh` and `csrc/rdft_y.cuh`; together they replace
 the eleven Pallas entry points of the reference's v2 convolve walk
 (ipp_tpu/ops/pallas_fft.py), unbatched (v2-t) and batched, and the two of
 its v1 walk (`_fused_stage_call(forward=False)`, `_fused_call`):
@@ -39,6 +39,15 @@ kernel of csrc/dft_fft.cuh computes it without reading the matrices.  An
 arbitrary matrix (`dft=None`) and every other length take the dense
 Karatsuba kernel of csrc/fft_walk.cu, counted as `cplx_matmul_dense`.
 
+K1 and K2 (and their batched forms) have two kernels as well.  Every call
+the walk makes multiplies by the real-DFT fold of the y axis,
+`rfft_fold_mats(ny, kp)`, and says so with `fold=True`: then the function
+is the ny-point real DFT along y (or its inverse), and for ny a multiple of
+8 up to `RDFT_FFT_MAX_NY` and an even nx (`rdft_route`) the real-FFT kernels
+of csrc/rdft_y.cuh compute it without reading the matrix.  Any other matrix
+(`fold=False`) and every other shape take the dense GEMM kernels of
+csrc/fft_walk.cu, counted with `_dense` appended.
+
 Rules every wrapper keeps:
 - a CPU tensor goes to the plain PyTorch version (`*_plain`, the same
   function written with `torch.matmul`); a CUDA tensor launches the kernel
@@ -50,7 +59,8 @@ Rules every wrapper keeps:
   forms and K6 (`radix2_stage_inv_last`) count under their own names,
   and a launch of a dense stage kernel under its name with `_dense`
   appended, so a run can show which stage kernel it went through;
-  `cplx_matmul` counts K7's FFT kernel, `cplx_matmul_dense` its dense one.
+  `cplx_matmul` counts K7's FFT kernel, `cplx_matmul_dense` its dense one;
+  `rdft_y_*` count the real-FFT kernels, `rdft_y_*_dense` the dense GEMMs.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from .dft_mats import (DFT_FFT_MAX_N, DFT_FFT_RADICES, STAGE_FFT_LENGTHS,
                        dft_fft_plan, stage_twiddles)
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "stage_route", "dft_route",
+           "rdft_route", "RDFT_FFT_MAX_NY", "rdft_y_fwd_fft", "rdft_y_inv_fft",
            "rdft_y_fwd", "rdft_y_fwd_batched", "rdft_y_fwd_plain", "rdft_y_inv",
            "rdft_y_inv_batched", "rdft_y_inv_plain", "radix2_stage",
            "radix2_stage_plain", "radix2_stage_inv_otf",
@@ -82,7 +93,9 @@ LAUNCHES: Dict[str, int] = {
     "radix2_stage_inv_last": 0, "cplx_matmul": 0,
     "radix2_stage_dense": 0, "radix2_stage_inv_otf_dense": 0,
     "radix2_stage_inv_otf_batched_dense": 0,
-    "radix2_stage_inv_last_dense": 0, "cplx_matmul_dense": 0}
+    "radix2_stage_inv_last_dense": 0, "cplx_matmul_dense": 0,
+    "rdft_y_fwd_dense": 0, "rdft_y_inv_dense": 0,
+    "rdft_y_fwd_batched_dense": 0, "rdft_y_inv_batched_dense": 0}
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -238,59 +251,163 @@ def _empty(shape, like: torch.Tensor) -> torch.Tensor:
 
 # -- wrappers ----------------------------------------------------------------
 
-def _rdft_y_fwd(name: str, x: torch.Tensor, fwd: torch.Tensor,
-                den: Optional[torch.Tensor]) -> Pair:
-    """K1 on (nb, nz, ny, nx) CUDA tensors -> (nb, kp, nz, nx) each."""
+RDFT_FFT_MAX_NY = 2048   # csrc/rdft_y.cuh MAX_NY: the v2 walk's domain
+
+
+def rdft_route(ny: int, nx: int) -> str:
+    """Which kernel K1 / K2 launch on the card for the y real DFT of
+    (..., ny, nx) volumes when the caller states `fold=True`: "fft"
+    (csrc/rdft_y.cuh) for ny a multiple of 8 up to `RDFT_FFT_MAX_NY` (the v2
+    walk's whole domain; two shared-memory buffers of a tile's columns fit)
+    and an even nx (two neighbouring columns share one complex transform and
+    move as one 8-byte value), "dense" (csrc/fft_walk.cu) for any other
+    shape.  By shape alone: nothing is caught and retried."""
+    return ("fft" if ny >= 8 and ny % 8 == 0 and ny <= RDFT_FFT_MAX_NY
+            and nx >= 2 and nx % 2 == 0 else "dense")
+
+
+def _fold_ok(name: str, mat: torch.Tensor, shape, ny: int, kp: int,
+             fold: bool) -> None:
+    """The matrix has the fold's shape; a stated fold also has room for the
+    half spectrum."""
+    _shape(name, mat, shape)
+    if fold and kp < ny // 2 + 1:
+        raise ValueError(f"{name}: fold=True needs kp >= ny/2 + 1 = "
+                         f"{ny // 2 + 1} rows for ny={ny}, got kp={kp}")
+
+
+def _aligned(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    for t in tensors:
+        if t is not None and t.data_ptr() % 8:
+            raise ValueError(f"{name}: the real-FFT kernel moves column "
+                             f"pairs as 8-byte values and needs 8-byte "
+                             f"aligned tensors")
+
+
+def rdft_y_fwd_fft(x: torch.Tensor, kp: int,
+                   den: Optional[torch.Tensor] = None,
+                   name: str = "rdft_y_fwd_batched",
+                   threads_per_pair: int = 0, pairs: int = 0) -> Pair:
+    """K1's real-FFT kernel on (nb, nz, ny, nx) CUDA volumes -> re, im
+    (nb, kp, nz, nx), counted under `name`.  `threads_per_pair` and `pairs`
+    (column pairs a block, a power of two) override the kernel's geometry:
+    a bench's knobs; 0 and 0 keep its own."""
+    _ndim(name, x, 4, "(nb, nz, ny, nx)")
     nb, nz, ny, nx = x.shape
-    kp = fwd.shape[0] // 2
-    _shape(name, fwd, (2 * kp, ny))
+    if (not _on_cuda(name, x, den) or rdft_route(ny, nx) != "fft"
+            or kp < ny // 2 + 1 or x.numel() == 0):
+        raise ValueError(f"{name}: the real-FFT kernel takes CUDA volumes "
+                         f"with rdft_route(ny, nx) == 'fft' and kp >= ny/2 + "
+                         f"1; got {tuple(x.shape)}, kp={kp} on {x.device}")
     if den is not None:
         _shape(name, den, x.shape)
+    _aligned(name, x, den)
+    re, im = _empty((nb, kp, nz, nx), x), _empty((nb, kp, nz, nx), x)
+    radices, npass, generic = _dft_plan(dft_fft_plan(ny))
+    _launch(name, x.device, _lib().ipp_rdft_y_fwd_fft, x.data_ptr(),
+            den.data_ptr() if den is not None else None,
+            _stage_twiddles(x.device, ny).data_ptr(), re.data_ptr(),
+            im.data_ptr(), nb, nz, ny, nx, kp, npass, radices, generic,
+            threads_per_pair, pairs)
+    return re, im
+
+
+def rdft_y_inv_fft(re: torch.Tensor, im: torch.Tensor, ny: int,
+                   mul: Optional[torch.Tensor] = None,
+                   name: str = "rdft_y_inv_batched",
+                   threads_per_pair: int = 0,
+                   pairs: int = 0) -> torch.Tensor:
+    """K2's real-FFT kernel on (nb, kp, nz, nx) CUDA spectra ->
+    (nb, nz, ny, nx), counted under `name`; the knobs as `rdft_y_fwd_fft`."""
+    _ndim(name, re, 4, "(nb, kp, nz, nx)")
+    nb, kp, nz, nx = re.shape
+    if (not _on_cuda(name, re, im, mul) or rdft_route(ny, nx) != "fft"
+            or kp < ny // 2 + 1 or re.numel() == 0):
+        raise ValueError(f"{name}: the real-FFT kernel takes CUDA spectra "
+                         f"with rdft_route(ny, nx) == 'fft' and kp >= ny/2 + "
+                         f"1; got {tuple(re.shape)}, ny={ny} on {re.device}")
+    _shape(name, im, re.shape)
+    if mul is not None:
+        _shape(name, mul, (nb, nz, ny, nx))
+    _aligned(name, re, im, mul)
+    out = _empty((nb, nz, ny, nx), re)
+    radices, npass, generic = _dft_plan(dft_fft_plan(ny))
+    _launch(name, re.device, _lib().ipp_rdft_y_inv_fft, re.data_ptr(),
+            im.data_ptr(), _stage_twiddles(re.device, ny).data_ptr(),
+            mul.data_ptr() if mul is not None else None, out.data_ptr(),
+            nb, nz, ny, nx, kp, npass, radices, generic, threads_per_pair,
+            pairs)
+    return out
+
+
+def _rdft_y_fwd(name: str, x: torch.Tensor, fwd: torch.Tensor,
+                den: Optional[torch.Tensor], fold: bool) -> Pair:
+    """K1 on (nb, nz, ny, nx) CUDA tensors -> (nb, kp, nz, nx) each: the
+    real-FFT kernel for a stated fold on its route, else the dense GEMM."""
+    nb, nz, ny, nx = x.shape
+    kp = fwd.shape[0] // 2
+    if den is not None:
+        _shape(name, den, x.shape)
+    if fold and rdft_route(ny, nx) == "fft":
+        return rdft_y_fwd_fft(x, kp, den, name)
     _grid(name, "nb*nz", nb * nz)
     re, im = _empty((nb, kp, nz, nx), x), _empty((nb, kp, nz, nx), x)
-    _launch(name, x.device, _lib().ipp_rdft_y_fwd, x.data_ptr(),
+    _launch(name + "_dense", x.device, _lib().ipp_rdft_y_fwd, x.data_ptr(),
             den.data_ptr() if den is not None else None, fwd.data_ptr(),
             re.data_ptr(), im.data_ptr(), nb, nz, ny, nx, kp)
     return re, im
 
 
 def rdft_y_fwd(x: torch.Tensor, fwd: torch.Tensor,
-               den: Optional[torch.Tensor] = None) -> Pair:
+               den: Optional[torch.Tensor] = None,
+               fold: bool = False) -> Pair:
     """K1 on one volume (nz, ny, nx) -> (kp, nz, nx): see
-    `rdft_y_fwd_plain`."""
+    `rdft_y_fwd_plain`.  `fold=True` is the caller's statement that `fwd` is
+    `rfft_fold_mats(ny, kp)[0]`, the real-DFT fold of the axis; its shape
+    (2kp, ny) with kp >= ny/2 + 1 is checked, its values are not.  On the
+    card the shape then chooses the kernel (`rdft_route`): the real-FFT
+    kernel, which does not read the matrix, or the dense GEMM, which also
+    serves any matrix with `fold=False` and counts with `_dense` appended."""
     name = "rdft_y_fwd"
     _ndim(name, x, 3, "(nz, ny, nx)")
+    _fold_ok(name, fwd, (fwd.shape[0] // 2 * 2, x.shape[-2]), x.shape[-2],
+             fwd.shape[0] // 2, fold)
     if not _on_cuda(name, x, fwd, den):
         return rdft_y_fwd_plain(x, fwd, den)
     re, im = _rdft_y_fwd(name, x[None], fwd,
-                         None if den is None else den[None])
+                         None if den is None else den[None], fold)
     return re[0], im[0]
 
 
 def rdft_y_fwd_batched(x: torch.Tensor, fwd: torch.Tensor,
-                       den: Optional[torch.Tensor] = None) -> Pair:
+                       den: Optional[torch.Tensor] = None,
+                       fold: bool = False) -> Pair:
     """K1 on a batch (nb, nz, ny, nx) -> (nb, kp, nz, nx): see
-    `rdft_y_fwd_plain`."""
+    `rdft_y_fwd_plain`; `fold` as `rdft_y_fwd`."""
     name = "rdft_y_fwd_batched"
     _ndim(name, x, 4, "(nb, nz, ny, nx)")
+    _fold_ok(name, fwd, (fwd.shape[0] // 2 * 2, x.shape[-2]), x.shape[-2],
+             fwd.shape[0] // 2, fold)
     if not _on_cuda(name, x, fwd, den):
         return rdft_y_fwd_plain(x, fwd, den)
-    return _rdft_y_fwd(name, x, fwd, den)
+    return _rdft_y_fwd(name, x, fwd, den, fold)
 
 
 def _rdft_y_inv(name: str, re: torch.Tensor, im: torch.Tensor,
-                inv: torch.Tensor, mul: Optional[torch.Tensor]
+                inv: torch.Tensor, mul: Optional[torch.Tensor], fold: bool
                 ) -> torch.Tensor:
-    """K2 on (nb, kp, nz, nx) CUDA tensors -> (nb, nz, ny, nx)."""
+    """K2 on (nb, kp, nz, nx) CUDA tensors -> (nb, nz, ny, nx): the
+    real-FFT kernel for a stated fold on its route, else the dense GEMM."""
     nb, kp, nz, nx = re.shape
     ny = inv.shape[0]
     _shape(name, im, re.shape)
-    _shape(name, inv, (ny, 2 * kp))
     if mul is not None:
         _shape(name, mul, (nb, nz, ny, nx))
+    if fold and rdft_route(ny, nx) == "fft":
+        return rdft_y_inv_fft(re, im, ny, mul, name)
     _grid(name, "nb*nz", nb * nz)
     out = _empty((nb, nz, ny, nx), re)
-    _launch(name, re.device, _lib().ipp_rdft_y_inv, re.data_ptr(),
+    _launch(name + "_dense", re.device, _lib().ipp_rdft_y_inv, re.data_ptr(),
             im.data_ptr(), inv.data_ptr(),
             mul.data_ptr() if mul is not None else None, out.data_ptr(),
             nb, nz, ny, nx, kp)
@@ -298,27 +415,36 @@ def _rdft_y_inv(name: str, re: torch.Tensor, im: torch.Tensor,
 
 
 def rdft_y_inv(re: torch.Tensor, im: torch.Tensor, inv: torch.Tensor,
-               mul: Optional[torch.Tensor] = None) -> torch.Tensor:
+               mul: Optional[torch.Tensor] = None,
+               fold: bool = False) -> torch.Tensor:
     """K2 on one spectrum (kp, nz, nx) -> (nz, ny, nx): see
-    `rdft_y_inv_plain`."""
+    `rdft_y_inv_plain`.  `fold=True` states that `inv` is
+    `rfft_fold_mats(ny, kp)[1]` (shape (ny, 2kp), kp >= ny/2 + 1 checked):
+    the Hermitian fold, which ignores im at k = 0 and ny/2 and the rows
+    kx..kp-1; the kernel is then chosen as in `rdft_y_fwd`."""
     name = "rdft_y_inv"
     _ndim(name, re, 3, "(kp, nz, nx)")
+    _fold_ok(name, inv, (inv.shape[0], 2 * re.shape[-3]), inv.shape[0],
+             re.shape[-3], fold)
     if not _on_cuda(name, re, im, inv, mul):
         return rdft_y_inv_plain(re, im, inv, mul)
     return _rdft_y_inv(name, re[None], im[None], inv,
-                       None if mul is None else mul[None])[0]
+                       None if mul is None else mul[None], fold)[0]
 
 
 def rdft_y_inv_batched(re: torch.Tensor, im: torch.Tensor,
                        inv: torch.Tensor,
-                       mul: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mul: Optional[torch.Tensor] = None,
+                       fold: bool = False) -> torch.Tensor:
     """K2 on a batch of spectra (nb, kp, nz, nx) -> (nb, nz, ny, nx): see
-    `rdft_y_inv_plain`."""
+    `rdft_y_inv_plain`; `fold` as `rdft_y_inv`."""
     name = "rdft_y_inv_batched"
     _ndim(name, re, 4, "(nb, kp, nz, nx)")
+    _fold_ok(name, inv, (inv.shape[0], 2 * re.shape[-3]), inv.shape[0],
+             re.shape[-3], fold)
     if not _on_cuda(name, re, im, inv, mul):
         return rdft_y_inv_plain(re, im, inv, mul)
-    return _rdft_y_inv(name, re, im, inv, mul)
+    return _rdft_y_inv(name, re, im, inv, mul, fold)
 
 
 def stage_route(n: int) -> str:

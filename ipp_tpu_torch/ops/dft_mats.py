@@ -35,7 +35,9 @@ def _frozen(*arrays):
 def dft_mats(n: int) -> Tuple[np.ndarray, np.ndarray]:
     """(Cr, Ci) with F[j,k] = exp(-2*pi*i*j*k/n) = Cr + i*Ci, float32."""
     jk = np.outer(np.arange(n), np.arange(n)) % n
-    w = np.exp(-2j * np.pi * jk / n)
+    # exp once per distinct angle, then gathered: the same values, bit for
+    # bit, as exp over the whole (n, n) array
+    w = np.exp(-2j * np.pi * np.arange(n) / n)[jk]
     return _frozen(np.ascontiguousarray(w.real.astype(np.float32)),
                    np.ascontiguousarray(w.imag.astype(np.float32)))
 
@@ -194,7 +196,8 @@ def stage_twiddles(n: int) -> np.ndarray:
 # -- a dense axis as an FFT (csrc/dft_fft.cuh) -------------------------------
 
 DFT_FFT_MAX_N = 12288                      # csrc/dft_fft.cuh MAX_N
-DFT_FFT_RADICES = (2, 3, 4, 5, 7, 8, 9, 16)  # the specialised butterflies
+# the specialised butterflies
+DFT_FFT_RADICES = (2, 3, 4, 5, 7, 8, 9, 11, 13, 16)
 
 
 @lru_cache(maxsize=256)
@@ -203,9 +206,9 @@ def dft_fft_plan(n: int) -> Tuple[int, ...]:
     n = 2^a * m (a >= 3, m odd, n <= DFT_FFT_MAX_N), in order
     (csrc/dft_fft.cuh): the passes of 2^a first, ceil(a / 4) of them, 8s
     then 16s (8, 4 for a = 5); then 9 for every pair of threes in m, 3, and
-    every 5 and 7; and last what is left of m, if anything, as ONE generic
-    pass of that odd radix (11, 17, 67, 143, ...: the only radix outside
-    `DFT_FFT_RADICES`).  So every stride up to the first odd pass is a
+    every 5, 7, 11 and 13; and last what is left of m, if anything, as ONE
+    generic pass of that odd radix (17, 67, 251, 17 * 19, ...: the only
+    radix outside `DFT_FFT_RADICES`).  So every stride up to the first odd pass is a
     power of two, and the generic pass reads no twiddle."""
     n = int(n)
     if n < 8 or n % 8 or n > DFT_FFT_MAX_N:
@@ -215,7 +218,7 @@ def dft_fft_plan(n: int) -> Tuple[int, ...]:
     m = n >> a
     k = -(-a // 4)
     plan = [8, 4] if a == 5 else [8] * (4 * k - a) + [16] * (a - 3 * k)
-    for r in (9, 3, 5, 7):
+    for r in (9, 3, 5, 7, 11, 13):
         while m % r == 0:
             plan.append(r)
             m //= r

@@ -164,9 +164,10 @@ class MatmulFFT3:
             rfft = cuda_fft.rdft_y_fwd_batched
             x = x.reshape(-1, nz, ny, nx)
         if ratio_num is not None:
-            re, im = rfft(ratio_num.reshape(x.shape), self._rfwd, den=x)
+            re, im = rfft(ratio_num.reshape(x.shape), self._rfwd, den=x,
+                          fold=True)
         else:
-            re, im = rfft(x, self._rfwd)
+            re, im = rfft(x, self._rfwd, fold=True)
         re, im = cuda_fft.radix2_stage(re.view(-1, nz, nx),
                                        im.view(-1, nz, nx), *self._z[True],
                                        True, 1)
@@ -191,11 +192,12 @@ class MatmulFFT3:
         if not lead:
             return cuda_fft.rdft_y_inv(rr.view(self.kp, nz, nx),
                                        ii.view(self.kp, nz, nx), self._rinv,
-                                       mul=mul_abs)
+                                       mul=mul_abs, fold=True)
         spec = (-1, self.kp, nz, nx)
         out = cuda_fft.rdft_y_inv_batched(
             rr.view(spec), ii.view(spec), self._rinv,
-            mul=None if mul_abs is None else mul_abs.reshape(-1, nz, ny, nx))
+            mul=None if mul_abs is None else mul_abs.reshape(-1, nz, ny, nx),
+            fold=True)
         return out.view(lead + (nz, ny, nx))
 
     # -- v1 --------------------------------------------------------------------

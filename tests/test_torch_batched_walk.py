@@ -227,13 +227,13 @@ def test_batched_kernels_match_plain_on_the_card(cuda, rng):
     o_r, o_i = d(kp * nz, nx, lo=-0.5), d(kp * nz, nx, lo=-0.5)
     cf.reset_launch_counts()
     pairs = [
-        (cf.rdft_y_fwd_batched(x, plan._rfwd, den),
+        (cf.rdft_y_fwd_batched(x, plan._rfwd, den, fold=True),
          cf.rdft_y_fwd_plain(x, plan._rfwd, den)),
-        (cf.rdft_y_fwd_batched(x, plan._rfwd),
+        (cf.rdft_y_fwd_batched(x, plan._rfwd, fold=True),
          cf.rdft_y_fwd_plain(x, plan._rfwd)),
-        ((cf.rdft_y_inv_batched(sr, si, plan._rinv, mul),),
+        ((cf.rdft_y_inv_batched(sr, si, plan._rinv, mul, fold=True),),
          (cf.rdft_y_inv_plain(sr, si, plan._rinv, mul),)),
-        ((cf.rdft_y_inv_batched(sr, si, plan._rinv),),
+        ((cf.rdft_y_inv_batched(sr, si, plan._rinv, fold=True),),
          (cf.rdft_y_inv_plain(sr, si, plan._rinv),)),
     ] + [
         (cf.radix2_stage_inv_otf_batched(r2, i2, o_r, o_i, *plan._x[False],
@@ -267,7 +267,8 @@ def test_batched_walk_on_the_card_equals_the_per_block_walk(cuda, rng):
         "radix2_stage_dense": 0, "radix2_stage_inv_otf_dense": 0,
         "radix2_stage_inv_otf_batched_dense": 0,
         "radix2_stage_inv_last_dense": 0,
-        "cplx_matmul_dense": 0}
+        "cplx_matmul_dense": 0, "rdft_y_fwd_dense": 0, "rdft_y_inv_dense": 0,
+        "rdft_y_fwd_batched_dense": 0, "rdft_y_inv_batched_dense": 0}
     for b in range(2):
         one = plan.convolve(x[b], otf, conj=True, ratio_num=x[b],
                             mul_abs=x[b])

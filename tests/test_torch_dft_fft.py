@@ -113,8 +113,8 @@ def check_plan(n):
     assert all(r in DFT_FFT_RADICES for r in plan[:-1])
     last = plan[-1]
     if last not in DFT_FFT_RADICES:      # the one generic radix: odd, last
-        assert len(plan) > 1 and last % 2 == 1 and last >= 11
-        assert all(last % f for f in (3, 5, 7))
+        assert len(plan) > 1 and last % 2 == 1 and last >= 17
+        assert all(last % f for f in (3, 5, 7, 11, 13))
     # powers of two first, so every stride up to the first odd pass is one
     odd = [r % 2 == 1 for r in plan]
     assert odd == sorted(odd)
@@ -138,7 +138,8 @@ def test_plan_factors_every_multiple_of_8_up_to_2688():
     assert dft_fft_plan(8) == (8,) and dft_fft_plan(16) == (16,)
     assert dft_fft_plan(32) == (8, 4) and dft_fft_plan(2048) == (8, 16, 16)
     assert dft_fft_plan(8 * 331) == (8, 331)          # a large prime
-    assert dft_fft_plan(8 * 11 * 13) == (8, 143)      # what is left, whole
+    assert dft_fft_plan(8 * 11 * 13) == (8, 11, 13)   # both specialised
+    assert dft_fft_plan(8 * 17 * 19) == (8, 323)      # what is left, whole
 
 
 @pytest.mark.parametrize("n", [0, 4, 12, 100, 1148, DFT_FFT_MAX_N + 8])

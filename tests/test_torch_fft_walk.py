@@ -218,8 +218,9 @@ def test_kernels_match_plain_on_the_card(cuda, rng):
     sr, si = d(kp, nz, nx, lo=-0.5), d(kp, nz, nx, lo=-0.5)
     r2, i2, o_r, o_i = (d(kp * nz, nx, lo=-0.5) for _ in range(4))
     pairs = [
-        (cf.rdft_y_fwd(x, plan._rfwd, den), cf.rdft_y_fwd_plain(x, plan._rfwd, den)),
-        ((cf.rdft_y_inv(sr, si, plan._rinv, mul),),
+        (cf.rdft_y_fwd(x, plan._rfwd, den, fold=True),
+         cf.rdft_y_fwd_plain(x, plan._rfwd, den)),
+        ((cf.rdft_y_inv(sr, si, plan._rinv, mul, fold=True),),
          (cf.rdft_y_inv_plain(sr, si, plan._rinv, mul),)),
         (cf.radix2_stage(sr, si, *plan._z[True], True, 1),
          cf.radix2_stage_plain(sr, si, *plan._z[True], True, 1)),
@@ -254,5 +255,8 @@ def test_walk_convolve_on_the_card_matches_numpy(cuda, rng):
                            "radix2_stage_inv_otf_dense": 0,
                            "radix2_stage_inv_otf_batched_dense": 0,
                            "radix2_stage_inv_last_dense": 0,
-                           "cplx_matmul_dense": 0}
+                           "cplx_matmul_dense": 0, "rdft_y_fwd_dense": 0,
+                           "rdft_y_inv_dense": 0,
+                           "rdft_y_fwd_batched_dense": 0,
+                           "rdft_y_inv_batched_dense": 0}
     assert rel(got.cpu().numpy(), _numpy_conv(x, k)) <= 1e-4

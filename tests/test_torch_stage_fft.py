@@ -234,9 +234,12 @@ def test_dense_launches_count_under_their_own_names():
               "radix2_stage_inv_otf_batched"]
     for name in stages:
         assert name in cf.LAUNCHES and name + "_dense" in cf.LAUNCHES
-    # the stages' dense kernels and K7's (tests/test_torch_dft_fft.py)
+    # the stages' dense kernels, K7's (tests/test_torch_dft_fft.py) and
+    # those of K1 and K2 (tests/test_torch_rdft_y.py)
     dense = {k for k in cf.LAUNCHES if k.endswith("_dense")}
-    assert dense == {name + "_dense" for name in stages + ["cplx_matmul"]}
+    others = ["cplx_matmul", "rdft_y_fwd", "rdft_y_inv",
+              "rdft_y_fwd_batched", "rdft_y_inv_batched"]
+    assert dense == {name + "_dense" for name in stages + others}
 
 
 def test_the_cpu_takes_the_plain_stage_and_counts_nothing(rng):

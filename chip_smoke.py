@@ -34,10 +34,13 @@ Phases:
    planes, beads sharper than in the input, manifest complete;
 5. the DWT kernel K5 against its plain version (strided conv1d) on the
    card: db9 on both axes at the destripe CLI's padded tile batches
-   (8, 2688, 2688) and (8, 2304, 2688), coif15 and db3 at (8, 2688, 2688),
-   a row shorter than the filter (n = 16, db9), and one 2D level as the
-   destripe path runs it; max |K5 - plain| / max |plain| <= 1e-5 (f32);
-   times by CUDA events after a warm call;
+   (8, 2688, 2688) and (8, 2304, 2688), the filter lengths 2, 6, 68, 90 and
+   102 (haar, db3, db34, coif15, coif17) at (8, 2688, 2688), a row shorter
+   than the filter (n = 16, db9), one 2D level as the destripe path runs
+   it, and every level shape of that path (rows of 2688 ... 42, db9); max
+   |K5 - plain| / max |plain| <= 1e-5 (f32); kernel, plain and F.conv1d
+   times by CUDA events after a warm call; and a batch of 8 bit-equal to
+   its 8 single calls on both axes;
 6. the pystripe CLI end to end with process_images' stage-1 settings
    (sigma 250/250, db9, reflect, bidirectional, dark 100, batch 8) on a
    synthetic tile tree (2 x 2 stacks x 64 planes of 2000 x 2000 and one
@@ -174,7 +177,7 @@ RDFT_KERNELS = {"rdft_y_fwd", "rdft_y_inv", "rdft_y_fwd_batched",
 STAGE_SOURCE = "ipp_tpu_torch/csrc/stage_fft.cuh"
 STAGE_KERNELS = {"radix2_stage", "radix2_stage_inv_otf",
                  "radix2_stage_inv_otf_batched", "radix2_stage_inv_last"}
-DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cu",
+DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cuh",
               "ipp_tpu/ops/pallas_dwt.py:80 (dwt_analysis_pallas, axis -1); "
               "scripts/dwt_ykernel_exp.py:87 (dwt_y_pallas, axis -2)")
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): f32 FMA outside the
@@ -662,6 +665,10 @@ def ptxas_summary(log: str):
             t = re.search(r"dft_lastILb([01])E", name)
             if t:
                 name = f"dft_last<{('FWD', 'INV')[int(t.group(1))]}>"
+            t = re.search(r"dwt_(rows|cols)ILi(\d+)ELi(\d+)E", name)
+            if t:
+                name = (f"dwt_{t.group(1)}<R={t.group(2)}, H="
+                        f"{t.group(3) if t.group(3) != '0' else 'any'}>")
             t = re.search(r"rdft_y_(fwd|inv)_fftILb([01])E", name)
             if t:
                 fused = {"fwd": "RATIO", "inv": "MUL"}[t.group(1)]
@@ -916,6 +923,19 @@ def phase_cli(torch, dev, psf_zyx, record, shared):
 DWT_MAIN_SHAPE = (8, 2688, 2688)
 
 
+def dwt_level_cases():
+    """The destripe CLI's levels of its padded batch: level k's 2D step runs
+    axis -1 on (8, h, h) and axis -2 on (8, h, h / 2), h = 2688 >> k (level
+    0's axis -1 is the main case)."""
+    out = []
+    for k in range(7):
+        h = DWT_MAIN_SHAPE[1] >> k
+        if k:
+            out.append(("db9", (8, h, h), -1))
+        out.append(("db9", (8, h, h // 2), -2))
+    return out
+
+
 def phase_dwt(torch, dev, record):
     import numpy as np
 
@@ -927,8 +947,11 @@ def phase_dwt(torch, dev, record):
              ("db9", (8, 2304, 2688), -1), ("db9", (8, 2304, 2688), -2),
              ("coif15", DWT_MAIN_SHAPE, -1), ("coif15", DWT_MAIN_SHAPE, -2),
              ("db3", DWT_MAIN_SHAPE, -1), ("db3", DWT_MAIN_SHAPE, -2),
+             ("haar", DWT_MAIN_SHAPE, -1), ("haar", DWT_MAIN_SHAPE, -2),
+             ("db34", DWT_MAIN_SHAPE, -1), ("db34", DWT_MAIN_SHAPE, -2),
+             ("coif17", DWT_MAIN_SHAPE, -1), ("coif17", DWT_MAIN_SHAPE, -2),
              ("db9", (8, 336, 16), -1), ("db9", (8, 16, 336), -2),
-             ("db9", DWT_MAIN_SHAPE, "level")]
+             ("db9", DWT_MAIN_SHAPE, "level")] + dwt_level_cases()
     rows, bad = [], []
     x_main = None
     for name, shape, axis in cases:
@@ -992,6 +1015,23 @@ def phase_dwt(torch, dev, record):
         if not rel <= 1e-5:
             bad.append(f"{name} {shape} axis {axis}: rel {rel:.3e}")
         del got, ref
+    # a batch of 8 gives bit for bit its 8 single calls: each output is the
+    # same sum in the same order whatever the batch
+    for name, axis in (("db9", -1), ("db9", -2), ("coif15", -2)):
+        taps = wv.filter_taps(name, dev)
+        got = cd.dwt_analysis(x_main, taps, axis)
+        same = all(torch.equal(g[i:i + 1], s_)
+                   for i in range(x_main.shape[0])
+                   for g, s_ in zip(got, cd.dwt_analysis(x_main[i:i + 1],
+                                                         taps, axis)))
+        say(f"  K5 dwt_analysis {name:<6s} {str(DWT_MAIN_SHAPE):<16s} axis "
+            f"{axis:<5d} batch of 8 vs 8 single calls: "
+            f"{'bit-equal' if same else 'DIFFER'}")
+        rows.append(dict(wavelet=name, shape=list(DWT_MAIN_SHAPE), axis=axis,
+                         batch_equals_single=same))
+        if not same:
+            bad.append(f"{name} axis {axis}: a batch differs from its singles")
+        del got
     record["dwt"] = rows
     torch.cuda.empty_cache()
     if bad:
@@ -2047,12 +2087,13 @@ def main() -> int:
                              record["batched_rl"]["launches"][name], rows,
                              at))
     # K5 at the destripe CLI's padded tile batch, along x (one launch)
-    at = [r for r in record["dwt"] if r["axis"] == -1 and r["wavelet"] == "db9"
+    dwt_rows = [r for r in record["dwt"] if "ms" in r]
+    at = [r for r in dwt_rows if r["axis"] == -1 and r["wavelet"] == "db9"
           and r["shape"] == list(DWT_MAIN_SHAPE)][0]
     tag, name = DWT_KERNEL[0].split()
     kernels.append(entry(tag, name, DWT_KERNEL[1], DWT_KERNEL[2],
                          record["destripe_cli"]["launches"]["dwt_analysis"],
-                         record["dwt"], at))
+                         dwt_rows, at))
     # K6 and K7 at the v1 RL block's work shape (K6: the inverse z stage,
     # K7: the FFT kernel on the forward y stage), launches from that RL run
     v1 = record["v1"]

@@ -9,8 +9,11 @@ reference's DWT:
 | -1   | `dwt_analysis_pallas` (ipp_tpu/ops/pallas_dwt.py)             |
 | -2   | `dwt_y_pallas` (scripts/dwt_ykernel_exp.py)                   |
 
-The wrapper keeps the rules of `cuda_fft`: a CPU tensor goes to the plain
-PyTorch version (`dwt_analysis_plain`, the strided `F.conv1d` form of
+The kernel (`csrc/dwt.cuh`: R outputs a thread from a sliding register
+window, the taps a warp-uniform float4 per tap pair) takes every shape the
+wrapper accepts, rows shorter than the filter included, so there is no
+route.  The wrapper keeps the rules of `cuda_fft`: a CPU tensor goes to the
+plain PyTorch version (`dwt_analysis_plain`, the strided `F.conv1d` form of
 wavelets._conv_stride2_last); a CUDA tensor launches the kernel or raises,
 with no fallback; `LAUNCHES["dwt_analysis"]` counts kernel launches only.
 """
@@ -27,7 +30,7 @@ from .cuda_fft import _launch, _on_cuda
 __all__ = ["LAUNCHES", "MAX_TAPS", "reset_launch_counts", "dwt_analysis",
            "dwt_analysis_plain"]
 
-MAX_TAPS = 128  # MAXL of csrc/dwt.cu
+MAX_TAPS = 128  # MAXL of csrc/dwt.cuh
 
 LAUNCHES: Dict[str, int] = {"dwt_analysis": 0}
 
@@ -92,6 +95,9 @@ def dwt_analysis(x: torch.Tensor, taps: torch.Tensor, axis: int = -1) -> Pair:
     cd = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     if x.numel():
         from ._build import load_library
+
+        if x.data_ptr() % 16:   # the kernel copies 16 bytes at a time
+            x = x.clone()
 
         _launch(name, x.device, load_library().ipp_dwt_analysis,
                 x.data_ptr(), taps.data_ptr(), ca.data_ptr(), cd.data_ptr(),

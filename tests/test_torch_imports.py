@@ -1,6 +1,6 @@
-"""ipp_tpu_torch and chip_smoke.py import no jax and no ipp_tpu module: the
-port keeps its own copies of the reference's host code
-(tests/test_torch_hostio.py holds them to their originals)."""
+"""ipp_tpu_torch, chip_smoke.py and the port's kernel benches import no jax
+and no ipp_tpu module: the port keeps its own copies of the reference's
+host code (tests/test_torch_hostio.py holds them to their originals)."""
 
 import ast
 import os
@@ -14,7 +14,11 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ipp_tpu_torch"
 # reference modules the port may import: none
 SHARED = set()
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port's kernel benches (scripts/pallas_dwt_bench.py is the reference's)
+BENCHES = ["stage_fft_bench.py", "dft_fft_bench.py", "rdft_y_bench.py",
+           "dwt_bench.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + [ROOT / "scripts" / b for b in BENCHES])
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
         ".__init__", "")

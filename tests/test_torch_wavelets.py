@@ -7,7 +7,8 @@ along axis -2 against JAX `_dwt_last` on moved axes and the Pallas
 prototype `dwt_y_pallas` (interpret mode): atol 2e-5.  wavedec2 at 7
 levels (parity rolls on) within 1e-5 of the largest coefficient, and
 round trips.  On a CUDA card only: K5 against its plain version, rel 1e-5
-(both f32)."""
+(both f32), at every filter length on both axes, and a batch bit-equal to
+its single calls."""
 
 import importlib.util
 from pathlib import Path
@@ -166,6 +167,11 @@ def test_wrapper_refuses_devices_it_cannot_launch_on():
     ("db9", (3, 2688, 336), -1), ("db9", (3, 336, 2688), -2),
     ("coif15", (2, 168, 1344), -2), ("db3", (2, 100, 42), -1),
     ("db9", (5, 16), -1), ("db9", (2, 16, 40), -2),
+    # every other filter length the tests name, both axes, ragged widths
+    ("haar", (4, 2688), -1), ("haar", (2, 84, 33), -2),
+    ("db34", (3, 1344), -1), ("db34", (2, 336, 31), -2),
+    ("coif17", (3, 42), -1), ("coif17", (2, 1344, 42), -2),
+    ("coif15", (2, 2688), -1), ("db9", (2, 2, 21), -2),
 ])
 def test_kernel_matches_plain_on_the_card(cuda, name, shape, axis, rng):
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
@@ -179,3 +185,17 @@ def test_kernel_matches_plain_on_the_card(cuda, name, shape, axis, rng):
         assert g.shape == r.shape
         rel = float((g - r).abs().max() / r.abs().max())
         assert rel <= 1e-5, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [-1, -2])
+def test_kernel_batch_equals_single_calls_on_the_card(cuda, axis, rng):
+    """Each output is the same sum in the same order whatever the batch, so
+    a batch gives bit for bit what its single calls give."""
+    x = torch.from_numpy(
+        rng.standard_normal((8, 336, 168)).astype(np.float32)).to(cuda)
+    taps = P.filter_taps("coif15", cuda)
+    got = K.dwt_analysis(x, taps, axis)
+    for i in range(x.shape[0]):
+        for g, s in zip(got, K.dwt_analysis(x[i:i + 1], taps, axis)):
+            assert torch.equal(g[i:i + 1], s)

@@ -24,14 +24,14 @@ Phases:
 3. richardson_lucy on one (512,512,512) block (16-voxel halo, 9^3
    gaussian PSF, 10 iterations): the kernel walk against the torch.fft
    route, inner region within rtol=2e-3, atol=2e-1, and exact launch
-   counts (K1 = 2n+1, K2 = 2n, K3 = 6n+2, K4 = 2n, and K7 for the edge
-   taper's six slab blurs);
+   counts (K1 = 2n+1, K2 = 2n, K3 = 6n+2, K4 = 2n; the edge taper's six
+   slab blurs lie outside the v2 domain and take torch.fft);
 4. the deconvolution CLI end to end on a synthetic 512 x 1024 x 1024 u16
    TIFF series (PSF-blurred, Poisson-noised beads from a numpy seed,
    written by a minimal baseline TIFF writer here and read back through
    the port's TiffDirVolume): every block in the kernel domain and routed
-   through the kernels (the taper slabs through K7), 512 u16 output
-   planes, beads sharper than in the input, manifest complete;
+   through the kernels (the taper slabs through torch.fft), 512 u16
+   output planes, beads sharper than in the input, manifest complete;
 5. the DWT kernel K5 against its plain version (strided conv1d) on the
    card: db9 on both axes at the destripe CLI's padded tile batches
    (8, 2688, 2688) and (8, 2304, 2688), the filter lengths 2, 6, 68, 90 and
@@ -50,8 +50,9 @@ Phases:
    more than 3x, K5 launched batches x 3 x levels times, and 8 sampled
    tiles within 1 count of the same chain with the plain DWT on the card;
    then one batch of 8 tiles through process_batch_fn with bleach
-   correction on (the first-order Butterworth filtfilt as a scan), the
-   card's result within 1 count of the CPU's, its device ms printed;
+   correction on (the first-order Butterworth filtfilt as a scan), and one
+   with lightsheet correction on (dark 100 first), each card's result
+   within 1 count of the CPU's, its device ms printed;
 7. the batched walk: each batched kernel form (K1 and K2 on a batch, K4
    with one OTF wrapped over the batch) against its plain version at
    (4, 256, 1056, 256) (the CLI's block shape, four blocks: the group one
@@ -73,8 +74,8 @@ Phases:
    (written by a minimal raw NRRD writer here), with --destripe (the
    axial destripe through K5) and 10 RL iterations: 8 outputs of the
    input shape and dtype, K5 launched, and exact walk launch counts (the
-   cubes' work shape (136, 136, 136) takes the v1 walk: K7 for RL and
-   the taper);
+   cubes' work shape lies outside the v2 domain: RL and the taper take
+   torch.fft, no walk launch);
 10. the v1 walk (work shapes outside the v2 domain): K6 (the inverse
    radix-2 stage over the last axis) and K7 (the dense-axis DFT as a
    mixed-radix FFT kernel) against their plain versions at every stage the
@@ -86,16 +87,31 @@ Phases:
    convolve (and the fused RL update) against torch.fft at (256, 1024,
    264) and (256, 1152, 1152), <= 1e-4 of max, exact launch counts; and
    richardson_lucy on a (248, 1100, 1100) block (9^3 gaussian PSF, 10
-   iterations, work shape (256, 1152, 1152)) on the walk1 route against
-   the torch.fft route at the same work shape, within 1e-3 of max on the
-   core, exact launch counts with no dense K7 launch, and the block's time
-   split by CUDA events into the x matmuls, the layout copies, the OTF
-   product, the RL arithmetic, the taper and the kernels;
+   iterations, work shape (256, 1152, 1152)) on the walk1 route (forced:
+   the default there is torch.fft) against the torch.fft route at the
+   same work shape, within 1e-3 of max on the core, exact launch counts
+   with no dense K7 launch, and the block's time split by CUDA events into
+   the x matmuls, the layout copies, the OTF product, the RL arithmetic,
+   the taper and the kernels; then RL on a 128^3 cube (the FNT CLI's),
+   walk1 beside torch.fft;
 11. the canonical transforms MatmulFFT3.rfftn / irfftn / otf (natural
    order, any shape) against torch.fft at (40, 136, 264), whose y and z
    axes take K7's FFT kernel, and at (30, 50, 70), whose axes are no
    multiples of 8 and take K7's dense kernel: <= 1e-5 of the spectrum's
-   max, exact launch counts of each kernel.
+   max, exact launch counts of each kernel;
+12. the stitch chain: align_pairs_batched on 12 pairs whose xy MIPs are
+   (150, 1024), search radius 20, card vs CPU equal and equal to the
+   known shifts, pairs/s; then process_images on a synthetic 3 x 3 grid of
+   32-plane stacks of 2000 x 2000 u16 tiles (288 tiles, 2.3 GB; --objective
+   15x, nominal overlap 200 px; beads with z extent on a smooth field and
+   multiplicative stripes along x, from a seeded generator on the card;
+   known integer jitter |dy|, |dx| <= 8, dz in {-1, 0, 1}) with the
+   stage-1 settings of phase 6 and --downsampled-voxel 10: rc 0, every
+   stack's offset in the placement XML equal to its truth, the series of
+   the bounding box's plane count and shape in u16, every isolated bead's
+   intensity-weighted centroid within 0.5 px of its true position, the
+   npz at its planned shape, K5 launched batches x 3 x levels times;
+   stitch Mpix/s, the per-stage seconds and the peak device memory.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -104,8 +120,9 @@ larger of the function's FLOPs over the f32 peak (a matrix product's for
 the dense kernels of K1, K2 and K7, an FFT's 5 n log2 n per complex
 transform for K3, K4, K6 and K7 and half that per real column for K1 and
 K2, the taps' for K5) and its bytes (each input read once, each output written
-once) over the HBM rate.  The edge taper's slab blurs take the v1 walk on
-the card, so phases 3, 4, 7 and 9 count their K7 launches too.
+once) over the HBM rate.  Outside the v2 domain every convolution takes
+torch.fft unless a caller forces "walk1" (phase 10 does), so only phase 10
+and phase 11 launch K6 and K7.
 
 Phases 8 and 9 read phase 4's series.  The script exits non-zero when
 there is no CUDA device, when the port is not beside it, or when any
@@ -279,17 +296,21 @@ def work_dwt(elems: int, taps: int):
     return 2.0 * elems * taps, 4.0 * (2 * elems + 2 * taps)
 
 
-def walk_launches(shape, forward: int, inverse: int):
+def walk_launches(shape, forward: int, inverse: int, route=None):
     """Kernel launches of `forward` transforms and `inverse` transforms
-    (each with its OTF product) at a work shape, on the walk that takes it
-    on the card: v2 inside its domain, v1 outside.  `cplx_matmul` is K7's
-    FFT kernel: the walks' dense axes are multiples of 8, so the callers,
-    which compare every counter, hold `cplx_matmul_dense` to 0."""
+    (each with its OTF product) at a work shape, on the route that takes
+    it (`ops.deconv.conv_route`): the v2 walk inside its domain; outside
+    it torch.fft (no launch), or the v1 walk when `route` forces "walk1".
+    `cplx_matmul` is K7's FFT kernel: the walks' dense axes are multiples
+    of 8, so the callers, which compare every counter, hold
+    `cplx_matmul_dense` to 0."""
     from ipp_tpu_torch.ops.matmul_fft import in_kernel_domain, stage_axes
 
-    if in_kernel_domain(shape):
+    if in_kernel_domain(shape) and route != "fft":
         return {"rdft_y_fwd": forward, "radix2_stage": 2 * forward + inverse,
                 "radix2_stage_inv_otf": inverse, "rdft_y_inv": inverse}
+    if route != "walk1":
+        return {}
     z, y = stage_axes(shape)
     dense = (not z) + (not y)
     return {"radix2_stage": forward * (z + y),
@@ -329,18 +350,19 @@ def add_launches(want, *counts):
     return want
 
 
-def taper_launches(vol_shape, psf_shape, face_slabs: bool = True):
+def taper_launches(vol_shape, psf_shape, face_slabs: bool = True,
+                   route=None):
     """Launches of one edge taper on the card: an OTF and a convolve per
     blur."""
-    return add_launches({}, *(walk_launches(s, 2, 1) for s in
+    return add_launches({}, *(walk_launches(s, 2, 1, route) for s in
                               taper_work_shapes(vol_shape, psf_shape,
                                                 face_slabs)))
 
 
-def rl_launches(fft_shape, niter: int):
+def rl_launches(fft_shape, niter: int, route=None):
     """Launches of richardson_lucy's loop on the walk: the OTF, then two
     convolves per iteration."""
-    return walk_launches(fft_shape, 1 + 2 * niter, 2 * niter)
+    return walk_launches(fft_shape, 1 + 2 * niter, 2 * niter, route)
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -742,8 +764,9 @@ def phase_rl_block(torch, dev, record):
     cf.reset_launch_counts()
     walk, t_walk0 = run(None)
     counts = dict(cf.LAUNCHES)
-    # the RL loop on the v2 walk (K1 2n+1, K2 2n, K3 6n+2, K4 2n) and the
-    # edge taper's six slab blurs on the v1 walk (K7); no batched form
+    # the RL loop on the v2 walk (K1 2n+1, K2 2n, K3 6n+2, K4 2n); the
+    # edge taper's six slab blurs lie outside the v2 domain and take
+    # torch.fft; no batched form
     want = add_launches({k: 0 for k in counts}, rl_launches(shape, NITER),
                         taper_launches(shape, psf.shape))
     fft, t_fft0 = run("fft")
@@ -866,7 +889,7 @@ def phase_cli(torch, dev, psf_zyx, record, shared):
                                          strict_accuracy=True,
                                          kernel_domain=True)
     uni = pdc.fft_work_shape(plans, halo, planned)
-    fft_shape = pdc._fft_shape_for_backend(uni, dev)
+    fft_shape = pdc._fft_shape_for_backend(uni)
     nb = len(plans)
     say(f"  input {vol_shape} u16 written in {t_data:.1f} s; plan: {nb} "
         f"blocks, halo {halo}, work shape {fft_shape}")
@@ -886,11 +909,11 @@ def phase_cli(torch, dev, psf_zyx, record, shared):
         core_mvox_s=vox / wall / 1e6, launches=counts,
         peak_mem_bytes=torch.cuda.max_memory_allocated())
     say(f"  CLI rc {rc}: {nb} blocks in {wall:.1f} s, "
-        f"{vox / wall / 1e6:.2f} core Mvox/s; launches {counts}; K7 (the "
-        f"taper slabs {sorted(set(taper_work_shapes(uni, psf_zyx.shape)))} "
-        f"on the v1 walk) {counts['cplx_matmul']}")
-    # per block: RL on the v2 walk and the taper's slab blurs on the v1
-    # walk; one block at a time, so no batched form
+        f"{vox / wall / 1e6:.2f} core Mvox/s; launches {counts}; the taper "
+        f"slabs {sorted(set(taper_work_shapes(uni, psf_zyx.shape)))} on "
+        f"torch.fft")
+    # per block: RL on the v2 walk and the taper's slab blurs through
+    # torch.fft; one block at a time, so no batched form
     per_block = add_launches({}, rl_launches(fft_shape, NITER),
                              taper_launches(uni, psf_zyx.shape))
     want = {k: nb * per_block.get(k, 0) for k in counts}
@@ -1256,6 +1279,34 @@ def phase_destripe_cli(torch, dev, record):
                              f"{on_card.shape})")
     if not bleach_moved > 0:
         raise AssertionError("bleach correction changed nothing")
+    # lightsheet correction on: the same batch of 8 through the batch
+    # callable on the card and on the CPU (u16 samples after an exact dark
+    # subtraction, so both run the same counting search)
+    lcfg = ProcessConfig(dark=100.0, lightsheet=True)
+    on_card = np.asarray(process_batch_fn(lcfg, dev)(batch8))
+    t0 = time.perf_counter()
+    on_cpu = np.asarray(process_batch_fn(lcfg, "cpu")(batch8))
+    ls_cpu_s = time.perf_counter() - t0
+    ls_diff = int(np.abs(on_card.astype(np.int64)
+                         - on_cpu.astype(np.int64)).max())
+    ls_moved = float(np.abs(on_card.astype(np.float64)
+                            - np.clip(batch8.astype(np.float64) - 100, 0,
+                                      None)).mean())
+    xb = upload(batch8, dev)
+    ls_ms = time_ms(torch, lambda: _chain(xb, lcfg, u16), 5)
+    del xb
+    say(f"  lightsheet correction, one batch of 8 {batch8.shape[1:]} tiles: "
+        f"card vs CPU max |diff| {ls_diff} counts; device chain "
+        f"{ls_ms:.2f} ms; mean |change| {ls_moved:.1f} counts; the CPU "
+        f"took {ls_cpu_s:.1f} s")
+    rec.update(lightsheet_max_diff=ls_diff, lightsheet_chain_ms=ls_ms,
+               lightsheet_mean_change=ls_moved, lightsheet_cpu_s=ls_cpu_s)
+    if (on_card.dtype != np.uint16 or on_card.shape != batch8.shape
+            or ls_diff > 1):
+        raise AssertionError(f"lightsheet: card vs CPU differ by {ls_diff} "
+                             f"counts ({on_card.dtype} {on_card.shape})")
+    if not ls_moved > 0:
+        raise AssertionError("lightsheet correction changed nothing")
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -1599,8 +1650,8 @@ def phase_fnt(torch, dev, record, shared):
         psf_shape=list(psf_shape), peak_mem_bytes=peak, card=card_line())
     say(f"  FNT CLI rc {rc}: {FNT_CUBES} cubes of {e}^3 u16 in {wall:.2f} s, "
         f"{vox / wall / 1e6:.2f} Mvox/s ({rec['card']}); K5 launches {k5}; "
-        f"K7 launches {walk['cplx_matmul']} (v1 walk); walk launches "
-        f"{walk}; peak {peak}")
+        f"walk launches {walk} (work shape "
+        f"{fft_shape_for(cube, psf_shape, dev)}: torch.fft); peak {peak}")
     outs = sorted(dst.glob("*.nrrd"))
     if rc != 0 or len(outs) != FNT_CUBES:
         raise AssertionError(f"rc {rc}, {len(outs)} output cubes")
@@ -1729,7 +1780,7 @@ def phase_v1(torch, dev, slab_shapes, record):
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
     psf = torch.from_numpy(gaussian_psf((9, 9, 9), (2.0, 2.0, 2.0))).to(dev)
-    rl_shape = fft_shape_for(V1_RL_BLOCK, psf.shape, dev)
+    rl_shape = fft_shape_for(V1_RL_BLOCK, psf.shape, dev, "walk1")
     rows, bad, seen = [], [], set()
     tags = {**KERNELS, **V1}
     slab_shapes = (list(slab_shapes)
@@ -1774,8 +1825,9 @@ def phase_v1(torch, dev, slab_shapes, record):
     eps = float(np.finfo(np.float32).eps)
     convs = []
     for shape in V1_CONV_SHAPES:
-        if conv_route(shape, dev) != "walk1":
-            raise AssertionError(f"{shape} does not take the v1 walk")
+        if conv_route(shape, dev) != "fft":
+            raise AssertionError(f"{shape} does not take torch.fft by "
+                                 "default")
         plan = MatmulFFT3(shape, dev)
         x = torch.rand(shape, generator=gen, device=dev) * 100 + 1
         num = torch.rand(shape, generator=gen, device=dev) * 100 + 1
@@ -1786,7 +1838,8 @@ def phase_v1(torch, dev, slab_shapes, record):
         got = plan.convolve(x, otf)
         torch.cuda.synchronize()
         counts = dict(cf.LAUNCHES)
-        want = add_launches({n: 0 for n in counts}, walk_launches(shape, 2, 1))
+        want = add_launches({n: 0 for n in counts},
+                            walk_launches(shape, 2, 1, "walk1"))
         fk = torch.fft.rfftn(k)
         ref = torch.fft.irfftn(torch.fft.rfftn(x) * fk, s=shape)
         rel = rel_max(got, ref)
@@ -1826,10 +1879,11 @@ def phase_v1(torch, dev, slab_shapes, record):
         raise AssertionError("; ".join(bad))
 
     # richardson_lucy on a block whose work shape leaves the v2 domain:
-    # walk1 (the default on the card) against torch.fft at the same shape
+    # walk1 (forced; its taper blurs too) against torch.fft (the default
+    # route there) at the same shape
     block = torch.rand(V1_RL_BLOCK, generator=gen, device=dev) * 1000
-    if conv_route(rl_shape, dev) != "walk1":
-        raise AssertionError(f"{rl_shape} does not take the v1 walk")
+    if conv_route(rl_shape, dev) != "fft":
+        raise AssertionError(f"{rl_shape} does not take torch.fft by default")
 
     def run(route):
         torch.cuda.synchronize()
@@ -1841,16 +1895,17 @@ def phase_v1(torch, dev, slab_shapes, record):
 
     torch.cuda.reset_peak_memory_stats()
     cf.reset_launch_counts()
-    walk, t_walk0 = run(None)
+    walk, t_walk0 = run("walk1")
     counts = dict(cf.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    want = add_launches({n: 0 for n in counts}, rl_launches(rl_shape, NITER),
-                        taper_launches(V1_RL_BLOCK, psf.shape))
+    want = add_launches({n: 0 for n in counts},
+                        rl_launches(rl_shape, NITER, "walk1"),
+                        taper_launches(V1_RL_BLOCK, psf.shape, route="walk1"))
     fft, t_fft0 = run("fft")
-    _, t_walk = run(None)
+    _, t_walk = run("walk1")
     _, t_fft = run("fft")
-    taper_ms = time_ms(torch, lambda: edge_taper_3d(block, psf / psf.sum()),
-                       2)
+    taper_ms = time_ms(torch, lambda: edge_taper_3d(block, psf / psf.sum(),
+                                                    route="walk1"), 2)
     halo = 16
     inner = (slice(halo, -halo),) * 3
     rel = rel_max(walk[inner], fft[inner])
@@ -1903,6 +1958,36 @@ def phase_v1(torch, dev, slab_shapes, record):
         raise AssertionError(f"walk1 RL vs torch.fft rel {rel:.3e} "
                              f"(finite {finite})")
 
+    # the FNT cubes' work: richardson_lucy on one cube, walk1 (forced, at
+    # its multiple-of-8 work shape) beside the default route (torch.fft at
+    # 2,3,5,7-smooth sizes); the two pad differently, so only the times
+    # are compared
+    cube = torch.rand((FNT_CUBE,) * 3, generator=gen, device=dev) * 1000
+    shapes = {r: fft_shape_for(cube.shape, psf.shape, dev, r)
+              for r in ("walk1", None)}
+
+    def run_cube(route):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = richardson_lucy(cube, psf, niter=NITER, route=route)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for r in shapes:
+        run_cube(r)
+    t_cube = {r: min(run_cube(r)[1] for _ in range(2)) for r in shapes}
+    out_cube = {r: run_cube(r)[0] for r in shapes}
+    rel_cube = rel_max(out_cube["walk1"], out_cube[None])
+    rec["cube"] = dict(edge=FNT_CUBE, walk1_shape=list(shapes["walk1"]),
+                       fft_shape=list(shapes[None]), walk1_s=t_cube["walk1"],
+                       fft_s=t_cube[None], max_rel_diff=rel_cube)
+    say(f"  RL on a {FNT_CUBE}^3 cube: walk1 at {shapes['walk1']} "
+        f"{t_cube['walk1'] * 1e3:.1f} ms, torch.fft at {shapes[None]} "
+        f"{t_cube[None] * 1e3:.1f} ms ({t_cube['walk1'] / t_cube[None]:.1f}"
+        f"x); max |walk1-fft|/max|fft| {rel_cube:.2e} (different padding)")
+    if not all(bool(torch.isfinite(o).all()) for o in out_cube.values()):
+        raise AssertionError("non-finite RL output on the cube")
+
 
 # -- phase 11 ----------------------------------------------------------------
 
@@ -1952,6 +2037,355 @@ def phase_canonical(torch, dev, record):
     record["canonical"] = rows
     if bad:
         raise AssertionError("; ".join(bad))
+
+
+# -- phase 12 ----------------------------------------------------------------
+
+STITCH_GRID = (3, 3)            # rows x cols of stacks
+STITCH_TILE = (2000, 2000)
+STITCH_PLANES = 32
+STITCH_OVERLAP = 200            # nominal overlap, px (10%)
+STITCH_VOX = (0.41, 0.41, 2.0)  # the 15x preset's pitch (y, x) and a z step, um
+STITCH_MARGIN = 8               # phantom margin = the largest jitter
+STITCH_BEADS = 20000
+NCC_SHAPE = (12, 150, 1024)     # pairs, overlap rows, width: a production MIP
+NCC_RADIUS = 20
+STITCH_FLAGS = ["--objective", "15x", "--sigma1", "250", "--sigma2", "250",
+                "--wavelet", "db9", "--padding-mode", "reflect",
+                "--bidirectional", "--dark", "100",
+                "--downsampled-voxel", "10"]
+BEAD_SIGMA = (1.5, 2.0, 2.0)    # z, y, x, px
+STRIPES = 0.15                  # std of the stripe factors on 15% of rows
+BEAD_HALF = (3, 6, 6)
+MIN_BEADS = 1000                # isolated beads the centroid check needs
+
+
+def stitch_phantom(torch, dev, shape, seed, n_beads=None):
+    """A smooth field plus beads with z extent (gaussian, sigma BEAD_SIGMA)
+    and gaussian noise, f32 on the card from a seeded generator; returns
+    (volume, bead centres (n, 3) int64 on the host)."""
+    import numpy as np
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    D, H, W = shape
+    yy = torch.linspace(0, 1, H, device=dev)[:, None]
+    xx = torch.linspace(0, 1, W, device=dev)[None, :]
+    field = 500 + 900 * torch.exp(-((yy - 0.4) ** 2 + (xx - 0.55) ** 2)
+                                  / 0.15)
+    vol = torch.empty((D, H, W), device=dev)
+    for z in range(D):
+        vol[z] = field + 15 * torch.randn((H, W), generator=gen, device=dev)
+    n = STITCH_BEADS if n_beads is None else n_beads
+    hz, hy, hx = BEAD_HALF
+    cz = torch.randint(hz, D - hz, (n,), generator=gen, device=dev)
+    cy = torch.randint(hy, H - hy, (n,), generator=gen, device=dev)
+    cx = torch.randint(hx, W - hx, (n,), generator=gen, device=dev)
+    amp = 3000 + 5000 * torch.rand(n, generator=gen, device=dev)
+    axes = []
+    for h, sg in zip(BEAD_HALF, BEAD_SIGMA):
+        t = torch.arange(-h, h + 1, device=dev)
+        axes.append((t, torch.exp(-0.5 * (t / sg) ** 2)))
+    (tz, kz), (ty, ky), (tx, kx) = axes
+    k = (kz[:, None, None] * ky[None, :, None] * kx[None, None, :]).reshape(-1)
+    off = ((tz[:, None, None] * H + ty[None, :, None]) * W
+           + tx[None, None, :]).reshape(-1)
+    centre = (cz * H + cy) * W + cx
+    vol.view(-1).index_add_(0, (centre[:, None] + off[None, :]).reshape(-1),
+                            (amp[:, None] * k[None, :]).reshape(-1))
+    beads = torch.stack([cz, cy, cx], 1).cpu().numpy()
+    return vol, beads
+
+
+def write_stitch_tree(torch, dev, root, seed=12):
+    """The phase-12 tile tree: a 3 x 3 grid of 32-plane stacks of 2000 x
+    2000 u16 tiles cut from one phantom at known integer jitter
+    (|dy|, |dx| <= 8, dz in {-1, 0, 1}; stack (0, 0) none), each tile with
+    its own multiplicative stripes along x, in the SmartSPIM layout
+    (folders in tenths of um at the 15x pitch, files z in tenths of um).
+    Returns (phantom bead centres, {(row, col): origin (z, y, x) in the
+    phantom})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    rows, cols = STITCH_GRID
+    th, tw = STITCH_TILE
+    step_y, step_x = th - STITCH_OVERLAP, tw - STITCH_OVERLAP
+    m = STITCH_MARGIN
+    shape = (STITCH_PLANES + 2, 2 * m + (rows - 1) * step_y + th,
+             2 * m + (cols - 1) * step_x + tw)
+    vol, beads = stitch_phantom(torch, dev, shape, seed)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    origins, jobs = {}, []
+    pool = ThreadPoolExecutor(8)
+    for r in range(rows):
+        for c in range(cols):
+            jz, jy, jx = ((0, 0, 0) if r == c == 0 else
+                          (int(rng.integers(-1, 2)),
+                           int(rng.integers(-m, m + 1)),
+                           int(rng.integers(-m, m + 1))))
+            z0, y0, x0 = 1 + jz, m + r * step_y + jy, m + c * step_x + jx
+            origins[r, c] = (z0, y0, x0)
+            tile = vol[z0:z0 + STITCH_PLANES, y0:y0 + th, x0:x0 + tw]
+            lines = 1 + STRIPES * torch.randn(
+                (STITCH_PLANES, th, 1), generator=gen, device=dev) * (
+                torch.rand((STITCH_PLANES, th, 1), generator=gen,
+                           device=dev) < 0.15)
+            host = (tile * lines.clamp(min=0.5)).clamp_(0, 65535).round_() \
+                .to(torch.int32).cpu().numpy().astype(np.uint16)
+            xt = int(c * step_x * 10 * STITCH_VOX[1])
+            yt = int(r * step_y * 10 * STITCH_VOX[0])
+            d = root / "Ex_488_Em_525" / f"{xt:06d}" / f"{xt:06d}_{yt:06d}"
+            d.mkdir(parents=True)
+            for z in range(STITCH_PLANES):
+                zt = int(round(z * STITCH_VOX[2] * 10))
+                jobs.append(pool.submit(write_u16_tiff, d / f"{zt:06d}.tif",
+                                        host[z]))
+    for f in jobs:
+        f.result()
+    pool.shutdown()
+    del vol
+    torch.cuda.empty_cache()
+    return beads, origins
+
+
+def bead_centroids(vol, idx):
+    """Intensity-weighted centroids (n, 3) of the beads at integer
+    positions idx (n, 3) of a (z, y, x) u16 volume: each window of
+    BEAD_HALF around the position, less its 20th percentile."""
+    import numpy as np
+
+    hz, hy, hx = BEAD_HALF
+    tz, ty, tx = (np.arange(-h, h + 1) for h in BEAD_HALF)
+    win = vol[idx[:, 0, None, None, None] + tz[None, :, None, None],
+              idx[:, 1, None, None, None] + ty[None, None, :, None],
+              idx[:, 2, None, None, None] + tx[None, None, None, :]]
+    win = win.astype(np.float64)
+    bg = np.percentile(win.reshape(len(idx), -1), 20, axis=1)
+    w = np.clip(win - bg[:, None, None, None], 0, None)
+    tot = w.sum(axis=(1, 2, 3))
+    cz = (w.sum(axis=(2, 3)) * tz).sum(1) / tot
+    cy = (w.sum(axis=(1, 3)) * ty).sum(1) / tot
+    cx = (w.sum(axis=(1, 2)) * tx).sum(1) / tot
+    return idx + np.stack([cz, cy, cx], 1)
+
+
+def phase_ncc_pairs(torch, dev, record):
+    """align_pairs_batched on 12 pairs whose xy MIPs are (150, 1024) with
+    search radius 20, card vs CPU, from a bead phantom made on the card."""
+    import numpy as np
+
+    from ipp_tpu_torch.ops import ncc
+
+    P, ov, width = NCC_SHAPE
+    D, V = STITCH_PLANES, 2 * ov
+    vol, _ = stitch_phantom(torch, dev, (D + 4, 4 * V, 3 * width), 21,
+                            STITCH_BEADS // 8)
+    host = vol.clamp_(0, 65535).round_().to(torch.int32).cpu().numpy() \
+        .astype(np.uint16)
+    del vol
+    rng = np.random.default_rng(21)
+    a, b, truth = [], [], []
+    for i in range(P):
+        dv, dh = (int(t) for t in rng.integers(-12, 13, 2))
+        dd = int(rng.integers(-1, 2))
+        y0 = 20 + (i % 3) * V
+        x0 = 20 + (i // 3) % 2 * width
+        a.append(host[2:2 + D, y0:y0 + V, x0:x0 + width])
+        b.append(host[2 + dd:2 + dd + D, y0 + V - ov + dv:y0 + 2 * V - ov + dv,
+                      x0 + dh:x0 + dh + width])
+        truth.append((V - ov + dv, dh, dd))
+    a, b = np.stack(a), np.stack(b)
+    args = (a, b, "ns", ov, NCC_RADIUS, NCC_RADIUS, NCC_RADIUS)
+    ncc.align_pairs_batched(*args, device=dev)           # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ncc.align_pairs_batched(*args, device=dev)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = ncc.align_pairs_batched(*args, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    # the device chain alone: the three map kinds of the batch
+    mips = [np.max(a[:, :, V - ov:, :], axis=1).astype(np.float32),
+            np.max(b[:, :, :ov, :], axis=1).astype(np.float32)]
+    m1, m2 = (torch.from_numpy(m).to(dev) for m in mips)
+    r = NCC_RADIUS + min(NCC_RADIUS, ncc.S_NCC_WIDTH_MAX - 1)
+    map_ms = time_ms(torch, lambda: ncc.ncc_maps_batched(m1, m2, r, r), 5)
+    coords = [g.coord for g in got]
+    rec = record["ncc_pairs"] = dict(
+        shape=list(NCC_SHAPE), radius=NCC_RADIUS, wall_s=wall,
+        pairs_s=P / wall, cpu_s=cpu_s, xy_map_ms=map_ms,
+        xy_map_pairs_s=P / map_ms * 1e3, coords=coords, truth=truth,
+        equal=coords == [g.coord for g in ref], card=card_line())
+    say(f"  {P} pairs, xy MIPs {tuple(m1.shape[1:])}, radius {NCC_RADIUS}: "
+        f"{wall * 1e3:.1f} ms ({P / wall:.0f} pairs/s with the host MIPs); "
+        f"the xy maps alone {map_ms:.2f} ms on the card "
+        f"({P / map_ms * 1e3:.0f} pairs/s); the CPU took {cpu_s:.2f} s; "
+        f"card == CPU: {rec['equal']}; == truth: {coords == truth}")
+    if not rec["equal"]:
+        raise AssertionError(f"card {coords} != CPU "
+                             f"{[g.coord for g in ref]}")
+    if coords != truth:
+        raise AssertionError(f"displacements {coords} != truth {truth}")
+
+
+def phase_stitch(torch, dev, record):
+    import numpy as np
+
+    from ipp_tpu_torch.geometry.stacks import TileGrid
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import destripe as dsm
+    from ipp_tpu_torch.pipeline import deconvolve as pdc
+    from ipp_tpu_torch.pipeline import process_images as pim
+    from ipp_tpu_torch.utils.progress import StageTimer
+
+    phase_ncc_pairs(torch, dev, record)
+    work = ROOT / "build" / "chip_smoke_stitch"
+    shutil.rmtree(work, ignore_errors=True)
+    src, st = work / "raw", work / "stitched"
+    t0 = time.perf_counter()
+    beads, origins = write_stitch_tree(torch, dev, src)
+    t_data = time.perf_counter() - t0
+    rows, cols = STITCH_GRID
+    n_tiles = rows * cols * STITCH_PLANES
+    n_px = n_tiles * STITCH_TILE[0] * STITCH_TILE[1]
+    batches = -(-n_tiles // 8)
+    levels = dsm._plan_padding(STITCH_TILE, (250.0, 250.0), 0, "db9")[3]
+    want = batches * 3 * levels
+    say(f"  input: {n_tiles} tiles ({n_px * 2 / 1e9:.2f} GB u16) in "
+        f"{rows * cols} stacks written in {t_data:.1f} s; jitter "
+        f"{ {k: tuple(np.subtract(v, origins[0, 0])) for k, v in origins.items()} }"
+        f"; expect {want} K5 launches")
+
+    timers = []
+
+    class Recorded(StageTimer):   # the CLI's per-stage seconds
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    saved = pim.StageTimer
+    pim.StageTimer = Recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cd.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = pim.main(["--input", str(src), "--preprocessed",
+                       str(work / "pre"), "--stitched", str(st),
+                       *STITCH_FLAGS])
+    finally:
+        pim.StageTimer = saved
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5 = cd.LAUNCHES["dwt_analysis"]
+    peak = torch.cuda.max_memory_allocated()
+    stages = dict(timers[0].stages) if timers else {}
+    card = card_line()
+    rate = n_px / wall / 1e6
+    say(f"  CLI rc {rc}: {n_tiles} tiles in {wall:.1f} s, {rate:.1f} Mpix/s "
+        f"({card}); K5 launches {k5}; torch.cuda.max_memory_allocated "
+        f"{peak}")
+    say("  stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     stages.items()))
+    rec = record["stitch"] = dict(
+        tiles=n_tiles, pixels=n_px, wall_s=wall, mpix_s=rate, data_s=t_data,
+        stages_s=stages, k5_launches=k5, want_k5=want, peak_mem_bytes=peak,
+        card=card, rc=rc)
+    if rc != 0:
+        raise AssertionError(f"CLI rc {rc}")
+    if k5 != want:
+        raise AssertionError(f"K5 launches {k5} != {want}")
+    # the placement: every stack's offset from stack (0, 0) is the truth
+    grid = TileGrid.from_xml(st / "Ex_488_Em_525_placement.xml")
+    s00 = grid.stacks[0][0]
+    a00 = (s00.abs_d, s00.abs_v, s00.abs_h)
+    placed, wrong = {}, []
+    for r in range(rows):
+        for c in range(cols):
+            s = grid.stacks[r][c]
+            got = tuple(np.subtract((s.abs_d, s.abs_v, s.abs_h), a00))
+            want_off = tuple(np.subtract(origins[r, c], origins[0, 0]))
+            placed[f"{r},{c}"] = [int(v) for v in got]
+            if got != want_off:
+                wrong.append(f"({r}, {c}): {got} != {want_off}")
+    rec["placement"] = placed
+    say(f"  placement (z, y, x from stack (0, 0)): "
+        f"{'equal to the truth' if not wrong else wrong}")
+    if wrong:
+        raise AssertionError("placement: " + "; ".join(wrong))
+    # the series: the bounding box's planes and shape, u16
+    bb = grid.volume
+    want_shape = (bb.z1 - bb.z0, bb.y1 - bb.y0, bb.x1 - bb.x0)
+    out = pdc.TiffDirVolume(st / "Ex_488_Em_525")
+    rec["series_shape"] = list(out.shape)
+    if tuple(out.shape) != want_shape or out.dtype != np.uint16:
+        raise AssertionError(f"series {out.shape} {out.dtype}, want "
+                             f"{want_shape} uint16")
+    vol = out.read_block(tuple((0, n) for n in want_shape))
+    # every isolated bead well inside the union of the stacks and away from
+    # tile borders: its centroid in the stitched planes within 0.5 px of
+    # where the truth puts it
+    shift = np.add(np.subtract(a00, origins[0, 0]),
+                   (-bb.z0, -bb.y0, -bb.x0))
+    pos = beads + shift
+    lo_z = max(o[0] for o in origins.values()) - origins[0, 0][0] + a00[0] \
+        - bb.z0 + BEAD_HALF[0] + 1
+    hi_z = min(o[0] for o in origins.values()) - origins[0, 0][0] + a00[0] \
+        - bb.z0 + STITCH_PLANES - BEAD_HALF[0] - 2
+    keep = ((pos[:, 0] >= lo_z) & (pos[:, 0] <= hi_z)
+            & (pos[:, 1] >= 3 * STITCH_MARGIN)
+            & (pos[:, 1] < want_shape[1] - 3 * STITCH_MARGIN)
+            & (pos[:, 2] >= 3 * STITCH_MARGIN)
+            & (pos[:, 2] < want_shape[2] - 3 * STITCH_MARGIN))
+    counts = [int(keep.sum())]
+    th, tw = STITCH_TILE
+    for z0, y0, x0 in origins.values():   # away from every tile border
+        for e, ax in ((y0, 1), (y0 + th, 1), (x0, 2), (x0 + tw, 2)):
+            keep &= np.abs(beads[:, ax] - e) > 12
+    # isolated: no other bead closer than 4 half-windows + 2 on every axis
+    from scipy.spatial import cKDTree
+
+    sep = np.asarray([4 * h + 2 for h in BEAD_HALF], np.float64)
+    close = cKDTree(beads / sep).query_pairs(1.0 - 1e-9, p=np.inf,
+                                             output_type="ndarray")
+    counts.append(int(keep.sum()))
+    keep[close.reshape(-1)] = False
+    counts.append(int(keep.sum()))
+    say(f"  beads: {len(beads)}; inside {counts[0]}, away from tile borders "
+        f"{counts[1]}, isolated {counts[2]}")
+    idx = pos[keep].astype(np.int64)
+    if len(idx) < MIN_BEADS:
+        raise AssertionError(f"only {len(idx)} isolated beads to check")
+    cen = bead_centroids(vol, idx)
+    err = np.abs(cen - idx)
+    worst = float(err.max()) if len(err) else float("nan")
+    bias = (cen - idx).mean(0)
+    rec.update(beads_checked=int(keep.sum()), bead_err_max=worst,
+               bead_err_mean=[float(v) for v in err.mean(0)],
+               bead_bias=[float(v) for v in bias])
+    say(f"  {int(keep.sum())} isolated beads: centroid vs truth max "
+        f"{worst:.3f} px, mean |error| (z, y, x) "
+        f"{tuple(round(float(v), 4) for v in err.mean(0))}, mean error "
+        f"{tuple(round(float(v), 4) for v in bias)}")
+    if not worst <= 0.5:
+        raise AssertionError(f"bead centroids: {len(err)} checked, worst "
+                             f"{worst:.3f} px")
+    # the npz at the planned shape
+    npz = sorted(st.glob("Ex_488_Em_525_zyx*.npz"))
+    vz, vy, vx = STITCH_VOX[2], STITCH_VOX[0], STITCH_VOX[1]
+    planned = tuple(max(1, int(round(n / (10.0 / v)))) for n, v in
+                    zip(want_shape, (vz, vy, vx)))
+    got_npz = np.load(npz[0], allow_pickle=True)["I"].shape if npz else None
+    rec["npz_shape"] = got_npz
+    say(f"  npz {npz[0].name if npz else None}: {got_npz} (planned "
+        f"{planned})")
+    if got_npz != planned:
+        raise AssertionError(f"npz {got_npz} != {planned}")
+    shutil.rmtree(work, ignore_errors=True)
 
 
 # -- main ---------------------------------------------------------------------
@@ -2011,7 +2445,7 @@ def main() -> int:
                                          strict_accuracy=True,
                                          kernel_domain=True)
     cli_shape = pdc._fft_shape_for_backend(
-        pdc.fft_work_shape(plans, halo, planned), dev)
+        pdc.fft_work_shape(plans, halo, planned))
     shapes = [(256, 256, 256), (512, 512, 512), (768, 256, 768)]
     if tuple(cli_shape) not in shapes:
         shapes.append(tuple(cli_shape))
@@ -2037,6 +2471,9 @@ def main() -> int:
           taper_work_shapes(cli_shape, psf.shape), record)
     phase(11, f"rfftn / irfftn / otf vs torch.fft at {CANONICAL_SHAPES}",
           phase_canonical, torch, dev, record)
+    phase(12, f"NCC pairs at {NCC_SHAPE}, then process_images on a "
+          f"{STITCH_GRID[0]} x {STITCH_GRID[1]} grid of {STITCH_PLANES}-plane "
+          f"stacks of {STITCH_TILE} u16", phase_stitch, torch, dev, record)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
     peaks = {k: v["peak_mem_bytes"] for k, v in record.items()
              if isinstance(v, dict) and "peak_mem_bytes" in v}

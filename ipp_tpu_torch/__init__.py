@@ -4,25 +4,28 @@ The JAX package `ipp_tpu` stays the reference: every port function here is
 held against its `ipp_tpu` twin in `tests/test_torch_*.py`.  This package
 imports `torch` and never `jax`, and nothing of `ipp_tpu`: host code it
 needs from the reference is copied, keeping the reference's layout and
-names (`io/tiff.py`, `io/dcimg.py`, `io/nrrd.py`, `native/` with
-`fastio.cpp`, `parallel/executor.py`, `parallel/sandbox.py`,
+names (`io/` tiff, dcimg, nrrd, raw, generic2d, terafly, vaa3draw, ims;
+`native/` with `fastio.cpp`; `parallel/executor.py`, `parallel/sandbox.py`;
+`geometry/extent.py`, `geometry/stacks.py`; `stitch/place.py`;
 `utils/iostat.py`, `utils/lagged.py`, `utils/log.py`, `utils/memory.py`,
 `utils/progress.py`; the tests pin each copy to its original).
 
 Layout mirrors `ipp_tpu/`: `ops/` (DFT matrices, the hand-written CUDA
 kernels of the FFT walk and of the DWT and their wrappers,
-Richardson-Lucy, wavelets, destripe, the tile chain), `pipeline/` (the
-deconvolution, FNT-cube and pystripe CLIs), `io/`, `native/` and
-`parallel/` (host IO), `utils/` (device and precision policy, host <->
-device transfers, logging and progress), `csrc/` (the CUDA C++ sources,
-built with nvcc on first use).
+Richardson-Lucy, wavelets, destripe, lightsheet correction, the tile
+chain, NCC maps, resampling), `stitch/` (alignment, placement, blend,
+merge), `geometry/` (tile extents and grids), `pipeline/` (the
+deconvolution, FNT-cube, pystripe and process_images CLIs), `io/`,
+`native/` and `parallel/` (host IO), `utils/` (device and precision
+policy, host <-> device transfers, logging and progress), `csrc/` (the
+CUDA C++ sources, built with nvcc on first use).
 
 Every FFT convolution takes one of three routes, chosen from its work
-shape and device before anything launches (`ops.deconv.conv_route`):
-"walk" (the v2 kernel walk, inside its domain, on any device), "walk1"
-(the v1 kernel walk, for every other shape on a CUDA device) and "fft"
-(torch.fft, for other shapes on the CPU).  On CPU tensors the walks run
-their kernels' plain PyTorch versions.
+shape before anything launches, by one rule on every device
+(`ops.deconv.conv_route`): "walk" (the v2 kernel walk, inside its domain)
+and "fft" (torch.fft, for every other shape); "walk1" (the v1 kernel walk)
+only when a caller forces it.  On CPU tensors the walks run their
+kernels' plain PyTorch versions.
 """
 
 from .utils.device import apply_precision_policy as _apply_precision_policy

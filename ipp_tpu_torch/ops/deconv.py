@@ -10,15 +10,15 @@ one scalar per block and iteration.  A batch of blocks (B, D, H, W) runs
 the same loop; with early stop each block freezes once it has converged
 and the loop ends when all have (the reference's vmapped while_loop).
 Each convolution takes one of three routes, chosen by the FFT work shape
-and the device before anything launches (`conv_route`):
+before anything launches, by one rule on every device (`conv_route`):
 
 - "walk": the v2 kernel walk of ops/matmul_fft.py, for shapes inside its
-  kernel domain, on any device (the reference's MXU v2 walk);
-- "walk1": the v1 kernel walk, for every other shape on a CUDA device
-  (what the reference's MXU branch runs on its accelerator);
-- "fft": torch.fft, the same math as the reference's XLA branch
-  (deconv.py:286-302), for every other shape on the CPU (the reference's
-  CPU backend).
+  kernel domain (the reference's MXU v2 walk);
+- "fft": torch.fft at 2,3,5,7-smooth sizes, the same math as the
+  reference's XLA branch (deconv.py:286-302), for every other shape: the
+  reference's rule off the TPU (deconv.py:43-55);
+- "walk1": the v1 kernel walk (what the reference's MXU branch runs on
+  its accelerator outside the v2 domain), only when a caller forces it.
 
 On CPU tensors the walks run the kernels' plain PyTorch versions.
 """
@@ -126,15 +126,14 @@ _ROUTES = {"walk": "v2 kernel walk", "walk1": "v1 kernel walk",
 
 def conv_route(fft_shape: Sequence[int], device: torch.device,
                route: Optional[str] = None) -> str:
-    """"walk" for work shapes in the v2 kernel domain; otherwise "walk1" on
-    a CUDA device and "fft" on the CPU.  `route` forces one: "walk" raises
-    for a shape outside the domain, "walk1" and "fft" take any shape.
-    Logged once per (shape, device, route)."""
+    """"walk" for work shapes in the v2 kernel domain, "fft" for any other,
+    on every device.  `route` forces one: "walk" raises for a shape outside
+    the domain, "walk1" and "fft" take any shape.  Logged once per (shape,
+    device, route)."""
     shape = tuple(int(s) for s in fft_shape)
     device_type = torch.device(device).type
     if route is None:
-        route = ("walk" if in_kernel_domain(shape)
-                 else "walk1" if device_type == "cuda" else "fft")
+        route = "walk" if in_kernel_domain(shape) else "fft"
     if route not in _ROUTES:
         raise ValueError(f"unknown convolution route {route!r}")
     if route == "walk" and not in_kernel_domain(shape):
@@ -152,9 +151,9 @@ def _log_route(shape, device_type: str, route: str) -> None:
 def _fft_conv_same(vol: torch.Tensor, kern: torch.Tensor,
                    route: Optional[str] = None) -> torch.Tensor:
     """'same' conv via FFT with edge-replicate padding by kernel half-size;
-    routed like the RL convolutions (a walk on multiple-of-8 shapes, as the
-    reference's MXU branch, deconv.py:219-229; torch.fft on the CPU outside
-    the v2 domain), or by `route` (see `conv_route`)."""
+    routed like the RL convolutions (the v2 walk on a multiple-of-8 shape
+    inside its domain, as the reference's MXU branch, deconv.py:219-229;
+    torch.fft outside it), or by `route` (see `conv_route`)."""
     hz, hy, hx = (k // 2 for k in kern.shape)
     vp = F.pad(vol[None, None], (hx, hx, hy, hy, hz, hz),
                mode="replicate")[0, 0]
@@ -236,15 +235,12 @@ def fft_shape_for(shape: Sequence[int], psf_shape: Sequence[int], device,
                   route: Optional[str] = None) -> Tuple[int, int, int]:
     """FFT work shape: block + PSF half-extents, rounded up for the route
     that takes it (the reference's rule per backend, deconv.py:240-251):
-    `plan_shape` (multiples of 8, or of 128 within 5%) for the walks, that
-    is on a CUDA device or with a walk forced; 2,3,5,7-smooth sizes for
-    torch.fft on the CPU or with "fft" forced.  The CLI passes its
-    overlap-save shape explicitly."""
-    if route is None:
-        walks = torch.device(device).type == "cuda"
-    else:
-        walks = route != "fft"
-    if walks:
+    2,3,5,7-smooth sizes for torch.fft, by default on every device (the
+    reference's non-TPU rule) and with "fft" forced; `plan_shape`
+    (multiples of 8, or of 128 within 5%) with a walk forced.  The CLI
+    passes its overlap-save shape explicitly.  `device` is kept for the
+    callers; the rule does not depend on it."""
+    if route is not None and route != "fft":
         return plan_shape(shape, psf_shape)
     return tuple(next_fast_len(int(s) + int(p) // 2 * 2)
                  for s, p in zip(shape, psf_shape))
@@ -438,7 +434,7 @@ def richardson_lucy(vol, psf, niter: int = 10, lam: float = 0.0,
     vol/psf are (z, y, x) arrays or tensors; the work runs on `device`,
     else on vol's device when vol is a tensor, else on the package's
     resolved device.  `route` forces the convolution route ("walk",
-    "walk1" or "fft"); by default the work shape and the device decide."""
+    "walk1" or "fft"); by default the work shape decides."""
     vol, psf = _inputs(vol, psf, device)
     if fft_shape is None:
         fft_shape = fft_shape_for(vol.shape, psf.shape, vol.device, route)

@@ -2,8 +2,8 @@
 ipp_tpu/ops/process.py):
 
     flat-field divide -> gaussian denoise -> block-reduce downsample ->
-    destripe + bleach correction -> dark subtraction -> resize ->
-    16/8-bit conversion -> flip/rotate
+    destripe + bleach correction -> dark subtraction -> lightsheet
+    correction -> resize -> 16/8-bit conversion -> flip/rotate
 
 with the reference's stages, defaults and dtype rules, batched over a
 leading axis.  The uniform-tile short-circuit and unresolved bleach clips
@@ -12,9 +12,6 @@ leading axis.  The uniform-tile short-circuit and unresolved bleach clips
 `process_batch_fn(cfg)` is the batch callable of the tile CLI: upload,
 chain, and a `HostArray` handle back, whose copy the executor's
 one-batch-in-flight fetch starts while the next batch runs.
-
-Not ported yet: lightsheet correction (`cfg.lightsheet`, ROADMAP.md queue
-1 item 9) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,6 +26,7 @@ from ..utils.device import resolve_device
 from ..utils.transfer import HostArray, host_dtype, upload
 from . import destripe as ds
 from . import intensity as it
+from . import lightsheet as lsc
 from . import resample as rs
 
 __all__ = ["ProcessConfig", "process_img", "process_batch_fn",
@@ -74,13 +72,6 @@ class ProcessConfig:
     convert_to_8bit: bool = False
     bit_shift_to_right: int = 8
     d_type: Optional[str] = None
-
-
-def _check_supported(cfg: ProcessConfig) -> None:
-    if cfg.lightsheet:
-        raise NotImplementedError(
-            "lightsheet correction is not yet ported (ROADMAP.md queue 1, "
-            "item 9: correct_lightsheet)")
 
 
 def _out_meta(img_shape, cfg: ProcessConfig, in_dtype):
@@ -154,6 +145,13 @@ def _chain(x: torch.Tensor, cfg: ProcessConfig, in_dtype) -> torch.Tensor:
     if cfg.dark is not None and cfg.dark > 0:
         x = it.subtract_dark(x, cfg.dark)
 
+    if cfg.lightsheet:
+        x = lsc.correct_lightsheet(
+            x, percentile=cfg.percentile,
+            artifact_length=cfg.artifact_length,
+            background_window_size=cfg.background_window_size,
+            lightsheet_vs_background=cfg.lightsheet_vs_background)
+
     if cfg.new_size is not None and tuple(x.shape[-2:]) != tuple(cfg.new_size):
         upscaling = tuple(x.shape[-2:]) < tuple(cfg.new_size)
         x = rs.resize(x, x.shape[:-2] + tuple(cfg.new_size),
@@ -184,7 +182,6 @@ def process_img(img: np.ndarray, cfg: Optional[ProcessConfig] = None,
     short-circuit to zeros on the host."""
     if cfg is None:
         cfg = ProcessConfig(**kwargs)
-    _check_supported(cfg)
     img = np.asarray(img)
     if is_uniform_2d(img):
         # img may carry leading batch dims; the output geometry math is 2D
@@ -200,7 +197,6 @@ def process_batch_fn(cfg: ProcessConfig, device=None):
     -> `HostArray` of the processed batch (of its first `n` tiles when `n`
     is given).  Callers gate on needs_host_stats(cfg) (per-plane clips)
     and handle uniform tiles themselves."""
-    _check_supported(cfg)
     if needs_host_stats(cfg):
         raise ValueError("cfg resolves bleach clips per plane — "
                          "gate on needs_host_stats(cfg)")

@@ -256,13 +256,12 @@ def _uniform_shape(plans: List[BlockPlan], halo) -> Tuple[int, int, int]:
         for a in range(3))
 
 
-def _fft_shape_for_backend(uni, device):
-    """The uniform block shape where a kernel walk takes it: on a CUDA
-    device (as the reference's MXU backend, deconvolve.py:349-359), and
-    inside the v2 domain on the CPU (any such size works; wraparound lands
-    in the halo); otherwise 2,3,5,7-smooth sizes for torch.fft, as the
-    reference's XLA backend."""
-    if torch.device(device).type == "cuda" or in_kernel_domain(uni):
+def _fft_shape_for_backend(uni):
+    """The uniform block shape where the v2 walk takes it, inside its
+    domain (any such size works; wraparound lands in the halo); otherwise
+    2,3,5,7-smooth sizes for torch.fft, as the reference's XLA backend
+    (deconvolve.py:349-359).  One rule on every device."""
+    if in_kernel_domain(uni):
         return tuple(uni)
     return tuple(next_fast_len(int(u)) for u in uni)
 
@@ -431,7 +430,7 @@ def deconvolve_volume(
 
     uni = fft_work_shape(plans, halo, planned)
     if todo:
-        fft_shape = _fft_shape_for_backend(uni, dev)
+        fft_shape = _fft_shape_for_backend(uni)
         read_pool = ThreadPoolExecutor(max_workers=1)
         next_fut = read_pool.submit(read_block_uniform, vol, todo[0], uni)
         lag = OneInFlight()  # device->host of block i overlaps RL of i+1

@@ -29,9 +29,8 @@ import numpy as np
 import torch
 
 from ..io import tiff as tio
-from ..ops.process import (ProcessConfig, _check_supported, _out_meta,
-                           is_uniform_2d, needs_host_stats, process_batch_fn,
-                           process_img)
+from ..ops.process import (ProcessConfig, _out_meta, is_uniform_2d,
+                           needs_host_stats, process_batch_fn, process_img)
 from ..parallel.executor import TileTask, run_tile_pipeline
 from ..utils.device import resolve_device
 from ..utils.log import Logger
@@ -85,7 +84,6 @@ def batch_filter(input_dir: Path, output_dir: Path, cfg: ProcessConfig,
                  read_sandbox: str = "thread", device=None) -> dict:
     """Destripe a whole directory tree on one device (reference
     batch_filter, pystripe/core.py:1806-2050, single-device branch)."""
-    _check_supported(cfg)
     tasks = collect_tasks(Path(input_dir), Path(output_dir), z_step=z_step)
     if not tasks:
         raise FileNotFoundError(f"no images under {input_dir}")
@@ -183,8 +181,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flat", "-f", type=Path, default=None)
     p.add_argument("--gaussian", action="store_true",
                    help="2D gaussian denoise before destriping")
-    p.add_argument("--lightsheet", action="store_true",
-                   help="not yet ported: raises NotImplementedError")
+    p.add_argument("--lightsheet", action="store_true")
     p.add_argument("--artifact-length", type=int, default=150)
     p.add_argument("--background-window-size", type=int, default=200,
                    help="background estimation window (lightsheet mode)")
@@ -290,7 +287,6 @@ def main(argv=None) -> int:
         convert_to_16bit=args.convert_to_16bit,
         convert_to_8bit=args.convert_to_8bit,
         bit_shift_to_right=args.bit_shift)
-    _check_supported(cfg)
     compression = _resolve_compression(args)
     if args.input.is_file():
         # single-image mode (reference main, pystripe/core.py:2150-2161)

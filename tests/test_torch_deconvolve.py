@@ -89,8 +89,7 @@ def test_autosplit_on_cuda_prefers_kernel_domain_blocks(vol, psf_shape,
                                        kernel_domain=True)
     P._check_block_coverage(plans, vol)
     assert halo == tuple(max((p // 2) * 4, 8) for p in psf_shape)
-    work = P._fft_shape_for_backend(P.fft_work_shape(plans, halo, planned),
-                                    "cpu")
+    work = P._fft_shape_for_backend(P.fft_work_shape(plans, halo, planned))
     assert in_kernel_domain(work) is inside, work
     cores = [hi - lo for lo, hi in plans[0].core]
     assert all(c >= 2 * h for c, h in zip(cores, halo))

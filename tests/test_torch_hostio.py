@@ -1,9 +1,11 @@
 """The port's copies of the reference's host IO behave like the originals.
 
 ipp_tpu_torch imports nothing of ipp_tpu, so it keeps copies of the host
-modules it needs (io/tiff.py, io/dcimg.py, io/nrrd.py, native/ with
+modules it needs (io/tiff.py, io/dcimg.py, io/nrrd.py, io/raw.py,
+io/generic2d.py, io/terafly.py, io/vaa3draw.py, io/ims.py, native/ with
 fastio.cpp, parallel/executor.py, parallel/sandbox.py, utils/iostat.py,
-lagged.py, log.py, memory.py, progress.py).  Held here against the
+lagged.py, log.py, memory.py, progress.py, geometry/extent.py,
+geometry/stacks.py, stitch/place.py).  Held here against the
 originals: each copy's source equals its original up to the package's
 name in imports and comments; a TIFF written by each package is
 byte-equal and reads back equal through the other; the native
@@ -30,7 +32,10 @@ ROOT = Path(__file__).resolve().parent.parent
 # imports of its own package are read as the port's relative ones
 VERBATIM = ["io/tiff.py", "io/dcimg.py", "io/nrrd.py", "parallel/executor.py",
             "parallel/sandbox.py", "utils/iostat.py", "utils/lagged.py",
-            "utils/log.py", "utils/memory.py", "utils/progress.py"]
+            "utils/log.py", "utils/memory.py", "utils/progress.py",
+            "geometry/extent.py", "geometry/stacks.py", "io/raw.py",
+            "io/generic2d.py", "stitch/place.py", "io/terafly.py",
+            "io/vaa3draw.py", "io/ims.py"]
 
 
 def _relative(src: str) -> str:
@@ -172,3 +177,94 @@ def test_run_tile_pipeline_writes_the_same_tiles(tmp_path, rng):
     assert not tiff_t.imread(outs["t"] / names[5]).any()
     np.testing.assert_array_equal(tiff_t.imread(outs["t"] / names[0]),
                                   batch(tiff_t.imread(src / names[0])))
+
+
+@pytest.fixture()
+def series(tmp_path, rng):
+    d = tmp_path / "series"
+    d.mkdir()
+    planes = rng.integers(0, 60000, (5, 40, 52)).astype(np.uint16)
+    for z, p in enumerate(planes):
+        tiff_j.imwrite(d / f"img_{z:06d}.tif", p)
+    return d, planes
+
+
+def test_terafly_export_of_each_package_is_byte_equal(tmp_path, series):
+    """The TeraFly pyramids the two packages write are the same files,
+    byte for byte, and read back through the other package's reader."""
+    from ipp_tpu.io import terafly as tf_j
+    from ipp_tpu_torch.io import terafly as tf_t
+
+    src, planes = series
+    tf_j.tif_series_to_terafly(src, tmp_path / "j", voxel_um=(2, 1, 1))
+    tf_t.tif_series_to_terafly(src, tmp_path / "t", voxel_um=(2, 1, 1))
+    files = sorted(p.relative_to(tmp_path / "j")
+                   for p in (tmp_path / "j").rglob("*") if p.is_file())
+    assert files and files == sorted(
+        p.relative_to(tmp_path / "t")
+        for p in (tmp_path / "t").rglob("*") if p.is_file())
+    for f in files:
+        assert (tmp_path / "t" / f).read_bytes() == \
+            (tmp_path / "j" / f).read_bytes(), f
+    vol = tf_j.TeraFlyVolume(tmp_path / "t")
+    for z in range(len(planes)):
+        np.testing.assert_array_equal(vol[z], planes[z])
+
+
+def test_imaris_export_reads_back_through_the_other_package(tmp_path,
+                                                             series):
+    from ipp_tpu.io import ims as ims_j
+    from ipp_tpu_torch.io import ims as ims_t
+
+    src, planes = series
+    ims_t.tif_series_to_imaris(src, tmp_path / "t.ims", voxel_um=(2, 1, 1))
+    ims_j.tif_series_to_imaris(src, tmp_path / "j.ims", voxel_um=(2, 1, 1))
+    for reader, path in ((ims_j.ImarisReader, "t.ims"),
+                         (ims_t.ImarisReader, "j.ims")):
+        with reader(tmp_path / path) as r:
+            assert r.shape == planes.shape
+            for z in range(len(planes)):
+                np.testing.assert_array_equal(r[z], planes[z])
+
+
+def test_raw_and_vaa3d_round_trip_through_the_other_package(tmp_path, rng):
+    from ipp_tpu.io import raw as raw_j
+    from ipp_tpu.io import vaa3draw as v3_j
+    from ipp_tpu_torch.io import raw as raw_t
+    from ipp_tpu_torch.io import vaa3draw as v3_t
+
+    img = rng.integers(0, 60000, (33, 47)).astype(np.uint16)
+    raw_t.raw_imsave(tmp_path / "a.raw", img)
+    np.testing.assert_array_equal(raw_j.raw_imread(tmp_path / "a.raw"), img)
+    vol = rng.integers(0, 60000, (3, 20, 25)).astype(np.uint16)
+    v3_t.vaa3d_raw_write(tmp_path / "v.v3draw", vol)
+    v3_j.vaa3d_raw_write(tmp_path / "w.v3draw", vol)
+    assert (tmp_path / "v.v3draw").read_bytes() == \
+        (tmp_path / "w.v3draw").read_bytes()
+    np.testing.assert_array_equal(
+        np.squeeze(v3_j.vaa3d_raw_read(tmp_path / "v.v3draw")),
+        np.squeeze(v3_t.vaa3d_raw_read(tmp_path / "w.v3draw")))
+
+
+def test_placement_xml_of_each_package_is_byte_equal(tmp_path, rng):
+    from ipp_tpu.geometry.stacks import TileGrid as JGrid
+    from ipp_tpu_torch.geometry.stacks import TileGrid as TGrid
+
+    root = tmp_path / "tiles"
+    for x in (0, 1000):
+        for y in (0, 1500):
+            d = root / f"{x:06d}" / f"{x:06d}_{y:06d}"
+            d.mkdir(parents=True)
+            for z in range(2):
+                tiff_j.imwrite(d / f"{z * 20:06d}.tif",
+                               rng.integers(0, 999, (30, 40)).astype(
+                                   np.uint16))
+    JGrid.from_directory(root, voxel_um=(1.0, 1.0, 2.0)).to_xml(
+        tmp_path / "j.xml")
+    TGrid.from_directory(root, voxel_um=(1.0, 1.0, 2.0)).to_xml(
+        tmp_path / "t.xml")
+    assert (tmp_path / "j.xml").read_bytes() == \
+        (tmp_path / "t.xml").read_bytes()
+    TGrid.from_xml(tmp_path / "j.xml").to_xml(tmp_path / "tj.xml")
+    assert (tmp_path / "tj.xml").read_bytes() == \
+        (tmp_path / "j.xml").read_bytes()

@@ -222,11 +222,16 @@ def test_uniform_tile_short_circuits_on_the_host():
 
 
 def test_lightsheet_is_not_ported_yet(tiles):
-    cfg = PP.ProcessConfig(lightsheet=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PP.process_img(tiles, cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PP.process_batch_fn(cfg)
+    """(Named when the stage raised.)  The lightsheet stage is ported now:
+    process_img and the batch callable with lightsheet=True, on u16 and
+    after a float dark subtraction, within 1 count of the JAX chain."""
+    for kw in [dict(lightsheet=True),
+               dict(lightsheet=True, dark=100.0, artifact_length=40,
+                    background_window_size=50)]:
+        ref = JP.process_img(tiles, JP.ProcessConfig(**kw))
+        cfg = PP.ProcessConfig(**kw)
+        _close(PP.process_img(tiles, cfg), ref)
+        _close(PP.process_batch_fn(cfg, CPU)(tiles), ref)
 
 
 def test_transfer_dtypes_round_trip():

@@ -5,7 +5,8 @@ shapes, a tail batch, a uniform tile) with process_images' stage-1
 settings; the output trees must hold the same files, the counters must
 agree, and every output tile must be within 1 count of the JAX one.  Also:
 resume, single-image mode, the parser (dests, defaults, option strings),
-the port's batch handle through the shared executor, and `--lightsheet`."""
+the port's batch handle through the shared executor, and `--lightsheet`
+against the JAX CLI."""
 
 import numpy as np
 import pytest
@@ -117,6 +118,17 @@ def test_batch_handle_goes_through_the_shared_executor(tree, tmp_path):
 
 
 def test_lightsheet_fails_loudly(tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.main(["-i", str(tree), "-o", str(tmp_path / "o"), "--lightsheet"])
-    assert not (tmp_path / "o").exists()
+    """(Named when `--lightsheet` raised.)  The flag runs the ported
+    lightsheet stage now: the same files as the JAX CLI, every tile within
+    1 count."""
+    flags = ["--lightsheet", "--artifact-length", "40",
+             "--background-window-size", "40", "--batch-size", "2",
+             "--workers", "2"]
+    out_p, out_j = tmp_path / "port", tmp_path / "jax"
+    assert P.main(["-i", str(tree), "-o", str(out_p), *flags]) == 0
+    assert J.main(["-i", str(tree), "-o", str(out_j), *flags]) == 0
+    assert _files(out_p) == _files(out_j) == _files(tree)
+    for rel in _files(out_j):
+        a, b = tio.imread(out_p / rel), tio.imread(out_j / rel)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.abs(a.astype(np.int64) - b.astype(np.int64)).max() <= 1

@@ -114,18 +114,21 @@ def test_plan_shape_and_fft_shape_for_equal_jax(shape, psf, monkeypatch):
     assert plan_shape(shape, psf) == mxu_fft.plan_shape(shape, psf)
     monkeypatch.setattr(dj, "_RESOLVED_FFT", "mxu")
     mxu = tuple(dj.fft_shape_for(shape, psf))
-    assert dp.fft_shape_for(shape, psf, torch.device("cuda")) == mxu
     assert dp.fft_shape_for(shape, psf, "cpu", route="walk1") == mxu
+    assert dp.fft_shape_for(shape, psf, torch.device("cuda"),
+                            route="walk1") == mxu
     monkeypatch.setattr(dj, "_RESOLVED_FFT", "xla")
     xla = tuple(dj.fft_shape_for(shape, psf))
     assert dp.fft_shape_for(shape, psf, "cpu") == xla
+    # the reference's non-TPU rule holds on the card too
+    assert dp.fft_shape_for(shape, psf, torch.device("cuda")) == xla
     assert dp.fft_shape_for(shape, psf, torch.device("cuda"),
                             route="fft") == xla
 
 
 @pytest.mark.parametrize("shape,cpu,cuda_", [
-    ((256, 16, 256), "walk", "walk"), ((48, 1072, 272), "fft", "walk1"),
-    ((136, 136, 136), "fft", "walk1"), ((256, 1152, 1152), "fft", "walk1"),
+    ((256, 16, 256), "walk", "walk"), ((48, 1072, 272), "fft", "fft"),
+    ((136, 136, 136), "fft", "fft"), ((256, 1152, 1152), "fft", "fft"),
 ])
 def test_three_routes(shape, cpu, cuda_):
     assert dp.conv_route(shape, torch.device("cpu")) == cpu

@@ -111,7 +111,28 @@ Phases:
    the bounding box's plane count and shape in u16, every isolated bead's
    intensity-weighted centroid within 0.5 px of its true position, the
    npz at its planned shape, K5 launched batches x 3 x levels times;
-   stitch Mpix/s, the per-stage seconds and the peak device memory.
+   stitch Mpix/s, the per-stage seconds and the peak device memory;
+13. process_images --rgb-composite on two channels (Ex_647_Em_690, red,
+   the merge's reference; Ex_561_Em_600, green, its content shifted by
+   (1, -4, 6)) of a 2 x 2 grid of 16-plane stacks of 2000 x 2000 u16 tiles
+   cut at phase 12's kind of jitter from one bead phantom: rc 0, exact K5
+   launches, the channel offsets equal to the shift, the composite of the
+   reference channel's plane count and every plane equal to its host
+   recomputation from the two stitched series and the offsets, and ECC on
+   the sections merge_channels aligned, card vs CPU (within 0.02 px, the
+   same integer offsets, ms of each);
+14. the converter CLI (convert.main) with --destripe (sigma 250, db9),
+   -dt 10 at (2, 1.8, 1.8) um and a TeraFly export on 64 striped 2000 x
+   2000 u16 planes: rc 0, exact K5 launches, four planes within 1 count
+   of the same chain on the CPU, the npz within 1e-4 of max of its CPU
+   recomputation from the written planes, TeraFly's level 0 equal to the
+   series; Mpix/s with the read / device / write / downsample / export
+   split;
+15. scan_stitch on a Dragonfly tree (2 x 2 columns x 2 piezo substacks of
+   16 planes of 2048 x 2048 u16, 200 px overlap, known jitter |dx|, |dy|
+   <= 8, |dz| <= 1): positions equal to the truth, its links equal to the
+   alignment's on the CPU; then tsv_tools downsample on phase 14's series,
+   every plane equal to the host block sum.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -124,9 +145,9 @@ once) over the HBM rate.  Outside the v2 domain every convolution takes
 torch.fft unless a caller forces "walk1" (phase 10 does), so only phase 10
 and phase 11 launch K6 and K7.
 
-Phases 8 and 9 read phase 4's series.  The script exits non-zero when
-there is no CUDA device, when the port is not beside it, or when any
-phase fails.  On success its last two lines are the kernels' JSON record
+Phases 8 and 9 read phase 4's series, phase 15 phase 14's.  The script
+exits non-zero when there is no CUDA device, when the port is not beside
+it, or when any phase fails.  On success its last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json; scratch data to
 build/chip_smoke/ (removed at the end).
@@ -2388,6 +2409,621 @@ def phase_stitch(torch, dev, record):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+COMP_GRID = (2, 2)              # rows x cols of stacks per channel
+COMP_PLANES = 16
+COMP_BEADS = 9000
+# (channel, its content's shift against the phantom, (dz, dy, dx) px): red
+# is merge_channels' reference, green is moved onto it
+COMP_CHANNELS = (("Ex_647_Em_690", (0, 0, 0)),
+                 ("Ex_561_Em_600", (1, -4, 6)))
+COMP_FLAGS = ["--objective", "15x", "--sigma1", "250", "--sigma2", "250",
+              "--wavelet", "db9", "--padding-mode", "reflect",
+              "--bidirectional", "--dark", "100", "--rgb-composite"]
+
+
+def write_composite_tree(torch, dev, root, seed=13):
+    """Two channels of one phantom in the SmartSPIM layout: a 2 x 2 grid
+    of 16-plane stacks of 2000 x 2000 u16 tiles per channel, the tiles cut
+    at the same jittered origins (as phase 12's), the second channel's
+    content shifted by its known (dz, dy, dx), each tile with its own
+    stripes along x."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    rows, cols = COMP_GRID
+    th, tw = STITCH_TILE
+    step_y, step_x = th - STITCH_OVERLAP, tw - STITCH_OVERLAP
+    m = STITCH_MARGIN + max(max(abs(v) for v in s) for _, s in COMP_CHANNELS)
+    shape = (COMP_PLANES + 4, 2 * m + (rows - 1) * step_y + th,
+             2 * m + (cols - 1) * step_x + tw)
+    vol, _ = stitch_phantom(torch, dev, shape, seed, COMP_BEADS)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    jobs = []
+    pool = ThreadPoolExecutor(8)
+    for r in range(rows):
+        for c in range(cols):
+            jz, jy, jx = ((0, 0, 0) if r == c == 0 else
+                          (int(rng.integers(-1, 2)),
+                           int(rng.integers(-STITCH_MARGIN, STITCH_MARGIN + 1)),
+                           int(rng.integers(-STITCH_MARGIN, STITCH_MARGIN + 1))))
+            z0, y0, x0 = 2 + jz, m + r * step_y + jy, m + c * step_x + jx
+            xt = int(c * step_x * 10 * STITCH_VOX[1])
+            yt = int(r * step_y * 10 * STITCH_VOX[0])
+            for ch, (sz, sy, sx) in COMP_CHANNELS:
+                tile = vol[z0 - sz:z0 - sz + COMP_PLANES,
+                           y0 - sy:y0 - sy + th, x0 - sx:x0 - sx + tw]
+                lines = 1 + STRIPES * torch.randn(
+                    (COMP_PLANES, th, 1), generator=gen, device=dev) * (
+                    torch.rand((COMP_PLANES, th, 1), generator=gen,
+                               device=dev) < 0.15)
+                host = (tile * lines.clamp(min=0.5)).clamp_(0, 65535) \
+                    .round_().to(torch.int32).cpu().numpy().astype(np.uint16)
+                d = root / ch / f"{xt:06d}" / f"{xt:06d}_{yt:06d}"
+                d.mkdir(parents=True)
+                for z in range(COMP_PLANES):
+                    zt = int(round(z * STITCH_VOX[2] * 10))
+                    jobs.append(pool.submit(write_u16_tiff,
+                                            d / f"{zt:06d}.tif", host[z]))
+    for f in jobs:
+        f.result()
+    pool.shutdown()
+    del vol
+    torch.cuda.empty_cache()
+
+
+def roll_zero(a, shift):
+    """a (z, y, x) moved by integer `shift` with zeros shifted in."""
+    import numpy as np
+
+    out = np.zeros_like(a)
+    src, dst = [], []
+    for n, s in zip(a.shape, shift):
+        src.append(slice(max(0, -s), n - max(0, s)))
+        dst.append(slice(max(0, s), n - max(0, -s)))
+    out[tuple(dst)] = a[tuple(src)]
+    return out
+
+
+def read_series(d):
+    """The TIFF planes of a directory, stacked on the host."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ipp_tpu_torch.io import tiff as tio
+
+    with ThreadPoolExecutor(8) as pool:
+        return np.stack(list(pool.map(tio.imread,
+                                      sorted(Path(d).glob("*.tif")))))
+
+
+def phase_composite(torch, dev, record):
+    """process_images --rgb-composite on two channels, the second shifted:
+    the offsets, the composite against a host recomputation, ECC card vs
+    CPU on the same sections, exact K5 launches."""
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import destripe as dsm
+    from ipp_tpu_torch.pipeline import align_channels as ac
+    from ipp_tpu_torch.pipeline import merge_channels as mc
+    from ipp_tpu_torch.pipeline import process_images as pim
+    from ipp_tpu_torch.utils.progress import StageTimer
+
+    work = ROOT / "build" / "chip_smoke_composite"
+    shutil.rmtree(work, ignore_errors=True)
+    src, st = work / "raw", work / "stitched"
+    t0 = time.perf_counter()
+    write_composite_tree(torch, dev, src)
+    t_data = time.perf_counter() - t0
+    (ref_ch, _), (mov_ch, shift) = COMP_CHANNELS
+    rows, cols = COMP_GRID
+    n_tiles = 2 * rows * cols * COMP_PLANES
+    n_px = n_tiles * STITCH_TILE[0] * STITCH_TILE[1]
+    levels = dsm._plan_padding(STITCH_TILE, (250.0, 250.0), 0, "db9")[3]
+    want_k5 = 2 * -(-(rows * cols * COMP_PLANES) // 8) * 3 * levels
+    want_off = tuple(-v for v in shift)
+    say(f"  input: 2 channels x {rows * cols} stacks x {COMP_PLANES} planes "
+        f"of {STITCH_TILE} u16 ({n_px * 2 / 1e9:.2f} GB) written in "
+        f"{t_data:.1f} s; {mov_ch} shifted by {shift}: expect offsets "
+        f"{want_off} and {want_k5} K5 launches")
+
+    timers, aligned = [], []
+
+    class Recorded(StageTimer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    def align_recorded(*a, **k):
+        t = time.perf_counter()
+        out = real_align(*a, **k)
+        aligned.append((out[1], time.perf_counter() - t))
+        return out
+
+    saved, real_align = pim.StageTimer, mc.align_volumes
+    pim.StageTimer, mc.align_volumes = Recorded, align_recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cd.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = pim.main(["--input", str(src), "--preprocessed",
+                       str(work / "pre"), "--stitched", str(st),
+                       *COMP_FLAGS])
+    finally:
+        pim.StageTimer, mc.align_volumes = saved, real_align
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5 = cd.LAUNCHES["dwt_analysis"]
+    peak = torch.cuda.max_memory_allocated()
+    stages = {}
+    for i, tm in enumerate(timers):
+        for k, v in tm.stages.items():
+            stages[f"{i}:{k}"] = v
+    t_align = sum(s for _, s in aligned)
+    card = card_line()
+    say(f"  CLI rc {rc}: {n_tiles} tiles in {wall:.1f} s, "
+        f"{n_px / wall / 1e6:.1f} Mpix/s ({card}); channel alignment "
+        f"{t_align:.2f} s, offsets {[o for o, _ in aligned]}; K5 launches "
+        f"{k5}; torch.cuda.max_memory_allocated {peak}")
+    say("  stages (s, channel:stage): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages.items()))
+    rec = record["composite"] = dict(
+        tiles=n_tiles, pixels=n_px, wall_s=wall, data_s=t_data,
+        stages_s=stages, align_s=t_align,
+        offsets=[list(o) for o, _ in aligned], want_offsets=list(want_off),
+        k5_launches=k5, want_k5=want_k5, peak_mem_bytes=peak, card=card,
+        rc=rc)
+    if rc != 0:
+        raise AssertionError(f"CLI rc {rc}")
+    if k5 != want_k5:
+        raise AssertionError(f"K5 launches {k5} != {want_k5}")
+    if [o for o, _ in aligned] != [want_off]:
+        raise AssertionError(f"offsets {[o for o, _ in aligned]} != "
+                             f"[{want_off}]")
+    # the composite: the reference channel's plane count, and each plane
+    # the host recomputation from the two stitched series and the offsets
+    t0 = time.perf_counter()
+    red, green = (read_series(st / ch) for ch, _ in COMP_CHANNELS)
+    comp_dir = st / "composite"
+    names = sorted(p.name for p in comp_dir.glob("composite_*.tif"))
+    rec["composite_planes"] = len(names)
+    if len(names) != red.shape[0] or red.shape != green.shape:
+        raise AssertionError(f"{len(names)} composite planes for series "
+                             f"{red.shape} / {green.shape}")
+    want = np.zeros(red.shape + (3,), np.uint16)
+    want[..., 0] = red
+    want[..., 1] = roll_zero(green, want_off)
+    comp = read_series(comp_dir)
+    t_check = time.perf_counter() - t0
+    if comp.shape != want.shape or not np.array_equal(comp, want):
+        bad = (int((comp != want).any(axis=(1, 2, 3)).sum())
+               if comp.shape == want.shape else comp.shape)
+        raise AssertionError(f"composite != recomputation ({bad} planes)")
+    # ECC on the sections merge_channels aligned: card vs CPU
+    ref = mc._load_central_block(st / ref_ch)
+    mov = mc._load_central_block(st / mov_ch)
+    secs = list(zip(ac._central_slices(ref), ac._central_slices(mov)))
+    card_ms, cpu_ms, card_f, cpu_f = [], [], [], []
+    for a, b in secs:
+        ac._ecc_translation(a, b, dev)                 # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_f.append(ac._ecc_translation(a, b, dev))
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        cpu_f.append(ac._ecc_translation(a, b, "cpu"))
+        cpu_ms.append((time.perf_counter() - t0) * 1e3)
+    card_int = ac.get_offsets_ecc(ref, mov, dev)
+    # get_offsets_ecc's rounding of the CPU's per-section translations
+    (dy1, dx1), (dz1, dx2), (dz2, dy2) = cpu_f
+    cpu_int = tuple(int(round((a + b) / 2.0)) for a, b in
+                    ((dz1, dz2), (dy1, dy2), (dx1, dx2)))
+    diff = max(abs(x - y) for c, p in zip(card_f, cpu_f)
+               for x, y in zip(c, p))
+    rec.update(ecc_card_ms=card_ms, ecc_cpu_ms=cpu_ms,
+               ecc_sections=[list(a.shape) for a, _ in secs],
+               ecc_card=card_f, ecc_cpu=cpu_f, ecc_max_diff_px=diff,
+               offsets_card=list(card_int), offsets_cpu=list(cpu_int),
+               check_s=t_check)
+    say(f"  composite: {len(names)} planes of {comp.shape[1:]} equal to the "
+        f"recomputation from the stitched series ({t_check:.1f} s)")
+    say("  ECC per section " + ", ".join(
+        f"{tuple(a.shape)}: card {c:.1f} ms, CPU {p:.0f} ms" for (a, _), c, p
+        in zip(secs, card_ms, cpu_ms))
+        + f"; |card - CPU| <= {diff:.2e} px; get_offsets_ecc card "
+        f"{card_int}, CPU {cpu_int} ({card})")
+    if not diff <= 0.02:
+        raise AssertionError(f"ECC card vs CPU differs by {diff} px")
+    if card_int != cpu_int or card_int != shift:
+        # the first call sees the whole shift (align_volumes then moves
+        # the channel by its negative)
+        raise AssertionError(f"get_offsets_ecc card {card_int}, CPU "
+                             f"{cpu_int}, shift {shift}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+# -- phase 14 ----------------------------------------------------------------
+
+CONV_PLANES = 64
+CONV_VOXEL = (2.0, 1.8, 1.8)    # z, y, x um
+CONV_TARGET = 10.0              # -dt, um
+CONV_CHECK = (0, 21, 42, 63)    # planes held against the CPU
+CONV_FLAGS = ["--destripe", "--sigma1", "250", "--sigma2", "250",
+              "--wavelet", "db9", "--voxel", *map(str, CONV_VOXEL),
+              "-dt", str(CONV_TARGET), "--terafly", "-zl", "0"]
+
+
+class StageClock:
+    """Seconds spent in wrapped calls, by stage name."""
+
+    def __init__(self):
+        self.s = {}
+
+    def wrap(self, name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.s[name] = self.s.get(name, 0.0) + (
+                    time.perf_counter() - t0)
+        return timed
+
+
+def phase_convert(torch, dev, record, shared):
+    """The converter CLI with --destripe, -dt 10 and a TeraFly export on
+    a striped 64-plane 2000 x 2000 u16 series."""
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from ipp_tpu_torch.io.terafly import TeraFlyVolume
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import destripe as dsm
+    from ipp_tpu_torch.ops.process import process_img
+    from ipp_tpu_torch.ops.resample import IsotropicAccumulator
+    from ipp_tpu_torch.pipeline import convert as conv
+    from ipp_tpu_torch.stitch.merge import downsampled_npz
+
+    work = ROOT / "build" / "chip_smoke_convert"
+    shutil.rmtree(work, ignore_errors=True)
+    src, out = work / "in", work / "tif"
+    src.mkdir(parents=True)
+    h, w = STITCH_TILE
+    yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    field = 600 + 1400 * np.exp(-((yy - 0.4) ** 2 + (xx - 0.5) ** 2) / 0.08)
+    t0 = time.perf_counter()
+    raw = {}
+
+    def one(z):
+        img = striped_tile(np.random.default_rng(140 + z), field)
+        write_u16_tiff(src / f"img_{z:06d}.tif", img)
+        if z in CONV_CHECK:
+            raw[z] = img
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(CONV_PLANES)))
+    t_data = time.perf_counter() - t0
+    levels = dsm._plan_padding(STITCH_TILE, (250.0, 250.0), 0, "db9")[3]
+    # plane 0 goes first on its own (the downsample's geometry), then
+    # batches of 8
+    batches = 1 + -(-(CONV_PLANES - 1) // conv._BATCH)
+    want_k5 = batches * 3 * levels
+    n_px = CONV_PLANES * h * w
+    say(f"  input: {CONV_PLANES} striped u16 planes of {STITCH_TILE} "
+        f"written in {t_data:.1f} s; expect {want_k5} K5 launches")
+
+    clock, seen = StageClock(), {}
+    real = SimpleNamespace(
+        open=conv._open_source, batch=conv.process_batch_fn,
+        acc=conv.IsotropicAccumulator, terafly=conv.tif_series_to_terafly,
+        tio=conv.tio, convert=conv.convert)
+
+    def open_timed(*a, **k):
+        reader, nz = real.open(*a, **k)
+        return clock.wrap("read", reader), nz
+
+    class Fetch:   # the device result's wait, timed where the CLI reads it
+        def __init__(self, handle):
+            self.handle = handle
+
+        def copy_to_host_async(self):
+            self.handle.copy_to_host_async()
+
+        def __array__(self, dtype=None, copy=None):
+            return clock.wrap("device wait", np.asarray)(self.handle, dtype)
+
+    def batch_timed(*a, **k):
+        run = real.batch(*a, **k)
+        return lambda *b, **c: Fetch(clock.wrap("device dispatch", run)(
+            *b, **c))
+
+    class Acc(real.acc):
+        def add(self, plane):
+            return clock.wrap("downsample", super().add)(plane)
+
+    def convert_seen(*a, **k):
+        seen["cfg"] = a[2]
+        return real.convert(*a, **k)
+
+    conv._open_source, conv.process_batch_fn = open_timed, batch_timed
+    conv.IsotropicAccumulator, conv.convert = Acc, convert_seen
+    conv.tif_series_to_terafly = clock.wrap("terafly export", real.terafly)
+    conv.tio = SimpleNamespace(**{k: getattr(real.tio, k) for k in
+                                  dir(real.tio) if not k.startswith("__")})
+    conv.tio.imwrite = clock.wrap("write", real.tio.imwrite)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cd.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = conv.main(["-i", str(src), "-o", str(out), *CONV_FLAGS])
+    finally:
+        conv._open_source, conv.process_batch_fn = real.open, real.batch
+        conv.IsotropicAccumulator, conv.convert = real.acc, real.convert
+        conv.tif_series_to_terafly, conv.tio = real.terafly, real.tio
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5 = cd.LAUNCHES["dwt_analysis"]
+    peak = torch.cuda.max_memory_allocated()
+    card = card_line()
+    stages = dict(clock.s)
+    stages["other"] = wall - sum(stages.values())
+    say(f"  CLI rc {rc}: {CONV_PLANES} planes in {wall:.1f} s, "
+        f"{n_px / wall / 1e6:.1f} Mpix/s ({card}); K5 launches {k5}; "
+        f"torch.cuda.max_memory_allocated {peak}")
+    say("  stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     stages.items()))
+    rec = record["convert"] = dict(
+        planes=CONV_PLANES, pixels=n_px, wall_s=wall, mpix_s=n_px / wall / 1e6,
+        data_s=t_data, stages_s=stages, k5_launches=k5, want_k5=want_k5,
+        peak_mem_bytes=peak, card=card, rc=rc)
+    if rc != 0:
+        raise AssertionError(f"CLI rc {rc}")
+    if k5 != want_k5:
+        raise AssertionError(f"K5 launches {k5} != {want_k5}")
+    planes = sorted(out.glob("img_*.tif"))
+    if len(planes) != CONV_PLANES:
+        raise AssertionError(f"{len(planes)} planes written")
+    shared["convert_series"] = out
+    series = read_series(out)
+    if series.dtype != np.uint16 or series.shape[1:] != (h, w):
+        raise AssertionError(f"series {series.shape} {series.dtype}")
+    # four planes against the same chain on the CPU
+    t0 = time.perf_counter()
+    cpu = process_img(np.stack([raw[z] for z in CONV_CHECK]), seen["cfg"],
+                      device="cpu")
+    t_cpu = time.perf_counter() - t0
+    d1 = int(np.abs(cpu.astype(np.int64)
+                    - series[list(CONV_CHECK)].astype(np.int64)).max())
+    # the downsample against its recomputation on the CPU from the series
+    acc = IsotropicAccumulator((h, w), CONV_VOXEL, CONV_TARGET,
+                               alternating=False, device="cpu")
+    for z in range(CONV_PLANES):
+        acc.add(series[z])
+    acc.flush()
+    npz_cpu = downsampled_npz(acc.volume(), work / "cpu.npz", CONV_VOXEL,
+                              series.shape, CONV_TARGET, device="cpu")
+    got = np.load(work / f"tif_zyx{CONV_TARGET:.1f}um.npz",
+                  allow_pickle=True)["I"]
+    want = np.load(npz_cpu, allow_pickle=True)["I"]
+    dn = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    tf = TeraFlyVolume(work / "tif_terafly")
+    tf_ok = all(np.array_equal(tf[z], series[z]) for z in CONV_CHECK)
+    rec.update(cpu_planes_max_diff=d1, cpu_s=t_cpu, npz_shape=list(got.shape),
+               npz_rel_diff=dn, terafly_level0_equal=tf_ok)
+    say(f"  planes {CONV_CHECK} vs the CPU: max |diff| {d1} count(s) (CPU "
+        f"{t_cpu:.1f} s); npz {got.shape} vs its CPU recomputation: "
+        f"{dn:.2e} of max; TeraFly level 0 == series: {tf_ok}")
+    if d1 > 1:
+        raise AssertionError(f"planes differ from the CPU by {d1}")
+    if got.shape != want.shape or not dn <= 1e-4:
+        raise AssertionError(f"npz {got.shape} vs {want.shape}: {dn}")
+    if not tf_ok:
+        raise AssertionError("TeraFly level 0 != the series")
+
+
+# -- phase 15 ----------------------------------------------------------------
+
+SCAN_TILE = (2048, 2048)        # the Dragonfly's planes
+SCAN_GRID = (2, 2)              # x, y stack columns
+SCAN_SUB, SCAN_NSUB = 16, 2     # planes per piezo substack, substacks
+SCAN_OVERLAP = 200
+SCAN_ZSTEP = 12                 # stepper advance between substacks, px
+SCAN_FLAGS = ["--voxel-size", "1,1,1", "--z-step", str(SCAN_ZSTEP),
+              "--piezo-distance", str(SCAN_SUB), "--x-slop", "10",
+              "--y-slop", "10", "--z-slop", "3", "--dark", "100",
+              "--threshold", "0.5", "--rounds", "1", "--compression", "0"]
+
+
+def write_scan_tree(torch, dev, root, seed=15):
+    """A Dragonfly X / X_Y / Z tree (coordinates in tenths of um at 1 um
+    voxels; plane names continue across a column's substacks, so a gap
+    of SCAN_SUB um starts the next substack) cut from one phantom at known
+    jitter (|dx|, |dy| <= 8, |dz| <= 1; substack (0, 0, 0) none).
+    Returns {(xi, yi, zi): (x0, y0, z0)} in the phantom."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    nx, ny = SCAN_GRID
+    th, tw = SCAN_TILE
+    step_x, step_y = tw - SCAN_OVERLAP, th - SCAN_OVERLAP
+    m = STITCH_MARGIN
+    shape = (SCAN_ZSTEP * (SCAN_NSUB - 1) + SCAN_SUB + 4,
+             2 * m + (ny - 1) * step_y + th, 2 * m + (nx - 1) * step_x + tw)
+    vol, _ = stitch_phantom(torch, dev, shape, seed, COMP_BEADS)
+    rng = np.random.default_rng(seed)
+    truth, jobs = {}, []
+    pool = ThreadPoolExecutor(8)
+    for xi in range(nx):
+        for yi in range(ny):
+            d = root / f"{xi * step_x * 10}" / \
+                f"{xi * step_x * 10}_{yi * step_y * 10}"
+            d.mkdir(parents=True)
+            for zi in range(SCAN_NSUB):
+                jx, jy, jz = ((0, 0, 0) if xi == yi == zi == 0 else
+                              (int(rng.integers(-m, m + 1)),
+                               int(rng.integers(-m, m + 1)),
+                               int(rng.integers(-1, 2))))
+                x0, y0 = m + xi * step_x + jx, m + yi * step_y + jy
+                z0 = 2 + zi * SCAN_ZSTEP + jz
+                truth[xi, yi, zi] = (x0, y0, z0)
+                host = vol[z0:z0 + SCAN_SUB, y0:y0 + th, x0:x0 + tw] \
+                    .clamp(0, 65535).round().to(torch.int32).cpu().numpy() \
+                    .astype(np.uint16)
+                for p in range(SCAN_SUB):
+                    jobs.append(pool.submit(
+                        write_u16_tiff,
+                        d / f"{(zi * SCAN_SUB + p) * 10:06d}.tif", host[p]))
+    for f in jobs:
+        f.result()
+    pool.shutdown()
+    del vol
+    torch.cuda.empty_cache()
+    return truth
+
+
+def phase_scan_tsv(torch, dev, record, shared):
+    """scan_stitch on a Dragonfly tree (positions vs the truth and the
+    CPU), then tsv_tools downsample on phase 14's series (vs the host
+    block reduction)."""
+    import io
+    import os
+
+    import numpy as np
+
+    from ipp_tpu_torch.io import tiff as tio
+    from ipp_tpu_torch.pipeline import scan_stitch as ss
+    from ipp_tpu_torch.pipeline import tsv_tools as tsv
+    from ipp_tpu_torch.stitch.scan import Scanner
+
+    work = ROOT / "build" / "chip_smoke_scan"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "tree"
+    t0 = time.perf_counter()
+    truth = write_scan_tree(torch, dev, root)
+    t_data = time.perf_counter() - t0
+    n_px = len(truth) * SCAN_SUB * SCAN_TILE[0] * SCAN_TILE[1]
+    say(f"  input: {len(truth)} substacks of {SCAN_SUB} x {SCAN_TILE} u16 "
+        f"({n_px * 2 / 1e9:.2f} GB) written in {t_data:.1f} s")
+    clock = StageClock()
+    real = (Scanner.align_all_stacks, Scanner.imread)
+    Scanner.align_all_stacks = clock.wrap("align", real[0])
+    # blend: the CLI's writer threads' blending, summed over the threads
+    Scanner.imread = clock.wrap("blend (thread-summed)", real[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        rc = ss.main(["--input", str(root), *SCAN_FLAGS, "--output-pattern",
+                      str(work / "out" / "img_%04d.tif"),
+                      "--stack-offset-output", str(work / "offsets.json"),
+                      "--stacks", str(work / "stacks.json")])
+    finally:
+        Scanner.align_all_stacks, Scanner.imread = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    card = card_line()
+    placed = {tuple(d["key"]): (d["x0"], d["y0"], d["z0"]) for d in
+              json.loads((work / "stacks.json").read_text())}
+    k0 = (0, 0, 0)
+    rel = {k: tuple(np.subtract(p, placed[k0])) for k, p in placed.items()}
+    want = {k: tuple(np.subtract(t, truth[k0])) for k, t in truth.items()}
+    n_out = len(list((work / "out").glob("img_*.tif")))
+    stages = dict(clock.s)
+    say(f"  scan_stitch rc {rc}: {len(placed)} substacks in {wall:.1f} s, "
+        f"{n_px / wall / 1e6:.1f} Mpix/s ({card}), {n_out} planes; "
+        f"torch.cuda.max_memory_allocated {peak}")
+    say("  stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     stages.items()))
+    # the alignment again on the CPU from the same tree
+    t0 = time.perf_counter()
+    saved = os.environ.get("IPP_TPU_PLATFORM")
+    os.environ["IPP_TPU_PLATFORM"] = "cpu"
+    try:
+        args = ss.parse_args(["--input", str(root), *SCAN_FLAGS,
+                              "--output-pattern", "unused"])
+        sc = Scanner(ss.discover_scan_stacks(
+            root, (1.0, 1.0, 1.0), z_stepper_distance=args.z_step,
+            piezo_distance=args.piezo_distance),
+            dark=float(args.dark), slop=(args.y_slop, args.x_slop,
+                                         args.z_slop),
+            min_support=args.min_support)
+        sc.align_all_stacks(rounds=args.rounds)
+        links = io.StringIO()
+        ss._dump_offsets(sc, links)
+    finally:
+        if saved is None:
+            os.environ.pop("IPP_TPU_PLATFORM")
+        else:
+            os.environ["IPP_TPU_PLATFORM"] = saved
+    t_cpu = time.perf_counter() - t0
+    coords = [(d["k0"], d["k1"], d["coord"]) for d in
+              json.loads((work / "offsets.json").read_text())["links"]]
+    coords_cpu = [(d["k0"], d["k1"], d["coord"]) for d in
+                  json.loads(links.getvalue())["links"]]
+    rec = record["scan"] = dict(
+        substacks=len(placed), pixels=n_px, wall_s=wall,
+        mpix_s=n_px / wall / 1e6, data_s=t_data, stages_s=stages,
+        cpu_align_s=t_cpu, peak_mem_bytes=peak, card=card, rc=rc,
+        placed={",".join(map(str, k)): list(map(int, v))
+                for k, v in rel.items()},
+        links_equal_cpu=coords == coords_cpu, planes=n_out)
+    say(f"  positions from substack (0, 0, 0): "
+        f"{'equal to the truth' if rel == want else rel}; links card == "
+        f"CPU: {coords == coords_cpu} (CPU alignment {t_cpu:.1f} s)")
+    if rc != 0:
+        raise AssertionError(f"scan_stitch rc {rc}")
+    if rel != want:
+        raise AssertionError(f"positions {rel} != truth {want}")
+    if coords != coords_cpu:
+        raise AssertionError(f"links card {coords} != CPU {coords_cpu}")
+    # tsv_tools downsample on phase 14's series, vs the host reduction
+    src = shared.get("convert_series")
+    if src is None:
+        raise AssertionError("phase 14 wrote no series")
+    t0 = time.perf_counter()
+    rc = tsv.main(["downsample", "--src", str(src), "--dest",
+                   str(work / "ds"), "--compression", "0"])
+    t_ds = time.perf_counter() - t0
+    names = sorted(p.name for p in src.glob("*.tif"))
+
+    def same(n):   # skimage's block_reduce(sum), cast back as the tool does
+        img = tio.imread(src / n)
+        hh, ww = img.shape
+        want_ds = img.reshape(hh // 2, 2, ww // 2, 2).astype(np.int64) \
+            .sum(axis=(1, 3)).astype(np.uint16)
+        return img.size, np.array_equal(tio.imread(work / "ds" / n), want_ds)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        checked = list(pool.map(same, names))
+    n_ds = sum(k for k, _ in checked)
+    bad = [n for n, (_, ok) in zip(names, checked) if not ok]
+    rec.update(tsv_downsample_s=t_ds, tsv_downsample_planes=len(names),
+               tsv_downsample_bad=bad)
+    say(f"  tsv_tools downsample rc {rc}: {len(names)} planes in "
+        f"{t_ds:.1f} s, {n_ds / t_ds / 1e6:.1f} Mpix/s; equal to the host "
+        f"block sum: {not bad} ({card})")
+    if rc != 0 or bad:
+        raise AssertionError(f"downsample rc {rc}, planes off: {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(src.parent, ignore_errors=True)
+
+
 # -- main ---------------------------------------------------------------------
 
 def main() -> int:
@@ -2474,6 +3110,15 @@ def main() -> int:
     phase(12, f"NCC pairs at {NCC_SHAPE}, then process_images on a "
           f"{STITCH_GRID[0]} x {STITCH_GRID[1]} grid of {STITCH_PLANES}-plane "
           f"stacks of {STITCH_TILE} u16", phase_stitch, torch, dev, record)
+    phase(13, f"process_images --rgb-composite on two channels of a "
+          f"{COMP_GRID[0]} x {COMP_GRID[1]} grid of {COMP_PLANES}-plane stacks "
+          f"of {STITCH_TILE} u16", phase_composite, torch, dev, record)
+    phase(14, f"convert --destripe -dt {CONV_TARGET} --terafly on "
+          f"{CONV_PLANES} planes of {STITCH_TILE} u16", phase_convert, torch,
+          dev, record, shared)
+    phase(15, f"scan_stitch on a Dragonfly tree of {SCAN_GRID[0]} x "
+          f"{SCAN_GRID[1]} x {SCAN_NSUB} substacks of {SCAN_TILE}, then "
+          f"tsv_tools downsample", phase_scan_tsv, torch, dev, record, shared)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
     peaks = {k: v["peak_mem_bytes"] for k, v in record.items()
              if isinstance(v, dict) and "peak_mem_bytes" in v}

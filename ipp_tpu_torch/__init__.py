@@ -4,18 +4,21 @@ The JAX package `ipp_tpu` stays the reference: every port function here is
 held against its `ipp_tpu` twin in `tests/test_torch_*.py`.  This package
 imports `torch` and never `jax`, and nothing of `ipp_tpu`: host code it
 needs from the reference is copied, keeping the reference's layout and
-names (`io/` tiff, dcimg, nrrd, raw, generic2d, terafly, vaa3draw, ims;
-`native/` with `fastio.cpp`; `parallel/executor.py`, `parallel/sandbox.py`;
-`geometry/extent.py`, `geometry/stacks.py`; `stitch/place.py`;
-`utils/iostat.py`, `utils/lagged.py`, `utils/log.py`, `utils/memory.py`,
-`utils/progress.py`; the tests pin each copy to its original).
+names (`io/` tiff, dcimg, nrrd, raw, generic2d, terafly, vaa3draw, ims,
+bdv, precomputed; `native/` with `fastio.cpp`; `parallel/executor.py`,
+`parallel/sandbox.py`; `geometry/extent.py`, `geometry/stacks.py`;
+`stitch/place.py`; `pipeline/scan_stitch.py`, `flip.py`,
+`command_generator.py`; `utils/iostat.py`, `lagged.py`, `log.py`,
+`memory.py`, `progress.py`, `tifstack.py`, `checkfiles.py`, `cli.py`,
+`markers.py`, `reconops.py`; the tests pin each copy to its original).
 
 Layout mirrors `ipp_tpu/`: `ops/` (DFT matrices, the hand-written CUDA
 kernels of the FFT walk and of the DWT and their wrappers,
 Richardson-Lucy, wavelets, destripe, lightsheet correction, the tile
 chain, NCC maps, resampling), `stitch/` (alignment, placement, blend,
-merge), `geometry/` (tile extents and grids), `pipeline/` (the
-deconvolution, FNT-cube, pystripe and process_images CLIs), `io/`,
+merge, the Dragonfly scanner), `geometry/` (tile extents and grids),
+`pipeline/` (the deconvolution, FNT-cube, pystripe, process_images,
+channel alignment and merge, converter, scanner and tsv CLIs), `io/`,
 `native/` and `parallel/` (host IO), `utils/` (device and precision
 policy, host <-> device transfers, logging and progress), `csrc/` (the
 CUDA C++ sources, built with nvcc on first use).

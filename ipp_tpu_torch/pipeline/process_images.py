@@ -22,11 +22,11 @@ channel-color table mirror process_images.py:52-64.
 
 Device work (stage-1 destripe with the DWT through the CUDA kernel K5,
 lightsheet correction, NCC maps, blend and merge post-processing, the
-isotropic downsample) runs on one device; the merge blends 4 planes per
-device chain (the reference's single-device policy).  Not ported yet, and
-raising NotImplementedError rather than skipping: `--rgb-composite` /
-`--composite` (they need `merge_channels` and `align_channels`, ROADMAP.md
-queue 1 item 12) and a device mesh (multi-GPU, item 13).
+isotropic downsample, the channel alignment's ECC of `--rgb-composite`)
+runs on one device; the merge blends 4 planes per device chain (the
+reference's single-device policy).  Not ported yet, and raising
+NotImplementedError rather than skipping: a device mesh (multi-GPU,
+ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from ..geometry.stacks import TileGrid
 from ..io import tiff as tio
 from ..ops.process import ProcessConfig
 from ..stitch.align import compute_displacements
-from ..stitch.merge import downsampled_npz, merge_to_tif_series
+from ..stitch.merge import PLANE_BATCH, downsampled_npz, merge_to_tif_series
 from ..stitch.place import (place_tiles_mst, project_displacements,
                             threshold_displacements)
 from ..utils.device import resolve_device
@@ -52,10 +52,6 @@ from ..utils.progress import StageTimer
 from .pystripe_cli import _resolve_compression, batch_filter
 
 __all__ = ["ALL_CHANNELS", "get_voxel_sizes", "process_channel", "main"]
-
-# planes blended per device chain in the merge (the reference's
-# single-device policy, parallel/mesh.default_mesh)
-PLANE_BATCH = 4
 
 # (channel folder name, rgb color) — reference process_images.py:52-58
 ALL_CHANNELS: List[Tuple[str, str]] = [
@@ -651,12 +647,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--terafly", action="store_true",
                    help="export each stitched channel to a TeraFly pyramid")
     p.add_argument("--rgb-composite", action="store_true",
-                   help="align channels and write RGB composites (not "
-                        "ported yet: raises NotImplementedError)")
+                   help="align channels and write RGB composites")
     p.add_argument("--composite", type=str, default=None,
                    help="path for the composite RGB tif files; implies "
                         "--rgb-composite (reference flag, "
-                        "process_images.py:1638-1640; not ported yet)")
+                        "process_images.py:1638-1640)")
     # GPU-scheduling knobs from the reference surface: accepted so
     # reference launch scripts run unchanged; meaningless on TPU
     p.add_argument("--exclude_gpus", nargs="+", default=[],
@@ -762,11 +757,6 @@ def discover_channels(input_dir: Path) -> List[str]:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.rgb_composite or args.composite:
-        raise NotImplementedError(
-            "--rgb-composite / --composite need the channel alignment and "
-            "composite CLIs (merge_channels, align_channels), not ported "
-            "yet: ROADMAP.md queue 1, item 12")
     if args.noprogressbar or args.logprogress:
         import os as _os
 
@@ -787,6 +777,11 @@ def main(argv=None) -> int:
     preproc_root = args.preprocessed or args.input.parent / (
         args.input.name + "_preprocessed")
     log.info(f"channels: {channels}")
+    if args.composite and not Path(args.composite).exists():
+        # the reference requires the composite PARENT dir to exist up
+        # front (process_images.py:1104-1107)
+        log.error(f"composite path {args.composite} does not exist")
+        return 2
     if args.mip_calibrate is not None:
         return mip_calibrate(args.input, channels, args.mip_calibrate, log)
     dev = resolve_device()
@@ -944,6 +939,37 @@ def main(argv=None) -> int:
     for f in export_futs:
         f.result()  # surface export errors before declaring success
     export_pool.shutdown(wait=True)
+    if (args.rgb_composite or args.composite) and len(channels) >= 2:
+        # channel alignment + composite (reference align_main +
+        # merge_all_channels, process_images.py:860-1000,1393-1419)
+        from .merge_channels import main as merge_main
+
+        color_of = dict(ALL_CHANNELS)
+        if args.composite:
+            # the reference treats --composite as a PARENT directory and
+            # appends "<input>_composite[_MIP]" (process_images.py:
+            # 1100-1108; existence validated at startup above)
+            composite_dir = Path(args.composite) / (
+                args.input.name + "_composite"
+                + ("_MIP" if args.stitch_mip else ""))
+        else:
+            composite_dir = stitched_root / "composite"
+        argv2 = ["--output", str(composite_dir)]
+        if not args.resume:
+            argv2.append("--no-resume")
+        used = set()
+        for ch in channels:
+            # --stitch-mip channels carry a "_MIP" suffix that the color
+            # table doesn't know (reference keeps MIP color per base name)
+            base = ch[:-4] if ch.endswith("_MIP") else ch
+            c = color_of.get(base, "g")
+            flag = {"r": "--red", "g": "--green", "b": "--blue"}[c]
+            if flag in used:
+                log.warn(f"skipping {ch}: color {c} already assigned")
+                continue
+            used.add(flag)
+            argv2 += [flag, str(stitched_root / ch)]
+        merge_main(argv2)
     log.info("all channels complete")
     return 0
 

@@ -40,7 +40,12 @@ from ..utils.device import resolve_device
 from ..utils.progress import ProgressReporter
 from .blend import PlaneBlender
 
-__all__ = ["merge_to_tif_series", "downsampled_npz", "make_diag_stack"]
+__all__ = ["merge_to_tif_series", "downsampled_npz", "make_diag_stack",
+           "PLANE_BATCH"]
+
+# planes blended per device chain by the pipelines' merges (the
+# reference's single-device policy, parallel/mesh.default_mesh)
+PLANE_BATCH = 4
 
 
 def _z_reduce(stack: np.ndarray, n_halvings: int) -> np.ndarray:

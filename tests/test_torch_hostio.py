@@ -5,7 +5,10 @@ modules it needs (io/tiff.py, io/dcimg.py, io/nrrd.py, io/raw.py,
 io/generic2d.py, io/terafly.py, io/vaa3draw.py, io/ims.py, native/ with
 fastio.cpp, parallel/executor.py, parallel/sandbox.py, utils/iostat.py,
 lagged.py, log.py, memory.py, progress.py, geometry/extent.py,
-geometry/stacks.py, stitch/place.py).  Held here against the
+geometry/stacks.py, stitch/place.py, utils/tifstack.py, io/bdv.py,
+io/precomputed.py, pipeline/scan_stitch.py, pipeline/flip.py,
+pipeline/command_generator.py, utils/checkfiles.py, utils/cli.py,
+utils/markers.py, utils/reconops.py).  Held here against the
 originals: each copy's source equals its original up to the package's
 name in imports and comments; a TIFF written by each package is
 byte-equal and reads back equal through the other; the native
@@ -35,7 +38,11 @@ VERBATIM = ["io/tiff.py", "io/dcimg.py", "io/nrrd.py", "parallel/executor.py",
             "utils/log.py", "utils/memory.py", "utils/progress.py",
             "geometry/extent.py", "geometry/stacks.py", "io/raw.py",
             "io/generic2d.py", "stitch/place.py", "io/terafly.py",
-            "io/vaa3draw.py", "io/ims.py"]
+            "io/vaa3draw.py", "io/ims.py", "utils/tifstack.py",
+            "pipeline/scan_stitch.py", "io/bdv.py", "io/precomputed.py",
+            "pipeline/flip.py", "pipeline/command_generator.py",
+            "utils/checkfiles.py", "utils/cli.py", "utils/markers.py",
+            "utils/reconops.py"]
 
 
 def _relative(src: str) -> str:

@@ -1,6 +1,9 @@
 """ipp_tpu_torch, chip_smoke.py and the port's kernel benches import no jax
 and no ipp_tpu module: the port keeps its own copies of the reference's
-host code (tests/test_torch_hostio.py holds them to their originals)."""
+host code (tests/test_torch_hostio.py holds them to their originals).
+They import OpenCV nowhere but in the converter's movie writer
+(`pipeline/convert.tif_series_to_movie`, host codec work, as in the JAX
+package): the card's host has no OpenCV."""
 
 import ast
 import os
@@ -66,3 +69,40 @@ def test_every_port_module_imports_without_jax(platform):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK")
+
+
+# the one place the port may import OpenCV: (file, enclosing function)
+CV2_ALLOWED = {("ipp_tpu_torch/pipeline/convert.py", "tif_series_to_movie")}
+
+
+def _cv2_imports(tree):
+    """(enclosing function name or None, line) of every cv2 import."""
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                if any(a.name.split(".")[0] == "cv2" for a in child.names):
+                    found.append((func, child.lineno))
+            elif isinstance(child, ast.ImportFrom) and child.module and \
+                    child.module.split(".")[0] == "cv2":
+                found.append((func, child.lineno))
+            visit(child, func)
+
+    visit(tree, None)
+    return found
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_opencv_but_in_the_movie_writer(path):
+    rel = str(path.relative_to(ROOT))
+    for func, line in _cv2_imports(ast.parse(path.read_text())):
+        assert (rel, func) in CV2_ALLOWED, f"{rel}:{line} imports cv2"
+
+
+def test_the_movie_writer_is_the_one_opencv_import():
+    tree = ast.parse((ROOT / "ipp_tpu_torch/pipeline/convert.py").read_text())
+    assert [f for f, _ in _cv2_imports(tree)] == ["tif_series_to_movie"]

@@ -14,13 +14,18 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 import pytest
+from scipy import ndimage
 
 from ipp_tpu.io import tiff as tio
+from ipp_tpu.pipeline import align_channels as AC
+from ipp_tpu.pipeline import merge_channels as JM
 from ipp_tpu.pipeline import process_images as J
 from ipp_tpu_torch.pipeline import process_images as P
 from tests.synth import cut_tiles, make_phantom, write_tile_grid
 
 CH = "Ex_488_Em_525"
+CH2 = "Ex_561_Em_600"
+SHIFT2 = (1, -3, 4)
 FLAGS = ["--objective", "15x", "--sigma1", "24", "--sigma2", "24",
          "--wavelet", "db3", "--search-radius", "6", "--subvol-dim", "6",
          "--downsampled-voxel", "4.0", "--nthreads", "2"]
@@ -151,12 +156,66 @@ def test_placement_xml_drives_the_other_package(raw, runs, writer, reader):
     _same_series(out / CH, src / CH)
 
 
-def test_rgb_composite_raises(raw, tmp_path):
-    for flag in (["--rgb-composite"], ["--composite", str(tmp_path)]):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            P.main(["--input", str(raw / "raw"), "--stitched",
-                    str(tmp_path / "s"), *flag])
-    assert not (tmp_path / "s").exists()
+@pytest.fixture(scope="module")
+def two_channels(tmp_path_factory):
+    """Two channels of one phantom (smooth structure for the tiles' NCC,
+    blurred beads for the channels' ECC), the second rolled by a known
+    (dz, dy, dx) before the tiles are cut."""
+    rng = np.random.default_rng(12)
+    root = tmp_path_factory.mktemp("composite")
+    vol = make_phantom(rng, (12, 200, 200), smooth=6.0) * 0.5
+    beads = np.zeros(vol.shape, np.float32)
+    beads[tuple(rng.integers(2, s - 2, 400) for s in vol.shape)] = 2e6
+    vol = vol + ndimage.gaussian_filter(beads, 1.5)
+    for ch, v in ((CH, vol), (CH2, AC.roll_pad(vol.copy(), SHIFT2))):
+        tiles, _ = cut_tiles(v, 2, 2, (120, 120), 48, jitter=2,
+                             rng=np.random.default_rng(7))
+        (root / "raw" / ch).mkdir(parents=True)
+        write_tile_grid(root / "raw" / ch, tiles, overlap_nominal_px=48,
+                        voxel_um=(0.41, 0.41, 0.2))
+    return root
+
+
+def test_rgb_composite_matches_the_jax_package(two_channels, tmp_path):
+    """`--rgb-composite` writes <stitched>/composite, and `--composite DIR`
+    (a second run, resuming the stitched series) writes
+    DIR/<input>_composite, in both packages alike: the same names, one
+    plane per plane of the first channel, the second channel moved by the
+    injected shift, and planes within 1 count of the JAX package's (they compose the stitched
+    series, which the port holds to 1 count).  The JAX package's own
+    merge_channels, run on the port's stitched series, writes the port's
+    composite byte for byte."""
+    root = two_channels
+    comp = {}
+    for name, main in (("port", P.main), ("jax", J.main)):
+        st = _run(main, root, f"c_{name}", ["--rgb-composite"])
+        parent = tmp_path / f"parent_{name}"
+        parent.mkdir()
+        _run(main, root, f"c_{name}", ["--composite", str(parent),
+                                       "--resume"])
+        comp[name] = (st, st / "composite", parent / "raw_composite")
+    for i in (1, 2):
+        _same_series(comp["port"][i], comp["jax"][i], np.uint16)
+        assert len(_series(comp["port"][i])) == 12
+    st = comp["port"][0]
+    planes = np.stack([tio.imread(p) for p in
+                       sorted(comp["port"][1].glob("*.tif"))])
+    stitched = {ch: np.stack([tio.imread(p) for p in
+                              sorted((st / ch).glob("*.tif"))])
+                for ch in (CH, CH2)}
+    # merge_channels takes green (CH2) as its reference and moves blue
+    # (CH) by the found offsets: the injected shift
+    assert planes.shape[-1] == 3 and planes[..., 0].max() == 0
+    np.testing.assert_array_equal(planes[..., 1], stitched[CH2])
+    np.testing.assert_array_equal(planes[..., 2],
+                                  AC.roll_pad(stitched[CH], SHIFT2))
+    out = tmp_path / "jax_on_port"
+    assert JM.main(["--output", str(out), "--blue", str(st / CH),
+                    "--green", str(st / CH2)]) == 0
+    names = _series(comp["port"][1])
+    assert _series(out) == names
+    for n in names:
+        assert (out / n).read_bytes() == (comp["port"][1] / n).read_bytes()
 
 
 def test_mesh_raises(raw, tmp_path):

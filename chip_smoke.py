@@ -132,7 +132,27 @@ Phases:
    16 planes of 2048 x 2048 u16, 200 px overlap, known jitter |dx|, |dy|
    <= 8, |dz| <= 1): positions equal to the truth, its links equal to the
    alignment's on the CPU; then tsv_tools downsample on phase 14's series,
-   every plane equal to the host block sum.
+   every plane equal to the host block sum;
+16. the mesh: every card when there are several, else two entries on card
+   0 (two shards, two dispatch threads); `parallel.mesh.default_mesh` is
+   pointed at it, so the CLIs take the branch of a host with that many
+   cards (phases 1-15 point it at none: one card's runs on any host).
+   (a) the deconvolution CLI on phase 4's series: planes within 1 count
+   of phase 4's, K1-K4 launches equal to phase 4's, the manifest's mesh
+   set; (b) richardson_lucy_sharded_z on a (480, 248, 248) cut of the
+   series over a 2-entry z mesh (slabs at a (256, 256, 256) work shape on
+   the v2 walk): within 1e-5 of max of the same overlap-discard slabs run
+   one by one on card 0, the batched forms' launches equal to that run's;
+   (c) process_images on phase 12's tree: placement equal to phase 12's,
+   planes within 1 count, K5 launches exact (phase 12's batches, each split
+   into one shard per mesh entry); (d) the pystripe CLI on phase 6's tree:
+   tiles within 1 count, K5 exact likewise; (e) a one-rank NCCL group over
+   localhost TCP (device_put_global, process_slice, all_gather), and with
+   two or more cards two processes over NCCL (the NCC maps' all-gather and
+   z-sharded RL with halos across processes) equal to one process.
+   Each step prints its wall seconds beside the card's name and power;
+   (a) and (c) run again in turns (one card, then the mesh) on the same
+   inputs, (b) once more warm.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -145,7 +165,8 @@ once) over the HBM rate.  Outside the v2 domain every convolution takes
 torch.fft unless a caller forces "walk1" (phase 10 does), so only phase 10
 and phase 11 launch K6 and K7.
 
-Phases 8 and 9 read phase 4's series, phase 15 phase 14's.  The script
+Phases 8 and 9 read phase 4's series, phase 15 phase 14's, phase 16
+phase 4's, 6's and 12's inputs and outputs.  The script
 exits non-zero when there is no CUDA device, when the port is not beside
 it, or when any phase fails.  On success its last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
@@ -155,6 +176,7 @@ build/chip_smoke/ (removed at the end).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -959,7 +981,7 @@ def phase_cli(torch, dev, psf_zyx, record, shared):
         f"input {w_in:.3f}, output {w_out:.3f}")
     if not w_out < w_in:
         raise AssertionError("beads are not sharper than in the input")
-    shutil.rmtree(dst, ignore_errors=True)
+    shared["cli_out"] = dst   # phase 16 holds its mesh run to these planes
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1153,7 +1175,7 @@ def stripe_power(torch, vol):
     return out
 
 
-def phase_destripe_cli(torch, dev, record):
+def phase_destripe_cli(torch, dev, record, shared):
     import numpy as np
 
     from ipp_tpu_torch.ops import cuda_dwt as cd
@@ -1328,7 +1350,9 @@ def phase_destripe_cli(torch, dev, record):
                              f"counts ({on_card.dtype} {on_card.shape})")
     if not ls_moved > 0:
         raise AssertionError("lightsheet correction changed nothing")
-    shutil.rmtree(work, ignore_errors=True)
+    # phase 16 runs the CLI again on a mesh and holds it to these tiles
+    shared["tiles"] = dict(src=src, dst=dst, per_shape=per_shape,
+                           levels=levels, launches=want)
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -2253,7 +2277,7 @@ def phase_ncc_pairs(torch, dev, record):
         raise AssertionError(f"displacements {coords} != truth {truth}")
 
 
-def phase_stitch(torch, dev, record):
+def phase_stitch(torch, dev, record, shared):
     import numpy as np
 
     from ipp_tpu_torch.geometry.stacks import TileGrid
@@ -2406,7 +2430,10 @@ def phase_stitch(torch, dev, record):
         f"{planned})")
     if got_npz != planned:
         raise AssertionError(f"npz {got_npz} != {planned}")
-    shutil.rmtree(work, ignore_errors=True)
+    # phase 16 stitches the raw tree again on a mesh: keep it and the series
+    shutil.rmtree(work / "pre", ignore_errors=True)
+    shared["stitch"] = dict(src=src, stitched=st, k5=k5, batches=batches,
+                            levels=levels)
 
 
 # -- phase 13 ----------------------------------------------------------------
@@ -3024,6 +3051,470 @@ def phase_scan_tsv(torch, dev, record, shared):
     shutil.rmtree(src.parent, ignore_errors=True)
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+# z-sharded RL: two z slabs of 240 planes, each extended by 4-plane halos
+# (the 9^3 PSF's half) to (248, 248, 248), a (256, 256, 256) work shape on
+# the v2 walk; cut from the phase-4 series
+MESH_ZRL_SHAPE = (480, 248, 248)
+MESH_PSF = ((9, 9, 9), (1.5, 1.5, 1.5))
+# the multi-process children (one card each): NCC maps, and z-sharded RL
+# on one (240, 120, 248) slab a process, (256, 128, 256) on the v2 walk
+CHILD_MAPS = (8, 150, 1024)
+CHILD_SLAB = (240, 120, 248)
+
+
+def smoke_mesh(torch):
+    """Phase 16's mesh: every card when there are several, else two
+    entries on card 0 (two shards and two dispatch threads on one card)."""
+    from ipp_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() > 1:
+        return make_mesh(), "distinct cards"
+    return make_mesh(devices=["cuda:0", "cuda:0"]), "two shards on card 0"
+
+
+class DefaultMesh:
+    """Within the block, `parallel.mesh.default_mesh()` gives `mesh`: the
+    CLIs then take the branch they take on a host with that many cards."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        from ipp_tpu_torch.parallel import mesh as mm
+
+        self.saved = mm.default_mesh
+        mm.default_mesh = lambda: (self.mesh, 1 if self.mesh else 4)
+
+    def __exit__(self, *exc):
+        from ipp_tpu_torch.parallel import mesh as mm
+
+        mm.default_mesh = self.saved
+
+
+def timed_cli(torch, mesh, fn, argv, out: Path):
+    """Wall seconds of fn(argv) with default_mesh() giving (mesh, 1) (None:
+    one card, (None, 4)), its StageTimer seconds where it has one; the
+    output directory `out` is removed after."""
+    from ipp_tpu_torch.pipeline import process_images as pim
+    from ipp_tpu_torch.utils.progress import StageTimer
+
+    timers = []
+
+    class Recorded(StageTimer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    saved = pim.StageTimer
+    pim.StageTimer = Recorded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with DefaultMesh(mesh):
+            rc = fn(argv)
+    finally:
+        pim.StageTimer = saved
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shutil.rmtree(out, ignore_errors=True)
+    if rc != 0:
+        raise AssertionError(f"rc {rc} in a timing run")
+    return wall, (dict(timers[0].stages) if timers else {})
+
+
+def planes_max_diff(a_dir: Path, b_dir: Path, pattern="*.tif"):
+    """(files, max |a - b| over every file of b_dir, files missing in a)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ipp_tpu_torch.io import tiff as tio
+
+    names = sorted(p.relative_to(b_dir) for p in b_dir.rglob(pattern))
+    missing = [n for n in names if not (a_dir / n).exists()]
+
+    def one(n):
+        a, b = tio.imread(a_dir / n), tio.imread(b_dir / n)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return 1 << 30
+        return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+    with ThreadPoolExecutor(8) as pool:
+        diffs = list(pool.map(one, [n for n in names if n not in missing]))
+    return len(names), max(diffs, default=0), missing
+
+
+def mesh_k5_launches(n_tiles_by_shape, levels, n_dev, batch_size=8):
+    """K5 launches of the tile chain on a mesh of n_dev entries: every
+    batch (batch_size rounded to a multiple of n_dev; a short one padded
+    to it) splits into n_dev shards, each running 3 launches a level."""
+    bs = max(batch_size, n_dev) // n_dev * n_dev
+    return sum(-(-n // bs) * n_dev * 3 * levels[shape]
+               for shape, n in n_tiles_by_shape.items())
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_child(rank: int, nprocs: int, port: int, out: str) -> int:
+    """One of `nprocs` processes over NCCL, each seeing one card (over
+    gloo with CPU entries under IPP_TPU_PLATFORM=cpu, to rehearse): the
+    sharded NCC maps with their all-gather and z-sharded RL with halos
+    across the process boundaries; writes this process's rows to `out`."""
+    import os
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from ipp_tpu_torch.ops.deconv import richardson_lucy_sharded_z
+    from ipp_tpu_torch.ops.ncc import _ncc_maps_sharded
+    from ipp_tpu_torch.ops.psf import gaussian_psf
+    from ipp_tpu_torch.parallel import distributed as D
+    from ipp_tpu_torch.parallel.mesh import z_sharding
+
+    local = (["cpu"] if os.environ.get("IPP_TPU_PLATFORM", "").lower()
+             == "cpu" else None)
+    if not D.initialize(f"127.0.0.1:{port}", nprocs, rank):
+        return 1
+    a, b, zv = child_inputs(nprocs)
+    maps = _ncc_maps_sharded(a, b, 20, 20,
+                             D.global_mesh(local_devices=local))
+    mesh_z = D.global_mesh(z_parallel=nprocs, local_devices=local)
+    lo, hi = D.process_slice(zv.shape[0])
+    g = D.device_put_global(zv[lo:hi], z_sharding(mesh_z, 3))
+    out_z = richardson_lucy_sharded_z(g, gaussian_psf(*MESH_PSF), mesh_z,
+                                      niter=NITER)
+    zrows = torch.cat([t.cpu() for t in out_z.local_tensors()]).numpy()
+    np.savez(out, maps=maps, zrl=zrows, lo=lo, hi=hi,
+             backend=D.backend())
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def child_inputs(nprocs: int):
+    """The children's inputs, the same in every process."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    a = rng.random(CHILD_MAPS).astype(np.float32)
+    b = (np.roll(a, (3, -2), axis=(1, 2))
+         + rng.normal(0, 0.01, CHILD_MAPS)).astype(np.float32)
+    zv = (rng.random((CHILD_SLAB[0] * nprocs,) + CHILD_SLAB[1:])
+          * 1000).astype(np.float32)
+    return a, b, zv
+
+
+def mesh_processes(torch, devices, work: Path):
+    """len(devices) processes (one card each: CUDA_VISIBLE_DEVICES; or CPU
+    entries): their NCC maps and z-sharded RL against one process on
+    `devices`.  Returns (record, errors)."""
+    import os
+
+    import numpy as np
+
+    from ipp_tpu_torch.ops.deconv import richardson_lucy_sharded_z
+    from ipp_tpu_torch.ops.ncc import _ncc_maps_sharded
+    from ipp_tpu_torch.ops.psf import gaussian_psf
+    from ipp_tpu_torch.parallel.mesh import make_mesh
+
+    n = len(devices)
+    port = free_port()
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ)
+        if torch.device(devices[rank]).type == "cuda":
+            env["CUDA_VISIBLE_DEVICES"] = str(torch.device(
+                devices[rank]).index)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-child",
+             str(rank), str(n), str(port), str(work / f"rank{rank}.npz")],
+            env=env))
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    t_child = time.perf_counter() - t0
+    if rcs != [0] * n:
+        return {}, [f"{n} processes exited {rcs}"]
+    d = [np.load(work / f"rank{r}.npz") for r in range(n)]
+    a, b, zv = child_inputs(n)
+    maps = _ncc_maps_sharded(a, b, 20, 20, None,
+                             device=torch.device(devices[0]))
+    one = richardson_lucy_sharded_z(
+        zv, gaussian_psf(*MESH_PSF),
+        make_mesh(n, z_parallel=n, devices=devices),
+        niter=NITER).cpu().numpy()
+    zrl = np.concatenate([x["zrl"] for x in d])
+    map_err = max(float(np.abs(x["maps"] - maps).max()) for x in d)
+    z_err = float(np.abs(zrl - one).max() / np.abs(one).max())
+    rec = dict(processes=n, s=t_child, map_err=map_err, zrl_err=z_err,
+               backend=str(d[0]["backend"]))
+    say(f"  {n} processes over {rec['backend']} ({t_child:.1f} s): NCC "
+        f"maps max |diff| to one process {map_err:.2e}, z-sharded RL "
+        f"{z_err:.2e} of max")
+    shutil.rmtree(work, ignore_errors=True)
+    if not (map_err <= 1e-6 and z_err <= 1e-5):
+        return rec, [f"{n} processes: maps {map_err}, z RL {z_err}"]
+    return rec, []
+
+
+def phase_mesh(torch, psf_zyx, record, shared):
+    """The port's multi-device branches on the card(s): the deconvolution
+    CLI, z-sharded RL, process_images, the pystripe CLI, and
+    torch.distributed, each held to its single-device phase."""
+    import numpy as np
+
+    from ipp_tpu_torch.geometry.stacks import TileGrid
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.deconv import (fft_shape_for,
+                                          richardson_lucy_batched,
+                                          richardson_lucy_sharded_z)
+    from ipp_tpu_torch.ops.matmul_fft import in_kernel_domain
+    from ipp_tpu_torch.ops.psf import gaussian_psf
+    from ipp_tpu_torch.parallel import distributed as D
+    from ipp_tpu_torch.parallel.mesh import data_sharding, gather, make_mesh
+    from ipp_tpu_torch.pipeline import deconvolve as pdc
+    from ipp_tpu_torch.pipeline import process_images as pim
+    from ipp_tpu_torch.pipeline import pystripe_cli as psc
+
+    for key in ("cli_out", "tiles", "stitch"):
+        if key not in shared:
+            raise AssertionError(f"an earlier phase left no {key}")
+    n_cards = torch.cuda.device_count()
+    mesh, kind = smoke_mesh(torch)
+    n_dev = mesh.size
+    card = card_line()
+    say(f"  mesh {mesh.shape} over {[str(d) for d in mesh.devices.flat]} "
+        f"({kind}; torch.cuda.device_count() {n_cards}; {card})")
+    rec = record["mesh"] = dict(cards=n_cards, kind=kind, shape=mesh.shape,
+                                card=card)
+    dev = torch.device("cuda", 0)
+    errors = []
+
+    # (a) the deconvolution CLI on phase 4's series
+    src = shared["src"]
+    ref_dir = shared["cli_out"]
+    dst = src.parent / "output_mesh"
+    cf.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with DefaultMesh(mesh):
+        rc = pdc.main(["-i", str(src), "-o", str(dst), "--niter",
+                       str(NITER)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(cf.LAUNCHES)
+    want = record["cli"]["launches"]
+    man = json.loads((dst / "blocks_manifest.json").read_text())
+    n_planes, diff, missing = planes_max_diff(dst, ref_dir, "img_*.tif")
+    wall4 = record["cli"]["wall_s"]
+    rec["deconvolve"] = dict(
+        rc=rc, wall_s=wall, phase4_wall_s=wall4, wall_ratio=wall / wall4,
+        speedup_per_card=wall4 / wall / n_cards,
+        launches=counts, planes=n_planes, max_diff=diff,
+        manifest_mesh=man["params"]["mesh"],
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    say(f"  (a) deconvolution CLI rc {rc}: {wall:.1f} s against phase 4's "
+        f"{wall4:.1f} s (x{wall / wall4:.3f}; {card}); {n_planes} planes, "
+        f"max |diff| to phase 4 {diff} counts; launches equal phase 4's: "
+        f"{counts == want}; manifest mesh {man['params']['mesh']}")
+    if rc != 0 or missing or diff > 1:
+        errors.append(f"(a) rc {rc}, missing {missing[:3]}, diff {diff}")
+    if counts != want:
+        errors.append(f"(a) launches {counts} != phase 4's {want}")
+    if man["params"]["mesh"] != mesh.shape:
+        errors.append(f"(a) manifest mesh {man['params']['mesh']}")
+    shutil.rmtree(dst, ignore_errors=True)
+    # in turns on the same series: one card, then the mesh again
+    argv = ["-i", str(src), "-o", str(dst), "--niter", str(NITER)]
+    one, _ = timed_cli(torch, None, pdc.main, argv, dst)
+    again, _ = timed_cli(torch, mesh, pdc.main, argv, dst)
+    rec["deconvolve"].update(turns_s=dict(mesh=[wall, again], one=one))
+    say(f"  (a) in turns: mesh {wall:.1f} s, one card {one:.1f} s, mesh "
+        f"{again:.1f} s ({card})")
+
+    # (b) z-sharded RL over a z mesh, against the same overlap-discard
+    # decomposition slab by slab on one device
+    zdevs = (["cuda:0", "cuda:1"] if n_cards > 1 else ["cuda:0"] * 2)
+    zmesh = make_mesh(2, z_parallel=2, devices=zdevs)
+    Z, H, W = MESH_ZRL_SHAPE
+    vol = shared["host"][:Z, :H, :W].astype(np.float32)
+    psf = gaussian_psf(*MESH_PSF).astype(np.float32)
+    psf = psf / psf.sum()
+    halo, step = MESH_PSF[0][0] // 2, Z // 2
+    fshape = fft_shape_for((step + 2 * halo, H, W), psf.shape, None)
+    if not in_kernel_domain(fshape):
+        raise AssertionError(f"slab work shape {fshape} is off the walk")
+    cf.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = richardson_lucy_sharded_z(vol, psf, zmesh, niter=NITER)
+    torch.cuda.synchronize()
+    t_z = time.perf_counter() - t0
+    counts_z = dict(cf.LAUNCHES)
+    cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = torch.empty((Z, H, W), device=dev)
+    for i in range(2):
+        z0, z1 = i * step, (i + 1) * step
+        idx = np.clip(np.arange(z0 - halo, z1 + halo), 0, Z - 1)
+        blk = torch.from_numpy(vol[idx]).to(dev)
+        ref[z0:z1] = richardson_lucy_batched(
+            blk[None], psf, niter=NITER, fft_shape=fshape, edge_taper=True,
+            device=dev)[0, halo:halo + step]
+    torch.cuda.synchronize()
+    t_serial = time.perf_counter() - t0
+    counts_serial = dict(cf.LAUNCHES)
+    t0 = time.perf_counter()   # warm: the first run built the constants
+    richardson_lucy_sharded_z(vol, psf, zmesh, niter=NITER)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    zerr = float((got - ref).abs().max() / ref.abs().max())
+    batched = {k: counts_z.get(k, 0) for k in BATCHED}
+    rec["sharded_z"] = dict(shape=list(MESH_ZRL_SHAPE), work_shape=fshape,
+                            s=t_z, warm_s=t_warm, serial_s=t_serial,
+                            err_of_max=zerr,
+                            launches=counts_z, serial_launches=counts_serial)
+    say(f"  (b) richardson_lucy_sharded_z {MESH_ZRL_SHAPE} over {zdevs}, "
+        f"slabs at {fshape}: {t_z:.3f} s first, {t_warm:.3f} s warm (slab "
+        f"by slab on one card {t_serial:.3f} s; {card}); max |diff| / max "
+        f"{zerr:.2e}; "
+        f"batched launches {batched}, equal to the serial run's: "
+        f"{counts_z == counts_serial}")
+    if not zerr <= 1e-5:
+        errors.append(f"(b) z-sharded RL off by {zerr:.2e} of max")
+    if counts_z != counts_serial or 0 in batched.values():
+        errors.append(f"(b) launches {counts_z} != {counts_serial}")
+    del got, ref
+
+    # (c) process_images on phase 12's tree
+    st = shared["stitch"]
+    work = st["src"].parent / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--input", str(st["src"]), "--preprocessed", str(work / "pre"),
+            "--stitched", str(work / "stitched"), *STITCH_FLAGS]
+    cd.reset_launch_counts()
+    wall, stages = timed_cli(torch, mesh, pim.main, argv, work / "pre")
+    k5 = cd.LAUNCHES["dwt_analysis"]
+    n_tiles = STITCH_GRID[0] * STITCH_GRID[1] * STITCH_PLANES
+    want_k5 = mesh_k5_launches({STITCH_TILE: n_tiles},
+                               {STITCH_TILE: st["levels"]}, n_dev)
+    ch = "Ex_488_Em_525"
+    grid = TileGrid.from_xml(work / "stitched" / f"{ch}_placement.xml")
+    s00 = grid.stacks[0][0]
+    placed = {f"{r},{c}": [int(v) for v in np.subtract(
+        (s.abs_d, s.abs_v, s.abs_h), (s00.abs_d, s00.abs_v, s00.abs_h))]
+        for r, row in enumerate(grid.stacks) for c, s in enumerate(row)}
+    n_planes, diff, missing = planes_max_diff(work / "stitched" / ch,
+                                              st["stitched"] / ch)
+    wall12 = record["stitch"]["wall_s"]
+    rec["stitch"] = dict(wall_s=wall, phase12_wall_s=wall12,
+                         k5=k5, want_k5=want_k5, phase12_k5=st["k5"],
+                         placement_equal=placed == record["stitch"][
+                             "placement"], planes=n_planes, max_diff=diff)
+    say(f"  (c) process_images rc 0: {wall:.1f} s against phase 12's "
+        f"{wall12:.1f} s ({card}); placement equal to phase 12's: "
+        f"{placed == record['stitch']['placement']}; {n_planes} planes, max "
+        f"|diff| {diff} counts; K5 launches {k5} (phase 12's {st['k5']} "
+        f"split over {n_dev} shards: {want_k5})")
+    if missing or diff > 1:
+        errors.append(f"(c) missing {missing[:3]}, diff {diff}")
+    if placed != record["stitch"]["placement"]:
+        errors.append(f"(c) placement {placed}")
+    if k5 != want_k5:
+        errors.append(f"(c) K5 launches {k5} != {want_k5}")
+    shutil.rmtree(work, ignore_errors=True)
+    # in turns on the same tree: one card, then the mesh again
+    one, one_st = timed_cli(torch, None, pim.main, argv, work)
+    again, again_st = timed_cli(torch, mesh, pim.main, argv, work)
+    rec["stitch"].update(stages_s=stages, turns_s=dict(
+        mesh=[wall, again], one=one, one_stages=one_st,
+        mesh_stages=again_st))
+    say(f"  (c) stages (s) of the mesh run: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stages.items()))
+    say(f"  (c) in turns: mesh {wall:.1f} s, one card {one:.1f} s "
+        f"(merge {one_st.get('merge (step 6)', 0):.2f}, preprocess "
+        f"{one_st.get('preprocess', 0):.2f}), mesh {again:.1f} s (merge "
+        f"{again_st.get('merge (step 6)', 0):.2f}, preprocess "
+        f"{again_st.get('preprocess', 0):.2f}) ({card})")
+
+    # (d) the pystripe CLI on phase 6's tree
+    tl = shared["tiles"]
+    dst = tl["src"].parent / "output_mesh"
+    cd.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with DefaultMesh(mesh):
+        rc = psc.main(["-i", str(tl["src"]), "-o", str(dst), *STAGE1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5 = cd.LAUNCHES["dwt_analysis"]
+    want_k5 = mesh_k5_launches(tl["per_shape"], tl["levels"], n_dev)
+    n_tiles, diff, missing = planes_max_diff(dst, tl["dst"])
+    wall6 = record["destripe_cli"]["wall_s"]
+    rec["destripe"] = dict(rc=rc, wall_s=wall, phase6_wall_s=wall6, k5=k5,
+                           want_k5=want_k5, phase6_k5=tl["launches"],
+                           tiles=n_tiles, max_diff=diff)
+    say(f"  (d) pystripe CLI rc {rc}: {wall:.1f} s against phase 6's "
+        f"{wall6:.1f} s ({card}); {n_tiles} tiles, max |diff| {diff} "
+        f"counts; K5 launches {k5} (phase 6's {tl['launches']} split over "
+        f"{n_dev} shards: {want_k5})")
+    if rc != 0 or missing or diff > 1:
+        errors.append(f"(d) rc {rc}, missing {missing[:3]}, diff {diff}")
+    if k5 != want_k5:
+        errors.append(f"(d) K5 launches {k5} != {want_k5}")
+    shutil.rmtree(dst, ignore_errors=True)
+
+    # (e) torch.distributed: a one-rank NCCL group over localhost TCP
+    t0 = time.perf_counter()
+    multi = D.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    backend = D.backend()
+    gmesh = D.global_mesh()
+    rows = np.arange(8 * gmesh.size * 6, dtype=np.float32).reshape(
+        8 * gmesh.size, 6)
+    placed_ok = bool(np.array_equal(gather(D.device_put_global(
+        rows, data_sharding(gmesh, 2))).cpu().numpy(), rows))
+    t = torch.arange(12.0, device=dev)
+    gathered_ok = bool(torch.equal(D.all_gather(t), t))
+    slice_ok = D.process_slice(10) == (0, 10)
+    torch.distributed.destroy_process_group()
+    t_dist = time.perf_counter() - t0
+    rec["distributed"] = dict(backend=backend, multi=multi,
+                              put_gather=placed_ok, all_gather=gathered_ok,
+                              process_slice=slice_ok, s=t_dist)
+    say(f"  (e) one-rank {backend} group: device_put_global / gather "
+        f"{placed_ok}, all_gather {gathered_ok}, process_slice {slice_ok} "
+        f"in {t_dist:.1f} s ({card})")
+    if backend != "nccl" or multi or not (placed_ok and gathered_ok
+                                          and slice_ok):
+        errors.append(f"(e) {rec['distributed']}")
+    if n_cards > 1:
+        rec["two_process"], errs = mesh_processes(
+            torch, ["cuda:0", "cuda:1"], ROOT / "build" / "chip_smoke_dist")
+        say(f"  (e) two processes over NCCL ({card})")
+        errors += [f"(e) {e}" for e in errs]
+    else:
+        say("  (e) one card: the two-process NCCL exchange needs two cards "
+            "(NCCL refuses two ranks on one card); the CPU tests run it "
+            "over gloo")
+    if errors:
+        raise AssertionError("; ".join(errors))
+
+
 # -- main ---------------------------------------------------------------------
 
 def main() -> int:
@@ -3054,7 +3545,10 @@ def main() -> int:
         say(f"phase {num}: {title}")
         t0 = time.perf_counter()
         try:
-            fn(*a)
+            # phases 1-15 are one card's runs on a host with any number of
+            # cards (the CLIs' default mesh is none); phase 16 sets its own
+            with DefaultMesh(None) if num < 16 else contextlib.nullcontext():
+                fn(*a)
             say(f"phase {num}: ok in {time.perf_counter() - t0:.1f} s")
         except Exception:  # noqa: BLE001 — report every phase, then fail
             traceback.print_exc(file=sys.stdout)
@@ -3089,12 +3583,14 @@ def main() -> int:
           shapes, record)
     phase(3, "richardson_lucy (512,512,512): walk vs torch.fft",
           phase_rl_block, torch, dev, record)
-    shared = {}   # the phase-4 series, reused by phases 8 and 9
+    # the phase-4 series and output (phases 8, 9, 16), phase 6's and
+    # phase 12's trees and outputs (phase 16), phase 14's series (15)
+    shared = {}
     phase(4, f"CLI on a {VOL_SHAPE} u16 series", phase_cli, torch, dev, psf,
           record, shared)
     phase(5, "K5 dwt_analysis vs plain", phase_dwt, torch, dev, record)
     phase(6, "pystripe CLI on a 272-tile tree", phase_destripe_cli, torch, dev,
-          record)
+          record, shared)
     phase(7, f"batched walk at (4,) + {tuple(cli_shape)} and (1, 512, 512, "
           "512), richardson_lucy_batched", phase_batched, torch, dev,
           tuple(cli_shape), record)
@@ -3109,7 +3605,8 @@ def main() -> int:
           phase_canonical, torch, dev, record)
     phase(12, f"NCC pairs at {NCC_SHAPE}, then process_images on a "
           f"{STITCH_GRID[0]} x {STITCH_GRID[1]} grid of {STITCH_PLANES}-plane "
-          f"stacks of {STITCH_TILE} u16", phase_stitch, torch, dev, record)
+          f"stacks of {STITCH_TILE} u16", phase_stitch, torch, dev, record,
+          shared)
     phase(13, f"process_images --rgb-composite on two channels of a "
           f"{COMP_GRID[0]} x {COMP_GRID[1]} grid of {COMP_PLANES}-plane stacks "
           f"of {STITCH_TILE} u16", phase_composite, torch, dev, record)
@@ -3119,7 +3616,11 @@ def main() -> int:
     phase(15, f"scan_stitch on a Dragonfly tree of {SCAN_GRID[0]} x "
           f"{SCAN_GRID[1]} x {SCAN_NSUB} substacks of {SCAN_TILE}, then "
           f"tsv_tools downsample", phase_scan_tsv, torch, dev, record, shared)
-    shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
+    phase(16, f"the mesh on {torch.cuda.device_count()} card(s): the "
+          f"deconvolution, z-sharded RL, the stitch, the destripe CLI, "
+          f"torch.distributed", phase_mesh, torch, psf, record, shared)
+    for d in ("chip_smoke", "chip_smoke_tiles", "chip_smoke_stitch"):
+        shutil.rmtree(ROOT / "build" / d, ignore_errors=True)
     peaks = {k: v["peak_mem_bytes"] for k, v in record.items()
              if isinstance(v, dict) and "peak_mem_bytes" in v}
     say(f"peak device memory by phase (torch.cuda.max_memory_allocated, "
@@ -3209,4 +3710,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]),
+                            int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

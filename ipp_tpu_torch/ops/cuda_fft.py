@@ -66,6 +66,7 @@ Rules every wrapper keeps:
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -232,6 +233,11 @@ def _grid(name: str, what: str, n: int) -> None:
                          f"{_GRID_MAX}")
 
 
+# one lock for every launch count: the mesh paths launch from one thread
+# per device, and `counts[name] += 1` is a read and a write
+_COUNT_LOCK = threading.Lock()
+
+
 def _launch(name: str, device: torch.device, fn, *args,
             counts: Optional[Dict[str, int]] = None) -> None:
     """Launch on the current stream of `device`, raise on a refused
@@ -242,7 +248,8 @@ def _launch(name: str, device: torch.device, fn, *args,
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, "
                            f"cudaGetLastError() = {err}")
-    (LAUNCHES if counts is None else counts)[name] += 1
+    with _COUNT_LOCK:
+        (LAUNCHES if counts is None else counts)[name] += 1
 
 
 def _empty(shape, like: torch.Tensor) -> torch.Tensor:

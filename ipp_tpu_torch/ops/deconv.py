@@ -1,8 +1,9 @@
 """Richardson-Lucy deconvolution on PyTorch (port of ipp_tpu/ops/deconv.py
-lines 72-665: gauss3d, gauss3d_batched, make_taper, edge_taper_3d, pad_to_shape, unpad,
+lines 72-705: gauss3d, gauss3d_batched, make_taper, edge_taper_3d, pad_to_shape, unpad,
 fft_shape_for, _tikhonov_kernel, _conv3d_zero, _make_otf, _make_convolver,
 _rl_fft_iterations, richardson_lucy, richardson_lucy_batched,
-richardson_lucy_wiener, richardson_lucy_spatial).
+richardson_lucy_wiener, richardson_lucy_spatial,
+richardson_lucy_sharded_z).
 
 The RL loop runs eagerly as a Python loop (the reference's
 lax.while_loop); early stop reads the relative norm change on the host,
@@ -34,14 +35,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import Sharded
 from ..utils.device import resolve_device
 from .fftutil import next_fast_len
 from .matmul_fft import MatmulFFT3, in_kernel_domain, plan_shape
 
 __all__ = ["gauss3d", "gauss3d_batched", "make_taper", "edge_taper_3d", "pad_to_shape",
            "unpad", "fft_shape_for", "conv_route", "richardson_lucy",
-           "richardson_lucy_batched", "richardson_lucy_wiener",
-           "richardson_lucy_spatial"]
+           "richardson_lucy_batched", "richardson_lucy_sharded_z",
+           "richardson_lucy_wiener", "richardson_lucy_spatial"]
 
 _EPS = float(np.finfo(np.float32).eps)
 _log = logging.getLogger(__name__)
@@ -455,21 +457,27 @@ def richardson_lucy_batched(vols, psf, niter: int = 10, lam: float = 0.0,
                             fft_shape: Optional[Tuple[int, int, int]] = None,
                             edge_taper: bool = True, sharding=None,
                             classic: bool = True, stop_criterion: float = 0.0,
-                            device=None, route: Optional[str] = None
-                            ) -> torch.Tensor:
-    """Richardson-Lucy over a batch of equal-shape blocks (B, D, H, W) on
-    one device (reference richardson_lucy_batched, deconv.py:482-552): one
-    walk over the whole batch, through the batched kernel forms on the
-    walk route, with one OTF for every block.  Each block's edge taper
-    blurs its full volume (face_slabs=False).  stop_criterion > 0 stops
-    each block at its own iteration (see `_rl_fft_iterations`).
+                            device=None, route: Optional[str] = None):
+    """Richardson-Lucy over a batch of equal-shape blocks (B, D, H, W)
+    (reference richardson_lucy_batched, deconv.py:482-552): one walk over
+    the whole batch, through the batched kernel forms on the walk route,
+    with one OTF for every block.  Each block's edge taper blurs its full
+    volume (face_slabs=False).  stop_criterion > 0 stops each block at
+    its own iteration (see `_rl_fft_iterations`).
 
-    `sharding` (a placement over a device mesh) is not ported: anything
-    but None raises."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "richardson_lucy_batched over a device mesh (sharding=...) is "
-            "not yet ported (ROADMAP.md queue 1, item 13: multi-GPU)")
+    `sharding` (a `parallel.mesh.Placement` splitting the batch over the
+    mesh's "data" axis, e.g. `data_sharding(mesh, 4)`) runs each device's
+    share of the blocks as one batch on that device, from its own thread
+    (the reference's LsDeconv per-GPU block work, LsDeconv.m:644-706).  A
+    whole batch comes back gathered on its own device (numpy: the first
+    shard's); a `parallel.mesh.Sharded` batch (this process's rows, from
+    `distributed.device_put_global`) comes back `Sharded`."""
+    if sharding is not None or isinstance(vols, Sharded):
+        return _rl_batched_sharded(
+            vols, psf, sharding, niter=niter, lam=lam,
+            regularize_interval=regularize_interval, fft_shape=fft_shape,
+            edge_taper=edge_taper, classic=classic,
+            stop_criterion=stop_criterion, route=route)
     vols, psf = _inputs(vols, psf, device)
     if vols.dim() != 4:
         raise ValueError(f"expected a (B, D, H, W) batch, got "
@@ -489,6 +497,69 @@ def richardson_lucy_batched(vols, psf, niter: int = 10, lam: float = 0.0,
         regularize_interval=int(regularize_interval), classic=bool(classic),
         route=route)
     return unpad(out, pre, post)
+
+
+def _rl_batched_sharded(vols, psf, sharding, **kw):
+    """`richardson_lucy_batched` on each shard of a batch split over the
+    "data" axis of a mesh, each on its shard's device."""
+    from ..parallel.mesh import Placement, gather, map_shards, put
+
+    if not isinstance(vols, Sharded):
+        if not isinstance(sharding, Placement):
+            raise TypeError(f"sharding must be a parallel.mesh.Placement, "
+                            f"got {type(sharding).__name__}")
+        if sharding.spec[0] != "data":
+            raise ValueError("richardson_lucy_batched splits the batch "
+                             "axis over 'data'")
+        # a "z" split of the blocks folds away: each device deconvolves
+        # whole blocks (intra-block z splitting is richardson_lucy_sharded_z)
+        sharding = Placement(sharding.mesh,
+                             ("data",) + (None,) * (len(sharding.spec) - 1))
+    sh = vols if isinstance(vols, Sharded) else put(vols, sharding)
+    psf_np = (psf.detach().cpu().numpy() if isinstance(psf, torch.Tensor)
+              else np.asarray(psf, np.float32))
+    out = map_shards(lambda v: richardson_lucy_batched(
+        v, psf_np, device=v.device, **kw), sh)
+    if isinstance(vols, Sharded):
+        return out
+    return gather(out, vols.device if isinstance(vols, torch.Tensor)
+                  else None)
+
+
+def richardson_lucy_sharded_z(vol, psf, mesh, niter: int = 10,
+                              halo: Optional[int] = None,
+                              axis_name: str = "z", classic: bool = True):
+    """Sequence-parallel RL (reference richardson_lucy_sharded_z,
+    deconv.py:668-705): the volume's z axis splits over the mesh's "z"
+    entries, each slab, extended by exchanged real-data halos
+    (`parallel.halo`), is deconvolved on its own device as a batch of one
+    (`richardson_lucy_batched`, edge-tapered, at the extended slab's work
+    shape), and the halos are discarded (overlap-discard: the reference's
+    block decomposition with real z padding, LsDeconv.m:173-174).
+
+    vol: (Z, H, W) with Z divisible by the mesh's z size, whole (numpy or
+    a tensor: the result is gathered on its device) or a
+    `parallel.mesh.Sharded` of this process's slabs (the result is
+    `Sharded`).  No early stop, as the reference."""
+    from ..parallel.halo import sharded_map_blocks_z
+
+    psf_np = (psf.detach().cpu().numpy() if isinstance(psf, torch.Tensor)
+              else np.asarray(psf, np.float32)).astype(np.float32)
+    psf_np = psf_np / psf_np.sum()
+    if halo is None:
+        halo = max(1, psf_np.shape[0] // 2)
+    n_sh = mesh.shape[axis_name]
+    local_z = vol.shape[0] // n_sh + 2 * halo
+    fft_shape = fft_shape_for((local_z,) + tuple(vol.shape[1:]),
+                              psf_np.shape, None)
+
+    def local_rl(block_ext):
+        return richardson_lucy_batched(block_ext[None], psf_np, niter=niter,
+                                       fft_shape=fft_shape, edge_taper=True,
+                                       classic=classic,
+                                       device=block_ext.device)[0]
+
+    return sharded_map_blocks_z(local_rl, mesh, halo, axis_name)(vol)
 
 
 def richardson_lucy_wiener(vol, psf, niter: int = 10, lam: float = 0.0,

@@ -16,8 +16,11 @@ compute_funcs.cu):
 Peak, widths and the fusion of the two candidates per axis run on the host
 in float64 (tiny data): the reference's code, unchanged.  MIPs of the
 overlap volumes are taken on the host in their native dtype, as the
-reference does; only the MIPs travel.  One device: a mesh raises
-(multi-GPU is ROADMAP.md queue 1 item 13).
+reference does; only the MIPs travel.  With a device mesh the pair batch
+pads to a multiple of the mesh's "data" size and splits over its devices
+(the reference's `_ncc_maps_sharded`, ncc.py:352-425, the role of
+Parastitcher's rank-per-pair step 2); across processes each takes its
+`process_slice` of the batch and the maps are all-gathered.
 """
 
 from __future__ import annotations
@@ -337,6 +340,61 @@ def _ncc_maps_deferred(ma: np.ndarray, mb: np.ndarray, du: int, dv: int,
     return fetch
 
 
+def _ncc_maps_sharded(ma: np.ndarray, mb: np.ndarray, du: int, dv: int,
+                      mesh, defer: bool = False, device=None):
+    """The (B, 2du+1, 2dv+1) float64 NCC maps of a MIP pair batch, the
+    batch split over the mesh's "data" devices (padded to a multiple of
+    them by repeating the last pair; the extra maps are dropped), each
+    device's share dispatched from its own thread.  Without a mesh (or
+    with one "data" entry) one chain on `device`, else on the mesh's
+    first device.  With defer=True returns a zero-arg fetcher, the maps
+    dispatched and their copies started (several processes: computed and
+    all-gathered now, as collectives run in one order everywhere)."""
+    from ..parallel import distributed
+    from ..parallel.mesh import data_sharding, run_on_devices
+
+    n_data = int(mesh.shape["data"]) if mesh is not None else 1
+    if n_data <= 1:
+        dev = (mesh.devices[0, 0] if mesh is not None
+               else resolve_device(device))
+        fetch = _ncc_maps_deferred(ma, mb, du, dv, dev)
+        return fetch if defer else fetch()
+    B = ma.shape[0]
+    pad = (-B) % n_data
+    if pad:
+        ma = np.concatenate([ma, np.repeat(ma[-1:], pad, axis=0)])
+        mb = np.concatenate([mb, np.repeat(mb[-1:], pad, axis=0)])
+    place = data_sharding(mesh, 3)
+    if distributed.is_multihost():
+        lo, hi = distributed.process_slice(ma.shape[0])
+        a = distributed.device_put_global(np.ascontiguousarray(ma[lo:hi]),
+                                          place)
+        b = distributed.device_put_global(np.ascontiguousarray(mb[lo:hi]),
+                                          place)
+        keys = a.local_keys()
+        outs = run_on_devices(
+            lambda x, y: ncc_maps_batched(x, y, du, dv).cpu(),
+            [(a.shards[k].device, (a.shards[k], b.shards[k]))
+             for k in keys])
+        out = distributed.all_gather(torch.cat(outs)).numpy().astype(
+            np.float64)[:B]
+        return (lambda: out) if defer else out
+    keys = place.keys()
+    step = ma.shape[0] // n_data
+
+    def one(i):
+        dev = mesh.devices[keys[i]]
+        rows = slice(i * step, (i + 1) * step)
+        return _ncc_maps_deferred(ma[rows], mb[rows], du, dv, dev)
+
+    fetches = run_on_devices(one, [(mesh.devices[k], (i,))
+                                   for i, k in enumerate(keys)])
+
+    def fetch():
+        return np.concatenate([f() for f in fetches])[:B]
+    return fetch if defer else fetch()
+
+
 def align_pairs_batched(vols_a: np.ndarray, vols_b: np.ndarray, side: str,
                         overlap: int, delay_v: int, delay_h: int,
                         delay_d: int, params: Optional[NCCParams] = None,
@@ -345,15 +403,16 @@ def align_pairs_batched(vols_a: np.ndarray, vols_b: np.ndarray, side: str,
 
     vols_a / vols_b: (P, D, V, H) host arrays.  The three NCC map kinds are
     each computed for every pair in one `ncc_maps_batched` call; the per-
-    pair host loop does only the tiny peak / width / fusion math.  With
-    _defer=True returns the finalizer (the maps dispatched, their fetch
-    started) instead of the results, so a caller can stack several pair
-    groups.  Returns a list of NCCResult, one per pair."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh for the NCC maps is not ported yet (multi-GPU "
-            "is ROADMAP.md queue 1, item 13); this port runs on one device")
-    dev = resolve_device(device)
+    pair host loop does only the tiny peak / width / fusion math.  With a
+    `mesh` the pair batch splits over its "data" devices
+    (`_ncc_maps_sharded`).  With _defer=True returns the finalizer (the
+    maps dispatched, their fetch started) instead of the results, so a
+    caller can stack several pair groups.  Returns a list of NCCResult,
+    one per pair."""
+    from ..parallel.mesh import check_mesh
+
+    check_mesh(mesh)
+    dev = None if mesh is not None else resolve_device(device)
     params = params or NCCParams()
     assert vols_a.shape == vols_b.shape and vols_a.ndim == 4
     P, dimk, dimi, dimj = vols_a.shape
@@ -398,12 +457,12 @@ def align_pairs_batched(vols_a: np.ndarray, vols_b: np.ndarray, side: str,
 
     mips_a = host_mips(a)
     mips_b = host_mips(b)
-    fetch_xy = _ncc_maps_deferred(mips_a[0], mips_b[0], delay_v + wr_v,
-                                  delay_h + wr_h, dev)
-    fetch_xz = _ncc_maps_deferred(mips_a[1], mips_b[1], delay_v + wr_v,
-                                  delay_d + wr_d, dev)
-    fetch_yz = _ncc_maps_deferred(mips_a[2], mips_b[2], delay_h + wr_h,
-                                  delay_d + wr_d, dev)
+    fetch_xy = _ncc_maps_sharded(mips_a[0], mips_b[0], delay_v + wr_v,
+                                 delay_h + wr_h, mesh, True, dev)
+    fetch_xz = _ncc_maps_sharded(mips_a[1], mips_b[1], delay_v + wr_v,
+                                 delay_d + wr_d, mesh, True, dev)
+    fetch_yz = _ncc_maps_sharded(mips_a[2], mips_b[2], delay_h + wr_h,
+                                 delay_d + wr_d, mesh, True, dev)
 
     def finalize():
         return _finalize_pairs(

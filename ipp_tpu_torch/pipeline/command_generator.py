@@ -107,7 +107,7 @@ def generate_batch_commands(
                 f"--{_COLOR_FLAGS[i]} {shlex.quote(str(c))}" for i, c in
                 enumerate(channels[:len(_COLOR_FLAGS)]))
             merge_cmds.append(
-                f"python -m ipp_tpu.pipeline.merge_channels {flags} "
+                f"python -m ipp_tpu_torch.pipeline.merge_channels {flags} "
                 f"--output_path {shlex.quote(str(out))}")
         if goal in (0, 3) and vox is not None:
             xy, z = vox
@@ -118,7 +118,7 @@ def generate_batch_commands(
                 if make_dirs:
                     out.mkdir(parents=True, exist_ok=True)
                 fnt_cmds.append(
-                    f"python -m ipp_tpu.pipeline.convert "
+                    f"python -m ipp_tpu_torch.pipeline.convert "
                     f"-i {shlex.quote(str(c))} "
                     f"--fnt {shlex.quote(str(out))} "
                     f"-dx {xy} -dy {xy} -dz {z}")
@@ -131,7 +131,7 @@ def generate_batch_commands(
                 out_dir.mkdir(parents=True, exist_ok=True)
             out = out_dir / _ims_filename(sp.name)
             ims_cmds.append(
-                f"python -m ipp_tpu.pipeline.convert "
+                f"python -m ipp_tpu_torch.pipeline.convert "
                 f"-i {shlex.quote(str(src))} -o {shlex.quote(str(out))} "
                 f"-dx {xy} -dy {xy} -dz {z}")
     return {"merge": " && ".join(merge_cmds),
@@ -203,7 +203,7 @@ def main(argv=None) -> int:
                    help="directory whose subdirectories are the cases")
     p.add_argument("--template", "-t", required=True,
                    help="command template, e.g. 'python -m "
-                        "ipp_tpu.pipeline.convert --input {input} "
+                        "ipp_tpu_torch.pipeline.convert --input {input} "
                         "--output {input}_out --imaris'")
     p.add_argument("--nodes", "-n", type=int, default=1)
     p.add_argument("--output", "-o", type=Path, default=None,

@@ -1,8 +1,9 @@
-"""Volume deconvolution CLI on one GPU (port of ipp_tpu/pipeline/deconvolve.py:
-BlockPlan, autosplit, _check_block_coverage, fft_work_shape, TiffDirVolume,
-_uniform_shape, _fft_shape_for_backend, _pad_symmetric_safe,
-read_block_uniform, _block_stats, the single-device branch of
-deconvolve_volume, build_parser and main).
+"""Volume deconvolution CLI on one GPU or a device mesh (port of
+ipp_tpu/pipeline/deconvolve.py: BlockPlan, autosplit, _check_block_coverage,
+fft_work_shape, TiffDirVolume, _uniform_shape, _fft_shape_for_backend,
+_pad_symmetric_safe, read_block_uniform, _block_stats, deconvolve_volume
+with its single-device and data-parallel branches, build_parser and
+main).
 
 Blocks are overlap-save: the FFT work shape equals the halo-padded block
 shape, circular wraparound lands in the discarded halo (4x the PSF
@@ -13,9 +14,13 @@ PSF, as the reference), crop to the core and u16
 quantisation with the block's range (with `--destripe-sigma`: the
 z-destripe of each xz slice through `filter_streaks`, db9, and f32
 bricks, as the reference); then the brick cache (manifest written before
-the brick) and plane-streamed reassembly.  Bricks and
-`blocks_manifest.json` keep the reference's format, so either package can
-`--resume` a run of the other.
+the brick) and plane-streamed reassembly.  With more than one CUDA
+device (or an explicit mesh) blocks go in batches of `--batch-blocks`
+(default: one per device) split over the mesh's devices, each running the
+same per-block chain from its own thread (the reference's LsDeconv
+per-GPU block work, LsDeconv.m:644-706); bricks drain in block order.
+Bricks and `blocks_manifest.json` keep the reference's format, so either
+package can `--resume` a run of the other.
 
 The block planner ranks candidates by padded voxels per core voxel of the
 volume; on CUDA, shapes outside the kernel walk's domain rank after those
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import json
 import math
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -319,16 +325,47 @@ def _finish(core: torch.Tensor):
     return q, torch.stack([qmin, qmax])
 
 
-def _refuse_mesh(adaptive_psf, mesh) -> None:
-    if mesh is None or mesh is False:
-        return
-    if adaptive_psf:  # the reference's guard (deconvolve.py:460-463)
-        raise ValueError(
-            "adaptive_psf runs the per-block blind-Wiener path and cannot "
-            "combine with an explicit multi-device mesh; pass mesh=None")
-    raise NotImplementedError(
-        "a multi-GPU mesh is not yet ported (ROADMAP.md queue 1, "
-        "item 13: multi-GPU)")
+def _block_chain(block: np.ndarray, dev: torch.device, psf_t, *,
+                 gaussian_sigma, dark, adaptive_psf, niter, lam,
+                 stop_criterion, regularize_interval, fft_shape, classic_rl,
+                 halo, uni, destripe_sigma, core_size):
+    """One uniform block through the device chain on `dev`: upload,
+    prefilter, dark, RL (or the blind-Wiener RL), crop to the core and
+    u16 quantisation (with `destripe_sigma`: the z-destripe and f32).
+    Returns the `HostArray` handles (codes, [qmin, qmax]) or (f32 core,
+    None)."""
+    from ..ops.deconv import gauss3d, richardson_lucy, richardson_lucy_wiener
+    from ..ops.destripe import filter_streaks
+
+    if block.dtype != np.uint16:  # any other type as f32
+        block = np.asarray(block, np.float32)
+    x = upload(block, dev).to(torch.float32)
+    if gaussian_sigma is not None:
+        x = gauss3d(x, gaussian_sigma)
+    if dark > 0:
+        x = torch.clamp(x - dark, min=0.0)
+    if adaptive_psf:
+        dec, _ = richardson_lucy_wiener(
+            x, psf_t, niter=niter, lam=lam,
+            regularize_interval=regularize_interval, fft_shape=fft_shape)
+    else:
+        dec = richardson_lucy(
+            x, psf_t, niter=niter, lam=lam, stop_criterion=stop_criterion,
+            regularize_interval=regularize_interval, fft_shape=fft_shape,
+            classic=classic_rl)
+    core = _crop(dec, halo, uni)
+    if destripe_sigma:
+        # z-destripe each xz slice of the block's own core (reference
+        # filter_subband_3d_z.m), before the range is final: f32 goes
+        # back, no quantisation
+        sz = core_size
+        core = filter_streaks(
+            core[:sz[0], :sz[1], :sz[2]].permute(1, 0, 2),
+            sigma=(destripe_sigma, destripe_sigma),
+            wavelet="db9").permute(1, 0, 2)
+        return HostArray(core.contiguous()), None
+    q, mm = _finish(core)
+    return HostArray(q), HostArray(mm)
 
 
 def deconvolve_volume(
@@ -358,15 +395,38 @@ def deconvolve_volume(
     log: Optional[Logger] = None,
     device=None,
 ) -> Path:
-    """End-to-end volume deconvolution on one device (the LsDeconv CLI
-    semantics; the reference's single-device branch).  `batch_blocks` has
-    no effect on one device; a mesh raises NotImplementedError until its
-    port lands (with `adaptive_psf`, ValueError, as the reference)."""
-    from ..ops.deconv import gauss3d, richardson_lucy, richardson_lucy_wiener
-    from ..ops.destripe import filter_streaks
+    """End-to-end volume deconvolution (the LsDeconv CLI semantics).
 
-    _refuse_mesh(adaptive_psf, mesh)
+    A mesh (`parallel.mesh.Mesh`; when neither `mesh` nor `device` is
+    given, that of `parallel.mesh.default_mesh()`, every card when there
+    are several; mesh=False for none) runs data-parallel batches of
+    `batch_blocks` blocks (default and minimum: one per "data" entry,
+    rounded to a multiple of it; a "z" axis folds into "data"), each
+    device running the single-block chain on its share from its own
+    thread.  Without one, the blocks run on `device` (else the resolved
+    one), in batches of `batch_blocks` (default 1).  `adaptive_psf` runs
+    on one device and refuses an explicit mesh (ValueError), as the
+    reference."""
+    from ..parallel import mesh as _mesh
+
+    if mesh is not None and mesh is not False:
+        if adaptive_psf:  # the reference's guard (deconvolve.py:460-463)
+            raise ValueError(
+                "adaptive_psf runs the per-block blind-Wiener path and "
+                "cannot combine with an explicit multi-device mesh; pass "
+                "mesh=None")
+        _mesh.check_mesh(mesh)
     dev = resolve_device(device)
+    if mesh is None and device is None and not adaptive_psf:
+        mesh = _mesh.default_mesh()[0]   # every card when there are several
+    use_mesh = isinstance(mesh, _mesh.Mesh) and mesh.size > 1
+    if use_mesh:
+        if mesh.shape["z"] > 1:
+            # blocks are autosplit to fit one device: the pipeline is pure
+            # data parallelism, so a "z" axis folds into "data" (intra-
+            # block z splitting is ops.deconv.richardson_lucy_sharded_z)
+            mesh = _mesh.make_mesh(devices=list(mesh.devices.flat))
+        dev = mesh.devices[0, 0]
     log = log or Logger()
     vol = TiffDirVolume(input_dir)
     output_dir = Path(output_dir)
@@ -384,7 +444,8 @@ def deconvolve_volume(
             log.info(f"  block {p_.index:05d}: core {p_.core}")
         return output_dir
     log.info(f"volume {vol.shape} -> {len(plans)} blocks, halo {halo}, "
-             f"single device ({dev})")
+             + (f"mesh {mesh.shape}" if use_mesh
+                else f"single device ({dev})"))
 
     manifest_path = output_dir / "blocks_manifest.json"
     stats = {"min": float("inf"), "max": float("-inf")}
@@ -405,6 +466,8 @@ def deconvolve_volume(
     for _ in range(len(plans) - len(todo)):
         prog.step()
 
+    manifest_lock = threading.Lock()   # the drains run on host workers
+
     def save_core(plan: BlockPlan, core: np.ndarray, qrange):
         if qrange is not None:
             qmin, qmax = float(qrange[0]), float(qrange[1])
@@ -412,82 +475,108 @@ def deconvolve_volume(
                                           clip_percentile])
             s = (qmax - qmin) / 65535.0
             lb, ub = lb * s + qmin, ub * s + qmin
-            quant[str(plan.index)] = [qmin, qmax]
         else:  # the z-destripe path keeps f32 bricks, as the reference
             lb, ub = _block_stats(core, clip_percentile)
-        stats["min"] = min(stats["min"], float(lb))
-        stats["max"] = max(stats["max"], float(ub))
-        # manifest BEFORE brick: a crash between the two leaves a quant
-        # entry without a brick (redone on --resume); the other order
-        # would leave u16 codes that resume reads as intensities
-        manifest_path.write_text(json.dumps(
-            {"stats": stats, "quant": quant, "n_blocks": len(plans),
-             "vol_shape": vol.shape}))
+        with manifest_lock:
+            if qrange is not None:
+                quant[str(plan.index)] = [qmin, qmax]
+            stats["min"] = min(stats["min"], float(lb))
+            stats["max"] = max(stats["max"], float(ub))
+            # manifest BEFORE brick: a crash between the two leaves a
+            # quant entry without a brick (redone on --resume); the other
+            # order would leave u16 codes that resume reads as intensities
+            manifest_path.write_text(json.dumps(
+                {"stats": stats, "quant": quant, "n_blocks": len(plans),
+                 "vol_shape": vol.shape}))
         np.save(brick_dir / f"block_{plan.index:05d}.npy",
                 core.astype(np.uint16 if qrange is not None
                             else np.float32))
-        prog.step()
+        with manifest_lock:
+            prog.step()
 
     uni = fft_work_shape(plans, halo, planned)
+    fft_shape = _fft_shape_for_backend(uni)
+    chain = dict(gaussian_sigma=gaussian_sigma, dark=dark,
+                 adaptive_psf=adaptive_psf, niter=niter, lam=lam,
+                 stop_criterion=stop_criterion,
+                 regularize_interval=regularize_interval,
+                 fft_shape=fft_shape, classic_rl=classic_rl, halo=halo,
+                 uni=uni, destripe_sigma=destripe_sigma)
+
+    def core_size(plan):
+        return [hi - lo for lo, hi in plan.core]
+
+    def drain(item):
+        plan, core, qrange = item
+        sz = core_size(plan)
+        core = np.asarray(core)[:sz[0], :sz[1], :sz[2]]
+        save_core(plan, core,
+                  None if qrange is None else np.asarray(qrange).tolist())
+
     if todo:
-        fft_shape = _fft_shape_for_backend(uni)
-        read_pool = ThreadPoolExecutor(max_workers=1)
-        next_fut = read_pool.submit(read_block_uniform, vol, todo[0], uni)
-        lag = OneInFlight()  # device->host of block i overlaps RL of i+1
+        # batches over the devices (one device is a one-entry mesh): read
+        # a batch ahead, dispatch each device's share from its own thread,
+        # copy back a batch behind, and drain (host percentile, brick
+        # write) each device's blocks on a host worker of their own
+        from ..utils.memory import ram_gate
 
-        def drain(item):
-            plan, core, qrange = item
-            core_sz = [hi - lo for lo, hi in plan.core]
-            core = np.asarray(core)[:core_sz[0], :core_sz[1], :core_sz[2]]
-            save_core(plan, core,
-                      None if qrange is None else np.asarray(qrange).tolist())
+        devices = ([mesh.devices[i, 0] for i in range(mesh.shape["data"])]
+                   if use_mesh else [dev])
+        n_data = len(devices)
+        psf_dev = [psf_t.to(d) for d in devices]
+        batch = batch_blocks or n_data
+        batch = max(n_data, (batch // n_data) * n_data)
+        share = batch // n_data   # blocks a device takes from a batch
+        groups = [todo[i:i + batch] for i in range(0, len(todo), batch)]
+        block_pool = ThreadPoolExecutor(max_workers=min(8, max(2, n_data)))
+        group_pool = ThreadPoolExecutor(max_workers=1)
+        drain_pool = ThreadPoolExecutor(max_workers=n_data)
+        draining = []   # the drains of the batch before
 
+        def read_group(group):
+            # explicit RAM admission before staging a batch of blocks
+            # (the reference's free_ram_is_not_enough poll)
+            ram_gate(2 * n_data * 4 * int(np.prod(uni)))
+            return list(block_pool.map(
+                lambda p_: read_block_uniform(vol, p_, uni), group))
+
+        def run_share(k, group, blocks):
+            # device k's blocks of the batch, in block order; a short tail
+            # batch leaves the last devices fewer (or no) blocks
+            return [(plan,) + _block_chain(blocks[b], devices[k], psf_dev[k],
+                                           core_size=core_size(plan), **chain)
+                    for b, plan in enumerate(group)
+                    if b // share == k]
+
+        def drain_batch(items):
+            # one batch drains at a time: host RAM holds at most two
+            # batches of cores, and a failed drain fails the run here
+            for f in draining:
+                f.result()
+            draining[:] = [drain_pool.submit(drain, it) for it in items]
+
+        lag = OneInFlight()  # batch gi's fetch overlaps batch gi+1's RL
         try:
-            for i, plan in enumerate(todo):
-                block = next_fut.result()
-                next_fut = (read_pool.submit(read_block_uniform, vol,
-                                             todo[i + 1], uni)
-                            if i + 1 < len(todo) else None)
-                if block.dtype != np.uint16:  # any other type as f32
-                    block = np.asarray(block, np.float32)
-                x = upload(block, dev).to(torch.float32)
-                if gaussian_sigma is not None:
-                    x = gauss3d(x, gaussian_sigma)
-                if dark > 0:
-                    x = torch.clamp(x - dark, min=0.0)
-                if adaptive_psf:
-                    dec, _ = richardson_lucy_wiener(
-                        x, psf_t, niter=niter, lam=lam,
-                        regularize_interval=regularize_interval,
-                        fft_shape=fft_shape)
-                else:
-                    dec = richardson_lucy(
-                        x, psf_t, niter=niter, lam=lam,
-                        stop_criterion=stop_criterion,
-                        regularize_interval=regularize_interval,
-                        fft_shape=fft_shape, classic=classic_rl)
-                core = _crop(dec, halo, uni)
-                if destripe_sigma:
-                    # z-destripe each xz slice of the block's own core
-                    # (reference filter_subband_3d_z.m), before the range
-                    # is final: f32 goes back, no quantisation
-                    sz = [hi - lo for lo, hi in plan.core]
-                    core = filter_streaks(
-                        core[:sz[0], :sz[1], :sz[2]].permute(1, 0, 2),
-                        sigma=(destripe_sigma, destripe_sigma),
-                        wavelet="db9").permute(1, 0, 2)
-                    outs = (HostArray(core.contiguous()), None)
-                else:
-                    q, mm = _finish(core)
-                    outs = (HostArray(q), HostArray(mm))
-                prev = lag.put((plan,) + outs,
-                               *[o for o in outs if o is not None])
+            next_fut = group_pool.submit(read_group, groups[0])
+            for gi, group in enumerate(groups):
+                blocks = next_fut.result()
+                if gi + 1 < len(groups):
+                    next_fut = group_pool.submit(read_group, groups[gi + 1])
+                n_busy = -(-len(group) // share)
+                items = [it for res in _mesh.run_on_devices(
+                    run_share, [(devices[k], (k, group, blocks))
+                                for k in range(n_busy)]) for it in res]
+                prev = lag.put(items, *[h for it in items for h in it[1:]
+                                        if h is not None])
                 if prev is not None:
-                    drain(prev)
-            for item in lag.flush():
-                drain(item)
+                    drain_batch(prev)
+            for items in lag.flush():
+                drain_batch(items)
+            drain_batch([])
         finally:
-            read_pool.shutdown(wait=True)
+            group_pool.shutdown(wait=True)
+            block_pool.shutdown(wait=True)
+            drain_pool.shutdown(wait=True)
 
     # streamed reassembly: one output plane in RAM at a time, bricks
     # memory-mapped; global percentile rescale (reference postprocess_save,
@@ -533,6 +622,7 @@ def deconvolve_volume(
             for f in pending:
                 f.result()
 
+    quant = {k: quant[k] for k in sorted(quant, key=int)}   # block order
     manifest_path.write_text(json.dumps({
         "stats": stats, "quant": quant,
         "n_blocks": len(plans), "vol_shape": vol.shape,
@@ -546,7 +636,7 @@ def deconvolve_volume(
             "clip_percentile": clip_percentile,
             "classic_rl": classic_rl,
             "psf_shape": list(psf.shape), "halo": list(halo),
-            "mesh": None,
+            "mesh": dict(mesh.shape) if use_mesh else None,
         },
         "deconvmin": deconvmin, "deconvmax": deconvmax, "scale": scale,
         "finished": time.strftime("%Y-%m-%d %H:%M:%S"),
@@ -597,8 +687,8 @@ def build_parser():
                    help="accepted for compatibility; the CUDA kernels "
                         "always multiply in full f32")
     p.add_argument("--batch-blocks", type=int, default=None,
-                   help="blocks per device batch on a multi-device mesh "
-                        "(no effect on one device)")
+                   help="blocks per batch, rounded to a multiple of the "
+                        "device count (default: one per device)")
     p.add_argument("--adaptive-psf", action="store_true",
                    help="blind Wiener PSF re-estimation per iteration "
                         "(reference deconFFT_Wiener)")
@@ -622,7 +712,7 @@ def main(argv=None) -> int:
     from ..ops.psf import make_psf
 
     args = build_parser().parse_args(argv)
-    dev = resolve_device()
+    resolve_device()   # no card and no IPP_TPU_PLATFORM=cpu: fail here
     log = Logger()
     psf_xyz, fwhm_xy, fwhm_z = make_psf(
         dxy=args.dxy, dz=args.dz, NA=args.na, n=args.rf,
@@ -649,8 +739,7 @@ def main(argv=None) -> int:
         cache_dir=args.cache_drive,
         start_block=args.start_block,
         dry_run=args.dry_run,
-        log=log,
-        device=dev)
+        log=log)
     return 0
 
 

@@ -23,10 +23,12 @@ channel-color table mirror process_images.py:52-64.
 Device work (stage-1 destripe with the DWT through the CUDA kernel K5,
 lightsheet correction, NCC maps, blend and merge post-processing, the
 isotropic downsample, the channel alignment's ECC of `--rgb-composite`)
-runs on one device; the merge blends 4 planes per device chain (the
-reference's single-device policy).  Not ported yet, and raising
-NotImplementedError rather than skipping: a device mesh (multi-GPU,
-ROADMAP.md queue 1 item 13).
+runs on one device, the merge blending 4 planes per device chain (the
+reference's single-device policy); with more than one CUDA device (or an
+explicit mesh) the preprocess, the NCC maps of step 2 and the merge of
+step 6 with its post-processing split over the mesh's devices, one plane a
+device in the merge (the role of the reference's MPI Parastitcher
+fan-out, process_images.py:542-548).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from ..geometry.stacks import TileGrid
 from ..io import tiff as tio
 from ..ops.process import ProcessConfig
 from ..stitch.align import compute_displacements
-from ..stitch.merge import PLANE_BATCH, downsampled_npz, merge_to_tif_series
+from ..stitch.merge import downsampled_npz, merge_to_tif_series
 from ..stitch.place import (place_tiles_mst, project_displacements,
                             threshold_displacements)
 from ..utils.device import resolve_device
@@ -167,22 +169,30 @@ def process_channel(
     device=None,
 ) -> Path:
     """Full single-channel pipeline (reference process_channel,
-    process_images.py:334-786) on one device (`device`, else the resolved
-    one).  A `mesh` raises NotImplementedError: the reference's sharded
-    steps 2 and 6 are ROADMAP.md queue 1 item 13."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh for steps 2/6 is not ported yet (multi-GPU is "
-            "ROADMAP.md queue 1, item 13); this port runs on one device")
+    process_images.py:334-786).
+
+    With an explicit `mesh`, or with more than one CUDA device and
+    neither `mesh` nor `device` given (`parallel.mesh.default_mesh`), the
+    preprocess, step 2 (NCC) and step 6 (merge) split over the mesh's
+    devices -- the role of the reference's MPI Parastitcher fan-out
+    (process_images.py:542-548); otherwise every step runs on `device`
+    (else the resolved one)."""
+    from ..parallel import mesh as _mesh
+
+    _mesh.check_mesh(mesh)
     log = log or Logger()
     timer = StageTimer()
-    dev = resolve_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        log.info(f"{torch.cuda.device_count()} CUDA devices: this run uses "
-                 f"{dev} only (multi-GPU is ROADMAP.md queue 1, item 13)")
+    plane_batch = 1
+    if mesh is None:
+        mesh, plane_batch = (_mesh.default_mesh() if device is None
+                             else (None, 4))
+    use_mesh = mesh is not None and mesh.size > 1
+    mesh = mesh if use_mesh else None
+    dev = mesh.devices[0, 0] if use_mesh else resolve_device(device)
+    if use_mesh:
+        log.info(f"device mesh for steps 1, 2 and 6: {mesh.shape}")
     else:
         log.info(f"steps 1-6 on one device ({dev})")
-    plane_batch = PLANE_BATCH
 
     timer.start("inspect")
     if not skip_inspection:
@@ -197,7 +207,8 @@ def process_channel(
                                 workers=io_workers,
                                 read_timeout=(300.0 if read_timeout is None
                                               else read_timeout),
-                                read_sandbox=read_sandbox, device=dev)
+                                read_sandbox=read_sandbox, device=dev,
+                                mesh=mesh or False)
         # (--timeout 0 disables the read sandbox: executor treats
         # non-positive as no timeout)
         log.info(f"preprocess counters: {counters}")
@@ -226,7 +237,7 @@ def process_channel(
             bleach_correction=bleach_correction,
             background_subtraction=background_subtraction,
             rotation=rotation, compression=compression, resume=resume,
-            plane_batch=plane_batch, dev=dev)
+            plane_batch=plane_batch, dev=dev, mesh=mesh)
 
     timer.start("import")
     grid = TileGrid.from_directory(source_for_stitch,
@@ -275,7 +286,7 @@ def process_channel(
         grid, overlap_v=overlap_v, overlap_h=overlap_h,
         displ_max_v=search_radius, displ_max_h=search_radius,
         displ_max_d=min(search_radius, max(1, grid.flattened()[0].depth // 8)),
-        subvol_dim=subvol_dim, device=dev)
+        subvol_dim=subvol_dim, mesh=mesh, device=dev)
 
     timer.start("project/threshold/place (3-5)")
     project_displacements(grid, cands, overlap_v, overlap_h)
@@ -294,14 +305,14 @@ def process_channel(
         auto_params=auto_params, bleach_correction=bleach_correction,
         background_subtraction=background_subtraction,
         rotation=rotation, compression=compression, resume=resume,
-        plane_batch=plane_batch, dev=dev)
+        plane_batch=plane_batch, dev=dev, mesh=mesh)
 
 
 def _merge_stage(
     grid, channel_path, stitched_path, timer, log, *, cosine_blending,
     target_voxel_um, voxel_um, tile_size, convert_to_8bit, bit_shift,
     dark, auto_params, bleach_correction, background_subtraction,
-    rotation, compression, resume, plane_batch, dev,
+    rotation, compression, resume, plane_batch, dev, mesh,
 ) -> Path:
     """Steps after placement: parameter estimation, merge (step 6) and
     the downsampled npz — shared by the computed-placement path and the
@@ -412,7 +423,8 @@ def _merge_stage(
         post_fn=post_fn, post_fn_device=post_fn_device,
         dtype=np.uint8 if convert_to_8bit else np.uint16,
         target_voxel_um=target_voxel_um, resume=resume, rotation=rotation,
-        compression=compression, plane_batch=plane_batch, device=dev)
+        compression=compression, mesh=mesh, plane_batch=plane_batch,
+        device=dev)
 
     if target_voxel_um is not None and ds_vol is not None:
         timer.start("downsample npz")
@@ -891,7 +903,7 @@ def main(argv=None) -> int:
                 stitched_root / f"{reference_channel}_placement.xml"
                 if args.stitch_on_reference_alignment
                 and ch != reference_channel else None),
-            resume=args.resume, log=log, device=dev)
+            resume=args.resume, log=log)
         # exports (reference: TeraFly via paraconverter, Imaris via wine
         # ImarisConvertiv — here native, process_images.py:751-783,1452-1471)
         # run on ONE background thread so they overlap the NEXT channel's

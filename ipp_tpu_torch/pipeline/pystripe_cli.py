@@ -1,4 +1,4 @@
-"""Batch destriping CLI on one GPU — the pystripe equivalent (port of
+"""Batch destriping CLI on the GPU(s) — the pystripe equivalent (port of
 ipp_tpu/pipeline/pystripe_cli.py: collect_tasks, batch_filter,
 build_parser, _resolve_compression and main).
 
@@ -13,9 +13,10 @@ Same flags and defaults as the reference CLI.
 Usage: python -m ipp_tpu_torch.pipeline.pystripe_cli --input DIR
           [--output DIR] --sigma1 250 --sigma2 250 [...]
 
-One device: the single-device branch of the reference.  With more than
-one CUDA device the run uses the current one and says so (multi-GPU is
-ROADMAP.md queue 1 item 13).
+With a device mesh (by default `parallel.mesh.default_mesh`: every
+CUDA device when more than one is visible) each tile batch splits over
+the mesh's devices, each destriping its tiles from its own thread (the
+reference's per-GPU queue, pystripe/core.py:2021-2037).
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from ..io import tiff as tio
 from ..ops.process import (ProcessConfig, _out_meta, is_uniform_2d,
@@ -81,36 +81,58 @@ def batch_filter(input_dir: Path, output_dir: Path, cfg: ProcessConfig,
                  compression: Optional[str] = None,
                  workers: int = 8, z_step: Optional[float] = None,
                  read_timeout: Optional[float] = 300.0,
-                 read_sandbox: str = "thread", device=None) -> dict:
-    """Destripe a whole directory tree on one device (reference
-    batch_filter, pystripe/core.py:1806-2050, single-device branch)."""
+                 read_sandbox: str = "thread", device=None,
+                 mesh=None) -> dict:
+    """Destripe a whole directory tree (reference batch_filter,
+    pystripe/core.py:1806-2050).
+
+    `mesh`: a `parallel.mesh.Mesh` whose entries (z folded into "data")
+    each destripe their share of every tile batch; when neither `mesh`
+    nor `device` is given, `parallel.mesh.default_mesh()`'s; False none.
+    Without one the work runs on `device` (else the resolved device), a
+    one-entry mesh.  The batch size rounds to a multiple of the device
+    count, and a short batch pads to it with its last tile (the extra
+    rows are dropped)."""
+    from ..parallel import mesh as _mesh
+    from ..utils.transfer import HostArrays
+
     tasks = collect_tasks(Path(input_dir), Path(output_dir), z_step=z_step)
     if not tasks:
         raise FileNotFoundError(f"no images under {input_dir}")
-    dev = resolve_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        Logger().info(f"{torch.cuda.device_count()} CUDA devices: this run "
-                      f"uses {dev} only (multi-GPU is ROADMAP.md queue 1, "
-                      "item 13)")
+    if mesh is None and device is None:
+        mesh = _mesh.default_mesh()[0]
+    mesh = _mesh.check_mesh(mesh or None)
+    devices = (list(mesh.devices.flat) if mesh is not None
+               else [resolve_device(device)])
+    n_dev = len(devices)
+    dev = devices[0]
     per_plane = needs_host_stats(cfg)
-    run_batch = None if per_plane else process_batch_fn(cfg, dev)
+    batch_size = max(batch_size, n_dev) // n_dev * n_dev
+    # one batch callable per device
+    runs = [] if per_plane else [process_batch_fn(cfg, d) for d in devices]
 
     def _device_run(stacked: np.ndarray):
-        """Run the batch on the device; returns the `HostArray` handle so
-        the executor's lagged fetch overlaps this batch's download with
-        the next batch's upload and chain."""
+        """Run the batch on the device(s); returns the `HostArrays`
+        handle so the executor's lagged fetch overlaps this batch's
+        download with the next batch's upload and chain."""
         if per_plane:
             # unresolved bleach clips are per-plane otsu statistics —
             # stacking would make them batch-global
             return np.stack([process_img(p, cfg, device=dev)
                              for p in stacked])
         # tail batches and mixed-uniform subsets pad to batch_size, as in
-        # the reference: one batch shape for the whole run
+        # the reference: every device runs batch_size / n_dev tiles in
+        # every batch (a tile's result then never depends on where in the
+        # run it falls)
         n = stacked.shape[0]
         if n < batch_size:
             stacked = np.concatenate(
                 [stacked, np.repeat(stacked[-1:], batch_size - n, 0)])
-        return run_batch(stacked, n)
+        step = batch_size // n_dev
+        parts = _mesh.run_on_devices(
+            lambda i: runs[i](stacked[i * step:(i + 1) * step]),
+            [(d, (i,)) for i, d in enumerate(devices)])
+        return HostArrays(parts, n)
 
     def proc_batch(batch: np.ndarray):
         # the device path handles whole batches; uniform tiles short-circuit

@@ -3,7 +3,9 @@ ipp_tpu/pipeline/tsv_tools.py; same subcommands, flags and defaults).
 Device work runs on one device: the block reductions of `downsample`,
 the blends of `justified_stitch`, `convert` and `simple` (through
 stitch/merge.merge_to_tif_series and stitch/blend.PlaneBlender), the 3D
-resize of `resize3d` and the z resize of `npz`.
+resize of `resize3d` and the z resize of `npz`; the merges of `convert`
+and `simple` blend over the device mesh of `parallel.mesh.default_mesh`
+when more than one card is visible.
 
 Equivalents of the reference's small tools:
 - downsample_series: 2x downsample of a TIFF dir (tsv/downsample.py:11-55)
@@ -38,7 +40,6 @@ from ..geometry.extent import VExtent
 from ..io import tiff as tio
 from ..ops.resample import block_reduce
 from ..stitch.blend import PlaneBlender
-from ..stitch.merge import PLANE_BATCH
 from ..utils.device import resolve_device
 from ..utils.log import Logger
 from ..utils.transfer import upload
@@ -216,10 +217,12 @@ def simple_grid_stitch(tile_dirs: List[List[Path]], out_dir,
             row.append(s)
         stacks.append(row)
     grid = TileGrid(stacks)
+    from ..parallel.mesh import default_mesh
     from ..stitch.merge import merge_to_tif_series
 
+    mesh, plane_batch = default_mesh()
     out, _ = merge_to_tif_series(grid, out_dir, cosine_blending=cosine,
-                                 plane_batch=PLANE_BATCH)
+                                 mesh=mesh, plane_batch=plane_batch)
     return out
 
 
@@ -428,6 +431,7 @@ def convert_xml_to_2d_tif(xml_path, output_pattern: str,
 def _merge_grid_to_pattern(grid, output_pattern: str, mipmap_level: int,
                            volume_str: str, compression: int, rotation: int,
                            resume: bool, cosine: bool) -> Path:
+    from ..parallel.mesh import default_mesh
     from ..stitch.merge import merge_to_tif_series
 
     vol = None
@@ -435,6 +439,7 @@ def _merge_grid_to_pattern(grid, output_pattern: str, mipmap_level: int,
         x0, x1, y0, y1, z0, z1 = map(int, volume_str.split(","))
         vol = VExtent(x0, x1, y0, y1, z0, z1)
     level = max(0, min(9, compression))
+    mesh, plane_batch = default_mesh()
     out, _ = merge_to_tif_series(
         grid, Path(output_pattern.format(z=0)).parent,
         cosine_blending=cosine,
@@ -442,7 +447,7 @@ def _merge_grid_to_pattern(grid, output_pattern: str, mipmap_level: int,
         rotation=rotation,
         mipmap_level=mipmap_level or None,
         volume=vol, output_pattern=output_pattern,
-        resume=resume, plane_batch=PLANE_BATCH)
+        resume=resume, mesh=mesh, plane_batch=plane_batch)
     return out
 
 

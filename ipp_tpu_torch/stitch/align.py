@@ -13,7 +13,7 @@ partitioning of Parastitcher (pyscripts/Parastitcher.py:410-470):
   device chains (the NCC maps of every same-shape pair in one
   `ncc_maps_batched` call per map kind), with IO on host threads.
 
-A device mesh raises (multi-GPU is ROADMAP.md queue 1 item 13).
+With a device mesh the pair batches split over its "data" devices.
 """
 
 from __future__ import annotations
@@ -116,16 +116,14 @@ def compute_displacements(
     """Compute NORTH/WEST displacement candidate lists for every adjacent
     pair, one candidate per z-subvolume.
 
-    The NCC maps run on `device` (else the resolved device); a `mesh`
-    raises NotImplementedError (ROADMAP.md queue 1 item 13).
+    The NCC maps run on `device` (else the resolved device); with a
+    multi-device `mesh` (`parallel.mesh.Mesh`) the NCC-map batches split
+    over its "data" devices, the replacement for Parastitcher's MPI
+    master_step2 rank fan-out (reference pyscripts/Parastitcher.py:410-470).
 
     Returns {(row_b, col_b, 'north'|'west'): [Displacement per z chunk]} and
     also attaches nothing to the grid — step 3 (project) consumes the dict.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh for step 2 is not ported yet (multi-GPU is "
-            "ROADMAP.md queue 1, item 13); this port runs on one device")
     params = params or NCCParams()
     rows, cols = grid.n_rows, grid.n_cols
     depth = min(s.depth for s in grid.flattened())
@@ -175,7 +173,7 @@ def compute_displacements(
             vols_b = np.stack([substacks[id(b)] for _, b, _, _ in group])
             finalize = align_pairs_batched(
                 vols_a, vols_b, side_sel, overlap, displ_max_v, displ_max_h,
-                displ_max_d, params, _defer=True, device=device)
+                displ_max_d, params, mesh=mesh, _defer=True, device=device)
             staged.append((side_sel, group, finalize))
         for side_sel, group, finalize in staged:
             results = finalize()

@@ -28,7 +28,7 @@ from ..geometry.extent import VExtent
 from ..ops.intensity import round_clip
 from ..utils import iostat
 from ..utils.device import resolve_device
-from ..utils.transfer import HostArray, device_dtype, upload
+from ..utils.transfer import HostArrays, device_dtype, upload
 
 __all__ = ["distance_from_edge", "cosine_blend_weight", "PlaneBlender"]
 
@@ -149,7 +149,7 @@ def _cast_on_device(out: torch.Tensor, dtype) -> torch.Tensor:
     return out
 
 
-def _finish(out: HostArray, dtype, B: int) -> np.ndarray:
+def _finish(out: HostArrays, dtype, B: int) -> np.ndarray:
     """The host array of a blend handle in `dtype`, its first B planes."""
     with iostat.span("device_fetch",
                      int(np.prod(out.shape)) * np.dtype(dtype).itemsize):
@@ -159,11 +159,12 @@ def _finish(out: HostArray, dtype, B: int) -> np.ndarray:
 
 
 class PlaneBlender:
-    """Blends z planes of a placed tile grid into a canvas on one device.
+    """Blends z planes of a placed tile grid into a canvas on a device, or
+    on each device of a mesh.
 
-    Weight maps are cached per (stack extent, neighbor extents) — constant
-    across z for column-aligned grids, so the per-plane work is pure device
-    accumulation."""
+    Weight maps are cached per (stack extent, neighbor extents, device) --
+    constant across z for column-aligned grids, so the per-plane work is
+    pure device accumulation, and each device blends with its own copy."""
 
     def __init__(self, extents: Sequence[VExtent], cosine: bool = True,
                  device=None):
@@ -172,9 +173,11 @@ class PlaneBlender:
         self.device = resolve_device(device)
         self._weight_cache: Dict[Tuple, torch.Tensor] = {}
 
-    def weights_for(self, volume: VExtent
+    def weights_for(self, volume: VExtent, device=None
                     ) -> List[Tuple[int, VExtent, torch.Tensor]]:
-        """[(stack_index, intersection, weight2d)] for stacks hitting volume."""
+        """[(stack_index, intersection, weight2d)] for stacks hitting
+        volume, the weights on `device` (default: the blender's)."""
+        device = self.device if device is None else torch.device(device)
         hits = [(i, e) for i, e in enumerate(self.extents) if e.intersects(volume)]
         out = []
         for i, ext in hits:
@@ -182,18 +185,18 @@ class PlaneBlender:
             others = tuple(self.extents[j].intersection(volume)
                            for j, e2 in hits if j != i
                            and self.extents[j].intersection(volume).intersects(inter))
-            key = (inter, ext, others)
+            key = (inter, ext, others, device)
             w = self._weight_cache.get(key)
             if w is None:
                 w3 = cosine_blend_weight(inter, ext, others)
                 w = w3[0] if w3.shape[0] == 1 else w3
                 # on the device once per layout: reused for every z plane
-                w = upload(np.ascontiguousarray(w, np.float32), self.device)
+                w = upload(np.ascontiguousarray(w, np.float32), device)
                 self._weight_cache[key] = w
             out.append((i, inter, w))
         return out
 
-    def weights_for_batch(self, volume: VExtent):
+    def weights_for_batch(self, volume: VExtent, device=None):
         """Like weights_for, but for a multi-plane volume sharing one xy
         layout: returns [(stack_index, 3D intersection, weight2d)] with the
         weights computed once on the first plane, or None when the layout
@@ -209,7 +212,7 @@ class PlaneBlender:
                 inter = e.intersection(volume)
                 if inter.z0 != volume.z0 or inter.z1 != volume.z1:
                     return None
-        hits = self.weights_for(plane)
+        hits = self.weights_for(plane, device)
         out = []
         for i, inter_p, w in hits:
             inter = self.extents[i].intersection(volume)
@@ -217,48 +220,60 @@ class PlaneBlender:
         return out
 
     def blend_planes_async(self, volume: VExtent, reader, dtype=np.uint16,
+                           sharding=None, pad_to: int = 1,
                            device_post=None):
         """blend_planes with the fetch deferred: returns None on a layout
         change (caller falls back, same contract), else a zero-arg callable
-        producing the (B, H, W) host array.  The device->host copy is
-        queued now (`HostArray.copy_to_host_async`), so the caller can
+        producing the (B, H, W) host array.  The device->host copies are
+        queued now (`HostArrays.copy_to_host_async`), so the caller can
         dispatch the next batch while this one streams back."""
-        out = self._blend_planes_device(volume, reader, dtype, device_post)
+        out = self._blend_planes_device(volume, reader, dtype, sharding,
+                                        pad_to, device_post)
         if out is None:
             return None
-        dev, B = out
-        if isinstance(dev, np.ndarray):  # empty volume
-            return lambda: dev
-        handle = HostArray(dev)
+        devs, B = out
+        if isinstance(devs, np.ndarray):  # empty volume
+            return lambda: devs
+        handle = HostArrays(devs)
         handle.copy_to_host_async()
         return lambda: _finish(handle, dtype, B)
 
     def blend_planes(self, volume: VExtent, reader, dtype=np.uint16,
+                     sharding=None, pad_to: int = 1,
                      device_post=None) -> Optional[np.ndarray]:
         """Blend a batch of B = volume.shape[0] z planes in one device chain.
 
         reader(stack_index, 3D intersection) -> (B, h, w) crop stack.
+        With `sharding` (a `parallel.mesh.Placement` splitting the batch
+        over "data"), each device blends its share of the planes, from its
+        own thread, with its own weights (the master_step6 slab fan-out,
+        reference Parastitcher.py:570); pad_to pads the batch by repeating
+        its last plane to a multiple of the device count.
         device_post: optional device-side per-plane post-processing hook
         ((B, H, W) f32 tensor -> (B, H, W) tensor of any device dtype) run
-        on the accumulated canvas before the fetch (the process_img role of
-        the reference's merge workers, parallel_image_processor.py:334-384),
-        so the fetch moves post-processed (integer-width) bytes.
+        on the accumulated canvas before the fetch, on each device under
+        a sharding (the process_img role of the reference's merge workers,
+        parallel_image_processor.py:334-384), so the fetch moves
+        post-processed (integer-width) bytes.
         Returns (B, H, W) in `dtype`, or None if the xy layout is not
         constant across the batch (caller falls back to blend_plane)."""
-        out = self._blend_planes_device(volume, reader, dtype, device_post)
+        out = self._blend_planes_device(volume, reader, dtype, sharding,
+                                        pad_to, device_post)
         if out is None:
             return None
-        dev, B = out
-        if isinstance(dev, np.ndarray):  # empty-volume fast path
-            return dev
-        return _finish(HostArray(dev), dtype, B)
+        devs, B = out
+        if isinstance(devs, np.ndarray):  # empty-volume fast path
+            return devs
+        return _finish(HostArrays(devs), dtype, B)
 
-    def _blend_planes_device(self, volume, reader, dtype, device_post):
+    def _blend_planes_device(self, volume, reader, dtype, sharding, pad_to,
+                             device_post):
         """Shared device half of blend_planes: reads, uploads, accumulates,
-        post-processes and casts on the device — returns (device tensor in
-        `dtype`'s device dtype (integer targets) or f32, B), a plain
-        (B, H, W) ndarray for empty volumes, or None on a mid-batch layout
-        change."""
+        post-processes and casts on the device(s) — returns ([one tensor
+        per device, in batch order], B), a plain (B, H, W) ndarray for
+        empty volumes, or None on a mid-batch layout change."""
+        from ..parallel.mesh import run_on_devices
+
         hits = self.weights_for_batch(volume)
         if hits is None:
             return None
@@ -266,21 +281,42 @@ class PlaneBlender:
         canvas_shape = volume.shape[1:]
         if not hits:
             return np.zeros((B,) + canvas_shape, dtype), B
-        parts, weights, offsets = [], [], []
+        imgs, offsets = [], []
         for i, inter, w in hits:
             img = np.asarray(reader(i, inter))
             assert img.shape[0] == B, (img.shape, B)
-            with iostat.span("device_upload", img.nbytes):
-                parts.append(upload(img, self.device))
-            weights.append(w)
+            imgs.append(img)
             offsets.append((inter.y0 - volume.y0, inter.x0 - volume.x0))
-        with iostat.span("device_dispatch"):
-            out = _blend_accumulate(parts, weights, offsets, canvas_shape,
-                                    self.cosine)
-            if device_post is not None:
-                out = device_post(out)
-            out = _cast_on_device(out, dtype)
-        return out, B
+        if sharding is None:
+            devices = [self.device]
+        else:
+            devices = [sharding.mesh.devices[k] for k in sharding.keys()]
+            n_pad = -(-B // max(1, pad_to)) * max(1, pad_to) - B
+            if n_pad:
+                imgs = [np.concatenate([m, np.repeat(m[-1:], n_pad, 0)])
+                        for m in imgs]
+            if imgs[0].shape[0] % len(devices):
+                raise ValueError(f"{imgs[0].shape[0]} planes do not split "
+                                 f"over {len(devices)} devices")
+        step = imgs[0].shape[0] // len(devices)
+
+        def one(n, dev):
+            weights = [w for _i, _inter, w in
+                       self.weights_for_batch(volume, dev)]
+            parts = []
+            for img in imgs:
+                piece = img[n * step:(n + 1) * step]
+                with iostat.span("device_upload", piece.nbytes):
+                    parts.append(upload(piece, dev))
+            with iostat.span("device_dispatch"):
+                out = _blend_accumulate(parts, weights, offsets,
+                                        canvas_shape, self.cosine)
+                if device_post is not None:
+                    out = device_post(out)
+                return _cast_on_device(out, dtype)
+
+        return run_on_devices(one, [(d, (n, d))
+                                    for n, d in enumerate(devices)]), B
 
     def blend_plane(self, volume: VExtent,
                     reader, dtype=np.uint16) -> np.ndarray:
@@ -306,4 +342,4 @@ class PlaneBlender:
             out = _blend_accumulate(parts, weights, offsets, canvas_shape,
                                     self.cosine)
             out = _cast_on_device(out, dtype)
-        return _finish(HostArray(out), dtype, 1)[0]
+        return _finish(HostArrays([out]), dtype, 1)[0]

@@ -1,6 +1,7 @@
 """Step 6 — streamed merge of a placed tile grid to a 2D TIFF series,
 with on-the-fly isotropic downsampling and NPZ export for atlas
-registration, on one device (port of ipp_tpu/stitch/merge.py:
+registration, on one device or a device mesh (port of
+ipp_tpu/stitch/merge.py:
 merge_to_tif_series, downsampled_npz, make_diag_stack).
 
 Re-design of the reference's merge path:
@@ -17,8 +18,11 @@ Re-design of the reference's merge path:
   parallel_image_processor.py:281-307).
 
 Same files, names and resume behaviour as the reference, so a half-written
-series resumes under either package.  A device mesh raises (multi-GPU is
-ROADMAP.md queue 1 item 13).
+series resumes under either package.  With a device mesh, planes blend in
+batches of the mesh's "data" size, one plane a device; across processes
+each merges its own contiguous z slab with its local device, without
+collectives (the reference's Parastitcher master_step6 output-slab fan-out,
+Parastitcher.py:519-620).
 """
 
 from __future__ import annotations
@@ -99,14 +103,28 @@ def merge_to_tif_series(
     (the reference's merge-time flip, LsDeconv stack_info.flip_upside_down
     and flip_script.py's role applied inline).
     plane_batch: planes blended per device chain.  The work runs on
-    `device` (else the resolved device); a `mesh` raises
-    NotImplementedError (ROADMAP.md queue 1 item 13).
+    `device` (else the resolved device).
+    mesh: a `parallel.mesh.Mesh` -- planes then blend in batches of its
+    "data" size, one plane on each device (with post_fn_device run there
+    too), the replacement for Parastitcher's MPI master_step6 output-slab
+    fan-out (reference pyscripts/Parastitcher.py:519-620).  With several
+    processes (`parallel.distributed`) each merges its own contiguous z
+    slab (`process_slice`) on `device` instead, and the mesh is not used.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh for the merge is not ported yet (multi-GPU is "
-            "ROADMAP.md queue 1, item 13); this port runs on one device")
-    dev = resolve_device(device)
+    from ..parallel import distributed
+    from ..parallel.mesh import check_mesh, data_sharding
+
+    check_mesh(mesh)
+    n_procs = distributed.process_count()
+    if n_procs > 1:
+        if target_voxel_um is not None:
+            raise ValueError(
+                "multi-process merge partitions z across ranks; the "
+                "isotropic downsample needs the full z sequence -- run "
+                "it single-process")
+        mesh = None
+    use_mesh = mesh is not None and mesh.size > 1
+    dev = mesh.devices[0, 0] if use_mesh else resolve_device(device)
     if rotation not in (0, 90, 180, 270):
         raise ValueError(f"rotation must be 0/90/180/270, got {rotation}")
     if post_fn_device is not None and post_fn is None:
@@ -190,8 +208,10 @@ def merge_to_tif_series(
     read_pool = ThreadPoolExecutor(max_workers=io_threads)
 
     # plane_batch planes per device chain amortize its launches and the
-    # crops' uploads across planes
-    batch = max(1, int(plane_batch))
+    # crops' uploads across planes; a mesh blends one plane a device
+    n_data = int(mesh.shape["data"]) if use_mesh else 1
+    batch = n_data if use_mesh else max(1, int(plane_batch))
+    sharding = data_sharding(mesh, 3) if use_mesh else None
 
     def batch_ext_of(zi: int, zj: int) -> VExtent:
         return VExtent(bbox.x0, bbox.x1, bbox.y0, bbox.y1,
@@ -286,7 +306,11 @@ def merge_to_tif_series(
 
     if dec > 1:
         # non-contiguous z: per-plane reads, no batch prefetch
-        for z in range(0, depth, dec):
+        mm_lo, mm_hi = 0, depth
+        if n_procs > 1:
+            mm_lo, mm_hi = distributed.process_slice(depth)
+            mm_lo = -(-mm_lo // dec) * dec  # first decimated plane in slab
+        for z in range(mm_lo, mm_hi, dec):
             path = plane_path(z)
             if resume and path.exists():
                 if progress is not None:
@@ -310,7 +334,8 @@ def merge_to_tif_series(
             raise errors[0]
         return out_dir, None
 
-    z_lo, z_hi = 0, depth
+    z_lo, z_hi = (distributed.process_slice(depth) if n_procs > 1
+                  else (0, depth))
     next_futs = prefetch(z_lo) if z_hi > z_lo else {}
     # one batch of fetch in flight: batch k's device->host copy streams
     # back (blend_planes_async queues it) while batch k+1's reads, uploads
@@ -339,7 +364,7 @@ def merge_to_tif_series(
             lambda i, e: (futs[(i, e)].result() if (i, e) in futs
                           else stacks[i].imread(e)),
             dtype=(dtype if post_fn_device is not None else fetch_dtype),
-            device_post=post_fn_device)
+            sharding=sharding, pad_to=n_data, device_post=post_fn_device)
         batch_post = finish is not None and post_fn_device is not None
         if finish is None:
             # layout changes across the batch (tiles start/end mid-z):

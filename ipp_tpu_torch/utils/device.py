@@ -16,13 +16,18 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["apply_precision_policy", "resolve_device"]
+__all__ = ["apply_precision_policy", "cpu_requested", "resolve_device"]
 
 
 def apply_precision_policy() -> None:
     """Full-f32 matmuls and convolutions (no TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def cpu_requested() -> bool:
+    """True when IPP_TPU_PLATFORM=cpu asks for the CPU."""
+    return os.environ.get("IPP_TPU_PLATFORM", "").lower() == "cpu"
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -32,7 +37,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     CUDA device is present and the CPU was not asked for."""
     if device is not None:
         return torch.device(device)
-    if os.environ.get("IPP_TPU_PLATFORM", "").lower() == "cpu":
+    if cpu_requested():
         return torch.device("cpu")
     if torch.cuda.is_available():
         return torch.device("cuda", torch.cuda.current_device())

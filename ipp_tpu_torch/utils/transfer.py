@@ -23,7 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["device_dtype", "host_dtype", "upload", "HostArray"]
+__all__ = ["device_dtype", "host_dtype", "upload", "HostArray",
+           "HostArrays"]
 
 _DEVICE = {
     np.dtype(np.bool_): torch.bool,
@@ -107,4 +108,25 @@ class HostArray:
         a = self._host.numpy()
         if self.dtype == np.uint16:
             a = a.view(np.uint16)
+        return a if dtype is None else a.astype(dtype, copy=False)
+
+
+class HostArrays:
+    """Device tensors (one batch split over devices, in order) as one
+    host array: their first `n` rows along dim 0 after concatenation."""
+
+    def __init__(self, parts, n: Optional[int] = None):
+        self._parts = [p if isinstance(p, HostArray) else HostArray(p)
+                       for p in parts]
+        self._n = n
+        rows = sum(p.shape[0] for p in self._parts)
+        self.shape = ((rows if n is None else min(n, rows)),) \
+            + self._parts[0].shape[1:]
+
+    def copy_to_host_async(self) -> None:
+        for p in self._parts:
+            p.copy_to_host_async()
+
+    def __array__(self, dtype=None, copy=None):
+        a = np.concatenate([np.asarray(p) for p in self._parts])[:self._n]
         return a if dtype is None else a.astype(dtype, copy=False)

@@ -226,8 +226,8 @@ def test_adaptive_psf_matches_the_jax_twin(psf, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--adaptive-psf"]])
 def test_unported_flags_fail_loudly(flag, psf, tmp_path):
-    """--adaptive-psf is ported; with a mesh, which is not, it still
-    fails loudly, with the reference's guard."""
+    """--adaptive-psf is ported; with an explicit mesh it fails loudly,
+    with the reference's guard."""
     args = P.build_parser().parse_args(
         ["-i", str(tmp_path), "-o", str(tmp_path / "o"), *flag])
     with pytest.raises(ValueError, match="mesh"):
@@ -236,7 +236,9 @@ def test_unported_flags_fail_loudly(flag, psf, tmp_path):
 
 
 def test_a_mesh_fails_loudly(psf, tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """A mesh that is not a parallel.mesh.Mesh is refused, never run on
+    one device."""
+    with pytest.raises(TypeError, match="Mesh"):
         P.deconvolve_volume(tmp_path, tmp_path / "o", psf, mesh=object())
 
 

@@ -133,7 +133,7 @@ def test_align_pair_equal():
 
 def test_mesh_raises():
     a = np.zeros((1, 4, 30, 30), np.float32)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         PN.align_pairs_batched(a, a, "ns", 10, 2, 2, 1, mesh=object())
 
 

@@ -219,7 +219,7 @@ def test_rgb_composite_matches_the_jax_package(two_channels, tmp_path):
 
 
 def test_mesh_raises(raw, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         P.process_channel(raw / "raw" / CH, tmp_path / "p", tmp_path / "s",
                           (0.41, 0.41, 0.2), (2000, 2000), None,
                           mesh=object())

@@ -168,7 +168,7 @@ def test_batched_walk_runs_the_batched_plain_forms(rng):
 def test_batched_refuses_a_mesh_and_a_single_block(rng):
     vol = rng.random((8, 8, 8), dtype=np.float32)
     psf = gaussian_psf((3, 3, 3), (1.0, 1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Placement"):
         dp.richardson_lucy_batched(vol[None], psf, sharding=object(),
                                    device="cpu")
     with pytest.raises(ValueError, match="B, D, H, W"):

@@ -241,5 +241,5 @@ def test_make_diag_stack_equal(grids, tmp_path):
 
 
 def test_merge_mesh_raises(grids, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         PM.merge_to_tif_series(grids[1], tmp_path, mesh=object())

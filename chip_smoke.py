@@ -16,11 +16,18 @@ Phases:
    1120, 1152, 2008, 2048 that cover every radix of the plan, with a
    single bright column, with junk in the rows and imaginary parts the
    Hermitian fold ignores, and K1's padded rows held to exactly 0; then
-   every form of the stage FFT kernels (forward and inverse in both
-   layouts, K4 with the OTF and its conjugate, K4b with an OTF period,
-   K6) at each of their eight lengths 256 * j and a small row count, and
-   the dense stage kernels at n = 384, <= 1e-5 (correctness only), each
-   counted under its own name;
+   K1d and K2d, the dense GEMMs on the tensor cores (3xTF32 wgmma), in
+   every form (plain, ratio, mul) at the CLI block, a batch of four of
+   it, an odd nx (255), ny = 1100 and ny = 2560 with the fold stated, and
+   a random matrix: <= 1e-5, one `_dense` launch a call, kernel, plain and
+   torch.matmul times and the bound (three TF32 products at 495 TFLOP/s),
+   the fold's zero rows exactly 0, a batch of three equal to its single
+   calls bit for bit; then every form of the stage FFT kernels (forward
+   and inverse in both layouts, K4 with the OTF and its conjugate, K4b
+   with an OTF period, K6) at each of their eight lengths 256 * j and a
+   small row count, and the dense stage kernels at n = 384, <= 1e-5, each
+   counted under its own name; and the dense stage kernels (forward z,
+   K6, K4) timed at n = 384 and 2560 beside torch.fft and their bound;
 3. richardson_lucy on one (512,512,512) block (16-voxel halo, 9^3
    gaussian PSF, 10 iterations): the kernel walk against the torch.fft
    route, inner region within rtol=2e-3, atol=2e-1, and exact launch
@@ -83,7 +90,7 @@ Phases:
    and of the (248, 1100, 1100) block, (136, 136, 136) and (256, 1152,
    1152) (K7's nine lengths 40 ... 1152, forward and inverse), plus K6 at
    (256, 1024, 264), and K7's dense kernel (any matrix, any length) at
-   (9792, 136); max |kernel - plain| / max |plain| <= 1e-5; the v1
+   (9792, 136) and (149504, 1152); max |kernel - plain| / max |plain| <= 1e-5; the v1
    convolve (and the fused RL update) against torch.fft at (256, 1024,
    264) and (256, 1152, 1152), <= 1e-4 of max, exact launch counts; and
    richardson_lucy on a (248, 1100, 1100) block (9^3 gaussian PSF, 10
@@ -158,10 +165,11 @@ Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
 F.conv1d; timed here only, the port never calls it) and its bound: the
 larger of the function's FLOPs over the f32 peak (a matrix product's for
-the dense kernels of K1, K2 and K7, an FFT's 5 n log2 n per complex
-transform for K3, K4, K6 and K7 and half that per real column for K1 and
-K2, the taps' for K5) and its bytes (each input read once, each output written
-once) over the HBM rate.  Outside the v2 domain every convolution takes
+the dense kernel of K7, an FFT's 5 n log2 n per complex transform for K3,
+K4, K6 and K7 and half that per real column for K1 and K2, the taps' for
+K5; for K1d and K2d, f32-grade products on the tensor cores, three TF32
+products over the TF32 peak) and its bytes (each input read once, each
+output written once) over the HBM rate.  Outside the v2 domain every convolution takes
 torch.fft unless a caller forces "walk1" (phase 10 does), so only phase 10
 and phase 11 launch K6 and K7.
 
@@ -227,7 +235,10 @@ V1 = {
 K7_DENSE = ("cplx_matmul_dense", "K7d", "ipp_tpu/ops/pallas_fft.py:66 "
             "(_fused_call via fused_cplx_matmul: an arbitrary matrix)")
 K7_DENSE_CASE = (9792, 136)   # the FNT cubes' stage, held on the dense kernel
+K7_DENSE_BIG = (149504, 1152)  # the forced v1 RL block's y stage
 SOURCE = "ipp_tpu_torch/csrc/fft_walk.cu"
+# K1d and K2d: 3xTF32 GEMMs on the tensor cores
+RDFT_DENSE_SOURCE = "ipp_tpu_torch/csrc/rdft_dense.cu"
 DFT_SOURCE = "ipp_tpu_torch/csrc/dft_fft.cuh"
 # K1, K2 and their batched forms run their real-FFT kernels on every path
 RDFT_SOURCE = "ipp_tpu_torch/csrc/rdft_y.cuh"
@@ -241,8 +252,8 @@ DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cuh",
               "ipp_tpu/ops/pallas_dwt.py:80 (dwt_analysis_pallas, axis -1); "
               "scripts/dwt_ykernel_exp.py:87 (dwt_y_pallas, axis -2)")
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): f32 FMA outside the
-# tensor cores, and HBM3
-F32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+# tensor cores, dense TF32 on the tensor cores, and HBM3
+F32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
 NITER = 10
 VOL_SHAPE = (512, 1024, 1024)  # the phase-4 series, z planes x y x x
 N_BEADS = 4000
@@ -282,19 +293,21 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
     """(bound ms, "operations" or "bytes"): the least time the card could
-    take for this work, the larger of FLOPs over the f32 peak and bytes
-    over the HBM rate."""
-    t_op, t_mem = flops / F32_FLOPS, nbytes / HBM_BYTES_S
+    take for this work, the larger of FLOPs over the peak of their type
+    (f32 unless the work says otherwise) and bytes over the HBM rate."""
+    t_op, t_mem = flops / peak, nbytes / HBM_BYTES_S
     return max(t_op, t_mem) * 1e3, ("operations" if t_op >= t_mem
                                     else "bytes")
 
 
-# The work of one call of each kernel form, (FLOPs, bytes), counted for the
-# function it computes: a product against an arbitrary matrix where the
-# wrapper takes one (the dense kernels of K1, K2 and K7, as torch.matmul
-# computes it), an FFT's 5 n log2 n FLOPs per complex transform of length n
+# The work of one call of each kernel form, (FLOPs, bytes[, peak]), counted
+# for the function it computes: a product against an arbitrary matrix where
+# the wrapper takes one (the dense kernels of K1, K2 and K7, as torch.matmul
+# computes it; K1d / K2d as the three TF32 products of an f32-grade product
+# on the tensor cores), an FFT's 5 n log2 n FLOPs per complex transform of
+# length n
 # where the function is a DFT along an axis (K3, K4, K6, K7, and at half
 # that per real column K1 and K2, as torch.fft computes it); each input read
 # once, each output written once.
@@ -311,10 +324,12 @@ def work_rdft(vox: int, ny: int, kp: int, extra_streams: int):
 
 def work_rdft_dense(vox: int, ny: int, kp: int, extra_streams: int):
     """The dense kernels of K1 / K2: a (2kp x ny) product per column with
-    a matrix the kernel must read."""
+    a matrix the kernel must read, f32-grade on the tensor cores: three
+    TF32 products (hi.hi, lo.hi, hi.lo) at the TF32 peak."""
     cols = vox // ny
-    return (2.0 * 2 * kp * ny * cols,
-            4.0 * (vox * (1 + extra_streams) + 2 * kp * cols + 2 * kp * ny))
+    return (3 * 2.0 * 2 * kp * ny * cols,
+            4.0 * (vox * (1 + extra_streams) + 2 * kp * cols + 2 * kp * ny),
+            TF32_FLOPS)
 
 
 def work_stage(rows_x_n: int, n: int, otf_elems: int = 0):
@@ -711,6 +726,179 @@ def phase_stage_forms(torch, dev, record):
         raise AssertionError("stage kernel != plain: " + "; ".join(bad))
 
 
+# K1d / K2d off the real-FFT route: (nz, ny, nx, matrix): an odd nx, ny not
+# 8 * j, ny above RDFT_FFT_MAX_NY (each with the fold), a random matrix
+RDFT_DENSE_CASES = [(64, 1056, 255, "fold"), (64, 1100, 256, "fold"),
+                    (16, 2560, 256, "fold"), (64, 300, 130, "random")]
+
+
+def rdft_dense_cases(torch, cf, x, den, mul, sr, si, fwd, inv, fold):
+    """(kernel, variant, kernel_fn, plain_fn, library_fn, work) of every form
+    of K1d and K2d (the dense GEMMs) on a volume (nz, ny, nx) or a batch of
+    them: plain, the ratio, |mul * y|, with the wrappers' `fold` as given;
+    the library call is one torch.matmul of the same product."""
+    batched = x.dim() == 4
+    k1, k2 = ((cf.rdft_y_fwd_batched, cf.rdft_y_inv_batched) if batched
+              else (cf.rdft_y_fwd, cf.rdft_y_inv))
+    n1, n2 = (("rdft_y_fwd_batched_dense", "rdft_y_inv_batched_dense")
+              if batched else ("rdft_y_fwd_dense", "rdft_y_inv_dense"))
+    ny, kp, vox = x.shape[-2], sr.shape[-3], x.numel()
+    both = torch.cat([sr, si], -3).transpose(-3, -2).contiguous()
+    return [
+        (n1, "plain", lambda: k1(x, fwd, fold=fold),
+         lambda: cf.rdft_y_fwd_plain(x, fwd),
+         lambda: torch.matmul(fwd, x), work_rdft_dense(vox, ny, kp, 0)),
+        (n1, "ratio", lambda: k1(x, fwd, den, fold=fold),
+         lambda: cf.rdft_y_fwd_plain(x, fwd, den),
+         lambda: torch.matmul(fwd, x), work_rdft_dense(vox, ny, kp, 1)),
+        (n2, "plain", lambda: k2(sr, si, inv, fold=fold),
+         lambda: cf.rdft_y_inv_plain(sr, si, inv),
+         lambda: torch.matmul(inv, both), work_rdft_dense(vox, ny, kp, 0)),
+        (n2, "mul", lambda: k2(sr, si, inv, mul, fold=fold),
+         lambda: cf.rdft_y_inv_plain(sr, si, inv, mul),
+         lambda: torch.matmul(inv, both), work_rdft_dense(vox, ny, kp, 1)),
+    ]
+
+
+def phase_rdft_dense(torch, dev, cli_shape, record):
+    """K1d and K2d, the tensor-core GEMMs (csrc/rdft_dense.cu), in every
+    form: at the CLI block and a batch of four of it, and at the shapes of
+    RDFT_DENSE_CASES, which state the fold (`fold=True`: the route by shape
+    must still pick the dense kernel; the CLI block states nothing).  Each
+    case: one call launches its `_dense` kernel once and nothing else;
+    kernel vs plain <= 1e-5 of max with kernel, plain and torch.matmul ms
+    and the bound (three TF32 products); the fold's zero rows exactly 0;
+    and a batch of three equal to its single calls, bit for bit."""
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.dft_mats import rfft_fold_mats
+    from ipp_tpu_torch.ops.matmul_fft import _kp
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    rows, bad, checks = [], [], []
+
+    def d(*shape, lo=0.0):
+        return torch.rand(shape, generator=gen, device=dev) * (1 - lo) + lo
+
+    nz, ny, nx = cli_shape
+    cases = [((), (nz, ny, nx), "fold"), ((4,), (nz, ny, nx), "fold")] + [
+        ((), c[:3], c[3]) for c in RDFT_DENSE_CASES]
+    for lead, (nz, ny, nx), kind in cases:
+        kp = _kp(ny)
+        if kind == "fold":
+            fwd, inv = (torch.tensor(m, device=dev)
+                        for m in rfft_fold_mats(ny, kp))
+        else:
+            fwd, inv = d(2 * kp, ny, lo=-1), d(ny, 2 * kp, lo=-1)
+        x, den = d(*lead, nz, ny, nx), d(*lead, nz, ny, nx, lo=0.5)
+        mul = d(*lead, nz, ny, nx)
+        sr, si = d(*lead, kp, nz, nx, lo=-1), d(*lead, kp, nz, nx, lo=-1)
+        shape = list(lead) + [nz, ny, nx]
+        stated = kind == "fold" and cf.rdft_route(ny, nx) == "dense"
+        for name, variant, kfn, pfn, lfn, work in rdft_dense_cases(
+                torch, cf, x, den, mul, sr, si, fwd, inv, stated):
+            cf.reset_launch_counts()
+            kfn()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cf.LAUNCHES.items() if v}
+            if counts != {name: 1}:
+                bad.append(f"{name}/{variant} at {shape}: launches {counts}")
+            check_case(torch, "K1d" if "fwd" in name else "K2d", name,
+                       variant, shape, kfn, pfn, lfn, work, 3, rows, bad)
+            rows[-1].update(matrix=kind, fold=stated)
+        zero = True
+        if kind == "fold":
+            re, im = cf.rdft_y_fwd(x[(0,) * len(lead)], fwd)
+            zero = all(bool((g[ny // 2 + 1:] == 0).all()) for g in (re, im))
+        equal = True
+        if not lead:   # a batch of three against its single calls
+            xs = torch.stack([x, den, mul])[:, :4].contiguous()
+            ms = torch.stack([mul, x, den])[:, :4].contiguous()
+            bre, bim = cf.rdft_y_fwd_batched(xs, fwd, ms)
+            bout = cf.rdft_y_inv_batched(bre, bim, inv, xs)
+            for i in range(3):
+                one = cf.rdft_y_fwd(xs[i], fwd, ms[i])
+                equal &= (torch.equal(bre[i], one[0])
+                          and torch.equal(bim[i], one[1])
+                          and torch.equal(bout[i],
+                                          cf.rdft_y_inv(*one, inv, xs[i])))
+        torch.cuda.synchronize()
+        checks.append(dict(shape=shape, matrix=kind, zero_rows=zero,
+                           batch_equal=equal))
+        say(f"  K1d/K2d at {shape} ({kind}): fold rows 0 {zero}, batch == "
+            f"singles {equal}")
+        if not (zero and equal):
+            bad.append(f"{shape} {kind}: fold rows 0 {zero}, batch == "
+                       f"singles {equal}")
+        del x, den, mul, sr, si, fwd, inv
+        torch.cuda.empty_cache()
+    cf.reset_launch_counts()
+    record["rdft_dense"] = dict(kernels=rows, checks=checks)
+    if bad:
+        raise AssertionError("K1d/K2d tensor-core kernels: " + "; ".join(bad))
+
+
+# the dense radix-2 stage kernels, timed: (n, planes of (P, n, X) for the
+# middle-axis form, rows of (R, n) for the last-axis forms)
+STAGE_DENSE_TIMES = [(STAGE_DENSE_N, 64, 16384), (2560, 16, 4096)]
+
+
+def phase_stage_dense_times(torch, dev, record):
+    """The dense stage kernels (csrc/fft_walk.cu: radix2_stage_dense for the
+    forward z stage, radix2_stage_inv_last_dense for K6, and
+    radix2_stage_inv_otf_dense for K4) at n = 384 and 2560, against their
+    plain versions (<= 1e-5 of max), one torch.fft call and the bound
+    (`work_stage`), with one launch of the `_dense` kernel each."""
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.dft_mats import stage_mats_t
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    rows, bad = [], []
+
+    def d(*shape):
+        return torch.rand(shape, generator=gen, device=dev) - 0.5
+
+    for n, planes, nrows in STAGE_DENSE_TIMES:
+        fwd, inv = (tuple(torch.tensor(m, device=dev)
+                          for m in stage_mats_t(n, f)) for f in (True, False))
+        zr, zi = d(planes, n, 256), d(planes, n, 256)
+        xr, xi, o_r, o_i = d(nrows, n), d(nrows, n), d(nrows, n), d(nrows, n)
+        cz, cx = torch.complex(zr, zi), torch.complex(xr, xi)
+        cases = [
+            ("radix2_stage_dense", "fwd z",
+             lambda: cf.radix2_stage(zr, zi, *fwd, True, 1),
+             lambda: cf.radix2_stage_plain(zr, zi, *fwd, True, 1),
+             lambda: torch.fft.fft(cz, dim=1), work_stage(zr.numel(), n)),
+            ("radix2_stage_inv_last_dense", "K6 inv x",
+             lambda: cf.radix2_stage(xr, xi, *inv, False, -1),
+             lambda: cf.radix2_stage_plain(xr, xi, *inv, False, -1),
+             lambda: torch.fft.ifft(cx, dim=-1), work_stage(xr.numel(), n)),
+            ("radix2_stage_inv_otf_dense", "K4 otf",
+             lambda: cf.radix2_stage_inv_otf(xr, xi, o_r, o_i, *inv, False),
+             lambda: cf.radix2_stage_inv_otf_plain(xr, xi, o_r, o_i, *inv,
+                                                   False),
+             lambda: torch.fft.ifft(cx, dim=-1),
+             work_stage(xr.numel(), n, xr.numel())),
+        ]
+        for name, variant, kfn, pfn, lfn, work in cases:
+            cf.reset_launch_counts()
+            kfn()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cf.LAUNCHES.items() if v}
+            if counts != {name: 1}:
+                bad.append(f"{name} at n={n}: launches {counts}")
+            shape = [planes, n, 256] if "z" in variant else [nrows, n]
+            check_case(torch, "stage", name, variant, shape, kfn, pfn, lfn,
+                       work, 3, rows, bad)
+        del zr, zi, xr, xi, o_r, o_i, cz, cx, fwd, inv
+        torch.cuda.empty_cache()
+    cf.reset_launch_counts()
+    record["stage_dense"] = rows
+    if bad:
+        raise AssertionError("dense stage kernels: " + "; ".join(bad))
+
+
 def ptxas_summary(log: str):
     """One line per kernel of ptxas' -v report: name (template arguments of
     the stage FFT kernels decoded), registers, spill bytes."""
@@ -734,6 +922,11 @@ def ptxas_summary(log: str):
             if t:
                 name = (f"dwt_{t.group(1)}<R={t.group(2)}, H="
                         f"{t.group(3) if t.group(3) != '0' else 'any'}>")
+            t = re.search(r"rdft_denseILi(\d)ELb([01])E", name)
+            if t:
+                mode = ("FWD", "FWD_RATIO", "INV", "INV_MUL")[int(t.group(1))]
+                name = (f"rdft_dense<{mode}, "
+                        f"{'16' if t.group(2) == '1' else '4'}-byte matrix loads>")
             t = re.search(r"rdft_y_(fwd|inv)_fftILb([01])E", name)
             if t:
                 fused = {"fwd": "RATIO", "inv": "MUL"}[t.group(1)]
@@ -751,7 +944,7 @@ def ptxas_summary(log: str):
     return out
 
 
-def phase_kernels(torch, dev, shapes, record):
+def phase_kernels(torch, dev, shapes, cli_shape, record):
     import numpy as np
 
     from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
@@ -779,7 +972,9 @@ def phase_kernels(torch, dev, shapes, record):
     if bad:
         raise AssertionError("kernel != plain: " + "; ".join(bad))
     phase_rdft_forms(torch, dev, record)
+    phase_rdft_dense(torch, dev, cli_shape, record)
     phase_stage_forms(torch, dev, record)
+    phase_stage_dense_times(torch, dev, record)
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1819,6 +2014,7 @@ def phase_v1(torch, dev, slab_shapes, record):
     from ipp_tpu_torch.ops.deconv import (_rolled_psf, conv_route,
                                           edge_taper_3d, fft_shape_for,
                                           richardson_lucy)
+    from ipp_tpu_torch.ops.dft_mats import cplx_triple
     from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
     from ipp_tpu_torch.ops.psf import gaussian_psf
 
@@ -1858,6 +2054,21 @@ def phase_v1(torch, dev, slab_shapes, record):
     routed = {k: v for k, v in cf.LAUNCHES.items() if v}
     if set(routed) != {K7_DENSE[0]}:
         bad.append(f"dft=None launched {routed}, not the dense kernel")
+    del re, im, c, cm, mats
+    # and at the forced v1 RL block's y stage, beside K7's FFT kernel
+    m, n = K7_DENSE_BIG
+    re = torch.rand((m, n), generator=gen, device=dev) - 0.5
+    im = torch.rand((m, n), generator=gen, device=dev) - 0.5
+    mats = tuple(torch.tensor(a, device=dev) for a in cplx_triple(n, True))
+    c, cm = torch.complex(re, im), torch.complex(mats[0], mats[1])
+    cf.reset_launch_counts()
+    check_case(torch, K7_DENSE[1], K7_DENSE[0], "any matrix", (m, n),
+               lambda: cf.cplx_matmul(re, im, *mats),
+               lambda: cf.cplx_matmul_plain(re, im, *mats),
+               lambda: torch.matmul(c, cm), work_cplx(m, n, n), 2,
+               dense_rows, bad)
+    if set(k for k, v in cf.LAUNCHES.items() if v) != {K7_DENSE[0]}:
+        bad.append(f"dft=None at {(m, n)} did not take the dense kernel")
     del re, im, c, cm, mats
     cf.reset_launch_counts()
     rec = record["v1"] = dict(kernels=rows, rl_shape=list(rl_shape),
@@ -3580,7 +3791,7 @@ def main() -> int:
     if tuple(cli_shape) not in shapes:
         shapes.append(tuple(cli_shape))
     phase(2, f"kernels vs plain at {shapes}", phase_kernels, torch, dev,
-          shapes, record)
+          shapes, tuple(cli_shape), record)
     phase(3, "richardson_lucy (512,512,512): walk vs torch.fft",
           phase_rl_block, torch, dev, record)
     # the phase-4 series and output (phases 8, 9, 16), phase 6's and
@@ -3659,9 +3870,12 @@ def main() -> int:
     # the route without the keyword: on no main path, so their count is 0
     off_path = set(RDFT_DENSE)
     for name, (tag, replaces) in RDFT_DENSE.items():
-        rows = [r for r in record["kernels"] if r["kernel"] == name]
-        at = [r for r in rows if r["shape"] == main_shape][0]
-        kernels.append(entry(tag, name, SOURCE, replaces,
+        rows = [r for r in record["kernels"] + record["rdft_dense"]["kernels"]
+                if r["kernel"] in (name, name.replace("_dense",
+                                                      "_batched_dense"))]
+        at = [r for r in rows if r["shape"] == main_shape
+              and r["variant"] == "plain"][0]
+        kernels.append(entry(tag, name, RDFT_DENSE_SOURCE, replaces,
                              record["cli"]["launches"][name], rows, at))
     for name, (tag, replaces) in BATCHED.items():
         rows = [r for r in record["batched_kernels"] if r["kernel"] == name]

@@ -1,4 +1,4 @@
-// The kernels of the FFT convolve walks (K1-K4, K6, K7), for Hopper.
+// The kernels of the FFT convolve walks (K3, K4, K6, K7), for Hopper.
 //
 // The walk of one circular convolution of a (nz, ny, nx) f32 volume:
 //   (nz, ny, nx)  --K1 y real DFT (optionally of num / max(den, eps))-->
@@ -33,20 +33,16 @@
 // multiple of 8 up to 2048, nx even) they are the real-FFT kernels of
 // rdft_y.cuh (entries in rdft_y.cu), chosen by the wrappers when the caller
 // states that its matrix is the real-DFT fold (ops/cuda_fft.rdft_route).
-// The K1 and K2 in this file are the dense form, one GEMM against the
-// (2kp, ny) or (ny, 2kp) matrix as the TPU's matrix unit ran it: they serve
-// any other matrix and any other shape, as K7's dense form below serves any
-// complex matrix.
+// Their dense form, one GEMM against the (2kp, ny) or (ny, 2kp) matrix as
+// the TPU's matrix unit ran it, serves any other matrix and any other
+// shape: rdft_dense.cu, on the tensor cores (3xTF32 wgmma).
 //
-// The dense K1, K2 and K7 are each one GEMM against a constant matrix
-// (fft_walk.cuh) with its prologue/epilogue fused, so the ratio and the RL
-// update never reach device memory.  What bounds them on the card: the
-// contraction depth is K = ny (K1) or 2kp (K2), at least 128, so they do
-// >= 32 FMAs per byte they move and are bound by the f32 FMA rate and
-// shared-memory reads, not HBM; K7's depth is the axis length itself (40
-// to 1152): at n = 40 it does ~7.5 FMAs per byte, below the card's ~10 (67
-// TFLOP/s over 3.35 TB/s), and is bound by HBM there.  The design answers
-// with 4x4 register tiles (4 FMAs per shared load).
+// The dense K7 below is one GEMM against a constant matrix (fft_walk.cuh)
+// with its prologue/epilogue fused.  What bounds it on the card: its
+// contraction depth is the axis length itself (40 to 1152): at n = 40 it
+// does ~7.5 FMAs per byte, below the card's ~10 (67 TFLOP/s over 3.35
+// TB/s), and is bound by HBM there, by the f32 FMA rate above.  The design
+// answers with 4x4 register tiles (4 FMAs per shared load).
 //
 // The radix-2 stages (K3, K4, K6) compute a whole n-point DFT per column:
 // one read and one write of the spectrum, 5 n log2 n FLOPs, so the function
@@ -65,111 +61,6 @@
 #include "fft_walk.cuh"
 
 using namespace ippfft;
-
-// ---------------------------------------------------------------------------
-// K1, dense form (any (2kp, ny) matrix, and shapes off the real-FFT route;
-// the real-FFT form is rdft_y.cu) — replaces ipp_tpu/ops/pallas_fft.py
-// `_v2_rfft_call_t` (kernel `_v2_rfft_kernel_t`) and, with RATIO,
-// `_v2_rfft_ratio_call_t`
-// (`_v2_rfft_ratio_kernel_t`); over a batch (grid z = nb*nz) it replaces
-// `_v2_rfft_call` (`_v2_rfft_kernel`) and `_v2_rfft_ratio_call`
-// (`_v2_rfft_ratio_kernel`).  Per plane a = b*nz + z: C (2kp x nx) =
-// fwd (2kp x ny) @ x[a] (ny x nx), rows [0, kp) to re[b, :, z, :], rows
-// [kp, 2kp) to im[b, :, z, :].
-// fwd's rows kx..kp-1 are zero, so those outputs are exactly 0.  With
-// RATIO the input is num / max(den, FLT_EPSILON), formed in the load.
-// Bound: FMA issue (2kp * ny * nz * nx FMAs); the x tile is read once per
-// 64 output rows, from L2 after the first row block.
-template <bool RATIO>
-__global__ void __launch_bounds__(NT)
-rdft_y_fwd(const float* __restrict__ num, const float* __restrict__ den,
-           const float* __restrict__ fwd, float* __restrict__ re,
-           float* __restrict__ im, int nz, int ny, int nx, int kp) {
-  __shared__ float sa[BK * BMP];
-  __shared__ float sb[BK * BNP];
-  const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM, a = blockIdx.z;
-  const int b = a / nz, z = a - b * nz;
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  const int M = 2 * kp;
-  const i64 zoff = (i64)a * ny * nx;
-  float acc[TM][TN];
-  zero(acc);
-  for (int k0 = 0; k0 < ny; k0 += BK) {
-    load_a_tile(sa, fwd, M, ny, r0, k0);
-    load_b_tile(sb, k0, c0, [&](int k, int c) -> float {
-      if (k >= ny || c >= nx) return 0.f;
-      const i64 off = zoff + (i64)k * nx + c;
-      float v = num[off];
-      if (RATIO) v = v / fmaxf(den[off], FLT_EPSILON);
-      return v;
-    });
-    __syncthreads();
-    mma_real(acc, sa, sb, ty, tx);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty * TM + i;
-    if (r >= M) continue;
-    float* dst = r < kp ? re + (((i64)b * kp + r) * nz + z) * nx
-                        : im + (((i64)b * kp + r - kp) * nz + z) * nx;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx * TN + j;
-      if (c < nx) dst[c] = acc[i][j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2, dense form (the real-FFT form is rdft_y.cu) — replaces
-// `_v2_irfft_call_t` (`_v2_irfft_kernel_t`) and, with MUL,
-// `_v2_irfft_mul_call_t` (`_v2_irfft_mul_kernel_t`); over a batch it
-// replaces `_v2_irfft_call` (`_v2_irfft_kernel`) and `_v2_irfft_mul_call`
-// (`_v2_irfft_mul_kernel`).  Per plane a = b*nz + z: y (ny x nx) =
-// inv (ny x 2kp) @ [re[b, :, z, :]; im[b, :, z, :]] (Hermitian fold, 1/ny
-// in inv); with MUL the output is |mul[a] * y| (the RL update,
-// decon.m:171).
-// Bound: FMA issue (ny * 2kp * nz * nx FMAs).
-template <bool MUL>
-__global__ void __launch_bounds__(NT)
-rdft_y_inv(const float* __restrict__ re, const float* __restrict__ im,
-           const float* __restrict__ inv, const float* __restrict__ mul,
-           float* __restrict__ out, int nz, int ny, int nx, int kp) {
-  __shared__ float sa[BK * BMP];
-  __shared__ float sb[BK * BNP];
-  const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM, a = blockIdx.z;
-  const int b = a / nz, z = a - b * nz;
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  const int K = 2 * kp;
-  const i64 boff = (i64)b * kp;
-  float acc[TM][TN];
-  zero(acc);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_a_tile(sa, inv, ny, K, r0, k0);
-    load_b_tile(sb, k0, c0, [&](int k, int c) -> float {
-      if (k >= K || c >= nx) return 0.f;
-      return k < kp ? re[((boff + k) * nz + z) * nx + c]
-                    : im[((boff + k - kp) * nz + z) * nx + c];
-    });
-    __syncthreads();
-    mma_real(acc, sa, sb, ty, tx);
-    __syncthreads();
-  }
-  const i64 zoff = (i64)a * ny * nx;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + ty * TM + i;
-    if (r >= ny) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx * TN + j;
-      if (c >= nx) continue;
-      const i64 off = zoff + (i64)r * nx + c;
-      out[off] = MUL ? fabsf(mul[off] * acc[i][j]) : acc[i][j];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K3 forward, dense form (stage lengths outside 256 * j <= 2048; the FFT
@@ -329,7 +220,7 @@ radix2_inv(const float* __restrict__ xr, const float* __restrict__ xi,
 // tiles).  Data rows run on gridDim.x (up to ~10^6 rows), N on gridDim.y.
 // The data tile is the GEMM's A operand (rows of contiguous k), so loads
 // and the row-major stores are coalesced and no transpose is needed.
-// Bound: FMA issue (3 * M * K * N FMAs), as K1-K4; the 3-product form
+// Bound: FMA issue (3 * M * K * N FMAs); the 3-product form
 // issues a quarter fewer FMAs than the 4-product complex product.
 __global__ void __launch_bounds__(NT)
 cplx_matmul(const float* __restrict__ re, const float* __restrict__ im,
@@ -396,36 +287,6 @@ static inline unsigned cdiv(long long a, long long b) {
 }
 
 extern "C" {
-
-// den == nullptr: plain y DFT of num; otherwise of num / max(den, eps).
-// num, den: (nb, nz, ny, nx); re, im: (nb, kp, nz, nx).
-int ipp_rdft_y_fwd(const float* num, const float* den, const float* fwd,
-                   float* re, float* im, int nb, int nz, int ny, int nx,
-                   int kp, void* stream) {
-  const dim3 grid(cdiv(nx, BN), cdiv(2 * kp, BM), nb * nz);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (den) {
-    rdft_y_fwd<true><<<grid, NT, 0, st>>>(num, den, fwd, re, im, nz, ny, nx, kp);
-  } else {
-    rdft_y_fwd<false><<<grid, NT, 0, st>>>(num, den, fwd, re, im, nz, ny, nx, kp);
-  }
-  return (int)cudaGetLastError();
-}
-
-// mul == nullptr: plain inverse y DFT; otherwise |mul * y|.
-// re, im: (nb, kp, nz, nx); mul, out: (nb, nz, ny, nx).
-int ipp_rdft_y_inv(const float* re, const float* im, const float* inv,
-                   const float* mul, float* out, int nb, int nz, int ny,
-                   int nx, int kp, void* stream) {
-  const dim3 grid(cdiv(nx, BN), cdiv(ny, BM), nb * nz);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (mul) {
-    rdft_y_inv<true><<<grid, NT, 0, st>>>(re, im, inv, mul, out, nz, ny, nx, kp);
-  } else {
-    rdft_y_inv<false><<<grid, NT, 0, st>>>(re, im, inv, mul, out, nz, ny, nx, kp);
-  }
-  return (int)cudaGetLastError();
-}
 
 // Radix-2 stage along an axis of length n (n/2 a multiple of 64) over
 // `batch` x `ncols` columns.  ldk == 1 is the last-axis form: K3 forward,

@@ -1,12 +1,13 @@
 // Tiled f32 GEMM core of the FFT walk kernels (fft_walk.cu).
 //
-// Every kernel of fft_walk.cu (K1, K2, K7 and the dense form of the
+// Every kernel of fft_walk.cu (K7's dense form and the dense form of the
 // radix-2 stages; the stages' FFT form is stage_fft.cuh and shares nothing
 // with this core) is a product C = A @ B of a constant DFT matrix
 // A (M x K, row-major, in device memory) against a batch of data columns
 // B (K x N), with a prologue that forms B from the inputs while loading it
-// (RL ratio, radix-2 butterfly, OTF product) and an epilogue that places C
-// (kp-major layout, inverse butterfly, |mul * y|).  The data operand is
+// (radix-2 butterfly, OTF product) and an epilogue that places C (inverse
+// butterfly).  The dense K1 / K2 (rdft_dense.cu) run on the tensor cores
+// and share nothing with this core either.  The data operand is
 // addressed through strides, so one core serves a contraction over the
 // middle axis of (P, K, X) (x contiguous: element (k, c) at k*X + c) and
 // over the last axis of (R, K) (element (k, c) at c*K + k).

@@ -1,10 +1,10 @@
 """Wrappers of the FFT-walk CUDA kernels, each beside its plain version.
 
 One wrapper per kernel form of `csrc/fft_walk.cu`, `csrc/stage_fft.cuh`,
-`csrc/dft_fft.cuh` and `csrc/rdft_y.cuh`; together they replace
-the eleven Pallas entry points of the reference's v2 convolve walk
-(ipp_tpu/ops/pallas_fft.py), unbatched (v2-t) and batched, and the two of
-its v1 walk (`_fused_stage_call(forward=False)`, `_fused_call`):
+`csrc/dft_fft.cuh`, `csrc/rdft_y.cuh` and `csrc/rdft_dense.cu`; together
+they replace the eleven Pallas entry points of the reference's v2 convolve
+walk (ipp_tpu/ops/pallas_fft.py), unbatched (v2-t) and batched, and the two
+of its v1 walk (`_fused_stage_call(forward=False)`, `_fused_call`):
 
 | wrapper                        | kernel | Pallas entry points replaced        |
 |--------------------------------|--------|-------------------------------------|
@@ -46,7 +46,8 @@ is the ny-point real DFT along y (or its inverse), and for ny a multiple of
 8 up to `RDFT_FFT_MAX_NY` and an even nx (`rdft_route`) the real-FFT kernels
 of csrc/rdft_y.cuh compute it without reading the matrix.  Any other matrix
 (`fold=False`) and every other shape take the dense GEMM kernels of
-csrc/fft_walk.cu, counted with `_dense` appended.
+csrc/rdft_dense.cu (f32-grade, three TF32 products on the tensor cores;
+any matrix, shape and alignment), counted with `_dense` appended.
 
 Rules every wrapper keeps:
 - a CPU tensor goes to the plain PyTorch version (`*_plain`, the same
@@ -267,7 +268,7 @@ def rdft_route(ny: int, nx: int) -> str:
     (csrc/rdft_y.cuh) for ny a multiple of 8 up to `RDFT_FFT_MAX_NY` (the v2
     walk's whole domain; two shared-memory buffers of a tile's columns fit)
     and an even nx (two neighbouring columns share one complex transform and
-    move as one 8-byte value), "dense" (csrc/fft_walk.cu) for any other
+    move as one 8-byte value), "dense" (csrc/rdft_dense.cu) for any other
     shape.  By shape alone: nothing is caught and retried."""
     return ("fft" if ny >= 8 and ny % 8 == 0 and ny <= RDFT_FFT_MAX_NY
             and nx >= 2 and nx % 2 == 0 else "dense")

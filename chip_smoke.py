@@ -22,17 +22,28 @@ Phases:
    a random matrix: <= 1e-5, one `_dense` launch a call, kernel, plain and
    torch.matmul times and the bound (three TF32 products at 495 TFLOP/s),
    the fold's zero rows exactly 0, a batch of three equal to its single
-   calls bit for bit; then every form of the stage FFT kernels (forward
-   and inverse in both layouts, K4 with the OTF and its conjugate, K4b
-   with an OTF period, K6) at each of their eight lengths 256 * j and a
-   small row count, and the dense stage kernels at n = 384, <= 1e-5, each
-   counted under its own name; and the dense stage kernels (forward z,
-   K6, K4) timed at n = 384 and 2560 beside torch.fft and their bound;
+   calls bit for bit; then every form of the radix-2 stage (forward and
+   inverse in both layouts, K4 with the OTF and its conjugate, K4b with
+   an OTF period, K6) at a small row count: on the stage FFT kernels at
+   each of their eight lengths 256 * j, on the mixed-radix FFT kernel
+   (csrc/stage_mixed.cuh) at n = 384, 2176, 2304, 2560 and 12288 (one
+   launch each on its C entry point), and on the dense stage kernels at
+   n = 12416; <= 1e-5, each counted under its own name; and the mixed
+   kernel's forms (forward z, K6, K4) timed at n = 384, 2176, 2560 and
+   12288, with the RL block's forward x stage at (34816, 2304) and K6's
+   dense kernel at (512, 12416), beside torch.fft and their bound (device
+   times: calls replayed from a CUDA graph);
 3. richardson_lucy on one (512,512,512) block (16-voxel halo, 9^3
    gaussian PSF, 10 iterations): the kernel walk against the torch.fft
    route, inner region within rtol=2e-3, atol=2e-1, and exact launch
    counts (K1 = 2n+1, K2 = 2n, K3 = 6n+2, K4 = 2n; the edge taper's six
-   slab blurs lie outside the v2 domain and take torch.fft);
+   slab blurs lie outside the v2 domain and take torch.fft); then the
+   same on a (256, 256, 2304) work shape, whose x stages run the mixed-
+   radix stage kernel: within 1e-3 of max on the core, the same launch
+   formula (with the taper's y-face blurs, which lie in the v2 domain),
+   no dense launch, the mixed kernel's launches on its entry point; and
+   MatmulFFT3.convolve at (2304, 64, 256) (the middle-axis form at n =
+   2304) against torch.fft within rtol=2e-3, atol=2e-1;
 4. the deconvolution CLI end to end on a synthetic 512 x 1024 x 1024 u16
    TIFF series (PSF-blurred, Poisson-noised beads from a numpy seed,
    written by a minimal baseline TIFF writer here and read back through
@@ -248,6 +259,15 @@ RDFT_KERNELS = {"rdft_y_fwd", "rdft_y_inv", "rdft_y_fwd_batched",
 STAGE_SOURCE = "ipp_tpu_torch/csrc/stage_fft.cuh"
 STAGE_KERNELS = {"radix2_stage", "radix2_stage_inv_otf",
                  "radix2_stage_inv_otf_batched", "radix2_stage_inv_last"}
+# the same stage forms at every other multiple of 128 up to 12288 (counted
+# under the names above; `ENTRY_LAUNCHES["ipp_stage_mixed"]` apart), and
+# the dense stage kernels above it (the names above with `_dense`)
+STAGE_PALLAS = ("ipp_tpu/ops/pallas_fft.py:550 (_v2_stage_call), :252 "
+                "(_fused_stage_call), :301 (_fused_stage_otf_call)")
+STAGE_MIXED = ("K3m", "stage_mixed", "ipp_tpu_torch/csrc/stage_mixed.cuh",
+               STAGE_PALLAS + " at lengths off 256 * j <= 2048 up to 12288")
+STAGE_DENSE = ("K3d", "radix2_stage_dense", SOURCE,
+               STAGE_PALLAS + " at lengths above 12288")
 DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cuh",
               "ipp_tpu/ops/pallas_dwt.py:80 (dwt_analysis_pallas, axis -1); "
               "scripts/dwt_ykernel_exp.py:87 (dwt_y_pallas, axis -2)")
@@ -290,6 +310,29 @@ def time_ms(torch, fn, reps: int = 5) -> float:
         fn()
     b.record()
     b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(torch, fn, reps: int = 5) -> float:
+    """Mean ms per call of `reps` calls captured in one CUDA graph and
+    replayed: the device's time alone.  Timed call by call (`time_ms`), a
+    kernel of ~0.1 ms can wait on the host, whose wrapper takes tens of
+    microseconds a call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
     return a.elapsed_time(b) / reps
 
 
@@ -526,16 +569,17 @@ def err_of_max(got, ref):
 
 
 def check_case(torch, tag, name, variant, shape, kfn, pfn, lfn, work, reps,
-               rows, bad):
+               rows, bad, timer=time_ms):
     """One kernel against its plain version on the same inputs: max
     |kernel - plain| / max |plain| <= 1e-5; then the kernel, the plain
-    version and the library call timed, and the kernel's bound."""
+    version and the library call timed by `timer`, and the kernel's
+    bound."""
     got, ref = kfn(), pfn()
     torch.cuda.synchronize()
     abs_err, rel = err_of_max(got, ref)
     del got, ref
-    ms, plain_ms = time_ms(torch, kfn, reps), time_ms(torch, pfn, reps)
-    lib_ms = time_ms(torch, lfn, reps) if lfn is not None else None
+    ms, plain_ms = timer(torch, kfn, reps), timer(torch, pfn, reps)
+    lib_ms = timer(torch, lfn, reps) if lfn is not None else None
     bound_ms, bound_by = bound(*work)
     rows.append(dict(kernel=name, variant=variant, shape=list(shape),
                      max_abs_err=abs_err, rel_err=rel, ms=ms,
@@ -648,7 +692,12 @@ def phase_rdft_forms(torch, dev, record):
         raise AssertionError("K1/K2 real-FFT kernels: " + "; ".join(bad))
 
 
-STAGE_DENSE_N = 384   # a stage length that keeps the dense kernels
+# stage lengths of the mixed-radix FFT kernel (csrc/stage_mixed.cuh): 3 and 5
+# after the powers of two, the generic pass (17), 9, and the largest length
+# with one column a block on the middle axis; and one that keeps the dense
+# kernels (above DFT_FFT_MAX_N = 12288)
+STAGE_MIXED_LENGTHS = (384, 2176, 2304, 2560, 12288)
+STAGE_DENSE_N = 12416   # 128 * 97
 
 
 def stage_form_cases(torch, n, gen, dev):
@@ -693,33 +742,43 @@ def stage_form_cases(torch, n, gen, dev):
 
 
 def phase_stage_forms(torch, dev, record):
-    """Every stage form at every length of the FFT route and at one dense
-    length: kernel vs plain <= 1e-5 of max, and each launch counted under
-    the name of the kernel that ran."""
+    """Every stage form at every length of the FFT route, at the lengths of
+    STAGE_MIXED_LENGTHS (the mixed-radix kernel) and at one dense length:
+    kernel vs plain <= 1e-5 of max, each launch counted under the name of
+    the kernel that ran (the FFT kernels under the wrapper's own, the dense
+    ones with `_dense` appended), and the mixed-radix kernel's launches on
+    its C entry point (`ENTRY_LAUNCHES`): one there at its lengths, none
+    elsewhere."""
     from ipp_tpu_torch.ops import cuda_fft as cf
     from ipp_tpu_torch.ops.dft_mats import STAGE_FFT_LENGTHS
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(22)
     rows, bad = [], []
-    for n in STAGE_FFT_LENGTHS + (STAGE_DENSE_N,):
-        dense = cf.stage_route(n) == "dense"
+    for n in STAGE_FFT_LENGTHS + STAGE_MIXED_LENGTHS + (STAGE_DENSE_N,):
+        route = cf.stage_route(n)
         worst = 0.0
         for form, counter, kfn, pfn in stage_form_cases(torch, n, gen, dev):
             cf.reset_launch_counts()
             got, ref = kfn(), pfn()
             torch.cuda.synchronize()
             counts = {k: v for k, v in cf.LAUNCHES.items() if v}
+            mixed = cf.ENTRY_LAUNCHES.get("ipp_stage_mixed", 0)
             rel = max(float((g - r).abs().max() / r.abs().max())
                       for g, r in zip(got, ref))
             worst = max(worst, rel)
-            rows.append(dict(n=n, form=form, rel_err=rel, launches=counts))
-            if counts != {counter + ("_dense" if dense else ""): 1}:
-                bad.append(f"n={n} {form}: launches {counts}")
+            rows.append(dict(n=n, route=route, form=form, rel_err=rel,
+                             launches=counts,
+                             entries=dict(cf.ENTRY_LAUNCHES)))
+            if counts != {counter + ("_dense" if route == "dense" else ""):
+                          1} or mixed != (route == "mixed"):
+                bad.append(f"n={n} {form}: launches {counts}, "
+                           f"{cf.ENTRY_LAUNCHES}")
             if not rel <= 1e-5:
                 bad.append(f"n={n} {form}: rel {rel:.3e}")
-        say(f"  stage forms at n={n:<5d} ({'dense' if dense else 'fft'} "
-            f"kernels, 7 forms): worst rel {worst:.2e}")
+            del got, ref
+        say(f"  stage forms at n={n:<5d} ({route} kernels, 7 forms): worst "
+            f"rel {worst:.2e}")
     cf.reset_launch_counts()
     record["stage_forms"] = rows
     if bad:
@@ -838,17 +897,25 @@ def phase_rdft_dense(torch, dev, cli_shape, record):
         raise AssertionError("K1d/K2d tensor-core kernels: " + "; ".join(bad))
 
 
-# the dense radix-2 stage kernels, timed: (n, planes of (P, n, X) for the
-# middle-axis form, rows of (R, n) for the last-axis forms)
-STAGE_DENSE_TIMES = [(STAGE_DENSE_N, 64, 16384), (2560, 16, 4096)]
+# the stage forms of the mixed-radix kernel, timed: (n, planes of (P, n, X)
+# for the middle-axis form or None, rows of (R, n) for the last-axis forms
+# or None); the RL block's x stages (kp * nz = 136 * 256 rows of 2304); and
+# the dense kernels once above 12288
+STAGE_TIMES = [(384, 64, 16384), (2560, 16, 4096), (2176, 16, 4096),
+               (12288, 4, 1024), (2304, None, 136 * 256)]
+STAGE_DENSE_TIME = (STAGE_DENSE_N, 512)   # K6's dense kernel: n, rows
 
 
-def phase_stage_dense_times(torch, dev, record):
-    """The dense stage kernels (csrc/fft_walk.cu: radix2_stage_dense for the
-    forward z stage, radix2_stage_inv_last_dense for K6, and
-    radix2_stage_inv_otf_dense for K4) at n = 384 and 2560, against their
-    plain versions (<= 1e-5 of max), one torch.fft call and the bound
-    (`work_stage`), with one launch of the `_dense` kernel each."""
+def phase_stage_times(torch, dev, record):
+    """The stage forms (forward z, K6, K4; forward x at the RL block's
+    shape) at the lengths of STAGE_TIMES, which run the mixed-radix kernel
+    (csrc/stage_mixed.cuh), and K6 on its dense kernel (csrc/fft_walk.cu)
+    above 12288: each against its plain version (<= 1e-5 of max), one
+    torch.fft call and the bound (`work_stage`), with one launch under
+    the wrapper's counter (the dense one with `_dense` appended) and, for
+    the mixed kernel, on `ipp_stage_mixed`.  Times are the device's, from
+    calls replayed out of a CUDA graph (`graph_ms`): at ~0.1 ms a call the
+    host's per-call time would show in `time_ms`."""
     from ipp_tpu_torch.ops import cuda_fft as cf
     from ipp_tpu_torch.ops.dft_mats import stage_mats_t
 
@@ -859,44 +926,63 @@ def phase_stage_dense_times(torch, dev, record):
     def d(*shape):
         return torch.rand(shape, generator=gen, device=dev) - 0.5
 
-    for n, planes, nrows in STAGE_DENSE_TIMES:
-        fwd, inv = (tuple(torch.tensor(m, device=dev)
-                          for m in stage_mats_t(n, f)) for f in (True, False))
-        zr, zi = d(planes, n, 256), d(planes, n, 256)
+    def stage_mats(n):
+        return (tuple(torch.tensor(m, device=dev) for m in stage_mats_t(n, f))
+                for f in (True, False))
+
+    for n, planes, nrows in STAGE_TIMES + [(STAGE_DENSE_TIME[0], None,
+                                            STAGE_DENSE_TIME[1])]:
+        fwd, inv = stage_mats(n)
+        dense = cf.stage_route(n) == "dense"
+        cases = []
+        if planes is not None:
+            zr, zi = d(planes, n, 256), d(planes, n, 256)
+            cz = torch.complex(zr, zi)
+            cases.append((
+                "radix2_stage", "fwd z", [planes, n, 256],
+                lambda: cf.radix2_stage(zr, zi, *fwd, True, 1),
+                lambda: cf.radix2_stage_plain(zr, zi, *fwd, True, 1),
+                lambda: torch.fft.fft(cz, dim=1), work_stage(zr.numel(), n)))
         xr, xi, o_r, o_i = d(nrows, n), d(nrows, n), d(nrows, n), d(nrows, n)
-        cz, cx = torch.complex(zr, zi), torch.complex(xr, xi)
-        cases = [
-            ("radix2_stage_dense", "fwd z",
-             lambda: cf.radix2_stage(zr, zi, *fwd, True, 1),
-             lambda: cf.radix2_stage_plain(zr, zi, *fwd, True, 1),
-             lambda: torch.fft.fft(cz, dim=1), work_stage(zr.numel(), n)),
-            ("radix2_stage_inv_last_dense", "K6 inv x",
-             lambda: cf.radix2_stage(xr, xi, *inv, False, -1),
-             lambda: cf.radix2_stage_plain(xr, xi, *inv, False, -1),
-             lambda: torch.fft.ifft(cx, dim=-1), work_stage(xr.numel(), n)),
-            ("radix2_stage_inv_otf_dense", "K4 otf",
-             lambda: cf.radix2_stage_inv_otf(xr, xi, o_r, o_i, *inv, False),
-             lambda: cf.radix2_stage_inv_otf_plain(xr, xi, o_r, o_i, *inv,
-                                                   False),
-             lambda: torch.fft.ifft(cx, dim=-1),
-             work_stage(xr.numel(), n, xr.numel())),
-        ]
-        for name, variant, kfn, pfn, lfn, work in cases:
+        cx = torch.complex(xr, xi)
+        if planes is None and not dense:   # the RL block's forward x stage
+            cases.append((
+                "radix2_stage", "fwd x", [nrows, n],
+                lambda: cf.radix2_stage(xr, xi, *fwd, True, -1),
+                lambda: cf.radix2_stage_plain(xr, xi, *fwd, True, -1),
+                lambda: torch.fft.fft(cx, dim=-1), work_stage(xr.numel(), n)))
+        cases.append((
+            "radix2_stage_inv_last", "K6 inv x", [nrows, n],
+            lambda: cf.radix2_stage(xr, xi, *inv, False, -1),
+            lambda: cf.radix2_stage_plain(xr, xi, *inv, False, -1),
+            lambda: torch.fft.ifft(cx, dim=-1), work_stage(xr.numel(), n)))
+        if not dense:
+            cases.append((
+                "radix2_stage_inv_otf", "K4 otf", [nrows, n],
+                lambda: cf.radix2_stage_inv_otf(xr, xi, o_r, o_i, *inv, False),
+                lambda: cf.radix2_stage_inv_otf_plain(xr, xi, o_r, o_i, *inv,
+                                                      False),
+                lambda: torch.fft.ifft(cx, dim=-1),
+                work_stage(xr.numel(), n, xr.numel())))
+        for name, variant, shape, kfn, pfn, lfn, work in cases:
+            name += "_dense" if dense else ""
             cf.reset_launch_counts()
             kfn()
             torch.cuda.synchronize()
             counts = {k: v for k, v in cf.LAUNCHES.items() if v}
-            if counts != {name: 1}:
-                bad.append(f"{name} at n={n}: launches {counts}")
-            shape = [planes, n, 256] if "z" in variant else [nrows, n]
+            entries = dict(cf.ENTRY_LAUNCHES)
+            if counts != {name: 1} or (not dense and entries != {
+                    "ipp_stage_mixed": 1}):
+                bad.append(f"{name} at n={n}: launches {counts}, {entries}")
             check_case(torch, "stage", name, variant, shape, kfn, pfn, lfn,
-                       work, 3, rows, bad)
-        del zr, zi, xr, xi, o_r, o_i, cz, cx, fwd, inv
+                       work, 3, rows, bad, timer=graph_ms)
+            rows[-1].update(route=cf.stage_route(n), n=n, timer="graph")
+        del cases, fwd, inv, xr, xi, o_r, o_i, cx
         torch.cuda.empty_cache()
     cf.reset_launch_counts()
-    record["stage_dense"] = rows
+    record["stage_times"] = rows
     if bad:
-        raise AssertionError("dense stage kernels: " + "; ".join(bad))
+        raise AssertionError("stage kernels: " + "; ".join(bad))
 
 
 def ptxas_summary(log: str):
@@ -915,6 +1001,11 @@ def ptxas_summary(log: str):
                 name = (f"stage_fft<{t.group(1)}, "
                         f"{'last' if t.group(2) == '1' else 'middle'}, "
                         f"{('FWD', 'INV', 'INV_OTF')[int(t.group(3))]}>")
+            t = re.search(r"stage_mixedILb([01])ELi(\d)E", name)
+            if t:
+                name = (f"stage_mixed<"
+                        f"{'last' if t.group(1) == '1' else 'middle'}, "
+                        f"{('FWD', 'INV', 'INV_OTF')[int(t.group(2))]}>")
             t = re.search(r"dft_lastILb([01])E", name)
             if t:
                 name = f"dft_last<{('FWD', 'INV')[int(t.group(1))]}>"
@@ -974,7 +1065,7 @@ def phase_kernels(torch, dev, shapes, cli_shape, record):
     phase_rdft_forms(torch, dev, record)
     phase_rdft_dense(torch, dev, cli_shape, record)
     phase_stage_forms(torch, dev, record)
-    phase_stage_dense_times(torch, dev, record)
+    phase_stage_times(torch, dev, record)
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1033,6 +1124,121 @@ def phase_rl_block(torch, dev, record):
         raise AssertionError("walk vs torch.fft outside rtol=2e-3, atol=2e-1")
     if not bool(torch.isfinite(walk).all()):
         raise AssertionError("non-finite RL output")
+
+
+def mixed_stage_launches(shape, forward: int, inverse: int) -> int:
+    """Launches of the mixed-radix stage kernel (`ENTRY_LAUNCHES
+    ["ipp_stage_mixed"]`) by `forward` and `inverse` transforms on the v2
+    walk at a work shape: a z stage and an x stage each (the x inverse is
+    K4), on each axis whose length `stage_route` sends to that kernel."""
+    from ipp_tpu_torch.ops.cuda_fft import stage_route
+    from ipp_tpu_torch.ops.matmul_fft import in_kernel_domain
+
+    if not in_kernel_domain(shape):
+        return 0
+    nz, _, nx = shape
+    return (forward + inverse) * ((stage_route(nz) == "mixed")
+                                  + (stage_route(nx) == "mixed"))
+
+
+RL_MIXED_SHAPE = (256, 256, 2304)   # x: K3 forward over x and K4 at n = 2304
+CONV_MIXED_SHAPE = (2304, 64, 256)  # z: the middle-axis form at n = 2304
+
+
+def phase_rl_mixed(torch, dev, record):
+    """The v2 walk at full width through the mixed-radix stage kernel:
+    richardson_lucy on a RL_MIXED_SHAPE block (9^3 gaussian PSF, 10
+    iterations) on the walk against the torch.fft route, <= 1e-3 of max on
+    the core (16-voxel halo), exact launch counts with no dense launch and
+    the mixed kernel's launches on `ipp_stage_mixed`; then one
+    MatmulFFT3.convolve at CONV_MIXED_SHAPE against torch.fft at the walk's
+    tolerance (rtol 2e-3, atol 0.2)."""
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.deconv import _rolled_psf, richardson_lucy
+    from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
+    from ipp_tpu_torch.ops.psf import gaussian_psf
+
+    shape, halo = RL_MIXED_SHAPE, 16
+    rng = np.random.default_rng(1)
+    vol = torch.from_numpy(rng.random(shape, dtype=np.float32) * 1000).to(dev)
+    psf = torch.from_numpy(gaussian_psf((9, 9, 9), (2.0, 2.0, 2.0))).to(dev)
+
+    def run(route):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = richardson_lucy(vol, psf, niter=NITER, fft_shape=shape,
+                              route=route)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    cf.reset_launch_counts()
+    walk, _ = run(None)
+    counts = dict(cf.LAUNCHES)
+    mixed = cf.ENTRY_LAUNCHES.get("ipp_stage_mixed", 0)
+    want = add_launches({k: 0 for k in counts}, rl_launches(shape, NITER),
+                        taper_launches(shape, psf.shape))
+    want_mixed = mixed_stage_launches(shape, 1 + 2 * NITER, 2 * NITER) + sum(
+        mixed_stage_launches(s, 2, 1)
+        for s in taper_work_shapes(shape, psf.shape))
+    fft, _ = run("fft")
+    t_walk = min(run(None)[1] for _ in range(2))
+    t_fft = min(run("fft")[1] for _ in range(2))
+    inner = (slice(halo, -halo),) * 3
+    rel = float((walk[inner] - fft[inner]).abs().max()
+                / fft[inner].abs().max())
+    finite = bool(torch.isfinite(walk).all())
+    del walk, fft, vol
+    torch.cuda.empty_cache()
+
+    cshape = CONV_MIXED_SHAPE
+    plan = MatmulFFT3(cshape, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    x = torch.rand(cshape, generator=gen, device=dev) * 1000
+    k = _rolled_psf(psf / psf.sum(), cshape).contiguous()
+    cf.reset_launch_counts()
+    otf = plan.otf_packed(k)
+    got = plan.convolve(x, otf)
+    torch.cuda.synchronize()
+    c_counts = {n: v for n, v in cf.LAUNCHES.items() if v}
+    c_mixed = cf.ENTRY_LAUNCHES.get("ipp_stage_mixed", 0)
+    c_want = walk_launches(cshape, 2, 1)
+    ref = torch.fft.irfftn(torch.fft.rfftn(x) * torch.fft.rfftn(k), s=cshape)
+    c_excess = float(((got - ref).abs() - (0.2 + 2e-3 * ref.abs())).max())
+    c_rel = float((got - ref).abs().max() / ref.abs().max())
+    c_ms = time_ms(torch, lambda: plan.convolve(x, otf), 3)
+    c_fft_ms = time_ms(torch, lambda: torch.fft.irfftn(
+        torch.fft.rfftn(x) * torch.fft.rfftn(k), s=cshape), 3)
+    del plan, x, k, otf, got, ref
+    torch.cuda.empty_cache()
+
+    record["rl_mixed"] = dict(
+        shape=list(shape), halo=halo, niter=NITER, launches=counts,
+        mixed_launches=mixed, walk_s=t_walk, fft_s=t_fft, max_rel_diff=rel,
+        convolve=dict(shape=list(cshape), launches=c_counts,
+                      mixed_launches=c_mixed, rel=c_rel, tol_excess=c_excess,
+                      ms=c_ms, fft_ms=c_fft_ms))
+    say(f"  RL {shape}: launches {counts}, ipp_stage_mixed {mixed}")
+    say(f"  walk {t_walk:.3f} s, torch.fft {t_fft:.3f} s; max |walk-fft| / "
+        f"max |fft| on the core {rel:.2e}")
+    say(f"  convolve {cshape}: launches {c_counts}, ipp_stage_mixed "
+        f"{c_mixed}; vs torch.fft rel {c_rel:.2e}, tolerance excess "
+        f"{c_excess:.3e}; {c_ms:.2f} ms vs torch.fft {c_fft_ms:.2f} ms")
+    if counts != want or mixed != want_mixed or mixed == 0:
+        raise AssertionError(f"RL launches {counts}, mixed {mixed} != "
+                             f"{want}, mixed {want_mixed}")
+    if not (rel <= 1e-3 and finite):
+        raise AssertionError(f"RL walk vs torch.fft {rel:.3e} > 1e-3 of max "
+                             f"on the core (finite: {finite})")
+    c_want_mixed = mixed_stage_launches(cshape, 2, 1)
+    if c_counts != c_want or c_mixed != c_want_mixed or c_mixed == 0:
+        raise AssertionError(f"convolve launches {c_counts}, mixed {c_mixed} "
+                             f"!= {c_want}, mixed {c_want_mixed}")
+    if not c_excess <= 0:
+        raise AssertionError("convolve vs torch.fft outside rtol=2e-3, "
+                             "atol=2e-1")
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -3792,8 +3998,10 @@ def main() -> int:
         shapes.append(tuple(cli_shape))
     phase(2, f"kernels vs plain at {shapes}", phase_kernels, torch, dev,
           shapes, tuple(cli_shape), record)
-    phase(3, "richardson_lucy (512,512,512): walk vs torch.fft",
-          phase_rl_block, torch, dev, record)
+    phase(3, f"richardson_lucy (512,512,512) and {RL_MIXED_SHAPE}, the "
+          f"convolve at {CONV_MIXED_SHAPE}: walk vs torch.fft",
+          lambda: (phase_rl_block(torch, dev, record),
+                   phase_rl_mixed(torch, dev, record)))
     # the phase-4 series and output (phases 8, 9, 16), phase 6's and
     # phase 12's trees and outputs (phase 16), phase 14's series (15)
     shared = {}
@@ -3907,13 +4115,28 @@ def main() -> int:
                          for r in record["canonical"])
     kernels.append(entry(tag, name, SOURCE, replaces, dense_launches,
                          v1["dense"], v1["dense"][0]))
+    # the mixed-radix stage kernel at the RL block's forward x stage, its
+    # launches those of phase 3's RL run at RL_MIXED_SHAPE; the dense stage
+    # kernels (K6's, above 12288) on no main path
+    stage_rows = record["stage_times"]
+    rows = [r for r in stage_rows if r["route"] == "mixed"]
+    at = [r for r in rows if r["variant"] == "fwd x"][0]
+    kernels.append(entry(*STAGE_MIXED[:3], STAGE_MIXED[3],
+                         record["rl_mixed"]["mixed_launches"], rows, at))
+    rows = [r for r in stage_rows if r["route"] == "dense"]
+    off_path.add(STAGE_DENSE[1])
+    kernels.append(entry(*STAGE_DENSE[:3], STAGE_DENSE[3], sum(
+        v for k, v in record["cli"]["launches"].items()
+        if k.startswith("radix2_stage") and k.endswith("_dense")), rows,
+        rows[0]))
     if any(k["launches"] == 0 for k in kernels
            if k["name"].split()[1] not in off_path):
         say("FAIL: a kernel of the path was never launched")
         return 1
     if any(k["launches"] != 0 for k in kernels
            if k["name"].split()[1] in off_path):
-        say("FAIL: the main path launched a dense kernel of K1 or K2")
+        say("FAIL: the main path launched a dense kernel of K1, K2 or a "
+            "stage")
         return 1
     say(f"card: {card_line()}")
     say(json.dumps({"kernels": kernels}))

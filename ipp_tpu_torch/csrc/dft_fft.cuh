@@ -480,6 +480,57 @@ __device__ __forceinline__ void any_pass(int R, int j, int T,
 
 #ifdef __CUDACC__
 
+// The pass sequence of one transform, shared by every kernel on these
+// passes (dft_last below; the stage kernel of stage_mixed.cuh): the first
+// pass reads load(e) (device memory) and writes buffer nxt, every later pass
+// reads the buffer the one before it wrote and writes the other, the last
+// writes store(e, v) (device memory).  cur and nxt are this transform's
+// views of the two buffers, at(e) element e's slot in either; `pre` is the
+// first pass's fft_pass hook (a fused stream's loads issued a butterfly at
+// a time).  One barrier ends every pass but the last, so every thread of
+// the block calls this.
+template <bool INV, class Load, class Store, class At, class Pre = NoHook>
+__device__ __forceinline__ void run_passes(const Plan& pl, int j, int T,
+                                           const float2* __restrict__ tw,
+                                           float2* cur, float2* nxt,
+                                           Load load, Store store, At at,
+                                           Pre pre = Pre()) {
+  const int n = pl.n;
+  auto from_smem = [&](int e) -> float2 { return cur[at(e)]; };
+  auto to_smem = [&](int e, float2 v) { nxt[at(e)] = v; };
+
+  const int last = pl.npass - 1;
+  const int R0 = pl.radix[0];   // 8 or 16 (`plan_ok`)
+  if (last == 0) {   // n == 8 or 16: one pass, device memory to device memory
+    if (R0 == 16)
+      fft_pass<16, INV>(j, T, pass_args(n, 16, 1), tw, load, store, pre);
+    else
+      fft_pass<8, INV>(j, T, pass_args(n, 8, 1), tw, load, store, pre);
+    return;
+  }
+  if (R0 == 16)
+    fft_pass<16, INV>(j, T, pass_args(n, 16, 1), tw, load, to_smem, pre);
+  else
+    fft_pass<8, INV>(j, T, pass_args(n, 8, 1), tw, load, to_smem, pre);
+  int S = R0;
+  __syncthreads();
+  for (int p = 1; p < last; ++p) {
+    float2* t = cur;
+    cur = nxt;
+    nxt = t;
+    const int R = pl.radix[p];
+    any_pass<INV>(R, j, T, pass_args(n, R, S), tw, from_smem, to_smem);
+    S *= R;
+    __syncthreads();
+  }
+  cur = nxt;   // the last pass reads what the one before it wrote
+  const int R = pl.radix[last];
+  if (pl.generic)
+    generic_pass<INV>(j, T, R, S, tw, from_smem, store);
+  else
+    any_pass<INV>(R, j, T, pass_args(n, R, S), tw, from_smem, store);
+}
+
 // -- the kernel ---------------------------------------------------------------
 
 // xr, xi, rr, ii: (rows, n).  INV: the inverse transform, times `scale`
@@ -497,9 +548,7 @@ dft_last(const float* __restrict__ xr, const float* __restrict__ xi,
   const i64 row = (i64)blockIdx.x * cols + c;
   const bool ok = row < rows;
   const i64 base = row * n;
-  // the buffer a pass reads (cur) and the one it writes (nxt)
   float2* cur = smem + c * pitch;
-  float2* nxt = cur + cols * pitch;
 
   auto from_global = [&](int e) -> float2 {
     if (!ok) return make_float2(0.f, 0.f);
@@ -510,43 +559,8 @@ dft_last(const float* __restrict__ xr, const float* __restrict__ xi,
     rr[base + e] = INV ? v.x * scale : v.x;
     ii[base + e] = INV ? v.y * scale : v.y;
   };
-  auto from_smem = [&](int e) -> float2 {
-    return cur[slot(e, pad)];
-  };
-  auto to_smem = [&](int e, float2 v) {
-    nxt[slot(e, pad)] = v;
-  };
-
-  const int last = pl.npass - 1;
-  const int R0 = pl.radix[0];   // 8 or 16 (`plan_ok`)
-  if (last == 0) {   // n == 8 or 16: one pass, device memory to device memory
-    if (R0 == 16)
-      fft_pass<16, INV>(j, T, pass_args(n, 16, 1), tw, from_global, to_global);
-    else
-      fft_pass<8, INV>(j, T, pass_args(n, 8, 1), tw, from_global, to_global);
-    return;
-  }
-  if (R0 == 16)
-    fft_pass<16, INV>(j, T, pass_args(n, 16, 1), tw, from_global, to_smem);
-  else
-    fft_pass<8, INV>(j, T, pass_args(n, 8, 1), tw, from_global, to_smem);
-  int S = R0;
-  __syncthreads();
-  for (int p = 1; p < last; ++p) {
-    float2* t = cur;
-    cur = nxt;
-    nxt = t;
-    const int R = pl.radix[p];
-    any_pass<INV>(R, j, T, pass_args(n, R, S), tw, from_smem, to_smem);
-    S *= R;
-    __syncthreads();
-  }
-  cur = nxt;   // the last pass reads what the one before it wrote
-  const int R = pl.radix[last];
-  if (pl.generic)
-    generic_pass<INV>(j, T, R, S, tw, from_smem, to_global);
-  else
-    any_pass<INV>(R, j, T, pass_args(n, R, S), tw, from_smem, to_global);
+  run_passes<INV>(pl, j, T, tw, cur, cur + cols * pitch, from_global,
+                  to_global, [&](int e) { return slot(e, pad); });
 }
 
 // -- launch -------------------------------------------------------------------

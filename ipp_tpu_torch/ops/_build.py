@@ -55,6 +55,8 @@ _SIGNATURES = {
     "ipp_stage_fft_inv": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _P],
     "ipp_stage_fft_inv_otf": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                               _P],
+    "ipp_stage_mixed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I,
+                        _P, _I, _I, _I, _I, _I, _P],
     "ipp_dwt_analysis": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
     "ipp_dwt_analysis_knobs": [_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I,
                                _P],

@@ -24,12 +24,15 @@ wrote plane-major (nb*nz, kp, nx) and paid an XLA transpose each side of
 the z stage (csrc/fft_walk.cu says why CUDA need not).  K3 needs no
 batched form: it already takes any number of planes or rows.
 
-The radix-2 stages (K3, K4, K4b, K6) have two kernels each, chosen by the
-axis length n alone (`stage_route`): the FFT kernels of csrc/stage_fft.cuh
-for n in `STAGE_FFT_LENGTHS` (256 * j up to 2048: every length the walks
-admit), the dense stage kernels of csrc/fft_walk.cu (a butterfly and two
-(n/2)^2 complex products) for any other multiple of 128.  It is a route by
-shape: nothing is caught and retried.
+The radix-2 stages (K3, K4, K4b, K6) have three kernels each, chosen by
+the axis length n alone (`stage_route`): the FFT kernels of
+csrc/stage_fft.cuh, whose plans are fixed at compile time, for n in
+`STAGE_FFT_LENGTHS` (256 * j up to 2048); the mixed-radix FFT kernel of
+csrc/stage_mixed.cuh, whose plan `dft_fft_plan(n)` is passed at run time,
+for every other multiple of 128 up to `DFT_FFT_MAX_N` (12288); the dense
+stage kernels of csrc/fft_walk.cu (a butterfly and two (n/2)^2 complex
+products) above that.  It is a route by shape: nothing is caught and
+retried.
 
 K7 has two kernels too.  Every call the walks make multiplies by the dense
 DFT matrix of an axis, `cplx_triple(n, forward)`, and says so with `dft=`:
@@ -57,9 +60,12 @@ Rules every wrapper keeps:
   and the C function's cudaGetLastError() is checked after it;
 - `LAUNCHES[name]` counts kernel launches (never plain calls), so a run
   can show that its main path went through the kernels; the batched
-  forms and K6 (`radix2_stage_inv_last`) count under their own names,
-  and a launch of a dense stage kernel under its name with `_dense`
-  appended, so a run can show which stage kernel it went through;
+  forms and K6 (`radix2_stage_inv_last`) count under their own names
+  (both FFT kernels of a stage form under one), and a launch of a dense
+  stage kernel under its name with `_dense` appended; `ENTRY_LAUNCHES`
+  counts the same launches by C entry point, so a run can show which
+  stage kernel it went through (`ipp_stage_mixed` for the mixed-radix
+  one);
   `cplx_matmul` counts K7's FFT kernel, `cplx_matmul_dense` its dense one;
   `rdft_y_*` count the real-FFT kernels, `rdft_y_*_dense` the dense GEMMs.
 """
@@ -76,13 +82,14 @@ import torch
 from .dft_mats import (DFT_FFT_MAX_N, DFT_FFT_RADICES, STAGE_FFT_LENGTHS,
                        dft_fft_plan, stage_twiddles)
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "stage_route", "dft_route",
-           "rdft_route", "RDFT_FFT_MAX_NY", "rdft_y_fwd_fft", "rdft_y_inv_fft",
-           "rdft_y_fwd", "rdft_y_fwd_batched", "rdft_y_fwd_plain", "rdft_y_inv",
+__all__ = ["LAUNCHES", "ENTRY_LAUNCHES", "reset_launch_counts", "stage_route",
+           "dft_route", "rdft_route", "RDFT_FFT_MAX_NY", "rdft_y_fwd_fft",
+           "rdft_y_inv_fft", "rdft_y_fwd", "rdft_y_fwd_batched", "rdft_y_fwd_plain", "rdft_y_inv",
            "rdft_y_inv_batched", "rdft_y_inv_plain", "radix2_stage",
            "radix2_stage_plain", "radix2_stage_inv_otf",
            "radix2_stage_inv_otf_batched", "radix2_stage_inv_otf_plain",
-           "cplx_matmul", "cplx_matmul_plain", "dft_last_fft"]
+           "cplx_matmul", "cplx_matmul_plain", "dft_last_fft",
+           "stage_mixed"]
 
 EPS = float(np.finfo(np.float32).eps)
 _GRID_MAX = 65535  # gridDim.y / gridDim.z limit
@@ -99,12 +106,17 @@ LAUNCHES: Dict[str, int] = {
     "rdft_y_fwd_dense": 0, "rdft_y_inv_dense": 0,
     "rdft_y_fwd_batched_dense": 0, "rdft_y_inv_batched_dense": 0}
 
+# the same launches by C entry point ("ipp_stage_mixed", "ipp_dft_last",
+# ...): which kernel ran where one counter name covers two
+ENTRY_LAUNCHES: Dict[str, int] = {}
+
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    ENTRY_LAUNCHES.clear()
 
 
 # -- plain versions (CPU path, and the reference on the card) ---------------
@@ -251,6 +263,9 @@ def _launch(name: str, device: torch.device, fn, *args,
                            f"cudaGetLastError() = {err}")
     with _COUNT_LOCK:
         (LAUNCHES if counts is None else counts)[name] += 1
+        if counts is None:
+            ENTRY_LAUNCHES[fn.__name__] = ENTRY_LAUNCHES.get(fn.__name__,
+                                                             0) + 1
 
 
 def _empty(shape, like: torch.Tensor) -> torch.Tensor:
@@ -458,8 +473,12 @@ def rdft_y_inv_batched(re: torch.Tensor, im: torch.Tensor,
 def stage_route(n: int) -> str:
     """Which kernel a radix-2 stage along an axis of length n launches on
     the card: "fft" (csrc/stage_fft.cuh) for the lengths 256 * j up to
-    2048, "dense" (csrc/fft_walk.cu) for any other multiple of 128."""
-    return "fft" if n in STAGE_FFT_LENGTHS else "dense"
+    2048, "mixed" (csrc/stage_mixed.cuh) for every other multiple of 128 up
+    to `DFT_FFT_MAX_N`, "dense" (csrc/fft_walk.cu) above it.  (The wrappers
+    refuse a length that is no multiple of 128.)"""
+    if n in STAGE_FFT_LENGTHS:
+        return "fft"
+    return "mixed" if n % 128 == 0 and 0 < n <= DFT_FFT_MAX_N else "dense"
 
 
 _twiddles: Dict[Tuple[torch.device, int], torch.Tensor] = {}
@@ -481,15 +500,64 @@ def _stage_mats_ok(name: str, n: int, mr_t, mi_t) -> None:
     _shape(name, mi_t, (2, n // 2, n // 2))
 
 
+def stage_mixed(re: torch.Tensor, im: torch.Tensor, forward: bool,
+                axis: int, otf: Optional[Pair] = None, conj: bool = False,
+                name: str = "radix2_stage", threads_per_col: int = 0,
+                cols: int = 0) -> Pair:
+    """The radix-2 stage's mixed-radix FFT kernel (csrc/stage_mixed.cuh) on
+    CUDA tensors, counted under `name`: the n-point DFT along axis 1 of
+    (P, n, X) or axis -1 of (R, n), the spectrum in the walk's permuted
+    order (forward out, inverse in, with 1/n); with `otf` (an (orows, n)
+    pair, orows dividing R; inverse over the last axis only) the input is
+    first multiplied by otf_re +/- i otf_im (`conj`), row r by OTF row
+    r % orows.  The plan is `dft_fft_plan(n)`.  `threads_per_col` and
+    `cols` override the kernel's threads a column (row) and columns (rows)
+    a block: a bench's knobs; 0 and 0 keep its own (the kernel refuses a
+    geometry it cannot run)."""
+    ndim = 3 if axis == 1 else 2
+    n = re.shape[axis] if re.dim() == ndim else 0
+    if (not _on_cuda(name, re, im, *(otf or ())) or stage_route(n) != "mixed"
+            or re.numel() == 0
+            or (otf is not None and (forward or axis != -1))):
+        raise ValueError(f"{name}: the mixed-radix stage kernel takes CUDA "
+                         f"tensors with a multiple of 128 up to "
+                         f"{DFT_FFT_MAX_N} off {STAGE_FFT_LENGTHS}, an OTF "
+                         f"only inverse over the last axis; got "
+                         f"{tuple(re.shape)}, axis={axis} on {re.device}")
+    _shape(name, im, re.shape)
+    batch, ncols = (re.shape[0], re.shape[2]) if axis == 1 else (1,
+                                                                 re.shape[0])
+    _grid(name, "batch", batch)
+    orows, o_r, o_i = 0, None, None
+    if otf is not None:
+        o_r, o_i = otf
+        orows = o_r.shape[0]
+        _shape(name, o_i, o_r.shape)
+        if o_r.dim() != 2 or o_r.shape[1] != n or orows == 0 \
+                or ncols % orows:
+            raise ValueError(f"{name}: the OTF {tuple(o_r.shape)} must be "
+                             f"(orows, {n}) with orows dividing {ncols}")
+    mode = 0 if forward else (2 if otf is not None else 1)
+    radices, npass, generic = _dft_plan(dft_fft_plan(n))
+    rr, ii = _empty(re.shape, re), _empty(re.shape, re)
+    _launch(name, re.device, _lib().ipp_stage_mixed, re.data_ptr(),
+            im.data_ptr(), None if o_r is None else o_r.data_ptr(),
+            None if o_i is None else o_i.data_ptr(),
+            _stage_twiddles(re.device, n).data_ptr(), rr.data_ptr(),
+            ii.data_ptr(), mode, int(axis == -1), batch, ncols, n, npass,
+            radices, generic, orows, int(bool(conj)), threads_per_col, cols)
+    return rr, ii
+
+
 def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
                  mi_t: torch.Tensor, forward: bool, axis: int) -> Pair:
     """K3, and K6 for the inverse over the last axis: see
     `radix2_stage_plain`.  axis=1 takes (P, n, X), axis=-1 takes (R, n),
     each forward or inverse.  The inverse over the last axis (the v1
     walk's, without an OTF) counts as `radix2_stage_inv_last`.  On the
-    card, n in `STAGE_FFT_LENGTHS` launches the FFT kernel (which does not
-    read mr_t, mi_t); any other multiple of 128 the dense kernel, counted
-    with `_dense` appended (`stage_route`)."""
+    card the length chooses the kernel (`stage_route`): one of the two FFT
+    kernels (which do not read mr_t, mi_t), or above `DFT_FFT_MAX_N` the
+    dense kernel, counted with `_dense` appended."""
     name = "radix2_stage"
     if axis not in (1, -1) or re.dim() != (3 if axis == 1 else 2):
         raise ValueError(f"{name}: axis=1 needs (P, n, X), axis=-1 (R, n); "
@@ -507,8 +575,11 @@ def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
         bs, ldk, ldc = 0, 1, n
     _stage_mats_ok(name, n, mr_t, mi_t)
     _grid(name, "batch", batch)
+    route = stage_route(n)
+    if route == "mixed":
+        return stage_mixed(re, im, forward, axis, name=name)
     rr, ii = _empty(re.shape, re), _empty(re.shape, re)
-    if stage_route(n) == "fft":
+    if route == "fft":
         lib = _lib()
         _launch(name, re.device,
                 lib.ipp_stage_fft_fwd if forward else lib.ipp_stage_fft_inv,
@@ -610,14 +681,15 @@ def cplx_matmul(re: torch.Tensor, im: torch.Tensor, mr: torch.Tensor,
 def _radix2_stage_inv_otf(name: str, re, im, otf_re, otf_im, mr_t, mi_t,
                           conj: bool) -> Pair:
     """K4 on (rows, n) CUDA data and an (orows, n) OTF, rows a multiple
-    of orows.  The FFT kernel (n in `STAGE_FFT_LENGTHS`) takes the OTF row
-    of each data row by one modulo, so any such orows will do; the dense
-    kernel (any other n, counted with `_dense` appended) wraps the OTF
-    once per column tile and needs orows == rows or a multiple of the
-    tile."""
+    of orows.  The FFT kernels (`stage_route` "fft" or "mixed") take the OTF
+    row of each data row by one modulo, so any such orows will do; the
+    dense kernel (above `DFT_FFT_MAX_N`, counted with `_dense` appended)
+    wraps the OTF once per column tile and needs orows == rows or a
+    multiple of the tile."""
     rows, n = re.shape
     orows = otf_re.shape[0]
-    fft = stage_route(n) == "fft"
+    route = stage_route(n)
+    fft = route != "dense"
     _shape(name, im, re.shape)
     _shape(name, otf_im, otf_re.shape)
     if otf_re.dim() != 2 or otf_re.shape[1] != n or orows == 0 \
@@ -629,6 +701,8 @@ def _radix2_stage_inv_otf(name: str, re, im, otf_re, otf_im, mr_t, mi_t,
                          f"OTF's {orows} rows must equal the data's {rows} "
                          f"or be a multiple of {_BN}")
     _stage_mats_ok(name, n, mr_t, mi_t)
+    if route == "mixed":
+        return stage_mixed(re, im, False, -1, (otf_re, otf_im), conj, name)
     rr, ii = _empty(re.shape, re), _empty(re.shape, re)
     if fft:
         _launch(name, re.device, _lib().ipp_stage_fft_inv_otf, re.data_ptr(),

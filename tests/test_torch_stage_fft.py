@@ -226,6 +226,13 @@ def test_route_is_fft_at_the_covered_lengths(n):
 
 @pytest.mark.parametrize("n", [128, 384, 640, 896, 2304, 2560, 4096])
 def test_route_is_dense_at_every_other_length(n):
+    # every other multiple of 128 up to 12288 takes the mixed-radix FFT
+    # kernel (csrc/stage_mixed.cuh); the dense one only lengths above it
+    assert cf.stage_route(n) == "mixed"
+
+
+@pytest.mark.parametrize("n", [12416, 16384])
+def test_route_is_dense_above_12288(n):
     assert cf.stage_route(n) == "dense"
 
 
@@ -297,4 +304,7 @@ def test_stage_kernels_match_plain_on_the_card(cuda, n):
             assert err <= TOL, (n, what, err)
     dense = sum(v for k, v in cf.LAUNCHES.items() if k.endswith("_dense"))
     fft = sum(v for k, v in cf.LAUNCHES.items() if not k.endswith("_dense"))
-    assert (dense, fft) == ((6, 0) if n == 384 else (0, 6))
+    # n = 384 runs the mixed-radix FFT kernel, counted under the same names
+    assert (dense, fft) == (0, 6)
+    mixed = cf.ENTRY_LAUNCHES.get("ipp_stage_mixed", 0)
+    assert mixed == (6 if n == 384 else 0)

@@ -26,13 +26,23 @@ Phases:
    inverse in both layouts, K4 with the OTF and its conjugate, K4b with
    an OTF period, K6) at a small row count: on the stage FFT kernels at
    each of their eight lengths 256 * j, on the mixed-radix FFT kernel
-   (csrc/stage_mixed.cuh) at n = 384, 2176, 2304, 2560 and 12288 (one
-   launch each on its C entry point), and on the dense stage kernels at
-   n = 12416; <= 1e-5, each counted under its own name; and the mixed
-   kernel's forms (forward z, K6, K4) timed at n = 384, 2176, 2560 and
-   12288, with the RL block's forward x stage at (34816, 2304) and K6's
-   dense kernel at (512, 12416), beside torch.fft and their bound (device
-   times: calls replayed from a CUDA graph);
+   (csrc/stage_mixed.cuh) at n = 384, 2176, 2304, 2560 and 12288, on the
+   large-axis FFT kernel (csrc/stage_large.cuh) at n = 12416, 12544,
+   24576 and 24832 (one launch each on its C entry point, none of a
+   dense kernel), and on the dense stage kernels at n = 12416 through
+   their own entry (`cuda_fft.stage_dense`); <= 1e-5, each counted under
+   its own name; K7's DFT at n = 16384 and 24832 (the large-axis kernel
+   in natural order) against `cplx_matmul_plain`, both directions (the
+   plain versions' matrices built on the card from the host's float64
+   expressions, held to the host's at n = 384 and 2304); and the mixed
+   kernel's forms
+   (forward z, K6, K4) timed at n = 384, 2176, 2560 and 12288, with the
+   RL block's forward x stage at (34816, 2304), the large kernel's at
+   (512, 12416), (4096, 12544) (the (256, 16, 12544) RL block's x
+   stages), (4, 12544, 256) and (256, 24832) / (2, 24832, 256), each
+   beside the dense kernel it replaced there, and K6's dense kernel at
+   (512, 12416) held to its plain version, beside torch.fft and their
+   bound (device times: calls replayed from a CUDA graph);
 3. richardson_lucy on one (512,512,512) block (16-voxel halo, 9^3
    gaussian PSF, 10 iterations): the kernel walk against the torch.fft
    route, inner region within rtol=2e-3, atol=2e-1, and exact launch
@@ -43,7 +53,12 @@ Phases:
    formula (with the taper's y-face blurs, which lie in the v2 domain),
    no dense launch, the mixed kernel's launches on its entry point; and
    MatmulFFT3.convolve at (2304, 64, 256) (the middle-axis form at n =
-   2304) against torch.fft within rtol=2e-3, atol=2e-1;
+   2304) against torch.fft within rtol=2e-3, atol=2e-1; and the same on a
+   (256, 16, 12544) work shape, whose x stages run the large-axis kernel's
+   one-pass form (the core: all of y), and a convolve at (12544, 8, 256)
+   (its two-pass form on the middle axis; the PSF cut to 7 along y), with
+   the device bytes of the
+   walk's plan (no stage matrices on the card);
 4. the deconvolution CLI end to end on a synthetic 512 x 1024 x 1024 u16
    TIFF series (PSF-blurred, Poisson-noised beads from a numpy seed,
    written by a minimal baseline TIFF writer here and read back through
@@ -266,8 +281,14 @@ STAGE_PALLAS = ("ipp_tpu/ops/pallas_fft.py:550 (_v2_stage_call), :252 "
                 "(_fused_stage_call), :301 (_fused_stage_otf_call)")
 STAGE_MIXED = ("K3m", "stage_mixed", "ipp_tpu_torch/csrc/stage_mixed.cuh",
                STAGE_PALLAS + " at lengths off 256 * j <= 2048 up to 12288")
+STAGE_LARGE = ("K3l", "stage_large", "ipp_tpu_torch/csrc/stage_large.cuh",
+               STAGE_PALLAS + " above 12288; ipp_tpu/ops/pallas_fft.py:66 "
+               "(_fused_call, the dense DFT of an axis) above 12288")
 STAGE_DENSE = ("K3d", "radix2_stage_dense", SOURCE,
-               STAGE_PALLAS + " at lengths above 12288")
+               STAGE_PALLAS + " at lengths without an FFT plan")
+# the C entry points of the stage kernels whose launches count under the
+# wrappers' names, by `stage_route`
+STAGE_ENTRIES = {"mixed": "ipp_stage_mixed", "large": "ipp_stage_large"}
 DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cuh",
               "ipp_tpu/ops/pallas_dwt.py:80 (dwt_analysis_pallas, axis -1); "
               "scripts/dwt_ykernel_exp.py:87 (dwt_y_pallas, axis -2)")
@@ -522,8 +543,11 @@ def kernel_cases(torch, plan, rng, dev):
     x, den, mul = t(nz, ny, nx), t(nz, ny, nx, lo=0.5), t(nz, ny, nx)
     sr, si = t(kp, nz, nx, lo=-1), t(kp, nz, nx, lo=-1)
     or_, oi = t(kp * nz, nx, lo=-1), t(kp * nz, nx, lo=-1)
-    fz, iz = plan._z[True], plan._z[False]
-    fx, ix = plan._x[True], plan._x[False]
+    # the kernels take the plan's (no) stage matrices, the plain versions
+    # their own
+    kz, kx = plan._z, plan._x
+    fz, iz = (stage_mats(torch, nz, f, dev) for f in (True, False))
+    fx, ix = (stage_mats(torch, nx, f, dev) for f in (True, False))
     r2, i2 = sr.view(-1, nx), si.view(-1, nx)
     both = torch.cat([sr, si], 0).transpose(0, 1).contiguous()  # (nz, 2kp, nx)
     c = torch.complex(sr, si)
@@ -538,21 +562,24 @@ def kernel_cases(torch, plan, rng, dev):
         ("rdft_y_inv_dense", "plain", lambda: cf.rdft_y_inv(sr, si, inv),
          lambda: cf.rdft_y_inv_plain(sr, si, inv),
          lambda: torch.matmul(inv, both), work_rdft_dense(vox, ny, kp, 0)),
-        ("radix2_stage", "fwd_z", lambda: cf.radix2_stage(sr, si, *fz, True, 1),
+        ("radix2_stage", "fwd_z",
+         lambda: cf.radix2_stage(sr, si, *kz[True], True, 1),
          lambda: cf.radix2_stage_plain(sr, si, *fz, True, 1),
          lambda: torch.fft.fft(c, dim=1), work_stage(spec, nz)),
-        ("radix2_stage", "fwd_x", lambda: cf.radix2_stage(r2, i2, *fx, True, -1),
+        ("radix2_stage", "fwd_x",
+         lambda: cf.radix2_stage(r2, i2, *kx[True], True, -1),
          lambda: cf.radix2_stage_plain(r2, i2, *fx, True, -1),
          lambda: torch.fft.fft(c2, dim=-1), work_stage(spec, nx)),
-        ("radix2_stage", "inv_z", lambda: cf.radix2_stage(sr, si, *iz, False, 1),
+        ("radix2_stage", "inv_z",
+         lambda: cf.radix2_stage(sr, si, *kz[False], False, 1),
          lambda: cf.radix2_stage_plain(sr, si, *iz, False, 1),
          lambda: torch.fft.ifft(c, dim=1), work_stage(spec, nz)),
         ("radix2_stage_inv_otf", "otf",
-         lambda: cf.radix2_stage_inv_otf(r2, i2, or_, oi, *ix, False),
+         lambda: cf.radix2_stage_inv_otf(r2, i2, or_, oi, *kx[False], False),
          lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, False),
          lambda: torch.fft.ifft(c2, dim=-1), work_stage(spec, nx, spec)),
         ("radix2_stage_inv_otf", "conj",
-         lambda: cf.radix2_stage_inv_otf(r2, i2, or_, oi, *ix, True),
+         lambda: cf.radix2_stage_inv_otf(r2, i2, or_, oi, *kx[False], True),
          lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, True),
          lambda: torch.fft.ifft(c2, dim=-1), work_stage(spec, nx, spec)),
     ]
@@ -694,84 +721,190 @@ def phase_rdft_forms(torch, dev, record):
 
 # stage lengths of the mixed-radix FFT kernel (csrc/stage_mixed.cuh): 3 and 5
 # after the powers of two, the generic pass (17), 9, and the largest length
-# with one column a block on the middle axis; and one that keeps the dense
-# kernels (above DFT_FFT_MAX_N = 12288)
+# with one column a block on the middle axis; of the large-axis kernel
+# (csrc/stage_large.cuh, above DFT_FFT_MAX_N = 12288): Form A on the last
+# axis with a generic pass of 97 (12416 = 128 * 97), with 7 * 7 (12544) and
+# at its largest length (24576), Form B on both axes (24832 = 256 * 97);
+# the dense stage kernels, held through their own entry at 12416; K7's DFT
+# above 12288 on the large-axis kernel (natural order)
 STAGE_MIXED_LENGTHS = (384, 2176, 2304, 2560, 12288)
+STAGE_LARGE_LENGTHS = (12416, 12544, 24576, 24832)
 STAGE_DENSE_N = 12416   # 128 * 97
+K7_LARGE_LENGTHS = (16384, 24832)
 
 
-def stage_form_cases(torch, n, gen, dev):
+def stage_mats(torch, n, forward, dev):
+    """The radix-2 stage matrices (mr_t, mi_t) of `dft_mats.stage_mats_t(n,
+    forward)` on the card, for the plain versions and the dense kernels
+    (the walk's plans hold none there: no stage kernel on their routes reads
+    them).  Built on the card from the same float64 expressions, rounded
+    once to f32 (`check_card_mats` holds them to the host's): at n = 24832
+    the host's build took ~15 s and 5 GB a direction."""
+    m = n // 2
+    a = torch.arange(m, device=dev, dtype=torch.int64)
+    jk = ((a[:, None] * a[None, :]) % m).double() / m   # (j k % m) / m
+    ad = a.double()
+    mr, mi = [], []
+    for s in (0, 1):
+        if forward:   # [s, k, t] = M_s[t, k] = exp(-2 pi i (t s / n + jk))
+            th = -2 * math.pi * (ad[None, :] * s / n + jk)
+            mr.append(torch.cos(th).float())
+            mi.append(torch.sin(th).float())
+        else:   # [s, t, k] = Minv_s[k, t] = exp(2 pi i (jk + s t / n)) / m
+            th = 2 * math.pi * (jk + ad[:, None] * s / n)
+            mr.append((torch.cos(th) / m).float())
+            mi.append((torch.sin(th) / m).float())
+        del th
+    del jk
+    return torch.stack(mr), torch.stack(mi)
+
+
+def dft_triple(torch, n, forward, dev):
+    """`dft_mats.cplx_triple(n, forward)` on the card, as `stage_mats`:
+    (mr, mi, mr + mi) of the dense DFT exp(-2 pi i (j k % n) / n), or of
+    its inverse (the transpose, conjugated, over n; the matrix is
+    symmetric)."""
+    a = torch.arange(n, device=dev, dtype=torch.int64)
+    th = (-2 * math.pi * a.double() / n)[(a[:, None] * a[None, :]) % n]
+    mr, mi = torch.cos(th), torch.sin(th)
+    del th
+    if forward:
+        mr, mi = mr.float(), mi.float()
+    else:
+        mr, mi = (mr / n).float(), (-mi / n).float()
+    return mr, mi, mr + mi
+
+
+def check_card_mats(torch, dev):
+    """The card's stage matrices and DFT triples against the host's
+    (`dft_mats`) at small lengths: max |card - host| (0 or an f32 ulp)."""
+    from ipp_tpu_torch.ops.dft_mats import cplx_triple, stage_mats_t
+
+    worst = 0.0
+    for n in (384, 2304):
+        for f in (True, False):
+            for c, h in zip(stage_mats(torch, n, f, dev), stage_mats_t(n, f)):
+                worst = max(worst, float((c.cpu() - torch.from_numpy(
+                    h.copy())).abs().max()))
+            for c, h in zip(dft_triple(torch, n, f, dev), cplx_triple(n, f)):
+                worst = max(worst, float((c.cpu() - torch.from_numpy(
+                    h.copy())).abs().max()))
+    return worst
+
+
+def stage_form_cases(torch, n, gen, dev, dense=False):
     """(form, counter, kernel_fn, plain_fn) for every form of the radix-2
     stage at axis length n and a small row count: ragged against the
-    kernels' column and row tiles, the batched OTF with a period."""
+    kernels' column and row tiles, the batched OTF with a period.  The
+    kernel calls go through the wrappers (the large-axis kernel's with no
+    stage matrices, which it does not read), or with `dense` through the
+    dense kernels' own entry, `cuda_fft.stage_dense`."""
     from ipp_tpu_torch.ops import cuda_fft as cf
-    from ipp_tpu_torch.ops.dft_mats import stage_mats_t
 
     def d(*shape):
         return torch.rand(shape, generator=gen, device=dev) - 0.5
 
-    fwd, inv = (tuple(torch.tensor(m, device=dev)
-                      for m in stage_mats_t(n, f)) for f in (True, False))
+    fwd, inv = (stage_mats(torch, n, f, dev) for f in (True, False))
+    kf, ki = ((None, None), (None, None)) if (
+        cf.stage_route(n) == "large" and not dense) else (fwd, inv)
     zr, zi = d(3, n, 40), d(3, n, 40)
     xr, xi, pr, pi = d(21, n), d(21, n), d(21, n), d(21, n)
     br, bi, o_r, o_i = d(192, n), d(192, n), d(64, n), d(64, n)
+    if dense:
+        def stage(re, im, m, f, axis):
+            name = "radix2_stage_inv_last" if axis == -1 and not f else \
+                "radix2_stage"
+            return cf.stage_dense(re, im, *m, f, axis, name=name)
+
+        def otf_stage(re, im, o1, o2, m, conj, name="radix2_stage_inv_otf"):
+            return cf.stage_dense(re, im, *m, False, -1, (o1, o2), conj, name)
+
+        def otf_batched(re, im, o1, o2, m, conj):
+            return otf_stage(re, im, o1, o2, m, conj,
+                             "radix2_stage_inv_otf_batched")
+    else:
+        def stage(re, im, m, f, axis):
+            return cf.radix2_stage(re, im, *m, f, axis)
+
+        def otf_stage(re, im, o1, o2, m, conj):
+            return cf.radix2_stage_inv_otf(re, im, o1, o2, *m, conj)
+
+        def otf_batched(re, im, o1, o2, m, conj):
+            return cf.radix2_stage_inv_otf_batched(re, im, o1, o2, *m, conj)
+
     return [
         ("fwd z", "radix2_stage",
-         lambda: cf.radix2_stage(zr, zi, *fwd, True, 1),
+         lambda: stage(zr, zi, kf, True, 1),
          lambda: cf.radix2_stage_plain(zr, zi, *fwd, True, 1)),
         ("inv z", "radix2_stage",
-         lambda: cf.radix2_stage(zr, zi, *inv, False, 1),
+         lambda: stage(zr, zi, ki, False, 1),
          lambda: cf.radix2_stage_plain(zr, zi, *inv, False, 1)),
         ("fwd x", "radix2_stage",
-         lambda: cf.radix2_stage(xr, xi, *fwd, True, -1),
+         lambda: stage(xr, xi, kf, True, -1),
          lambda: cf.radix2_stage_plain(xr, xi, *fwd, True, -1)),
         ("K6 inv x", "radix2_stage_inv_last",
-         lambda: cf.radix2_stage(xr, xi, *inv, False, -1),
+         lambda: stage(xr, xi, ki, False, -1),
          lambda: cf.radix2_stage_plain(xr, xi, *inv, False, -1)),
         ("K4 otf", "radix2_stage_inv_otf",
-         lambda: cf.radix2_stage_inv_otf(xr, xi, pr, pi, *inv, False),
+         lambda: otf_stage(xr, xi, pr, pi, ki, False),
          lambda: cf.radix2_stage_inv_otf_plain(xr, xi, pr, pi, *inv, False)),
         ("K4 conj", "radix2_stage_inv_otf",
-         lambda: cf.radix2_stage_inv_otf(xr, xi, pr, pi, *inv, True),
+         lambda: otf_stage(xr, xi, pr, pi, ki, True),
          lambda: cf.radix2_stage_inv_otf_plain(xr, xi, pr, pi, *inv, True)),
         ("K4b period", "radix2_stage_inv_otf_batched",
-         lambda: cf.radix2_stage_inv_otf_batched(br, bi, o_r, o_i, *inv,
-                                                 True),
+         lambda: otf_batched(br, bi, o_r, o_i, ki, True),
          lambda: cf.radix2_stage_inv_otf_plain(br, bi, o_r, o_i, *inv, True)),
     ]
 
 
 def phase_stage_forms(torch, dev, record):
     """Every stage form at every length of the FFT route, at the lengths of
-    STAGE_MIXED_LENGTHS (the mixed-radix kernel) and at one dense length:
-    kernel vs plain <= 1e-5 of max, each launch counted under the name of
-    the kernel that ran (the FFT kernels under the wrapper's own, the dense
-    ones with `_dense` appended), and the mixed-radix kernel's launches on
-    its C entry point (`ENTRY_LAUNCHES`): one there at its lengths, none
-    elsewhere."""
+    STAGE_MIXED_LENGTHS (the mixed-radix kernel) and STAGE_LARGE_LENGTHS
+    (the large-axis kernel), and on the dense kernels (their own entry,
+    `cuda_fft.stage_dense`) at STAGE_DENSE_N: kernel vs plain <= 1e-5 of
+    max, each launch counted under the name of the kernel that ran (the FFT
+    kernels under the wrapper's own, the dense ones with `_dense`
+    appended), and the mixed-radix and large-axis kernels' launches on
+    their C entry points (`ENTRY_LAUNCHES`): one there at their lengths,
+    none elsewhere.  Then K7's DFT at K7_LARGE_LENGTHS (the large-axis
+    kernel, natural order) against `cplx_matmul_plain`, forward and
+    inverse, one launch each.  The plain versions' matrices are built on
+    the card (`stage_mats`, `dft_triple`), held to the host's first."""
     from ipp_tpu_torch.ops import cuda_fft as cf
     from ipp_tpu_torch.ops.dft_mats import STAGE_FFT_LENGTHS
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(22)
     rows, bad = [], []
-    for n in STAGE_FFT_LENGTHS + STAGE_MIXED_LENGTHS + (STAGE_DENSE_N,):
-        route = cf.stage_route(n)
+    mats_diff = check_card_mats(torch, dev)
+    say(f"  the card's stage and DFT matrices against the host's at n = 384, "
+        f"2304: max |diff| {mats_diff:.2e}")
+    if not mats_diff <= 1e-6:
+        bad.append(f"card-built matrices {mats_diff:.3e} off the host's")
+    lengths = STAGE_FFT_LENGTHS + STAGE_MIXED_LENGTHS + STAGE_LARGE_LENGTHS
+    for n in lengths + (-STAGE_DENSE_N,):
+        dense = n < 0
+        n = abs(n)
+        route = "dense" if dense else cf.stage_route(n)
         worst = 0.0
-        for form, counter, kfn, pfn in stage_form_cases(torch, n, gen, dev):
+        for form, counter, kfn, pfn in stage_form_cases(torch, n, gen, dev,
+                                                        dense):
             cf.reset_launch_counts()
             got, ref = kfn(), pfn()
             torch.cuda.synchronize()
             counts = {k: v for k, v in cf.LAUNCHES.items() if v}
-            mixed = cf.ENTRY_LAUNCHES.get("ipp_stage_mixed", 0)
             rel = max(float((g - r).abs().max() / r.abs().max())
                       for g, r in zip(got, ref))
             worst = max(worst, rel)
             rows.append(dict(n=n, route=route, form=form, rel_err=rel,
                              launches=counts,
                              entries=dict(cf.ENTRY_LAUNCHES)))
-            if counts != {counter + ("_dense" if route == "dense" else ""):
-                          1} or mixed != (route == "mixed"):
+            want = ({STAGE_ENTRIES[route]: 1} if route in STAGE_ENTRIES
+                    else {})
+            got_entries = {k: v for k, v in cf.ENTRY_LAUNCHES.items()
+                           if k in STAGE_ENTRIES.values()}
+            if counts != {counter + ("_dense" if dense else ""): 1} \
+                    or got_entries != want:
                 bad.append(f"n={n} {form}: launches {counts}, "
                            f"{cf.ENTRY_LAUNCHES}")
             if not rel <= 1e-5:
@@ -779,8 +912,34 @@ def phase_stage_forms(torch, dev, record):
             del got, ref
         say(f"  stage forms at n={n:<5d} ({route} kernels, 7 forms): worst "
             f"rel {worst:.2e}")
+        torch.cuda.empty_cache()
+    for n in K7_LARGE_LENGTHS:
+        re = torch.rand((5, n), generator=gen, device=dev) - 0.5
+        im = torch.rand((5, n), generator=gen, device=dev) - 0.5
+        for forward in (True, False):
+            mats = dft_triple(torch, n, forward, dev)
+            cf.reset_launch_counts()
+            got = cf.cplx_matmul(re, im, *mats, dft=forward)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cf.LAUNCHES.items() if v}
+            entry = dict(cf.ENTRY_LAUNCHES)
+            ref = cf.cplx_matmul_plain(re, im, *mats)
+            _, rel = err_of_max(got, ref)
+            rows.append(dict(n=n, route=cf.dft_route(n),
+                             form="K7 " + ("fwd" if forward else "inv"),
+                             rel_err=rel, launches=counts, entries=entry))
+            say(f"  K7 DFT at n={n} {'fwd' if forward else 'inv'} "
+                f"({cf.dft_route(n)} kernel): rel {rel:.2e}, {entry}")
+            if counts != {"cplx_matmul": 1} or \
+                    entry != {"ipp_stage_large": 1}:
+                bad.append(f"K7 n={n}: launches {counts}, {entry}")
+            if not rel <= 1e-5:
+                bad.append(f"K7 n={n}: rel {rel:.3e}")
+            del mats, got, ref
+            torch.cuda.empty_cache()
     cf.reset_launch_counts()
     record["stage_forms"] = rows
+    record["card_mats_diff"] = mats_diff
     if bad:
         raise AssertionError("stage kernel != plain: " + "; ".join(bad))
 
@@ -897,27 +1056,33 @@ def phase_rdft_dense(torch, dev, cli_shape, record):
         raise AssertionError("K1d/K2d tensor-core kernels: " + "; ".join(bad))
 
 
-# the stage forms of the mixed-radix kernel, timed: (n, planes of (P, n, X)
-# for the middle-axis form or None, rows of (R, n) for the last-axis forms
-# or None); the RL block's x stages (kp * nz = 136 * 256 rows of 2304); and
-# the dense kernels once above 12288
+# the stage forms of the mixed-radix and large-axis kernels, timed: (n,
+# planes of (P, n, X) for the middle-axis forms or None, rows of (R, n) for
+# the last-axis forms or None); the (256, 256, 2304) RL block's x stages
+# (kp * nz = 136 * 256 rows of 2304) and the (256, 16, 12544) one's (16 *
+# 256 rows of 12544, Form A); K6 at (512, 12416), the dense kernel's worst
+# loss; Form B on the middle axis at (4, 12544, 256) and on the last axis at
+# (256, 24832)
 STAGE_TIMES = [(384, 64, 16384), (2560, 16, 4096), (2176, 16, 4096),
-               (12288, 4, 1024), (2304, None, 136 * 256)]
+               (12288, 4, 1024), (2304, None, 136 * 256),
+               (12416, None, 512), (12544, 4, 16 * 256), (24832, 2, 256)]
 STAGE_DENSE_TIME = (STAGE_DENSE_N, 512)   # K6's dense kernel: n, rows
 
 
 def phase_stage_times(torch, dev, record):
-    """The stage forms (forward z, K6, K4; forward x at the RL block's
-    shape) at the lengths of STAGE_TIMES, which run the mixed-radix kernel
-    (csrc/stage_mixed.cuh), and K6 on its dense kernel (csrc/fft_walk.cu)
-    above 12288: each against its plain version (<= 1e-5 of max), one
-    torch.fft call and the bound (`work_stage`), with one launch under
-    the wrapper's counter (the dense one with `_dense` appended) and, for
-    the mixed kernel, on `ipp_stage_mixed`.  Times are the device's, from
-    calls replayed out of a CUDA graph (`graph_ms`): at ~0.1 ms a call the
-    host's per-call time would show in `time_ms`."""
+    """The stage forms (forward z, K6, K4; forward x on the last axis) at
+    the shapes of STAGE_TIMES, which run the mixed-radix kernel
+    (csrc/stage_mixed.cuh) or the large-axis one (csrc/stage_large.cuh;
+    inverse z too), and K6 on the dense kernel (csrc/fft_walk.cu, its own
+    entry `cuda_fft.stage_dense`) at STAGE_DENSE_TIME: each against its
+    plain version (<= 1e-5 of max), one torch.fft call and the bound
+    (`work_stage`), with one launch under the wrapper's counter (the dense
+    one with `_dense` appended) and on its C entry point.  Above 12288 each
+    form's dense kernel on the same inputs is timed too (`dense_ms`, the
+    "<-" of PERF.md).  Times are the device's, from calls replayed out of a
+    CUDA graph (`graph_ms`): at ~0.1 ms a call the host's per-call time
+    would show in `time_ms`; the dense kernels' (10-100 ms) by events."""
     from ipp_tpu_torch.ops import cuda_fft as cf
-    from ipp_tpu_torch.ops.dft_mats import stage_mats_t
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(24)
@@ -926,58 +1091,84 @@ def phase_stage_times(torch, dev, record):
     def d(*shape):
         return torch.rand(shape, generator=gen, device=dev) - 0.5
 
-    def stage_mats(n):
-        return (tuple(torch.tensor(m, device=dev) for m in stage_mats_t(n, f))
-                for f in (True, False))
-
-    for n, planes, nrows in STAGE_TIMES + [(STAGE_DENSE_TIME[0], None,
+    for n, planes, nrows in STAGE_TIMES + [(-STAGE_DENSE_TIME[0], None,
                                             STAGE_DENSE_TIME[1])]:
-        fwd, inv = stage_mats(n)
-        dense = cf.stage_route(n) == "dense"
+        dense = n < 0
+        n = abs(n)
+        route = "dense" if dense else cf.stage_route(n)
+        large = route == "large"
+        fwd, inv = (stage_mats(torch, n, f, dev) for f in (True, False))
+        kf, ki = ((None, None), (None, None)) if large else (fwd, inv)
         cases = []
         if planes is not None:
             zr, zi = d(planes, n, 256), d(planes, n, 256)
             cz = torch.complex(zr, zi)
             cases.append((
                 "radix2_stage", "fwd z", [planes, n, 256],
-                lambda: cf.radix2_stage(zr, zi, *fwd, True, 1),
+                lambda: cf.radix2_stage(zr, zi, *kf, True, 1),
                 lambda: cf.radix2_stage_plain(zr, zi, *fwd, True, 1),
-                lambda: torch.fft.fft(cz, dim=1), work_stage(zr.numel(), n)))
+                lambda: torch.fft.fft(cz, dim=1), work_stage(zr.numel(), n),
+                lambda: cf.stage_dense(zr, zi, *fwd, True, 1)))
+            if large:
+                cases.append((
+                    "radix2_stage", "inv z", [planes, n, 256],
+                    lambda: cf.radix2_stage(zr, zi, *ki, False, 1),
+                    lambda: cf.radix2_stage_plain(zr, zi, *inv, False, 1),
+                    lambda: torch.fft.ifft(cz, dim=1),
+                    work_stage(zr.numel(), n),
+                    lambda: cf.stage_dense(zr, zi, *inv, False, 1)))
         xr, xi, o_r, o_i = d(nrows, n), d(nrows, n), d(nrows, n), d(nrows, n)
         cx = torch.complex(xr, xi)
-        if planes is None and not dense:   # the RL block's forward x stage
+        if dense:
             cases.append((
-                "radix2_stage", "fwd x", [nrows, n],
-                lambda: cf.radix2_stage(xr, xi, *fwd, True, -1),
-                lambda: cf.radix2_stage_plain(xr, xi, *fwd, True, -1),
-                lambda: torch.fft.fft(cx, dim=-1), work_stage(xr.numel(), n)))
-        cases.append((
-            "radix2_stage_inv_last", "K6 inv x", [nrows, n],
-            lambda: cf.radix2_stage(xr, xi, *inv, False, -1),
-            lambda: cf.radix2_stage_plain(xr, xi, *inv, False, -1),
-            lambda: torch.fft.ifft(cx, dim=-1), work_stage(xr.numel(), n)))
-        if not dense:
-            cases.append((
+                "radix2_stage_inv_last_dense", "K6 inv x", [nrows, n],
+                lambda: cf.stage_dense(xr, xi, *inv, False, -1,
+                                       name="radix2_stage_inv_last"),
+                lambda: cf.radix2_stage_plain(xr, xi, *inv, False, -1),
+                lambda: torch.fft.ifft(cx, dim=-1), work_stage(xr.numel(), n),
+                None))
+        else:
+            if planes is None or large:
+                cases.append((
+                    "radix2_stage", "fwd x", [nrows, n],
+                    lambda: cf.radix2_stage(xr, xi, *kf, True, -1),
+                    lambda: cf.radix2_stage_plain(xr, xi, *fwd, True, -1),
+                    lambda: torch.fft.fft(cx, dim=-1),
+                    work_stage(xr.numel(), n),
+                    lambda: cf.stage_dense(xr, xi, *fwd, True, -1)))
+            cases += [(
+                "radix2_stage_inv_last", "K6 inv x", [nrows, n],
+                lambda: cf.radix2_stage(xr, xi, *ki, False, -1),
+                lambda: cf.radix2_stage_plain(xr, xi, *inv, False, -1),
+                lambda: torch.fft.ifft(cx, dim=-1), work_stage(xr.numel(), n),
+                lambda: cf.stage_dense(xr, xi, *inv, False, -1,
+                                       name="radix2_stage_inv_last")), (
                 "radix2_stage_inv_otf", "K4 otf", [nrows, n],
-                lambda: cf.radix2_stage_inv_otf(xr, xi, o_r, o_i, *inv, False),
+                lambda: cf.radix2_stage_inv_otf(xr, xi, o_r, o_i, *ki, False),
                 lambda: cf.radix2_stage_inv_otf_plain(xr, xi, o_r, o_i, *inv,
                                                       False),
                 lambda: torch.fft.ifft(cx, dim=-1),
-                work_stage(xr.numel(), n, xr.numel())))
-        for name, variant, shape, kfn, pfn, lfn, work in cases:
-            name += "_dense" if dense else ""
+                work_stage(xr.numel(), n, xr.numel()),
+                lambda: cf.stage_dense(xr, xi, *inv, False, -1, (o_r, o_i),
+                                       name="radix2_stage_inv_otf"))]
+        for name, variant, shape, kfn, pfn, lfn, work, dfn in cases:
             cf.reset_launch_counts()
             kfn()
             torch.cuda.synchronize()
             counts = {k: v for k, v in cf.LAUNCHES.items() if v}
-            entries = dict(cf.ENTRY_LAUNCHES)
-            if counts != {name: 1} or (not dense and entries != {
-                    "ipp_stage_mixed": 1}):
-                bad.append(f"{name} at n={n}: launches {counts}, {entries}")
+            got_entries = dict(cf.ENTRY_LAUNCHES)
+            want = ({STAGE_ENTRIES[route]: 1} if route in STAGE_ENTRIES
+                    else {"ipp_radix2_stage": 1})
+            if counts != {name: 1} or got_entries != want:
+                bad.append(f"{name} at n={n}: launches {counts}, "
+                           f"{got_entries}")
             check_case(torch, "stage", name, variant, shape, kfn, pfn, lfn,
                        work, 3, rows, bad, timer=graph_ms)
-            rows[-1].update(route=cf.stage_route(n), n=n, timer="graph")
-        del cases, fwd, inv, xr, xi, o_r, o_i, cx
+            rows[-1].update(route=route, n=n, timer="graph")
+            if large:
+                rows[-1]["dense_ms"] = time_ms(torch, dfn, 2)
+                say(f"    <- the dense kernel {rows[-1]['dense_ms']:9.3f} ms")
+        del cases, fwd, inv, kf, ki, xr, xi, o_r, o_i, cx
         torch.cuda.empty_cache()
     cf.reset_launch_counts()
     record["stage_times"] = rows
@@ -1006,6 +1197,12 @@ def ptxas_summary(log: str):
                 name = (f"stage_mixed<"
                         f"{'last' if t.group(1) == '1' else 'middle'}, "
                         f"{('FWD', 'INV', 'INV_OTF')[int(t.group(2))]}>")
+            t = re.search(r"large_(a|b1|b2)ILi(\d)ELb([01])E", name)
+            if t:
+                form = {"a": "A", "b1": "B pass 1", "b2": "B pass 2"}
+                name = (f"stage_large<{form[t.group(1)]}, "
+                        f"{('FWD', 'INV', 'INV_OTF')[int(t.group(2))]}"
+                        f"{', natural' if t.group(3) == '1' else ''}>")
             t = re.search(r"dft_lastILb([01])E", name)
             if t:
                 name = f"dft_last<{('FWD', 'INV')[int(t.group(1))]}>"
@@ -1126,33 +1323,40 @@ def phase_rl_block(torch, dev, record):
         raise AssertionError("non-finite RL output")
 
 
-def mixed_stage_launches(shape, forward: int, inverse: int) -> int:
-    """Launches of the mixed-radix stage kernel (`ENTRY_LAUNCHES
-    ["ipp_stage_mixed"]`) by `forward` and `inverse` transforms on the v2
-    walk at a work shape: a z stage and an x stage each (the x inverse is
-    K4), on each axis whose length `stage_route` sends to that kernel."""
+def entry_stage_launches(shape, forward: int, inverse: int,
+                         route: str) -> int:
+    """Launches of the stage kernel of `route` ("mixed": `ENTRY_LAUNCHES
+    ["ipp_stage_mixed"]`, "large": `["ipp_stage_large"]`) by `forward` and
+    `inverse` transforms on the v2 walk at a work shape: a z stage and an x
+    stage each (the x inverse is K4), on each axis whose length
+    `stage_route` sends to that kernel."""
     from ipp_tpu_torch.ops.cuda_fft import stage_route
     from ipp_tpu_torch.ops.matmul_fft import in_kernel_domain
 
     if not in_kernel_domain(shape):
         return 0
     nz, _, nx = shape
-    return (forward + inverse) * ((stage_route(nz) == "mixed")
-                                  + (stage_route(nx) == "mixed"))
+    return (forward + inverse) * ((stage_route(nz) == route)
+                                  + (stage_route(nx) == route))
 
 
 RL_MIXED_SHAPE = (256, 256, 2304)   # x: K3 forward over x and K4 at n = 2304
 CONV_MIXED_SHAPE = (2304, 64, 256)  # z: the middle-axis form at n = 2304
+RL_LARGE_SHAPE = (256, 16, 12544)   # x: Form A at n = 12544
+CONV_LARGE_SHAPE = (12544, 8, 256)  # z: Form B on the middle axis
 
 
-def phase_rl_mixed(torch, dev, record):
-    """The v2 walk at full width through the mixed-radix stage kernel:
-    richardson_lucy on a RL_MIXED_SHAPE block (9^3 gaussian PSF, 10
-    iterations) on the walk against the torch.fft route, <= 1e-3 of max on
-    the core (16-voxel halo), exact launch counts with no dense launch and
-    the mixed kernel's launches on `ipp_stage_mixed`; then one
-    MatmulFFT3.convolve at CONV_MIXED_SHAPE against torch.fft at the walk's
-    tolerance (rtol 2e-3, atol 0.2)."""
+def phase_rl_route(torch, dev, record, route, shape, cshape, seed):
+    """The v2 walk at full width through the `route` stage kernel
+    ("mixed" or "large"): richardson_lucy on a `shape` block (9^3 gaussian
+    PSF, 10 iterations) on the walk against the torch.fft route, <= 1e-3 of
+    max on the core (a 16-voxel halo; all of an axis of 32 or fewer),
+    exact launch counts with no dense launch and the kernel's launches on
+    its C entry point; then one MatmulFFT3.convolve at `cshape` (the PSF
+    cut to an odd extent within it) against torch.fft at the walk's
+    tolerance (rtol 2e-3, atol 0.2).  Recorded as
+    record["rl_" + route]; with the walk plan's device bytes (built alone,
+    `torch.cuda.max_memory_allocated`)."""
     import numpy as np
 
     from ipp_tpu_torch.ops import cuda_fft as cf
@@ -1160,50 +1364,62 @@ def phase_rl_mixed(torch, dev, record):
     from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
     from ipp_tpu_torch.ops.psf import gaussian_psf
 
-    shape, halo = RL_MIXED_SHAPE, 16
-    rng = np.random.default_rng(1)
+    halo, entry = 16, STAGE_ENTRIES[route]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plan = MatmulFFT3(shape, dev)
+    torch.cuda.synchronize()
+    plan_bytes = torch.cuda.max_memory_allocated() - base
+    del plan
+    rng = np.random.default_rng(seed)
     vol = torch.from_numpy(rng.random(shape, dtype=np.float32) * 1000).to(dev)
     psf = torch.from_numpy(gaussian_psf((9, 9, 9), (2.0, 2.0, 2.0))).to(dev)
 
-    def run(route):
+    def run(how):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = richardson_lucy(vol, psf, niter=NITER, fft_shape=shape,
-                              route=route)
+                              route=how)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
     cf.reset_launch_counts()
     walk, _ = run(None)
     counts = dict(cf.LAUNCHES)
-    mixed = cf.ENTRY_LAUNCHES.get("ipp_stage_mixed", 0)
+    launched = cf.ENTRY_LAUNCHES.get(entry, 0)
     want = add_launches({k: 0 for k in counts}, rl_launches(shape, NITER),
                         taper_launches(shape, psf.shape))
-    want_mixed = mixed_stage_launches(shape, 1 + 2 * NITER, 2 * NITER) + sum(
-        mixed_stage_launches(s, 2, 1)
+    want_entry = entry_stage_launches(shape, 1 + 2 * NITER, 2 * NITER,
+                                      route) + sum(
+        entry_stage_launches(s, 2, 1, route)
         for s in taper_work_shapes(shape, psf.shape))
     fft, _ = run("fft")
     t_walk = min(run(None)[1] for _ in range(2))
     t_fft = min(run("fft")[1] for _ in range(2))
-    inner = (slice(halo, -halo),) * 3
+    inner = tuple(slice(halo, -halo) if s > 2 * halo else slice(None)
+                  for s in shape)
     rel = float((walk[inner] - fft[inner]).abs().max()
                 / fft[inner].abs().max())
     finite = bool(torch.isfinite(walk).all())
     del walk, fft, vol
     torch.cuda.empty_cache()
 
-    cshape = CONV_MIXED_SHAPE
     plan = MatmulFFT3(cshape, dev)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(25)
+    gen.manual_seed(seed + 24)
     x = torch.rand(cshape, generator=gen, device=dev) * 1000
-    k = _rolled_psf(psf / psf.sum(), cshape).contiguous()
+    # the PSF's centre, cut to an odd extent within the shape (y = 8: 7)
+    cut = psf[tuple(slice((p - min(p, c - 1 + c % 2)) // 2,
+                          (p + min(p, c - 1 + c % 2)) // 2)
+                    for p, c in zip(psf.shape, cshape))]
+    k = _rolled_psf(cut / cut.sum(), cshape).contiguous()
     cf.reset_launch_counts()
     otf = plan.otf_packed(k)
     got = plan.convolve(x, otf)
     torch.cuda.synchronize()
     c_counts = {n: v for n, v in cf.LAUNCHES.items() if v}
-    c_mixed = cf.ENTRY_LAUNCHES.get("ipp_stage_mixed", 0)
+    c_launched = cf.ENTRY_LAUNCHES.get(entry, 0)
     c_want = walk_launches(cshape, 2, 1)
     ref = torch.fft.irfftn(torch.fft.rfftn(x) * torch.fft.rfftn(k), s=cshape)
     c_excess = float(((got - ref).abs() - (0.2 + 2e-3 * ref.abs())).max())
@@ -1214,28 +1430,30 @@ def phase_rl_mixed(torch, dev, record):
     del plan, x, k, otf, got, ref
     torch.cuda.empty_cache()
 
-    record["rl_mixed"] = dict(
+    record["rl_" + route] = dict(
         shape=list(shape), halo=halo, niter=NITER, launches=counts,
-        mixed_launches=mixed, walk_s=t_walk, fft_s=t_fft, max_rel_diff=rel,
+        entry_launches=launched, walk_s=t_walk, fft_s=t_fft,
+        max_rel_diff=rel, plan_bytes=plan_bytes,
         convolve=dict(shape=list(cshape), launches=c_counts,
-                      mixed_launches=c_mixed, rel=c_rel, tol_excess=c_excess,
-                      ms=c_ms, fft_ms=c_fft_ms))
-    say(f"  RL {shape}: launches {counts}, ipp_stage_mixed {mixed}")
+                      entry_launches=c_launched, rel=c_rel,
+                      tol_excess=c_excess, ms=c_ms, fft_ms=c_fft_ms))
+    say(f"  RL {shape}: launches {counts}, {entry} {launched}; the walk's "
+        f"plan {plan_bytes} device bytes")
     say(f"  walk {t_walk:.3f} s, torch.fft {t_fft:.3f} s; max |walk-fft| / "
         f"max |fft| on the core {rel:.2e}")
-    say(f"  convolve {cshape}: launches {c_counts}, ipp_stage_mixed "
-        f"{c_mixed}; vs torch.fft rel {c_rel:.2e}, tolerance excess "
-        f"{c_excess:.3e}; {c_ms:.2f} ms vs torch.fft {c_fft_ms:.2f} ms")
-    if counts != want or mixed != want_mixed or mixed == 0:
-        raise AssertionError(f"RL launches {counts}, mixed {mixed} != "
-                             f"{want}, mixed {want_mixed}")
+    say(f"  convolve {cshape}: launches {c_counts}, {entry} {c_launched}; vs "
+        f"torch.fft rel {c_rel:.2e}, tolerance excess {c_excess:.3e}; "
+        f"{c_ms:.2f} ms vs torch.fft {c_fft_ms:.2f} ms")
+    if counts != want or launched != want_entry or launched == 0:
+        raise AssertionError(f"RL launches {counts}, {entry} {launched} != "
+                             f"{want}, {want_entry}")
     if not (rel <= 1e-3 and finite):
         raise AssertionError(f"RL walk vs torch.fft {rel:.3e} > 1e-3 of max "
                              f"on the core (finite: {finite})")
-    c_want_mixed = mixed_stage_launches(cshape, 2, 1)
-    if c_counts != c_want or c_mixed != c_want_mixed or c_mixed == 0:
-        raise AssertionError(f"convolve launches {c_counts}, mixed {c_mixed} "
-                             f"!= {c_want}, mixed {c_want_mixed}")
+    c_want_entry = entry_stage_launches(cshape, 2, 1, route)
+    if c_counts != c_want or c_launched != c_want_entry or c_launched == 0:
+        raise AssertionError(f"convolve launches {c_counts}, {entry} "
+                             f"{c_launched} != {c_want}, {c_want_entry}")
     if not c_excess <= 0:
         raise AssertionError("convolve vs torch.fft outside rtol=2e-3, "
                              "atol=2e-1")
@@ -1776,17 +1994,18 @@ def batched_cases(torch, plan, nb, gen, dev):
     sr, si = t(nb, kp, nz, nx, lo=-1), t(nb, kp, nz, nx, lo=-1)
     or_, oi = t(kp * nz, nx, lo=-1), t(kp * nz, nx, lo=-1)
     r2, i2 = sr.view(-1, nx), si.view(-1, nx)
-    ix = plan._x[False]
+    kx = plan._x[False]                         # the kernel's: none
+    ix = stage_mats(torch, nx, False, dev)      # the plain version's
     c2 = torch.complex(r2, i2)
     otf = kp * nz * nx
     return rdft_cases(torch, cf, x, den, mul, sr, si, plan._rfwd,
                       plan._rinv) + [
         ("radix2_stage_inv_otf_batched", "otf",
-         lambda: cf.radix2_stage_inv_otf_batched(r2, i2, or_, oi, *ix, False),
+         lambda: cf.radix2_stage_inv_otf_batched(r2, i2, or_, oi, *kx, False),
          lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, False),
          lambda: torch.fft.ifft(c2, dim=-1), work_stage(spec, nx, otf)),
         ("radix2_stage_inv_otf_batched", "conj",
-         lambda: cf.radix2_stage_inv_otf_batched(r2, i2, or_, oi, *ix, True),
+         lambda: cf.radix2_stage_inv_otf_batched(r2, i2, or_, oi, *kx, True),
          lambda: cf.radix2_stage_inv_otf_plain(r2, i2, or_, oi, *ix, True),
          lambda: torch.fft.ifft(c2, dim=-1), work_stage(spec, nx, otf)),
     ]
@@ -2160,10 +2379,11 @@ def v1_stage_cases(torch, plan, gen, dev, seen):
                        lambda: cf.cplx_matmul(re, im, *mats, dft=forward),
                        lambda: cf.cplx_matmul_plain(re, im, *mats),
                        lambda: lib(c, dim=-1), work_stage(rows * n, n))
-            else:
+            else:   # the plan holds no stage matrices on the card
+                mats = stage_mats(torch, n, forward, dev)
                 yield (name, variant, (rows, n),
                        lambda: cf.radix2_stage(re, im, *radix, forward, -1),
-                       lambda: cf.radix2_stage_plain(re, im, *radix, forward,
+                       lambda: cf.radix2_stage_plain(re, im, *mats, forward,
                                                      -1),
                        lambda: lib(c, dim=-1), work_stage(rows * n, n))
 
@@ -3998,10 +4218,14 @@ def main() -> int:
         shapes.append(tuple(cli_shape))
     phase(2, f"kernels vs plain at {shapes}", phase_kernels, torch, dev,
           shapes, tuple(cli_shape), record)
-    phase(3, f"richardson_lucy (512,512,512) and {RL_MIXED_SHAPE}, the "
-          f"convolve at {CONV_MIXED_SHAPE}: walk vs torch.fft",
+    phase(3, f"richardson_lucy (512,512,512), {RL_MIXED_SHAPE} and "
+          f"{RL_LARGE_SHAPE}, the convolves at {CONV_MIXED_SHAPE} and "
+          f"{CONV_LARGE_SHAPE}: walk vs torch.fft",
           lambda: (phase_rl_block(torch, dev, record),
-                   phase_rl_mixed(torch, dev, record)))
+                   phase_rl_route(torch, dev, record, "mixed",
+                                  RL_MIXED_SHAPE, CONV_MIXED_SHAPE, 1),
+                   phase_rl_route(torch, dev, record, "large",
+                                  RL_LARGE_SHAPE, CONV_LARGE_SHAPE, 2)))
     # the phase-4 series and output (phases 8, 9, 16), phase 6's and
     # phase 12's trees and outputs (phase 16), phase 14's series (15)
     shared = {}
@@ -4115,14 +4339,21 @@ def main() -> int:
                          for r in record["canonical"])
     kernels.append(entry(tag, name, SOURCE, replaces, dense_launches,
                          v1["dense"], v1["dense"][0]))
-    # the mixed-radix stage kernel at the RL block's forward x stage, its
-    # launches those of phase 3's RL run at RL_MIXED_SHAPE; the dense stage
-    # kernels (K6's, above 12288) on no main path
+    # the mixed-radix and large-axis stage kernels at their RL blocks'
+    # forward x stages, their launches those of phase 3's RL runs at
+    # RL_MIXED_SHAPE and RL_LARGE_SHAPE; the dense stage kernels (for
+    # lengths without an FFT plan) on no main path
     stage_rows = record["stage_times"]
-    rows = [r for r in stage_rows if r["route"] == "mixed"]
-    at = [r for r in rows if r["variant"] == "fwd x"][0]
-    kernels.append(entry(*STAGE_MIXED[:3], STAGE_MIXED[3],
-                         record["rl_mixed"]["mixed_launches"], rows, at))
+    for (tag, name, source, replaces), route, rl_shape in (
+            (STAGE_MIXED, "mixed", RL_MIXED_SHAPE),
+            (STAGE_LARGE, "large", RL_LARGE_SHAPE)):
+        rows = [r for r in stage_rows if r["route"] == route]
+        at = [r for r in rows if r["variant"] == "fwd x"
+              and r["shape"] == [16 * rl_shape[0] if route == "large"
+                                 else 136 * rl_shape[0], rl_shape[2]]][0]
+        kernels.append(entry(tag, name, source, replaces,
+                             record["rl_" + route]["entry_launches"], rows,
+                             at))
     rows = [r for r in stage_rows if r["route"] == "dense"]
     off_path.add(STAGE_DENSE[1])
     kernels.append(entry(*STAGE_DENSE[:3], STAGE_DENSE[3], sum(

@@ -50,12 +50,13 @@
 // n = 256 * j up to 2048 those of stage_fft.cuh (plans fixed at compile
 // time; entries in stage_fft_fwd.cu, stage_fft_inv.cu, stage_fft_otf.cu),
 // for every other multiple of 128 up to 12288 the mixed-radix kernel of
-// stage_mixed.cuh (plan at run time; entry in stage_mixed.cu).  The stage
-// kernels in this file are the dense form, a butterfly and two m x m
-// complex products (m = n/2) as the TPU's matrix unit ran them: O(n) FMAs
-// per value, bound by the FMA rate at 15-90x the bytes' time.  They serve
-// the stage lengths above 12288 (multiples of 128); the wrappers choose by
-// n alone (ops/cuda_fft.stage_route).
+// stage_mixed.cuh (plan at run time; entry in stage_mixed.cu), above it
+// the large-axis kernel of stage_large.cuh (every multiple of 128 up to
+// 196608).  The stage kernels in this file are the dense form, a butterfly
+// and two m x m complex products (m = n/2) as the TPU's matrix unit ran
+// them: O(n) FMAs per value, bound by the FMA rate at 15-385x the bytes'
+// time.  They serve the stage lengths without an FFT plan; the wrappers
+// choose by n alone (ops/cuda_fft.stage_route).
 //
 // Plain C interface for ctypes: each entry launches on the given stream
 // and returns cudaGetLastError() of its launch.
@@ -65,8 +66,8 @@
 using namespace ippfft;
 
 // ---------------------------------------------------------------------------
-// K3 forward, dense form (stage lengths above 12288; the FFT forms are
-// stage_fft_fwd.cu and stage_mixed.cu) — replaces `_v2_stage_call(forward=True)` (kernel
+// K3 forward, dense form (stage lengths without an FFT plan; the FFT forms
+// are stage_fft_fwd.cu, stage_mixed.cu and stage_large.cu) — replaces `_v2_stage_call(forward=True)` (kernel
 // `_v2_stage_fwd_kernel`, z: the middle axis of (kp, nz, nx)) and
 // `fused_stage(forward=True)` -> `_fused_stage_call` (`_stage_fwd_kernel`,
 // x: the last axis of (kp*nz, nx)).  Radix-2 decimation in frequency:
@@ -125,8 +126,9 @@ radix2_fwd(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 // ---------------------------------------------------------------------------
-// K3 inverse, K4 and K6, dense form (stage lengths above 12288; the FFT
-// forms are stage_fft_inv.cu, stage_fft_otf.cu and stage_mixed.cu).  K3 inverse
+// K3 inverse, K4 and K6, dense form (stage lengths without an FFT plan;
+// the FFT forms are stage_fft_inv.cu, stage_fft_otf.cu, stage_mixed.cu and
+// stage_large.cu).  K3 inverse
 // replaces `_v2_stage_call(forward=False)` (kernel
 // `_v2_stage_inv_kernel`, z: the middle axis).  K6 (K_FAST, OTF = false)
 // replaces `_fused_stage_call(forward=False)` (kernel `_stage_inv_kernel`,

@@ -12,7 +12,8 @@
 // (n/2)^2 complex products on the matrix unit: O(n) multiply-adds per
 // value, which on CUDA cores is bound by the FMA rate, 15x the bytes' time
 // at n = 384 and 87x at n = 2560 (the dense form in fft_walk.cu, kept for
-// n > 12288).  This kernel does O(log n) work per value.
+// lengths without an FFT plan; above 12288 stage_large.cuh runs on this
+// file's in-place passes).  This kernel does O(log n) work per value.
 //
 // It is stage_fft.cuh's function on dft_fft.cuh's engine: the plan is
 // ops/dft_mats.dft_fft_plan(n), passed at run time (2^a with a >= 7 first,
@@ -166,10 +167,14 @@ __host__ __device__ inline int dit_source(const Plan& pl, int g) {
 }
 
 // The first pass (radix R, no twiddle): load(e) gives input e, put(e, v)
-// takes element e of the buffer.
+// takes element e of the buffer.  gnext > 0: the next pass is the generic
+// one (a plan R, r), whose twiddles (element q + jj R times w^(q jj)) this
+// pass applies to its outputs, as `dit_pass` does: q = k, jj = g.
 template <int R, bool INV, class Load, class Put>
 __device__ __forceinline__ void dit_first(const Plan& pl, int j, int T,
-                                          Load load, Put put) {
+                                          Load load, Put put, int gnext = 0,
+                                          const float2* __restrict__ tw =
+                                              nullptr) {
   const int nb = pl.n / R;
   for (int g = j; g < nb; g += T) {
     const int src = dit_source(pl, g);
@@ -177,6 +182,14 @@ __device__ __forceinline__ void dit_first(const Plan& pl, int j, int T,
 #pragma unroll
     for (int k = 0; k < R; ++k) v[k] = load(src + k * nb);
     dft<R, INV>(v);
+    if (gnext > 0 && g != 0) {
+#pragma unroll
+      for (int k = 1; k < R; ++k) {
+        float2 w = __ldg(&tw[k * g]);
+        if (INV) w.y = -w.y;
+        v[k] = cmul(v[k], w);
+      }
+    }
 #pragma unroll
     for (int k = 0; k < R; ++k) put(g * R + k, v[k]);
   }
@@ -230,11 +243,13 @@ __device__ __forceinline__ void dit_pass(int j0, int T, int n, int Lp,
 
 template <bool INV, class Load, class Put>
 __device__ __forceinline__ void dit_first_any(int R, const Plan& pl, int j,
-                                              int T, Load load, Put put) {
+                                              int T, Load load, Put put,
+                                              int gnext = 0,
+                                              const float2* tw = nullptr) {
   if (R == 16)
-    dit_first<16, INV>(pl, j, T, load, put);
+    dit_first<16, INV>(pl, j, T, load, put, gnext, tw);
   else
-    dit_first<8, INV>(pl, j, T, load, put);
+    dit_first<8, INV>(pl, j, T, load, put, gnext, tw);
 }
 
 template <bool INV, class Get, class Put>

@@ -57,6 +57,9 @@ _SIGNATURES = {
                               _P],
     "ipp_stage_mixed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I,
                         _P, _I, _I, _I, _I, _I, _P],
+    "ipp_stage_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _L, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _P],
     "ipp_dwt_analysis": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
     "ipp_dwt_analysis_knobs": [_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I,
                                _P],

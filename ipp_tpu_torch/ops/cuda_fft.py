@@ -24,21 +24,25 @@ wrote plane-major (nb*nz, kp, nx) and paid an XLA transpose each side of
 the z stage (csrc/fft_walk.cu says why CUDA need not).  K3 needs no
 batched form: it already takes any number of planes or rows.
 
-The radix-2 stages (K3, K4, K4b, K6) have three kernels each, chosen by
+The radix-2 stages (K3, K4, K4b, K6) have four kernels each, chosen by
 the axis length n alone (`stage_route`): the FFT kernels of
 csrc/stage_fft.cuh, whose plans are fixed at compile time, for n in
 `STAGE_FFT_LENGTHS` (256 * j up to 2048); the mixed-radix FFT kernel of
 csrc/stage_mixed.cuh, whose plan `dft_fft_plan(n)` is passed at run time,
-for every other multiple of 128 up to `DFT_FFT_MAX_N` (12288); the dense
-stage kernels of csrc/fft_walk.cu (a butterfly and two (n/2)^2 complex
-products) above that.  It is a route by shape: nothing is caught and
-retried.
+for every other multiple of 128 up to `DFT_FFT_MAX_N` (12288); the
+large-axis FFT kernel of csrc/stage_large.cuh (one radix-2 step and two
+n/2-point FFTs, in one pass or two, plan `stage_large_plan`) above that;
+and the dense stage kernels of csrc/fft_walk.cu (a butterfly and two
+(n/2)^2 complex products) for a length with no such plan.  It is a route
+by shape: nothing is caught and retried.  Only the dense kernels read the
+stage matrices: on the card the others take None for them.
 
-K7 has two kernels too.  Every call the walks make multiplies by the dense
+K7 has three kernels.  Every call the walks make multiplies by the dense
 DFT matrix of an axis, `cplx_triple(n, forward)`, and says so with `dft=`:
 then the function is the n-point DFT along the last axis, and for n a
 multiple of 8 up to `DFT_FFT_MAX_N` (`dft_route`) the mixed-radix FFT
-kernel of csrc/dft_fft.cuh computes it without reading the matrices.  An
+kernel of csrc/dft_fft.cuh computes it without reading the matrices, for
+a multiple of 64 above that the large-axis kernel in natural order.  An
 arbitrary matrix (`dft=None`) and every other length take the dense
 Karatsuba kernel of csrc/fft_walk.cu, counted as `cplx_matmul_dense`.
 
@@ -65,7 +69,7 @@ Rules every wrapper keeps:
   stage kernel under its name with `_dense` appended; `ENTRY_LAUNCHES`
   counts the same launches by C entry point, so a run can show which
   stage kernel it went through (`ipp_stage_mixed` for the mixed-radix
-  one);
+  one, `ipp_stage_large` for the large-axis one, K7's above 12288 too);
   `cplx_matmul` counts K7's FFT kernel, `cplx_matmul_dense` its dense one;
   `rdft_y_*` count the real-FFT kernels, `rdft_y_*_dense` the dense GEMMs.
 """
@@ -80,7 +84,7 @@ import numpy as np
 import torch
 
 from .dft_mats import (DFT_FFT_MAX_N, DFT_FFT_RADICES, STAGE_FFT_LENGTHS,
-                       dft_fft_plan, stage_twiddles)
+                       dft_fft_plan, stage_large_plan, stage_twiddles)
 
 __all__ = ["LAUNCHES", "ENTRY_LAUNCHES", "reset_launch_counts", "stage_route",
            "dft_route", "rdft_route", "RDFT_FFT_MAX_NY", "rdft_y_fwd_fft",
@@ -89,7 +93,7 @@ __all__ = ["LAUNCHES", "ENTRY_LAUNCHES", "reset_launch_counts", "stage_route",
            "radix2_stage_plain", "radix2_stage_inv_otf",
            "radix2_stage_inv_otf_batched", "radix2_stage_inv_otf_plain",
            "cplx_matmul", "cplx_matmul_plain", "dft_last_fft",
-           "stage_mixed"]
+           "stage_mixed", "stage_large", "stage_dense"]
 
 EPS = float(np.finfo(np.float32).eps)
 _GRID_MAX = 65535  # gridDim.y / gridDim.z limit
@@ -474,11 +478,17 @@ def stage_route(n: int) -> str:
     """Which kernel a radix-2 stage along an axis of length n launches on
     the card: "fft" (csrc/stage_fft.cuh) for the lengths 256 * j up to
     2048, "mixed" (csrc/stage_mixed.cuh) for every other multiple of 128 up
-    to `DFT_FFT_MAX_N`, "dense" (csrc/fft_walk.cu) above it.  (The wrappers
-    refuse a length that is no multiple of 128.)"""
+    to `DFT_FFT_MAX_N`, "large" (csrc/stage_large.cuh) for a multiple of 128
+    above it with a `stage_large_plan` (every one up to 196608), "dense"
+    (csrc/fft_walk.cu) for any other length.  (The wrappers refuse a length
+    that is no multiple of 128.)"""
     if n in STAGE_FFT_LENGTHS:
         return "fft"
-    return "mixed" if n % 128 == 0 and 0 < n <= DFT_FFT_MAX_N else "dense"
+    if n % 128 == 0 and 0 < n <= DFT_FFT_MAX_N:
+        return "mixed"
+    if n % 128 == 0 and stage_large_plan(n, False) is not None:
+        return "large"
+    return "dense"
 
 
 _twiddles: Dict[Tuple[torch.device, int], torch.Tensor] = {}
@@ -493,11 +503,38 @@ def _stage_twiddles(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _stage_mats_ok(name: str, n: int, mr_t, mi_t) -> None:
+    """The stage matrices: (2, n/2, n/2) each, or None for both where the
+    kernel of `stage_route(n)` reads none (every route but "dense")."""
     if n % 128:
         raise ValueError(f"{name}: the stage axis must be a multiple of "
                          f"128 (got {n})")
+    if mr_t is None and mi_t is None and stage_route(n) != "dense":
+        return
+    if mr_t is None or mi_t is None:
+        raise ValueError(f"{name}: at n={n} the {stage_route(n)} stage "
+                         f"kernel needs the stage matrices mr_t, mi_t")
     _shape(name, mr_t, (2, n // 2, n // 2))
     _shape(name, mi_t, (2, n // 2, n // 2))
+
+
+def _plain_mats(name: str, mr_t, mi_t) -> None:
+    if mr_t is None or mi_t is None:
+        raise ValueError(f"{name}: the plain version (CPU tensors) needs "
+                         f"the stage matrices mr_t, mi_t")
+
+
+def _otf_rows(name: str, otf: Optional[Pair], ncols: int, n: int):
+    """(orows, otf_re, otf_im) of an (orows, n) OTF pair whose orows
+    divides the data's ncols rows, or (0, None, None)."""
+    if otf is None:
+        return 0, None, None
+    o_r, o_i = otf
+    orows = o_r.shape[0]
+    _shape(name, o_i, o_r.shape)
+    if o_r.dim() != 2 or o_r.shape[1] != n or orows == 0 or ncols % orows:
+        raise ValueError(f"{name}: the OTF {tuple(o_r.shape)} must be "
+                         f"(orows, {n}) with orows dividing {ncols}")
+    return orows, o_r, o_i
 
 
 def stage_mixed(re: torch.Tensor, im: torch.Tensor, forward: bool,
@@ -528,15 +565,7 @@ def stage_mixed(re: torch.Tensor, im: torch.Tensor, forward: bool,
     batch, ncols = (re.shape[0], re.shape[2]) if axis == 1 else (1,
                                                                  re.shape[0])
     _grid(name, "batch", batch)
-    orows, o_r, o_i = 0, None, None
-    if otf is not None:
-        o_r, o_i = otf
-        orows = o_r.shape[0]
-        _shape(name, o_i, o_r.shape)
-        if o_r.dim() != 2 or o_r.shape[1] != n or orows == 0 \
-                or ncols % orows:
-            raise ValueError(f"{name}: the OTF {tuple(o_r.shape)} must be "
-                             f"(orows, {n}) with orows dividing {ncols}")
+    orows, o_r, o_i = _otf_rows(name, otf, ncols, n)
     mode = 0 if forward else (2 if otf is not None else 1)
     radices, npass, generic = _dft_plan(dft_fft_plan(n))
     rr, ii = _empty(re.shape, re), _empty(re.shape, re)
@@ -549,44 +578,104 @@ def stage_mixed(re: torch.Tensor, im: torch.Tensor, forward: bool,
     return rr, ii
 
 
-def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
-                 mi_t: torch.Tensor, forward: bool, axis: int) -> Pair:
-    """K3, and K6 for the inverse over the last axis: see
-    `radix2_stage_plain`.  axis=1 takes (P, n, X), axis=-1 takes (R, n),
-    each forward or inverse.  The inverse over the last axis (the v1
-    walk's, without an OTF) counts as `radix2_stage_inv_last`.  On the
-    card the length chooses the kernel (`stage_route`): one of the two FFT
-    kernels (which do not read mr_t, mi_t), or above `DFT_FFT_MAX_N` the
-    dense kernel, counted with `_dense` appended."""
-    name = "radix2_stage"
-    if axis not in (1, -1) or re.dim() != (3 if axis == 1 else 2):
-        raise ValueError(f"{name}: axis=1 needs (P, n, X), axis=-1 (R, n); "
-                         f"got axis={axis}, shape {tuple(re.shape)}")
-    if axis == -1 and not forward:
-        name = "radix2_stage_inv_last"
-    if not _on_cuda(name, re, im, mr_t, mi_t):
-        return radix2_stage_plain(re, im, mr_t, mi_t, forward, axis)
+def stage_large(re: torch.Tensor, im: torch.Tensor, forward: bool,
+                axis: int, otf: Optional[Pair] = None, conj: bool = False,
+                name: str = "radix2_stage", natural: bool = False,
+                threads_per_col1: int = 0, cols1: int = 0,
+                threads_per_col: int = 0, cols: int = 0) -> Pair:
+    """The large-axis FFT kernel (csrc/stage_large.cuh) on CUDA tensors,
+    counted under `name`: the n-point DFT along axis 1 of (P, n, X) or axis
+    -1 of (R, n) for n above `DFT_FFT_MAX_N`, the spectrum in the walk's
+    permuted order (forward out, inverse in, with 1/n) or, with `natural`
+    (K7's DFT, last axis only), in natural order; with `otf` (an (orows, n)
+    pair, orows dividing R; inverse over the last axis only) the input is
+    first multiplied by otf_re +/- i otf_im (`conj`), row r by OTF row
+    r % orows.  The plan is `stage_large_plan(n, axis == -1)`: one pass
+    (Form A) or two through a scratch the size of the data (Form B).  The
+    four knobs override pass 1's and pass 2's (Form A's: the second pair)
+    threads a column and columns a block: a bench's; 0 keeps the kernel's
+    own (it refuses a geometry it cannot run)."""
+    ndim = 3 if axis == 1 else 2
+    n = re.shape[axis] if re.dim() == ndim else 0
+    plan = stage_large_plan(n, axis == -1) if n > DFT_FFT_MAX_N else None
+    if (not _on_cuda(name, re, im, *(otf or ())) or plan is None
+            or re.numel() == 0 or (not natural and n % 128)
+            or (otf is not None and (forward or axis != -1 or natural))
+            or (natural and axis != -1)):
+        raise ValueError(f"{name}: the large-axis kernel takes CUDA tensors "
+                         f"with an axis above {DFT_FFT_MAX_N} that has a "
+                         f"stage_large_plan (a multiple of 128; 64 with "
+                         f"natural=True, last axis only), an OTF only "
+                         f"inverse over the last axis; got "
+                         f"{tuple(re.shape)}, axis={axis} on {re.device}")
     _shape(name, im, re.shape)
+    batch, ncols = (re.shape[0], re.shape[2]) if axis == 1 else (1,
+                                                                 re.shape[0])
+    orows, o_r, o_i = _otf_rows(name, otf, ncols, n)
+    plan1, plan2 = plan
+    m1, m2 = int(np.prod(plan1)), int(np.prod(plan2)) if plan2 else 0
+    r1, np1, g1 = _dft_plan(plan1)
+    r2, np2, g2 = _dft_plan(plan2) if plan2 else (None, 0, 0)
+    dev = re.device
+    scratch = (torch.empty((re.numel(), 2), dtype=torch.float32, device=dev)
+               if plan2 else None)
+    mode = 0 if forward else (2 if otf is not None else 1)
+    rr, ii = _empty(re.shape, re), _empty(re.shape, re)
+    _launch(name, dev, _lib().ipp_stage_large, re.data_ptr(), im.data_ptr(),
+            None if o_r is None else o_r.data_ptr(),
+            None if o_i is None else o_i.data_ptr(),
+            _stage_twiddles(dev, n).data_ptr(),
+            _stage_twiddles(dev, m1).data_ptr(),
+            _stage_twiddles(dev, m2).data_ptr() if m2 else None,
+            None if scratch is None else scratch.data_ptr(), rr.data_ptr(),
+            ii.data_ptr(), mode, int(bool(natural)), int(axis == -1), batch,
+            ncols, n, np1, r1, g1, np2, r2, g2, orows, int(bool(conj)),
+            threads_per_col1, cols1, threads_per_col, cols)
+    return rr, ii
+
+
+def stage_dense(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
+                mi_t: torch.Tensor, forward: bool, axis: int,
+                otf: Optional[Pair] = None, conj: bool = False,
+                name: str = "radix2_stage") -> Pair:
+    """The dense stage kernels of csrc/fft_walk.cu (a butterfly and two
+    (n/2)^2 complex products against mr_t, mi_t) at any multiple of 128,
+    whatever `stage_route` says, counted under `name` with `_dense`
+    appended: the route's own for a length with no FFT plan, and a bench's
+    yardstick ("<-" in PERF.md) elsewhere.  `otf` as `stage_large` (an OTF
+    of the data's rows, or of a multiple of 64 rows)."""
+    ndim = 3 if axis == 1 else 2
+    n = re.shape[axis] if re.dim() == ndim else 0
+    if (not _on_cuda(name, re, im, mr_t, mi_t, *(otf or ())) or n % 128
+            or n == 0 or re.numel() == 0
+            or (otf is not None and (forward or axis != -1))):
+        raise ValueError(f"{name}: the dense stage kernel takes CUDA tensors "
+                         f"with a multiple of 128, an OTF only inverse over "
+                         f"the last axis; got {tuple(re.shape)}, axis={axis} "
+                         f"on {re.device}")
+    _shape(name, im, re.shape)
+    _shape(name, mr_t, (2, n // 2, n // 2))
+    _shape(name, mi_t, (2, n // 2, n // 2))
+    rr, ii = _empty(re.shape, re), _empty(re.shape, re)
+    if otf is not None:
+        rows = re.shape[0]
+        orows, o_r, o_i = _otf_rows(name, otf, rows, n)
+        if orows != rows and orows % _BN:
+            raise ValueError(f"{name}: the dense stage kernel wraps the OTF "
+                             f"per column tile: its {orows} rows must equal "
+                             f"the data's {rows} or be a multiple of {_BN}")
+        _launch(name + "_dense", re.device, _lib().ipp_radix2_stage_inv_otf,
+                re.data_ptr(), im.data_ptr(), o_r.data_ptr(), o_i.data_ptr(),
+                mr_t.data_ptr(), mi_t.data_ptr(), rr.data_ptr(),
+                ii.data_ptr(), int(bool(conj)), rows, orows, n)
+        return rr, ii
     if axis == 1:
-        batch, n, ncols = re.shape
+        batch, _, ncols = re.shape
         bs, ldk, ldc = n * ncols, ncols, 1
     else:
-        (ncols, n), batch = re.shape, 1
+        (ncols, _), batch = re.shape, 1
         bs, ldk, ldc = 0, 1, n
-    _stage_mats_ok(name, n, mr_t, mi_t)
     _grid(name, "batch", batch)
-    route = stage_route(n)
-    if route == "mixed":
-        return stage_mixed(re, im, forward, axis, name=name)
-    rr, ii = _empty(re.shape, re), _empty(re.shape, re)
-    if route == "fft":
-        lib = _lib()
-        _launch(name, re.device,
-                lib.ipp_stage_fft_fwd if forward else lib.ipp_stage_fft_inv,
-                re.data_ptr(), im.data_ptr(),
-                _stage_twiddles(re.device, n).data_ptr(), rr.data_ptr(),
-                ii.data_ptr(), int(axis == -1), batch, n, ncols)
-        return rr, ii
     _launch(name + "_dense", re.device, _lib().ipp_radix2_stage,
             re.data_ptr(), im.data_ptr(), mr_t.data_ptr(), mi_t.data_ptr(),
             rr.data_ptr(), ii.data_ptr(), int(bool(forward)), batch, n,
@@ -594,12 +683,62 @@ def radix2_stage(re: torch.Tensor, im: torch.Tensor, mr_t: torch.Tensor,
     return rr, ii
 
 
+def radix2_stage(re: torch.Tensor, im: torch.Tensor,
+                 mr_t: Optional[torch.Tensor], mi_t: Optional[torch.Tensor],
+                 forward: bool, axis: int) -> Pair:
+    """K3, and K6 for the inverse over the last axis: see
+    `radix2_stage_plain`.  axis=1 takes (P, n, X), axis=-1 takes (R, n),
+    each forward or inverse.  The inverse over the last axis (the v1
+    walk's, without an OTF) counts as `radix2_stage_inv_last`.  On the
+    card the length chooses the kernel (`stage_route`): one of the three
+    FFT kernels, which do not read mr_t, mi_t (None will do), or for a
+    length without an FFT plan the dense kernel, counted with `_dense`
+    appended."""
+    name = "radix2_stage"
+    if axis not in (1, -1) or re.dim() != (3 if axis == 1 else 2):
+        raise ValueError(f"{name}: axis=1 needs (P, n, X), axis=-1 (R, n); "
+                         f"got axis={axis}, shape {tuple(re.shape)}")
+    if axis == -1 and not forward:
+        name = "radix2_stage_inv_last"
+    if not _on_cuda(name, re, im, mr_t, mi_t):
+        _plain_mats(name, mr_t, mi_t)
+        return radix2_stage_plain(re, im, mr_t, mi_t, forward, axis)
+    _shape(name, im, re.shape)
+    if axis == 1:
+        batch, n, ncols = re.shape
+    else:
+        (ncols, n), batch = re.shape, 1
+    _stage_mats_ok(name, n, mr_t, mi_t)
+    _grid(name, "batch", batch)
+    route = stage_route(n)
+    if route == "mixed":
+        return stage_mixed(re, im, forward, axis, name=name)
+    if route == "large":
+        return stage_large(re, im, forward, axis, name=name)
+    if route == "dense":
+        return stage_dense(re, im, mr_t, mi_t, forward, axis, name=name)
+    rr, ii = _empty(re.shape, re), _empty(re.shape, re)
+    lib = _lib()
+    _launch(name, re.device,
+            lib.ipp_stage_fft_fwd if forward else lib.ipp_stage_fft_inv,
+            re.data_ptr(), im.data_ptr(),
+            _stage_twiddles(re.device, n).data_ptr(), rr.data_ptr(),
+            ii.data_ptr(), int(axis == -1), batch, n, ncols)
+    return rr, ii
+
+
 def dft_route(n: int) -> str:
     """Which kernel K7 launches on the card for the dense DFT of an axis of
     length n (`cplx_matmul(..., dft=...)`): "fft" (csrc/dft_fft.cuh) for a
     multiple of 8 up to `DFT_FFT_MAX_N` (two buffers of one row fit in
-    shared memory), "dense" (csrc/fft_walk.cu) for any other length."""
-    return "fft" if n >= 8 and n % 8 == 0 and n <= DFT_FFT_MAX_N else "dense"
+    shared memory), "large" (csrc/stage_large.cuh, natural order) for a
+    multiple of 64 above it with a `stage_large_plan` (every one up to
+    98304), "dense" (csrc/fft_walk.cu) for any other length."""
+    if n >= 8 and n % 8 == 0 and n <= DFT_FFT_MAX_N:
+        return "fft"
+    if n % 64 == 0 and stage_large_plan(n, True) is not None:
+        return "large"
+    return "dense"
 
 
 _dft_plans: Dict[Tuple[int, ...], Tuple[ctypes.Array, int, int]] = {}
@@ -670,6 +809,8 @@ def cplx_matmul(re: torch.Tensor, im: torch.Tensor, mr: torch.Tensor,
         raise ValueError(f"{name}: empty operand {(rows, k, n)}")
     if dft is not None and dft_route(n) == "fft":
         return dft_last_fft(re, im, bool(dft))
+    if dft is not None and dft_route(n) == "large":
+        return stage_large(re, im, bool(dft), -1, name=name, natural=True)
     _grid(name, "N/64", -(-n // _BN))
     rr, ii = _empty((rows, n), re), _empty((rows, n), re)
     _launch(name + "_dense", re.device, _lib().ipp_cplx_matmul,
@@ -681,53 +822,46 @@ def cplx_matmul(re: torch.Tensor, im: torch.Tensor, mr: torch.Tensor,
 def _radix2_stage_inv_otf(name: str, re, im, otf_re, otf_im, mr_t, mi_t,
                           conj: bool) -> Pair:
     """K4 on (rows, n) CUDA data and an (orows, n) OTF, rows a multiple
-    of orows.  The FFT kernels (`stage_route` "fft" or "mixed") take the OTF
-    row of each data row by one modulo, so any such orows will do; the
-    dense kernel (above `DFT_FFT_MAX_N`, counted with `_dense` appended)
-    wraps the OTF once per column tile and needs orows == rows or a
-    multiple of the tile."""
+    of orows.  The FFT kernels (`stage_route` "fft", "mixed" or "large")
+    take the OTF row of each data row by one modulo, so any such orows will
+    do, and read no stage matrices (None will do); the dense kernel (a
+    length with no FFT plan, counted with `_dense` appended) wraps the OTF
+    once per column tile and needs orows == rows or a multiple of the
+    tile."""
     rows, n = re.shape
-    orows = otf_re.shape[0]
     route = stage_route(n)
-    fft = route != "dense"
     _shape(name, im, re.shape)
-    _shape(name, otf_im, otf_re.shape)
-    if otf_re.dim() != 2 or otf_re.shape[1] != n or orows == 0 \
-            or rows % orows:
-        raise ValueError(f"{name}: the OTF {tuple(otf_re.shape)} must be "
-                         f"(orows, {n}) with orows dividing {rows}")
-    if not fft and orows != rows and orows % _BN:
-        raise ValueError(f"{name}: at n={n} (the dense stage kernel) the "
-                         f"OTF's {orows} rows must equal the data's {rows} "
-                         f"or be a multiple of {_BN}")
+    _otf_rows(name, (otf_re, otf_im), rows, n)
     _stage_mats_ok(name, n, mr_t, mi_t)
     if route == "mixed":
         return stage_mixed(re, im, False, -1, (otf_re, otf_im), conj, name)
+    if route == "large":
+        return stage_large(re, im, False, -1, (otf_re, otf_im), conj, name)
+    if route == "dense":
+        return stage_dense(re, im, mr_t, mi_t, False, -1, (otf_re, otf_im),
+                           conj, name)
     rr, ii = _empty(re.shape, re), _empty(re.shape, re)
-    if fft:
-        _launch(name, re.device, _lib().ipp_stage_fft_inv_otf, re.data_ptr(),
-                im.data_ptr(), otf_re.data_ptr(), otf_im.data_ptr(),
-                _stage_twiddles(re.device, n).data_ptr(), rr.data_ptr(),
-                ii.data_ptr(), int(bool(conj)), rows, orows, n)
-        return rr, ii
-    _launch(name + "_dense", re.device, _lib().ipp_radix2_stage_inv_otf,
-            re.data_ptr(), im.data_ptr(), otf_re.data_ptr(),
-            otf_im.data_ptr(), mr_t.data_ptr(), mi_t.data_ptr(),
-            rr.data_ptr(), ii.data_ptr(), int(bool(conj)), rows, orows, n)
+    _launch(name, re.device, _lib().ipp_stage_fft_inv_otf, re.data_ptr(),
+            im.data_ptr(), otf_re.data_ptr(), otf_im.data_ptr(),
+            _stage_twiddles(re.device, n).data_ptr(), rr.data_ptr(),
+            ii.data_ptr(), int(bool(conj)), rows, otf_re.shape[0], n)
     return rr, ii
 
 
 def radix2_stage_inv_otf(re: torch.Tensor, im: torch.Tensor,
                          otf_re: torch.Tensor, otf_im: torch.Tensor,
-                         mr_t: torch.Tensor, mi_t: torch.Tensor,
+                         mr_t: Optional[torch.Tensor],
+                         mi_t: Optional[torch.Tensor],
                          conj: bool) -> Pair:
     """K4: see `radix2_stage_inv_otf_plain`.  All of re, im, otf_re,
     otf_im are (R, n): the unbatched walk's OTF matches the data rows.
-    The kernel is chosen by n (`stage_route`)."""
+    The kernel is chosen by n (`stage_route`); mr_t, mi_t as
+    `radix2_stage`."""
     name = "radix2_stage_inv_otf"
     _ndim(name, re, 2, "(R, n)")
     _shape(name, otf_re, re.shape)
     if not _on_cuda(name, re, im, otf_re, otf_im, mr_t, mi_t):
+        _plain_mats(name, mr_t, mi_t)
         return radix2_stage_inv_otf_plain(re, im, otf_re, otf_im, mr_t,
                                           mi_t, conj)
     return _radix2_stage_inv_otf(name, re, im, otf_re, otf_im, mr_t, mi_t,
@@ -736,16 +870,18 @@ def radix2_stage_inv_otf(re: torch.Tensor, im: torch.Tensor,
 
 def radix2_stage_inv_otf_batched(re: torch.Tensor, im: torch.Tensor,
                                  otf_re: torch.Tensor, otf_im: torch.Tensor,
-                                 mr_t: torch.Tensor, mi_t: torch.Tensor,
+                                 mr_t: Optional[torch.Tensor],
+                                 mi_t: Optional[torch.Tensor],
                                  conj: bool) -> Pair:
     """K4 with an OTF period: re, im (nb * R, n), the OTF (R, n), data row
     r taking OTF row r % R, so one block's OTF serves nb blocks without a
     broadcast copy (`_fused_stage_otf_call`'s wrapped OTF blocks).  See
     `radix2_stage_inv_otf_plain`; the kernel is chosen by n
-    (`stage_route`)."""
+    (`stage_route`), mr_t, mi_t as `radix2_stage`."""
     name = "radix2_stage_inv_otf_batched"
     _ndim(name, re, 2, "(rows, n)")
     if not _on_cuda(name, re, im, otf_re, otf_im, mr_t, mi_t):
+        _plain_mats(name, mr_t, mi_t)
         return radix2_stage_inv_otf_plain(re, im, otf_re, otf_im, mr_t,
                                           mi_t, conj)
     return _radix2_stage_inv_otf(name, re, im, otf_re, otf_im, mr_t, mi_t,

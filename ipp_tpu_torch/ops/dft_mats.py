@@ -14,7 +14,7 @@ Results are cached and read-only: every caller shares one array.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -22,7 +22,8 @@ __all__ = ["dft_mats", "rdft_mats", "irdft_mats", "idft_mats",
            "cplx_triple", "rfft_x_mats", "radix_fwd_mats", "radix_inv_mats",
            "rfft_fold_mats", "stage_mats_t", "STAGE_FFT_LENGTHS",
            "stage_fft_plan", "stage_twiddles", "DFT_FFT_MAX_N",
-           "DFT_FFT_RADICES", "dft_fft_plan"]
+           "DFT_FFT_RADICES", "dft_fft_plan", "LARGE_A_MAX_N",
+           "stage_large_plan"]
 
 
 def _frozen(*arrays):
@@ -225,3 +226,50 @@ def dft_fft_plan(n: int) -> Tuple[int, ...]:
     if m > 1:
         plan.append(m)
     return tuple(plan)
+
+
+# -- an axis above DFT_FFT_MAX_N (csrc/stage_large.cuh) ----------------------
+
+LARGE_A_MAX_N = 24576      # csrc/stage_large.cuh A_MAX_N: one (n) float2 row
+LARGE_M1_MAX = 512         # csrc/stage_large.cuh M1_MAX
+LARGE_M2_COLS16 = 1792     # the longest m2 whose pass 2 keeps 16 columns
+
+
+@lru_cache(maxsize=256)
+def stage_large_plan(n: int, last_axis: bool = True,
+                     lo: int = DFT_FFT_MAX_N, a_max: int = LARGE_A_MAX_N,
+                     m2_max: int = LARGE_M2_COLS16
+                     ) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """Passes of the large-axis kernel (csrc/stage_large.cuh) for an n-point
+    DFT along the last axis (`last_axis`) or the middle one, n a multiple
+    of 64 above `lo`; None where it has none.  One radix-2 step leaves two
+    transforms of m = n/2:
+    - Form A, (dft_fft_plan(m), ()): the last axis up to `a_max`, one row
+      a block;
+    - Form B, (plan of m1, dft_fft_plan(m2)): the four-step FFT with m =
+      m1 * m2, m1 = 2^b (4 <= m1 <= 512, its radices 4, 8 or 16 and no
+      generic pass) and m2 a multiple of 8 up to DFT_FFT_MAX_N: the
+      smallest b >= 3 (b = 2 only where m has five factors of two) whose
+      m2 is at most `m2_max` (pass 2 then keeps 16 columns a block), else
+      the largest b.
+    Every multiple of 128 above 12288 up to 196608 has a plan, and every
+    multiple of 64 up to 98304.  `lo`, `a_max` and `m2_max` are the
+    kernel's limits; the tests lower them to run both forms' maps at small
+    n."""
+    n = int(n)
+    if n <= lo or n % 64:
+        return None
+    m = n // 2
+    if last_axis and n <= a_max:
+        return dft_fft_plan(m), ()
+    a = (m & -m).bit_length() - 1
+    bs = [b for b in range(2, LARGE_M1_MAX.bit_length()) if a - b >= 3]
+    bs = [b for b in bs if b >= 3] or bs
+    if not bs:
+        return None
+    b = next((b for b in bs if m >> b <= m2_max), bs[-1])
+    m1, m2 = 1 << b, m >> b
+    if m2 > DFT_FFT_MAX_N:
+        return None
+    plan1 = (4,) if m1 == 4 else dft_fft_plan(m1)
+    return plan1, dft_fft_plan(m2)

@@ -127,10 +127,8 @@ class MatmulFFT3:
             self.kp = _kp(ny)
             fwd, inv = rfft_fold_mats(ny, self.kp)
             self._rfwd, self._rinv = dev(fwd), dev(inv)
-            self._z = {f: tuple(dev(m) for m in stage_mats_t(nz, f))
-                       for f in (True, False)}
-            self._x = {f: tuple(dev(m) for m in stage_mats_t(nx, f))
-                       for f in (True, False)}
+            self._z = {f: self._stage_mats(nz, f) for f in (True, False)}
+            self._x = {f: self._stage_mats(nx, f) for f in (True, False)}
             return
         self.kxp = _kp(nx)
         fx, ix = rfft_x_mats(nx, self.kxp)
@@ -141,8 +139,7 @@ class MatmulFFT3:
         for axis, n, radix in zip("zy", (nz, ny), stage_axes(self.shape)):
             for f in (True, False):
                 if radix:
-                    self._radix[axis, f] = tuple(
-                        dev(m) for m in stage_mats_t(n, f))
+                    self._radix[axis, f] = self._stage_mats(n, f)
                 else:
                     self._dense[axis, f] = tuple(
                         dev(m) for m in cplx_triple(n, f))
@@ -150,6 +147,15 @@ class MatmulFFT3:
     def _dev(self, a) -> torch.Tensor:
         """A device copy (the cached numpy constants are read-only)."""
         return torch.tensor(a, device=self.device)
+
+    def _stage_mats(self, n: int, forward: bool) -> Pair:
+        """(mr_t, mi_t) of the radix-2 stage along an axis of length n on
+        this plan's device; (None, None) on a CUDA device whose stage kernel
+        there reads none (every `stage_route` but "dense"): at n = 12544
+        the four would hold 1.26 GB."""
+        if self.device.type == "cuda" and cuda_fft.stage_route(n) != "dense":
+            return None, None
+        return tuple(self._dev(m) for m in stage_mats_t(n, forward))
 
     # -- v2 --------------------------------------------------------------------
 

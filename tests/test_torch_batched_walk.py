@@ -225,6 +225,8 @@ def test_batched_kernels_match_plain_on_the_card(cuda, rng):
     sr, si = d(nb, kp, nz, nx, lo=-0.5), d(nb, kp, nz, nx, lo=-0.5)
     r2, i2 = sr.view(-1, nx), si.view(-1, nx)
     o_r, o_i = d(kp * nz, nx, lo=-0.5), d(kp * nz, nx, lo=-0.5)
+    # the plan holds no stage matrices on the card; the plain version's
+    ix = tuple(t(m).to(cuda) for m in stage_mats_t(nx, False))
     cf.reset_launch_counts()
     pairs = [
         (cf.rdft_y_fwd_batched(x, plan._rfwd, den, fold=True),
@@ -238,8 +240,7 @@ def test_batched_kernels_match_plain_on_the_card(cuda, rng):
     ] + [
         (cf.radix2_stage_inv_otf_batched(r2, i2, o_r, o_i, *plan._x[False],
                                          conj),
-         cf.radix2_stage_inv_otf_plain(r2, i2, o_r, o_i, *plan._x[False],
-                                       conj))
+         cf.radix2_stage_inv_otf_plain(r2, i2, o_r, o_i, *ix, conj))
         for conj in (False, True)]
     torch.cuda.synchronize()
     assert cf.LAUNCHES["rdft_y_fwd_batched"] == 2

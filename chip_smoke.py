@@ -20,7 +20,7 @@ Phases:
    every form (plain, ratio, mul) at the CLI block, a batch of four of
    it, an odd nx (255), ny = 1100 and ny = 2560 with the fold stated, and
    a random matrix: <= 1e-5, one `_dense` launch a call, kernel, plain and
-   torch.matmul times and the bound (three TF32 products at 495 TFLOP/s),
+   torch.matmul times and the bound (three bf16 products at 989 TFLOP/s),
    the fold's zero rows exactly 0, a batch of three equal to its single
    calls bit for bit; then every form of the radix-2 stage (forward and
    inverse in both layouts, K4 with the OTF and its conjugate, K4b with
@@ -115,8 +115,14 @@ Phases:
    paths run them: the taper slabs of the phase-4 block, of a 512^3 block
    and of the (248, 1100, 1100) block, (136, 136, 136) and (256, 1152,
    1152) (K7's nine lengths 40 ... 1152, forward and inverse), plus K6 at
-   (256, 1024, 264), and K7's dense kernel (any matrix, any length) at
-   (9792, 136) and (149504, 1152); max |kernel - plain| / max |plain| <= 1e-5; the v1
+   (256, 1024, 264), and K7d, K7's dense kernel (any matrix, any length;
+   csrc/cplx_dense.cu, 3xTF32 on wgmma), at (9792, 136) x (136, 136),
+   (149504, 1152) x (1152, 1152), (136648, 1100) x (1100, 1100) (a length
+   without an FFT plan, `dft=True`), a random (65536, 200) x (200, 72) and
+   phase 11's y and z products, (2160, 50) x (50, 50) and (3600, 30) x
+   (30, 30) (`dft=True`; rows of 200 and 120 bytes: 4-byte data copies),
+   beside complex torch.matmul and its bound (three bf16 products a real
+   product at 989 TFLOP/s); max |kernel - plain| / max |plain| <= 1e-5; the v1
    convolve (and the fused RL update) against torch.fft at (256, 1024,
    264) and (256, 1152, 1152), <= 1e-4 of max, exact launch counts; and
    richardson_lucy on a (248, 1100, 1100) block (9^3 gaussian PSF, 10
@@ -191,10 +197,10 @@ Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
 F.conv1d; timed here only, the port never calls it) and its bound: the
 larger of the function's FLOPs over the f32 peak (a matrix product's for
-the dense kernel of K7, an FFT's 5 n log2 n per complex transform for K3,
-K4, K6 and K7 and half that per real column for K1 and K2, the taps' for
-K5; for K1d and K2d, f32-grade products on the tensor cores, three TF32
-products over the TF32 peak) and its bytes (each input read once, each
+an FFT's 5 n log2 n per complex transform for K3, K4, K6 and K7 and half
+that per real column for K1 and K2, the taps' for K5; for K1d, K2d and
+K7d, f32-grade products on the tensor cores, three bf16 products a real
+product over the bf16 peak) and its bytes (each input read once, each
 output written once) over the HBM rate.  Outside the v2 domain every convolution takes
 torch.fft unless a caller forces "walk1" (phase 10 does), so only phase 10
 and phase 11 launch K6 and K7.
@@ -260,8 +266,21 @@ V1 = {
 # K7's dense kernel: any matrix, and the lengths without an FFT plan
 K7_DENSE = ("cplx_matmul_dense", "K7d", "ipp_tpu/ops/pallas_fft.py:66 "
             "(_fused_call via fused_cplx_matmul: an arbitrary matrix)")
-K7_DENSE_CASE = (9792, 136)   # the FNT cubes' stage, held on the dense kernel
-K7_DENSE_BIG = (149504, 1152)  # the forced v1 RL block's y stage
+# its cases, (rows, K, N, matrix, timer): the y stage of a 136^3 work shape
+# and of the (256, 1152, 1152) one with their DFT matrices taken as any
+# matrix (`dft=None`; both lengths run K7's FFT kernel on the walks), the
+# canonical transform's y axis of a (248, 1100, 1100) volume (1100 has no
+# FFT plan: `dft=True` takes K7d), a random non-square matrix, and the y
+# and z products of phase 11's forward transform of two (30, 50, 70)
+# volumes (K not a multiple of 4: the kernel's 4-byte data copies); calls
+# near 0.1 ms are timed by CUDA-graph replay
+K7_DENSE_CASES = [(9792, 136, 136, "dft=None", "graph"),
+                  (149504, 1152, 1152, "dft=None", "events"),
+                  (136648, 1100, 1100, "dft=True", "events"),
+                  (65536, 200, 72, "random", "graph"),
+                  (2160, 50, 50, "dft=True", "graph"),
+                  (3600, 30, 30, "dft=True", "graph")]
+K7_DENSE_SOURCE = "ipp_tpu_torch/csrc/cplx_dense.cu"
 SOURCE = "ipp_tpu_torch/csrc/fft_walk.cu"
 # K1d and K2d: 3xTF32 GEMMs on the tensor cores
 RDFT_DENSE_SOURCE = "ipp_tpu_torch/csrc/rdft_dense.cu"
@@ -293,8 +312,8 @@ DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cuh",
               "ipp_tpu/ops/pallas_dwt.py:80 (dwt_analysis_pallas, axis -1); "
               "scripts/dwt_ykernel_exp.py:87 (dwt_y_pallas, axis -2)")
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): f32 FMA outside the
-# tensor cores, dense TF32 on the tensor cores, and HBM3
-F32_FLOPS, TF32_FLOPS, HBM_BYTES_S = 67e12, 495e12, 3.35e12
+# tensor cores, dense bf16 on the tensor cores, and HBM3
+F32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
 NITER = 10
 VOL_SHAPE = (512, 1024, 1024)  # the phase-4 series, z planes x y x x
 N_BEADS = 4000
@@ -368,10 +387,9 @@ def bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
 
 # The work of one call of each kernel form, (FLOPs, bytes[, peak]), counted
 # for the function it computes: a product against an arbitrary matrix where
-# the wrapper takes one (the dense kernels of K1, K2 and K7, as torch.matmul
-# computes it; K1d / K2d as the three TF32 products of an f32-grade product
-# on the tensor cores), an FFT's 5 n log2 n FLOPs per complex transform of
-# length n
+# the wrapper takes one (the dense kernels K1d, K2d and K7d, as the three
+# bf16 products a real product of an f32-grade product on the tensor
+# cores), an FFT's 5 n log2 n FLOPs per complex transform of length n
 # where the function is a DFT along an axis (K3, K4, K6, K7, and at half
 # that per real column K1 and K2, as torch.fft computes it); each input read
 # once, each output written once.
@@ -389,11 +407,14 @@ def work_rdft(vox: int, ny: int, kp: int, extra_streams: int):
 def work_rdft_dense(vox: int, ny: int, kp: int, extra_streams: int):
     """The dense kernels of K1 / K2: a (2kp x ny) product per column with
     a matrix the kernel must read, f32-grade on the tensor cores: three
-    TF32 products (hi.hi, lo.hi, hi.lo) at the TF32 peak."""
+    products (hi.hi, lo.hi, hi.lo) at the bf16 peak.  The kernels split
+    into TF32, at half that rate; the least time is bf16's, the
+    reference's split, which is f32-grade here too (within 1e-5 of max:
+    tests/test_torch_tf32_split.py)."""
     cols = vox // ny
     return (3 * 2.0 * 2 * kp * ny * cols,
             4.0 * (vox * (1 + extra_streams) + 2 * kp * cols + 2 * kp * ny),
-            TF32_FLOPS)
+            BF16_FLOPS)
 
 
 def work_stage(rows_x_n: int, n: int, otf_elems: int = 0):
@@ -407,10 +428,14 @@ def work_stage(rows_x_n: int, n: int, otf_elems: int = 0):
 
 
 def work_cplx(rows: int, k: int, n: int):
-    """K7's dense kernel: three (rows x k) @ (k x n) real products and
-    their sums."""
-    return (2.0 * 3 * rows * k * n + rows * k + 2.0 * rows * n,
-            4.0 * (2 * rows * k + 3 * k * n + 2 * rows * n))
+    """K7's dense kernel: a (rows x k) @ (k x n) complex product against
+    matrices the kernel must read, f32-grade on the tensor cores:
+    Karatsuba's three real products at three products each (hi.hi, lo.hi,
+    hi.lo) at the bf16 peak.  The kernel splits into TF32, at half that
+    rate; bf16's split is f32-grade at every case here too (within 1e-5 of
+    max: scripts/cplx_dense_bench.py --precision)."""
+    return (9 * 2.0 * rows * k * n,
+            4.0 * (2 * rows * k + 3 * k * n + 2 * rows * n), BF16_FLOPS)
 
 
 def work_dwt(elems: int, taps: int):
@@ -985,7 +1010,7 @@ def phase_rdft_dense(torch, dev, cli_shape, record):
     must still pick the dense kernel; the CLI block states nothing).  Each
     case: one call launches its `_dense` kernel once and nothing else;
     kernel vs plain <= 1e-5 of max with kernel, plain and torch.matmul ms
-    and the bound (three TF32 products); the fold's zero rows exactly 0;
+    and the bound (three bf16 products); the fold's zero rows exactly 0;
     and a batch of three equal to its single calls, bit for bit."""
     from ipp_tpu_torch.ops import cuda_fft as cf
     from ipp_tpu_torch.ops.dft_mats import rfft_fold_mats
@@ -1215,6 +1240,10 @@ def ptxas_summary(log: str):
                 mode = ("FWD", "FWD_RATIO", "INV", "INV_MUL")[int(t.group(1))]
                 name = (f"rdft_dense<{mode}, "
                         f"{'16' if t.group(2) == '1' else '4'}-byte matrix loads>")
+            t = re.search(r"cplx_denseILb([01])E", name)
+            if t:
+                name = (f"cplx_dense<"
+                        f"{'16' if t.group(1) == '1' else '4'}-byte data copies>")
             t = re.search(r"rdft_y_(fwd|inv)_fftILb([01])E", name)
             if t:
                 fused = {"fwd": "RATIO", "inv": "MUL"}[t.group(1)]
@@ -2433,6 +2462,41 @@ def rel_max(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def k7_dense_rows(torch, dev, gen, bad):
+    """K7d, K7's dense kernel (csrc/cplx_dense.cu), at K7_DENSE_CASES
+    against its plain version, each case one `cplx_matmul_dense` launch;
+    kernel, plain and complex torch.matmul times beside the bound."""
+    from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops.dft_mats import cplx_triple
+
+    dense_rows = []
+    for m, k, n, kind, timer in K7_DENSE_CASES:
+        re = torch.rand((m, k), generator=gen, device=dev) - 0.5
+        im = torch.rand((m, k), generator=gen, device=dev) - 0.5
+        if kind == "random":
+            mr = torch.rand((k, n), generator=gen, device=dev) - 0.5
+            mi = torch.rand((k, n), generator=gen, device=dev) - 0.5
+            mats = (mr, mi, mr + mi)
+            del mr, mi
+        else:
+            mats = tuple(torch.tensor(a, device=dev)
+                         for a in cplx_triple(n, True))
+        dft = True if kind == "dft=True" else None
+        c, cm = torch.complex(re, im), torch.complex(mats[0], mats[1])
+        cf.reset_launch_counts()
+        check_case(torch, K7_DENSE[1], K7_DENSE[0], kind, (m, k, n),
+                   lambda: cf.cplx_matmul(re, im, *mats, dft=dft),
+                   lambda: cf.cplx_matmul_plain(re, im, *mats),
+                   lambda: torch.matmul(c, cm), work_cplx(m, k, n),
+                   5 if m * k * n < 2 ** 34 else 2, dense_rows, bad,
+                   graph_ms if timer == "graph" else time_ms)
+        if set(k_ for k_, v in cf.LAUNCHES.items() if v) != {K7_DENSE[0]}:
+            bad.append(f"{kind} at {(m, k, n)} did not take the dense kernel")
+        del re, im, c, cm, mats
+        torch.cuda.empty_cache()
+    return dense_rows
+
+
 def phase_v1(torch, dev, slab_shapes, record):
     import numpy as np
 
@@ -2440,7 +2504,6 @@ def phase_v1(torch, dev, slab_shapes, record):
     from ipp_tpu_torch.ops.deconv import (_rolled_psf, conv_route,
                                           edge_taper_3d, fft_shape_for,
                                           richardson_lucy)
-    from ipp_tpu_torch.ops.dft_mats import cplx_triple
     from ipp_tpu_torch.ops.matmul_fft import MatmulFFT3
     from ipp_tpu_torch.ops.psf import gaussian_psf
 
@@ -2464,38 +2527,7 @@ def phase_v1(torch, dev, slab_shapes, record):
             rows[-1]["work_shape"] = list(shape)
         del plan
         torch.cuda.empty_cache()
-    # K7's dense kernel (`dft=None`: any matrix), on the FNT cubes' stage
-    m, n = K7_DENSE_CASE
-    re = torch.rand((m, n), generator=gen, device=dev) - 0.5
-    im = torch.rand((m, n), generator=gen, device=dev) - 0.5
-    mats = MatmulFFT3((n, n, n), dev)._dense["y", True]
-    c, cm = torch.complex(re, im), torch.complex(mats[0], mats[1])
-    dense_rows = []
-    cf.reset_launch_counts()
-    check_case(torch, K7_DENSE[1], K7_DENSE[0], "any matrix", (m, n),
-               lambda: cf.cplx_matmul(re, im, *mats),
-               lambda: cf.cplx_matmul_plain(re, im, *mats),
-               lambda: torch.matmul(c, cm), work_cplx(m, n, n), 5,
-               dense_rows, bad)
-    routed = {k: v for k, v in cf.LAUNCHES.items() if v}
-    if set(routed) != {K7_DENSE[0]}:
-        bad.append(f"dft=None launched {routed}, not the dense kernel")
-    del re, im, c, cm, mats
-    # and at the forced v1 RL block's y stage, beside K7's FFT kernel
-    m, n = K7_DENSE_BIG
-    re = torch.rand((m, n), generator=gen, device=dev) - 0.5
-    im = torch.rand((m, n), generator=gen, device=dev) - 0.5
-    mats = tuple(torch.tensor(a, device=dev) for a in cplx_triple(n, True))
-    c, cm = torch.complex(re, im), torch.complex(mats[0], mats[1])
-    cf.reset_launch_counts()
-    check_case(torch, K7_DENSE[1], K7_DENSE[0], "any matrix", (m, n),
-               lambda: cf.cplx_matmul(re, im, *mats),
-               lambda: cf.cplx_matmul_plain(re, im, *mats),
-               lambda: torch.matmul(c, cm), work_cplx(m, n, n), 2,
-               dense_rows, bad)
-    if set(k for k, v in cf.LAUNCHES.items() if v) != {K7_DENSE[0]}:
-        bad.append(f"dft=None at {(m, n)} did not take the dense kernel")
-    del re, im, c, cm, mats
+    dense_rows = k7_dense_rows(torch, dev, gen, bad)
     cf.reset_launch_counts()
     rec = record["v1"] = dict(kernels=rows, rl_shape=list(rl_shape),
                               dense=dense_rows)
@@ -4333,12 +4365,14 @@ def main() -> int:
         kernels.append(entry(tag, name, SOURCE, replaces,
                              v1["rl"]["launches"][name], rows, at))
     # K7's dense kernel: launches of phase 11's transforms at a shape with
-    # no FFT plan (0 on every other path, as the phases checked)
+    # no FFT plan (0 on every other path, as the phases checked), times at
+    # their y product
     name, tag, replaces = K7_DENSE
     dense_launches = sum(r["launches"].get(name, 0)
                          for r in record["canonical"])
-    kernels.append(entry(tag, name, SOURCE, replaces, dense_launches,
-                         v1["dense"], v1["dense"][0]))
+    at = [r for r in v1["dense"] if r["shape"] == [2160, 50, 50]][0]
+    kernels.append(entry(tag, name, K7_DENSE_SOURCE, replaces,
+                         dense_launches, v1["dense"], at))
     # the mixed-radix and large-axis stage kernels at their RL blocks'
     # forward x stages, their launches those of phase 3's RL runs at
     # RL_MIXED_SHAPE and RL_LARGE_SHAPE; the dense stage kernels (for

@@ -1,4 +1,5 @@
-// The kernels of the FFT convolve walks (K3, K4, K6, K7), for Hopper.
+// The dense forms of the radix-2 stages of the FFT convolve walks (K3,
+// K4, K6), for Hopper.
 //
 // The walk of one circular convolution of a (nz, ny, nx) f32 volume:
 //   (nz, ny, nx)  --K1 y real DFT (optionally of num / max(den, eps))-->
@@ -25,7 +26,9 @@
 // A stage on an axis of a 256-multiple length (with a 512-multiple row
 // count) is a radix-2 stage: K3 forward, K6 inverse, or K4 where the OTF
 // product precedes the inverse y stage; any other axis takes the dense
-// DFT as one complex matmul, K7.
+// DFT, K7: the FFT kernels of dft_fft.cuh and stage_large.cuh for the
+// lengths with a plan, and for any other length or matrix the complex
+// matmul of cplx_dense.cu (K7d, on the tensor cores, 3xTF32 wgmma).
 //
 // K1 and K2 compute a real DFT along y and its inverse: the volume and the
 // half spectrum cross device memory once, 2.5 ny log2 ny FLOPs a column, so
@@ -36,13 +39,6 @@
 // Their dense form, one GEMM against the (2kp, ny) or (ny, 2kp) matrix as
 // the TPU's matrix unit ran it, serves any other matrix and any other
 // shape: rdft_dense.cu, on the tensor cores (3xTF32 wgmma).
-//
-// The dense K7 below is one GEMM against a constant matrix (fft_walk.cuh)
-// with its prologue/epilogue fused.  What bounds it on the card: its
-// contraction depth is the axis length itself (40 to 1152): at n = 40 it
-// does ~7.5 FMAs per byte, below the card's ~10 (67 TFLOP/s over 3.35
-// TB/s), and is bound by HBM there, by the f32 FMA rate above.  The design
-// answers with 4x4 register tiles (4 FMAs per shared load).
 //
 // The radix-2 stages (K3, K4, K6) compute a whole n-point DFT per column:
 // one read and one write of the spectrum, 5 n log2 n FLOPs, so the function
@@ -211,79 +207,6 @@ radix2_inv(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 // ---------------------------------------------------------------------------
-// K7 — replaces `fused_cplx_matmul` -> `_fused_call` (its inline kernel,
-// pallas_fft.py:54-62; `_cplx_last` of mxu_fft.py:376-401 runs it with
-// IPP_TPU_FFT_FUSED=1): the dense complex DFT of every v1-walk axis that
-// is not a radix-2 stage axis, (rr + i*ii) = (re + i*im) @ (mr + i*mi) for
-// (M, K) data and (K, N) matrices, as Karatsuba's three real products in
-// one pass: t1 = re@mr, t2 = im@mi, t3 = (re+im)@(mr+mi) (mri holds
-// mr+mi), rr = t1 - t2, ii = t3 - t1 - t2.  re+im is formed in the shared-
-// memory load, so no sum reaches device memory; the three products share
-// one pass over the data.  K = N = the axis length, any size (40, 136,
-// 1072, 1152 on the CLIs' paths): ragged K and N are masked (zero-filled
-// tiles).  Data rows run on gridDim.x (up to ~10^6 rows), N on gridDim.y.
-// The data tile is the GEMM's A operand (rows of contiguous k), so loads
-// and the row-major stores are coalesced and no transpose is needed.
-// Bound: FMA issue (3 * M * K * N FMAs); the 3-product form
-// issues a quarter fewer FMAs than the 4-product complex product.
-__global__ void __launch_bounds__(NT)
-cplx_matmul(const float* __restrict__ re, const float* __restrict__ im,
-            const float* __restrict__ mr, const float* __restrict__ mi,
-            const float* __restrict__ mri, float* __restrict__ rr,
-            float* __restrict__ ii, i64 M, int K, int N) {
-  __shared__ float sa[3][BK * BMP];   // data tiles: re, im, re + im
-  __shared__ float sb[3][BK * BNP];   // matrix tiles: mr, mi, mr + mi
-  const i64 r0 = (i64)blockIdx.x * BM;
-  const int c0 = blockIdx.y * BN;
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  float t1[TM][TN], t2[TM][TN], t3[TM][TN];
-  zero(t1);
-  zero(t2);
-  zero(t3);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += NT) {
-      const int kk = e % BK;  // consecutive threads read consecutive k
-      const int r = e / BK;
-      const i64 gr = r0 + r;
-      const int gk = k0 + kk;
-      float vr = 0.f, vi = 0.f;
-      if (gr < M && gk < K) {
-        vr = re[gr * K + gk];
-        vi = im[gr * K + gk];
-      }
-      sa[0][kk * BMP + r] = vr;
-      sa[1][kk * BMP + r] = vi;
-      sa[2][kk * BMP + r] = vr + vi;
-    }
-    const float* mats[3] = {mr, mi, mri};
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const float* B = mats[q];
-      load_b_tile(sb[q], k0, c0, [&](int k, int c) -> float {
-        return (k < K && c < N) ? B[(i64)k * N + c] : 0.f;
-      });
-    }
-    __syncthreads();
-    mma_real(t1, sa[0], sb[0], ty, tx);
-    mma_real(t2, sa[1], sb[1], ty, tx);
-    mma_real(t3, sa[2], sb[2], ty, tx);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const i64 r = r0 + ty * TM + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx * TN + j;
-      if (c >= N) continue;
-      rr[r * N + c] = t1[i][j] - t2[i][j];
-      ii[r * N + c] = t3[i][j] - t1[i][j] - t2[i][j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // C interface.
 
 static inline unsigned cdiv(long long a, long long b) {
@@ -338,16 +261,6 @@ int ipp_radix2_stage_inv_otf(const float* xr, const float* xi, const float* otr,
     radix2_inv<true, true, false><<<grid, NT, 0, st>>>(
         xr, xi, otr, oti, mr, mi, rr, ii, n, rows, 0, 1, n, orows);
   }
-  return (int)cudaGetLastError();
-}
-
-// K7: re, im (M, K); mr, mi, mri (K, N); rr, ii (M, N); all row-major.
-int ipp_cplx_matmul(const float* re, const float* im, const float* mr,
-                    const float* mi, const float* mri, float* rr, float* ii,
-                    long long M, int K, int N, void* stream) {
-  const dim3 grid(cdiv(M, BM), cdiv(N, BN), 1);
-  cplx_matmul<<<grid, NT, 0, (cudaStream_t)stream>>>(re, im, mr, mi, mri, rr,
-                                                     ii, M, K, N);
   return (int)cudaGetLastError();
 }
 

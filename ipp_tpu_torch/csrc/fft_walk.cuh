@@ -1,16 +1,17 @@
 // Tiled f32 GEMM core of the FFT walk kernels (fft_walk.cu).
 //
-// Every kernel of fft_walk.cu (K7's dense form and the dense form of the
-// radix-2 stages; the stages' FFT form is stage_fft.cuh and shares nothing
-// with this core) is a product C = A @ B of a constant DFT matrix
-// A (M x K, row-major, in device memory) against a batch of data columns
-// B (K x N), with a prologue that forms B from the inputs while loading it
-// (radix-2 butterfly, OTF product) and an epilogue that places C (inverse
-// butterfly).  The dense K1 / K2 (rdft_dense.cu) run on the tensor cores
-// and share nothing with this core either.  The data operand is
-// addressed through strides, so one core serves a contraction over the
-// middle axis of (P, K, X) (x contiguous: element (k, c) at k*X + c) and
-// over the last axis of (R, K) (element (k, c) at c*K + k).
+// Every kernel of fft_walk.cu (the dense form of the radix-2 stages; the
+// stages' FFT forms are stage_fft.cuh, stage_mixed.cuh and stage_large.cuh
+// and share nothing with this core) is a product C = A @ B of a constant
+// DFT matrix A (M x K, row-major, in device memory) against a batch of
+// data columns B (K x N), with a prologue that forms B from the inputs
+// while loading it (radix-2 butterfly, OTF product) and an epilogue that
+// places C (inverse butterfly).  The dense K1 / K2 (rdft_dense.cu) and K7
+// (cplx_dense.cu) run on the tensor cores and share nothing with this core
+// either.  The data operand is addressed through strides, so one core
+// serves a contraction over the middle axis of (P, K, X) (x contiguous:
+// element (k, c) at k*X + c) and over the last axis of (R, K) (element
+// (k, c) at c*K + k).
 //
 // Arithmetic is plain f32 FMA on the CUDA cores: no TF32, no tensor cores.
 // A block computes a BM x BN tile of C, 256 threads as a 16 x 16 grid
@@ -61,33 +62,6 @@ __device__ __forceinline__ void load_b_tile2(float* sr, float* si, int k0, int c
     const float2 v = f(k0 + kk, c0 + c);
     sr[kk * BNP + c] = v.x;
     si[kk * BNP + c] = v.y;
-  }
-}
-
-// Real data tile: as load_b_tile2 with one output; c is the fast axis.
-template <class F>
-__device__ __forceinline__ void load_b_tile(float* s, int k0, int c0, F f) {
-  for (int e = threadIdx.x; e < BK * BN; e += NT) {
-    const int kk = e / BN;
-    const int c = e % BN;
-    s[kk * BNP + c] = f(k0 + kk, c0 + c);
-  }
-}
-
-// acc += A_tile @ B_tile for this thread's TM x TN sub-tile.
-__device__ __forceinline__ void mma_real(float (&acc)[TM][TN], const float* a,
-                                         const float* b, int ty, int tx) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) av[i] = a[kk * BMP + ty * TM + i];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) bv[j] = b[kk * BNP + tx * TN + j];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 

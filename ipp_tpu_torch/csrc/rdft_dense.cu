@@ -26,9 +26,10 @@
 //
 // Bound.  At the CLI block (nz, ny, nx) = (256, 1056, 256) K1d is 2kp x ny
 // x nx = 1072 x 1056 x 256 per plane, 148 GFLOP over 256 planes; three
-// TF32 products at 495 TFLOP/s take 0.90 ms, while the bytes (the volume
-// once, the two half-spectrum planes once, the matrix once) take 0.17 ms:
-// the tensor-core rate bounds it.  What the design does about it:
+// products at the bf16 rate, 989 TFLOP/s (bf16's split is within 1e-5 here
+// too; TF32 runs at half that rate), take 0.45 ms, while the bytes (the
+// volume once, the two half-spectrum planes once, the matrix once) take
+// 0.17 ms: the tensor-core rate bounds it.  What the design does about it:
 // - the tensor cores do all of the products: two consumer warpgroups, each
 //   64 data columns x NT = 136 matrix rows (1072 and 1056 rows pad to
 //   1088), three m64n136k8 wgmmas per k8 step;
@@ -59,6 +60,7 @@
 // returns the launch's cudaGetLastError().
 
 #include "rdft_dense.cuh"
+#include "sm90_async.cuh"
 
 // Timing-only builds (scripts/rdft_dense_bench.py --variants; results
 // wrong): 1 no wgmma; 2 no global loads after the first stages; 3 the
@@ -68,6 +70,7 @@
 #endif
 
 using namespace ippdense;
+using namespace ippsm90;
 
 namespace {
 
@@ -104,70 +107,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[NACC],
         "+f"(d[66]), "+f"(d[67])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
-}
-
-// wgmma descriptor of a K-major tile with the 128-byte swizzle: start
-// address, leading offset 16 B (unused for this layout), stride 1024 B
-// between 8-row core blocks, layout type 1 (SWIZZLE_128B).
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// until at most N of this thread's copy groups are pending
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// the threads of one warpgroup, at named barrier `id`
-__device__ __forceinline__ void wg_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG) : "memory");
-}
-// st.shared (generic proxy) before wgmma reads (async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keep the compiler from moving registers that a wgmma reads or writes
-// across it
-template <int R>
-__device__ __forceinline__ void pin(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // A consumer warpgroup's step of stage kt: wait for its products of stage

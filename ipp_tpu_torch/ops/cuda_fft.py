@@ -1,10 +1,11 @@
 """Wrappers of the FFT-walk CUDA kernels, each beside its plain version.
 
 One wrapper per kernel form of `csrc/fft_walk.cu`, `csrc/stage_fft.cuh`,
-`csrc/dft_fft.cuh`, `csrc/rdft_y.cuh` and `csrc/rdft_dense.cu`; together
-they replace the eleven Pallas entry points of the reference's v2 convolve
-walk (ipp_tpu/ops/pallas_fft.py), unbatched (v2-t) and batched, and the two
-of its v1 walk (`_fused_stage_call(forward=False)`, `_fused_call`):
+`csrc/dft_fft.cuh`, `csrc/rdft_y.cuh`, `csrc/rdft_dense.cu` and
+`csrc/cplx_dense.cu`; together they replace the eleven Pallas entry points
+of the reference's v2 convolve walk (ipp_tpu/ops/pallas_fft.py), unbatched
+(v2-t) and batched, and the two of its v1 walk
+(`_fused_stage_call(forward=False)`, `_fused_call`):
 
 | wrapper                        | kernel | Pallas entry points replaced        |
 |--------------------------------|--------|-------------------------------------|
@@ -44,7 +45,9 @@ multiple of 8 up to `DFT_FFT_MAX_N` (`dft_route`) the mixed-radix FFT
 kernel of csrc/dft_fft.cuh computes it without reading the matrices, for
 a multiple of 64 above that the large-axis kernel in natural order.  An
 arbitrary matrix (`dft=None`) and every other length take the dense
-Karatsuba kernel of csrc/fft_walk.cu, counted as `cplx_matmul_dense`.
+Karatsuba kernel of csrc/cplx_dense.cu (f32-grade, three TF32 products a
+real product on the tensor cores; any M, K, N and alignment), counted as
+`cplx_matmul_dense`.
 
 K1 and K2 (and their batched forms) have two kernels as well.  Every call
 the walk makes multiplies by the real-DFT fold of the y axis,
@@ -733,7 +736,8 @@ def dft_route(n: int) -> str:
     multiple of 8 up to `DFT_FFT_MAX_N` (two buffers of one row fit in
     shared memory), "large" (csrc/stage_large.cuh, natural order) for a
     multiple of 64 above it with a `stage_large_plan` (every one up to
-    98304), "dense" (csrc/fft_walk.cu) for any other length."""
+    98304), "dense" (csrc/cplx_dense.cu, the complex product on the
+    tensor cores) for any other length."""
     if n >= 8 and n % 8 == 0 and n <= DFT_FFT_MAX_N:
         return "fft"
     if n % 64 == 0 and stage_large_plan(n, True) is not None:
@@ -790,9 +794,9 @@ def cplx_matmul(re: torch.Tensor, im: torch.Tensor, mr: torch.Tensor,
     `cplx_triple(n, True)` (`False`), the dense forward (inverse) DFT of
     the axis; K == N == n is checked, the values are not.  On the card the
     length then chooses the kernel (`dft_route`): the FFT kernel, which does
-    not read the matrices, or the dense one-pass Karatsuba kernel, which
-    also serves any matrix with `dft=None` and counts as
-    `cplx_matmul_dense`."""
+    not read the matrices, or the dense Karatsuba kernel on the tensor
+    cores (csrc/cplx_dense.cu), which also serves any matrix with
+    `dft=None` and counts as `cplx_matmul_dense`."""
     name = "cplx_matmul"
     _ndim(name, re, 2, "(M, K)")
     rows, k = re.shape
@@ -811,7 +815,6 @@ def cplx_matmul(re: torch.Tensor, im: torch.Tensor, mr: torch.Tensor,
         return dft_last_fft(re, im, bool(dft))
     if dft is not None and dft_route(n) == "large":
         return stage_large(re, im, bool(dft), -1, name=name, natural=True)
-    _grid(name, "N/64", -(-n // _BN))
     rr, ii = _empty((rows, n), re), _empty((rows, n), re)
     _launch(name + "_dense", re.device, _lib().ipp_cplx_matmul,
             re.data_ptr(), im.data_ptr(), mr.data_ptr(), mi.data_ptr(),

@@ -10,8 +10,8 @@ y|, at shapes ragged against every tile (odd nx, ny not 8*j, a random
 non-DFT matrix) and at the deconvolution CLI's block (256, 1056, 256) with
 the fold matrices; then at that block and at (4, 256, 1056, 256) each
 form's kernel, plain version and one torch.matmul of the same product in ms
-by CUDA events after a warm call, beside the bound (three TF32 products at
-495 TFLOP/s, or the bytes at 3.35 TB/s, `chip_smoke.work_rdft_dense`).
+by CUDA events after a warm call, beside the bound (three bf16 products at
+989 TFLOP/s, or the bytes at 3.35 TB/s, `chip_smoke.work_rdft_dense`).
 `--quick` checks the small shapes and times the plain forms at the CLI
 block only.  `--variants` then builds csrc/rdft_dense.cu alone with
 IPP_RDFT_DENSE_DIAG = 1, 2, 3 (timing only, results wrong: no wgmma; no

@@ -20,7 +20,8 @@ SHARED = set()
 # the port's kernel benches (scripts/pallas_dwt_bench.py is the reference's)
 BENCHES = ["stage_fft_bench.py", "dft_fft_bench.py", "rdft_y_bench.py",
            "dwt_bench.py", "mesh_bench.py", "rdft_dense_bench.py",
-           "stage_mixed_bench.py", "stage_large_bench.py"]
+           "stage_mixed_bench.py", "stage_large_bench.py",
+           "cplx_dense_bench.py"]
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + [ROOT / "scripts" / b for b in BENCHES])
 MODULES = sorted(

@@ -191,7 +191,20 @@ Phases:
    z-sharded RL with halos across processes) equal to one process.
    Each step prints its wall seconds beside the card's name and power;
    (a) and (c) run again in turns (one card, then the mesh) on the same
-   inputs, (b) once more warm.
+   inputs, (b) once more warm;
+17. the HDF5 exports and sources through the port's own HDF5 module
+   (io/hdf5.py; the card's host has no h5py, and the phase prints which
+   of h5py, PIL, pandas, psutil and cv2 it finds): (a) convert.main
+   --imaris --bdv on phase 14's 64 input planes, the .ims and BDV files
+   read back through ImarisReader and BDVReader, level 0 equal to the
+   TIFF planes bit for bit, level 1 equal to its host recomputation from
+   the writers' mean pools, the Imaris thumbnail's shape, write and read
+   MB/s; (b) convert.main with phase 14's flags from the .ims: planes
+   within 1 count of phase 14's output, beside a second run from phase
+   14's TIFF series (the chain's own spread on the card), K5 launches
+   equal to phase 14's; (c) tsv_tools crop-ims on a 16 x 300 x 400 ROI of
+   the .ims: equal to the planes' crop, the chunks inflated equal to the
+   chunks the ROI overlaps; h5py never imported.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -206,7 +219,8 @@ torch.fft unless a caller forces "walk1" (phase 10 does), so only phase 10
 and phase 11 launch K6 and K7.
 
 Phases 8 and 9 read phase 4's series, phase 15 phase 14's, phase 16
-phase 4's, 6's and 12's inputs and outputs.  The script
+phase 4's, 6's and 12's inputs and outputs, phase 17 phase 14's input
+and output.  The script
 exits non-zero when there is no CUDA device, when the port is not beside
 it, or when any phase fails.  On success its last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
@@ -3491,7 +3505,7 @@ def phase_convert(torch, dev, record, shared):
     planes = sorted(out.glob("img_*.tif"))
     if len(planes) != CONV_PLANES:
         raise AssertionError(f"{len(planes)} planes written")
-    shared["convert_series"] = out
+    shared["convert_series"], shared["convert_input"] = out, src
     series = read_series(out)
     if series.dtype != np.uint16 or series.shape[1:] != (h, w):
         raise AssertionError(f"series {series.shape} {series.dtype}")
@@ -3717,7 +3731,6 @@ def phase_scan_tsv(torch, dev, record, shared):
     if rc != 0 or bad:
         raise AssertionError(f"downsample rc {rc}, planes off: {bad}")
     shutil.rmtree(work, ignore_errors=True)
-    shutil.rmtree(src.parent, ignore_errors=True)
 
 
 # -- phase 16 ----------------------------------------------------------------
@@ -4184,6 +4197,200 @@ def phase_mesh(torch, psf_zyx, record, shared):
         raise AssertionError("; ".join(errors))
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+IMS_ROI = (5, 21, 700, 1000, 900, 1300)   # z0 z1 y0 y1 x0 x1: 16 x 300 x 400
+HOST_PACKAGES = ("h5py", "PIL", "pandas", "psutil", "cv2")
+
+
+def ims_level1(planes, lshape):
+    """Level 1 (shape lshape) of io/ims.write_imaris's pyramid recomputed
+    on the host from the level-0 planes, with the writer's arithmetic:
+    each plane in float32, mean-pooled over (ny // ly) x (nx // lx)
+    blocks, and the mean of every nz // lz such planes cast to the planes'
+    dtype."""
+    import numpy as np
+
+    lz, ly, lx = lshape
+    fz = max(1, len(planes) // lz)
+    fy, fx = planes.shape[1] // ly, planes.shape[2] // lx
+    out = []
+    for zi in range(lz):
+        acc = [planes[z].astype(np.float32)[:ly * fy, :lx * fx].reshape(
+            ly, fy, lx, fx).mean(axis=(1, 3)) for z in range(zi * fz,
+                                                          zi * fz + fz)]
+        out.append(np.mean(acc, axis=0).astype(planes.dtype))
+    return np.stack(out)
+
+
+def bdv_level1(planes):
+    """Level 1 of io/bdv.write_bdv's pyramid (x and y halved by the mean,
+    z kept) recomputed on the host, as BDVReader returns it (u16)."""
+    import numpy as np
+
+    nz, h, w = planes.shape
+    out = np.empty((nz, h // 2, w // 2), np.uint16)
+    for z in range(nz):
+        small = planes[z].astype(np.float32)[:h // 2 * 2, :w // 2 * 2] \
+            .reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+        out[z] = np.clip(np.rint(np.mean([small], axis=0)), 0, 65535)
+    return out
+
+
+def phase_hdf5(torch, record, shared):
+    """The HDF5 exports and sources on the card's host, which has no h5py:
+    the port writes and reads them through io/hdf5.py.  (a) convert.main
+    --imaris --bdv on phase 14's input series: both read back, level 0
+    equal to the TIFF planes, level 1 to its host recomputation, the
+    thumbnail's shape; (b) convert.main with phase 14's flags from the
+    .ims: the planes within 1 count of phase 14's output (a second run
+    from phase 14's TIFF series shows the chain's own spread on the card
+    beside it), K5's launches equal phase 14's; (c) tsv_tools crop-ims on
+    a 16 x 300 x 400 ROI: equal to the planes' crop, inflating exactly the
+    chunks the ROI overlaps."""
+    import importlib.util
+
+    import numpy as np
+
+    from ipp_tpu_torch.io import bdv as bdvm
+    from ipp_tpu_torch.io import hdf5
+    from ipp_tpu_torch.io import ims as imsm
+    from ipp_tpu_torch.io import tiff as tio
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.pipeline import convert as conv
+    from ipp_tpu_torch.pipeline import tsv_tools as tsv
+
+    card = card_line()
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in HOST_PACKAGES}
+    say(f"  host packages importable: {found} ({card})")
+    src, conv_out = shared.get("convert_input"), shared.get("convert_series")
+    if src is None or conv_out is None:
+        raise AssertionError("phase 14 left no series")
+    work = ROOT / "build" / "chip_smoke_hdf5"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    planes = read_series(src)
+    nz, h, w = planes.shape
+    raw_mb = planes.nbytes / 1e6
+    rec = record["hdf5"] = dict(card=card, host_packages=found,
+                                raw_mb=raw_mb)
+
+    # (a) the exports, timed where the converter calls them
+    clock = StageClock()
+    real = (conv.tif_series_to_imaris, bdvm.tif_series_to_bdv)
+    conv.tif_series_to_imaris = clock.wrap("ims", real[0])
+    bdvm.tif_series_to_bdv = clock.wrap("bdv", real[1])
+    try:
+        rc = conv.main(["-i", str(src), "-o", str(work / "tif"), "--imaris",
+                        "--bdv", "--voxel", *map(str, CONV_VOXEL)])
+    finally:
+        conv.tif_series_to_imaris, bdvm.tif_series_to_bdv = real
+    ims_path, xml = work / "tif.ims", work / "tif_bdv.xml"
+    if rc != 0:
+        raise AssertionError(f"convert --imaris --bdv rc {rc}")
+    t0 = time.perf_counter()
+    with imsm.ImarisReader(ims_path) as r:
+        back = np.stack([r[z] for z in range(len(r))])
+    t_ims_read = time.perf_counter() - t0
+    with imsm.ImarisReader(ims_path, resolution_level=1) as r:
+        lv1 = np.stack([r[z] for z in range(len(r))])
+    with hdf5.File(ims_path) as f:
+        thumb = f["Thumbnail/Data"].shape
+    t_fy, t_fx = max(1, h // 256), max(1, w // 256)
+    checks = {
+        "ims level 0 == planes": bool(np.array_equal(back, planes)),
+        "ims level 1 == host mean pool": bool(np.array_equal(
+            lv1, ims_level1(planes, lv1.shape))),
+        "ims thumbnail shape": thumb == (h // t_fy, 4 * (w // t_fx))}
+    del back, lv1
+    t0 = time.perf_counter()
+    r = bdvm.BDVReader(xml)
+    back = np.stack([r[z] for z in range(len(r))])
+    r.close()
+    t_bdv_read = time.perf_counter() - t0
+    r = bdvm.BDVReader(xml, level=1)
+    lv1 = np.stack([r[z] for z in range(len(r))])
+    r.close()
+    checks["bdv level 0 == planes"] = bool(np.array_equal(back, planes))
+    checks["bdv level 1 == host mean pool"] = bool(np.array_equal(
+        lv1, bdv_level1(planes)))
+    del back, lv1
+    rates = {"ims write": raw_mb / clock.s["ims"],
+             "bdv write": raw_mb / clock.s["bdv"],
+             "ims read": raw_mb / t_ims_read, "bdv read": raw_mb / t_bdv_read}
+    sizes = {"ims": ims_path.stat().st_size,
+             "bdv": xml.with_suffix(".h5").stat().st_size}
+    rec.update(ims_write_s=clock.s["ims"], bdv_write_s=clock.s["bdv"],
+               ims_read_s=t_ims_read, bdv_read_s=t_bdv_read,
+               mb_s=rates, file_bytes=sizes)
+    say(f"  (a) .ims write {clock.s['ims']:.2f} s, BDV write "
+        f"{clock.s['bdv']:.2f} s, level-0 reads {t_ims_read:.2f} / "
+        f"{t_bdv_read:.2f} s of {raw_mb:.0f} MB raw u16; MB/s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+        + f"; files {sizes} bytes ({card})")
+
+    # (b) phase 14's chain with the .ims as the source, and once more
+    # with phase 14's TIFF series as the source: the chain's own spread
+    # on the card (cuDNN's transposed convolution of the DWT synthesis
+    # need not give the same bits twice)
+    names = sorted(p.name for p in conv_out.glob("*.tif"))
+    runs = {}
+    for tag, source in (("ims", ims_path), ("tif", src)):
+        cd.reset_launch_counts()
+        t0 = time.perf_counter()
+        dst = work / f"from_{tag}"
+        rc = conv.main(["-i", str(source), "-o", str(dst), *CONV_FLAGS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0 or sorted(p.name for p in dst.glob("*.tif")) != names:
+            raise AssertionError(f"convert from the {tag} source: rc {rc}")
+        diff = [np.abs(tio.imread(dst / n).astype(np.int64)
+                       - tio.imread(conv_out / n)) for n in names]
+        runs[tag] = dict(wall_s=wall, k5=cd.LAUNCHES["dwt_analysis"],
+                         max_diff=int(max(d.max() for d in diff)),
+                         pixels_off=int(sum((d > 0).sum() for d in diff)))
+    want_k5 = record["convert"]["k5_launches"]
+    checks["convert from .ims within 1 count of phase 14"] = \
+        runs["ims"]["max_diff"] <= 1
+    checks["K5 launches == phase 14's"] = all(
+        r["k5"] == want_k5 for r in runs.values())
+    rec.update(convert=runs, want_k5=want_k5)
+    say(f"  (b) convert {' '.join(CONV_FLAGS[:5])} ... against phase 14's "
+        f"output: " + "; ".join(
+            f"from the {k} source {r['wall_s']:.1f} s, max |diff| "
+            f"{r['max_diff']}, {r['pixels_off']} of {len(names) * h * w} "
+            f"pixels off, K5 launches {r['k5']}" for k, r in runs.items())
+        + f" (phase 14: {want_k5})")
+
+    # (c) the crop reads only the ROI's chunks
+    z0, z1, y0, y1, x0, x1 = IMS_ROI
+    chunk = [min(c, n) for c, n in zip((16, 256, 256), planes.shape)]
+    want_chunks = math.prod((b - 1) // c - a // c + 1 for a, b, c in
+                            zip(IMS_ROI[::2], IMS_ROI[1::2], chunk))
+    hdf5.reset_read_counts()
+    t0 = time.perf_counter()
+    rc = tsv.main(["crop-ims", "--ims", str(ims_path), "--output",
+                   str(work / "crop"), "--roi", *map(str, IMS_ROI)])
+    t_crop = time.perf_counter() - t0
+    chunks = hdf5.READ_COUNTS["chunks"]
+    crop = tio.read_tiff_stack(next((work / "crop").glob("*_16bit.tif")))
+    checks["crop == planes' ROI"] = bool(np.array_equal(
+        crop, planes[z0:z1, y0:y1, x0:x1]))
+    checks["crop chunks == ROI's"] = chunks == want_chunks
+    checks["h5py never imported"] = "h5py" not in sys.modules
+    rec.update(crop_s=t_crop, crop_chunks=chunks, want_chunks=want_chunks,
+               checks=checks)
+    say(f"  (c) crop-ims rc {rc} {IMS_ROI} in {t_crop:.2f} s: {chunks} "
+        f"chunks inflated, the ROI overlaps {want_chunks}")
+    say(f"  checks: {checks}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if rc != 0 or bad:
+        raise AssertionError(f"crop rc {rc}; failed: {bad}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(src.parent, ignore_errors=True)
+
+
 # -- main ---------------------------------------------------------------------
 
 def main() -> int:
@@ -4214,9 +4421,11 @@ def main() -> int:
         say(f"phase {num}: {title}")
         t0 = time.perf_counter()
         try:
-            # phases 1-15 are one card's runs on a host with any number of
-            # cards (the CLIs' default mesh is none); phase 16 sets its own
-            with DefaultMesh(None) if num < 16 else contextlib.nullcontext():
+            # phases 1-15 and 17 are one card's runs on a host with any
+            # number of cards (the CLIs' default mesh is none); phase 16
+            # sets its own
+            with DefaultMesh(None) if num != 16 else \
+                    contextlib.nullcontext():
                 fn(*a)
             say(f"phase {num}: ok in {time.perf_counter() - t0:.1f} s")
         except Exception:  # noqa: BLE001 — report every phase, then fail
@@ -4294,7 +4503,12 @@ def main() -> int:
     phase(16, f"the mesh on {torch.cuda.device_count()} card(s): the "
           f"deconvolution, z-sharded RL, the stitch, the destripe CLI, "
           f"torch.distributed", phase_mesh, torch, psf, record, shared)
-    for d in ("chip_smoke", "chip_smoke_tiles", "chip_smoke_stitch"):
+    phase(17, f"the Imaris and BigDataViewer exports and sources (the "
+          f"port's HDF5 module): convert --imaris --bdv on phase 14's "
+          f"{CONV_PLANES} planes, convert from the .ims, tsv_tools crop-ims",
+          phase_hdf5, torch, record, shared)
+    for d in ("chip_smoke", "chip_smoke_tiles", "chip_smoke_stitch",
+              "chip_smoke_convert", "chip_smoke_hdf5"):
         shutil.rmtree(ROOT / "build" / d, ignore_errors=True)
     peaks = {k: v["peak_mem_bytes"] for k, v in record.items()
              if isinstance(v, dict) and "peak_mem_bytes" in v}

@@ -88,7 +88,7 @@ def write_bdv(
     pool2d = (lambda a: a.max(axis=(1, 3))) if halve == "max" \
         else (lambda a: a.mean(axis=(1, 3)))
     poolz = np.max if halve == "max" else np.mean
-    import h5py
+    from . import hdf5 as h5py
 
     out_xml = Path(out_xml)
     h5_path = out_xml.with_suffix(".h5")
@@ -166,7 +166,7 @@ class BDVReader:
 
     def __init__(self, xml_or_h5, setup: int = 0, timepoint: int = 0,
                  level: int = 0):
-        import h5py
+        from . import hdf5 as h5py
 
         p = Path(xml_or_h5)
         if p.suffix.lower() == ".xml":

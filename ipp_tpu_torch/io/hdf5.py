@@ -1,0 +1,1090 @@
+"""Classic HDF5 files in numpy and the standard library (struct, zlib).
+
+The card's host has no h5py, so io/ims.py and io/bdv.py read and write
+their Imaris (.ims) and BigDataViewer (.h5) files through this module
+(``from . import hdf5 as h5py``).  It offers the subset of h5py's API that
+those two modules use: ``File(path, "r" | "w")`` as a context manager,
+``f[path]`` / ``f.get(path)``, ``create_group`` and ``create_dataset``
+(intermediate groups made as h5py makes them), ``.attrs``, and datasets
+indexed by planes and boxes, with ``.shape`` / ``.dtype`` / ``.chunks``.
+
+Format (HDF5 File Format Specification, version 3.0): what h5py writes
+by default (``libver='earliest'``).  Superblock version 0 with 8-byte
+offsets and lengths, group leaf K 4 and internal K 16, chunk B-tree K 32;
+version 1 object headers; groups as symbol tables (local heap, version 1
+B-tree of type 0, ``SNOD`` nodes of up to 8 links, names in byte order);
+datasets contiguous or chunked (version 3 layout, version 1 B-tree of
+type 1); fixed-point and IEEE float datatypes and fixed byte strings.
+
+Writing streams: a chunked dataset buffers one slab of chunk-z planes,
+compresses the slab's chunks (deflate, on a thread pool: zlib releases
+the GIL; the bytes do not depend on the thread count) and appends them
+when the slab is full, the last partial slab at ``close()``.  Edge chunks
+are stored at the full chunk size.  Every piece of metadata is written at
+``close()``, once all sizes are known, and the superblock last, at
+offset 0.  The file carries no time stamp: one tree written twice gives
+the same bytes.
+
+Reading touches what a read needs: the chunk B-tree is searched, never
+loaded whole; decompressed chunks sit in a small LRU cache that always
+keeps the last read's chunks (so a plane-by-plane sweep inflates each
+chunk once); ``READ_COUNTS["chunks"]`` counts chunks inflated.  Reads
+take ints and slices of step 1.  Filters on read: deflate, shuffle and
+fletcher32 (checked); layouts contiguous, chunked and compact.  What
+``libver='v108'`` and later writers produce (superblock versions 2 and 3,
+version 2 object headers, newer message versions, layout version 4 chunk
+indexes, link-message groups with fractal heaps and version 2 B-trees),
+shared messages, and any other filter or datatype raise ``FormatError``
+naming the structure.
+"""
+
+from __future__ import annotations
+
+import bisect
+import itertools
+import os
+import struct
+import zlib
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+__all__ = ["File", "Group", "Dataset", "AttributeManager", "FormatError",
+           "READ_COUNTS", "reset_read_counts"]
+
+SIGNATURE = b"\x89HDF\r\n\x1a\n"
+UNDEF = 0xFFFFFFFFFFFFFFFF
+GROUP_LEAF_K, GROUP_NODE_K, CHUNK_K = 4, 16, 32
+SNOD_SIZE = 8 + 2 * GROUP_LEAF_K * 40
+HEAP_FREE_NONE = 1      # the library's "no free block" (H5HL_FREE_NULL)
+# message types (spec IV.A.2)
+NIL, DATASPACE, LINK_INFO, DATATYPE, FILL = 0, 1, 2, 3, 5
+LINK, LAYOUT, FILTERS, ATTRIBUTE = 6, 8, 11, 12
+CONTINUATION, SYMBOL_TABLE, ATTR_INFO = 16, 17, 21
+FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32 = 1, 2, 3
+# the read side keeps the last read's chunks and this many more bytes
+CACHE_BYTES = 64 << 20
+# slabs whose chunks may be in compression while the writer goes on
+PENDING_SLABS = 2
+
+READ_COUNTS: Dict[str, int] = {"chunks": 0}
+
+
+def reset_read_counts() -> None:
+    for k in READ_COUNTS:
+        READ_COUNTS[k] = 0
+
+
+class FormatError(OSError):
+    """A structure this reader does not decode (or a damaged file)."""
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + b"\0" * (-len(b) % 8)
+
+
+def _threads() -> int:
+    return max(1, min(8, os.cpu_count() or 1))
+
+
+# -- datatypes ---------------------------------------------------------------
+
+_FLOAT_LAYOUT = {2: (15, 10, 5, 10, 15), 4: (31, 23, 8, 23, 127),
+                 8: (63, 52, 11, 52, 1023)}   # sign, exp loc/size, mant, bias
+
+
+def _encode_dtype(dt: np.dtype) -> bytes:
+    """The datatype message (version 1) of a little-endian numpy dtype."""
+    dt = np.dtype(dt)
+    if dt.kind in "iu" and dt.itemsize in (1, 2, 4, 8):
+        if dt.byteorder == ">":
+            raise TypeError(f"big-endian {dt} is not written")
+        return bytes([0x10, 0x08 if dt.kind == "i" else 0, 0, 0]) + \
+            struct.pack("<IHH", dt.itemsize, 0, 8 * dt.itemsize)
+    if dt.kind == "f" and dt.itemsize in _FLOAT_LAYOUT:
+        if dt.byteorder == ">":
+            raise TypeError(f"big-endian {dt} is not written")
+        sign, eloc, esize, msize, bias = _FLOAT_LAYOUT[dt.itemsize]
+        return bytes([0x11, 0x20, sign, 0]) + struct.pack(
+            "<IHHBBBBI", dt.itemsize, 0, 8 * dt.itemsize, eloc, esize, 0,
+            msize, bias)
+    if dt.kind == "S" and dt.itemsize > 0:
+        # null-padded ASCII, as h5py stores numpy's fixed byte strings
+        return bytes([0x13, 0x01, 0, 0]) + struct.pack("<I", dt.itemsize)
+    raise TypeError(f"datatype {dt} is not written (fixed-point, IEEE "
+                    f"float and fixed byte strings are)")
+
+
+def _decode_dtype(buf: bytes) -> np.dtype:
+    cls, version = buf[0] & 0x0F, buf[0] >> 4
+    bits = buf[1] | buf[2] << 8 | buf[3] << 16
+    (size,) = struct.unpack_from("<I", buf, 4)
+    if version != 1:
+        raise FormatError(f"datatype message version {version}")
+    order = ">" if bits & 1 else "<"
+    if cls == 0:
+        offset, precision = struct.unpack_from("<HH", buf, 8)
+        if size not in (1, 2, 4, 8) or offset != 0 or precision != 8 * size:
+            raise FormatError(f"fixed-point datatype of {size} bytes, "
+                              f"offset {offset}, precision {precision}")
+        return np.dtype(f"{order}{'i' if bits & 8 else 'u'}{size}")
+    if cls == 1:
+        offset, precision, eloc, esize, mloc, msize, bias = \
+            struct.unpack_from("<HHBBBBI", buf, 8)
+        if bits & 0x40 or (size not in _FLOAT_LAYOUT) or offset != 0 or \
+                (bits >> 8 & 0xFF, eloc, esize, msize, bias) != \
+                _FLOAT_LAYOUT[size] or mloc != 0:
+            raise FormatError(f"floating-point datatype of {size} bytes "
+                              f"that is not IEEE 754")
+        return np.dtype(f"{order}f{size}")
+    if cls == 3:
+        return np.dtype(f"S{size}")
+    names = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound",
+             7: "reference", 8: "enumerated", 9: "variable-length",
+             10: "array"}
+    raise FormatError(f"datatype class {cls} ({names.get(cls, 'unknown')})")
+
+
+# -- dataspaces --------------------------------------------------------------
+
+def _encode_space(shape: Tuple[int, ...]) -> bytes:
+    """Dataspace message, version 1 (rank 0: a scalar); maximum sizes equal
+    to the sizes, as h5py writes a dataset without maxshape."""
+    out = bytes([1, len(shape), 1 if shape else 0, 0]) + b"\0" * 4
+    return out + struct.pack(f"<{2 * len(shape)}Q", *shape, *shape)
+
+
+def _decode_space(buf: bytes) -> Tuple[int, ...]:
+    if buf[0] != 1:
+        raise FormatError(f"dataspace message version {buf[0]}")
+    return struct.unpack_from(f"<{buf[1]}Q", buf, 8)
+
+
+# -- reading -----------------------------------------------------------------
+
+def _fletcher32(data: bytes) -> Tuple[int, int]:
+    """HDF5's Fletcher-32 halves (big-endian 16-bit words) mod 65535."""
+    if len(data) % 2:
+        data = data + b"\0"
+    w = np.frombuffer(data, ">u2").astype(np.uint64)
+    n = len(w)
+    weights = (np.arange(n, 0, -1, dtype=np.uint64) % 65535)
+    return int(w.sum() % 65535), int((w * weights).sum() % 65535)
+
+
+def _unshuffle(buf: bytes, size: int) -> bytes:
+    n = len(buf) // size
+    body = np.frombuffer(buf, np.uint8, n * size).reshape(size, n)
+    return body.T.tobytes() + buf[n * size:]
+
+
+class _Reader:
+    """Low-level access to a classic HDF5 file opened for reading."""
+
+    def __init__(self, path: Path):
+        self.path = path
+        self.fd = os.open(path, os.O_RDONLY)
+        try:
+            self._superblock()
+        except BaseException:
+            os.close(self.fd)
+            raise
+
+    def read(self, addr: int, n: int) -> bytes:
+        if addr == UNDEF:
+            raise FormatError("read at the undefined address")
+        out = os.pread(self.fd, n, self.base + addr)
+        if len(out) != n:
+            raise FormatError(f"{self.path}: {n} bytes at {addr} run past "
+                              f"the end of the file (truncated?)")
+        return out
+
+    def _superblock(self):
+        size = os.fstat(self.fd).st_size
+        at = 0
+        while True:   # the superblock sits at 0, 512, 1024, 2048, ...
+            head = os.pread(self.fd, 9, at)
+            if head[:8] == SIGNATURE:
+                break
+            at = 512 if at == 0 else 2 * at
+            if at >= size:
+                raise FormatError(f"{self.path}: no HDF5 signature")
+        version = head[8]
+        if version not in (0, 1):
+            raise FormatError(
+                f"{self.path}: superblock version {version} (libver "
+                f"'v108' or later); versions 0 and 1 are read")
+        sb = os.pread(self.fd, 100, at)
+        so, sl = sb[13], sb[14]
+        if (so, sl) != (8, 8):
+            raise FormatError(f"superblock with {so}-byte offsets and "
+                              f"{sl}-byte lengths (8 and 8 are read)")
+        pos = 24 + (4 if version == 1 else 0)
+        base, _, _, _ = struct.unpack_from("<4Q", sb, pos)
+        self.base = base + at if base == 0 and at else base
+        (self.root,) = struct.unpack_from("<Q", sb, pos + 32 + 8)
+
+    def messages(self, addr: int) -> List[Tuple[int, int, bytes]]:
+        """(type, flags, data) of every message of the object header at
+        addr, continuation blocks followed."""
+        head = self.read(addr, 16)
+        if head[:4] == b"OHDR":
+            raise FormatError(f"version 2 object header (OHDR) at {addr}; "
+                              f"version 1 headers are read")
+        if head[0] != 1:
+            raise FormatError(f"object header version {head[0]} at {addr}")
+        nmsgs, _, size = struct.unpack_from("<HII", head, 2)
+        blocks, out = [(addr + 16, size)], []
+        while blocks:
+            a, n = blocks.pop(0)
+            buf, p = self.read(a, n), 0
+            while p + 8 <= n:
+                mtype, msize, flags = struct.unpack_from("<HHB", buf, p)
+                data = buf[p + 8:p + 8 + msize]
+                p += 8 + msize
+                if flags & 0x02:
+                    raise FormatError(f"shared message of type {mtype} in "
+                                      f"the object header at {addr}")
+                if mtype == CONTINUATION:
+                    blocks.append(struct.unpack_from("<QQ", data))
+                elif mtype != NIL:
+                    out.append((mtype, flags, data))
+        return out
+
+    def heap(self, addr: int) -> bytes:
+        head = self.read(addr, 32)
+        if head[:4] != b"HEAP":
+            raise FormatError(f"no local heap (HEAP) at {addr}")
+        size, _, data = struct.unpack_from("<QQQ", head, 8)
+        return self.read(data, size)
+
+    def tree(self, addr: int, keysize: int, kind: int):
+        """(level, keys, children) of a version 1 B-tree node; a key is
+        its raw bytes."""
+        head = self.read(addr, 24)
+        if head[:4] != b"TREE" or head[4] != kind:
+            raise FormatError(f"no B-tree node (TREE) of type {kind} at "
+                              f"{addr}")
+        level, n = head[5], struct.unpack_from("<H", head, 6)[0]
+        body = self.read(addr + 24, n * (8 + keysize) + keysize)
+        keys = [body[i * (8 + keysize):i * (8 + keysize) + keysize]
+                for i in range(n + 1)]
+        children = [struct.unpack_from("<Q", body, i * (8 + keysize)
+                                       + keysize)[0] for i in range(n)]
+        return level, keys, children
+
+    def links(self, btree: int, heap_addr: int) -> Dict[str, int]:
+        """name -> object header address of a symbol-table group."""
+        heap, out = self.heap(heap_addr), {}
+
+        def name(off):
+            return heap[off:heap.index(b"\0", off)].decode("utf-8")
+
+        def walk(addr):
+            level, _, children = self.tree(addr, 8, 0)
+            for c in children:
+                if level:
+                    walk(c)
+                    continue
+                node = self.read(c, 8)
+                if node[:4] != b"SNOD":
+                    raise FormatError(f"no symbol table node (SNOD) at {c}")
+                (n,) = struct.unpack_from("<H", node, 6)
+                ents = self.read(c + 8, 40 * n)
+                for i in range(n):
+                    off, hdr, cache = struct.unpack_from("<QQI", ents, 40 * i)
+                    if cache == 2:
+                        raise FormatError(f"soft link {name(off)!r}")
+                    out[name(off)] = hdr
+
+        walk(btree)
+        return out
+
+    def close(self):
+        if self.fd >= 0:
+            os.close(self.fd)
+            self.fd = -1
+
+
+def _decode_attribute(data: bytes):
+    """(name, value) of a version 1 attribute message: name, datatype
+    and dataspace each padded to 8 bytes, then the data."""
+    if data[0] != 1:
+        raise FormatError(f"attribute message version {data[0]}")
+    nlen, tlen, slen = struct.unpack_from("<HHH", data, 2)
+    pos = 8
+
+    def take(n):
+        nonlocal pos
+        out = data[pos:pos + n]
+        pos += n + -n % 8
+        return out
+
+    name = take(nlen).rstrip(b"\0").decode("utf-8")
+    dt, shape = _decode_dtype(take(tlen)), _decode_space(take(slen))
+    count = int(np.prod(shape, dtype=np.int64))
+    value = np.frombuffer(data, dt, count, pos).reshape(shape).copy()
+    return name, (value[()] if not shape else value)
+
+
+# -- the h5py-like objects ---------------------------------------------------
+
+class AttributeManager:
+    """``obj.attrs``: numpy arrays of the stored type, numpy scalars for
+    scalars, as h5py returns them."""
+
+    def __init__(self, obj):
+        self._obj = obj
+        self._items: Optional[Dict[str, object]] = None
+
+    def _all(self) -> Dict[str, object]:
+        if self._items is None:
+            msgs = self._obj._messages()
+            for t, _, d in msgs:
+                if t == ATTR_INFO and struct.unpack_from(
+                        "<Q", d, 2 + (2 if d[1] & 1 else 0))[0] != UNDEF:
+                    raise FormatError(f"{self._obj.name!r} keeps attributes "
+                                      f"densely (fractal heap)")
+            self._items = dict(sorted(_decode_attribute(d)
+                                      for t, _, d in msgs if t == ATTRIBUTE))
+        return self._items
+
+    def __getitem__(self, name: str):
+        return self._all()[name]
+
+    def __setitem__(self, name: str, value) -> None:
+        self._obj.file._writable()
+        arr = np.asarray(value)
+        if arr.dtype.kind == "U":
+            raise TypeError(f"attribute {name!r}: str values are written "
+                            f"by h5py as variable-length strings, which "
+                            f"this writer does not store; pass bytes "
+                            f"(numpy 'S')")
+        _encode_dtype(arr.dtype)        # refuse other types now
+        self._all()[name] = arr[()] if arr.ndim == 0 else arr.copy()
+
+    def __contains__(self, name) -> bool:
+        return name in self._all()
+
+    def __iter__(self):
+        return iter(self._all())
+
+    def __len__(self) -> int:
+        return len(self._all())
+
+    def keys(self):
+        return self._all().keys()
+
+
+class _Node:
+    """A group or dataset: read from the object header at addr, or made by
+    this writer (addr None)."""
+
+    def __init__(self, file: "File", name: str, addr: Optional[int]):
+        self.file, self.name, self._addr = file, name, addr
+        self._msgs: Optional[List[Tuple[int, int, bytes]]] = None
+        self.attrs = AttributeManager(self)
+        if addr is None:
+            self.attrs._items = {}
+
+    def _messages(self) -> List[Tuple[int, int, bytes]]:
+        if self._msgs is None:
+            self._msgs = self.file._reader.messages(self._addr)
+        return self._msgs
+
+    def __bool__(self) -> bool:      # h5py: the object's file is open
+        return self.file._fh is not None or self.file._reader is not None
+
+
+class Group(_Node):
+    """A group: ``g[path]``, ``g.get(path)``, ``create_group``,
+    ``create_dataset``, ``.attrs``."""
+
+    def __init__(self, file, name, addr=None):
+        super().__init__(file, name, addr)
+        # the writer's tree, or the objects read so far
+        self._children: Dict[str, _Node] = {}
+        self._links: Optional[Dict[str, int]] = None
+
+    def _link_table(self) -> Dict[str, int]:
+        if self._links is None:
+            table = None
+            for t, _, d in self._messages():
+                if t == SYMBOL_TABLE:
+                    table = struct.unpack("<QQ", d[:16])
+                elif t in (LINK, LINK_INFO):
+                    raise FormatError(
+                        f"group {self.name!r} stores links in link messages "
+                        f"(new-style group; dense ones use a fractal heap "
+                        f"and version 2 B-trees); symbol tables are read")
+            if table is None:
+                raise FormatError(f"{self.name!r} has no symbol table")
+            self._links = self.file._reader.links(*table)
+        return self._links
+
+    def _child(self, key: str) -> Optional[_Node]:
+        if key in self._children or self._addr is None:
+            return self._children.get(key)
+        addr = self._link_table().get(key)
+        if addr is None:
+            return None
+        msgs = self.file._reader.messages(addr)
+        kinds = {t for t, _, _ in msgs}
+        if LAYOUT in kinds:
+            obj = Dataset(self.file, self._sub(key), addr, msgs)
+        elif kinds & {SYMBOL_TABLE, LINK, LINK_INFO}:
+            obj = Group(self.file, self._sub(key), addr)
+            obj._msgs = msgs
+        else:
+            raise FormatError(f"{self._sub(key)!r} is neither a group nor "
+                              f"a dataset")
+        self._children[key] = obj
+        return obj
+
+    def _walk(self, path: str, create: bool = False):
+        node = self.file if path.startswith("/") else self
+        parts = [p for p in path.split("/") if p]
+        for i, part in enumerate(parts):
+            if not isinstance(node, Group):
+                raise KeyError(f"{node.name!r} is a dataset, not a group")
+            nxt = node._child(part)
+            if nxt is None:
+                if not create or i == len(parts) - 1:
+                    return node, part, None
+                nxt = node._add(part, Group(self.file, node._sub(part)))
+            if i == len(parts) - 1:
+                return node, part, nxt
+            node = nxt
+        return None, "", node
+
+    def _sub(self, key: str) -> str:
+        return f"{self.name.rstrip('/')}/{key}"
+
+    def _add(self, key: str, obj: _Node) -> _Node:
+        if key in (".", "..") or not key:
+            raise ValueError(f"bad link name {key!r}")
+        self._children[key] = obj
+        return obj
+
+    def __getitem__(self, path: str):
+        _, _, obj = self._walk(path)
+        if obj is None:
+            raise KeyError(f"{path!r} not found in {self.name!r}")
+        return obj
+
+    def get(self, path: str, default=None):
+        try:
+            return self[path]
+        except KeyError:
+            return default
+
+    def __contains__(self, path) -> bool:
+        return self.get(path) is not None
+
+    def keys(self):
+        """Link names in HDF5's (byte) order, as h5py lists them."""
+        names = self._children if self._addr is None else self._link_table()
+        return sorted(names, key=lambda k: k.encode("utf-8"))
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def __len__(self) -> int:
+        return len(self.keys())
+
+    def create_group(self, path: str) -> "Group":
+        self.file._writable()
+        parent, key, obj = self._walk(path, create=True)
+        if obj is not None:
+            raise ValueError(f"{path!r}: name already exists")
+        return parent._add(key, Group(self.file, parent._sub(key)))
+
+    def create_dataset(self, path: str, shape=None, dtype=None, data=None,
+                       chunks=None, compression=None, compression_opts=None,
+                       ) -> "Dataset":
+        """Contiguous without chunks (data given now), chunked with them
+        (written by planes, ``d[z] = plane``, or all of ``data`` now)."""
+        self.file._writable()
+        if data is not None:
+            data = np.asarray(data, dtype=dtype)
+            shape = data.shape if shape is None else tuple(shape)
+            if tuple(shape) != data.shape:
+                raise ValueError(f"shape {shape} != data {data.shape}")
+        if shape is None:
+            raise TypeError("create_dataset needs shape= or data=")
+        shape = tuple(int(s) for s in np.atleast_1d(shape)) \
+            if np.ndim(shape) else (int(shape),)
+        dtype = np.dtype(data.dtype if dtype is None and data is not None
+                         else dtype if dtype is not None else "f4")
+        _encode_dtype(dtype)
+        level = None
+        if compression == "gzip":
+            level = 4 if compression_opts is None else int(compression_opts)
+        elif compression is not None:
+            raise ValueError(f"compression {compression!r}: only gzip")
+        if level is not None and not 0 <= level <= 9:
+            raise ValueError(f"gzip level {level} outside 0-9")
+        if chunks is not None:
+            chunks = tuple(int(c) for c in chunks)
+            if len(chunks) != len(shape) or min(chunks, default=1) < 1:
+                raise ValueError(f"chunks {chunks} for shape {shape}")
+        elif level is not None:
+            raise ValueError("compression needs chunks= (h5py would guess "
+                             "a chunk shape; give it)")
+        elif data is None:
+            raise ValueError("a contiguous dataset is written from data=")
+        parent, key, obj = self._walk(path, create=True)
+        if obj is not None:
+            raise ValueError(f"{path!r}: name already exists")
+        d = parent._add(key, Dataset(self.file, parent._sub(key), None))
+        d._create(shape, dtype, chunks, level)
+        if data is not None:
+            if chunks is None:     # behind every queued slab: one order
+                self.file._drain(0)
+                d._contiguous = self.file._append(
+                    np.ascontiguousarray(data, dtype).tobytes())
+            else:
+                d[...] = data
+        return d
+
+
+class Dataset(_Node):
+    """A dataset: ``.shape``, ``.dtype``, ``.chunks``, ``.compression``,
+    ``d[sel]``; in write mode ``d[z] = plane`` (whole planes along axis
+    0) streams the data into slabs of chunk-z planes."""
+
+    def __init__(self, file, name, addr=None, msgs=None):
+        super().__init__(file, name, addr)
+        if addr is not None:
+            self._msgs = msgs
+            self._parse()
+
+    # -- shared ------------------------------------------------------------
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def compression(self) -> Optional[str]:
+        return None if self._level is None else "gzip"
+
+    @property
+    def compression_opts(self) -> Optional[int]:
+        return self._level
+
+    def _box(self, key):
+        """(starts, stops, dims kept) of an index of ints and slices of
+        step 1."""
+        if not isinstance(key, tuple):
+            key = (key,)
+        if any(k is Ellipsis for k in key):
+            i = [k is Ellipsis for k in key].index(True)
+            fill = (slice(None),) * (self.ndim - len(key) + 1)
+            key = key[:i] + fill + key[i + 1:]
+        if len(key) > self.ndim:
+            raise IndexError(f"{len(key)} indices for a {self.ndim}-d "
+                             f"dataset")
+        key = key + (slice(None),) * (self.ndim - len(key))
+        starts, stops, keep = [], [], []
+        for k, n in zip(key, self.shape):
+            if isinstance(k, slice):
+                a, b, s = k.indices(n)
+                if s != 1:
+                    raise IndexError("slices of step 1 only")
+                starts.append(a)
+                stops.append(max(a, b))
+                keep.append(True)
+            elif isinstance(k, (int, np.integer)):
+                i = int(k) + (n if k < 0 else 0)
+                if not 0 <= i < n:
+                    raise IndexError(f"index {k} outside 0..{n - 1}")
+                starts.append(i)
+                stops.append(i + 1)
+                keep.append(False)
+            else:
+                raise TypeError(f"index {k!r}: ints and slices only")
+        return starts, stops, keep
+
+    # -- reading -----------------------------------------------------------
+
+    def _parse(self):
+        self._level, self._filters, self._fill = None, [], 0
+        layout = fill = None
+        for t, _, d in self._messages():
+            if t == DATASPACE:
+                self.shape = _decode_space(d)
+            elif t == DATATYPE:
+                self.dtype = _decode_dtype(d)
+            elif t == LAYOUT:
+                layout = d
+            elif t == FILTERS:
+                self._filters = self._decode_filters(d)
+            elif t == FILL:
+                fill = d
+        if layout[0] != 3:
+            raise FormatError(
+                f"{self.name!r}: layout message version {layout[0]}"
+                + (" (a version 4 chunk index)" if layout[0] == 4 else "")
+                + "; version 3 is read")
+        self._kind = layout[1]
+        self.chunks = None
+        if self._kind == 0:
+            (n,) = struct.unpack_from("<H", layout, 2)
+            self._compact = layout[4:4 + n]
+        elif self._kind == 1:
+            self._contiguous = struct.unpack_from("<Q", layout, 2)[0]
+        elif self._kind == 2:
+            nd = layout[2]
+            (self._btree,) = struct.unpack_from("<Q", layout, 3)
+            dims = struct.unpack_from(f"<{nd}I", layout, 11)
+            self.chunks = tuple(dims[:-1])
+            self._nodes: Dict[int, tuple] = {}
+            self._cache: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+        else:
+            raise FormatError(f"{self.name!r}: layout class {self._kind}")
+        if fill is not None:
+            self._fill = self._decode_fill(fill)
+
+    def _decode_fill(self, d):
+        """The fill value of a version 1 or 2 fill value message (0 when
+        none is defined)."""
+        if d[0] not in (1, 2):
+            raise FormatError(f"fill value message version {d[0]}")
+        n = struct.unpack_from("<I", d, 4)[0] if d[3] else 0
+        if n == 0:
+            return 0
+        if n != self.dtype.itemsize:
+            raise FormatError(f"{self.name!r}: a {n}-byte fill value")
+        return np.frombuffer(d, self.dtype, 1, 8)[0]
+
+    def _decode_filters(self, d):
+        """(id, client data) of each filter of a version 1 pipeline."""
+        if d[0] != 1:
+            raise FormatError(f"filter pipeline message version {d[0]}")
+        out, pos = [], 8
+        for _ in range(d[1]):
+            fid, nlen, _, ncd = struct.unpack_from("<HHHH", d, pos)
+            name = d[pos + 8:pos + 8 + nlen].split(b"\0")[0].decode(
+                "ascii", "replace")
+            pos += 8 + nlen + -nlen % 8
+            cd = struct.unpack_from(f"<{ncd}I", d, pos)
+            pos += 4 * ncd + 4 * (ncd % 2)
+            if fid not in (FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32):
+                raise FormatError(f"{self.name!r}: filter {fid} "
+                                  f"({name or 'unnamed'}); deflate, shuffle "
+                                  f"and fletcher32 are read")
+            if fid == FILTER_DEFLATE:
+                self._level = cd[0] if cd else None
+            out.append((fid, cd))
+        return out
+
+    def _node(self, addr: int):
+        node = self._nodes.get(addr)
+        if node is None:
+            keysize = 8 + 8 * (len(self.chunks) + 1)
+            level, raw, children = self.file._reader.tree(addr, keysize, 1)
+            keys = [struct.unpack_from(f"<II{len(self.chunks)}Q", k)
+                    for k in raw]
+            node = self._nodes[addr] = (
+                level, [k[2:] for k in keys[:-1]], keys, children)
+        return node
+
+    def _find(self, offset: tuple):
+        """(address, bytes, filter mask) of the chunk at element offset,
+        or None: one path down the chunk B-tree."""
+        addr = self._btree
+        if addr == UNDEF:
+            return None
+        while True:
+            level, lefts, keys, children = self._node(addr)
+            i = bisect.bisect_right(lefts, offset) - 1
+            if i < 0:
+                return None
+            if level == 0:
+                if lefts[i] != offset:
+                    return None
+                return children[i], keys[i][0], keys[i][1]
+            addr = children[i]
+
+    def _inflate(self, where) -> bytes:
+        addr, nbytes, mask = where
+        buf = self.file._reader.read(addr, nbytes)
+        for i, (fid, cd) in reversed(list(enumerate(self._filters))):
+            if mask >> i & 1:
+                continue
+            if fid == FILTER_DEFLATE:
+                buf = zlib.decompress(buf)
+            elif fid == FILTER_SHUFFLE:
+                buf = _unshuffle(buf, cd[0] if cd else self.dtype.itemsize)
+            else:
+                stored = struct.unpack("<I", buf[-4:])[0]
+                buf = buf[:-4]
+                if ((stored & 0xFFFF) % 65535, (stored >> 16) % 65535) != \
+                        _fletcher32(buf):
+                    raise FormatError(f"{self.name!r}: fletcher32 checksum "
+                                      f"mismatch in the chunk at {addr}")
+        return buf
+
+    def _chunked(self, starts, stops) -> np.ndarray:
+        out = np.full([b - a for a, b in zip(starts, stops)], self._fill,
+                      self.dtype)
+        if out.size == 0:
+            return out
+        grid = [range(a // c, (b - 1) // c + 1)
+                for a, b, c in zip(starts, stops, self.chunks)]
+        coords = list(itertools.product(*grid))
+        want, todo = {}, []
+        for co in coords:
+            if co in self._cache:
+                self._cache.move_to_end(co)
+                continue
+            where = self._find(tuple(i * c for i, c in zip(co, self.chunks)))
+            if where is not None:
+                todo.append((co, where))
+        if todo:
+            where = [w for _, w in todo]
+            raws = (self.file._executor().map(self._inflate, where)
+                    if len(todo) > 1 else [self._inflate(where[0])])
+            for (co, _), raw in zip(todo, raws):
+                self._cache[co] = np.frombuffer(raw, self.dtype).reshape(
+                    self.chunks)
+            READ_COUNTS["chunks"] += len(todo)
+        for co in coords:
+            chunk = self._cache.get(co)
+            if chunk is None:
+                continue
+            want[co] = True
+            lo = [i * c for i, c in zip(co, self.chunks)]
+            src = tuple(slice(max(a, l) - l, min(b, l + c) - l)
+                        for a, b, l, c in zip(starts, stops, lo, self.chunks))
+            dst = tuple(slice(max(a, l) - a, min(b, l + c) - a)
+                        for a, b, l, c in zip(starts, stops, lo, self.chunks))
+            out[dst] = chunk[src]
+        # keep this read's chunks and at most cache_bytes more
+        extra = sum(v.nbytes for k, v in self._cache.items() if k not in want)
+        for k in list(self._cache):
+            if extra <= CACHE_BYTES:
+                break
+            if k not in want:
+                extra -= self._cache.pop(k).nbytes
+        return out
+
+    def __getitem__(self, key):
+        if self._addr is None:
+            raise OSError(f"{self.name!r} was opened for writing")
+        starts, stops, keep = self._box(key)
+        if self._kind == 2:
+            out = self._chunked(starts, stops)
+        else:
+            if self._kind == 0:
+                flat = np.frombuffer(self._compact, self.dtype, self.size)
+            elif self._contiguous == UNDEF:
+                flat = np.full(self.size, self._fill, self.dtype)
+            else:
+                flat = np.memmap(self.file._path, self.dtype, "r",
+                                 self.file._reader.base + self._contiguous,
+                                 (self.size,))
+            whole = flat.reshape(self.shape)
+            out = np.array(whole[tuple(slice(a, b) for a, b in
+                                       zip(starts, stops))])
+            del flat, whole
+        out = out.reshape([n for n, k in zip(out.shape, keep) if k])
+        return out[()] if out.ndim == 0 else out
+
+    # -- writing -----------------------------------------------------------
+
+    def _create(self, shape, dtype, chunks, level):
+        self.shape, self.dtype, self.chunks = shape, dtype, chunks
+        self._level, self._contiguous = level, UNDEF
+        self._records: List[Tuple[tuple, int, int]] = []
+        self._slabs: Dict[int, Tuple[np.ndarray, set]] = {}
+        self._done: set = set()
+
+    def __setitem__(self, key, value):
+        if self._addr is not None or self.chunks is None:
+            raise OSError(f"{self.name!r}: only chunked datasets made by "
+                          f"this writer take writes")
+        starts, stops, _ = self._box(key)
+        if any(
+                (a, b) != (0, n) for a, b, n in
+                zip(starts[1:], stops[1:], self.shape[1:])):
+            raise IndexError(f"{self.name!r}: writes take whole planes "
+                             f"along axis 0 (d[z] = plane, d[z0:z1] = "
+                             f"block)")
+        value = np.asarray(value)
+        if not np.can_cast(value.dtype, self.dtype, "safe"):
+            raise TypeError(f"{self.name!r}: {value.dtype} does not cast "
+                            f"safely to {self.dtype}")
+        block = np.broadcast_to(value.astype(self.dtype, copy=False),
+                                (stops[0] - starts[0],) + self.shape[1:])
+        cz = self.chunks[0]
+        for z in range(starts[0], stops[0]):
+            s = z // cz
+            if s in self._done:
+                raise ValueError(f"{self.name!r}: plane {z} of a stored "
+                                 f"slab written again")
+            if s not in self._slabs:
+                depth = min(cz, self.shape[0] - s * cz)
+                self._slabs[s] = (np.zeros((depth,) + self.shape[1:],
+                                           self.dtype), set())
+            buf, seen = self._slabs[s]
+            buf[z - s * cz] = block[z - starts[0]]
+            seen.add(z)
+            if len(seen) == len(buf):
+                self._store(s)
+
+    def _store(self, s: int):
+        """Queue slab s's chunks for compression on the pool; the file
+        appends them in queue order (``File._drain``) while the caller
+        goes on with the next planes."""
+        buf, _ = self._slabs.pop(s)
+        self._done.add(s)
+        full = self.chunks
+        grid = [range(0, n, c) for n, c in zip(self.shape[1:], full[1:])]
+        level = self._level
+
+        def encode(lo):
+            src = buf[(slice(None),) + tuple(
+                slice(a, a + c) for a, c in zip(lo, full[1:]))]
+            if src.shape != full:
+                pad = np.zeros(full, self.dtype)
+                pad[tuple(slice(0, n) for n in src.shape)] = src
+                src = pad
+            raw = np.ascontiguousarray(src).tobytes()
+            return raw if level is None else zlib.compress(raw, level)
+
+        pool = self.file._executor()
+        self.file._pending.append(
+            (self, [((s * full[0],) + lo, pool.submit(encode, lo))
+                    for lo in itertools.product(*grid)]))
+        self.file._drain(PENDING_SLABS)
+
+    def _finish(self):
+        for s in sorted(self._slabs):
+            self._store(s)
+
+
+# -- the file ----------------------------------------------------------------
+
+class File(Group):
+    """``File(path, "r")`` reads a classic HDF5 file; ``File(path, "w")``
+    creates one (truncating), written out at ``close()``."""
+
+    def __init__(self, name, mode: str = "r"):
+        self._path = Path(name)
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pending: deque = deque()
+        self._reader, self._fh = None, None
+        if mode == "r":
+            self._reader = _Reader(self._path)
+            super().__init__(self, "/", self._reader.root)
+        elif mode == "w":
+            self._fh = open(self._path, "wb")
+            self._fh.write(b"\0" * 96)
+            self._eof = 96
+            super().__init__(self, "/", None)
+        else:
+            raise ValueError(f"mode {mode!r}: 'r' and 'w' are supported")
+
+    def _writable(self):
+        if self._fh is None:
+            raise OSError(f"{self._path} is not open for writing")
+
+    def _executor(self) -> ThreadPoolExecutor:
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(_threads())
+        return self._pool
+
+    def _append(self, data: bytes) -> int:
+        addr = self._eof
+        self._fh.write(data)
+        self._eof += len(data)
+        return addr
+
+    def _drain(self, keep: int):
+        """Append queued slabs' chunks, oldest first, until at most keep
+        slabs wait; a slab whose compression is done goes too."""
+        while self._pending and (len(self._pending) > keep or all(
+                fut.done() for _, fut in self._pending[0][1])):
+            d, chunks = self._pending.popleft()
+            for offset, fut in chunks:
+                data = fut.result()
+                d._records.append((offset, self._append(data), len(data)))
+
+    def close(self):
+        try:
+            if self._fh is not None:
+                self._write_metadata()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown()
+                self._pool = None
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
+            if self._reader is not None:
+                self._reader.close()
+                self._reader = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- metadata, written at close ----------------------------------------
+
+    def _write_metadata(self):
+        datasets = []
+
+        def collect(g):
+            for child in g._children.values():
+                if isinstance(child, Group):
+                    collect(child)
+                else:
+                    datasets.append(child)
+
+        collect(self)
+        for d in datasets:
+            if d.chunks is not None:
+                d._finish()
+        self._drain(0)
+        root, btree, heap = self._object(self)
+        sb = SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0]) + struct.pack(
+            "<HHI4Q", GROUP_LEAF_K, GROUP_NODE_K, 0, 0, UNDEF, self._eof,
+            UNDEF)
+        sb += struct.pack("<QQII2Q", 0, root, 1, 0, btree, heap)
+        self._fh.seek(0)
+        self._fh.write(sb)
+
+    def _header(self, messages) -> int:
+        """A version 1 object header holding messages in one block."""
+        body = b"".join(struct.pack("<HHB3x", t, len(_pad8(d)), flags)
+                        + _pad8(d) for t, flags, d in messages)
+        return self._append(struct.pack("<BBHII4x", 1, 0, len(messages), 1,
+                                        len(body)) + body)
+
+    @staticmethod
+    def _attr_messages(obj):
+        out = []
+        for name, value in obj.attrs._items.items():
+            arr = np.asarray(value)
+            raw_name = name.encode("utf-8") + b"\0"
+            dt, space = _encode_dtype(arr.dtype), _encode_space(arr.shape)
+            msg = bytes([1, 0]) + struct.pack("<HHH", len(raw_name), len(dt),
+                                              len(space)) + \
+                _pad8(raw_name) + _pad8(dt) + _pad8(space) + \
+                np.ascontiguousarray(arr).tobytes()
+            out.append((ATTRIBUTE, 0, msg))
+        return out
+
+    def _object(self, obj) -> Tuple[int, int, int]:
+        """(header, B-tree, heap) addresses of a written object; the
+        tables are those of a group (0, 0 for a dataset)."""
+        if isinstance(obj, Group):
+            btree, heap = self._group_tables(obj)
+            hdr = self._header([(SYMBOL_TABLE, 0,
+                                 struct.pack("<QQ", btree, heap))]
+                               + self._attr_messages(obj))
+            return hdr, btree, heap
+        return self._header(self._dataset_messages(obj)), 0, 0
+
+    def _group_tables(self, g: Group) -> Tuple[int, int]:
+        """Write a group's children, local heap, SNODs and B-tree."""
+        names = sorted(g._children, key=lambda k: k.encode("utf-8"))
+        entries = []
+        for name in names:
+            child = g._children[name]
+            hdr, btree, heap = self._object(child)
+            entries.append((name, hdr, isinstance(child, Group), btree, heap))
+        data, offsets = b"\0" * 8, {}
+        for name in names:
+            offsets[name] = len(data)
+            data += _pad8(name.encode("utf-8") + b"\0")
+        heap = self._append(b"HEAP" + bytes(4) + struct.pack(
+            "<QQQ", len(data), HEAP_FREE_NONE, self._eof + 32) + data)
+        items, cap = [], 2 * GROUP_LEAF_K
+        lead = struct.pack("<Q", 0)     # the empty name at heap offset 0
+        for i in range(0, len(entries), cap):
+            part = entries[i:i + cap]
+            node = b"SNOD" + bytes([1, 0]) + struct.pack("<H", len(part))
+            for name, hdr, is_group, bt, hp in part:
+                node += struct.pack("<QQII", offsets[name], hdr,
+                                    1 if is_group else 0, 0)
+                node += struct.pack("<QQ", bt, hp) if is_group else bytes(16)
+            last = struct.pack("<Q", offsets[part[-1][0]])
+            items.append((self._append(node.ljust(SNOD_SIZE, b"\0")), lead,
+                          last))
+            lead = last
+        return self._btree(0, items, 2 * GROUP_NODE_K, 8,
+                           struct.pack("<Q", 0)), heap
+
+    def _btree(self, kind: int, items, cap: int, keysize: int,
+               empty_key: bytes) -> int:
+        """Write a version 1 B-tree of type kind over items (child address,
+        left key, right key), each item's left key its predecessor's right
+        key, level by level; returns the root's address.  A node holds
+        key0 child0 key1 ... keyN at its full size of cap children."""
+        size = 24 + cap * 8 + (cap + 1) * keysize
+        if not items:
+            return self._append((b"TREE" + bytes([kind, 0]) + struct.pack(
+                "<HQQ", 0, UNDEF, UNDEF) + empty_key).ljust(size, b"\0"))
+        level = 0
+        while True:
+            parts = [items[i:i + cap] for i in range(0, len(items), cap)]
+            addrs = [self._eof + j * size for j in range(len(parts))]
+            parents = []
+            for j, part in enumerate(parts):
+                node = b"TREE" + bytes([kind, level]) + struct.pack(
+                    "<HQQ", len(part), addrs[j - 1] if j else UNDEF,
+                    addrs[j + 1] if j + 1 < len(parts) else UNDEF)
+                node += b"".join(lkey + struct.pack("<Q", addr)
+                                 for addr, lkey, _ in part) + part[-1][2]
+                self._append(node.ljust(size, b"\0"))
+                parents.append((addrs[j], part[0][1], part[-1][2]))
+            if len(parents) == 1:
+                return parents[0][0]
+            items, level = parents, level + 1
+
+    def _dataset_messages(self, d: Dataset):
+        msgs = [(DATASPACE, 0, _encode_space(d.shape)),
+                (DATATYPE, 1, _encode_dtype(d.dtype))]
+        if d.chunks is None:
+            msgs.append((FILL, 1, bytes([2, 2, 2, 1]) + struct.pack("<I", 0)))
+            size = d.size * d.dtype.itemsize
+            msgs.append((LAYOUT, 0, bytes([3, 1]) + struct.pack(
+                "<QQ", d._contiguous, size)))
+        else:
+            msgs.append((FILL, 1, bytes([2, 3, 2, 1]) + struct.pack("<I", 0)))
+            if d._level is not None:
+                msgs.append((FILTERS, 1, bytes([1, 1]) + bytes(6)
+                             + struct.pack("<HHHH", FILTER_DEFLATE, 8, 1, 1)
+                             + b"deflate\0" + struct.pack("<I", d._level)
+                             + bytes(4)))
+            msgs.append((LAYOUT, 0, bytes([3, 2, d.ndim + 1]) + struct.pack(
+                f"<Q{d.ndim + 1}I", self._chunk_tree(d), *d.chunks,
+                d.dtype.itemsize)))
+        return msgs + self._attr_messages(d)
+
+    def _chunk_tree(self, d: Dataset) -> int:
+        """The chunk B-tree: a chunk's key is its size, filter mask and
+        element offsets (with a trailing 0); the last right key is the
+        last chunk's offsets plus one chunk, and the element size."""
+        recs = sorted(d._records)
+        if not recs:
+            return UNDEF
+        fmt = f"<II{d.ndim + 1}Q"
+        keys = [struct.pack(fmt, n, 0, *off, 0) for off, _, n in recs]
+        keys.append(struct.pack(fmt, 0, 0, *(o + c for o, c in zip(
+            recs[-1][0], d.chunks)), d.dtype.itemsize))
+        items = [(addr, keys[i], keys[i + 1])
+                 for i, (_, addr, _) in enumerate(recs)]
+        return self._btree(1, items, 2 * CHUNK_K, len(keys[0]), b"")

@@ -22,7 +22,7 @@ __all__ = ["ImarisReader", "write_imaris", "write_imaris_timeseries",
 
 
 def _attr_str(group, name: str, value: str) -> None:
-    import h5py
+    from . import hdf5 as h5py
 
     group.attrs[name] = np.frombuffer(value.encode("ascii"),
                                       dtype="S1")
@@ -34,7 +34,7 @@ class ImarisReader:
 
     def __init__(self, path, timepoint: int = 0, channel: int = 0,
                  resolution_level: int = 0):
-        import h5py
+        from . import hdf5 as h5py
 
         self._f = h5py.File(path, "r")
         self._ds = self._f[f"DataSet/ResolutionLevel {resolution_level}/"
@@ -104,7 +104,7 @@ def write_imaris(
     volumes never materialize.  Pyramid levels are xy (and z, when deep
     enough) halvings with mean pooling.
     """
-    import h5py
+    from . import hdf5 as h5py
 
     path = Path(path)
     nz, ny, nx = shape
@@ -274,7 +274,7 @@ def write_imaris_timeseries(
     series are small QC/alignment artifacts here; the pyramid writer is
     write_imaris).
     """
-    import h5py
+    from . import hdf5 as h5py
 
     path = Path(path)
     nt, nz, ny, nx = shape_tzyx

@@ -40,16 +40,19 @@ VERBATIM = ["io/tiff.py", "io/dcimg.py", "io/nrrd.py", "parallel/executor.py",
             "utils/log.py", "utils/memory.py", "utils/progress.py",
             "geometry/extent.py", "geometry/stacks.py", "io/raw.py",
             "io/generic2d.py", "stitch/place.py", "io/terafly.py",
-            "io/vaa3draw.py", "io/ims.py", "utils/tifstack.py",
-            "pipeline/scan_stitch.py", "io/bdv.py", "io/precomputed.py",
+            "io/vaa3draw.py", "utils/tifstack.py",
+            "pipeline/scan_stitch.py", "io/precomputed.py",
             "pipeline/flip.py", "utils/checkfiles.py", "utils/cli.py",
             "utils/markers.py", "utils/reconops.py"]
 # copies that equal the original once, besides the imports, each
 # (pattern, replacement) is applied: the command generator writes
 # `python -m <package>.pipeline.<cli>` commands, and the port's must run
-# the port's CLIs, never the JAX package's
+# the port's CLIs, never the JAX package's; the HDF5 exports read and
+# write through the port's own HDF5 module (no h5py on the card's host)
+HDF5 = [(r"\bimport h5py\b", "from . import hdf5 as h5py")]
 RENAMED = {"pipeline/command_generator.py":
-           [(r"\bipp_tpu\.pipeline\.", "ipp_tpu_torch.pipeline.")]}
+           [(r"\bipp_tpu\.pipeline\.", "ipp_tpu_torch.pipeline.")],
+           "io/ims.py": HDF5, "io/bdv.py": HDF5}
 
 
 def _relative(src: str) -> str:

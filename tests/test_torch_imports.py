@@ -3,7 +3,9 @@ and no ipp_tpu module: the port keeps its own copies of the reference's
 host code (tests/test_torch_hostio.py holds them to their originals).
 They import OpenCV nowhere but in the converter's movie writer
 (`pipeline/convert.tif_series_to_movie`, host codec work, as in the JAX
-package): the card's host has no OpenCV."""
+package): the card's host has no OpenCV.  They import h5py nowhere: the
+card's host has none, and the port reads and writes HDF5 through its own
+`io/hdf5.py`."""
 
 import ast
 import os
@@ -108,3 +110,36 @@ def test_no_opencv_but_in_the_movie_writer(path):
 def test_the_movie_writer_is_the_one_opencv_import():
     tree = ast.parse((ROOT / "ipp_tpu_torch/pipeline/convert.py").read_text())
     assert [f for f, _ in _cv2_imports(tree)] == ["tif_series_to_movie"]
+
+
+def _h5py_imports(tree):
+    """Lines that import h5py: import statements, and __import__ or
+    importlib.import_module called with the name."""
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [node.lineno for a in node.names
+                      if a.name.split(".")[0] == "h5py"]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module.split(".")[0] == "h5py":
+            found.append(node.lineno)
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                str(node.args[0].value).split(".")[0] == "h5py" and \
+                getattr(node.func, "attr", getattr(node.func, "id", None)) \
+                in ("import_module", "__import__"):
+            found.append(node.lineno)
+    return found
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_h5py(path):
+    lines = _h5py_imports(ast.parse(path.read_text()))
+    assert not lines, f"{path.relative_to(ROOT)}:{lines} imports h5py"
+
+
+def test_the_h5py_guard_sees_every_form():
+    src = ("import h5py\nimport h5py.h5t as t\nfrom h5py import File\n"
+           "importlib.import_module('h5py')\n__import__('h5py')\n"
+           "from . import hdf5 as h5py\n")
+    assert _h5py_imports(ast.parse(src)) == [1, 2, 3, 4, 5]

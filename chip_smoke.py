@@ -204,7 +204,15 @@ Phases:
    14's TIFF series (the chain's own spread on the card), K5 launches
    equal to phase 14's; (c) tsv_tools crop-ims on a 16 x 300 x 400 ROI of
    the .ims: equal to the planes' crop, the chunks inflated equal to the
-   chunks the ROI overlaps; h5py never imported.
+   chunks the ROI overlaps; (d) the committed files of newer format
+   (tests/torch_hdf5_fixtures: h5py libver='latest', fixed-array,
+   extensible-array and version 2 B-tree chunk indexes, dense links and
+   attributes) read through hdf5.File, ImarisReader and BDVReader
+   bit-equal to their arrays regenerated from numpy seeds, each dataset
+   inflating its chunks once; the reads' ms beside those of the same
+   arrays in classic format; convert with phase 14's flags from the
+   fixture .ims and from its planes as TIFFs: within 1 count, K5's
+   launches equal; h5py never imported.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -4247,7 +4255,8 @@ def phase_hdf5(torch, record, shared):
     from phase 14's TIFF series shows the chain's own spread on the card
     beside it), K5's launches equal phase 14's; (c) tsv_tools crop-ims on
     a 16 x 300 x 400 ROI: equal to the planes' crop, inflating exactly the
-    chunks the ROI overlaps."""
+    chunks the ROI overlaps; (d) the newer-format fixtures
+    (``hdf5_fixtures``)."""
     import importlib.util
 
     import numpy as np
@@ -4378,17 +4387,160 @@ def phase_hdf5(torch, record, shared):
     checks["crop == planes' ROI"] = bool(np.array_equal(
         crop, planes[z0:z1, y0:y1, x0:x1]))
     checks["crop chunks == ROI's"] = chunks == want_chunks
-    checks["h5py never imported"] = "h5py" not in sys.modules
-    rec.update(crop_s=t_crop, crop_chunks=chunks, want_chunks=want_chunks,
-               checks=checks)
+    rec.update(crop_s=t_crop, crop_chunks=chunks, want_chunks=want_chunks)
     say(f"  (c) crop-ims rc {rc} {IMS_ROI} in {t_crop:.2f} s: {chunks} "
         f"chunks inflated, the ROI overlaps {want_chunks}")
+    crop_rc = rc
+
+    # (d) the committed files of newer format (h5py libver='latest')
+    checks.update(hdf5_fixtures(torch, rec, work, card))
+    checks["h5py never imported"] = "h5py" not in sys.modules
+    rec["checks"] = checks
     say(f"  checks: {checks}")
     bad = [k for k, ok in checks.items() if not ok]
-    if rc != 0 or bad:
-        raise AssertionError(f"crop rc {rc}; failed: {bad}")
+    if crop_rc != 0 or bad:
+        raise AssertionError(f"crop rc {crop_rc}; failed: {bad}")
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(src.parent, ignore_errors=True)
+
+
+FIXTURES = ROOT / "tests" / "torch_hdf5_fixtures"
+FIXTURE_READS = 5          # timed reads of each fixture and its twin
+
+
+def load_fixture_maker():
+    """tests/torch_hdf5_fixtures/make_fixtures.py, which regenerates the
+    fixtures' arrays from their seeds with numpy alone (it imports h5py
+    only to write them)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", FIXTURES / "make_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def read_all(hdf5, path, names):
+    """{name: (array, chunks inflated)} of every dataset named, read whole
+    through io/hdf5.py."""
+    out = {}
+    with hdf5.File(path) as f:
+        for name in names:
+            hdf5.reset_read_counts()
+            out[name] = (f[name][...], hdf5.READ_COUNTS["chunks"])
+    return out
+
+
+def hdf5_fixtures(torch, rec, work, card):
+    """Phase 17 (d): the fixtures of newer format (superblock 3, OHDR,
+    fixed-array, extensible-array and version 2 B-tree chunk indexes,
+    dense links and attributes) read through hdf5.File, ImarisReader and
+    BDVReader bit-equal to the arrays regenerated from their seeds, with
+    the chunk counts; the reads timed beside those of the same arrays
+    written in classic format by the port's writer; convert with phase
+    14's flags from the fixture .ims and from its planes as TIFFs: within
+    1 count, K5's launches equal."""
+    import numpy as np
+
+    from ipp_tpu_torch.io import bdv as bdvm
+    from ipp_tpu_torch.io import hdf5
+    from ipp_tpu_torch.io import ims as imsm
+    from ipp_tpu_torch.io import tiff as tio
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.pipeline import convert as conv
+
+    mk = load_fixture_maker()
+    data = mk.arrays()
+    files = {"ims": mk.IMS, "bdv": mk.BDV}
+    checks, times = {}, {}
+    for key, path in files.items():
+        want = data[key]
+        got = read_all(hdf5, path, want)
+        with hdf5.File(path) as f:
+            grid = {n: math.prod(-(-s // c) for s, c in zip(
+                f[n].shape, f[n].chunks)) if f[n].chunks else 0
+                for n in want}
+        checks[f"{key} fixture == regenerated arrays"] = all(
+            got[n][0].dtype == a.dtype and np.array_equal(got[n][0], a)
+            for n, a in want.items())
+        checks[f"{key} fixture chunks inflated == chunks"] = all(
+            got[n][1] == grid[n] for n in want)
+        # the same arrays in classic format, through the port's writer
+        classic = work / f"classic_{key}.h5"
+        with hdf5.File(path) as f, hdf5.File(classic, "w") as g:
+            for n, a in want.items():
+                d = f[n]
+                kw = {} if d.chunks is None else dict(
+                    chunks=d.chunks, compression="gzip",
+                    compression_opts=d.compression_opts)
+                g.create_dataset(n, data=a, **kw)
+        for tag, p in (("latest", path), ("classic", classic)):
+            t = []
+            for _ in range(FIXTURE_READS):
+                t0 = time.perf_counter()
+                read_all(hdf5, p, want)
+                t.append(1e3 * (time.perf_counter() - t0))
+            times[f"{key} {tag}"] = dict(min_ms=min(t),
+                                         median_ms=float(np.median(t)),
+                                         bytes=p.stat().st_size)
+    ims = data["ims"]
+    for level in (0, 1):
+        with imsm.ImarisReader(mk.IMS, resolution_level=level) as r:
+            back = np.stack([r[z] for z in range(len(r))])
+        checks[f"ImarisReader level {level} == regenerated"] = bool(
+            np.array_equal(back, ims[f"DataSet/ResolutionLevel {level}/"
+                                     f"TimePoint 0/Channel 0/Data"]))
+    ok = True
+    for name, a in data["bdv"].items():
+        if not name.endswith("/cells"):
+            continue
+        _, setup, level, _ = name.split("/")
+        r = bdvm.BDVReader(mk.BDV, setup=int(setup[1:]), level=int(level))
+        ok &= bool(np.array_equal(np.stack([r[z] for z in range(len(r))]),
+                                  a.view(np.uint16)))
+        r.close()
+    checks["BDVReader every setup and level == regenerated"] = ok
+
+    # convert with phase 14's flags from the fixture .ims and from the
+    # same planes as TIFFs, after a first run from the TIFFs that pays
+    # the chain's first calls at this plane shape
+    planes = ims["DataSet/ResolutionLevel 0/TimePoint 0/Channel 0/Data"]
+    tif = work / "fixture_tif"
+    tif.mkdir()
+    for z, plane in enumerate(planes):
+        write_u16_tiff(tif / f"img_{z:06d}.tif", plane)
+    runs = {}
+    for tag, source in (("first", tif), ("ims", mk.IMS), ("tif", tif)):
+        cd.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = conv.main(["-i", str(source), "-o", str(work / f"fx_{tag}"),
+                        *CONV_FLAGS])
+        torch.cuda.synchronize()
+        runs[tag] = dict(rc=rc, wall_s=time.perf_counter() - t0,
+                         k5=cd.LAUNCHES["dwt_analysis"],
+                         out=read_series(work / f"fx_{tag}"))
+    diff = np.abs(runs["ims"]["out"].astype(np.int64) - runs["tif"]["out"])
+    checks["convert from the fixture .ims within 1 count of its TIFFs"] = \
+        all(r["rc"] == 0 and len(r["out"]) == len(planes)
+            for r in runs.values()) and int(diff.max()) <= 1
+    checks["K5 launches equal from .ims and TIFFs, and > 0"] = \
+        runs["ims"]["k5"] == runs["tif"]["k5"] > 0
+    rec["fixtures"] = dict(
+        reads=times, convert={k: {a: b for a, b in r.items() if a != "out"}
+                              for k, r in runs.items()},
+        max_diff=int(diff.max()), pixels_off=int((diff > 0).sum()))
+    say("  (d) fixtures (libver latest), reads of every dataset, ms min / "
+        "median of " + str(FIXTURE_READS) + ": " + "; ".join(
+            f"{k} {v['min_ms']:.2f} / {v['median_ms']:.2f} ({v['bytes']} "
+            f"bytes)" for k, v in times.items()) + f" ({card})")
+    say(f"  (d) convert from the fixture .ims / its TIFFs: rc "
+        f"{runs['ims']['rc']} / {runs['tif']['rc']}, "
+        f"{runs['ims']['wall_s']:.2f} / {runs['tif']['wall_s']:.2f} s "
+        f"(the first run from the TIFFs {runs['first']['wall_s']:.2f} s), "
+        f"K5 launches {runs['ims']['k5']} / {runs['tif']['k5']}, max |diff| "
+        f"{int(diff.max())}, {int((diff > 0).sum())} pixels off")
+    return checks
 
 
 # -- main ---------------------------------------------------------------------
@@ -4505,7 +4657,8 @@ def main() -> int:
           f"torch.distributed", phase_mesh, torch, psf, record, shared)
     phase(17, f"the Imaris and BigDataViewer exports and sources (the "
           f"port's HDF5 module): convert --imaris --bdv on phase 14's "
-          f"{CONV_PLANES} planes, convert from the .ims, tsv_tools crop-ims",
+          f"{CONV_PLANES} planes, convert from the .ims, tsv_tools crop-ims, "
+          f"the newer-format fixtures",
           phase_hdf5, torch, record, shared)
     for d in ("chip_smoke", "chip_smoke_tiles", "chip_smoke_stitch",
               "chip_smoke_convert", "chip_smoke_hdf5"):

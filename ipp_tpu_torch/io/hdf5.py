@@ -1,4 +1,4 @@
-"""Classic HDF5 files in numpy and the standard library (struct, zlib).
+"""HDF5 files in numpy and the standard library (struct, zlib).
 
 The card's host has no h5py, so io/ims.py and io/bdv.py read and write
 their Imaris (.ims) and BigDataViewer (.h5) files through this module
@@ -8,7 +8,7 @@ those two modules use: ``File(path, "r" | "w")`` as a context manager,
 (intermediate groups made as h5py makes them), ``.attrs``, and datasets
 indexed by planes and boxes, with ``.shape`` / ``.dtype`` / ``.chunks``.
 
-Format (HDF5 File Format Specification, version 3.0): what h5py writes
+Writing (HDF5 File Format Specification, version 3.0): what h5py writes
 by default (``libver='earliest'``).  Superblock version 0 with 8-byte
 offsets and lengths, group leaf K 4 and internal K 16, chunk B-tree K 32;
 version 1 object headers; groups as symbol tables (local heap, version 1
@@ -25,17 +25,39 @@ are stored at the full chunk size.  Every piece of metadata is written at
 offset 0.  The file carries no time stamp: one tree written twice gives
 the same bytes.
 
-Reading touches what a read needs: the chunk B-tree is searched, never
-loaded whole; decompressed chunks sit in a small LRU cache that always
-keeps the last read's chunks (so a plane-by-plane sweep inflates each
-chunk once); ``READ_COUNTS["chunks"]`` counts chunks inflated.  Reads
-take ints and slices of step 1.  Filters on read: deflate, shuffle and
-fletcher32 (checked); layouts contiguous, chunked and compact.  What
-``libver='v108'`` and later writers produce (superblock versions 2 and 3,
-version 2 object headers, newer message versions, layout version 4 chunk
-indexes, link-message groups with fractal heaps and version 2 B-trees),
-shared messages, and any other filter or datatype raise ``FormatError``
-naming the structure.
+Reading: that format and what newer writers make (h5py with ``libver``
+``'v108'``, ``'v110'``, ``'latest'`` or ``track_order=True``; any HDF5
+1.10+ writer), 8-byte offsets and lengths throughout:
+
+- superblocks 0 to 3 (a superblock extension only with messages that do
+  not change how objects are read); object headers of version 1 and 2
+  (``OHDR`` / ``OCHK``);
+- groups as symbol tables, as link messages in the header, or densely in
+  a fractal heap indexed by a version 2 B-tree; hard links (soft and
+  external links are listed and raise when followed); keys in name
+  order, or in creation order where the group tracks it, as h5py lists
+  them;
+- attributes (message versions 1 to 3) in the header or densely, in
+  h5py's order; fixed-point, IEEE float and fixed byte-string values,
+  and variable-length strings (from the global heap) as ``str``;
+- datasets contiguous, compact or chunked: layout version 3 (version 1
+  B-tree) and version 4 with each of its chunk indexes (single chunk,
+  implicit, fixed array, extensible array, version 2 B-tree), partial
+  edge chunks left unfiltered where the layout says so; fill value
+  messages of versions 1 to 3, filter pipelines of versions 1 and 2.
+
+Every checksum of a version 2 structure is verified (Jenkins' lookup3,
+io/hdf5_v2.py, which holds the heaps, B-trees and arrays).  Reading
+touches what a read needs: the chunk index is searched, never loaded
+whole; decompressed chunks sit in a small LRU cache that always keeps
+the last read's chunks (so a plane-by-plane sweep inflates each chunk
+once); ``READ_COUNTS["chunks"]`` counts chunks inflated.  Reads take ints
+and slices of step 1.  Filters on read: deflate, shuffle and fletcher32
+(checked).  These raise ``FormatError`` naming the structure: shared
+messages and the shared-message table; external links and external
+storage; virtual datasets; huge fractal-heap objects (a densely stored
+attribute over 64 KiB); any other filter (lzf, scaleoffset, nbit, szip)
+or datatype; offsets or lengths other than 8 bytes; a bad checksum.
 """
 
 from __future__ import annotations
@@ -52,19 +74,28 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import hdf5_v2 as v2
+from .hdf5_v2 import UNDEF, FormatError
+
 __all__ = ["File", "Group", "Dataset", "AttributeManager", "FormatError",
            "READ_COUNTS", "reset_read_counts"]
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
-UNDEF = 0xFFFFFFFFFFFFFFFF
 GROUP_LEAF_K, GROUP_NODE_K, CHUNK_K = 4, 16, 32
 SNOD_SIZE = 8 + 2 * GROUP_LEAF_K * 40
 HEAP_FREE_NONE = 1      # the library's "no free block" (H5HL_FREE_NULL)
 # message types (spec IV.A.2)
 NIL, DATASPACE, LINK_INFO, DATATYPE, FILL = 0, 1, 2, 3, 5
-LINK, LAYOUT, FILTERS, ATTRIBUTE = 6, 8, 11, 12
+LINK, LAYOUT, GROUP_INFO, FILTERS, ATTRIBUTE = 6, 8, 10, 11, 12
 CONTINUATION, SYMBOL_TABLE, ATTR_INFO = 16, 17, 21
+# superblock extension messages that do not change how objects are read:
+# B-tree 'K' values, file space info
+SB_EXT_HARMLESS = {19, 23}
+# chunk index types of a version 4 layout (spec IV.A.2.i)
+SINGLE, IMPLICIT, FIXED_ARRAY, EXT_ARRAY, BTREE2 = 1, 2, 3, 4, 5
 FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32 = 1, 2, 3
+# names of filters a version 2 pipeline stores without one
+_FILTER_NAMES = {4: "szip", 5: "nbit", 6: "scaleoffset"}
 # the read side keeps the last read's chunks and this many more bytes
 CACHE_BYTES = 64 << 20
 # slabs whose chunks may be in compression while the writer goes on
@@ -76,10 +107,6 @@ READ_COUNTS: Dict[str, int] = {"chunks": 0}
 def reset_read_counts() -> None:
     for k in READ_COUNTS:
         READ_COUNTS[k] = 0
-
-
-class FormatError(OSError):
-    """A structure this reader does not decode (or a damaged file)."""
 
 
 def _pad8(b: bytes) -> bytes:
@@ -122,7 +149,7 @@ def _decode_dtype(buf: bytes) -> np.dtype:
     cls, version = buf[0] & 0x0F, buf[0] >> 4
     bits = buf[1] | buf[2] << 8 | buf[3] << 16
     (size,) = struct.unpack_from("<I", buf, 4)
-    if version != 1:
+    if version not in (1, 2, 3):      # one layout for the classes read
         raise FormatError(f"datatype message version {version}")
     order = ">" if bits & 1 else "<"
     if cls == 0:
@@ -142,10 +169,16 @@ def _decode_dtype(buf: bytes) -> np.dtype:
         return np.dtype(f"{order}f{size}")
     if cls == 3:
         return np.dtype(f"S{size}")
+    if cls == 9 and bits & 0x0F == 1:
+        return VLEN_STR
     names = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound",
-             7: "reference", 8: "enumerated", 9: "variable-length",
+             7: "reference", 8: "enumerated", 9: "variable-length sequence",
              10: "array"}
     raise FormatError(f"datatype class {cls} ({names.get(cls, 'unknown')})")
+
+
+# h5py's variable-length str; read in attributes only
+VLEN_STR = np.dtype(object)
 
 
 # -- dataspaces --------------------------------------------------------------
@@ -157,10 +190,21 @@ def _encode_space(shape: Tuple[int, ...]) -> bytes:
     return out + struct.pack(f"<{2 * len(shape)}Q", *shape, *shape)
 
 
-def _decode_space(buf: bytes) -> Tuple[int, ...]:
-    if buf[0] != 1:
-        raise FormatError(f"dataspace message version {buf[0]}")
-    return struct.unpack_from(f"<{buf[1]}Q", buf, 8)
+def _decode_space(buf: bytes) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(shape, maximum shape) of a version 1 or 2 dataspace message; an
+    unlimited size is UNDEF."""
+    version, rank, flags = buf[:3]
+    if version == 1:
+        at = 8
+    elif version == 2:
+        if buf[3] == 2:
+            raise FormatError("null dataspace (an empty value)")
+        at = 4
+    else:
+        raise FormatError(f"dataspace message version {version}")
+    shape = struct.unpack_from(f"<{rank}Q", buf, at)
+    return shape, (struct.unpack_from(f"<{rank}Q", buf, at + 8 * rank)
+                   if flags & 1 else shape)
 
 
 # -- reading -----------------------------------------------------------------
@@ -182,7 +226,7 @@ def _unshuffle(buf: bytes, size: int) -> bytes:
 
 
 class _Reader:
-    """Low-level access to a classic HDF5 file opened for reading."""
+    """Low-level access to an HDF5 file opened for reading."""
 
     def __init__(self, path: Path):
         self.path = path
@@ -213,27 +257,42 @@ class _Reader:
             if at >= size:
                 raise FormatError(f"{self.path}: no HDF5 signature")
         version = head[8]
-        if version not in (0, 1):
-            raise FormatError(
-                f"{self.path}: superblock version {version} (libver "
-                f"'v108' or later); versions 0 and 1 are read")
+        if version > 3:
+            raise FormatError(f"{self.path}: superblock version {version}")
         sb = os.pread(self.fd, 100, at)
-        so, sl = sb[13], sb[14]
+        so, sl = (sb[13], sb[14]) if version < 2 else (sb[9], sb[10])
         if (so, sl) != (8, 8):
             raise FormatError(f"superblock with {so}-byte offsets and "
                               f"{sl}-byte lengths (8 and 8 are read)")
-        pos = 24 + (4 if version == 1 else 0)
-        base, _, _, _ = struct.unpack_from("<4Q", sb, pos)
+        if version < 2:
+            pos = 24 + (4 if version == 1 else 0)
+            base, _, _, _ = struct.unpack_from("<4Q", sb, pos)
+            (self.root,) = struct.unpack_from("<Q", sb, pos + 32 + 8)
+            ext = UNDEF
+        else:
+            v2.checked(sb[:48], f"superblock (version {version})", at)
+            base, ext, _, self.root = struct.unpack_from("<4Q", sb, 12)
         self.base = base + at if base == 0 and at else base
-        (self.root,) = struct.unpack_from("<Q", sb, pos + 32 + 8)
+        if ext != UNDEF:
+            for t, _, _ in self.messages(ext):
+                if t not in SB_EXT_HARMLESS:
+                    raise FormatError(
+                        f"{self.path}: superblock extension message of type "
+                        f"{t}" + (" (the shared-message table)" if t == 15
+                                  else ""))
 
     def messages(self, addr: int) -> List[Tuple[int, int, bytes]]:
         """(type, flags, data) of every message of the object header at
         addr, continuation blocks followed."""
+        return self.header(addr)[0]
+
+    def header(self, addr: int):
+        """(messages, creation orders (None where not stored), header
+        flags) of the object header at addr; a version 1 header's flags
+        are 0."""
         head = self.read(addr, 16)
         if head[:4] == b"OHDR":
-            raise FormatError(f"version 2 object header (OHDR) at {addr}; "
-                              f"version 1 headers are read")
+            return self._header_v2(addr)
         if head[0] != 1:
             raise FormatError(f"object header version {head[0]} at {addr}")
         nmsgs, _, size = struct.unpack_from("<HII", head, 2)
@@ -245,14 +304,56 @@ class _Reader:
                 mtype, msize, flags = struct.unpack_from("<HHB", buf, p)
                 data = buf[p + 8:p + 8 + msize]
                 p += 8 + msize
-                if flags & 0x02:
-                    raise FormatError(f"shared message of type {mtype} in "
-                                      f"the object header at {addr}")
-                if mtype == CONTINUATION:
-                    blocks.append(struct.unpack_from("<QQ", data))
-                elif mtype != NIL:
-                    out.append((mtype, flags, data))
-        return out
+                self._message(out, blocks, addr, mtype, flags, data)
+        return out, [None] * len(out), 0
+
+    @staticmethod
+    def _message(out, blocks, addr, mtype, flags, data) -> bool:
+        if flags & 0x02:
+            raise FormatError(f"shared message of type {mtype} in "
+                              f"the object header at {addr}")
+        if mtype == CONTINUATION:
+            blocks.append(struct.unpack_from("<QQ", data))
+        elif mtype != NIL:
+            out.append((mtype, flags, data))
+            return True
+        return False
+
+    def _header_v2(self, addr: int):
+        """A version 2 object header (OHDR, its OCHK blocks): message
+        headers of 4 bytes, 6 where creation order is tracked."""
+        head = self.read(addr, 6)
+        if head[4] != 2:
+            raise FormatError(f"OHDR version {head[4]} at {addr}")
+        flags = head[5]
+        p = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+        width = 1 << (flags & 3)
+        size = v2.uint(self.read(addr + p, width), 0, width)
+        p += width
+        buf = v2.checked(self.read(addr, p + size + 4), "OHDR", addr)
+        hlen = 6 if flags & 0x04 else 4
+        out, orders, blocks = [], [], []
+        block, start = buf, p
+        while True:
+            end = len(block) - 4
+            while start + hlen <= end:
+                mtype, msize, mflags = struct.unpack_from("<BHB", block,
+                                                          start)
+                order = struct.unpack_from("<H", block, start + 4)[0] \
+                    if flags & 0x04 else None
+                data = block[start + hlen:start + hlen + msize]
+                start += hlen + msize
+                if self._message(out, blocks, addr, mtype, mflags, data):
+                    orders.append(order)
+            if not blocks:
+                return out, orders, flags
+            where, n = blocks.pop(0)
+            block = self.read(where, n)
+            if block[:4] != b"OCHK":
+                raise FormatError(f"no object header continuation block "
+                                  f"(OCHK) at {where}")
+            v2.checked(block, "OCHK", where)
+            start = 4
 
     def heap(self, addr: int) -> bytes:
         head = self.read(addr, 32)
@@ -276,8 +377,9 @@ class _Reader:
                                        + keysize)[0] for i in range(n)]
         return level, keys, children
 
-    def links(self, btree: int, heap_addr: int) -> Dict[str, int]:
-        """name -> object header address of a symbol-table group."""
+    def links(self, btree: int, heap_addr: int) -> Dict[str, object]:
+        """name -> object header address (a soft link: what it is) of a
+        symbol-table group."""
         heap, out = self.heap(heap_addr), {}
 
         def name(off):
@@ -296,12 +398,36 @@ class _Reader:
                 ents = self.read(c + 8, 40 * n)
                 for i in range(n):
                     off, hdr, cache = struct.unpack_from("<QQI", ents, 40 * i)
-                    if cache == 2:
-                        raise FormatError(f"soft link {name(off)!r}")
-                    out[name(off)] = hdr
+                    out[name(off)] = "a soft link" if cache == 2 else hdr
 
         walk(btree)
         return out
+
+    def link_messages(self, msgs, what: str) -> Dict[str, object]:
+        """name -> object header address (or, for a soft or external
+        link, what it is) of a new-style group's links: link messages in
+        its header, or the messages of dense storage (a fractal heap with
+        a version 2 B-tree of names); in creation order where the link
+        info message says it is tracked, else in name order."""
+        links, tracked = [], False
+        for t, _, d in msgs:
+            if t == LINK:
+                links.append(_decode_link(d))
+            elif t == LINK_INFO:
+                if d[0] != 0:
+                    raise FormatError(f"link info message version {d[0]}")
+                tracked = bool(d[1] & 1)
+                heap, names = struct.unpack_from("<QQ", d, 2 + 8 * tracked)
+                if heap != UNDEF:
+                    h = v2.FractalHeap(self, heap)
+                    for rec in v2.BTree2(self, names, 5).records():
+                        links.append(_decode_link(h.get(rec[4:])))
+        if tracked and any(o is None for _, _, o in links):
+            raise FormatError(f"{what}: a link without its creation order "
+                              f"in a group that tracks it")
+        links.sort(key=(lambda x: x[2]) if tracked
+                   else (lambda x: x[0].encode("utf-8")))
+        return {name: target for name, target, _ in links}
 
     def close(self):
         if self.fd >= 0:
@@ -309,24 +435,60 @@ class _Reader:
             self.fd = -1
 
 
-def _decode_attribute(data: bytes):
-    """(name, value) of a version 1 attribute message: name, datatype
-    and dataspace each padded to 8 bytes, then the data."""
-    if data[0] != 1:
-        raise FormatError(f"attribute message version {data[0]}")
+def _decode_link(d: bytes):
+    """(name, object header address or what the link is, creation order
+    or None) of a link message (version 1)."""
+    if d[0] != 1:
+        raise FormatError(f"link message version {d[0]}")
+    flags, p = d[1], 2
+    kind = order = None
+    if flags & 0x08:
+        kind, p = d[p], p + 1
+    if flags & 0x04:
+        order, p = struct.unpack_from("<Q", d, p)[0], p + 8
+    p += 1 if flags & 0x10 else 0           # the name's character set
+    width = 1 << (flags & 3)
+    n = v2.uint(d, p, width)
+    name = d[p + width:p + width + n].decode("utf-8")
+    if kind in (None, 0):
+        return name, struct.unpack_from("<Q", d, p + width + n)[0], order
+    what = {1: "a soft link", 64: "an external link"}.get(
+        kind, f"a link of type {kind}")
+    return name, what, order
+
+
+def _decode_attribute(data: bytes, reader):
+    """(name, value) of an attribute message: version 1 pads name,
+    datatype and dataspace to 8 bytes; 2 does not; 3 adds the name's
+    character set."""
+    version = data[0]
+    if version not in (1, 2, 3):
+        raise FormatError(f"attribute message version {version}")
+    if version > 1 and data[1] & 3:
+        raise FormatError("attribute with a shared datatype or dataspace")
     nlen, tlen, slen = struct.unpack_from("<HHH", data, 2)
-    pos = 8
+    pos = 9 if version == 3 else 8
 
     def take(n):
         nonlocal pos
         out = data[pos:pos + n]
-        pos += n + -n % 8
+        pos += n + (-n % 8 if version == 1 else 0)
         return out
 
     name = take(nlen).rstrip(b"\0").decode("utf-8")
-    dt, shape = _decode_dtype(take(tlen)), _decode_space(take(slen))
+    dt, (shape, _) = _decode_dtype(take(tlen)), _decode_space(take(slen))
     count = int(np.prod(shape, dtype=np.int64))
-    value = np.frombuffer(data, dt, count, pos).reshape(shape).copy()
+    if dt is VLEN_STR:
+        value = np.empty(count, object)
+        heaps: Dict[int, Dict[int, bytes]] = {}
+        for i in range(count):
+            n, addr, idx = struct.unpack_from("<IQI", data, pos + 16 * i)
+            if n and addr not in heaps:
+                heaps[addr] = v2.global_heap_objects(reader, addr)
+            value[i] = heaps[addr][idx][:n].decode("utf-8") if n else ""
+        value = value.reshape(shape)
+    else:
+        value = np.frombuffer(data, dt, count, pos).reshape(shape).copy()
     return name, (value[()] if not shape else value)
 
 
@@ -342,14 +504,29 @@ class AttributeManager:
 
     def _all(self) -> Dict[str, object]:
         if self._items is None:
-            msgs = self._obj._messages()
+            reader = self._obj.file._reader
+            msgs, orders, flags = self._obj._head()
+            found = [(o, d) for (t, _, d), o in zip(msgs, orders)
+                     if t == ATTRIBUTE]
             for t, _, d in msgs:
-                if t == ATTR_INFO and struct.unpack_from(
-                        "<Q", d, 2 + (2 if d[1] & 1 else 0))[0] != UNDEF:
-                    raise FormatError(f"{self._obj.name!r} keeps attributes "
-                                      f"densely (fractal heap)")
-            self._items = dict(sorted(_decode_attribute(d)
-                                      for t, _, d in msgs if t == ATTRIBUTE))
+                if t != ATTR_INFO:
+                    continue
+                heap, names = struct.unpack_from("<QQ", d,
+                                                 2 + (2 if d[1] & 1 else 0))
+                if heap == UNDEF:
+                    continue
+                h = v2.FractalHeap(reader, heap)
+                for rec in v2.BTree2(reader, names, 8).records():
+                    if rec[8] & 0x02:
+                        raise FormatError(f"{self._obj.name!r}: a shared "
+                                          f"attribute message")
+                    found.append((struct.unpack_from("<I", rec, 9)[0],
+                                  h.get(rec[:8])))
+            items = [(o, _decode_attribute(d, reader)) for o, d in found]
+            # h5py's order: creation order where the header tracks it
+            items.sort(key=(lambda x: x[0]) if flags & 0x04
+                       else (lambda x: x[1][0].encode("utf-8")))
+            self._items = dict(item for _, item in items)
         return self._items
 
     def __getitem__(self, name: str):
@@ -385,15 +562,18 @@ class _Node:
 
     def __init__(self, file: "File", name: str, addr: Optional[int]):
         self.file, self.name, self._addr = file, name, addr
-        self._msgs: Optional[List[Tuple[int, int, bytes]]] = None
+        self._hdr: Optional[tuple] = None
         self.attrs = AttributeManager(self)
         if addr is None:
             self.attrs._items = {}
 
     def _messages(self) -> List[Tuple[int, int, bytes]]:
-        if self._msgs is None:
-            self._msgs = self.file._reader.messages(self._addr)
-        return self._msgs
+        return self._head()[0]
+
+    def _head(self):
+        if self._hdr is None:
+            self._hdr = self.file._reader.header(self._addr)
+        return self._hdr
 
     def __bool__(self) -> bool:      # h5py: the object's file is open
         return self.file._fh is not None or self.file._reader is not None
@@ -407,22 +587,24 @@ class Group(_Node):
         super().__init__(file, name, addr)
         # the writer's tree, or the objects read so far
         self._children: Dict[str, _Node] = {}
-        self._links: Optional[Dict[str, int]] = None
+        self._links: Optional[Dict[str, object]] = None
 
-    def _link_table(self) -> Dict[str, int]:
+    def _link_table(self) -> Dict[str, object]:
+        """name -> object header address (a str for a soft or external
+        link), in h5py's order."""
         if self._links is None:
-            table = None
-            for t, _, d in self._messages():
-                if t == SYMBOL_TABLE:
-                    table = struct.unpack("<QQ", d[:16])
-                elif t in (LINK, LINK_INFO):
-                    raise FormatError(
-                        f"group {self.name!r} stores links in link messages "
-                        f"(new-style group; dense ones use a fractal heap "
-                        f"and version 2 B-trees); symbol tables are read")
-            if table is None:
-                raise FormatError(f"{self.name!r} has no symbol table")
-            self._links = self.file._reader.links(*table)
+            reader, msgs = self.file._reader, self._messages()
+            table = [struct.unpack("<QQ", d[:16]) for t, _, d in msgs
+                     if t == SYMBOL_TABLE]
+            if table:
+                links = reader.links(*table[0])
+                self._links = {k: links[k] for k in sorted(
+                    links, key=lambda k: k.encode("utf-8"))}
+            elif any(t in (LINK, LINK_INFO) for t, _, _ in msgs):
+                self._links = reader.link_messages(msgs, self.name)
+            else:
+                raise FormatError(f"{self.name!r} has neither a symbol "
+                                  f"table nor link messages")
         return self._links
 
     def _child(self, key: str) -> Optional[_Node]:
@@ -431,13 +613,16 @@ class Group(_Node):
         addr = self._link_table().get(key)
         if addr is None:
             return None
-        msgs = self.file._reader.messages(addr)
-        kinds = {t for t, _, _ in msgs}
+        if isinstance(addr, str):
+            raise FormatError(f"{self._sub(key)!r} is {addr}; hard links "
+                              f"are read")
+        hdr = self.file._reader.header(addr)
+        kinds = {t for t, _, _ in hdr[0]}
         if LAYOUT in kinds:
-            obj = Dataset(self.file, self._sub(key), addr, msgs)
-        elif kinds & {SYMBOL_TABLE, LINK, LINK_INFO}:
+            obj = Dataset(self.file, self._sub(key), addr, hdr)
+        elif kinds & {SYMBOL_TABLE, LINK, LINK_INFO, GROUP_INFO}:
             obj = Group(self.file, self._sub(key), addr)
-            obj._msgs = msgs
+            obj._hdr = hdr
         else:
             raise FormatError(f"{self._sub(key)!r} is neither a group nor "
                               f"a dataset")
@@ -485,9 +670,11 @@ class Group(_Node):
         return self.get(path) is not None
 
     def keys(self):
-        """Link names in HDF5's (byte) order, as h5py lists them."""
-        names = self._children if self._addr is None else self._link_table()
-        return sorted(names, key=lambda k: k.encode("utf-8"))
+        """Link names as h5py lists them: in HDF5's (byte) order, or in
+        creation order in a read group that tracks it."""
+        if self._addr is None:
+            return sorted(self._children, key=lambda k: k.encode("utf-8"))
+        return list(self._link_table())
 
     def __iter__(self):
         return iter(self.keys())
@@ -556,10 +743,10 @@ class Dataset(_Node):
     ``d[sel]``; in write mode ``d[z] = plane`` (whole planes along axis
     0) streams the data into slabs of chunk-z planes."""
 
-    def __init__(self, file, name, addr=None, msgs=None):
+    def __init__(self, file, name, addr=None, hdr=None):
         super().__init__(file, name, addr)
         if addr is not None:
-            self._msgs = msgs
+            self._hdr = hdr
             self._parse()
 
     # -- shared ------------------------------------------------------------
@@ -620,7 +807,7 @@ class Dataset(_Node):
         layout = fill = None
         for t, _, d in self._messages():
             if t == DATASPACE:
-                self.shape = _decode_space(d)
+                self.shape, self._maxshape = _decode_space(d)
             elif t == DATATYPE:
                 self.dtype = _decode_dtype(d)
             elif t == LAYOUT:
@@ -629,58 +816,162 @@ class Dataset(_Node):
                 self._filters = self._decode_filters(d)
             elif t == FILL:
                 fill = d
-        if layout[0] != 3:
-            raise FormatError(
-                f"{self.name!r}: layout message version {layout[0]}"
-                + (" (a version 4 chunk index)" if layout[0] == 4 else "")
-                + "; version 3 is read")
+        if self.dtype is VLEN_STR:
+            raise FormatError(f"{self.name!r}: a dataset of variable-length "
+                              f"strings")
+        if layout[0] not in (3, 4):
+            raise FormatError(f"{self.name!r}: layout message version "
+                              f"{layout[0]}; versions 3 and 4 are read")
         self._kind = layout[1]
-        self.chunks = None
+        self.chunks, self._index = None, None
         if self._kind == 0:
             (n,) = struct.unpack_from("<H", layout, 2)
             self._compact = layout[4:4 + n]
         elif self._kind == 1:
             self._contiguous = struct.unpack_from("<Q", layout, 2)[0]
         elif self._kind == 2:
-            nd = layout[2]
-            (self._btree,) = struct.unpack_from("<Q", layout, 3)
-            dims = struct.unpack_from(f"<{nd}I", layout, 11)
-            self.chunks = tuple(dims[:-1])
+            if layout[0] == 3:
+                nd = layout[2]
+                (self._btree,) = struct.unpack_from("<Q", layout, 3)
+                dims = struct.unpack_from(f"<{nd}I", layout, 11)
+                self.chunks = tuple(dims[:-1])
+            else:
+                self._index = self._chunk_index(layout)
             self._nodes: Dict[int, tuple] = {}
             self._cache: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+        elif self._kind == 3:
+            raise FormatError(f"{self.name!r}: a virtual dataset (layout "
+                              f"class 3)")
         else:
             raise FormatError(f"{self.name!r}: layout class {self._kind}")
         if fill is not None:
             self._fill = self._decode_fill(fill)
 
+    def _chunk_index(self, layout: bytes):
+        """The finder, scaled chunk offsets -> (address, bytes, filter
+        mask) or None, of a version 4 chunked layout's index."""
+        flags, nd, width = layout[2:5]
+        dims = [v2.uint(layout, 5 + i * width, width) for i in range(nd)]
+        self.chunks = tuple(dims[:-1])
+        p = 5 + nd * width
+        kind, p = layout[p], p + 1
+        full = int(np.prod(dims, dtype=np.int64))
+        mask = 0
+        if kind == SINGLE and flags & 0x02:
+            full, mask = struct.unpack_from("<QI", layout, p)
+            p += 12
+        elif kind == FIXED_ARRAY:
+            p += 1
+        elif kind == EXT_ARRAY:
+            p += 5
+        elif kind == BTREE2:
+            p += 6
+        elif kind != SINGLE and kind != IMPLICIT:
+            raise FormatError(f"{self.name!r}: chunk index type {kind}")
+        (addr,) = struct.unpack_from("<Q", layout, p)
+        rank, reader = len(self.chunks), self.file._reader
+        grid = [-(-m // c) if m != UNDEF else 0
+                for m, c in zip(self._maxshape, self.chunks)]
+        edge_raw = bool(flags & 0x01)    # partial edge chunks unfiltered
+
+        def where(a, n, m, scaled):
+            if a == UNDEF:
+                return None
+            if edge_raw and any((s + 1) * c > d for s, c, d in zip(
+                    scaled, self.chunks, self.shape)):
+                m = 0xFFFFFFFF
+            return a, n, m
+
+        def element(raw, scaled):
+            if raw is None:
+                return None
+            if len(raw) == 8:
+                return where(struct.unpack("<Q", raw)[0], full, 0, scaled)
+            return where(struct.unpack_from("<Q", raw)[0],
+                         v2.uint(raw, 8, len(raw) - 12),
+                         struct.unpack_from("<I", raw, len(raw) - 4)[0],
+                         scaled)
+
+        def linear(scaled, order):
+            i = 0
+            for d in order:
+                i = i * grid[d] + scaled[d]
+            return i
+
+        if addr == UNDEF:
+            return lambda scaled: None
+        if kind == SINGLE:
+            return lambda scaled: where(addr, full, mask, scaled) \
+                if not any(scaled) else None
+        if kind == IMPLICIT:
+            return lambda scaled: (
+                addr + linear(scaled, range(rank)) * full, full, 0)
+        if kind == FIXED_ARRAY:
+            arr = v2.FixedArray(reader, addr)
+            return lambda scaled: element(
+                arr.get(linear(scaled, range(rank))), scaled)
+        if kind == EXT_ARRAY:
+            # the one unlimited axis leads the linear index (the library's
+            # swizzled coordinates)
+            unlim = [d for d in range(rank) if self._maxshape[d] == UNDEF]
+            if len(unlim) != 1:
+                raise FormatError(f"{self.name!r}: an extensible-array "
+                                  f"index with {len(unlim)} unlimited axes")
+            order = unlim + [d for d in range(rank) if d != unlim[0]]
+            arr = v2.ExtensibleArray(reader, addr)
+            return lambda scaled: element(arr.get(linear(scaled, order)),
+                                          scaled)
+        tree = v2.BTree2(reader, addr, 11 if self._filters else 10,
+                         key=lambda r: struct.unpack_from(
+                             f"<{rank}Q", r, len(r) - 8 * rank))
+
+        def find(scaled):
+            rec = tree.find(tuple(scaled))
+            if rec is None:
+                return None
+            return element(rec[:len(rec) - 8 * rank], scaled)
+
+        return find
+
     def _decode_fill(self, d):
-        """The fill value of a version 1 or 2 fill value message (0 when
+        """The fill value of a version 1 to 3 fill value message (0 when
         none is defined)."""
-        if d[0] not in (1, 2):
+        if d[0] in (1, 2):
+            n = struct.unpack_from("<I", d, 4)[0] if d[3] else 0
+            at = 8
+        elif d[0] == 3:
+            n = struct.unpack_from("<I", d, 2)[0] if d[1] & 0x20 else 0
+            at = 6
+        else:
             raise FormatError(f"fill value message version {d[0]}")
-        n = struct.unpack_from("<I", d, 4)[0] if d[3] else 0
         if n == 0:
             return 0
         if n != self.dtype.itemsize:
             raise FormatError(f"{self.name!r}: a {n}-byte fill value")
-        return np.frombuffer(d, self.dtype, 1, 8)[0]
+        return np.frombuffer(d, self.dtype, 1, at)[0]
 
     def _decode_filters(self, d):
-        """(id, client data) of each filter of a version 1 pipeline."""
-        if d[0] != 1:
+        """(id, client data) of each filter of a version 1 or 2 pipeline
+        (version 2: no reserved bytes, no padding, no name below 256)."""
+        if d[0] not in (1, 2):
             raise FormatError(f"filter pipeline message version {d[0]}")
-        out, pos = [], 8
+        out, pos = [], 8 if d[0] == 1 else 2
         for _ in range(d[1]):
-            fid, nlen, _, ncd = struct.unpack_from("<HHHH", d, pos)
-            name = d[pos + 8:pos + 8 + nlen].split(b"\0")[0].decode(
+            if d[0] == 1 or struct.unpack_from("<H", d, pos)[0] >= 256:
+                fid, nlen, _, ncd = struct.unpack_from("<HHHH", d, pos)
+                pos += 8
+            else:
+                (fid, _, ncd), nlen = struct.unpack_from("<HHH", d, pos), 0
+                pos += 6
+            name = d[pos:pos + nlen].split(b"\0")[0].decode(
                 "ascii", "replace")
-            pos += 8 + nlen + -nlen % 8
+            pos += nlen + (-nlen % 8 if d[0] == 1 else 0)
             cd = struct.unpack_from(f"<{ncd}I", d, pos)
-            pos += 4 * ncd + 4 * (ncd % 2)
+            pos += 4 * ncd + (4 * (ncd % 2) if d[0] == 1 else 0)
             if fid not in (FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32):
-                raise FormatError(f"{self.name!r}: filter {fid} "
-                                  f"({name or 'unnamed'}); deflate, shuffle "
-                                  f"and fletcher32 are read")
+                name = name or _FILTER_NAMES.get(fid, "unnamed")
+                raise FormatError(f"{self.name!r}: filter {fid} ({name}); "
+                                  f"deflate, shuffle and fletcher32 are read")
             if fid == FILTER_DEFLATE:
                 self._level = cd[0] if cd else None
             out.append((fid, cd))
@@ -699,7 +990,10 @@ class Dataset(_Node):
 
     def _find(self, offset: tuple):
         """(address, bytes, filter mask) of the chunk at element offset,
-        or None: one path down the chunk B-tree."""
+        or None: one path down the chunk index."""
+        if self._index is not None:
+            return self._index(tuple(o // c for o, c in zip(offset,
+                                                            self.chunks)))
         addr = self._btree
         if addr == UNDEF:
             return None

@@ -58,6 +58,33 @@
 // - at most 64 registers at 512 threads (`__launch_bounds__`), two blocks
 //   an SM.
 //
+// K5s, the synthesis (the inverse level, `dwt_syn_rows` / `dwt_syn_cols`),
+// replaces no Pallas kernel: the reference synthesises with an XLA
+// convolution (wavelets._idwt_last; `mxu_dwt.idwt_last_mm` on the TPU, a
+// lever).  It takes the place of cuDNN's transposed convolution, whose
+// algorithm may change with the batch and from run to run, so that the
+// destripe chain gives the same bits on every run and at every batch size.
+// With ca, cd viewed as (B, m, S) and y as (B, n = 2m, S):
+//
+//   y[b, t, s] = sum_{k < L} up(ca)[(t - k) mod n] lo[k] + up(cd)[...] hi[k]
+//
+// (up: zeros at odd positions; the transpose of K5).  Polyphase: output
+// pair j, (y[2j], y[2j + 1]), takes the pairs (ca, cd)[(j - r) mod m], r <
+// H, with taps lo[2r + p], hi[2r + p] for y[2j + p].  With the window of an
+// item starting at pair j0 - (H - 1) and s = H - 1 - r, output pair q reads
+// window slot q + s: K5's tap loop (`polyphase`) as it is, on the taps
+// (lo[2r], hi[2r], lo[2r + 1], hi[2r + 1]) in reverse order, the window's
+// pairs (ca, cd), `a` the even outputs and `d` the odd.  Every output is one
+// FMA chain in an order fixed by L alone, written by one thread; no atomics,
+// no output split across threads or blocks.  The geometry is K5's: rows
+// items of whole rows (or segments) with a window of each subband copied 4
+// bytes a lane straight into padded slots (pair p at p + p / R; the window
+// starts at any pair, so 16-byte copies would straddle), two windows so
+// the next item's copy runs under this one's compute; column items of TI
+// pair rows x 32 columns, the ca and cd rows copied 16 bytes a lane.
+// Bounded by bytes (8 an output: 4 in, 4 out) up to L ~ 40, by the FMA
+// rate above, as K5.
+//
 // The geometry and the copy, tap-loop and store steps are functions of
 // (item, thread) that a host compiler also takes (cp.async becomes a plain
 // copy there), so tests/torch_dwt_host/ runs the same code thread by thread
@@ -98,6 +125,15 @@ __host__ __device__ inline int padded(int p, int R) { return p + p / R; }
 
 // the most threads a block takes at R outputs a thread: 64 registers at 512
 inline int max_threads(int R) { return R <= 8 ? 512 : 256; }
+
+// R outputs a thread by default: 8, and 16 along axis -2 for filters longer
+// than 64 taps, where a tap load serving 64 FMAs outweighs the compile-time
+// loop: coif15 0.168 -> 0.160 ms, coif17 0.216 -> 0.175 at (8, 2688, 1344),
+// scripts/dwt_bench.py --sweep on an H100 80GB HBM3 at 700 W (K5; K5s takes
+// the same rule and no other R).
+inline int default_r(i64 inner, int L) {
+  return inner > 1 && L > 64 ? 16 : R_DEFAULT;
+}
 
 // -- geometry -----------------------------------------------------------------
 
@@ -185,6 +221,45 @@ inline bool cols_geometry(i64 B, int n, i64 S, int L, int R, int threads,
   return g.smem <= SMEM_LIMIT;
 }
 
+// Synthesis, last axis: ca, cd (nrows, m) -> y (nrows, n).  The segments
+// and rows an item of `rows_geometry` at its defaults (R = 8 output pairs a
+// thread); shared memory holds the taps and two buffers of `rows` rows x
+// two subbands x Wp floats (seg + H - 1 pairs, padded).
+struct SynRowsGeo {
+  int R, H, m;
+  int tpr;      // threads a row segment
+  int seg;      // output pairs a segment, tpr * R
+  int tiles;    // segments a row
+  int rows;     // rows an item
+  int Wp;       // floats of a row's window of one subband
+  int threads;  // rows * tpr, rounded up to whole warps
+  int smem;     // bytes: the taps, two buffers of windows
+  int vec4;     // 16-byte stores (m even and an aligned output)
+  i64 nrows, nwork;
+};
+
+inline bool syn_rows_geometry(i64 nrows, int n, int L, bool aligned16,
+                              SynRowsGeo& g) {
+  const int R = R_DEFAULT, threads = L > 32 ? 512 : 256;
+  g.R = R;
+  g.H = L / 2;
+  g.m = n / 2;
+  g.nrows = nrows;
+  g.tpr = imin(cdiv(g.m, R), threads);
+  g.seg = g.tpr * R;
+  g.tiles = cdiv(g.m, g.seg);
+  g.Wp = padded(g.seg + g.H - 1, R);
+  const i64 most = threads / g.tpr;
+  g.rows = (int)(nrows < most ? nrows : most);
+  auto bytes = [&]() { return TAP_BYTES + 2 * g.rows * 2 * g.Wp * 4; };
+  while (g.rows > 1 && bytes() > SMEM_LIMIT) --g.rows;
+  g.smem = bytes();
+  g.threads = cdiv(g.rows * g.tpr, 32) * 32;
+  g.vec4 = aligned16 && g.m % 2 == 0;
+  g.nwork = ((nrows + g.rows - 1) / g.rows) * g.tiles;
+  return g.smem <= SMEM_LIMIT;
+}
+
 // -- asynchronous copies ----------------------------------------------------------
 
 // BYTES (4, 8 or 16) from device memory to shared memory by cp.async, or
@@ -237,6 +312,18 @@ __device__ __forceinline__ void stage_taps(const float* __restrict__ taps,
                          __ldg(taps + L + 2 * j), __ldg(taps + L + 2 * j + 1));
 }
 
+// K5s: tap[s] = (lo[2r], hi[2r], lo[2r + 1], hi[2r + 1]), r = H - 1 - s
+__device__ __forceinline__ void stage_syn_taps(const float* __restrict__ taps,
+                                               float4* tap, int H, int tid,
+                                               int nthreads) {
+  const int L = 2 * H;
+  for (int j = tid; j < H; j += nthreads) {
+    const int k = 2 * (H - 1 - j);
+    tap[j] = make_float4(__ldg(taps + k), __ldg(taps + L + k),
+                         __ldg(taps + k + 1), __ldg(taps + L + k + 1));
+  }
+}
+
 // -- the tap loop ---------------------------------------------------------------
 
 // A thread's window of (e, o) pairs in shared memory, pair c by `at`:
@@ -264,6 +351,21 @@ struct PairsCols {
   template <int R>
   __device__ __forceinline__ PairsCols from(int j0) const {
     return PairsCols{e + j0 * TS, o + j0 * TS};
+  }
+};
+
+// K5s's rows window: the ca and cd slots in two arrays, each padded by one
+// every R pairs.
+struct PairsSplit {
+  const float* a;
+  const float* d;
+  template <int R>
+  __device__ __forceinline__ float2 at(int c) const {
+    return make_float2(a[c + c / R], d[c + c / R]);
+  }
+  template <int R>
+  __device__ __forceinline__ PairsSplit from(int j0) const {
+    return PairsSplit{a + j0 + j0 / R, d + j0 + j0 / R};
   }
 };
 
@@ -344,7 +446,8 @@ struct RowsItem {
   i64 row0;
   int i0, cnt, nr;
 };
-__device__ __forceinline__ RowsItem rows_item(const RowsGeo& g, i64 k) {
+template <class Geo>   // RowsGeo or SynRowsGeo
+__device__ __forceinline__ RowsItem rows_item(const Geo& g, i64 k) {
   RowsItem it;
   it.row0 = (k / g.tiles) * g.rows;
   it.i0 = (int)(k % g.tiles) * g.seg;
@@ -531,6 +634,150 @@ __device__ __forceinline__ void cols_compute(float* __restrict__ ca,
   }
 }
 
+// -- synthesis (K5s), last axis ---------------------------------------------------
+
+// Buffer `buf` (0 or 1) of a synthesis rows block: `rows` rows of the ca
+// window then the cd window, Wp floats each.
+__device__ __forceinline__ float* syn_rows_window(float* smem,
+                                                  const SynRowsGeo& g,
+                                                  int buf) {
+  return smem + TAP_BYTES / 4 + buf * g.rows * 2 * g.Wp;
+}
+
+// The first pair of an item's window, (i0 - (H - 1)) mod m is taken pair by
+// pair: pair p of the window is q0 + p, reduced mod m only where the item
+// wraps (q0 < 0; a row shorter than the filter wraps several times).
+__device__ __forceinline__ int syn_pair(int q0, int p, int m, bool wraps) {
+  int q = q0 + p;
+  if (wraps) {
+    q %= m;
+    if (q < 0) q += m;
+  }
+  return q;
+}
+
+// Step 1: item k's pairs [i0 - (H - 1), i0 + cnt) mod m of each row's ca and
+// cd into window slots padded(p), 4 bytes a lane by cp.async; the warps take
+// runs of 32 pairs of one row's subband in turn.
+__device__ __forceinline__ void syn_rows_copy(const float* __restrict__ ca,
+                                              const float* __restrict__ cd,
+                                              float* win,
+                                              const SynRowsGeo& g, i64 k,
+                                              int tid) {
+  if (IPP_DWT_DIAG == 2) return;
+  const RowsItem it = rows_item(g, k);
+  const int lane = tid & 31, warp = tid >> 5, nwarps = g.threads >> 5;
+  const int need = it.cnt + g.H - 1, q0 = it.i0 - (g.H - 1);
+  const bool wraps = q0 < 0;
+  const int runs = cdiv(need, 32);
+  for (int u = warp; u < it.nr * 2 * runs; u += nwarps) {
+    const int rb = u / runs, p = (u - rb * runs) * 32 + lane;
+    if (p < need) {
+      const float* src = (rb & 1) ? cd : ca;
+      copy_async<4>(win + rb * g.Wp + padded(p, g.R),
+                    src + (it.row0 + (rb >> 1)) * g.m +
+                        syn_pair(q0, p, g.m, wraps),
+                    true);
+    }
+  }
+}
+
+// Step 2: thread t of a row computes output pairs tR .. tR + R - 1 of the
+// segment and stores them interleaved, y[2j] = a, y[2j + 1] = d: 32 bytes
+// a lane in two 16-byte stores where the row allows (else 4-byte stores).
+template <int R, int HT>
+__device__ __forceinline__ void syn_rows_compute(float* __restrict__ y,
+                                                 const float4* tap,
+                                                 const float* win,
+                                                 const SynRowsGeo& g, i64 k,
+                                                 int tid) {
+  if (IPP_DWT_DIAG == 1) return;
+  const RowsItem it = rows_item(g, k);
+  const int rl = tid / g.tpr, t = tid - rl * g.tpr;
+  if (rl >= it.nr || t * R >= it.cnt) return;
+  float a[R], d[R];
+  const float* w = win + rl * 2 * g.Wp + t * (R + 1);
+  polyphase<R, HT>(tap, g.H, PairsSplit{w, w + g.Wp}, a, d);
+  const i64 off = (it.row0 + rl) * 2 * g.m + 2 * (it.i0 + t * R);
+  if (g.vec4 && (t + 1) * R <= it.cnt) {
+#pragma unroll
+    for (int j = 0; j < R; j += 2)
+      *reinterpret_cast<float4*>(y + off + 2 * j) =
+          make_float4(a[j], d[j], a[j + 1], d[j + 1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (t * R + j < it.cnt) {
+        y[off + 2 * j] = a[j];
+        y[off + 2 * j + 1] = d[j];
+      }
+  }
+}
+
+// -- synthesis (K5s), axis -2 -----------------------------------------------------
+
+// Step 1: item k's window, pair rows [i0 - (H - 1), i0 + cnt) mod m of its
+// 32 columns of ca (window rows 0 .. W - 1) and cd (W .. 2W - 1), window row
+// rr: pair row rr / 2, ca or cd by rr % 2; V = 16 bytes (4 columns a lane,
+// 8 lanes a row) or 4; columns past S as 0.
+template <int V>
+__device__ __forceinline__ void syn_cols_copy_rows(
+    const float* __restrict__ ca, const float* __restrict__ cd, float* win,
+    const ColsGeo& g, i64 k, int tid) {
+  constexpr int C = V / 4, LPR = TS / C;   // columns a lane, lanes a row
+  const ColsItem it = cols_item(g, k);
+  const int need = 2 * (it.cnt + g.H - 1), q0 = it.i0 - (g.H - 1);
+  const bool wraps = q0 < 0;
+  const i64 base = it.b * g.m * (i64)g.S + it.s0;
+  for (int u = tid; u < need * LPR; u += g.threads) {
+    const int rr = u / LPR, c = (u % LPR) * C;
+    const float* src = ((rr & 1) ? cd : ca) + base;
+    const bool valid = it.s0 + c < g.S;
+    copy_async<V>(
+        win + ((rr & 1) * g.W + (rr >> 1)) * TS + c,
+        valid ? src + (i64)syn_pair(q0, rr >> 1, g.m, wraps) * g.S + c : src,
+        valid);
+  }
+}
+
+__device__ __forceinline__ void syn_cols_copy(const float* __restrict__ ca,
+                                              const float* __restrict__ cd,
+                                              float* win, const ColsGeo& g,
+                                              i64 k, int tid) {
+  if (IPP_DWT_DIAG == 2) return;
+  if (g.vec4)
+    syn_cols_copy_rows<16>(ca, cd, win, g, k, tid);
+  else
+    syn_cols_copy_rows<4>(ca, cd, win, g, k, tid);
+}
+
+// Step 2: lane c of warp w computes output pairs wR .. wR + R - 1 of column
+// s0 + c and stores them, rows 2j and 2j + 1.
+template <int R, int HT>
+__device__ __forceinline__ void syn_cols_compute(float* __restrict__ y,
+                                                 const float4* tap,
+                                                 const float* win,
+                                                 const ColsGeo& g, i64 k,
+                                                 int tid) {
+  if (IPP_DWT_DIAG == 1) return;
+  const ColsItem it = cols_item(g, k);
+  const int c = tid % TS, base = (tid / TS) * R;
+  const int s = it.s0 + c;
+  if (s >= g.S || base >= it.cnt) return;
+  float a[R], d[R];
+  const float* e = win + base * TS + c;
+  polyphase<R, HT>(tap, g.H, PairsCols{e, e + g.W * TS}, a, d);
+  i64 off = (it.b * 2 * g.m + 2 * (it.i0 + base)) * (i64)g.S + s;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (base + r < it.cnt) {
+      y[off] = a[r];
+      y[off + g.S] = d[r];
+    }
+    off += 2 * (i64)g.S;
+  }
+}
+
 #ifdef __CUDACC__
 
 // -- kernels --------------------------------------------------------------------
@@ -581,6 +828,57 @@ dwt_cols(const float* __restrict__ x, const float* __restrict__ taps,
     if (IPP_DWT_DIAG != 1)
       cols_compute<R, HT>(ca, cd, smem4, cols_window(smem, g, n & 1), g, k,
                           tid);
+    __syncthreads();   // its window is free for item k + 2 grid
+  }
+}
+
+// K5s: the same walk, two windows, as `dwt_cols` (the rows form too: its
+// copy lands in the padded slots, so it needs no relayout)
+template <int R, int HT>
+__global__ void __launch_bounds__(R <= 8 ? 512 : 256, 2)
+dwt_syn_rows(const float* __restrict__ ca, const float* __restrict__ cd,
+             const float* __restrict__ taps, float* __restrict__ y,
+             const SynRowsGeo g) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  stage_syn_taps(taps, smem4, g.H, tid, g.threads);
+  i64 k = blockIdx.x;
+  if (k < g.nwork) syn_rows_copy(ca, cd, syn_rows_window(smem, g, 0), g, k, tid);
+  copy_commit();
+  for (int n = 0; k < g.nwork; ++n, k += gridDim.x) {
+    if (k + gridDim.x < g.nwork)
+      syn_rows_copy(ca, cd, syn_rows_window(smem, g, (n + 1) & 1), g,
+                    k + gridDim.x, tid);
+    copy_commit();
+    copy_wait<1>();
+    __syncthreads();   // item k's window landed
+    syn_rows_compute<R, HT>(y, smem4, syn_rows_window(smem, g, n & 1), g, k,
+                            tid);
+    __syncthreads();   // its window is free for item k + 2 grid
+  }
+}
+
+template <int R, int HT>
+__global__ void __launch_bounds__(R <= 8 ? 512 : 256, 2)
+dwt_syn_cols(const float* __restrict__ ca, const float* __restrict__ cd,
+             const float* __restrict__ taps, float* __restrict__ y,
+             const ColsGeo g) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  stage_syn_taps(taps, smem4, g.H, tid, g.threads);
+  i64 k = blockIdx.x;
+  if (k < g.nwork) syn_cols_copy(ca, cd, cols_window(smem, g, 0), g, k, tid);
+  copy_commit();
+  for (int n = 0; k < g.nwork; ++n, k += gridDim.x) {
+    if (k + gridDim.x < g.nwork)
+      syn_cols_copy(ca, cd, cols_window(smem, g, (n + 1) & 1), g,
+                    k + gridDim.x, tid);
+    copy_commit();
+    copy_wait<1>();
+    __syncthreads();   // item k's window landed
+    syn_cols_compute<R, HT>(y, smem4, cols_window(smem, g, n & 1), g, k, tid);
     __syncthreads();   // its window is free for item k + 2 grid
   }
 }
@@ -642,83 +940,119 @@ inline cudaError_t blocks_per_sm(Kernel kernel, int threads, int smem,
 }
 
 // As many blocks as fit the card at once, at most one an item.
-template <class Geo>
-inline cudaError_t launch_one(void (*kernel)(const float*, const float*,
-                                             float*, float*, const Geo),
-                              const Geo& g, const float* x, const float* taps,
-                              float* ca, float* cd, cudaStream_t st) {
+template <class Kernel, class Geo, class... Args>
+inline cudaError_t launch_one(Kernel kernel, const Geo& g, cudaStream_t st,
+                              Args... args) {
   int per_sm = 0;
   const cudaError_t e = blocks_per_sm(kernel, g.threads, g.smem, per_sm);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const i64 fit = (i64)per_sm * sm_count();
   const unsigned grid = (unsigned)(g.nwork < fit ? g.nwork : fit);
-  kernel<<<grid, g.threads, g.smem, st>>>(x, taps, ca, cd, g);
+  kernel<<<grid, g.threads, g.smem, st>>>(args..., g);
   return cudaGetLastError();
 }
 
+// K5's kernel at (R, HT) for the geometry's axis
 template <int R, int HT>
-inline cudaError_t launch_k(const RowsGeo& g, const float* x,
-                            const float* taps, float* ca, float* cd,
-                            cudaStream_t st) {
-  return launch_one(dwt_rows<R, HT>, g, x, taps, ca, cd, st);
+inline cudaError_t launch_k(const RowsGeo& g, cudaStream_t st, const float* x,
+                            const float* taps, float* ca, float* cd) {
+  return launch_one(dwt_rows<R, HT>, g, st, x, taps, ca, cd);
 }
 
 template <int R, int HT>
-inline cudaError_t launch_k(const ColsGeo& g, const float* x,
-                            const float* taps, float* ca, float* cd,
-                            cudaStream_t st) {
-  return launch_one(dwt_cols<R, HT>, g, x, taps, ca, cd, st);
+inline cudaError_t launch_k(const ColsGeo& g, cudaStream_t st, const float* x,
+                            const float* taps, float* ca, float* cd) {
+  return launch_one(dwt_cols<R, HT>, g, st, x, taps, ca, cd);
 }
 
 // The kernel instance for (R, H): compile-time tap loops for H = 3, 9, 45 at
 // R = 8 unless `generic`; R = 4 and 16 (the sweep's) run the chunked loop.
 template <int R, class Geo>
-inline cudaError_t launch_r(const Geo& g, bool generic, const float* x,
-                            const float* taps, float* ca, float* cd,
-                            cudaStream_t st) {
+inline cudaError_t launch_r(const Geo& g, bool generic, cudaStream_t st,
+                            const float* x, const float* taps, float* ca,
+                            float* cd) {
   if constexpr (R == 8) {
-    if (!generic && g.H == 3) return launch_k<R, 3>(g, x, taps, ca, cd, st);
-    if (!generic && g.H == 9) return launch_k<R, 9>(g, x, taps, ca, cd, st);
-    if (!generic && g.H == 45) return launch_k<R, 45>(g, x, taps, ca, cd, st);
+    if (!generic && g.H == 3) return launch_k<R, 3>(g, st, x, taps, ca, cd);
+    if (!generic && g.H == 9) return launch_k<R, 9>(g, st, x, taps, ca, cd);
+    if (!generic && g.H == 45) return launch_k<R, 45>(g, st, x, taps, ca, cd);
   }
-  return launch_k<R, 0>(g, x, taps, ca, cd, st);
+  return launch_k<R, 0>(g, st, x, taps, ca, cd);
 }
 
 template <class Geo>
-inline cudaError_t launch_geo(const Geo& g, bool generic, const float* x,
-                              const float* taps, float* ca, float* cd,
-                              cudaStream_t st) {
-  if (g.R == 4) return launch_r<4>(g, generic, x, taps, ca, cd, st);
-  if (g.R == 8) return launch_r<8>(g, generic, x, taps, ca, cd, st);
-  return launch_r<16>(g, generic, x, taps, ca, cd, st);
+inline cudaError_t launch_geo(const Geo& g, bool generic, cudaStream_t st,
+                              const float* x, const float* taps, float* ca,
+                              float* cd) {
+  if (g.R == 4) return launch_r<4>(g, generic, st, x, taps, ca, cd);
+  if (g.R == 8) return launch_r<8>(g, generic, st, x, taps, ca, cd);
+  return launch_r<16>(g, generic, st, x, taps, ca, cd);
 }
 
-// x (batch, n, inner) -> ca, cd (batch, n/2, inner); inner == 1 is the last
-// axis.  x 8-byte aligned.  R: outputs a thread (0: 8, and 16 along axis -2
-// for filters longer than 64 taps, where a tap load serving 64 FMAs
-// outweighs the compile-time loop: coif15 0.168 -> 0.160 ms, coif17 0.216
-// -> 0.175 at (8, 2688, 1344), scripts/dwt_bench.py --sweep on an H100 80GB
-// HBM3 at 700 W; else 4, 8 or 16); threads: the most a block takes (0: the
-// axis' default); generic: the chunked tap loop at every H.
+inline bool args_ok(int L, i64 batch, i64 inner) {
+  return L >= 2 && !(L & 1) && L <= MAXL && batch >= 1 && inner >= 1;
+}
+
+inline bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<unsigned long long>(p) & (bytes - 1)) == 0;
+}
+
+// K5: x (batch, n, inner) -> ca, cd (batch, n/2, inner); inner == 1 is the
+// last axis.  x 8-byte aligned.  R: outputs a thread (0: `default_r`; else
+// 4, 8 or 16); threads: the most a block takes (0: the axis' default);
+// generic: the chunked tap loop at every H.
 inline cudaError_t launch(const float* x, const float* taps, float* ca,
                           float* cd, i64 batch, int n, i64 inner, int L, int R,
                           int threads, bool generic, cudaStream_t st) {
-  if (R == 0) R = inner > 1 && L > 64 ? 16 : R_DEFAULT;
-  const unsigned long long addr = reinterpret_cast<unsigned long long>(x);
-  if (n < 2 || (n & 1) || L < 2 || (L & 1) || L > MAXL || batch < 1 ||
-      inner < 1 || (R != 4 && R != 8 && R != 16) || (addr & 7))
+  if (R == 0) R = default_r(inner, L);
+  if (n < 2 || (n & 1) || !args_ok(L, batch, inner) ||
+      (R != 4 && R != 8 && R != 16) || !aligned(x, 8))
     return cudaErrorInvalidValue;
   if (inner == 1) {
     RowsGeo g;
-    if (!rows_geometry(batch, n, L, R, threads, (addr & 15) == 0, g))
+    if (!rows_geometry(batch, n, L, R, threads, aligned(x, 16), g))
       return cudaErrorInvalidValue;
-    return launch_geo(g, generic, x, taps, ca, cd, st);
+    return launch_geo(g, generic, st, x, taps, ca, cd);
   }
   ColsGeo g;
-  if (!cols_geometry(batch, n, inner, L, R, threads, (addr & 15) == 0, g))
+  if (!cols_geometry(batch, n, inner, L, R, threads, aligned(x, 16), g))
     return cudaErrorInvalidValue;
-  return launch_geo(g, generic, x, taps, ca, cd, st);
+  return launch_geo(g, generic, st, x, taps, ca, cd);
+}
+
+// K5s: ca, cd (batch, m, inner) -> y (batch, 2m, inner); inner == 1 is the
+// last axis.  Only the instances `default_r` picks: R = 8 with compile-time
+// tap loops for H = 3, 9 and 45 (rows) or 3 and 9 (columns), the chunked
+// loop at every other H, and R = 16's chunked loop for columns with filters
+// longer than 64 taps.  The rows form stores 16 bytes where y is 16-byte
+// aligned, the columns form copies 16 bytes where ca and cd are.
+inline cudaError_t launch_syn(const float* ca, const float* cd,
+                              const float* taps, float* y, i64 batch, int m,
+                              i64 inner, int L, cudaStream_t st) {
+  if (m < 1 || m > (1 << 29) || !args_ok(L, batch, inner))
+    return cudaErrorInvalidValue;
+  if (inner == 1) {
+    SynRowsGeo g;
+    if (!syn_rows_geometry(batch, 2 * m, L, aligned(y, 16), g))
+      return cudaErrorInvalidValue;
+    switch (g.H) {
+      case 3: return launch_one(dwt_syn_rows<8, 3>, g, st, ca, cd, taps, y);
+      case 9: return launch_one(dwt_syn_rows<8, 9>, g, st, ca, cd, taps, y);
+      case 45: return launch_one(dwt_syn_rows<8, 45>, g, st, ca, cd, taps, y);
+      default: return launch_one(dwt_syn_rows<8, 0>, g, st, ca, cd, taps, y);
+    }
+  }
+  const int R = default_r(inner, L);
+  ColsGeo g;
+  if (!cols_geometry(batch, 2 * m, inner, L, R, 0,
+                     aligned(ca, 16) && aligned(cd, 16), g))
+    return cudaErrorInvalidValue;
+  if (R == 16) return launch_one(dwt_syn_cols<16, 0>, g, st, ca, cd, taps, y);
+  switch (g.H) {
+    case 3: return launch_one(dwt_syn_cols<8, 3>, g, st, ca, cd, taps, y);
+    case 9: return launch_one(dwt_syn_cols<8, 9>, g, st, ca, cd, taps, y);
+    default: return launch_one(dwt_syn_cols<8, 0>, g, st, ca, cd, taps, y);
+  }
 }
 
 #endif  // __CUDACC__

@@ -12,8 +12,11 @@ over leading dimensions.  Analysis runs through `cuda_dwt.dwt_analysis`:
 the CUDA kernel K5 on the card, along the last axis and along axis -2
 directly (no transposes); on the CPU its plain version
 `cuda_dwt.dwt_analysis_plain`, the reference's conv `_dwt_last`.
-Synthesis is plain PyTorch (a stride-2 transposed conv folded mod n), as
-the reference computes it in XLA outside any Pallas kernel.
+Synthesis runs through `cuda_dwt.dwt_synthesis` the same way: the CUDA
+kernel K5s on the card, whose outputs never depend on the batch or the
+run; on the CPU its plain version `cuda_dwt.dwt_synthesis_plain`, a
+stride-2 transposed conv folded mod n (the reference's `_idwt_last`, an
+XLA convolution outside any Pallas kernel).
 
 Coefficient layout is pywt's: ``wavedec2`` returns ``[cA_L, (cH_L, cV_L,
 cD_L), ..., (cH_1, cV_1, cD_1)]``, cH detail along y (axes[0]) and
@@ -32,9 +35,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from .cuda_dwt import dwt_analysis
+from .cuda_dwt import dwt_analysis, dwt_synthesis
 
 __all__ = [
     "scaling_filter",
@@ -244,41 +246,6 @@ def filter_taps(wavelet: str, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# 1D circular DWT primitives (batched over leading dimensions)
-# ---------------------------------------------------------------------------
-
-
-def _fold(y: torch.Tensor, n: int, dim: int) -> torch.Tensor:
-    """Sum `y` over positions congruent mod n along `dim` (-1 or -2; length
-    n out): turns the linear convolution into the circular one."""
-    T = y.shape[dim]
-    p = -(-T // n) * n
-    y = F.pad(y, [0, 0] * (-dim - 1) + [0, p - T])
-    d = y.dim() + dim
-    return y.reshape(y.shape[:d] + (p // n, n) + y.shape[d + 1:]).sum(d)
-
-
-def _idwt_axis(cA: torch.Tensor, cD: torch.Tensor, taps: torch.Tensor,
-               axis: int) -> torch.Tensor:
-    """Inverse of one analysis level along axis -1 or -2 (the transpose
-    of analysis): y[t] = sum_i cA[i] lo[(t - 2i) mod n] + cD[i] hi[...],
-    the reference's upsample + circular conv (`_idwt_last`), as one
-    stride-2 transposed conv over both subbands folded mod n."""
-    m = cA.shape[axis]
-    n = 2 * m
-    w = taps.to(cA.dtype)
-    if axis == -1:
-        lead = cA.shape[:-1]
-        inp = torch.stack([cA, cD], -2).reshape(-1, 2, m)
-        y = F.conv_transpose1d(inp, w.unsqueeze(1), stride=2)
-        return _fold(y, n, -1).reshape(*lead, n)
-    lead, width = cA.shape[:-2], cA.shape[-1]
-    inp = torch.stack([cA, cD], -3).reshape(-1, 2, m, width)
-    y = F.conv_transpose2d(inp, w[:, None, :, None], stride=(2, 1))
-    return _fold(y, n, -2).reshape(*lead, n, width)
-
-
-# ---------------------------------------------------------------------------
 # 2D transforms
 # ---------------------------------------------------------------------------
 
@@ -308,10 +275,12 @@ def _dwt2_once(img: torch.Tensor, taps: torch.Tensor):
 
 
 def _idwt2_once(cA, details, taps):
+    """The inverse of `_dwt2_once`: y on both halves, then x, each
+    through K5s (3 launches)."""
     da, ad, dd = details
-    a1 = _idwt_axis(cA, da, taps, -2)
-    d1 = _idwt_axis(ad, dd, taps, -2)
-    return _idwt_axis(a1, d1, taps, -1)
+    a1 = dwt_synthesis(cA, da, taps, -2)
+    d1 = dwt_synthesis(ad, dd, taps, -2)
+    return dwt_synthesis(a1, d1, taps, -1)
 
 
 def dwt2(img: torch.Tensor, wavelet: str, axes: Tuple[int, int] = (-2, -1)):

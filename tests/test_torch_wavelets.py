@@ -139,7 +139,9 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing(rng):
     got = K.dwt_analysis(x, _taps("db9"), -1)
     ref = K.dwt_analysis_plain(x, _taps("db9"), -1)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
-    assert K.LAUNCHES == {"dwt_analysis": 0}
+    assert torch.equal(K.dwt_synthesis(*got, _taps("db9"), -1),
+                       K.dwt_synthesis_plain(*ref, _taps("db9"), -1))
+    assert K.LAUNCHES == {"dwt_analysis": 0, "dwt_synthesis": 0}
 
 
 @pytest.mark.parametrize("shape,taps,axis", [
@@ -178,7 +180,7 @@ def test_kernel_matches_plain_on_the_card(cuda, name, shape, axis, rng):
     taps = P.filter_taps(name, cuda)
     K.reset_launch_counts()
     got = K.dwt_analysis(x, taps, axis)
-    assert K.LAUNCHES == {"dwt_analysis": 1}
+    assert K.LAUNCHES == {"dwt_analysis": 1, "dwt_synthesis": 0}
     ref = K.dwt_analysis_plain(x, taps, axis)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):

@@ -77,20 +77,27 @@ Phases:
    (F.conv1d; F.conv_transpose1d / 2d of both subbands, no fold) by CUDA
    events after a warm call; a batch of 8 bit-equal to its 8 single calls
    and a call to its repeat on both axes;
-6. the pystripe CLI end to end with process_images' stage-1 settings
-   (sigma 250/250, db9, reflect, bidirectional, dark 100, batch 8) on a
+6. K8, the notch, against its plain version (torch.fft's rfft * g,
+   irfft) at every level shape of phase 6's padded batches of 8, (8,
+   1344, 1344) ... (8, 21, 21) and (8, 1152, 1344) ... (8, 18, 21), along
+   x and along y: <= 1e-5 of max, kernel, plain and library ms and the
+   bound, a batch of 8 bit-equal to its 8 single tiles and a call to its
+   repeat; then the pystripe CLI end to end with process_images' stage-1
+   settings (sigma 250/250, db9, reflect, bidirectional, dark 100, batch
+   8) on a
    synthetic tile tree (2 x 2 stacks x 64 planes of 2000 x 2000 and one
    stack x 16 planes of 1600 x 2000 u16: a smooth field with beads and
    multiplicative stripes along x and y, from a numpy seed): rc 0 (no
    failed tile), 272 u16 outputs of the input shapes, stripe power down
-   more than 3x, K5 and K5s launched batches x 3 x levels times each, a
+   more than 3x, K5 and K5s launched batches x 3 x levels times each and
+   K8 batches x 2 x levels (476), a
    second run into another directory byte-identical, and 8 sampled tiles
    within 1 count of the same chain with the plain DWT on the card; every
    stage of the chain (`compare_stages`: log1p, pad, each wavedec2 level,
    each notched subband, each waverec2 level, the crop, the u16 cast, the
-   output) on one batch of 8, bit for bit: two runs equal at every stage,
-   and the stages where the batch differs from its 8 single tiles named
-   (phase 16 holds the mesh to 0 counts if there are none, else 1);
+   output) on one batch of 8 of each tile shape, bit for bit: two runs
+   equal at every stage, and the batch equal to its 8 single tiles at
+   every stage (the phase fails on any stage that differs);
    then one batch of 8 tiles through process_batch_fn with bleach
    correction on (the first-order Butterworth filtfilt as a scan), and one
    with lightsheet correction on (dark 100 first), each card's result
@@ -114,8 +121,9 @@ Phases:
    sharper than in the input;
 9. the FNT-cube CLI on 8 u16 cubes of 128^3 cut from the phase-4 series
    (written by a minimal raw NRRD writer here), with --destripe (the
-   axial destripe through K5) and 10 RL iterations: 8 outputs of the
-   input shape and dtype, K5 launched, and exact walk launch counts (the
+   axial destripe through K5, K5s and K8) and 10 RL iterations: 8 outputs
+   of the input shape and dtype, K5 launched, K8 two launches a level,
+   and exact walk launch counts (the
    cubes' work shape lies outside the v2 domain: RL and the taper take
    torch.fft, no walk launch);
 10. the v1 walk (work shapes outside the v2 domain): K6 (the inverse
@@ -158,21 +166,23 @@ Phases:
    stack's offset in the placement XML equal to its truth, the series of
    the bounding box's plane count and shape in u16, every isolated bead's
    intensity-weighted centroid within 0.5 px of its true position, the
-   npz at its planned shape, K5 launched batches x 3 x levels times;
+   npz at its planned shape, K5 launched batches x 3 x levels times, K8
+   batches x 2 x levels;
    stitch Mpix/s, the per-stage seconds and the peak device memory;
 13. process_images --rgb-composite on two channels (Ex_647_Em_690, red,
    the merge's reference; Ex_561_Em_600, green, its content shifted by
    (1, -4, 6)) of a 2 x 2 grid of 16-plane stacks of 2000 x 2000 u16 tiles
    cut at phase 12's kind of jitter from one bead phantom: rc 0, exact K5
-   launches, the channel offsets equal to the shift, the composite of the
+   and K8 launches, the channel offsets equal to the shift, the composite
+   of the
    reference channel's plane count and every plane equal to its host
    recomputation from the two stitched series and the offsets, and ECC on
    the sections merge_channels aligned, card vs CPU (within 0.02 px, the
    same integer offsets, ms of each);
 14. the converter CLI (convert.main) with --destripe (sigma 250, db9),
    -dt 10 at (2, 1.8, 1.8) um and a TeraFly export on 64 striped 2000 x
-   2000 u16 planes: rc 0, exact K5 launches, four planes within 1 count
-   of the same chain on the CPU, the npz within 1e-4 of max of its CPU
+   2000 u16 planes: rc 0, exact K5 and K8 launches, four planes within 1
+   count of the same chain on the CPU, the npz within 1e-4 of max of its CPU
    recomputation from the written planes, TeraFly's level 0 equal to the
    series; Mpix/s with the read / device / write / downsample / export
    split;
@@ -192,9 +202,9 @@ Phases:
    the v2 walk): within 1e-5 of max of the same overlap-discard slabs run
    one by one on card 0, the batched forms' launches equal to that run's;
    (c) process_images on phase 12's tree: placement equal to phase 12's,
-   planes within phase 6's tolerance, K5 and K5s launches exact (phase
+   planes 0 counts off phase 12's, K5 and K5s launches exact (phase
    12's batches, each split into one shard per mesh entry); (d) the
-   pystripe CLI on phase 6's tree: tiles within that tolerance, K5 and
+   pystripe CLI on phase 6's tree: tiles 0 counts off phase 6's, K5 and
    K5s exact likewise; (e) a one-rank NCCL group over
    localhost TCP (device_put_global, process_slice, all_gather), and with
    two or more cards two processes over NCCL (the NCC maps' all-gather and
@@ -228,8 +238,9 @@ library call's that computes the same function (torch.matmul, torch.fft,
 F.conv1d, F.conv_transpose1d / 2d; timed here only, the port never calls
 it on the card) and its bound: the
 larger of the function's FLOPs over the f32 peak (a matrix product's for
-an FFT's 5 n log2 n per complex transform for K3, K4, K6 and K7 and half
-that per real column for K1 and K2, the taps' for K5 and K5s; for K1d, K2d and
+an FFT's 5 n log2 n per complex transform for K3, K4, K6 and K7, half
+that per real column for K1 and K2, and two transforms a pair of lines
+(and the product with G) for K8; the taps' for K5 and K5s; for K1d, K2d and
 K7d, f32-grade products on the tensor cores, three bf16 products a real
 product over the bf16 peak) and its bytes (each input read once, each
 output written once) over the HBM rate.  Outside the v2 domain every convolution takes
@@ -348,6 +359,10 @@ DWT_KERNEL = ("K5 dwt_analysis", "ipp_tpu_torch/csrc/dwt.cuh",
 DWT_SYN_KERNEL = ("K5s dwt_synthesis", "ipp_tpu_torch/csrc/dwt.cuh",
                   "ipp_tpu/ops/wavelets.py:340 (_idwt_last, an XLA "
                   "convolution; no pl.pallas_call)")
+# K8, the notch of the destripe chain: no Pallas kernel behind it either
+NOTCH_KERNEL = ("K8 notch", "ipp_tpu_torch/csrc/notch.cuh",
+                "ipp_tpu/ops/destripe.py:168-172 (filter_coefficient's "
+                "jnp.fft.rfft / irfft, the XLA FFT; no pl.pallas_call)")
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): f32 FMA outside the
 # tensor cores, dense bf16 on the tensor cores, and HBM3
 F32_FLOPS, BF16_FLOPS, HBM_BYTES_S = 67e12, 989e12, 3.35e12
@@ -478,6 +493,13 @@ def work_cplx(rows: int, k: int, n: int):
 def work_dwt(elems: int, taps: int):
     """K5: one level of two taps-long filters at stride 2 over elems."""
     return 2.0 * elems * taps, 4.0 * (2 * elems + 2 * taps)
+
+
+def work_notch(elems: int, n: int):
+    """K8 over elems values in lines of n: a pair of lines is two complex
+    n-point transforms (5 n log2 n FLOPs each) and the product with G (one
+    FLOP a value); each value read once and written once."""
+    return 5.0 * elems * math.log2(n) + elems, 8.0 * elems
 
 
 def walk_launches(shape, forward: int, inverse: int, route=None):
@@ -2038,10 +2060,84 @@ def compare_stages(torch, xb, cfg, u16):
     return rows, faithful
 
 
+# the padded batches of phase 6's two tile shapes (2000^2, 1600 x 2000)
+NOTCH_TILES = ((2688, 2688), (2304, 2688))
+
+
+def notch_level_cases():
+    """(shape, axis, sigma) of every notch the chain runs on a padded batch
+    of 8 at phase 6's settings (sigma 250): cH (8, h, w) along x with the
+    notch sigma h * 250 / H, cV along y with w * 250 / W, h = H >> level,
+    levels 1-7 (`destripe.filter_subband`)."""
+    out = []
+    for H, W in NOTCH_TILES:
+        for lv in range(1, 8):
+            shape = (8, H >> lv, W >> lv)
+            out += [(shape, -1, shape[1] * 250.0 / H),
+                    (shape, -2, shape[2] * 250.0 / W)]
+    return out
+
+
+def notch_cases(torch, dev, rows, bad):
+    """K8 against its plain version (torch.fft) at every level shape of
+    both tile shapes, on both axes: <= 1e-5 of max, kernel, plain and
+    library (rfft * g, irfft) ms by CUDA events, the bound; then a batch
+    of 8 bit-equal to its 8 single tiles and a call to its repeat."""
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_notch as cn
+    from ipp_tpu_torch.ops import destripe as dsm
+
+    gen = np.random.default_rng(19)
+    for shape, axis, sigma in notch_level_cases():
+        n = shape[axis]
+        x = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)
+                             ).to(dev)
+        g = dsm.notch(n // 2 + 1, 0.5 * sigma)
+        gt = torch.from_numpy(g).to(dev).reshape((-1, 1) if axis == -2
+                                                 else (-1,))
+
+        def kfn(x=x, g=g, axis=axis):
+            return cn.notch_filter(x, g, axis)
+
+        def pfn(x=x, g=g, axis=axis):
+            return cn.notch_filter_plain(x, g, axis)
+
+        def lfn(x=x, gt=gt, axis=axis, n=n):
+            return torch.fft.irfft(torch.fft.rfft(x, dim=axis) * gt, n=n,
+                                   dim=axis)
+        got, ref = kfn(), pfn()
+        torch.cuda.synchronize()
+        abs_err, rel = err_of_max(got, ref)
+        same = all(torch.equal(got[i:i + 1], kfn(x[i:i + 1]))
+                   for i in range(shape[0]))
+        twice = torch.equal(got, kfn())
+        ms, plain_ms = time_ms(torch, kfn, 10), time_ms(torch, pfn, 10)
+        lib_ms = time_ms(torch, lfn, 10)
+        bound_ms, bound_by = bound(*work_notch(x.numel(), n))
+        rows.append(dict(kernel="K8", shape=list(shape), axis=axis, n=n,
+                         max_abs_err=abs_err, rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         batch_equals_single=same, two_calls_equal=twice))
+        say(f"  K8  {str(shape):<18s} axis {axis:2d} n {n:5d} rel {rel:.2e} "
+            f"abs {abs_err:.2e}  kernel {ms:7.3f} ms  plain {plain_ms:7.3f}  "
+            f"library {lib_ms:7.3f}  bound {bound_ms:6.3f} ({bound_by}); "
+            f"batch of 8 vs singles: {'bit-equal' if same else 'DIFFER'}, "
+            f"two calls: {'bit-equal' if twice else 'DIFFER'}")
+        if not rel <= 1e-5:
+            bad.append(f"K8 {shape} axis {axis}: rel {rel:.3e}")
+        if not (same and twice):
+            bad.append(f"K8 {shape} axis {axis}: a batch differs from its "
+                       f"singles or a call from its repeat")
+        del got, ref, x
+
+
 def phase_destripe_cli(torch, dev, record, shared):
     import numpy as np
 
     from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import cuda_notch as cn
     from ipp_tpu_torch.ops import destripe as dsm
     from ipp_tpu_torch.ops import wavelets as wv
     from ipp_tpu_torch.ops.process import (ProcessConfig, _chain,
@@ -2049,6 +2145,14 @@ def phase_destripe_cli(torch, dev, record, shared):
     from ipp_tpu_torch.pipeline import deconvolve as pdc
     from ipp_tpu_torch.pipeline import pystripe_cli as psc
     from ipp_tpu_torch.utils.transfer import upload
+
+    # K8 at every notch of the chain, before the CLI drives it
+    notch_rows, bad = [], []
+    notch_cases(torch, dev, notch_rows, bad)
+    record["notch"] = notch_rows
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("K8: " + "; ".join(bad))
 
     work = ROOT / "build" / "chip_smoke_tiles"
     shutil.rmtree(work, ignore_errors=True)
@@ -2065,35 +2169,40 @@ def phase_destripe_cli(torch, dev, record, shared):
     levels = {shape: dsm._plan_padding(shape, (250.0, 250.0), 0, "db9")[3]
               for shape in per_shape}
     want = sum(b * 3 * levels[shape] for shape, b in batches.items())
+    want_k8 = notch_launches(want)
     batches = sum(batches.values())
     say(f"  input: {n_tiles} tiles ({n_px * 2 / 1e9:.2f} GB u16) in "
         f"{len(stacks)} stacks written in {t_data:.1f} s; levels {levels}; "
         f"{batches} batches of 8 -> expect {want} K5 and {want} K5s "
-        f"launches")
+        f"launches, {want_k8} K8 launches")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cd.reset_launch_counts()
+    cn.reset_launch_counts()
     t0 = time.perf_counter()
     rc = psc.main(["-i", str(src), "-o", str(dst), *STAGE1])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(cd.LAUNCHES)
+    launches = dict(cd.LAUNCHES, **cn.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     rate = n_px / wall / 1e6
     card = card_line()
     say(f"  CLI rc {rc}: {n_tiles} tiles in {wall:.1f} s, {rate:.1f} Mpix/s "
         f"({card}); K5 launches {launches['dwt_analysis']}, K5s "
-        f"{launches['dwt_synthesis']}; torch.cuda.max_memory_allocated "
-        f"{peak}")
+        f"{launches['dwt_synthesis']}, K8 {launches['notch']}; "
+        f"torch.cuda.max_memory_allocated {peak}")
     rec = record["destripe_cli"] = dict(
         tiles=n_tiles, pixels=n_px, batches=batches, levels=str(levels),
         wall_s=wall, mpix_s=rate, data_s=t_data, launches=launches,
-        want_launches=want, peak_mem_bytes=peak, card=card, rc=rc)
+        want_launches=want, want_k8=want_k8, peak_mem_bytes=peak, card=card,
+        rc=rc)
     # rc 0 <=> the executor counted no failed tile (pystripe_cli.main)
     if rc != 0:
         raise AssertionError(f"CLI rc {rc}: some tiles failed")
     if launches["dwt_analysis"] != want or launches["dwt_synthesis"] != want:
         raise AssertionError(f"K5 / K5s launches {launches} != {want}")
+    if launches["notch"] != want_k8:
+        raise AssertionError(f"K8 launches {launches['notch']} != {want_k8}")
     # a second run of the same tree into a second directory writes the
     # same bytes: every output of the chain is a function of its tile
     dst2 = work / "output2"
@@ -2113,7 +2222,7 @@ def phase_destripe_cli(torch, dev, record, shared):
     if rc2 != 0 or differ or len(outs1) != n_tiles:
         raise AssertionError(f"two CLI runs differ: {len(differ)} of "
                              f"{len(outs1)} TIFFs (rc {rc2})")
-    powers_in, powers_out, sampled = [], [], {}
+    powers_in, powers_out, sampled, eights = [], [], {}, {}
     for d, (planes, shape) in stacks.items():
         out_d = dst / d.relative_to(src)
         outs = sorted(out_d.glob("*.tif"))
@@ -2131,8 +2240,8 @@ def phase_destripe_cli(torch, dev, record, shared):
         del ta, tb
         if shape not in sampled:   # 4 planes of each tile shape
             sampled[shape] = (a[:4], b[:4])
-            if len(sampled) == 1:  # a whole batch, for the chain's time
-                batch8 = a[:8]
+            eights[shape] = a[:8]  # a whole batch of each shape
+    batch8 = eights[TILE_STACKS[0][2]]   # for the chain's time
     p_in = np.mean(powers_in, axis=0)
     p_out = np.mean(powers_out, axis=0)
     drop = float(p_in.sum() / max(p_out.sum(), 1e-30))
@@ -2150,8 +2259,13 @@ def phase_destripe_cli(torch, dev, record, shared):
     u16 = np.dtype(np.uint16)
     chain_ms = time_ms(torch, lambda: _chain(xb, cfg, u16), 5)
     # every stage of the chain bit for bit, run against run and the batch
-    # against its single tiles
-    stages, faithful = compare_stages(torch, xb, cfg, u16)
+    # against its single tiles, on a batch of each tile shape
+    stages, faithful = {}, True
+    for shape, eight in eights.items():
+        xs = upload(eight, dev)
+        stages[str(shape)], ok = compare_stages(torch, xs, cfg, u16)
+        faithful = faithful and ok
+        del xs
     saved = wv.dwt_analysis, wv.dwt_synthesis
     wv.dwt_analysis = cd.dwt_analysis_plain
     wv.dwt_synthesis = cd.dwt_synthesis_plain
@@ -2170,18 +2284,23 @@ def phase_destripe_cli(torch, dev, record, shared):
         f"{chain_ms:.2f} ms with K5 and K5s, {chain_plain_ms:.2f} ms with "
         f"the plain DWT; x {batches} batches = {dev_s:.2f} s of the "
         f"{wall:.1f} s wall")
-    variant = [r["stage"] for r in stages if r["batch_vs_singles_differ"]]
+    variant = [f"{shape}: {r['stage']}" for shape, rows in stages.items()
+               for r in rows if r["batch_vs_singles_differ"]]
+    unstable = [f"{shape}: {r['stage']}" for shape, rows in stages.items()
+                for r in rows if r["runs_differ"]]
     rec.update(stripe_power_in=p_in.tolist(), stripe_power_out=p_out.tolist(),
                stripe_drop=drop, sample_max_diff=max(diffs),
                chain_ms=chain_ms, chain_plain_ms=chain_plain_ms,
                device_s_est=dev_s, stages=stages, replica_faithful=faithful,
-               batch_variant_stages=variant)
+               batch_variant_stages=variant, run_variant_stages=unstable)
     if not faithful:
         raise AssertionError("the chain's replica differs from _chain")
-    if any(r["runs_differ"] for r in stages):
+    if unstable:
         raise AssertionError("two runs of the chain differ at "
-                             + ", ".join(r["stage"] for r in stages
-                                         if r["runs_differ"]))
+                             + ", ".join(unstable))
+    if variant:
+        raise AssertionError("a batch of 8 differs from its single tiles at "
+                             + ", ".join(variant))
     if not drop > 3:
         raise AssertionError(f"stripe power dropped only {drop:.2f}x")
     if max(diffs) > 1:
@@ -2250,9 +2369,6 @@ def phase_destripe_cli(torch, dev, record, shared):
     # phase 16 runs the CLI again on a mesh and holds it to these tiles
     shared["tiles"] = dict(src=src, dst=dst, per_shape=per_shape,
                            levels=levels, launches=want)
-    # the tolerance of the mesh runs against one card's (phase 16): 0
-    # counts where the chain gave its single tiles' bits on a batch
-    shared["batch_variant_stages"] = variant
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -2547,6 +2663,7 @@ def phase_fnt(torch, dev, record, shared):
 
     from ipp_tpu_torch.ops import cuda_dwt as cd
     from ipp_tpu_torch.ops import cuda_fft as cf
+    from ipp_tpu_torch.ops import cuda_notch as cn
     from ipp_tpu_torch.ops.deconv import fft_shape_for
     from ipp_tpu_torch.pipeline import fnt_cubes as fnt
     from ipp_tpu_torch.utils.log import Logger
@@ -2570,6 +2687,7 @@ def phase_fnt(torch, dev, record, shared):
     torch.cuda.reset_peak_memory_stats()
     cd.reset_launch_counts()
     cf.reset_launch_counts()
+    cn.reset_launch_counts()
     t0 = time.perf_counter()
     rc = fnt.main(["-i", str(src), "-o", str(dst), "--destripe",
                    "--niter", str(NITER)])
@@ -2577,6 +2695,7 @@ def phase_fnt(torch, dev, record, shared):
     wall = time.perf_counter() - t0
     k5 = cd.LAUNCHES["dwt_analysis"]
     k5s = cd.LAUNCHES["dwt_synthesis"]
+    k8 = cn.LAUNCHES["notch"]
     walk = dict(cf.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     # per cube: RL at the cube's work shape and the face-slab taper, with
@@ -2593,12 +2712,12 @@ def phase_fnt(torch, dev, record, shared):
     vox = FNT_CUBES * e ** 3
     rec = record["fnt_cli"] = dict(
         rc=rc, cubes=FNT_CUBES, edge=e, wall_s=wall, mvox_s=vox / wall / 1e6,
-        k5_launches=k5, k5s_launches=k5s, launches=walk,
+        k5_launches=k5, k5s_launches=k5s, k8_launches=k8, launches=walk,
         want_launches=want,
         psf_shape=list(psf_shape), peak_mem_bytes=peak, card=card_line())
     say(f"  FNT CLI rc {rc}: {FNT_CUBES} cubes of {e}^3 u16 in {wall:.2f} s, "
         f"{vox / wall / 1e6:.2f} Mvox/s ({rec['card']}); K5 launches {k5}, "
-        f"K5s {k5s}; "
+        f"K5s {k5s}, K8 {k8}; "
         f"walk launches {walk} (work shape "
         f"{fft_shape_for(cube, psf_shape, dev)}: torch.fft); peak {peak}")
     outs = sorted(dst.glob("*.nrrd"))
@@ -2614,6 +2733,8 @@ def phase_fnt(torch, dev, record, shared):
     if k5 < 1 or k5s != k5:
         raise AssertionError(f"K5 / K5s launches {k5} / {k5s}: no axial "
                              f"destripe ran, or not through both")
+    if k8 != notch_launches(k5):
+        raise AssertionError(f"K8 launches {k8} != {notch_launches(k5)}")
     if walk != want:
         raise AssertionError(f"walk launches {walk} != {want}")
     if changed != FNT_CUBES:
@@ -3207,6 +3328,7 @@ def phase_stitch(torch, dev, record, shared):
 
     from ipp_tpu_torch.geometry.stacks import TileGrid
     from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import cuda_notch as cn
     from ipp_tpu_torch.ops import destripe as dsm
     from ipp_tpu_torch.pipeline import deconvolve as pdc
     from ipp_tpu_torch.pipeline import process_images as pim
@@ -3242,6 +3364,7 @@ def phase_stitch(torch, dev, record, shared):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cd.reset_launch_counts()
+    cn.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         rc = pim.main(["--input", str(src), "--preprocessed",
@@ -3253,6 +3376,7 @@ def phase_stitch(torch, dev, record, shared):
     wall = time.perf_counter() - t0
     k5 = cd.LAUNCHES["dwt_analysis"]
     k5s = cd.LAUNCHES["dwt_synthesis"]
+    k8 = cn.LAUNCHES["notch"]
     peak = torch.cuda.max_memory_allocated()
     stages = dict(timers[0].stages) if timers else {}
     card = card_line()
@@ -3264,12 +3388,16 @@ def phase_stitch(torch, dev, record, shared):
                                      stages.items()))
     rec = record["stitch"] = dict(
         tiles=n_tiles, pixels=n_px, wall_s=wall, mpix_s=rate, data_s=t_data,
-        stages_s=stages, k5_launches=k5, k5s_launches=k5s, want_k5=want,
+        stages_s=stages, k5_launches=k5, k5s_launches=k5s, k8_launches=k8,
+        want_k5=want,
         peak_mem_bytes=peak, card=card, rc=rc)
     if rc != 0:
         raise AssertionError(f"CLI rc {rc}")
     if k5 != want or k5s != want:
         raise AssertionError(f"K5 / K5s launches {k5} / {k5s} != {want}")
+    if k8 != notch_launches(want):
+        raise AssertionError(f"K8 launches {k8} != "
+                             f"{notch_launches(want)}")
     # the placement: every stack's offset from stack (0, 0) is the truth
     grid = TileGrid.from_xml(st / "Ex_488_Em_525_placement.xml")
     s00 = grid.stacks[0][0]
@@ -3462,6 +3590,7 @@ def phase_composite(torch, dev, record):
     import numpy as np
 
     from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import cuda_notch as cn
     from ipp_tpu_torch.ops import destripe as dsm
     from ipp_tpu_torch.pipeline import align_channels as ac
     from ipp_tpu_torch.pipeline import merge_channels as mc
@@ -3504,6 +3633,7 @@ def phase_composite(torch, dev, record):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cd.reset_launch_counts()
+    cn.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         rc = pim.main(["--input", str(src), "--preprocessed",
@@ -3515,6 +3645,7 @@ def phase_composite(torch, dev, record):
     wall = time.perf_counter() - t0
     k5 = cd.LAUNCHES["dwt_analysis"]
     k5s = cd.LAUNCHES["dwt_synthesis"]
+    k8 = cn.LAUNCHES["notch"]
     peak = torch.cuda.max_memory_allocated()
     stages = {}
     for i, tm in enumerate(timers):
@@ -3532,13 +3663,17 @@ def phase_composite(torch, dev, record):
         tiles=n_tiles, pixels=n_px, wall_s=wall, data_s=t_data,
         stages_s=stages, align_s=t_align,
         offsets=[list(o) for o, _ in aligned], want_offsets=list(want_off),
-        k5_launches=k5, k5s_launches=k5s, want_k5=want_k5,
+        k5_launches=k5, k5s_launches=k5s, k8_launches=k8,
+        want_k5=want_k5,
         peak_mem_bytes=peak, card=card, rc=rc)
     if rc != 0:
         raise AssertionError(f"CLI rc {rc}")
     if k5 != want_k5 or k5s != want_k5:
         raise AssertionError(f"K5 / K5s launches {k5} / {k5s} != "
                              f"{want_k5}")
+    if k8 != notch_launches(want_k5):
+        raise AssertionError(f"K8 launches {k8} != "
+                             f"{notch_launches(want_k5)}")
     if [o for o, _ in aligned] != [want_off]:
         raise AssertionError(f"offsets {[o for o, _ in aligned]} != "
                              f"[{want_off}]")
@@ -3643,6 +3778,7 @@ def phase_convert(torch, dev, record, shared):
 
     from ipp_tpu_torch.io.terafly import TeraFlyVolume
     from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import cuda_notch as cn
     from ipp_tpu_torch.ops import destripe as dsm
     from ipp_tpu_torch.ops.process import process_img
     from ipp_tpu_torch.ops.resample import IsotropicAccumulator
@@ -3720,6 +3856,7 @@ def phase_convert(torch, dev, record, shared):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cd.reset_launch_counts()
+    cn.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         rc = conv.main(["-i", str(src), "-o", str(out), *CONV_FLAGS])
@@ -3731,6 +3868,7 @@ def phase_convert(torch, dev, record, shared):
     wall = time.perf_counter() - t0
     k5 = cd.LAUNCHES["dwt_analysis"]
     k5s = cd.LAUNCHES["dwt_synthesis"]
+    k8 = cn.LAUNCHES["notch"]
     peak = torch.cuda.max_memory_allocated()
     card = card_line()
     stages = dict(clock.s)
@@ -3743,12 +3881,16 @@ def phase_convert(torch, dev, record, shared):
     rec = record["convert"] = dict(
         planes=CONV_PLANES, pixels=n_px, wall_s=wall, mpix_s=n_px / wall / 1e6,
         data_s=t_data, stages_s=stages, k5_launches=k5, k5s_launches=k5s,
+        k8_launches=k8,
         want_k5=want_k5, peak_mem_bytes=peak, card=card, rc=rc)
     if rc != 0:
         raise AssertionError(f"CLI rc {rc}")
     if k5 != want_k5 or k5s != want_k5:
         raise AssertionError(f"K5 / K5s launches {k5} / {k5s} != "
                              f"{want_k5}")
+    if k8 != notch_launches(want_k5):
+        raise AssertionError(f"K8 launches {k8} != "
+                             f"{notch_launches(want_k5)}")
     planes = sorted(out.glob("img_*.tif"))
     if len(planes) != CONV_PLANES:
         raise AssertionError(f"{len(planes)} planes written")
@@ -4075,6 +4217,13 @@ def planes_max_diff(a_dir: Path, b_dir: Path, pattern="*.tif"):
     return len(names), max(diffs, default=0), missing
 
 
+def notch_launches(k5_launches: int) -> int:
+    """K8 launches of a bidirectional tile-chain run beside its K5
+    launches: two notches a level (cH along x, cV along y) against K5's
+    three launches a level."""
+    return k5_launches // 3 * 2
+
+
 def mesh_k5_launches(n_tiles_by_shape, levels, n_dev, batch_size=8):
     """K5 launches of the tile chain on a mesh of n_dev entries: every
     batch (batch_size rounded to a multiple of n_dev; a short one padded
@@ -4330,14 +4479,10 @@ def phase_mesh(torch, psf_zyx, record, shared):
         errors.append(f"(b) launches {counts_z} != {counts_serial}")
     del got, ref
 
-    # the tile chain's tolerance against one card: 0 counts where phase 6
-    # found every stage of a batch bit-equal to its single tiles', else 1
-    # (a shard runs fewer tiles than one card's batch)
-    variant = shared["batch_variant_stages"]
-    tol = 1 if variant else 0
-    say(f"  the tile chain held to {tol} counts against one card's"
-        + (f" (batch-variant stages in phase 6: {', '.join(variant)})"
-           if variant else " (batch-invariant at every stage in phase 6)"))
+    # the tile chain against one card's: 0 counts (a shard runs fewer
+    # tiles than one card's batch, and phase 6 holds every stage of a
+    # batch bit-equal to its single tiles')
+    tol = 0
 
     # (c) process_images on phase 12's tree
     st = shared["stitch"]
@@ -4985,6 +5130,13 @@ def main() -> int:
         kernels.append(entry(tag, name, source, replaces,
                              record["destripe_cli"]["launches"][name],
                              dwt_rows, at))
+    # K8 at level 1 of the 2000^2 tiles' batch, (8, 1344, 1344) along x
+    tag, name = NOTCH_KERNEL[0].split()
+    at = [r for r in record["notch"] if r["axis"] == -1
+          and r["shape"] == [8, 1344, 1344]][0]
+    kernels.append(entry(tag, name, NOTCH_KERNEL[1], NOTCH_KERNEL[2],
+                         record["destripe_cli"]["launches"][name],
+                         record["notch"], at))
     # K6 and K7 at the v1 RL block's work shape (K6: the inverse z stage,
     # K7: the FFT kernel on the forward y stage), launches from that RL run
     v1 = record["v1"]

@@ -77,11 +77,19 @@
 // pairs (ca, cd), `a` the even outputs and `d` the odd.  Every output is one
 // FMA chain in an order fixed by L alone, written by one thread; no atomics,
 // no output split across threads or blocks.  The geometry is K5's: rows
-// items of whole rows (or segments) with a window of each subband copied 4
-// bytes a lane straight into padded slots (pair p at p + p / R; the window
-// starts at any pair, so 16-byte copies would straddle), two windows so
-// the next item's copy runs under this one's compute; column items of TI
-// pair rows x 32 columns, the ca and cd rows copied 16 bytes a lane.
+// items of whole rows (or segments); column items of TI pair rows x 32
+// columns, the ca and cd rows copied 16 bytes a lane into two windows, so
+// the next item's copy runs under this one's compute.  The rows window
+// starts at any pair, (i0 - (H - 1)) mod m, so it is copied as K5's rows
+// are: the 16-byte chunks of each row that cover it, as they lie (m % 4 ==
+// 0 and aligned rows: a chunk never straddles the wrap), into a copy
+// buffer, then laid out from its offset q0 mod 4 into the padded slots (pair
+// p at p + p / R, one float2 (ca, cd) a pair, as K5's (e, o) window) while
+// the next item's chunks land in the copy; 4 bytes a lane where m % 4 != 0
+// (the deepest levels' m = 42, 21).  Copied 4 bytes a lane straight into
+// the slots, the rows form took 0.448 ms along x at (8, 2688, 2688) db9,
+// 3.2x its bound; this way 0.255 (scripts/dwt_bench.py --root, an H100 80GB
+// HBM3 at 700 W).
 // Bounded by bytes (8 an output: 4 in, 4 out) up to L ~ 40, by the FMA
 // rate above, as K5.
 //
@@ -223,23 +231,28 @@ inline bool cols_geometry(i64 B, int n, i64 S, int L, int R, int threads,
 
 // Synthesis, last axis: ca, cd (nrows, m) -> y (nrows, n).  The segments
 // and rows an item of `rows_geometry` at its defaults (R = 8 output pairs a
-// thread); shared memory holds the taps and two buffers of `rows` rows x
-// two subbands x Wp floats (seg + H - 1 pairs, padded).
+// thread); shared memory holds the taps, the copy (`rows` rows x two
+// subbands x Sq floats: the 16-byte chunks that cover a window) and the
+// window (`rows` rows x Wp float2 (ca, cd) slots: seg + H - 1 pairs,
+// padded).
 struct SynRowsGeo {
   int R, H, m;
   int tpr;      // threads a row segment
   int seg;      // output pairs a segment, tpr * R
   int tiles;    // segments a row
   int rows;     // rows an item
-  int Wp;       // floats of a row's window of one subband
+  int Sq;       // floats of a row's copy of one subband, a multiple of 4
+  int Wp;       // float2 slots of a row's window
   int threads;  // rows * tpr, rounded up to whole warps
-  int smem;     // bytes: the taps, two buffers of windows
+  int smem;     // bytes: the taps, the copies, the windows
   int vec4;     // 16-byte stores (m even and an aligned output)
+  int copy16;   // 16-byte copies (m % 4 == 0 and aligned subbands)
   i64 nrows, nwork;
 };
 
+// aligned16: y is 16-byte aligned; copy16: ca and cd are.
 inline bool syn_rows_geometry(i64 nrows, int n, int L, bool aligned16,
-                              SynRowsGeo& g) {
+                              bool copy16, SynRowsGeo& g) {
   const int R = R_DEFAULT, threads = L > 32 ? 512 : 256;
   g.R = R;
   g.H = L / 2;
@@ -248,14 +261,16 @@ inline bool syn_rows_geometry(i64 nrows, int n, int L, bool aligned16,
   g.tpr = imin(cdiv(g.m, R), threads);
   g.seg = g.tpr * R;
   g.tiles = cdiv(g.m, g.seg);
+  g.Sq = cdiv(g.seg + g.H - 1 + 3, 4) * 4;   // up to 3 floats before the window
   g.Wp = padded(g.seg + g.H - 1, R);
   const i64 most = threads / g.tpr;
   g.rows = (int)(nrows < most ? nrows : most);
-  auto bytes = [&]() { return TAP_BYTES + 2 * g.rows * 2 * g.Wp * 4; };
+  auto bytes = [&]() { return TAP_BYTES + g.rows * 2 * (g.Sq + g.Wp) * 4; };
   while (g.rows > 1 && bytes() > SMEM_LIMIT) --g.rows;
   g.smem = bytes();
   g.threads = cdiv(g.rows * g.tpr, 32) * 32;
   g.vec4 = aligned16 && g.m % 2 == 0;
+  g.copy16 = copy16 && g.m % 4 == 0;
   g.nwork = ((nrows + g.rows - 1) / g.rows) * g.tiles;
   return g.smem <= SMEM_LIMIT;
 }
@@ -351,21 +366,6 @@ struct PairsCols {
   template <int R>
   __device__ __forceinline__ PairsCols from(int j0) const {
     return PairsCols{e + j0 * TS, o + j0 * TS};
-  }
-};
-
-// K5s's rows window: the ca and cd slots in two arrays, each padded by one
-// every R pairs.
-struct PairsSplit {
-  const float* a;
-  const float* d;
-  template <int R>
-  __device__ __forceinline__ float2 at(int c) const {
-    return make_float2(a[c + c / R], d[c + c / R]);
-  }
-  template <int R>
-  __device__ __forceinline__ PairsSplit from(int j0) const {
-    return PairsSplit{a + j0 + j0 / R, d + j0 + j0 / R};
   }
 };
 
@@ -636,59 +636,110 @@ __device__ __forceinline__ void cols_compute(float* __restrict__ ca,
 
 // -- synthesis (K5s), last axis ---------------------------------------------------
 
-// Buffer `buf` (0 or 1) of a synthesis rows block: `rows` rows of the ca
-// window then the cd window, Wp floats each.
-__device__ __forceinline__ float* syn_rows_window(float* smem,
-                                                  const SynRowsGeo& g,
-                                                  int buf) {
-  return smem + TAP_BYTES / 4 + buf * g.rows * 2 * g.Wp;
+// Shared memory of a synthesis rows block: the taps, the copy (`rows` rows
+// of the ca copy then the cd copy, Sq floats each), the window (`rows` rows
+// of Wp float2 (ca, cd) slots, as K5's window of (e, o) pairs).
+__device__ __forceinline__ float* syn_rows_copy_buf(float* smem) {
+  return smem + TAP_BYTES / 4;
+}
+__device__ __forceinline__ float2* syn_rows_window(float* smem,
+                                                   const SynRowsGeo& g) {
+  return reinterpret_cast<float2*>(syn_rows_copy_buf(smem) +
+                                   g.rows * 2 * g.Sq);
 }
 
-// The first pair of an item's window, (i0 - (H - 1)) mod m is taken pair by
-// pair: pair p of the window is q0 + p, reduced mod m only where the item
-// wraps (q0 < 0; a row shorter than the filter wraps several times).
-__device__ __forceinline__ int syn_pair(int q0, int p, int m, bool wraps) {
-  int q = q0 + p;
-  if (wraps) {
-    q %= m;
-    if (q < 0) q += m;
-  }
-  return q;
+// Item k's window: its first pair q0 = (i0 - (H - 1)) mod m, its `need` =
+// cnt + H - 1 pairs, whether they run past the row's end (a row shorter
+// than the filter wraps several times), and the window's first float in
+// the copy: q0 mod 4 with 16-byte copies, else 0.
+struct SynWindow {
+  int q0, need, off;
+  bool wraps;
+};
+__device__ __forceinline__ SynWindow syn_window(const SynRowsGeo& g,
+                                                const RowsItem& it) {
+  SynWindow w;
+  w.need = it.cnt + g.H - 1;
+  w.q0 = (it.i0 - (g.H - 1)) % g.m;
+  if (w.q0 < 0) w.q0 += g.m;
+  w.wraps = w.q0 + w.need > g.m;
+  w.off = g.copy16 ? (w.q0 & 3) : 0;
+  return w;
 }
 
-// Step 1: item k's pairs [i0 - (H - 1), i0 + cnt) mod m of each row's ca and
-// cd into window slots padded(p), 4 bytes a lane by cp.async; the warps take
-// runs of 32 pairs of one row's subband in turn.
+// Step 1: item k's window of each row's ca and cd into the copy, by
+// cp.async.  16 bytes a lane: chunk u of a row's copy is the row's chunk
+// (q0 / 4 + u) mod (m / 4), for u < (off + need) / 4 rounded up, so the
+// window's pair p lies at off + p.  4 bytes a lane (m % 4 != 0): float p
+// is pair (q0 + p) mod m.  The warps take runs of 32 lanes of one row's
+// subband in turn.
 __device__ __forceinline__ void syn_rows_copy(const float* __restrict__ ca,
                                               const float* __restrict__ cd,
-                                              float* win,
+                                              float* buf,
                                               const SynRowsGeo& g, i64 k,
                                               int tid) {
   if (IPP_DWT_DIAG == 2) return;
   const RowsItem it = rows_item(g, k);
+  const SynWindow w = syn_window(g, it);
   const int lane = tid & 31, warp = tid >> 5, nwarps = g.threads >> 5;
-  const int need = it.cnt + g.H - 1, q0 = it.i0 - (g.H - 1);
-  const bool wraps = q0 < 0;
-  const int runs = cdiv(need, 32);
+  if (g.copy16) {
+    const int c0 = w.q0 >> 2, mc = g.m >> 2, nch = cdiv(w.off + w.need, 4);
+    const int runs = cdiv(nch, 32);
+    for (int u = warp; u < it.nr * 2 * runs; u += nwarps) {
+      const int rb = u / runs, ch = (u - rb * runs) * 32 + lane;
+      if (ch < nch) {
+        int c = c0 + ch;
+        if (w.wraps) c %= mc;
+        const float* src = (rb & 1) ? cd : ca;
+        copy_async<16>(buf + rb * g.Sq + 4 * ch,
+                       src + (it.row0 + (rb >> 1)) * g.m + 4 * c, true);
+      }
+    }
+    return;
+  }
+  const int runs = cdiv(w.need, 32);
   for (int u = warp; u < it.nr * 2 * runs; u += nwarps) {
     const int rb = u / runs, p = (u - rb * runs) * 32 + lane;
-    if (p < need) {
+    if (p < w.need) {
+      int q = w.q0 + p;
+      if (w.wraps) q %= g.m;
       const float* src = (rb & 1) ? cd : ca;
-      copy_async<4>(win + rb * g.Wp + padded(p, g.R),
-                    src + (it.row0 + (rb >> 1)) * g.m +
-                        syn_pair(q0, p, g.m, wraps),
-                    true);
+      copy_async<4>(buf + rb * g.Sq + p,
+                    src + (it.row0 + (rb >> 1)) * g.m + q, true);
     }
   }
 }
 
-// Step 2: thread t of a row computes output pairs tR .. tR + R - 1 of the
+// Step 2: the copy into the window, pair p of a row from float off + p of
+// its ca and cd copies to the float2 slot padded(p); two pairs a lane.
+__device__ __forceinline__ void syn_rows_relayout(const float* buf,
+                                                  float2* win,
+                                                  const SynRowsGeo& g, i64 k,
+                                                  int tid) {
+  if (IPP_DWT_DIAG == 2) return;
+  const RowsItem it = rows_item(g, k);
+  const SynWindow w = syn_window(g, it);
+  const int lane = tid & 31, warp = tid >> 5, nwarps = g.threads >> 5;
+  const int runs = cdiv(w.need, 64);
+  for (int u = warp; u < it.nr * runs; u += nwarps) {
+    const int rl = u / runs, p = ((u - rl * runs) * 32 + lane) * 2;
+    if (p < w.need) {
+      const float* a = buf + 2 * rl * g.Sq + w.off + p;
+      float2* row = win + rl * g.Wp;
+      row[padded(p, g.R)] = make_float2(a[0], a[g.Sq]);
+      if (p + 1 < w.need)
+        row[padded(p + 1, g.R)] = make_float2(a[1], a[g.Sq + 1]);
+    }
+  }
+}
+
+// Step 3: thread t of a row computes output pairs tR .. tR + R - 1 of the
 // segment and stores them interleaved, y[2j] = a, y[2j + 1] = d: 32 bytes
 // a lane in two 16-byte stores where the row allows (else 4-byte stores).
 template <int R, int HT>
 __device__ __forceinline__ void syn_rows_compute(float* __restrict__ y,
                                                  const float4* tap,
-                                                 const float* win,
+                                                 const float2* win,
                                                  const SynRowsGeo& g, i64 k,
                                                  int tid) {
   if (IPP_DWT_DIAG == 1) return;
@@ -696,8 +747,8 @@ __device__ __forceinline__ void syn_rows_compute(float* __restrict__ y,
   const int rl = tid / g.tpr, t = tid - rl * g.tpr;
   if (rl >= it.nr || t * R >= it.cnt) return;
   float a[R], d[R];
-  const float* w = win + rl * 2 * g.Wp + t * (R + 1);
-  polyphase<R, HT>(tap, g.H, PairsSplit{w, w + g.Wp}, a, d);
+  polyphase<R, HT>(tap, g.H, PairsRows{win + rl * g.Wp + t * (R + 1)}, a,
+                   d);
   const i64 off = (it.row0 + rl) * 2 * g.m + 2 * (it.i0 + t * R);
   if (g.vec4 && (t + 1) * R <= it.cnt) {
 #pragma unroll
@@ -715,6 +766,18 @@ __device__ __forceinline__ void syn_rows_compute(float* __restrict__ y,
 }
 
 // -- synthesis (K5s), axis -2 -----------------------------------------------------
+
+// Pair p of a window that starts at pair q0 = i0 - (H - 1), reduced mod m
+// only where the item wraps (q0 < 0; a column shorter than the filter wraps
+// several times).
+__device__ __forceinline__ int syn_pair(int q0, int p, int m, bool wraps) {
+  int q = q0 + p;
+  if (wraps) {
+    q %= m;
+    if (q < 0) q += m;
+  }
+  return q;
+}
 
 // Step 1: item k's window, pair rows [i0 - (H - 1), i0 + cnt) mod m of its
 // 32 columns of ca (window rows 0 .. W - 1) and cd (W .. 2W - 1), window row
@@ -832,8 +895,8 @@ dwt_cols(const float* __restrict__ x, const float* __restrict__ taps,
   }
 }
 
-// K5s: the same walk, two windows, as `dwt_cols` (the rows form too: its
-// copy lands in the padded slots, so it needs no relayout)
+// K5s: the rows form walks as `dwt_rows` (the copy of the next item lands
+// while this one computes from the window), the columns form as `dwt_cols`
 template <int R, int HT>
 __global__ void __launch_bounds__(R <= 8 ? 512 : 256, 2)
 dwt_syn_rows(const float* __restrict__ ca, const float* __restrict__ cd,
@@ -841,21 +904,22 @@ dwt_syn_rows(const float* __restrict__ ca, const float* __restrict__ cd,
              const SynRowsGeo g) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  float* buf = syn_rows_copy_buf(smem);
+  float2* win = syn_rows_window(smem, g);
   const int tid = threadIdx.x;
   stage_syn_taps(taps, smem4, g.H, tid, g.threads);
   i64 k = blockIdx.x;
-  if (k < g.nwork) syn_rows_copy(ca, cd, syn_rows_window(smem, g, 0), g, k, tid);
+  if (k < g.nwork) syn_rows_copy(ca, cd, buf, g, k, tid);
   copy_commit();
-  for (int n = 0; k < g.nwork; ++n, k += gridDim.x) {
+  for (; k < g.nwork; k += gridDim.x) {
+    copy_wait<0>();
+    __syncthreads();   // the copy landed; the last item's window is free
+    syn_rows_relayout(buf, win, g, k, tid);
+    __syncthreads();   // the window is whole; the copy is free
     if (k + gridDim.x < g.nwork)
-      syn_rows_copy(ca, cd, syn_rows_window(smem, g, (n + 1) & 1), g,
-                    k + gridDim.x, tid);
+      syn_rows_copy(ca, cd, buf, g, k + gridDim.x, tid);
     copy_commit();
-    copy_wait<1>();
-    __syncthreads();   // item k's window landed
-    syn_rows_compute<R, HT>(y, smem4, syn_rows_window(smem, g, n & 1), g, k,
-                            tid);
-    __syncthreads();   // its window is free for item k + 2 grid
+    syn_rows_compute<R, HT>(y, smem4, win, g, k, tid);
   }
 }
 
@@ -1025,7 +1089,8 @@ inline cudaError_t launch(const float* x, const float* taps, float* ca,
 // tap loops for H = 3, 9 and 45 (rows) or 3 and 9 (columns), the chunked
 // loop at every other H, and R = 16's chunked loop for columns with filters
 // longer than 64 taps.  The rows form stores 16 bytes where y is 16-byte
-// aligned, the columns form copies 16 bytes where ca and cd are.
+// aligned; both forms copy 16 bytes where ca and cd are (rows: and m % 4
+// == 0).
 inline cudaError_t launch_syn(const float* ca, const float* cd,
                               const float* taps, float* y, i64 batch, int m,
                               i64 inner, int L, cudaStream_t st) {
@@ -1033,7 +1098,8 @@ inline cudaError_t launch_syn(const float* ca, const float* cd,
     return cudaErrorInvalidValue;
   if (inner == 1) {
     SynRowsGeo g;
-    if (!syn_rows_geometry(batch, 2 * m, L, aligned(y, 16), g))
+    if (!syn_rows_geometry(batch, 2 * m, L, aligned(y, 16),
+                           aligned(ca, 16) && aligned(cd, 16), g))
       return cudaErrorInvalidValue;
     switch (g.H) {
       case 3: return launch_one(dwt_syn_rows<8, 3>, g, st, ca, cd, taps, y);

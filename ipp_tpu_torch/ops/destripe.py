@@ -4,10 +4,12 @@
     per level -> waverec2 -> bleach correction -> expm1 -> round/clip
 
 on tensors with leading batch dimensions, on one device.  The DWT analysis
-runs through the CUDA kernel K5 on the card (`wavelets`); the notch is the
-reference's rfft path through `torch.fft`, with its sigma/2 complex-bin
-rule.  The numbers the reference pins are kept: `calculate_pad_size`'s
-c = 5e14, the pad planner's min_len = 34 and its level cap of 7.
+runs through the CUDA kernels K5 and K5s on the card (`wavelets`); the
+notch is the reference's rfft path with its sigma/2 complex-bin rule,
+through the CUDA kernel K8 on the card (`cuda_notch.notch_filter`: a
+tile's result never depends on its batch) and `torch.fft` on the CPU.
+The numbers the reference pins are kept: `calculate_pad_size`'s c = 5e14,
+the pad planner's min_len = 34 and its level cap of 7.
 
 Integer images follow `utils/transfer.py` (uint16 as int32 on the
 device); the output has the input's dtype.
@@ -27,6 +29,7 @@ import torch
 
 from ..utils.transfer import host_dtype
 from . import wavelets as wv
+from .cuda_notch import notch_filter
 from .intensity import (correct_bleaching, expm1_clip, foreground_fraction,
                         log1p_f32, round_clip)
 from .padding import pad_trailing
@@ -88,12 +91,8 @@ def filter_coefficient(coef: torch.Tensor, width_frac: float,
         sigma = coef.shape[-1] * width_frac
     else:
         raise ValueError("axis must be -1 or -2")
-    n = coef.shape[axis]
-    f = torch.fft.rfft(coef, dim=axis)
-    g = torch.from_numpy(notch(f.shape[axis], 0.5 * sigma)).to(coef.device)
-    shape = [1] * f.dim()
-    shape[axis] = f.shape[axis]
-    return torch.fft.irfft(f * g.reshape(shape), n=n, dim=axis)
+    g = notch(coef.shape[axis] // 2 + 1, 0.5 * sigma)
+    return notch_filter(coef.contiguous(), g, axis)
 
 
 def filter_subband(img: torch.Tensor, sigma: float, level: int, wavelet: str,

@@ -1,36 +1,41 @@
 #!/usr/bin/env python3
-"""Time K5, one level of circular DWT analysis, on one CUDA card.
+"""Time K5 and K5s, one level of circular DWT analysis and its synthesis,
+on one CUDA card.
 
     python3 scripts/dwt_bench.py [--quick] [--sweep] [--variants] [--clocks]
                                  [--root DIR] [--tag T]
 
 At every level shape of the destripe CLI's padded batch (8, 2688, 2688),
-levels 0-6 (rows of 2688 ... 42), as wavelets._dwt2_once runs them: axis -1
-on (8 h, w) and axis -2 on (8, h, w / 2); for the filter lengths 2, 6, 18,
-68, 90, 102 (haar, db3, db9, db34, coif15, coif17): the kernel against its
-plain version (max |kernel - plain| / max |plain| <= 1e-5), then the
-kernel, the plain version, one strided F.conv1d of both filters over the
-circular extension built beforehand (the library call) and the bound
-(chip_smoke.work_dwt: the taps' FLOPs over the f32 peak or 8 bytes an
-input element over the HBM rate), in ms by CUDA events.  Prints ptxas'
+levels 0-6 (rows of 2688 ... 42), as wavelets._dwt2_once and _idwt2_once
+run them: axis -1 on (8 h, w) and axis -2 on (8, h, w / 2) (the analysis'
+input, the synthesis' output); for the filter lengths 2, 6, 18, 68, 90, 102
+(haar, db3, db9, db34, coif15, coif17): each kernel against its plain
+version (max |kernel - plain| / max |plain| <= 1e-5), then the kernel, the
+plain version, the library call (K5: one strided F.conv1d of both filters
+over the circular extension built beforehand; K5s: one F.conv_transpose1d
+/ 2d of both subbands, no fold) and the bound (chip_smoke.work_dwt: the
+taps' FLOPs over the f32 peak or 8 bytes an input element of K5, an output
+element of K5s, over the HBM rate), in ms by CUDA events.  Prints ptxas'
 registers and spills first, the card's name and power limit last; writes
 chiprun_out/dwt_bench[_TAG].json.
 
-`--quick`: level 0 only, for db3, db9 and coif15.  `--root DIR`: take the
-package from DIR (an unpacked `git archive` of another commit, so two
-kernels are timed on one card in one call; --sweep needs this tree's
-package).  `--sweep` then times the kernel's knobs at level 0 and level 4
-for db3, db9, db34, coif15 and coif17: R outputs a thread (4, 8, 16), the
-most threads a block takes (128, 256, 384, 512; 256 at R = 16) and the
-compile-time tap loop against the generic one (at R = 8 and H = 3, 9, 45
-only).
+`--quick`: level 0 only, for db3, db9 and coif15.  `--root DIR`: also
+build the package at DIR (an unpacked `git archive` of another commit)
+through DIR's own ops/_build.py and run its K5s on the same inputs beside
+this tree's at every case: its time, and whether this tree's output equals
+its bit for bit (a difference fails the run).  `--sweep` then times K5's
+knobs at level 0 and level 4 for db3, db9, db34, coif15 and coif17: R
+outputs a thread (4, 8, 16), the most threads a block takes (128, 256,
+384, 512; 256 at R = 16) and the compile-time tap loop against the generic
+one (at R = 8 and H = 3, 9, 45 only).
 `--variants` then builds csrc/dwt.cu alone with `IPP_DWT_DIAG` set
 (`VARIANTS`: timing-only builds that skip the tap loop and the stores, or
 the copies) and times each at level 0 for db3, db9 and coif15 against this
-build, at 256 and 512 threads a block, beside one x.clone() of the same
-bytes: where the kernel's time goes.  `--clocks` runs K5 at level 0 for
-about two seconds a case (coif15 on both axes, db9 along x) while
-nvidia-smi samples the SM clock and the power draw every 100 ms.
+build: K5 at 256 and 512 threads a block, K5s at its own geometry, each
+beside one clone of the same bytes: where the kernels' time goes.
+`--clocks` runs K5 at level 0 for about two seconds a case (coif15 on both
+axes, db9 along x) while nvidia-smi samples the SM clock and the power
+draw every 100 ms.
 """
 
 from __future__ import annotations
@@ -46,14 +51,12 @@ def arg(name, default=None):
     return sys.argv[sys.argv.index(name) + 1] if name in sys.argv else default
 
 
-PKG_ROOT = Path(arg("--root", str(ROOT))).resolve()
+PARENT = Path(arg("--root")).resolve() if "--root" in sys.argv else None
 sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402  (this tree's, whatever --root says)
-
-sys.path.insert(0, str(PKG_ROOT))
+import chip_smoke as cs  # noqa: E402
 from ipp_tpu_torch.ops import cuda_dwt as cd  # noqa: E402
 from ipp_tpu_torch.ops import wavelets as wv  # noqa: E402
 from ipp_tpu_torch.ops._build import build_info, load_library  # noqa: E402
@@ -77,7 +80,7 @@ def build_variants():
 
     out = ROOT / "build" / "dwt_variants"
     out.mkdir(parents=True, exist_ok=True)
-    src = PKG_ROOT / "ipp_tpu_torch" / "csrc" / "dwt.cu"
+    src = ROOT / "ipp_tpu_torch" / "csrc" / "dwt.cu"
     cmds = [[_build._nvcc(), *_build._ARCH, "-std=c++17", "-O3", "-Xcompiler",
              "-fPIC", "-Xptxas", "-v", *flags, "-shared", "-o",
              str(out / f"{name}.so"), str(src)]
@@ -86,11 +89,24 @@ def build_variants():
     libs = {}
     for name in VARIANTS:
         lib = ctypes.CDLL(str(out / f"{name}.so"))
-        fn = lib.ipp_dwt_analysis_knobs
-        fn.argtypes = _build._SIGNATURES["ipp_dwt_analysis_knobs"]
-        fn.restype = ctypes.c_int
+        for entry in ("ipp_dwt_analysis_knobs", "ipp_dwt_synthesis"):
+            fn = getattr(lib, entry)
+            fn.argtypes = _build._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
         libs[name] = lib
     return libs, log
+
+
+def parent_library(parent: Path):
+    """The kernel library of the package at `parent`, built into its own
+    build directory by its own ops/_build.py (every C entry bound)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", parent / "ipp_tpu_torch" / "ops" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load_library()
 
 
 def level_cases(level: int):
@@ -109,6 +125,39 @@ def library_fn(x, taps, axis):
     ext = ext.reshape(-1, 1, n + L).contiguous()
     w = taps.unsqueeze(1)
     return lambda: torch.nn.functional.conv1d(ext, w, stride=2)
+
+
+def syn_library_fn(ca, cdd, taps, axis):
+    """One transposed convolution of both subbands stacked, without the
+    fold (chip_smoke.dwt_library_fns)."""
+    return cs.dwt_library_fns(torch, taps, axis, ca=ca, cd=cdd)
+
+
+def syn_fn(lib, ca, cdd, taps, axis):
+    """K5s through `lib`'s C entry (this build, a variant or the parent's)
+    into one output allocated here."""
+    from ipp_tpu_torch.ops.cuda_fft import _launch
+
+    m = ca.shape[axis]
+    inner = 1 if axis == -1 else ca.shape[-1]
+    out_shape = list(ca.shape)
+    out_shape[axis] = 2 * m
+    y = torch.empty(out_shape, device=ca.device)
+    counts = {"syn": 0}
+
+    def run():
+        _launch("syn", ca.device, lib.ipp_dwt_synthesis, ca.data_ptr(),
+                cdd.data_ptr(), taps.data_ptr(), y.data_ptr(),
+                ca.numel() // (m * inner), m, inner, taps.shape[1],
+                counts=counts)
+        return y
+    return run
+
+
+def half(shape, axis):
+    sub = list(shape)
+    sub[axis] //= 2
+    return tuple(sub)
 
 
 def knob_fn(lib, x, taps, axis, R, threads, generic):
@@ -172,8 +221,9 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     card = cs.card_line()
-    print(f"card: {card}; package from {PKG_ROOT}")
+    print(f"card: {card}; parent package: {PARENT}")
     lib = load_library()
+    parent = parent_library(PARENT) if PARENT is not None else None
     info = build_info()
     print(f"built in {info['seconds']:.1f} s")
     for line in cs.ptxas_summary(info["ptxas"]):
@@ -184,10 +234,10 @@ def main() -> int:
     rows, bad = [], []
     inputs = {}
 
-    def data(shape):
-        if shape not in inputs:
-            inputs[shape] = torch.randn(shape, generator=gen, device=dev)
-        return inputs[shape]
+    def data(shape, tag=0):
+        if (shape, tag) not in inputs:
+            inputs[shape, tag] = torch.randn(shape, generator=gen, device=dev)
+        return inputs[shape, tag]
 
     for name in (QUICK if quick else WAVELETS):
         taps = wv.filter_taps(name, dev)
@@ -207,18 +257,63 @@ def main() -> int:
                     torch, lambda: cd.dwt_analysis_plain(x, taps, axis), reps)
                 lib_ms = cs.time_ms(torch, library_fn(x, taps, axis), reps)
                 bound_ms, by = cs.bound(*cs.work_dwt(x.numel(), L))
-                rows.append(dict(wavelet=name, taps=L, level=level,
-                                 shape=list(shape), axis=axis, rel_err=rel,
+                rows.append(dict(kernel="K5", wavelet=name, taps=L,
+                                 level=level, shape=list(shape), axis=axis,
+                                 rel_err=rel,
                                  max_abs_err=abs_err, ms=ms, plain_ms=plain,
                                  library_ms=lib_ms, bound_ms=bound_ms,
                                  bound_by=by))
-                print(f"  {name:<6s} L {L:3d} level {level} {str(shape):<18s} "
+                print(f"  K5  {name:<6s} L {L:3d} level {level} "
+                      f"{str(shape):<18s} "
                       f"axis {axis:2d} rel {rel:.2e}  kernel {ms:7.4f} ms  "
                       f"plain {plain:7.3f}  conv1d {lib_ms:7.4f}  bound "
                       f"{bound_ms:7.4f} ({by})  kernel/bound "
                       f"{ms / bound_ms:5.2f}")
                 if not rel <= 1e-5:
                     bad.append(f"{name} level {level} axis {axis}: {rel:.2e}")
+                # K5s to the same shape, from two subbands of half of it
+                sub = half(shape, axis)
+                ca, cdd = data(sub), data(sub, 1)
+                got = cd.dwt_synthesis(ca, cdd, taps, axis)
+                ref = cd.dwt_synthesis_plain(ca, cdd, taps, axis)
+                torch.cuda.synchronize()
+                abs_err, rel = cs.err_of_max(got, ref)
+                del ref
+                ms = cs.time_ms(
+                    torch, lambda: cd.dwt_synthesis(ca, cdd, taps, axis), reps)
+                plain = cs.time_ms(torch, lambda: cd.dwt_synthesis_plain(
+                    ca, cdd, taps, axis), reps)
+                lib_ms = cs.time_ms(torch, syn_library_fn(ca, cdd, taps, axis),
+                                    reps)
+                row = dict(kernel="K5s", wavelet=name, taps=L, level=level,
+                           shape=list(shape), axis=axis, rel_err=rel,
+                           max_abs_err=abs_err, ms=ms, plain_ms=plain,
+                           library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+                old = ""
+                if parent is not None:
+                    pfn = syn_fn(parent, ca, cdd, taps, axis)
+                    row["parent_equal"] = torch.equal(pfn(), got)
+                    row["parent_ms"] = cs.time_ms(torch, pfn, reps)
+                    # this tree's once more, after the parent's: in turns
+                    row["ms_again"] = cs.time_ms(
+                        torch, lambda: cd.dwt_synthesis(ca, cdd, taps, axis),
+                        reps)
+                    old = (f"  parent {row['parent_ms']:7.4f} ms (again "
+                           f"{row['ms_again']:7.4f}), bit-equal "
+                           f"{row['parent_equal']}")
+                    if not row["parent_equal"]:
+                        bad.append(f"K5s {name} level {level} axis {axis}: "
+                                   f"differs from the parent's")
+                rows.append(row)
+                print(f"  K5s {name:<6s} L {L:3d} level {level} "
+                      f"{str(shape):<18s} axis {axis:2d} rel {rel:.2e}  "
+                      f"kernel {ms:7.4f} ms  plain {plain:7.3f}  conv_t "
+                      f"{lib_ms:7.4f}  bound {bound_ms:7.4f} ({by})  "
+                      f"kernel/bound {ms / bound_ms:5.2f}{old}")
+                if not rel <= 1e-5:
+                    bad.append(f"K5s {name} level {level} axis {axis}: "
+                               f"{rel:.2e}")
+                del got
     sweep_rows = []
     if sweep:
         for name in SWEEP_WAVELETS:
@@ -289,6 +384,29 @@ def main() -> int:
                 print(f"  variant {'x.clone()':<16s} {name:<6s} axis "
                       f"{axis:2d}: {ms:7.4f} ms ({ms / bound_ms:5.2f}x bound)")
                 del ref
+                # K5s to the same shape, at its one geometry
+                sub = half(shape, axis)
+                ca, cdd = data(sub), data(sub, 1)
+                ref = cd.dwt_synthesis_plain(ca, cdd, taps, axis)
+                for vname, vlib in libs.items():
+                    fn = syn_fn(vlib, ca, cdd, taps, axis)
+                    _, rel = cs.err_of_max(fn(), ref)
+                    ms = cs.time_ms(torch, fn, 20)
+                    variant_rows.append(dict(
+                        kernel="K5s", variant=vname, wavelet=name, axis=axis,
+                        ms=ms, rel_err=rel, bound_ms=bound_ms))
+                    print(f"  variant K5s {vname:<12s} {name:<6s} axis "
+                          f"{axis:2d}: {ms:7.4f} ms ({ms / bound_ms:5.2f}x "
+                          f"bound) rel {rel:.1e}")
+                    if not rel <= 1e-5 and not vname.startswith("diag"):
+                        bad.append(f"variant K5s {vname} {name} {axis}")
+                y = ref.clone()
+                ms = cs.time_ms(torch, lambda: y.clone(), 20)
+                variant_rows.append(dict(kernel="K5s", variant="clone",
+                                         wavelet=name, axis=axis, ms=ms))
+                print(f"  variant K5s {'y.clone()':<12s} {name:<6s} axis "
+                      f"{axis:2d}: {ms:7.4f} ms ({ms / bound_ms:5.2f}x bound)")
+                del ref, y
     clock_rows = []
     if "--clocks" in sys.argv:
         for name, axis in (("coif15", -1), ("coif15", -2), ("db9", -1)):
@@ -304,7 +422,7 @@ def main() -> int:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"dwt_bench{'_' + tag if tag else ''}.json").write_text(json.dumps(
-        dict(card=card, root=str(PKG_ROOT), rows=rows, sweep=sweep_rows,
+        dict(card=card, parent=str(PARENT), rows=rows, sweep=sweep_rows,
              variants=variant_rows, clocks=clock_rows,
              ptxas=[s for s in cs.ptxas_summary(info["ptxas"]) if "dwt" in s]),
         indent=1))

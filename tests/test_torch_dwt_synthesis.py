@@ -10,7 +10,9 @@ wrapper `cuda_dwt.dwt_synthesis`, on the CPU and on the card.
   (`syn_rows_geometry`, `cols_geometry`, mirrored by `syn_rows_geo` and
   test_torch_dwt_kernel's `cols_geo`): each item's window of pairs
   [i0 - (H - 1), i0 + cnt) mod m copied into its padded slots of a
-  shared memory that is NaN everywhere else, R output pairs a thread
+  shared memory that is NaN everywhere else (the rows form through its
+  16-byte chunks, as they lie, and the relayout from the window's offset
+  in them, at every offset mod 4), R output pairs a thread
   reading the reversed taps at slot q + s, the interleaved stores;
   against the plain version at 1e-6 of max, every output written exactly
   once.
@@ -106,22 +108,26 @@ def test_synthesis_inverts_analysis():
 
 # -- the kernel's index maps -----------------------------------------------------
 
-def syn_rows_geo(nrows, n, L):
+def syn_rows_geo(nrows, n, L, copy16=True):
     """csrc/dwt.cuh `syn_rows_geometry`: `rows_geometry`'s segments and rows
-    an item at its defaults (R = 8); shared memory holds the taps and two
-    buffers of rows x (ca, cd) windows of Wp floats, seg + H - 1 pairs
-    padded."""
+    an item at its defaults (R = 8); shared memory holds the taps, the copy
+    (rows x (ca, cd) x Sq floats: the 16-byte chunks that cover a window)
+    and the window (rows x Wp float2 (ca, cd) slots, seg + H - 1 pairs
+    padded); 16-byte copies where the subbands are aligned (`copy16`) and
+    m % 4 == 0."""
     R, threads = 8, 512 if L > 32 else 256
     H, m = L // 2, n // 2
     tpr = min(cdiv(m, R), threads)
     seg = tpr * R
+    Sq = cdiv(seg + H - 1 + 3, 4) * 4
     Wp = padded(seg + H - 1, R)
     rows = min(nrows, threads // tpr)
-    while rows > 1 and TAP_BYTES + 2 * rows * 2 * Wp * 4 > SMEM_LIMIT:
+    while rows > 1 and TAP_BYTES + rows * 2 * (Sq + Wp) * 4 > SMEM_LIMIT:
         rows -= 1
     return dict(R=R, H=H, m=m, tpr=tpr, seg=seg, tiles=cdiv(m, seg),
-                rows=rows, Wp=Wp, threads=cdiv(rows * tpr, 32) * 32,
-                smem=TAP_BYTES + 2 * rows * 2 * Wp * 4,
+                rows=rows, Sq=Sq, Wp=Wp, threads=cdiv(rows * tpr, 32) * 32,
+                smem=TAP_BYTES + rows * 2 * (Sq + Wp) * 4,
+                copy16=bool(copy16 and m % 4 == 0),
                 items=cdiv(nrows, rows) * cdiv(m, seg))
 
 
@@ -144,33 +150,56 @@ def _pairs(q0, need, m, count):
 NAN = float("nan")
 
 
-def emulate_syn_rows(ca, cd, taps):
+def emulate_syn_rows(ca, cd, taps, copy16=True):
     """The last-axis kernel on ca, cd (nrows, m), float64, all items at
     once: item k holds rows row0 .. row0 + rows - 1 and output pairs i0 ..
-    i0 + cnt - 1; each row's ca and cd window holds pair (i0 - (H - 1) + p)
-    mod m at slot padded(p) for p < cnt + H - 1, NaN elsewhere (and past
-    Wp); thread t of row rl reads slot t (R + 1) + c + c // R for window
-    pair c = r + s of output pair tR + r, s < H; pairs < cnt are stored at
-    y[2j], y[2j + 1].  Returns y and how often each output was written."""
+    i0 + cnt - 1; its window is the need = cnt + H - 1 pairs from q0 = (i0
+    - (H - 1)) mod m on.  The copy of each row's subband (NaN but where a
+    copy lands) takes, with 16-byte copies, chunk u = the row's chunk (q0 //
+    4 + u) mod (m / 4) for u < ceil((q0 % 4 + need) / 4), else float p =
+    pair (q0 + p) mod m for p < need; the relayout puts copy float off + p
+    (off = q0 % 4 with 16-byte copies, else 0) at window slot padded(p),
+    NaN elsewhere (and past Wp); thread t of row rl reads slot t (R + 1) + c
+    + c // R for window pair c = r + s of output pair tR + r, s < H; pairs
+    < cnt are stored at y[2j], y[2j + 1].  Returns y and how often each
+    output was written."""
     nrows, m = ca.shape
     n = 2 * m
-    g = syn_rows_geo(nrows, n, taps.shape[1])
+    g = syn_rows_geo(nrows, n, taps.shape[1], copy16)
     R, H, seg, rows = g["R"], g["H"], g["seg"], g["rows"]
-    Wp, tpr = g["Wp"], g["tpr"]
+    Sq, Wp, tpr = g["Sq"], g["Wp"], g["tpr"]
     k = torch.arange(g["items"])
     row0, i0 = (k // g["tiles"]) * rows, (k % g["tiles"]) * seg
     cnt = torch.clamp(m - i0, max=seg)
-    pair, staged = _pairs(i0 - (H - 1), cnt + H - 1, m, seg + H - 1)
-    slot = padded(torch.arange(seg + H - 1), R)
+    need = cnt + H - 1
+    q0 = (i0 - (H - 1)) % m
+    u = torch.arange(Sq)
+    if g["copy16"]:
+        off = q0 % 4
+        # copy float u: chunk u // 4 of the copy, the row's chunk (q0 // 4
+        # + u // 4) mod (m / 4), float u % 4 of it
+        src = 4 * ((q0[:, None] // 4 + u // 4) % (m // 4)) + u % 4
+        copied = u // 4 < cdiv(off + need, 4)[:, None]
+        assert bool(((src // 4) * 4 + 3 < m).all())   # no chunk straddles
+    else:
+        off = torch.zeros_like(q0)
+        src = (q0[:, None] + u) % m
+        copied = u < need[:, None]
+    p = torch.arange(seg + H - 1)
+    placed = p < need[:, None]                                  # (k, pairs)
+    slot = padded(p, R)
     row = row0[:, None] + torch.arange(rows)                   # (k, rows)
     rowc = torch.clamp(row, max=nrows - 1)
     spare = Wp + R + H       # NaN past the window: a read there shows
+    nan = torch.tensor(NAN, dtype=torch.float64)
     wins = []
     for band in (ca, cd):
-        src = band.double()[rowc]                               # (k, rows, m)
-        val = src.gather(-1, pair[:, None].expand(-1, rows, -1))
-        val = torch.where(staged[:, None], val, torch.tensor(NAN,
-                                                             dtype=val.dtype))
+        rowv = band.double()[rowc]                              # (k, rows, m)
+        copy = rowv.gather(-1, src[:, None].expand(-1, rows, -1))
+        copy = torch.where(copied[:, None], copy, nan)          # (k, rows, Sq)
+        at = (off[:, None] + p).clamp(max=Sq - 1)
+        val = copy.gather(-1, at[:, None].expand(-1, rows, -1))
+        val = torch.where(placed[:, None], val, nan)
         w = torch.full((len(k), rows, Wp + spare), NAN, dtype=torch.float64)
         w[:, :, slot] = val
         wins.append(w)
@@ -251,9 +280,15 @@ def _check(y, hits, ref):
     assert err <= TOL * scale, err / scale
 
 
-@pytest.mark.parametrize("n", LENGTHS)
-@pytest.mark.parametrize("name", WAVELETS)
+@pytest.mark.parametrize("n", LENGTHS + (8200,))
+@pytest.mark.parametrize("name", WAVELETS + ("db4",))
 def test_rows_emulation_matches_plain(name, n):
+    """The window's start q0 = (i0 - (H - 1)) mod m lies at q0 % 4 = (1 - H)
+    % 4 of a 16-byte chunk: 0 (haar, db9, coif15), 1 (db4), 2 (db3,
+    coif17), 3 (db34); m % 4 == 0 copies 16 bytes (m = 8: rows shorter
+    than db9 and longer filters, wrapping several times; 168, 1344; 4100:
+    two or three segments, the later ones not wrapping), the other m 4
+    bytes (1, 5, 21, 43, 2049)."""
     rng = np.random.default_rng(n)
     nrows = 3 if n >= 2688 else 37
     ca, cd = _subbands(rng, (nrows, n // 2))
@@ -311,9 +346,15 @@ def test_destripe_levels_fit_the_card():
 
 # (axis, B, n, S, L, aligned): every filter length; the CLI's first and
 # last level; a row past one tile; rows shorter than the filter; odd m;
-# ragged widths; 4-byte copies and stores; R = 16 columns
+# ragged widths; 4-byte copies and stores; R = 16 columns.  The rows'
+# 16-byte copies (m % 4 == 0, aligned) with the window at every offset of
+# a chunk (L = 18, 8, 6, 68: q0 % 4 = 0, 1, 2, 3), rows shorter than the
+# filter (m = 4, 8) and a second segment (m = 4100)
 HOST_CASES = [
     (-1, 3, 2688, 1, 18, 1), (-1, 3, 2688, 1, 6, 0),
+    (-1, 3, 2688, 1, 8, 1), (-1, 3, 2688, 1, 6, 1),
+    (-1, 3, 2688, 1, 68, 1), (-1, 5, 8, 1, 18, 1), (-1, 4, 16, 1, 90, 1),
+    (-1, 2, 8200, 1, 18, 1), (-1, 2, 8200, 1, 68, 1),
     (-1, 5, 2688, 1, 90, 1), (-1, 9, 42, 1, 102, 1),
     (-1, 7, 84, 1, 2, 1), (-1, 6, 16, 1, 18, 1),
     (-1, 4, 2, 1, 68, 1), (-1, 3, 10004, 1, 90, 1),
@@ -351,13 +392,14 @@ def test_header_synthesis_on_the_host_matches_float64(host_check):
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
     assert len(lines) == len(HOST_CASES)
-    for (axis, B, n, S, L, _), line in zip(HOST_CASES, lines):
+    for (axis, B, n, S, L, aligned), line in zip(HOST_CASES, lines):
         # the header's geometry is the one the emulation above mirrors
         if axis == -1:
-            g = syn_rows_geo(B, n, L)
+            g = syn_rows_geo(B, n, L, bool(aligned))
             want = (f"syn rows tpr {g['tpr']} seg {g['seg']} tiles "
-                    f"{g['tiles']} rows {g['rows']} Wp {g['Wp']} threads "
-                    f"{g['threads']} smem {g['smem']}")
+                    f"{g['tiles']} rows {g['rows']} Sq {g['Sq']} Wp "
+                    f"{g['Wp']} threads {g['threads']} smem {g['smem']}")
+            assert f"copy16 {int(g['copy16'])} " in line, line
         else:
             g = cols_geo(B, n, S, L)
             want = (f"syn cols R {g['R']} TI {g['TI']} warps {g['warps']} tiles_i "

@@ -1,0 +1,105 @@
+"""K8, the destripe notch (ipp_tpu_torch/csrc/notch.cuh), on a CUDA card
+(`gpu`; skipped without one).  No JAX here: the CPU twins are in
+tests/test_torch_notch.py.
+
+- The kernel against its plain version (torch.fft's rfft * g, irfft) at
+  every level shape of the destripe chain's padded batches of 8 (2000 x
+  2000 and 1600 x 2000 tiles), on both axes, and at lengths whose buffers
+  live in the device-memory scratch, a large prime, odd line counts:
+  within 1e-5 of the plain version's max (both f32), one launch a call.
+- A batch of 8 bit-equal to its 8 single tiles and a call to its repeat
+  (cuFFT was not, at n = 672 and 21 along y).
+- `filter_coefficient` on a CUDA tensor with every torch.fft entry
+  refused.
+
+    python -m pytest -m gpu tests/test_torch_notch_card.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ipp_tpu_torch.ops import cuda_notch as K
+from ipp_tpu_torch.ops import destripe as P
+
+TOL = 1e-5
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K8 has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _notch(n):
+    return P.notch(n // 2 + 1, n / 8.0)
+
+
+def _rel(got, ref):
+    """max |got - ref| over max |ref| (over 1 where ref is 0: n = 1, whose
+    notch removes the line's one value)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1.0))
+
+
+def _level_shapes():
+    """(shape, axis) of every notch the destripe chain runs on a batch of
+    8 padded tiles: cH (8, h, w) along x, cV along y, h = H >> level."""
+    out = []
+    for H, W in ((2688, 2688), (2304, 2688)):
+        for lv in range(1, 8):
+            out += [((8, H >> lv, W >> lv), -1), ((8, H >> lv, W >> lv), -2)]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", _level_shapes() + [
+    ((2, 16, 14000), -1), ((2, 14600, 6), -2), ((1, 3, 32749), -1),
+    ((3, 97, 37), -2), ((5, 7, 1), -1)])
+def test_kernel_matches_plain_on_the_card(cuda, shape, axis):
+    rng = np.random.default_rng(sum(shape) - axis)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda)
+    g = _notch(shape[axis])
+    K.reset_launch_counts()
+    got = K.notch_filter(x, g, axis)
+    assert K.LAUNCHES == {"notch": 1}
+    ref = K.notch_filter_plain(x, g, axis)
+    torch.cuda.synchronize()
+    assert _rel(got.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,axis", [(672, -2), (21, -2), (1344, -1),
+                                    (576, -2), (23, -1)])
+def test_kernel_batch_equals_single_tiles_on_the_card(cuda, n, axis):
+    """Each line pair is two lines of one tile, in an order fixed by n: a
+    batch of 8 gives its 8 single tiles bit for bit, and a call its
+    repeat (cuFFT did not at n = 672 and 21 along y)."""
+    rng = np.random.default_rng(n)
+    shape = (8, 333, n) if axis == -1 else (8, n, 333)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda)
+    g = _notch(n)
+    got = K.notch_filter(x, g, axis)
+    assert torch.equal(got, K.notch_filter(x, g, axis))
+    for i in range(8):
+        assert torch.equal(got[i:i + 1], K.notch_filter(x[i:i + 1], g, axis))
+
+
+@pytest.mark.gpu
+def test_filter_coefficient_calls_no_torch_fft_on_the_card(cuda,
+                                                           monkeypatch):
+    def refused(*a, **k):
+        raise AssertionError("torch.fft ran on the card")
+
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 84, 168)).astype(np.float32)).to(cuda)
+    for name in ("rfft", "irfft", "fft", "ifft"):
+        monkeypatch.setattr(torch.fft, name, refused)
+    K.reset_launch_counts()
+    for axis in (-1, -2):
+        y = P.filter_coefficient(x, 0.3, axis=axis)
+        assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    assert K.LAUNCHES == {"notch": 2}

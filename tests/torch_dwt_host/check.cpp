@@ -14,7 +14,8 @@
 // block takes (0: the default), ALIGNED 0 makes axis -1 copy 8 bytes a
 // lane and axis -2 4 bytes.  `syn`: the synthesis K5s instead, subbands
 // ca, cd (B, N/2[, S]) to y (B, N[, S]) at the R and threads launch_syn
-// takes; ALIGNED 0 makes axis -1 store 4 bytes and axis -2 copy 4.  For
+// takes; ALIGNED 0 makes axis -1 copy and store 4 bytes (it copies 16 where
+// N/2 % 4 == 0 and ALIGNED) and axis -2 copy 4.  For
 // each case both tap loops run
 // where the kernel has two (R = 8 and H = 3, 9 or 45: compile-time and
 // generic), on random data and taps, against a naive float64 DWT (for
@@ -96,7 +97,8 @@ static void run_cols(const ColsGeo& g, const float* x, const float* taps,
   }
 }
 
-// K5s, every item in turn as the kernels run it (two windows in turn)
+// K5s, every item in turn as the kernels run it (rows: the copy, the
+// relayout, the tap loop; columns: two windows in turn)
 template <int R, int HT>
 static void run_syn_rows(const SynRowsGeo& g, const float* ca,
                          const float* cd, const float* taps, Out& o) {
@@ -104,11 +106,14 @@ static void run_syn_rows(const SynRowsGeo& g, const float* ca,
   float* smem = reinterpret_cast<float*>(buf.data());
   for (i64 k = 0; k < g.nwork; ++k) {
     std::fill(buf.begin(), buf.end(), make_float4(NAN, NAN, NAN, NAN));
-    float* win = syn_rows_window(smem, g, (int)(k % 2));
+    float* copy = syn_rows_copy_buf(smem);
+    float2* win = syn_rows_window(smem, g);
     for (int t = 0; t < g.threads; ++t) {
       stage_syn_taps(taps, buf.data(), g.H, t, g.threads);
-      syn_rows_copy(ca, cd, win, g, k, t);
+      syn_rows_copy(ca, cd, copy, g, k, t);
     }
+    for (int t = 0; t < g.threads; ++t)
+      syn_rows_relayout(copy, win, g, k, t);
     for (int t = 0; t < g.threads; ++t)
       syn_rows_compute<R, HT>(o.pa(), buf.data(), win, g, k, t);
   }
@@ -192,12 +197,12 @@ static int run_syn(int axis, i64 B, int n, int S, int L, bool aligned,
   const float *a = ca.data(), *d = cd.data(), *t = taps.data();
   if (axis == -1) {
     SynRowsGeo g;
-    if (!syn_rows_geometry(B, n, L, aligned, g)) return -1;
+    if (!syn_rows_geometry(B, n, L, aligned, aligned, g)) return -1;
     snprintf(geo, geo_len,
-             "syn rows tpr %d seg %d tiles %d rows %d Wp %d threads %d "
-             "smem %d vec4 %d items %lld",
-             g.tpr, g.seg, g.tiles, g.rows, g.Wp, g.threads, g.smem, g.vec4,
-             g.nwork);
+             "syn rows tpr %d seg %d tiles %d rows %d Sq %d Wp %d threads %d "
+             "smem %d vec4 %d copy16 %d items %lld",
+             g.tpr, g.seg, g.tiles, g.rows, g.Sq, g.Wp, g.threads, g.smem,
+             g.vec4, g.copy16, g.nwork);
     return forms<R_DEFAULT>(
         g, [&] { run_syn_rows<R_DEFAULT, 0>(g, a, d, t, outs[0]); },
         [&] { run_syn_rows<R_DEFAULT, 3>(g, a, d, t, outs[1]); },

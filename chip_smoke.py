@@ -82,7 +82,10 @@ Phases:
    1344, 1344) ... (8, 21, 21) and (8, 1152, 1344) ... (8, 18, 21), along
    x and along y: <= 1e-5 of max, kernel, plain and library ms and the
    bound, a batch of 8 bit-equal to its 8 single tiles and a call to its
-   repeat; then the pystripe CLI end to end with process_images' stage-1
+   repeat; the 14 notches of a batch of each tile shape in one grouped
+   call (`notch_filter_group`, as `filter_subband` runs them): one launch,
+   each output bit-equal to its one-subband call, ms by CUDA events and by
+   graph replay against the summed bound; then the pystripe CLI end to end with process_images' stage-1
    settings (sigma 250/250, db9, reflect, bidirectional, dark 100, batch
    8) on a
    synthetic tile tree (2 x 2 stacks x 64 planes of 2000 x 2000 and one
@@ -90,7 +93,7 @@ Phases:
    multiplicative stripes along x and y, from a numpy seed): rc 0 (no
    failed tile), 272 u16 outputs of the input shapes, stripe power down
    more than 3x, K5 and K5s launched batches x 3 x levels times each and
-   K8 batches x 2 x levels (476), a
+   K8 once a batch (34), a
    second run into another directory byte-identical, and 8 sampled tiles
    within 1 count of the same chain with the plain DWT on the card; every
    stage of the chain (`compare_stages`: log1p, pad, each wavedec2 level,
@@ -122,7 +125,7 @@ Phases:
 9. the FNT-cube CLI on 8 u16 cubes of 128^3 cut from the phase-4 series
    (written by a minimal raw NRRD writer here), with --destripe (the
    axial destripe through K5, K5s and K8) and 10 RL iterations: 8 outputs
-   of the input shape and dtype, K5 launched, K8 two launches a level,
+   of the input shape and dtype, K5 launched, K8 one launch a cube,
    and exact walk launch counts (the
    cubes' work shape lies outside the v2 domain: RL and the taper take
    torch.fft, no walk launch);
@@ -167,7 +170,7 @@ Phases:
    the bounding box's plane count and shape in u16, every isolated bead's
    intensity-weighted centroid within 0.5 px of its true position, the
    npz at its planned shape, K5 launched batches x 3 x levels times, K8
-   batches x 2 x levels;
+   once a batch;
    stitch Mpix/s, the per-stage seconds and the peak device memory;
 13. process_images --rgb-composite on two channels (Ex_647_Em_690, red,
    the merge's reference; Ex_561_Em_600, green, its content shifted by
@@ -2064,13 +2067,13 @@ def compare_stages(torch, xb, cfg, u16):
 NOTCH_TILES = ((2688, 2688), (2304, 2688))
 
 
-def notch_level_cases():
+def notch_level_cases(tiles=NOTCH_TILES):
     """(shape, axis, sigma) of every notch the chain runs on a padded batch
-    of 8 at phase 6's settings (sigma 250): cH (8, h, w) along x with the
-    notch sigma h * 250 / H, cV along y with w * 250 / W, h = H >> level,
-    levels 1-7 (`destripe.filter_subband`)."""
+    of 8 of each tile shape (H, W) at phase 6's settings (sigma 250): cH
+    (8, h, w) along x with the notch sigma h * 250 / H, cV along y with w
+    * 250 / W, h = H >> level, levels 1-7 (`destripe.filter_subband`)."""
     out = []
-    for H, W in NOTCH_TILES:
+    for H, W in tiles:
         for lv in range(1, 8):
             shape = (8, H >> lv, W >> lv)
             out += [(shape, -1, shape[1] * 250.0 / H),
@@ -2131,6 +2134,81 @@ def notch_cases(torch, dev, rows, bad):
             bad.append(f"K8 {shape} axis {axis}: a batch differs from its "
                        f"singles or a call from its repeat")
         del got, ref, x
+    notch_group_cases(torch, dev, rows, bad, gen)
+
+
+def notch_group_cases(torch, dev, rows, bad, gen):
+    """The 14 notches of one padded batch of 8 of each tile shape in one
+    `notch_filter_group` call, as `destripe.filter_subband` runs them: one
+    launch, each output within 1e-5 of max of its plain version and bit-
+    equal to its one-subband call, the call bit-equal to its repeat; the
+    kernel, the plain versions and the library calls (torch.fft's rfft *
+    g, irfft) of the 14 in ms by CUDA events, the kernel also by CUDA-graph
+    replay (the device's time alone: the wrapper's host time of 14
+    subbands can hide it from events), and the sum of their bounds."""
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_notch as cn
+    from ipp_tpu_torch.ops import destripe as dsm
+
+    for H, W in NOTCH_TILES:
+        cases = notch_level_cases(((H, W),))
+        xs = [torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)
+                               ).to(dev) for shape, _, _ in cases]
+        axes = [axis for _, axis, _ in cases]
+        gs = [dsm.notch(shape[axis] // 2 + 1, 0.5 * sigma)
+              for shape, axis, sigma in cases]
+        gts = [torch.from_numpy(g).to(dev).reshape((-1, 1) if a == -2
+                                                   else (-1,))
+               for g, a in zip(gs, axes)]
+
+        def kfn():
+            return cn.notch_filter_group(xs, gs, axes)
+
+        def pfn():
+            return cn.notch_filter_group_plain(xs, gs, axes)
+
+        def lfn():
+            return [torch.fft.irfft(torch.fft.rfft(x, dim=a) * gt,
+                                    n=x.shape[a], dim=a)
+                    for x, a, gt in zip(xs, axes, gts)]
+        cn.reset_launch_counts()
+        got = kfn()
+        torch.cuda.synchronize()
+        launches = cn.LAUNCHES["notch"]
+        ref = pfn()
+        errs = [err_of_max(a, b) for a, b in zip(got, ref)]
+        abs_err = max(e[0] for e in errs)
+        rel = max(e[1] for e in errs)
+        single = all(torch.equal(y, cn.notch_filter(x, g, a))
+                     for y, x, g, a in zip(got, xs, gs, axes))
+        twice = all(torch.equal(a, b) for a, b in zip(got, kfn()))
+        ms, graph = time_ms(torch, kfn, 10), graph_ms(torch, kfn, 10)
+        plain_ms, lib_ms = time_ms(torch, pfn, 10), time_ms(torch, lfn, 10)
+        bound_ms = sum(bound(*work_notch(x.numel(), x.shape[a]))[0]
+                       for x, a in zip(xs, axes))
+        rows.append(dict(kernel="K8 group", tile=[8, H, W],
+                         subbands=len(xs), launches=launches,
+                         max_abs_err=abs_err, rel_err=rel, ms=ms,
+                         graph_ms=graph, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by="bytes", group_equals_single=single,
+                         two_calls_equal=twice))
+        say(f"  K8 group of {len(xs)} notches of a batch (8, {H}, {W}): "
+            f"{launches} launch, rel {rel:.2e}  kernel {ms:7.3f} ms (graph "
+            f"{graph:7.3f})  plain {plain_ms:7.3f}  library {lib_ms:7.3f}  "
+            f"bound {bound_ms:6.3f} (bytes); group vs one-subband calls: "
+            f"{'bit-equal' if single else 'DIFFER'}, two calls: "
+            f"{'bit-equal' if twice else 'DIFFER'}")
+        if launches != 1 or len(xs) != 14:
+            bad.append(f"K8 group ({H}, {W}): {launches} launches of "
+                       f"{len(xs)} notches")
+        if not rel <= 1e-5:
+            bad.append(f"K8 group ({H}, {W}): rel {rel:.3e}")
+        if not (single and twice):
+            bad.append(f"K8 group ({H}, {W}): a subband differs from its "
+                       f"one-subband call or a call from its repeat")
+        del got, ref, xs
 
 
 def phase_destripe_cli(torch, dev, record, shared):
@@ -2169,8 +2247,8 @@ def phase_destripe_cli(torch, dev, record, shared):
     levels = {shape: dsm._plan_padding(shape, (250.0, 250.0), 0, "db9")[3]
               for shape in per_shape}
     want = sum(b * 3 * levels[shape] for shape, b in batches.items())
-    want_k8 = notch_launches(want)
     batches = sum(batches.values())
+    want_k8 = batches   # one filter_subband call, one K8 launch a batch
     say(f"  input: {n_tiles} tiles ({n_px * 2 / 1e9:.2f} GB u16) in "
         f"{len(stacks)} stacks written in {t_data:.1f} s; levels {levels}; "
         f"{batches} batches of 8 -> expect {want} K5 and {want} K5s "
@@ -2664,6 +2742,7 @@ def phase_fnt(torch, dev, record, shared):
     from ipp_tpu_torch.ops import cuda_dwt as cd
     from ipp_tpu_torch.ops import cuda_fft as cf
     from ipp_tpu_torch.ops import cuda_notch as cn
+    from ipp_tpu_torch.ops import destripe as dsm
     from ipp_tpu_torch.ops.deconv import fft_shape_for
     from ipp_tpu_torch.pipeline import fnt_cubes as fnt
     from ipp_tpu_torch.utils.log import Logger
@@ -2733,8 +2812,11 @@ def phase_fnt(torch, dev, record, shared):
     if k5 < 1 or k5s != k5:
         raise AssertionError(f"K5 / K5s launches {k5} / {k5s}: no axial "
                              f"destripe ran, or not through both")
-    if k8 != notch_launches(k5):
-        raise AssertionError(f"K8 launches {k8} != {notch_launches(k5)}")
+    # one axial destripe a cube: K5's 3 launches a level, one K8 launch
+    levels = dsm._plan_padding((e, e), (1.0, 1.0), 0, "db9")[3]
+    if k8 != notch_launches(k5, levels) or k8 != FNT_CUBES:
+        raise AssertionError(f"K8 launches {k8} != "
+                             f"{notch_launches(k5, levels)} or {FNT_CUBES}")
     if walk != want:
         raise AssertionError(f"walk launches {walk} != {want}")
     if changed != FNT_CUBES:
@@ -3395,9 +3477,9 @@ def phase_stitch(torch, dev, record, shared):
         raise AssertionError(f"CLI rc {rc}")
     if k5 != want or k5s != want:
         raise AssertionError(f"K5 / K5s launches {k5} / {k5s} != {want}")
-    if k8 != notch_launches(want):
+    if k8 != notch_launches(want, levels):
         raise AssertionError(f"K8 launches {k8} != "
-                             f"{notch_launches(want)}")
+                             f"{notch_launches(want, levels)}")
     # the placement: every stack's offset from stack (0, 0) is the truth
     grid = TileGrid.from_xml(st / "Ex_488_Em_525_placement.xml")
     s00 = grid.stacks[0][0]
@@ -3671,9 +3753,9 @@ def phase_composite(torch, dev, record):
     if k5 != want_k5 or k5s != want_k5:
         raise AssertionError(f"K5 / K5s launches {k5} / {k5s} != "
                              f"{want_k5}")
-    if k8 != notch_launches(want_k5):
+    if k8 != notch_launches(want_k5, levels):
         raise AssertionError(f"K8 launches {k8} != "
-                             f"{notch_launches(want_k5)}")
+                             f"{notch_launches(want_k5, levels)}")
     if [o for o, _ in aligned] != [want_off]:
         raise AssertionError(f"offsets {[o for o, _ in aligned]} != "
                              f"[{want_off}]")
@@ -3888,9 +3970,9 @@ def phase_convert(torch, dev, record, shared):
     if k5 != want_k5 or k5s != want_k5:
         raise AssertionError(f"K5 / K5s launches {k5} / {k5s} != "
                              f"{want_k5}")
-    if k8 != notch_launches(want_k5):
+    if k8 != notch_launches(want_k5, levels):
         raise AssertionError(f"K8 launches {k8} != "
-                             f"{notch_launches(want_k5)}")
+                             f"{notch_launches(want_k5, levels)}")
     planes = sorted(out.glob("img_*.tif"))
     if len(planes) != CONV_PLANES:
         raise AssertionError(f"{len(planes)} planes written")
@@ -4217,11 +4299,16 @@ def planes_max_diff(a_dir: Path, b_dir: Path, pattern="*.tif"):
     return len(names), max(diffs, default=0), missing
 
 
-def notch_launches(k5_launches: int) -> int:
-    """K8 launches of a bidirectional tile-chain run beside its K5
-    launches: two notches a level (cH along x, cV along y) against K5's
-    three launches a level."""
-    return k5_launches // 3 * 2
+def notch_launches(k5_launches: int, levels: int) -> int:
+    """K8 launches of a tile-chain run of `levels` wavelet levels beside
+    its K5 launches: one grouped launch a `filter_subband` call (its 2L
+    notches, cH along x and cV along y of every level, L <= 8) against
+    K5's three launches a level."""
+    calls, rest = divmod(k5_launches, 3 * levels)
+    if rest:
+        raise AssertionError(f"{k5_launches} K5 launches are no whole "
+                             f"number of {levels}-level decompositions")
+    return calls
 
 
 def mesh_k5_launches(n_tiles_by_shape, levels, n_dev, batch_size=8):
@@ -5130,13 +5217,21 @@ def main() -> int:
         kernels.append(entry(tag, name, source, replaces,
                              record["destripe_cli"]["launches"][name],
                              dwt_rows, at))
-    # K8 at level 1 of the 2000^2 tiles' batch, (8, 1344, 1344) along x
-    tag, name = NOTCH_KERNEL[0].split()
-    at = [r for r in record["notch"] if r["axis"] == -1
-          and r["shape"] == [8, 1344, 1344]][0]
-    kernels.append(entry(tag, name, NOTCH_KERNEL[1], NOTCH_KERNEL[2],
-                         record["destripe_cli"]["launches"][name],
-                         record["notch"], at))
+    # K8 at level 1 of the 2000^2 tiles' batch, (8, 1344, 1344) along x;
+    # K8g: the same kernel on the 14 notches of that batch in one grouped
+    # call, as the main path launches it (bound summed).  Both by CUDA
+    # events; the launches are the main path's (one a batch)
+    k8_tag, k8_name = NOTCH_KERNEL[0].split()
+    single = [r for r in record["notch"] if r["kernel"] == "K8"]
+    group = [r for r in record["notch"] if r["kernel"] == "K8 group"]
+    for tag, name, rows, at in (
+            (k8_tag, k8_name, single, [r for r in single if r["axis"] == -1
+                                       and r["shape"] == [8, 1344, 1344]][0]),
+            (k8_tag + "g", k8_name + "_group", group,
+             [r for r in group if r["tile"] == [8, 2688, 2688]][0])):
+        kernels.append(entry(tag, name, NOTCH_KERNEL[1], NOTCH_KERNEL[2],
+                             record["destripe_cli"]["launches"][k8_name],
+                             rows, at))
     # K6 and K7 at the v1 RL block's work shape (K6: the inverse z stage,
     # K7: the FFT kernel on the forward y stage), launches from that RL run
     v1 = record["v1"]

@@ -24,41 +24,76 @@
 // count, so a destriped tile moved with the batch it came in.  Here each
 // output line is computed from its own line pair, n and g alone: no sum
 // runs across line pairs, and the plan, the passes and the order of every
-// operation depend on n alone, never on the batch, the grid, the block or
-// the line's position.  So a batch gives bit for bit its single tiles.
+// operation depend on n alone, never on the batch, the grid, the block, the
+// group or the line's position.  So a batch gives bit for bit its single
+// tiles, and a grouped launch bit for bit its one-subband launches.
 //
-// Algorithm: dft_fft.cuh's Stockham passes (`fft_pass` with its specialised
-// radices 2, 3, 4, 5, 7, 8, 9, 11, 13, 16 in any pass, and one generic odd
-// pass last; plan `ops/cuda_notch.notch_plan(n)`, any n >= 1), forward, the
-// product with G / n at the last forward pass's store, inverse; twiddles
-// from the float64 table rounded once to f32 (dft_mats.stage_twiddles).
-// One block item holds CP line pairs: it loads them from device memory
-// into one of two float2 buffers, runs the 2P passes buffer to buffer (a
-// barrier after each), and stores buffer 0 back, so each value crosses
-// device memory once each way.
+// Algorithm: in-place mixed-radix Cooley-Tukey passes on one buffer, plan
+// `ops/cuda_notch.notch_plan(n)` = r_0 .. r_{P-1} (dft_fft.cuh's
+// specialised radices 2, 3, 4, 5, 7, 8, 9, 11, 13, 16 and 12 = 3 x 4 here,
+// the fewest passes, 12s first: 1344 = 12 16 7, 1152 = 12 12 8; one
+// generic odd radix last).  Pass p has span L_p = r_p ... r_{P-1} and M_p = L_p / r_p;
+// butterfly i = b M_p + m takes the elements b L_p + m + k M_p, k < r_p, and
+// writes its outputs back to the same elements, so a pass needs no second
+// buffer and no thread touches another's elements within a pass.
+//   forward, decimation in frequency (p = 0 .. P-1): DFT_r, then the
+//     twiddle w_n^(m k n / L_p); the spectrum ends digit-reversed (frequency
+//     f = k_0 + r_0 k_1 + r_0 r_1 k_2 + ... at element sum_p k_p M_p);
+//   the product with G[f] / n, read from a table in that digit-reversed
+//     order (`gp`, built on the host), and a conjugation;
+//   inverse, decimation in time (p = P-1 .. 0) on the conjugated data: the
+//     twiddle w_n^(m k n / L_p), then the FORWARD DFT_r (conj(IDFT(v)) =
+//     DFT(conj(v))), so the inverse needs no code of its own and ends in
+//     natural order; the store takes y_b = -Im.
+// The last forward pass and the first inverse pass have M = 1 (no
+// twiddle) and take the same r elements, so one step runs both in
+// registers around the gain ("the middle": the spectrum never goes through
+// shared memory); the first forward pass loads from device memory into
+// registers and the last inverse pass stores from registers.  A plan of P
+// specialised passes is 2P - 1 steps with 2P - 2 exchanges through shared
+// memory, one barrier each (1344: 5 steps; Stockham passes buffer to
+// buffer took 10 round trips and 9 barriers).  A generic odd last radix r (not held in registers: r is a
+// run-time number) runs its forward and inverse DFT as two steps of
+// dft_fft.cuh's generic items (k, q) from one buffer into a second, and
+// back.  A butterfly loads one twiddle w from the float64 table rounded
+// once to f32 (dft_mats.stage_twiddles), which stays in L1, and takes its
+// powers w^k by products.
 //
-// Layouts, one code path (`at` below):
-// - rows (axis -1): thread j of T in pair c; pair c's slots at c * pitch +
-//   e + (e >> 4) * pad (dft_fft.cuh's padded slots, odd pitch); a warp's
-//   loads and stores run along a row;
+// Geometry: every block has THREADS = 256 threads (8 whole warps) for every
+// length and layout, so one launch serves every notch of a decomposition
+// (`ipp_notch_group`: a table of up to MAX_GROUP subbands, the block finds
+// its subband by the items before it, largest lengths first).  A line pair
+// takes T = pow2ceil(n / VALUES) threads (about 24 values a thread a pass;
+// at most THREADS), a block item CP = THREADS / T pairs:
+// - rows (axis -1): thread (c = tid / T, j = tid % T); pair c's element e at
+//   slot c * pitch + e + (e >> 4) (16 float2 slots are the 32 banks; the
+//   pitch is odd); a warp's loads and stores run along a row;
 // - columns (axis -2): CP column pairs side by side, lanes along W (c =
-//   tid % CP), slot e * CP + c; a warp's loads are CP * 8-byte runs of a
-//   row (float2 where W is even and the tensors 8-byte aligned), no
-//   transpose.  CP is the largest power of two up to 16 whose two buffers
-//   fit half the shared memory (two blocks an SM): 4 at n = 1344, 16 up to
-//   n = 454.
-// Where even one line pair's two buffers exceed the 227 KB of shared
-// memory (n from 14528 on), the buffers live in
-// a scratch of device memory the wrapper allocates, one pair of buffers a
-// block, and the blocks walk the items; the passes are the same code.
+//   tid % CP, j = tid / CP), element e at l + (l >> 4), l = e * CP + c; a
+//   warp's loads are CP * 8-byte runs of a row (float2 where W is even and
+//   the tensors 8-byte aligned), no transpose.
+// CP shrinks (T grows) to the pairs there are: a tile's column pairs, the
+// input's row pairs.  The thread a butterfly runs on never changes its
+// arithmetic.
+// One buffer of CP pairs is ~43-48 KB for every n of the destripe chain,
+// so four blocks (1024 threads, 16 line pairs at n = 1344) share an SM;
+// the registers are cut to 64 for them (MINB; ptxas spills 172 bytes a
+// thread.  Measured on an H100: 3 blocks of 80 registers without spills
+// were faster along y at n = 1344 but slower along x and at 1152; 16 or
+// 48 values a thread were slower, 48 giving CP = 8 column pairs and
+// 64-byte runs at n = 1344; persistent blocks prefetching their next item
+// into L2 too).
+// Where one pair's buffers exceed the 227 KB of shared memory (n above
+// ~27000, or ~13600 with a generic radix), they live in a scratch of device
+// memory the wrapper allocates, one a block, the blocks walk the items
+// (`notch_kernel<true>`, launched alone); the passes are the same code.
 //
 // Bound by bytes: 4 in and 4 out an element (8 n log2 n flops a line pair
 // are far below the bytes at these lengths).
 //
-// The geometry and the load, pass and store steps are functions of (item,
-// thread) that a host compiler also takes, so tests/torch_notch_host/ runs
-// them thread by thread on the host; the kernel (CUDA only) runs them
-// between barriers.
+// The geometry and the steps are functions of (item, thread) that a host
+// compiler also takes, so tests/torch_notch_host/ runs them thread by thread
+// on the host; the kernel (CUDA only) runs them between barriers.
 
 #pragma once
 
@@ -68,20 +103,39 @@ namespace ippnotch {
 
 typedef long long i64;
 using ippdft::Plan;
+using ippdft::cmul;
 
 constexpr int MAX_N = 32768;             // ops/cuda_notch.NOTCH_MAX_N
 constexpr int SMEM_LIMIT = 227 * 1024;
-constexpr int MAX_THREADS = 512;
-constexpr int ROWS_THREADS = 160;        // threads a rows block aims at
-constexpr int ROW_PAD = 1;
-constexpr int COLS_MAX = 16;             // column pairs a columns block
+constexpr int THREADS = 256;             // every block, every length
+constexpr int VALUES = 24;               // values a thread aims at a pass
+constexpr int MINB = 4;                  // blocks an SM (registers cut to 64)
+constexpr int TMIN = 16;                 // threads a pair at least
+constexpr int MAX_GROUP = 16;            // subbands a launch
+constexpr int DESC = 22;                 // int64 words of a subband's row
 // for timing only (scripts/notch_bench.py --variants; wrong results): 1
-// skips the passes, 2 the loads and stores of device memory
+// runs no butterfly (the first pass loads, the last stores, nothing
+// between), 2 reads and writes no device memory
 #ifndef IPP_NOTCH_DIAG
 #define IPP_NOTCH_DIAG 0
 #endif
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int pow2ceil(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+__host__ __device__ inline int log2i(int v) {   // v a power of two
+  int s = 0;
+  while ((1 << s) < v) ++s;
+  return s;
+}
+
+// The radices with a butterfly of constant roots: dft_fft.cuh's and 12.
+__host__ __device__ constexpr bool special(int r) {
+  return ippdft::special(r) || r == 12;
+}
 
 // A plan K8 takes: the radices multiply to n, each is a specialised radix
 // but possibly the last, which is then the generic pass of an odd radix
@@ -94,7 +148,7 @@ inline bool notch_plan_ok(const Plan& pl) {
   for (int p = 0; p < pl.npass; ++p) {
     const int r = pl.radix[p];
     const bool generic = pl.generic && p == pl.npass - 1;
-    if (generic ? (r < 1 || r % 2 == 0) : !ippdft::special(r)) return false;
+    if (generic ? (r < 1 || r % 2 == 0) : !special(r)) return false;
     prod *= r;
   }
   return prod == pl.n;
@@ -105,68 +159,66 @@ inline bool notch_plan_ok(const Plan& pl) {
 struct Geo {
   int n;
   int cols;      // 1: the lines are columns (axis -2)
-  i64 B;
-  int H, W;      // the input is (B, H, W)
+  int H, W;      // a tile is (H, W)
   int CP;        // line pairs a block item
-  int T;         // threads a line pair
-  int threads;   // CP * T
-  int pad;       // rows: slot e + (e >> 4) * pad
+  int T;         // threads a line pair; CP * T = THREADS
+  int cshift;    // log2 CP
+  int tshift;    // log2 T
   int pitch;     // rows: slots between pairs (odd)
-  int buf;       // float2 slots of one of the two buffers
-  int smem;      // bytes of shared memory; 0: the buffers are in the scratch
+  int buf;       // float2 slots of one buffer
+  int nbuf;      // buffers: 2 with a generic radix, else 1
+  int smem;      // bytes of shared memory; 0: the buffers are in a scratch
   int tiles;     // columns: items a tile (blocks of CP column pairs)
   int vec2;      // columns: float2 loads and stores
   i64 pairs;     // line pairs of the input
   i64 items;
 };
 
-// threads a line pair: n / 8, n / 16 from 512 on (dft_fft.cuh's rule)
-inline int pair_threads(int n) {
-  int t = n >= 512 ? n / 16 : n / 8;
-  return t < 1 ? 1 : t > MAX_THREADS ? MAX_THREADS : t;
+// threads a line pair: the power of two at or above n / VALUES, at least
+// TMIN (short lines: more, shorter items)
+__host__ __device__ inline int pair_threads(int n) {
+  const int t = pow2ceil(cdiv(n, VALUES));
+  return t < TMIN ? TMIN : t > THREADS ? THREADS : t;
 }
 
 // The geometry of (B, H, W) along the columns (`cols`) or the rows;
-// aligned8: the input and the output are 8-byte aligned.  False for a
-// shape K8 does not take.
-inline bool geometry(i64 B, int H, int W, bool cols, bool aligned8, Geo& g) {
+// aligned8: the input and the output are 8-byte aligned; generic: the plan
+// ends in a generic pass (two buffers).  False for a shape K8 does not
+// take.
+inline bool geometry(i64 B, int H, int W, bool cols, bool aligned8,
+                     bool generic, Geo& g) {
   g.cols = cols;
-  g.B = B;
   g.H = H;
   g.W = W;
   g.n = cols ? H : W;
   if (B < 1 || H < 1 || W < 1 || g.n > MAX_N) return false;
   const int n = g.n;
   const int t0 = pair_threads(n);
+  g.CP = THREADS / t0;
   if (!cols) {
-    g.pad = ROW_PAD;
-    g.pitch = (n - 1 + ((n - 1) >> 4) * g.pad + 1) | 1;
-    g.T = t0;
-    g.CP = t0 >= ROWS_THREADS ? 1 : ROWS_THREADS / t0;
-    while (g.CP > 1 && 16LL * g.CP * g.pitch > SMEM_LIMIT) --g.CP;
-    if (16LL * g.pitch > SMEM_LIMIT) {   // one pair: no room for a pad
-      g.pad = 0;
-      g.pitch = n | 1;
-    }
+    g.pairs = B * (i64)cdiv(H, 2);
+    while (g.CP > 1 && (i64)(g.CP / 2) >= g.pairs) g.CP /= 2;
+    g.pitch = (n - 1 + ((n - 1) >> 4) + 1) | 1;
     g.buf = g.CP * g.pitch;
     g.tiles = 0;
     g.vec2 = 0;
-    g.pairs = B * (i64)cdiv(H, 2);
     g.items = (g.pairs + g.CP - 1) / g.CP;
   } else {
-    g.pad = 0;
-    g.pitch = n;
-    g.CP = COLS_MAX;
-    while (g.CP > 1 && 16LL * g.CP * n > SMEM_LIMIT / 2) g.CP /= 2;
-    g.T = t0 < MAX_THREADS / g.CP ? t0 : MAX_THREADS / g.CP;
-    g.buf = g.CP * n;
+    const int wp = pow2ceil(cdiv(W, 2));
+    if (g.CP > wp) g.CP = wp;
+    g.pitch = 0;
+    const int l = g.CP * n - 1;
+    g.buf = l + (l >> 4) + 1;
     g.tiles = cdiv(cdiv(W, 2), g.CP);
     g.vec2 = aligned8 && W % 2 == 0;
     g.pairs = B * (i64)cdiv(W, 2);
     g.items = B * g.tiles;
   }
-  g.threads = g.CP * g.T;
-  const i64 bytes = 16LL * g.buf;
+  g.T = THREADS / g.CP;
+  g.cshift = log2i(g.CP);
+  g.tshift = log2i(g.T);
+  g.nbuf = generic ? 2 : 1;
+  const i64 bytes = 8LL * g.nbuf * g.buf;
   g.smem = bytes <= SMEM_LIMIT ? (int)bytes : 0;
   return true;
 }
@@ -174,32 +226,47 @@ inline bool geometry(i64 B, int H, int W, bool cols, bool aligned8, Geo& g) {
 // -- a thread's place ---------------------------------------------------------
 
 // Thread tid's line pair c of the item, its index j among the pair's T
-// threads, and its slots: element e of pair c at base + e * es + (e >> 4) *
-// ps of either buffer.
+// threads, and its slots: element e of pair c at q + (q >> 4) + base of
+// either buffer, q = e * es + off (rows: c * pitch + e + (e >> 4);
+// columns: l + (l >> 4), l = e * CP + c).
 struct Lane {
-  int c, j, base, es, ps;
+  int c, j, base, es, off;
 };
 
 __host__ __device__ inline Lane lane_of(const Geo& g, int tid) {
   Lane l;
   if (g.cols) {
-    l.c = tid % g.CP;
-    l.j = tid / g.CP;
-    l.base = l.c;
+    l.c = tid & (g.CP - 1);
+    l.j = tid >> g.cshift;
+    l.base = 0;
     l.es = g.CP;
-    l.ps = 0;
+    l.off = l.c;
   } else {
-    l.c = tid / g.T;
-    l.j = tid - l.c * g.T;
+    l.c = tid >> g.tshift;
+    l.j = tid & (g.T - 1);
     l.base = l.c * g.pitch;
     l.es = 1;
-    l.ps = g.pad;
+    l.off = 0;
   }
   return l;
 }
 
 __host__ __device__ inline int at(const Lane& l, int e) {
-  return l.base + e * l.es + (e >> 4) * l.ps;
+  const int q = e * l.es + l.off;
+  return q + (q >> 4) + l.base;
+}
+
+// hi 32 bits of a * b: i / M = mulhi(i, magic(M)) for i < 32768 and any M
+// up to 32768 but a power of two (the error i / 2^32 stays below 1 / M)
+__host__ __device__ inline unsigned mulhi(unsigned a, unsigned b) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(a, b);
+#else
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+#endif
+}
+__host__ __device__ inline unsigned magic(int M) {
+  return 0xFFFFFFFFu / (unsigned)M + 1u;
 }
 
 // Line pair c of item k in device memory: element e of line a at a + e *
@@ -234,154 +301,451 @@ __host__ __device__ inline Pair pair_of(const Geo& g, i64 k, int c) {
   return r;
 }
 
+// -- one subband ----------------------------------------------------------------
+
+// A subband of a launch: x -> y (B, H, W) f32, its twiddle table tw (n)
+// float2 exp(-2 pi i j / n), its gains gp (n) in the digit-reversed order
+// of the plan (ops/cuda_notch.notch_gains), its geometry and plan, and the
+// first item of it in the launch's numbering.
+struct Sub {
+  const float* x;
+  float* y;
+  const float2* tw;
+  const float* gp;
+  Geo g;
+  Plan pl;
+  i64 start;
+};
+
 // -- the steps ------------------------------------------------------------------
 
-// Load: item k's line pairs into buffer 0 as z = x_a + i x_b (0 for a
-// missing line b and for pairs past the input).
-__device__ __forceinline__ void load(const Geo& g, const float* __restrict__ x,
-                                     float2* buf, i64 k, int tid) {
-  if (IPP_NOTCH_DIAG == 2) return;
-  const Lane l = lane_of(g, tid);
-  const Pair r = pair_of(g, k, l.c);
-  for (int e = l.j; e < g.n; e += g.T) {
-    float2 v = make_float2(0.f, 0.f);
-    if (r.valid) {
-      const i64 o = e * r.stride;
-      if (g.vec2) {
-        v = *reinterpret_cast<const float2*>(x + r.a + o);
-      } else {
-        v.x = x[r.a + o];
-        if (r.has_b) v.y = x[r.b + o];
+enum Kind { DIF, MID, DIT, LOAD, STORE, GEN_DIF, GEN_DIT };
+
+// Step s of an item: its kind and the pass it runs.  P specialised passes:
+// DIF 0 (from device memory) .. DIF P-2, MID (P-1), DIT P-2 .. DIT 0 (to
+// device memory); a generic last radix: GEN_DIF into the second buffer and
+// GEN_DIT back in place of MID; P = 1: LOAD first, the middle, STORE last
+// (GEN_DIT stores itself).
+__host__ __device__ inline int num_steps(const Plan& pl) {
+  const int P = pl.npass;
+  if (P == 1) return 3;
+  return pl.generic ? 2 * P : 2 * P - 1;
+}
+
+__host__ __device__ inline void step_of(const Plan& pl, int s, int& kind,
+                                        int& pass) {
+  const int P = pl.npass;
+  if (P == 1) {
+    pass = 0;
+    kind = s == 0 ? LOAD : s == 1 ? (pl.generic ? GEN_DIF : MID)
+                                  : (pl.generic ? GEN_DIT : STORE);
+    return;
+  }
+  const int mid = pl.generic ? 2 : 1;   // steps of the middle
+  if (s < P - 1) {
+    kind = DIF;
+    pass = s;
+  } else if (s < P - 1 + mid) {
+    pass = P - 1;
+    kind = !pl.generic ? MID : s == P - 1 ? GEN_DIF : GEN_DIT;
+  } else {
+    kind = DIT;
+    pass = 2 * P - 3 + mid - s;
+  }
+}
+
+// span L_p of pass p: the product of the radices from p on
+__host__ __device__ inline int span_of(const Plan& pl, int p) {
+  int L = 1;
+  for (int q = p; q < pl.npass; ++q) L *= pl.radix[q];
+  return L;
+}
+
+// The forward 12-point DFT as 3 x 4: 3-point DFTs of the inputs j = 4 j1 +
+// j2 for each j2, the roots w12^(j2 k1), 4-point DFTs; output k = k1 + 3 k2.
+__device__ __forceinline__ void dft12(float2 (&v)[12]) {
+  constexpr float C = 0.86602540378443864676f;   // cos 30 degrees
+  float2 t[4][3];
+#pragma unroll
+  for (int j2 = 0; j2 < 4; ++j2) {
+    float2 a[3] = {v[j2], v[4 + j2], v[8 + j2]};
+    ippdft::dft_odd<3, false>(a);
+#pragma unroll
+    for (int k1 = 0; k1 < 3; ++k1) t[j2][k1] = a[k1];
+  }
+  // w12^m = (cos, -sin)(2 pi m / 12) for m = j2 k1 in {1, 2, 3, 4, 6}
+  t[1][1] = cmul(t[1][1], make_float2(C, -0.5f));
+  t[1][2] = cmul(t[1][2], make_float2(0.5f, -C));
+  t[2][1] = cmul(t[2][1], make_float2(0.5f, -C));
+  t[2][2] = cmul(t[2][2], make_float2(-0.5f, -C));
+  t[3][1] = ippdft::quarter<false>(t[3][1]);
+  t[3][2] = make_float2(-t[3][2].x, -t[3][2].y);
+#pragma unroll
+  for (int k1 = 0; k1 < 3; ++k1) {
+    ippdft::dft4<false>(t[0][k1], t[1][k1], t[2][k1], t[3][k1]);
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) v[k1 + 3 * k2] = t[k2][k1];
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void dft_r(float2 (&v)[R]) {
+  if constexpr (R == 12)
+    dft12(v);
+  else
+    ippdft::dft<R, false>(v);
+}
+
+// v[k] *= w^k, k = 1 .. R-1: w from the table, its powers by products
+// (k - 1 roundings: within 1e-6 at R = 16, far below the 1e-5 of the
+// notch), one table load a butterfly
+template <int R>
+__device__ __forceinline__ void twiddle(float2 (&v)[R], float2 w) {
+  float2 wk = w;
+#pragma unroll
+  for (int k = 1; k < R; ++k) {
+    v[k] = cmul(v[k], wk);
+    if (k + 1 < R) wk = cmul(wk, w);
+  }
+}
+
+// One specialised pass of radix R over the pair's butterflies j, j + T, ...
+// (KIND DIF: DFT then twiddle; DIT: twiddle then DFT; MID: DFT, gain,
+// conjugation, DFT), elements read by src(e), written by dst(e, v).
+template <int R, int KIND, class Src, class Dst>
+__device__ __forceinline__ void radix_pass(int j, int T, int n, int L,
+                                           const float2* __restrict__ tw,
+                                           const float* __restrict__ gp,
+                                           Src src, Dst dst) {
+  const int M = L / R;
+  const int NB = n / R;
+  const int tscale = n / L;
+  const bool pow2 = (M & (M - 1)) == 0;
+  const int mshift = pow2 ? log2i(M) : 0;
+  const unsigned mg = pow2 ? 0u : magic(M);
+  for (int i = j; i < NB; i += T) {
+    int b, m;
+    if (pow2) {
+      b = i >> mshift;
+      m = i & (M - 1);
+    } else {
+      b = (int)mulhi((unsigned)i, mg);
+      m = i - b * M;
+    }
+    const int base = b * L + m;
+    float2 v[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = src(base + k * M);
+    if (IPP_NOTCH_DIAG != 1) {
+      const int tm = m * tscale;
+      if (KIND == DIT && tm != 0) twiddle<R>(v, __ldg(&tw[tm]));
+      dft_r<R>(v);
+      if (KIND == MID) {
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const float s = __ldg(&gp[base + k]);
+          v[k] = make_float2(v[k].x * s, -(v[k].y * s));
+        }
+        dft_r<R>(v);
+      }
+      if (KIND == DIF && tm != 0) twiddle<R>(v, __ldg(&tw[tm]));
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) dst(base + k * M, v[k]);
+  }
+}
+
+template <int KIND, class Src, class Dst>
+__device__ __forceinline__ void any_radix(int R, int j, int T, int n, int L,
+                                          const float2* __restrict__ tw,
+                                          const float* __restrict__ gp,
+                                          Src src, Dst dst) {
+  switch (R) {
+    case 2: radix_pass<2, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 3: radix_pass<3, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 4: radix_pass<4, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 5: radix_pass<5, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 7: radix_pass<7, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 8: radix_pass<8, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 9: radix_pass<9, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 11: radix_pass<11, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 12: radix_pass<12, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 13: radix_pass<13, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    case 16: radix_pass<16, KIND>(j, T, n, L, tw, gp, src, dst); break;
+  }
+}
+
+// The generic DFT of odd radix r over the n / r blocks of r consecutive
+// elements (M = 1: no twiddle), forward: output k of block q is sum_j
+// src(q r + j) wr^(j k).  One work item (k <= r / 2, q) gives outputs k and
+// r - k (their roots are conjugates); items run over the pair's T threads
+// with q fastest.  GAIN: the outputs times gp and conjugated (the forward
+// transform's end); dst(e, v) takes them.
+template <bool GAIN, class Src, class Dst>
+__device__ __forceinline__ void generic_radix(int j, int T, int n, int r,
+                                              const float2* __restrict__ tw,
+                                              const float* __restrict__ gp,
+                                              Src src, Dst dst) {
+  const int nb = n / r, h = r / 2;
+  const int items = (h + 1) * nb;
+  const unsigned mg = magic(nb);
+  for (int o = j; o < items; o += T) {
+    const int k = nb == 1 ? o : (int)mulhi((unsigned)o, mg);
+    const int q = o - k * nb;
+    const int base = q * r;
+    float2 a = src(base), bb = make_float2(0.f, 0.f);
+    if (IPP_NOTCH_DIAG != 1) {
+      int e = 0;   // (jj * k) % r
+#pragma unroll 4
+      for (int jj = 1; jj <= h; ++jj) {
+        e += k;
+        if (e >= r) e -= r;
+        const float2 w = __ldg(&tw[e * nb]);   // (cos, -sin) of 2 pi e / r
+        const float2 x1 = src(base + jj), x2 = src(base + r - jj);
+        a.x = fmaf(x1.x + x2.x, w.x, a.x);
+        a.y = fmaf(x1.y + x2.y, w.x, a.y);
+        bb.x = fmaf(x1.x - x2.x, -w.y, bb.x);
+        bb.y = fmaf(x1.y - x2.y, -w.y, bb.y);
       }
     }
-    buf[at(l, e)] = v;
-  }
-}
-
-// Store: buffer 0's y_a + i y_b to item k's lines.
-__device__ __forceinline__ void store(const Geo& g, float* __restrict__ y,
-                                      const float2* buf, i64 k, int tid) {
-  if (IPP_NOTCH_DIAG == 2) return;
-  const Lane l = lane_of(g, tid);
-  const Pair r = pair_of(g, k, l.c);
-  if (!r.valid) return;
-  for (int e = l.j; e < g.n; e += g.T) {
-    const float2 v = buf[at(l, e)];
-    const i64 o = e * r.stride;
-    if (g.vec2) {
-      *reinterpret_cast<float2*>(y + r.a + o) = v;
-    } else {
-      y[r.a + o] = v.x;
-      if (r.has_b) y[r.b + o] = v.y;
+    float2 lo = make_float2(a.x + bb.y, a.y - bb.x);   // a - i b: output k
+    float2 hi = make_float2(a.x - bb.y, a.y + bb.x);   // a + i b: r - k
+    if (GAIN) {
+      const float sl = __ldg(&gp[base + k]), sh = __ldg(&gp[base + r - k]);
+      lo = make_float2(lo.x * sl, -(lo.y * sl));
+      hi = make_float2(hi.x * sh, -(hi.y * sh));
     }
+    dst(base + k, lo);
+    if (k != 0) dst(base + r - k, hi);
   }
 }
 
-// Pass p of the plan, stride S, from src to dst.
-template <bool INV, class Src, class Dst>
-__device__ __forceinline__ void pass_at(const Plan& pl, int p, int S, int j,
-                                        int T, const float2* __restrict__ tw,
-                                        Src src, Dst dst) {
+// Step s of an item for the thread of lane l and line pair pr (lane_of,
+// pair_of: once an item): the subband's buffers A (buf) and B (buf +
+// g.buf, generic plans only).
+__device__ __forceinline__ void run_step(const Sub& sb, const Lane& l,
+                                         const Pair& pr, float2* buf,
+                                         int s) {
+  const Geo& g = sb.g;
+  const Plan& pl = sb.pl;
+  const int n = g.n;
+  const float* __restrict__ x = sb.x;
+  float* __restrict__ y = sb.y;
+  float2* A = buf;
+  float2* Bf = buf + g.buf;
+  int kind, p;
+  step_of(pl, s, kind, p);
+  const int L = span_of(pl, p);
   const int R = pl.radix[p];
-  if (pl.generic && p == pl.npass - 1)
-    ippdft::generic_pass<INV>(j, T, R, S, tw, src, dst);
-  else
-    ippdft::any_pass<INV>(R, j, T, ippdft::pass_args(pl.n, R, S), tw, src,
-                          dst);
+
+  auto from_global = [&](int e) -> float2 {
+    float2 v = make_float2(0.f, 0.f);
+    if (IPP_NOTCH_DIAG == 2) {
+      v.x = (float)e;
+      return v;
+    }
+    if (pr.valid) {
+      const i64 o = e * pr.stride;
+      if (g.vec2) {
+        v = *reinterpret_cast<const float2*>(x + pr.a + o);
+      } else {
+        v.x = x[pr.a + o];
+        if (pr.has_b) v.y = x[pr.b + o];
+      }
+    }
+    return v;
+  };
+  // y_a + i y_b is the conjugate of what the inverse passes leave
+  auto to_global = [&](int e, float2 v) {
+    if (IPP_NOTCH_DIAG == 2) {
+      if (v.x == 1234567.f) y[0] = v.y;   // keeps the passes alive
+      return;
+    }
+    if (!pr.valid) return;
+    const i64 o = e * pr.stride;
+    if (g.vec2) {
+      *reinterpret_cast<float2*>(y + pr.a + o) = make_float2(v.x, -v.y);
+    } else {
+      y[pr.a + o] = v.x;
+      if (pr.has_b) y[pr.b + o] = -v.y;
+    }
+  };
+  auto from_a = [&](int e) -> float2 { return A[at(l, e)]; };
+  auto to_a = [&](int e, float2 v) { A[at(l, e)] = v; };
+  auto from_b = [&](int e) -> float2 { return Bf[at(l, e)]; };
+  auto to_b = [&](int e, float2 v) { Bf[at(l, e)] = v; };
+
+  const int last = num_steps(pl) - 1;
+  if (IPP_NOTCH_DIAG == 1 && s != 0 && s != last) return;
+  switch (kind) {
+    case LOAD:
+      for (int e = l.j; e < n; e += g.T) to_a(e, from_global(e));
+      break;
+    case STORE:
+      for (int e = l.j; e < n; e += g.T) to_global(e, from_a(e));
+      break;
+    case DIF:
+      if (p == 0)
+        any_radix<DIF>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_global, to_a);
+      else
+        any_radix<DIF>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_a, to_a);
+      break;
+    case MID:
+      any_radix<MID>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_a, to_a);
+      break;
+    case DIT:
+      if (p == 0)
+        any_radix<DIT>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_a, to_global);
+      else
+        any_radix<DIT>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_a, to_a);
+      break;
+    case GEN_DIF:
+      generic_radix<true>(l.j, g.T, n, R, sb.tw, sb.gp, from_a, to_b);
+      break;
+    case GEN_DIT:
+      if (pl.npass == 1)
+        generic_radix<false>(l.j, g.T, n, R, sb.tw, sb.gp, from_b,
+                             to_global);
+      else
+        generic_radix<false>(l.j, g.T, n, R, sb.tw, sb.gp, from_b, to_a);
+      break;
+  }
 }
 
-// Step s < 2P: pass s of the forward transform (s < P) or pass s - P of the
-// inverse, from buffer s % 2 to the other; the last forward pass multiplies
-// by gs[e] = G[e] / n as it stores.
-__device__ __forceinline__ void step(const Geo& g, const Plan& pl,
-                                     const float2* __restrict__ tw,
-                                     const float* __restrict__ gs,
-                                     float2* buf, int s, int tid) {
-  if (IPP_NOTCH_DIAG == 1) return;
-  const int P = pl.npass;
-  const bool inv = s >= P;
-  const int p = inv ? s - P : s;
-  int S = 1;
-  for (int q = 0; q < p; ++q) S *= pl.radix[q];
-  const Lane l = lane_of(g, tid);
-  const float2* cur = buf + (s & 1) * g.buf;
-  float2* nxt = buf + ((s + 1) & 1) * g.buf;
-  const bool mul = s == P - 1;
-  auto src = [&](int e) -> float2 { return cur[at(l, e)]; };
-  auto dst = [&](int e, float2 v) {
-    if (mul) {
-      const float m = __ldg(gs + e);
-      v.x *= m;
-      v.y *= m;
+// -- a launch's table -----------------------------------------------------------
+
+struct Group {
+  int count;
+  int smem;          // dynamic shared memory of the launch
+  i64 total;         // items of all subbands
+  i64 scratch_slots; // float2 slots of one block's scratch (0: none)
+  float2* scratch;
+  Sub sub[MAX_GROUP];
+};
+
+// The subband of launch item t: the last whose first item is at or before t.
+__host__ __device__ inline int sub_of(const Group& grp, i64 t) {
+  int s = 0;
+  for (int q = 1; q < grp.count; ++q)
+    if (t >= grp.sub[q].start) s = q;
+  return s;
+}
+
+// Fill a Group from `count` rows of DESC int64 words (x, y, tw, gp, B, H,
+// W, cols, npass, generic, radices[MAX_PASSES]); subbands sorted by length,
+// longest first.  False for a row K8 does not take or a group that mixes
+// scratch and shared-memory subbands or holds more than one of the former.
+inline bool make_group(const i64* desc, int count, Group& grp) {
+  if (count < 1 || count > MAX_GROUP) return false;
+  grp.count = count;
+  grp.smem = 0;
+  grp.total = 0;
+  grp.scratch_slots = 0;
+  grp.scratch = nullptr;
+  int order[MAX_GROUP];
+  for (int q = 0; q < count; ++q) {
+    const i64* d = desc + (i64)q * DESC;
+    Sub& sb = grp.sub[q];
+    sb.x = reinterpret_cast<const float*>(d[0]);
+    sb.y = reinterpret_cast<float*>(d[1]);
+    sb.tw = reinterpret_cast<const float2*>(d[2]);
+    sb.gp = reinterpret_cast<const float*>(d[3]);
+    const int cols = (int)d[7], npass = (int)d[8];
+    if (npass < 1 || npass > ippdft::MAX_PASSES || d[5] < 1 || d[6] < 1 ||
+        d[5] > MAX_N || d[6] > (1LL << 30))
+      return false;
+    sb.pl.n = (int)(cols ? d[5] : d[6]);
+    sb.pl.npass = npass;
+    sb.pl.generic = (int)d[9];
+    for (int p = 0; p < ippdft::MAX_PASSES; ++p)
+      sb.pl.radix[p] = p < npass ? (int)d[10 + p] : 1;
+    const bool aligned8 = ((d[0] | d[1]) & 7) == 0;
+    if (!notch_plan_ok(sb.pl) ||
+        !geometry(d[4], (int)d[5], (int)d[6], cols != 0, aligned8,
+                  sb.pl.generic != 0, sb.g) ||
+        sb.pl.n != sb.g.n)
+      return false;
+    order[q] = q;
+  }
+  // longest first (stable): their items start first
+  for (int a = 1; a < count; ++a)
+    for (int b = a; b > 0 && grp.sub[order[b]].g.n > grp.sub[order[b - 1]].g.n;
+         --b) {
+      const int t = order[b];
+      order[b] = order[b - 1];
+      order[b - 1] = t;
     }
-    nxt[at(l, e)] = v;
-  };
-  if (inv)
-    pass_at<true>(pl, p, S, l.j, g.T, tw, src, dst);
-  else
-    pass_at<false>(pl, p, S, l.j, g.T, tw, src, dst);
+  Sub sorted[MAX_GROUP];
+  for (int q = 0; q < count; ++q) sorted[q] = grp.sub[order[q]];
+  int scratch = 0;
+  for (int q = 0; q < count; ++q) {
+    Sub& sb = grp.sub[q];
+    sb = sorted[q];
+    sb.start = grp.total;
+    grp.total += sb.g.items;
+    if (sb.g.smem == 0) {
+      ++scratch;
+      grp.scratch_slots = (i64)sb.g.nbuf * sb.g.buf;
+    }
+    if (sb.g.smem > grp.smem) grp.smem = sb.g.smem;
+  }
+  return scratch == 0 || (scratch == 1 && count == 1);
 }
 
 #ifdef __CUDACC__
 
 // -- the kernel -----------------------------------------------------------------
 
-// x, y: (B, H, W); tw: (n) float2, exp(-2 pi i j / n); gs: (n) G / n.  Block
-// b takes items b, b + grid, ...; scratch: two buffers a block where the
-// geometry has no shared memory.
-__global__ void __launch_bounds__(MAX_THREADS)
-notch_kernel(const float* __restrict__ x, float* __restrict__ y,
-             const float2* __restrict__ tw, const float* __restrict__ gs,
-             const Geo g, const Plan pl, float2* scratch) {
+// Block b takes launch items b, b + grid, ...; SCRATCH: the buffers are the
+// block's part of grp.scratch (one subband whose buffers exceed shared
+// memory), else dynamic shared memory.
+template <bool SCRATCH>
+__global__ void __launch_bounds__(THREADS, MINB)
+notch_kernel(const __grid_constant__ Group grp) {
   extern __shared__ float2 smem[];
-  float2* buf = g.smem ? smem : scratch + (i64)blockIdx.x * 2 * g.buf;
+  float2* buf = SCRATCH ? grp.scratch + (i64)blockIdx.x * grp.scratch_slots
+                        : smem;
   const int tid = threadIdx.x;
-  const int steps = 2 * pl.npass;
-  for (i64 k = blockIdx.x; k < g.items; k += gridDim.x) {
-    load(g, x, buf, k, tid);
-    __syncthreads();
+  for (i64 t = blockIdx.x; t < grp.total; t += gridDim.x) {
+    const Sub& sb = grp.sub[sub_of(grp, t)];
+    const Lane l = lane_of(sb.g, tid);
+    const Pair pr = pair_of(sb.g, t - sb.start, l.c);
+    const int steps = num_steps(sb.pl);
     for (int s = 0; s < steps; ++s) {
-      step(g, pl, tw, gs, buf, s, tid);
+      run_step(sb, l, pr, buf, s);
       __syncthreads();
     }
-    store(g, y, buf, k, tid);
-    __syncthreads();   // buffer 0 is free for the next item
   }
 }
 
 // -- launch ---------------------------------------------------------------------
 
-inline bool aligned8(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 7) == 0;
-}
-
-// x, y (B, H, W) f32, along the columns (`cols`) or the rows; tw, gs as
-// above; scratch: room for `nscratch` blocks' two buffers (2 * Geo::buf
-// float2 each), needed only where the geometry has no shared memory (the
-// grid is then at most nscratch blocks).
-inline cudaError_t launch(const float* x, float* y, const float2* tw,
-                          const float* gs, i64 B, int H, int W, bool cols,
-                          const Plan& pl, float2* scratch, i64 nscratch,
-                          cudaStream_t st) {
-  Geo g;
-  if (!notch_plan_ok(pl) ||
-      !geometry(B, H, W, cols, aligned8(x) && aligned8(y), g) ||
-      pl.n != g.n)
-    return cudaErrorInvalidValue;
-  i64 grid = g.items;
-  if (!g.smem) {
+// `count` subbands (rows of DESC words, see make_group) in one launch;
+// scratch: room for `nscratch` blocks' buffers (nbuf * Geo::buf float2
+// each), needed only for a lone subband whose buffers exceed shared memory
+// (the grid is then at most nscratch blocks).
+inline cudaError_t launch_group(const i64* desc, int count, float2* scratch,
+                                i64 nscratch, cudaStream_t st) {
+  Group grp;
+  if (!make_group(desc, count, grp)) return cudaErrorInvalidValue;
+  i64 grid = grp.total;
+  if (grp.scratch_slots) {
     if (scratch == nullptr || nscratch < 1) return cudaErrorInvalidValue;
+    grp.scratch = scratch;
     if (grid > nscratch) grid = nscratch;
+    if (grid > 2147483647LL) grid = 2147483647LL;
+    notch_kernel<true><<<(unsigned)grid, THREADS, 0, st>>>(grp);
+    return cudaGetLastError();
   }
   if (grid > 2147483647LL) grid = 2147483647LL;
-  if (g.smem > 48 * 1024) {
+  if (grp.smem > 48 * 1024) {
     // per device, so set on every launch: it costs no device time
     const cudaError_t e = cudaFuncSetAttribute(
-        notch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+        notch_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        grp.smem);
     if (e != cudaSuccess) return e;
   }
-  notch_kernel<<<(unsigned)grid, g.threads, g.smem, st>>>(x, y, tw, gs, g, pl,
-                                                          scratch);
+  notch_kernel<false><<<(unsigned)grid, THREADS, grp.smem, st>>>(grp);
   return cudaGetLastError();
 }
 

@@ -6,8 +6,9 @@
 on tensors with leading batch dimensions, on one device.  The DWT analysis
 runs through the CUDA kernels K5 and K5s on the card (`wavelets`); the
 notch is the reference's rfft path with its sigma/2 complex-bin rule,
-through the CUDA kernel K8 on the card (`cuda_notch.notch_filter`: a
-tile's result never depends on its batch) and `torch.fft` on the CPU.
+through the CUDA kernel K8 on the card (`cuda_notch.notch_filter_group`,
+every notch of a decomposition in one launch: a tile's result never
+depends on its batch) and `torch.fft` on the CPU.
 The numbers the reference pins are kept: `calculate_pad_size`'s c = 5e14,
 the pad planner's min_len = 34 and its level cap of 7.
 
@@ -29,7 +30,7 @@ import torch
 
 from ..utils.transfer import host_dtype
 from . import wavelets as wv
-from .cuda_notch import notch_filter
+from .cuda_notch import notch_filter, notch_filter_group
 from .intensity import (correct_bleaching, expm1_clip, foreground_fraction,
                         log1p_f32, round_clip)
 from .padding import pad_trailing
@@ -75,6 +76,20 @@ def calculate_pad_size(shape: Tuple[int, int], sigma: int, rise: float = 0.5) ->
     return notch_rise_point(sigma, rise)
 
 
+def _coefficient_notch(coef: torch.Tensor, width_frac: float,
+                       axis: int) -> np.ndarray:
+    """The notch of `filter_coefficient` for coef along `axis`: sigma
+    coef.shape[axis+1] * width_frac, applied to complex bin k as sigma/2
+    (see `filter_coefficient`)."""
+    if axis == -1:
+        sigma = coef.shape[-2] * width_frac
+    elif axis == -2:
+        sigma = coef.shape[-1] * width_frac
+    else:
+        raise ValueError("axis must be -1 or -2")
+    return notch(coef.shape[axis] // 2 + 1, 0.5 * sigma)
+
+
 def filter_coefficient(coef: torch.Tensor, width_frac: float,
                        axis: int = -1) -> torch.Tensor:
     """rFFT-notch-irFFT a detail-coefficient array along `axis`
@@ -85,13 +100,7 @@ def filter_coefficient(coef: torch.Tensor, width_frac: float,
     production path multiplies scipy.fftpack's packed real-FFT layout
     (bin k at indices 2k-1/2k) by a length-n notch, which is a sigma/2
     notch in complex-bin space (see ipp_tpu/ops/destripe.py)."""
-    if axis == -1:
-        sigma = coef.shape[-2] * width_frac
-    elif axis == -2:
-        sigma = coef.shape[-1] * width_frac
-    else:
-        raise ValueError("axis must be -1 or -2")
-    g = notch(coef.shape[axis] // 2 + 1, 0.5 * sigma)
+    g = _coefficient_notch(coef, width_frac, axis)
     return notch_filter(coef.contiguous(), g, axis)
 
 
@@ -99,6 +108,9 @@ def filter_subband(img: torch.Tensor, sigma: float, level: int, wavelet: str,
                    axes: Union[int, Tuple[int, ...]] = -1) -> torch.Tensor:
     """Notch-filter the stripe subbands of a wavelet decomposition
     (reference filter_subband, pystripe/core.py:840-940, numpy path).
+    Every level's `filter_coefficient` (cH along x, cV along y) runs in
+    one `notch_filter_group` call: one K8 launch on the card, the plain
+    version level by level on the CPU.
 
     img: (..., H, W) float32, H and W divisible by 2**level.
     """
@@ -109,15 +121,18 @@ def filter_subband(img: torch.Tensor, sigma: float, level: int, wavelet: str,
         level = wv.dwt_max_level(min(h, w), wavelet)
         level = max(min(level, _max_divisible_level(h, w)), 1)
     coeffs = wv.wavedec2(img, wavelet, level)
-    out = [coeffs[0]]
-    for det in coeffs[1:]:
-        ch, cv, cd = det
-        if -1 in axes:
-            ch = filter_coefficient(ch, sigma / img.shape[-2], axis=-1)
-        if -2 in axes:
-            cv = filter_coefficient(cv, sigma / img.shape[-1], axis=-2)
-        out.append((ch, cv, cd))
-    return wv.waverec2(out, wavelet)
+    out = [coeffs[0]] + [list(det) for det in coeffs[1:]]
+    # (level, subband index, axis, width fraction) of every notch
+    todo = [(lv, i, a, sigma / (img.shape[-2] if a == -1 else img.shape[-1]))
+            for lv in range(1, len(out))
+            for i, a in ((0, -1), (1, -2)) if a in axes]
+    subs = [out[lv][i].contiguous() for lv, i, _, _ in todo]
+    notches = [_coefficient_notch(c, frac, a)
+               for c, (_, _, a, frac) in zip(subs, todo)]
+    done = notch_filter_group(subs, notches, [a for _, _, a, _ in todo])
+    for (lv, i, _, _), c in zip(todo, done):
+        out[lv][i] = c
+    return wv.waverec2([out[0]] + [tuple(det) for det in out[1:]], wavelet)
 
 
 def _max_divisible_level(h: int, w: int) -> int:

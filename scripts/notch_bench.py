@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time K8, the destripe notch, on one CUDA card.
 
-    python3 scripts/notch_bench.py [--variants] [--tag T]
+    python3 scripts/notch_bench.py [--variants] [--sweep] [--chain]
+                                   [--root DIR] [--tag T]
 
 At every notch the destripe chain runs on `chip_smoke.py` phase 6's padded
 batches of 8 (`chip_smoke.notch_level_cases`: cH along x and cV along y at
@@ -11,14 +12,38 @@ kernel, the plain version, the library call (torch.fft's rfft * g, irfft)
 and the bound (`chip_smoke.work_notch`: 8 bytes a value over the HBM rate),
 in ms by CUDA events and, for the kernel, by CUDA-graph replay (the
 device's time alone: the wrapper's host time hides it at the deep levels).
-Prints ptxas' registers and spills first, the card's name and power limit
-last; writes chiprun_out/notch_bench[_TAG].json.
+Then the 14 notches of each batch in one grouped call (`notch_filter_group`,
+what `destripe.filter_subband` runs) by graph replay against the sum of
+the one-subband calls' and of the bounds.  Prints ptxas' registers and
+spills first, the card's name and power limit last; writes
+chiprun_out/notch_bench[_TAG].json.
+
+`--root DIR`: DIR holds another tree of the repository (an unpacked `git
+archive` of an earlier commit, `mkdir -p build/parent && git archive
+<commit> | tar -x -C build/parent`) whose K8 has the one-subband C entry
+`ipp_notch` (the form before the grouped launch); its library is built
+through DIR's own `_build.py`, and its K8 runs on the same inputs at every
+level shape, timed by graph replay in turns with this tree's (this, DIR,
+DIR, this), its error against the plain version beside.
+
+`--sweep`: at the level-1 shapes, K8 with other pass lists beside
+`notch_plan`'s (the table takes any plan K8 can run; the bench writes
+those rows itself, with the gains of each plan), each checked against the
+plain version and timed by graph replay.
+
+`--chain`: the destripe chain (`ops.process._chain`, phase 6's stage-1
+settings) on one uploaded batch of 8 2000^2 tiles, in a process of its
+own for this tree and, with `--root`, for DIR's, in turns (this, DIR, DIR,
+this): ms by CUDA events (three means of 10 calls) and by CUDA-graph
+replay where the chain can be captured.
 
 `--variants` then builds csrc/notch.cu alone with `IPP_NOTCH_DIAG` set
-(timing-only builds: 1 skips the passes, so the loads and stores of device
-memory alone run; 2 skips those, so the passes alone run) and times each
-by graph replay at levels 1 and 2 of the 2000^2 batch on both axes beside
-this build and one clone of the same bytes: where the kernel's time goes.
+(timing-only builds: 1 runs no butterfly, so the loads and stores of device
+memory and the shared-memory round trip of the first and last pass alone
+run; 2 reads and writes no device memory, so the passes alone run) and
+times each by graph replay at levels 1 and 2 of the 2000^2 batch on both
+axes beside this build and one clone of the same bytes: where the
+kernel's time goes.
 """
 
 from __future__ import annotations
@@ -39,47 +64,260 @@ from ipp_tpu_torch.ops import cuda_notch as cn  # noqa: E402
 from ipp_tpu_torch.ops import destripe as dsm  # noqa: E402
 from ipp_tpu_torch.ops._build import (_ARCH, _SIGNATURES, _nvcc, _run,  # noqa: E402
                                       build_info, load_library)
-from ipp_tpu_torch.ops.cuda_fft import _launch  # noqa: E402
+from ipp_tpu_torch.ops.cuda_fft import (_dft_plan, _launch,  # noqa: E402
+                                        _stage_twiddles)
 
 VARIANTS = {"diag_nopasses": ["-DIPP_NOTCH_DIAG=1"],
             "diag_noglobal": ["-DIPP_NOTCH_DIAG=2"]}
+# (shape, axis): pass lists to time beside notch_plan's
+SWEEP = {((8, 1344, 1344), -1): [(12, 16, 7), (16, 12, 7), (8, 8, 3, 7)],
+         ((8, 1344, 1344), -2): [(12, 16, 7), (16, 12, 7), (8, 8, 3, 7)],
+         ((8, 1152, 1344), -2): [(12, 12, 8), (8, 16, 9)],
+         ((8, 672, 672), -1): [(12, 8, 7), (8, 4, 3, 7)]}
 
 
 def arg(name, default=None):
     return sys.argv[sys.argv.index(name) + 1] if name in sys.argv else default
 
 
-def build_variants():
-    """{name: library} of csrc/notch.cu built with each VARIANTS flag (all
-    nvcc processes at once) into build/notch_variants/."""
+PARENT = Path(arg("--root")).resolve() if "--root" in sys.argv else None
+
+
+def build_variants(variants=VARIANTS):
+    """{name: library} of csrc/notch.cu built with each set of flags (all
+    nvcc processes at once) into build/notch_variants/; the log of the
+    builds."""
     out = ROOT / "build" / "notch_variants"
     out.mkdir(parents=True, exist_ok=True)
     src = ROOT / "ipp_tpu_torch" / "csrc" / "notch.cu"
     log = _run([[_nvcc(), *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", *flags, "-shared", "-o",
                  str(out / f"{name}.so"), str(src)]
-                for name, flags in VARIANTS.items()])
+                for name, flags in variants.items()])
     libs = {}
-    for name in VARIANTS:
+    for name in variants:
         lib = ctypes.CDLL(str(out / f"{name}.so"))
-        lib.ipp_notch.argtypes = _SIGNATURES["ipp_notch"]
-        lib.ipp_notch.restype = ctypes.c_int
+        lib.ipp_notch_group.argtypes = _SIGNATURES["ipp_notch_group"]
+        lib.ipp_notch_group.restype = ctypes.c_int
         libs[name] = lib
     return libs, log
 
 
-def lib_fn(lib, x, g, axis):
-    """K8 through `lib`'s C entry (this build or a variant), x -> one
-    output allocated here."""
-    _, B, H, W, _ = cn._check(x, g, axis)
-    y = torch.empty_like(x)
-    args, scratch = cn._kernel_args(x, y, g, B, H, W, axis)
+CHAIN = r"""
+import json, numpy as np, torch
+from ipp_tpu_torch.ops.process import ProcessConfig, _chain
+from ipp_tpu_torch.utils.transfer import upload
+gen = np.random.default_rng(5)
+x = (gen.random((8, 2000, 2000)) * 3000 + 100).astype(np.uint16)
+cfg = ProcessConfig(sigma=(250.0, 250.0), wavelet="db9",
+                    padding_mode="reflect", bidirectional=True, dark=100.0)
+xb, u16 = upload(x, torch.device("cuda", 0)), np.dtype(np.uint16)
+run = lambda: _chain(xb, cfg, u16)
+def events(reps):
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        run()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+run()
+torch.cuda.synchronize()
+out = dict(events_ms=[events(10) for _ in range(3)], graph_ms=None)
+try:
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(5):
+            run()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    out["graph_ms"] = a.elapsed_time(b) / 5
+except Exception as exc:
+    out["graph_error"] = str(exc)[:300]
+print(json.dumps(out))
+"""
+
+
+def chain_rows(parent):
+    """CHAIN in its own process for this tree and `parent` (or this tree
+    alone), in turns."""
+    import os
+    import subprocess
+
+    trees = [("this", ROOT)] + ([("parent", parent)] if parent else [])
+    order = trees + trees[::-1]
+    out = []
+    for name, tree in order:
+        env = dict(os.environ, PYTHONPATH=str(tree))
+        res = subprocess.run([sys.executable, "-c", CHAIN], cwd=str(tree),
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"chain of {name}: {res.stderr[-2000:]}")
+        row = dict(tree=name, **json.loads(res.stdout.splitlines()[-1]))
+        out.append(row)
+        print(f"  chain of {name}: events "
+              + ", ".join(f"{v:.3f}" for v in row["events_ms"])
+              + f" ms; graph {row['graph_ms']} "
+              + row.get("graph_error", "")[:120])
+    return out
+
+
+def parent_library(parent: Path):
+    """The kernel library of the tree at `parent`, built into its own build
+    directory by its own ops/_build.py (every C entry bound)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", parent / "ipp_tpu_torch" / "ops" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load_library()
+
+
+def group_fn(lib, xs, gs, axes):
+    """`notch_filter_group` through `lib`'s C entry (this build or a
+    variant), xs -> outputs allocated here."""
+    ys = [torch.empty_like(x) for x in xs]
+    launches = cn._launches(
+        xs, [cn._check(x, g, a) for x, g, a in zip(xs, gs, axes)], axes, ys)
     counts = {"variant": 0}
 
-    def run(scratch=scratch):   # the scratch lives as long as the call
-        _launch("variant", x.device, lib.ipp_notch, *args, counts=counts)
+    def run(launches=launches):   # the tables live as long as the call
+        for table, count, scratch, nscratch, _ in launches:
+            _launch("variant", xs[0].device, lib.ipp_notch_group,
+                    table.ctypes.data, count, scratch, nscratch,
+                    counts=counts)
+        return ys
+    return run
+
+
+def lib_fn(lib, x, g, axis):
+    """K8 through `lib`'s grouped C entry (this build or a variant), x ->
+    one output allocated here."""
+    run = group_fn(lib, [x], [g], [axis])
+    return lambda: run()[0]
+
+
+def plan_fn(lib, x, g, axis, plan):
+    """K8 on the pass list `plan` in place of `notch_plan(n)`: a table row
+    of csrc/notch.cu's layout (x, y, tw, gp, B, H, W, cols, passes,
+    generic, radices) with the gains of that plan, x -> one output
+    allocated here."""
+    _, B, H, W, n = cn._check(x, g, axis)
+    y = torch.empty_like(x)
+    tw = _stage_twiddles(x.device, n)
+    gp = torch.from_numpy(cn.notch_gains(g, n, plan)).to(x.device)
+    generic = int(plan[-1] not in cn.NOTCH_RADICES)
+    table = np.asarray([[x.data_ptr(), y.data_ptr(), tw.data_ptr(),
+                         gp.data_ptr(), B, H, W, int(axis == -2), len(plan),
+                         generic] + list(plan)
+                        + [1] * (cn.MAX_PASSES - len(plan))], np.int64)
+    counts = {"variant": 0}
+
+    def run(keep=(tw, gp)):   # the tables live as long as the call
+        _launch("variant", x.device, lib.ipp_notch_group, table.ctypes.data,
+                1, None, 0, counts=counts)
         return y
     return run
+
+
+def parent_plan(n):
+    """The pass list of the one-subband K8 (no radix 12): the passes of
+    2^a, then 9, 3, 5, 7, 11, 13, then one generic odd radix."""
+    a = (n & -n).bit_length() - 1
+    m = n >> a
+    plan = cn._pow2_passes(a)
+    for r in (9, 3, 5, 7, 11, 13):
+        while m % r == 0:
+            plan.append(r)
+            m //= r
+    if m > 1 or not plan:
+        plan.append(m)
+    return tuple(plan)
+
+
+def parent_fn(lib, x, g, axis):
+    """The one-subband K8 of the parent tree (C entry `ipp_notch`: gains in
+    natural order, two buffers in shared memory at every level shape),
+    x -> one output allocated here."""
+    B = x.numel() // (x.shape[-2] * x.shape[-1])
+    H, W = x.shape[-2], x.shape[-1]
+    n = x.shape[axis]
+    k = np.arange(n)
+    gs = torch.from_numpy((g.astype(np.float64)[np.minimum(k, n - k)] / n)
+                          .astype(np.float32)).to(x.device)
+    tw = _stage_twiddles(x.device, n)
+    radices, npass, generic = _dft_plan(parent_plan(n))
+    y = torch.empty_like(x)
+    counts = {"parent": 0}
+
+    def run(gs=gs):
+        _launch("parent", x.device, lib.ipp_notch, x.data_ptr(),
+                y.data_ptr(), tw.data_ptr(), gs.data_ptr(), B, H, W,
+                int(axis == -2), npass, radices, generic, None, 0,
+                counts=counts)
+        return y
+    return run
+
+
+def sweep_rows(gen, dev, lib):
+    """SWEEP's pass lists: error against the plain version, graph-replay
+    ms, beside the bound."""
+    out = []
+    for (shape, axis), plans in SWEEP.items():
+        n = shape[axis]
+        x = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)
+                             ).to(dev)
+        g = dsm.notch(n // 2 + 1, n / 8.0)
+        ref = cn.notch_filter_plain(x, g, axis)
+        bound_ms = cs.bound(*cs.work_notch(x.numel(), n))[0]
+        for plan in plans:
+            fn = plan_fn(lib, x, g, axis, plan)
+            _, rel = cs.err_of_max(fn(), ref)
+            ms = cs.graph_ms(torch, fn, 20)
+            out.append(dict(shape=list(shape), axis=axis, plan=list(plan),
+                            default=tuple(plan) == cn.notch_plan(n),
+                            rel_err=rel, graph_ms=ms, bound_ms=bound_ms))
+            print(f"  sweep {str(shape):<17s} axis {axis:2d} plan "
+                  f"{str(plan):<14s} rel {rel:.1e} {ms:7.4f} ms "
+                  f"({ms / bound_ms:4.2f}x bound)")
+            if not rel <= 1e-5:
+                raise AssertionError(f"plan {plan} at {shape} axis {axis}: "
+                                     f"rel {rel:.2e}")
+        del x, ref
+    return out
+
+
+def group_rows(gen, dev):
+    """The grouped call of the 14 notches of each batch, by graph replay,
+    beside the one-subband calls' and the bounds' sums."""
+    out = []
+    for H, W in cs.NOTCH_TILES:
+        cases = cs.notch_level_cases(((H, W),))
+        xs = [torch.from_numpy(gen.standard_normal(s, dtype=np.float32)
+                               ).to(dev) for s, _, _ in cases]
+        axes = [a for _, a, _ in cases]
+        gs = [dsm.notch(s[a] // 2 + 1, 0.5 * sg) for s, a, sg in cases]
+        group = cs.graph_ms(
+            torch, lambda: cn.notch_filter_group(xs, gs, axes), 20)
+        singles = sum(cs.graph_ms(torch, lambda x=x, g=g, a=a:
+                                  cn.notch_filter(x, g, a), 20)
+                      for x, g, a in zip(xs, gs, axes))
+        bound_ms = sum(cs.bound(*cs.work_notch(x.numel(), x.shape[a]))[0]
+                       for x, a in zip(xs, axes))
+        out.append(dict(tile=[8, H, W], subbands=len(xs), graph_ms=group,
+                        singles_graph_ms=singles, bound_ms=bound_ms))
+        print(f"  K8 group of {len(xs)} (8, {H}, {W}): graph {group:7.4f} "
+              f"ms; one-subband calls {singles:7.4f} ms; bound "
+              f"{bound_ms:7.4f} ({group / bound_ms:5.2f}x)")
+        del xs
+    return out
 
 
 def main() -> int:
@@ -89,22 +327,22 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     card = cs.card_line()
-    print(f"card: {card}")
+    print(f"card: {card}; parent tree: {PARENT}")
     lib = load_library()
     info = build_info()
     print(f"built in {info['seconds']:.1f} s")
     for line in cs.ptxas_summary(info["ptxas"]):
         if "notch" in line:
             print(" ", line)
-    variants = {}
+    parent = parent_library(PARENT) if PARENT is not None else None
+    variants, sweep = {}, []
     if "--variants" in sys.argv:
         variants, log = build_variants()
         for line in cs.ptxas_summary(log):
             print("  variants:", line)
     gen = np.random.default_rng(19)
     rows, bad, variant_rows = [], [], []
-    cases = cs.notch_level_cases()
-    for shape, axis, sigma in cases:
+    for shape, axis, sigma in cs.notch_level_cases():
         n = shape[axis]
         x = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)
                              ).to(dev)
@@ -115,19 +353,34 @@ def main() -> int:
         pfn = lambda: cn.notch_filter_plain(x, g, axis)  # noqa: E731
         lfn = lambda: torch.fft.irfft(  # noqa: E731
             torch.fft.rfft(x, dim=axis) * gt, n=n, dim=axis)
-        _, rel = cs.err_of_max(kfn(), pfn())
+        ref = pfn()
+        _, rel = cs.err_of_max(kfn(), ref)
         ms, graph = cs.time_ms(torch, kfn, 20), cs.graph_ms(torch, kfn, 20)
         plain, lib_ms = cs.time_ms(torch, pfn, 20), cs.time_ms(torch, lfn, 20)
         bound_ms, by = cs.bound(*cs.work_notch(x.numel(), n))
         geo = cn.notch_geometry(shape[0], shape[1], shape[2], axis == -2)
-        rows.append(dict(shape=list(shape), axis=axis, n=n, rel_err=rel,
-                         ms=ms, graph_ms=graph, plain_ms=plain,
-                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
-                         plan=list(cn.notch_plan(n)), geometry=geo))
+        row = dict(shape=list(shape), axis=axis, n=n, rel_err=rel, ms=ms,
+                   graph_ms=graph, plain_ms=plain, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=by,
+                   plan=list(cn.notch_plan(n)), geometry=geo)
+        old = ""
+        if parent is not None:
+            pf = parent_fn(parent, x, g, axis)
+            _, prel = cs.err_of_max(pf(), ref)
+            p1 = cs.graph_ms(torch, pf, 20)
+            p2 = cs.graph_ms(torch, pf, 20)
+            again = cs.graph_ms(torch, kfn, 20)
+            row.update(parent_rel_err=prel, parent_graph_ms=(p1 + p2) / 2,
+                       graph_ms_again=again)
+            old = (f"  parent {(p1 + p2) / 2:7.4f} (rel {prel:.1e}; this "
+                   f"again {again:7.4f})")
+            if not prel <= 1e-5:
+                bad.append(f"parent K8 {shape} axis {axis}: {prel:.2e}")
+        rows.append(row)
         print(f"  K8 {str(shape):<17s} axis {axis:2d} n {n:5d} plan "
               f"{cn.notch_plan(n)} rel {rel:.2e}  kernel {ms:7.4f} ms (graph "
-              f"{graph:7.4f})  plain {plain:7.4f}  library {lib_ms:7.4f}  "
-              f"bound {bound_ms:7.4f} ({by})  graph/bound "
+              f"{graph:7.4f}){old}  plain {plain:7.4f}  library "
+              f"{lib_ms:7.4f}  bound {bound_ms:7.4f} ({by})  graph/bound "
               f"{graph / bound_ms:5.2f}  CP {geo['CP']} T {geo['T']}")
         if not rel <= 1e-5:
             bad.append(f"K8 {shape} axis {axis}: {rel:.2e}")
@@ -145,10 +398,16 @@ def main() -> int:
             print(f"    variant {'x.clone()':<14s} {vms:7.4f} ms "
                   f"({vms / bound_ms:5.2f}x bound)")
         del x
+    groups = group_rows(gen, dev)
+    chain = chain_rows(PARENT) if "--chain" in sys.argv else []
+    if "--sweep" in sys.argv:
+        sweep = sweep_rows(gen, dev, lib)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"notch_bench{'_' + tag if tag else ''}.json").write_text(
-        json.dumps(dict(card=card, rows=rows, variants=variant_rows,
+        json.dumps(dict(card=card, parent=str(PARENT), rows=rows,
+                        groups=groups, variants=variant_rows, sweep=sweep,
+                        chain=chain,
                         ptxas=[s for s in cs.ptxas_summary(info["ptxas"])
                                if "notch" in s]), indent=1))
     print(f"card: {cs.card_line()}")

@@ -15,15 +15,25 @@ on the card.
 - `emulate_k8`, a PyTorch emulation of the kernel: the geometry
   (`notch_geometry`, the header's, printed by the host check), the item
   -> line pair -> line address maps of both layouts, the slot maps, the
-  Stockham passes of the plan in complex64 with the f32 twiddle table,
-  the product with G / n, the inverse passes; against float64 numpy at
-  every planner length, every output written exactly once: 1e-5 of max.
+  steps of `notch_steps` in complex64 with the f32 twiddle table: the
+  in-place forward passes (DFT, then the twiddle), the middle (the last
+  forward DFT, the gains of `notch_gains` in the plan's digit-reversed
+  order, the conjugation, the first inverse DFT in one step), the inverse
+  passes on the conjugated data (the twiddle, then the forward DFT), the
+  store of y_b = -Im; against float64 numpy at every planner length,
+  every output written exactly once: 1e-5 of max.
 - The header itself, built with g++ against the stand-in
   `cuda_runtime.h` (tests/torch_notch_host/check.cpp) and run thread by
   thread against a float64 irfft(rfft(x) g): the planner lengths on both
   axes, odd line counts, n = 1 and 2, primes, and lengths whose buffers
   live in the device-memory scratch; each tile alone bit-equal to its
-  place in the batch.
+  place in the batch; the 14 notches of a 2000^2 decomposition and two
+  FNT lengths in one table (`make_group`, as `ipp_notch_group` launches
+  them), each bit-equal to its one-subband run.
+- `notch_filter_group`'s plain version against the one-subband calls and
+  `filter_subband` against the JAX package's at small shapes; the
+  wrapper route of `filter_subband`: one grouped call with all 2L
+  subbands.
 - The wrapper: CPU calls take the plain version and count nothing; it
   refuses other dtypes, mixed devices, axes and lengths outside its
   domain.
@@ -43,7 +53,7 @@ import torch
 from ipp_tpu.ops import destripe as J
 from ipp_tpu_torch.ops import cuda_notch as K
 from ipp_tpu_torch.ops import destripe as P
-from ipp_tpu_torch.ops.dft_mats import DFT_FFT_RADICES, stage_twiddles
+from ipp_tpu_torch.ops.dft_mats import stage_twiddles
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = 1e-5
@@ -102,9 +112,9 @@ def test_filter_coefficient_matches_jax_at_the_planner_lengths(axis, n):
 def check_plan(n):
     plan = K.notch_plan(n)
     assert int(np.prod(plan)) == n
-    assert all(r in DFT_FFT_RADICES for r in plan[:-1])
+    assert all(r in K.NOTCH_RADICES for r in plan[:-1])
     last = plan[-1]
-    if last not in DFT_FFT_RADICES:       # the one generic pass: odd, last
+    if last not in K.NOTCH_RADICES:       # the one generic pass: odd, last
         assert last % 2 == 1
         assert last == 1 or all(last % f for f in (3, 5, 7, 11, 13))
         assert (last == 1) == (n == 1)
@@ -112,8 +122,9 @@ def check_plan(n):
 
 
 @pytest.mark.parametrize("n,plan", [
-    (1344, (8, 8, 3, 7)), (84, (4, 3, 7)), (21, (3, 7)), (1152, (8, 16, 9)),
-    (72, (8, 9)), (36, (4, 9)), (18, (2, 9)), (368, (16, 23)),
+    (1344, (12, 16, 7)), (672, (12, 8, 7)), (84, (12, 7)), (42, (2, 3, 7)),
+    (21, (3, 7)), (1152, (12, 12, 8)), (72, (8, 9)), (36, (12, 3)),
+    (18, (2, 9)), (368, (16, 23)),
     (92, (4, 23)), (46, (2, 23)), (23, (23,)), (1, (1,)), (2, (2,)),
     (32768, (8, 16, 16, 16)), (32749, (32749,))])
 def test_plan_at_the_lengths_of_the_paths(n, plan):
@@ -130,45 +141,62 @@ def test_plan_factors_every_length_of_the_domain():
 
 # -- the kernel's index maps and passes --------------------------------------------
 
-def _roots(radix, forward):
+def _roots(radix):
     jk = np.outer(np.arange(radix), np.arange(radix)) % radix
-    ang = (-2 if forward else 2) * np.pi * jk / radix
-    return torch.from_numpy(np.exp(1j * ang).astype(np.complex64))
+    return torch.from_numpy(np.exp(-2j * np.pi * jk / radix).astype(
+        np.complex64))
 
 
-def emulate_passes(z, gs, n):
-    """K8's arithmetic on z (..., n) complex64: the Stockham passes of
-    `notch_plan(n)` (butterfly i reads i + k n / R, writes q + S (R p + k)
-    with the twiddle w^(p k S) from `stage_twiddles(n)`; the roots of a
-    specialised radix are constants, those of the generic last pass come
-    from the table at ((j k) % r) S), the product with gs = G / n at the
-    last forward pass, then the same passes conjugated."""
+def emulate_passes(z, g, n):
+    """K8's arithmetic on z (..., n) complex64, step by step
+    (`notch_steps`): in-place pass p of radix R and span L (M = L / R)
+    takes butterfly i = b M + m to the elements b L + m + k M; forward
+    (DIF): DFT_R, then the twiddle w^(m k n / L) from `stage_twiddles(n)`;
+    the middle: the last forward DFT (M = 1, no twiddle), times the gains
+    of `notch_gains(g, n)` (the spectrum's digit-reversed order),
+    conjugated, the first inverse DFT; inverse (DIT) on the conjugated
+    data: the twiddle, then the forward DFT.  The roots of a specialised
+    radix are constants, those of the generic last radix come from the
+    table at ((j k) % r) n / r.  Returns the conjugate of what the last
+    pass leaves: y_a + i y_b."""
     tab = torch.from_numpy(stage_twiddles(n).copy())
-    w_fwd = torch.complex(tab[:, 0], tab[:, 1])
+    w = torch.complex(tab[:, 0], tab[:, 1])
+    gp = torch.from_numpy(K.notch_gains(g, n))
     plan = K.notch_plan(n)
-    for forward in (True, False):
-        w = w_fwd if forward else w_fwd.conj()
-        stride = 1
-        for at, radix in enumerate(plan):
-            nb = n // radix
-            i = torch.arange(nb)
-            k = torch.arange(radix)
-            a = z[..., i[:, None] + k[None, :] * nb]        # (..., nb, R)
-            if radix in DFT_FFT_RADICES:
-                roots = _roots(radix, forward)
-            else:
-                assert at == len(plan) - 1 and stride * radix == n
-                roots = w[(k[:, None] * k[None, :]) % radix * stride]
-            b = a @ roots
-            q, p = i % stride, i // stride
-            b = b * w[p[:, None] * k[None, :] * stride]     # 1 where p == 0
-            out = torch.empty_like(z)
-            out[..., q[:, None] + stride * (radix * p[:, None] + k[None, :])] = b
-            z, stride = out, stride * radix
-        assert stride == n
-        if forward:
-            z = z * gs
-    return z
+    spans = [int(np.prod(plan[p:])) for p in range(len(plan))]
+
+    def butterflies(p):
+        radix, L = plan[p], spans[p]
+        M = L // radix
+        i = torch.arange(n // radix)
+        b, m = i // M, i % M
+        k = torch.arange(radix)
+        e = (b * L + m)[:, None] + k[None, :] * M          # (NB, R)
+        tw = w[(m * (n // L))[:, None] * k[None, :]]       # 1 where m == 0
+        if radix in K.NOTCH_RADICES:
+            roots = _roots(radix)
+        else:
+            assert p == len(plan) - 1 and L == radix
+            roots = w[(k[:, None] * k[None, :]) % radix * (n // radix)]
+        return e, tw, roots
+
+    for kind, p in K.notch_steps(plan):
+        if kind in ("LOAD", "STORE"):
+            continue
+        e, tw, roots = butterflies(p)
+        v = z[..., e]
+        if kind in ("DIT", "GEN_DIT"):
+            v = (v * tw) @ roots
+        elif kind == "DIF":
+            v = (v @ roots) * tw
+        else:                                              # MID, GEN_DIF
+            assert bool((tw == 1).all())
+            v = torch.conj((v @ roots) * gp[e])
+            if kind == "MID":
+                v = v @ roots
+        z = z.clone()
+        z[..., e] = v
+    return torch.conj(z)
 
 
 def pair_maps(geo, B, H, W):
@@ -200,7 +228,9 @@ def emulate_k8(x, g, axis):
     each output was written."""
     B, H, W = x.shape
     n = H if axis == -2 else W
-    geo = K.notch_geometry(B, H, W, axis == -2)
+    geo = K.notch_geometry(B, H, W, axis == -2,
+                           generic=K.notch_plan(n)[-1] not in
+                           K.NOTCH_RADICES)
     a, b, stride, valid, has_b = pair_maps(geo, B, H, W)
     e = torch.arange(n) * stride
     flat = x.reshape(-1)
@@ -208,10 +238,7 @@ def emulate_k8(x, g, axis):
     ib = torch.where(valid & has_b, b, 0)[..., None] + e
     re = torch.where(valid[..., None], flat[ia], 0.0)
     im = torch.where((valid & has_b)[..., None], flat[ib], 0.0)
-    k = np.arange(n)
-    gs = torch.from_numpy((g.astype(np.float64)[np.minimum(k, n - k)] / n)
-                          .astype(np.float32))
-    z = emulate_passes(torch.complex(re, im), gs, n)
+    z = emulate_passes(torch.complex(re, im), g, n)
     y = torch.full((x.numel(),), float("nan"))
     hits = torch.zeros(x.numel(), dtype=torch.int64)
     for idx, keep, v in ((ia, valid, z.real), (ib, valid & has_b, z.imag)):
@@ -250,29 +277,42 @@ def test_emulation_at_odd_and_tiny_shapes(B, H, W, axis):
                                atol=TOL * max(np.abs(ref).max(), 1e-6))
 
 
-@pytest.mark.parametrize("n", LENGTHS + (1, 2, 3000, 14000, 14528, 14600))
+@pytest.mark.parametrize("n", LENGTHS + (1, 2, 3000, 14000, 14528, 14600,
+                                        27000, 28000))
 @pytest.mark.parametrize("cols", (False, True))
 def test_slots_are_distinct_and_threads_cover_every_element(n, cols):
     """The slot map `at` of both layouts sends each (pair, element) of an
-    item to its own slot of the buffer; the threads of a pair (lane_of)
-    take every element once; shared memory within the limit, or none (the
-    scratch) only where one pair's buffers do not fit."""
-    geo = K.notch_geometry(8, n, n, cols)
+    item to its own slot of the buffer; the block's THREADS threads (whole
+    warps) split into CP pairs of T (lane_of) and take every (pair, j)
+    once; every step's butterflies take each element of a pair exactly
+    once; shared memory within the limit, or none (the scratch) only where
+    one pair's buffers do not fit."""
+    plan = K.notch_plan(n)
+    generic = plan[-1] not in K.NOTCH_RADICES
+    geo = K.notch_geometry(8, n, n, cols, generic=generic)
     CP, T, e = geo["CP"], geo["T"], torch.arange(n)
+    assert CP * T == geo["threads"] == K.THREADS and K.THREADS % 32 == 0
     c = torch.arange(CP)[:, None]
     if cols:
-        slots = e[None, :] * CP + c
+        lin = e[None, :] * CP + c
+        slots = lin + (lin >> 4)
     else:
-        slots = c * geo["pitch"] + e + (e >> 4) * geo["pad"]
+        slots = c * geo["pitch"] + e + (e >> 4)
     assert int(slots.max()) < geo["buf"]
     assert torch.unique(slots).numel() == slots.numel()
     tid = torch.arange(geo["threads"])
     lc, lj = (tid % CP, tid // CP) if cols else (tid // T, tid % T)
     assert torch.unique(lc * T + lj).numel() == geo["threads"]
     assert int(lc.max()) == CP - 1 and int(lj.max()) == T - 1
-    assert geo["threads"] <= K.MAX_THREADS
-    fits = 16 * (n if cols else n | 1) <= K.SMEM_LIMIT
+    for _, p in K.notch_steps(plan):
+        radix, L = plan[p], int(np.prod(plan[p:]))
+        i = torch.arange(n // radix)
+        elems = ((i // (L // radix)) * L + i % (L // radix))[:, None] \
+            + torch.arange(radix)[None, :] * (L // radix)
+        assert torch.equal(torch.sort(elems.reshape(-1)).values, e)
+    fits = 8 * geo["nbuf"] * geo["buf"] <= K.SMEM_LIMIT
     assert (geo["smem"] > 0) == fits
+    assert fits or CP == 1
     assert geo["smem"] <= K.SMEM_LIMIT
 
 
@@ -304,25 +344,66 @@ def host_check(tmp_path_factory):
     return exe
 
 
-def test_header_on_the_host_matches_float64(host_check):
+def _host_args(cases):
     args = []
-    for axis, B, H, W in HOST_CASES:
+    for axis, B, H, W in cases:
         n = H if axis == -2 else W
         plan = K.notch_plan(n)
-        generic = int(plan[-1] not in DFT_FFT_RADICES)
+        generic = int(plan[-1] not in K.NOTCH_RADICES)
         args += [str(v) for v in (axis, B, H, W, generic, *plan)] + ["/"]
-    out = subprocess.run([str(host_check), *args[:-1]], capture_output=True,
-                         text=True, timeout=240)
+    return args[:-1]
+
+
+def _host_geometry(axis, B, H, W):
+    """The geometry line the host check prints for a case."""
+    n = H if axis == -2 else W
+    plan = K.notch_plan(n)
+    g = K.notch_geometry(B, H, W, axis == -2,
+                         generic=plan[-1] not in K.NOTCH_RADICES)
+    return (f"CP {g['CP']} T {g['T']} pitch {g['pitch']} buf {g['buf']} "
+            f"nbuf {g['nbuf']} smem {g['smem']} tiles {g['tiles']} vec2 "
+            f"{g['vec2']} items {g['items']} steps "
+            f"{len(K.notch_steps(plan))};")
+
+
+def test_header_on_the_host_matches_float64(host_check):
+    out = subprocess.run([str(host_check), *_host_args(HOST_CASES)],
+                         capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stdout + out.stderr
     lines = out.stdout.splitlines()
     assert len(lines) == len(HOST_CASES)
-    for (axis, B, H, W), line in zip(HOST_CASES, lines):
+    for case, line in zip(HOST_CASES, lines):
         # the header's geometry is the one the wrapper and emulation mirror
-        g = K.notch_geometry(B, H, W, axis == -2)
-        want = (f"CP {g['CP']} T {g['T']} threads {g['threads']} pitch "
-                f"{g['pitch']} buf {g['buf']} smem {g['smem']} tiles "
-                f"{g['tiles']} vec2 {g['vec2']} items {g['items']};")
+        want = _host_geometry(*case)
         assert want in line, (want, line)
+
+
+# the 14 notch lengths of a padded 2000^2 decomposition (cH along x, cV
+# along y at levels 1-7) and two FNT lengths with a generic radix
+# (three rows or five columns a tile: the float64 reference is O(n^2) a
+# line)
+GROUP_CASES = ([(-1, 2, 3, n) for n in TILE_2000]
+               + [(-2, 2, n, 5) for n in TILE_2000]
+               + [(-1, 2, 3, 23), (-2, 1, 368, 5)])
+
+
+def test_header_group_on_the_host_equals_lone_runs(host_check):
+    """The 16 subbands in one table (`make_group`: longest first), each
+    bit-equal to its one-subband run and within 1e-5 of float64."""
+    assert len(GROUP_CASES) == K.MAX_GROUP
+    out = subprocess.run([str(host_check), "group",
+                          *_host_args(GROUP_CASES)], capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.splitlines()
+    assert len(lines) == len(GROUP_CASES) + 1
+    for case, line in zip(GROUP_CASES, lines):
+        assert _host_geometry(*case) in line, (case, line)
+    order = sorted((H if a == -2 else W for a, _, H, W in GROUP_CASES),
+                   reverse=True)
+    assert lines[-1].startswith(f"group of {K.MAX_GROUP}:")
+    assert f"order {' '.join(map(str, order))};" in lines[-1]
+    assert "; 0 differ from their lone runs" in lines[-1]
 
 
 # -- the wrapper -------------------------------------------------------------------
@@ -367,17 +448,49 @@ def test_wrapper_refuses_devices_it_cannot_launch_on():
 
 
 def test_filter_subband_notches_through_the_wrapper(rng, monkeypatch):
-    """filter_subband reaches the notch through `notch_filter` alone: one
-    call a level and axis, the x notch on cH, the y notch on cV."""
+    """filter_subband reaches the notch through one `notch_filter_group`
+    call with all 2L subbands: the x notch on cH, the y notch on cV of
+    every level, deepest level first."""
     calls = []
 
-    def counted(x, g, axis):
-        calls.append((axis, tuple(x.shape)))
-        return K.notch_filter_plain(x, g, axis)
+    def counted(xs, gs, axes):
+        calls.append([(a, tuple(x.shape)) for x, a in zip(xs, axes)])
+        return K.notch_filter_group_plain(xs, gs, axes)
 
-    monkeypatch.setattr(P, "notch_filter", counted)
+    monkeypatch.setattr(P, "notch_filter_group", counted)
     img = torch.from_numpy(rng.standard_normal((2, 64, 96)).astype(
         np.float32))
     P.filter_subband(img, 20.0, 3, "db3", axes=(-1, -2))
-    assert calls == [(a, (2, 64 >> lv, 96 >> lv)) for lv in (3, 2, 1)
-                     for a in (-1, -2)]
+    assert calls == [[(a, (2, 64 >> lv, 96 >> lv)) for lv in (3, 2, 1)
+                      for a in (-1, -2)]]
+    calls.clear()
+    P.filter_subband(img, 20.0, 3, "db3", axes=-1)
+    assert calls == [[(-1, (2, 64 >> lv, 96 >> lv)) for lv in (3, 2, 1)]]
+
+
+@pytest.mark.parametrize("shape,level,axes", [
+    ((2, 64, 96), 3, (-1, -2)), ((1, 48, 40), 2, -1)])
+def test_group_plain_equals_single_calls_and_jax_filter_subband(
+        rng, shape, level, axes):
+    """`notch_filter_group` on the CPU is `notch_filter` of each subband,
+    bit for bit, and `filter_subband` through it agrees with the JAX
+    package's within 1e-5 of max."""
+    img = rng.standard_normal(shape).astype(np.float32)
+    xs = [torch.from_numpy(rng.standard_normal((2, 24 >> k, 40 >> k))
+                           .astype(np.float32)) for k in range(3)]
+    axes_l = [-1, -2, -1]
+    gs = [_notch(x.shape[a]) for x, a in zip(xs, axes_l)]
+    K.reset_launch_counts()
+    got = K.notch_filter_group(xs, gs, axes_l)
+    for x, g, a, y in zip(xs, gs, axes_l, got):
+        assert torch.equal(y, K.notch_filter(x, g, a))
+    assert K.LAUNCHES == {"notch": 0}
+    assert K.notch_filter_group([], [], []) == []
+    with pytest.raises(ValueError):
+        K.notch_filter_group(xs, gs[:2], axes_l)
+    ours = P.filter_subband(torch.from_numpy(img), 30.0, level, "db3",
+                            axes=axes)
+    ref = np.asarray(J.filter_subband(jnp.asarray(img), 30.0, level, "db3",
+                                      axes=axes))
+    assert ours.shape == img.shape
+    assert _rel(ours.numpy(), ref) <= TOL

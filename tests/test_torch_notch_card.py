@@ -9,6 +9,9 @@ tests/test_torch_notch.py.
   within 1e-5 of the plain version's max (both f32), one launch a call.
 - A batch of 8 bit-equal to its 8 single tiles and a call to its repeat
   (cuFFT was not, at n = 672 and 21 along y).
+- The 14 notches of a padded decomposition of each tile shape in one
+  `notch_filter_group` call: one launch, each output bit-equal to its
+  one-subband call and within 1e-5 of its plain version.
 - `filter_coefficient` on a CUDA tensor with every torch.fft entry
   refused.
 
@@ -56,7 +59,7 @@ def _level_shapes():
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,axis", _level_shapes() + [
     ((2, 16, 14000), -1), ((2, 14600, 6), -2), ((1, 3, 32749), -1),
-    ((3, 97, 37), -2), ((5, 7, 1), -1)])
+    ((1, 2, 30000), -1), ((3, 97, 37), -2), ((5, 7, 1), -1)])
 def test_kernel_matches_plain_on_the_card(cuda, shape, axis):
     rng = np.random.default_rng(sum(shape) - axis)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
@@ -89,6 +92,30 @@ def test_kernel_batch_equals_single_tiles_on_the_card(cuda, n, axis):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("H,W", [(2688, 2688), (2304, 2688)])
+def test_group_equals_one_subband_calls_on_the_card(cuda, H, W):
+    """cH along x and cV along y of levels 1-7 of a padded batch of 8 in
+    one launch, each bit-equal to its own call: the arithmetic of a line
+    pair depends on n alone, never on the group."""
+    rng = np.random.default_rng(H)
+    xs, gs, axes = [], [], []
+    for lv in range(1, 8):
+        for axis in (-1, -2):
+            shape = (8, H >> lv, W >> lv)
+            xs.append(torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(cuda))
+            gs.append(_notch(shape[axis]))
+            axes.append(axis)
+    K.reset_launch_counts()
+    got = K.notch_filter_group(xs, gs, axes)
+    assert K.LAUNCHES == {"notch": 1}
+    for y, x, g, a in zip(got, xs, gs, axes):
+        assert torch.equal(y, K.notch_filter(x, g, a))
+        ref = K.notch_filter_plain(x, g, a)
+        assert _rel(y.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+@pytest.mark.gpu
 def test_filter_coefficient_calls_no_torch_fft_on_the_card(cuda,
                                                            monkeypatch):
     def refused(*a, **k):
@@ -103,3 +130,6 @@ def test_filter_coefficient_calls_no_torch_fft_on_the_card(cuda,
         y = P.filter_coefficient(x, 0.3, axis=axis)
         assert y.shape == x.shape and bool(torch.isfinite(y).all())
     assert K.LAUNCHES == {"notch": 2}
+    y = P.filter_subband(x, 40.0, 2, "db3", axes=(-1, -2))
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    assert K.LAUNCHES == {"notch": 3}   # one for the four notches

@@ -1,21 +1,26 @@
-// Host check of ipp_tpu_torch/csrc/notch.cuh (K8): the geometry and the
-// load, pass and store steps, run item by item and thread by thread with the
+// Host check of ipp_tpu_torch/csrc/notch.cuh (K8): the launch table, the
+// geometry and the steps, run item by item and thread by thread with the
 // header's own functions, every thread through one step before any runs the
-// next (the kernel's barriers), both buffers NaN before each item.
+// next (the kernel's barriers), the buffers NaN before each item.
 //
 //   g++ -std=c++17 -O2 -I tests/torch_dft_fft_host -I ipp_tpu_torch/csrc
 //       tests/torch_notch_host/check.cpp -o check      (one command)
-//   ./check AXIS B H W GENERIC R0 R1 ... [/ ...]
+//   ./check [group] AXIS B H W GENERIC R0 R1 ... [/ ...]
 //
 // AXIS -1 notches the rows of (B, H, W) (n = W), -2 the columns (n = H);
 // the radices are the plan ops/cuda_notch.notch_plan(n) gives, GENERIC 1
 // when the last is the generic pass.  Random data, g = notch(n / 2 + 1, n /
-// 6) of ops/destripe.notch.  For each case: the kernel's steps on the
-// batch, and on each tile alone (B = 1), against a float64 irfft(rfft(x) *
-// g) line by line.  Prints one line per case with the geometry; exits 1 if
+// 6) of ops/destripe.notch, the gains in the plan's digit-reversed order
+// (computed here from the digits, not by the wrapper's code).  For each
+// case, a one-subband table (`make_group`) on the batch, and on each tile
+// alone (B = 1), against a float64 irfft(rfft(x) * g) line by line.  With
+// `group` first, all cases also run as one table (as `ipp_notch_group`
+// launches a decomposition), each subband's output bit-compared with its
+// one-subband run.  Prints one line per case with the geometry; exits 1 if
 // a case is refused, an output is left unwritten or written outside the
-// output, a tile alone differs in any bit from its place in the batch, or
-// an error exceeds 1e-5 of the reference's max.
+// output, a tile alone differs in any bit from its place in the batch, a
+// grouped subband from its lone run, or an error exceeds 1e-5 of the
+// reference's max.
 
 #include <cmath>
 #include <cstdio>
@@ -33,18 +38,46 @@ static const double PI = 3.14159265358979323846;
 static const int GUARD = 64;
 static const float SENTINEL = 12345.f;
 
-// the kernel's item loop on the host: y (with GUARD sentinels each side)
-static void run(const Geo& g, const Plan& pl, const float* x, float* y,
-                const std::vector<float2>& tw, const std::vector<float>& gs) {
-  std::vector<float2> buf(2 * (size_t)g.buf);
-  for (i64 k = 0; k < g.items; ++k) {
+struct Case {
+  int axis, H, W;
+  i64 B;
+  Plan pl;
+  std::vector<float> x, gv, gp;
+  std::vector<float2> tw;
+};
+
+// the kernel's item loop on the host, over a table
+static void run(const Group& grp) {
+  i64 slots = grp.scratch_slots;
+  for (int q = 0; q < grp.count; ++q)
+    slots = std::max<i64>(slots, (i64)grp.sub[q].g.nbuf * grp.sub[q].g.buf);
+  std::vector<float2> buf((size_t)slots);
+  for (i64 t = 0; t < grp.total; ++t) {
+    const Sub& sb = grp.sub[sub_of(grp, t)];
     std::fill(buf.begin(), buf.end(), make_float2(NAN, NAN));
-    for (int t = 0; t < g.threads; ++t) load(g, x, buf.data(), k, t);
-    for (int s = 0; s < 2 * pl.npass; ++s)
-      for (int t = 0; t < g.threads; ++t)
-        step(g, pl, tw.data(), gs.data(), buf.data(), s, t);
-    for (int t = 0; t < g.threads; ++t) store(g, y, buf.data(), k, t);
+    for (int s = 0; s < num_steps(sb.pl); ++s)
+      for (int tid = 0; tid < THREADS; ++tid) {
+        const Lane l = lane_of(sb.g, tid);
+        run_step(sb, l, pair_of(sb.g, t - sb.start, l.c), buf.data(), s);
+      }
   }
+}
+
+static std::vector<i64> desc_row(const Case& c, i64 B, const float* x,
+                                 float* y) {
+  std::vector<i64> d(DESC, 0);
+  d[0] = (i64)x;
+  d[1] = (i64)y;
+  d[2] = (i64)c.tw.data();
+  d[3] = (i64)c.gp.data();
+  d[4] = B;
+  d[5] = c.H;
+  d[6] = c.W;
+  d[7] = c.axis == -2;
+  d[8] = c.pl.npass;
+  d[9] = c.pl.generic;
+  for (int p = 0; p < c.pl.npass; ++p) d[10 + p] = c.pl.radix[p];
+  return d;
 }
 
 static std::vector<float> guarded(size_t n) {
@@ -59,46 +92,68 @@ static bool guards_intact(const std::vector<float>& v) {
   return true;
 }
 
-static int check(int axis, i64 B, int H, int W, const Plan& pl,
-                 std::mt19937& gen) {
-  const bool cols = axis == -2;
-  const int n = cols ? H : W;
-  Geo g;
-  if (!notch_plan_ok(pl) || !geometry(B, H, W, cols, true, g) || pl.n != n) {
-    printf("axis %d B %lld H %d W %d: refused\n", axis, B, H, W);
-    return 1;
-  }
+// one subband alone; false if make_group refuses it
+static bool run_alone(const Case& c, i64 B, const float* x, float* y,
+                      Geo* geo) {
+  Group grp;
+  const std::vector<i64> d = desc_row(c, B, x, y);
+  if (!make_group(d.data(), 1, grp)) return false;
+  if (geo) *geo = grp.sub[0].g;
+  run(grp);
+  return true;
+}
+
+static void make_case(Case& c, std::mt19937& gen) {
+  const int n = c.pl.n;
   std::uniform_real_distribution<float> uni(-1.f, 1.f);
-  const size_t tile = (size_t)H * W, total = tile * B;
-  std::vector<float> x(total);
-  for (auto& v : x) v = uni(gen);
-  // g of ops/destripe.notch, sigma n / 6, and the kernel's tables
+  c.x.resize((size_t)c.B * c.H * c.W);
+  for (auto& v : c.x) v = uni(gen);
+  // g of ops/destripe.notch, sigma n / 6
   const int kh = n / 2 + 1;
   const double sigma = n / 6.0;
-  std::vector<float> gv(kh);
+  c.gv.resize(kh);
   for (int k = 0; k < kh; ++k)
-    gv[k] = (float)(1.0 - std::exp(-(double)k * k / (2 * sigma * sigma)));
-  std::vector<float> gs(n);
+    c.gv[k] = (float)(1.0 - std::exp(-(double)k * k / (2 * sigma * sigma)));
+  // gp at element sum_p k_p M_p of frequency f = k_0 + r_0 k_1 + ...
+  c.gp.assign(n, NAN);
+  for (int f = 0; f < n; ++f) {
+    int rest = f, e = 0, M = n;
+    for (int p = 0; p < c.pl.npass; ++p) {
+      const int r = c.pl.radix[p];
+      M /= r;
+      e += (rest % r) * M;
+      rest /= r;
+    }
+    c.gp[e] = (float)((double)c.gv[f < n - f ? f : n - f] / n);
+  }
+  c.tw.resize(n);
   for (int k = 0; k < n; ++k)
-    gs[k] = (float)((double)gv[k < n - k ? k : n - k] / n);
-  std::vector<float2> tw(n);
-  for (int k = 0; k < n; ++k)
-    tw[k] = make_float2((float)std::cos(2 * PI * k / n),
-                        (float)-std::sin(2 * PI * k / n));
+    c.tw[k] = make_float2((float)std::cos(2 * PI * k / n),
+                          (float)-std::sin(2 * PI * k / n));
+}
+
+static int check(Case& c, std::vector<float>& out) {
+  const bool cols = c.axis == -2;
+  const int n = c.pl.n, H = c.H, W = c.W;
+  const i64 B = c.B;
+  const size_t tile = (size_t)H * W, total = tile * B;
   std::vector<float> y = guarded(total);
-  run(g, pl, x.data(), y.data() + GUARD, tw, gs);
+  Geo g;
+  if (!run_alone(c, B, c.x.data(), y.data() + GUARD, &g)) {
+    printf("axis %d B %lld H %d W %d: refused\n", c.axis, B, H, W);
+    return 1;
+  }
   bool guards = guards_intact(y), alone_differs = false;
   for (i64 b = 0; b < B && B > 1; ++b) {
-    Geo g1;
-    geometry(1, H, W, cols, true, g1);
     std::vector<float> y1 = guarded(tile);
-    run(g1, pl, x.data() + b * tile, y1.data() + GUARD, tw, gs);
+    run_alone(c, 1, c.x.data() + b * tile, y1.data() + GUARD, nullptr);
     guards = guards && guards_intact(y1);
     if (std::memcmp(y1.data() + GUARD, y.data() + GUARD + b * tile,
                     tile * sizeof(float)))
       alone_differs = true;
   }
   // float64 irfft(rfft(x) * g) of every line
+  const int kh = n / 2 + 1;
   const int lines = cols ? W : H;
   std::vector<double> re(kh), im(kh), ct(n), st(n);
   for (int m = 0; m < n; ++m) {
@@ -115,11 +170,11 @@ static int check(int axis, i64 B, int H, int W, const Plan& pl,
         double sr = 0, si = 0;
         for (int t = 0; t < n; ++t) {
           const int m = (int)((i64)k * t % n);
-          sr += x[base + t * stride] * ct[m];
-          si -= x[base + t * stride] * st[m];
+          sr += c.x[base + t * stride] * ct[m];
+          si -= c.x[base + t * stride] * st[m];
         }
-        re[k] = sr * gv[k];
-        im[k] = si * gv[k];
+        re[k] = sr * c.gv[k];
+        im[k] = si * c.gv[k];
       }
       for (int t = 0; t < n; ++t) {
         double v = 0;
@@ -139,40 +194,79 @@ static int check(int axis, i64 B, int H, int W, const Plan& pl,
     }
   const double rel = err / std::fmax(scale, 1e-30);
   const bool ok = !unwritten && guards && !alone_differs && rel <= 1e-5;
-  printf("axis %d B %lld H %d W %d n %d: CP %d T %d threads %d pitch %d "
-         "buf %d smem %d tiles %d vec2 %d items %lld; rel %.2e%s%s%s\n",
-         axis, B, H, W, n, g.CP, g.T, g.threads, g.pitch, g.buf, g.smem,
-         g.tiles, g.vec2, g.items, rel, unwritten ? " UNWRITTEN" : "",
-         guards ? "" : " WRITE OUTSIDE",
+  printf("axis %d B %lld H %d W %d n %d: CP %d T %d pitch %d buf %d nbuf %d "
+         "smem %d tiles %d vec2 %d items %lld steps %d; rel %.2e%s%s%s\n",
+         c.axis, B, H, W, n, g.CP, g.T, g.pitch, g.buf, g.nbuf, g.smem,
+         g.tiles, g.vec2, g.items, num_steps(c.pl), rel,
+         unwritten ? " UNWRITTEN" : "", guards ? "" : " WRITE OUTSIDE",
          alone_differs ? " ALONE DIFFERS" : "");
+  out.assign(y.begin() + GUARD, y.end() - GUARD);
   return ok ? 0 : 1;
 }
 
 int main(int argc, char** argv) {
-  std::vector<std::vector<std::string>> cases(1);
-  for (int i = 1; i < argc; ++i) {
+  int first = 1;
+  const bool group = argc > 1 && std::string(argv[1]) == "group";
+  if (group) first = 2;
+  std::vector<std::vector<std::string>> args(1);
+  for (int i = first; i < argc; ++i) {
     if (std::string(argv[i]) == "/")
-      cases.emplace_back();
+      args.emplace_back();
     else
-      cases.back().push_back(argv[i]);
+      args.back().push_back(argv[i]);
   }
   std::mt19937 gen(7);
+  std::vector<Case> cases(args.size());
+  std::vector<std::vector<float>> outs(args.size());
   int bad = 0;
-  for (const auto& c : cases) {
-    if (c.size() < 6 || c.size() - 5 > (size_t)ippdft::MAX_PASSES) {
-      printf("usage: AXIS B H W GENERIC R0 [R1 ...] [/ ...]\n");
+  for (size_t q = 0; q < args.size(); ++q) {
+    const auto& a = args[q];
+    if (a.size() < 6 || a.size() - 5 > (size_t)ippdft::MAX_PASSES) {
+      printf("usage: [group] AXIS B H W GENERIC R0 [R1 ...] [/ ...]\n");
       return 2;
     }
-    const int axis = atoi(c[0].c_str());
-    const i64 B = atoll(c[1].c_str());
-    const int H = atoi(c[2].c_str()), W = atoi(c[3].c_str());
-    Plan pl;
-    pl.n = axis == -2 ? H : W;
-    pl.generic = atoi(c[4].c_str());
-    pl.npass = (int)c.size() - 5;
+    Case& c = cases[q];
+    c.axis = atoi(a[0].c_str());
+    c.B = atoll(a[1].c_str());
+    c.H = atoi(a[2].c_str());
+    c.W = atoi(a[3].c_str());
+    c.pl.n = c.axis == -2 ? c.H : c.W;
+    c.pl.generic = atoi(a[4].c_str());
+    c.pl.npass = (int)a.size() - 5;
     for (int p = 0; p < ippdft::MAX_PASSES; ++p)
-      pl.radix[p] = p < pl.npass ? atoi(c[5 + p].c_str()) : 1;
-    bad |= check(axis, B, H, W, pl, gen);
+      c.pl.radix[p] = p < c.pl.npass ? atoi(a[5 + p].c_str()) : 1;
+    make_case(c, gen);
+    bad |= check(c, outs[q]);
+  }
+  if (group) {
+    // every case in one table, each output bit-equal to its lone run
+    std::vector<i64> desc;
+    std::vector<std::vector<float>> ys(cases.size());
+    for (size_t q = 0; q < cases.size(); ++q) {
+      ys[q] = guarded(cases[q].x.size());
+      const std::vector<i64> d = desc_row(cases[q], cases[q].B,
+                                          cases[q].x.data(),
+                                          ys[q].data() + GUARD);
+      desc.insert(desc.end(), d.begin(), d.end());
+    }
+    Group grp;
+    if (!make_group(desc.data(), (int)cases.size(), grp)) {
+      printf("group of %zu: refused\n", cases.size());
+      return 1;
+    }
+    run(grp);
+    int differ = 0, outside = 0;
+    for (size_t q = 0; q < cases.size(); ++q) {
+      outside += !guards_intact(ys[q]);
+      differ += std::memcmp(ys[q].data() + GUARD, outs[q].data(),
+                            outs[q].size() * sizeof(float)) != 0;
+    }
+    printf("group of %zu: smem %d total %lld order", cases.size(), grp.smem,
+           grp.total);
+    for (int q = 0; q < grp.count; ++q) printf(" %d", grp.sub[q].g.n);
+    printf("; %d differ from their lone runs%s\n", differ,
+           outside ? " WRITE OUTSIDE" : "");
+    bad |= differ != 0 || outside != 0;
   }
   return bad;
 }

@@ -82,10 +82,15 @@ Phases:
    1344, 1344) ... (8, 21, 21) and (8, 1152, 1344) ... (8, 18, 21), along
    x and along y: <= 1e-5 of max, kernel, plain and library ms and the
    bound, a batch of 8 bit-equal to its 8 single tiles and a call to its
-   repeat; the 14 notches of a batch of each tile shape in one grouped
-   call (`notch_filter_group`, as `filter_subband` runs them): one launch,
-   each output bit-equal to its one-subband call, ms by CUDA events and by
-   graph replay against the summed bound; then the pystripe CLI end to end with process_images' stage-1
+   repeat; K8's long form (K8l) the same at lines past 32768: level 1 of
+   two padded 2048 x 66000 planes along x, (2, 2688, 33344), of two 66000
+   x 2048 along y, a prime on the chirp route (65537) and 2^20 on a few
+   lines; the 14 notches of a batch of each tile shape, and of the two
+   padded 2048 x 66000 planes (2, 2688, 66688), in one grouped call
+   (`notch_filter_group`, as `filter_subband` runs them): one launch (and
+   the plane's two K8l launches), each output bit-equal to its one-subband
+   call, ms by CUDA events and by graph replay against the summed bound;
+   then the pystripe CLI end to end with process_images' stage-1
    settings (sigma 250/250, db9, reflect, bidirectional, dark 100, batch
    8) on a
    synthetic tile tree (2 x 2 stacks x 64 planes of 2000 x 2000 and one
@@ -188,7 +193,12 @@ Phases:
    count of the same chain on the CPU, the npz within 1e-4 of max of its CPU
    recomputation from the written planes, TeraFly's level 0 equal to the
    series; Mpix/s with the read / device / write / downsample / export
-   split;
+   split; then the wide-plane run: convert --destripe (no export) on 2
+   striped u16 planes of 2048 x 66000 and on 2 of 66000 x 2048 (padded to
+   66688: the notch lines of 33344 and 16672 take K8l): rc 0, exact K5,
+   K5s, K8 and K8l launches (counted apart from the run before), the
+   stripe power down more than 3x, every plane within 1 count of the same
+   chain on the card with K8's plain version, Mpix/s with its split;
 15. scan_stitch on a Dragonfly tree (2 x 2 columns x 2 piezo substacks of
    16 planes of 2048 x 2048 u16, 200 px overlap, known jitter |dx|, |dy|
    <= 8, |dz| <= 1): positions equal to the truth, its links equal to the
@@ -2067,33 +2077,44 @@ def compare_stages(torch, xb, cfg, u16):
 NOTCH_TILES = ((2688, 2688), (2304, 2688))
 
 
-def notch_level_cases(tiles=NOTCH_TILES):
+def notch_level_cases(tiles=NOTCH_TILES, batch=8):
     """(shape, axis, sigma) of every notch the chain runs on a padded batch
-    of 8 of each tile shape (H, W) at phase 6's settings (sigma 250): cH
-    (8, h, w) along x with the notch sigma h * 250 / H, cV along y with w
-    * 250 / W, h = H >> level, levels 1-7 (`destripe.filter_subband`)."""
+    of each tile shape (H, W) at phase 6's settings (sigma 250): cH
+    (batch, h, w) along x with the notch sigma h * 250 / H, cV along y
+    with w * 250 / W, h = H >> level, levels 1-7
+    (`destripe.filter_subband`)."""
     out = []
     for H, W in tiles:
         for lv in range(1, 8):
-            shape = (8, H >> lv, W >> lv)
+            shape = (batch, H >> lv, W >> lv)
             out += [(shape, -1, shape[1] * 250.0 / H),
                     (shape, -2, shape[2] * 250.0 / W)]
     return out
 
 
+# K8's long form (K8l) past 32768: level 1 of two padded 2048 x 66000
+# planes along x and of two 66000 x 2048 along y (the sigma the chain
+# gives them), a prime on the chirp route and 2^20 on a few lines
+NOTCH_LONG_CASES = [((2, 2688, 33344), -1, 125.0),
+                    ((2, 33344, 2688), -2, 125.0),
+                    ((1, 4, 65537), -1, 2.0), ((1, 2, 1 << 20), -1, 2.0)]
+
+
 def notch_cases(torch, dev, rows, bad):
     """K8 against its plain version (torch.fft) at every level shape of
-    both tile shapes, on both axes: <= 1e-5 of max, kernel, plain and
-    library (rfft * g, irfft) ms by CUDA events, the bound; then a batch
-    of 8 bit-equal to its 8 single tiles and a call to its repeat."""
+    both tile shapes, on both axes, and K8l at NOTCH_LONG_CASES: <= 1e-5
+    of max, kernel, plain and library (rfft * g, irfft) ms by CUDA
+    events, the bound; then the batch bit-equal to its single tiles and a
+    call to its repeat."""
     import numpy as np
 
     from ipp_tpu_torch.ops import cuda_notch as cn
     from ipp_tpu_torch.ops import destripe as dsm
 
     gen = np.random.default_rng(19)
-    for shape, axis, sigma in notch_level_cases():
+    for shape, axis, sigma in notch_level_cases() + NOTCH_LONG_CASES:
         n = shape[axis]
+        kernel = "K8l" if cn.notch_is_long(shape, axis) else "K8"
         x = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)
                              ).to(dev)
         g = dsm.notch(n // 2 + 1, 0.5 * sigma)
@@ -2118,32 +2139,36 @@ def notch_cases(torch, dev, rows, bad):
         ms, plain_ms = time_ms(torch, kfn, 10), time_ms(torch, pfn, 10)
         lib_ms = time_ms(torch, lfn, 10)
         bound_ms, bound_by = bound(*work_notch(x.numel(), n))
-        rows.append(dict(kernel="K8", shape=list(shape), axis=axis, n=n,
-                         max_abs_err=abs_err, rel_err=rel, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         batch_equals_single=same, two_calls_equal=twice))
-        say(f"  K8  {str(shape):<18s} axis {axis:2d} n {n:5d} rel {rel:.2e} "
-            f"abs {abs_err:.2e}  kernel {ms:7.3f} ms  plain {plain_ms:7.3f}  "
+        rows.append(dict(kernel=kernel, shape=list(shape), axis=axis, n=n,
+                         route=cn.notch_route(n), max_abs_err=abs_err,
+                         rel_err=rel, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, batch_equals_single=same,
+                         two_calls_equal=twice))
+        say(f"  {kernel:<3s} {str(shape):<18s} axis {axis:2d} n {n:5d} rel "
+            f"{rel:.2e} abs {abs_err:.2e}  kernel {ms:7.3f} ms  plain "
+            f"{plain_ms:7.3f}  "
             f"library {lib_ms:7.3f}  bound {bound_ms:6.3f} ({bound_by}); "
-            f"batch of 8 vs singles: {'bit-equal' if same else 'DIFFER'}, "
+            f"batch vs singles: {'bit-equal' if same else 'DIFFER'}, "
             f"two calls: {'bit-equal' if twice else 'DIFFER'}")
         if not rel <= 1e-5:
-            bad.append(f"K8 {shape} axis {axis}: rel {rel:.3e}")
+            bad.append(f"{kernel} {shape} axis {axis}: rel {rel:.3e}")
         if not (same and twice):
-            bad.append(f"K8 {shape} axis {axis}: a batch differs from its "
-                       f"singles or a call from its repeat")
+            bad.append(f"{kernel} {shape} axis {axis}: a batch differs from "
+                       f"its singles or a call from its repeat")
         del got, ref, x
     notch_group_cases(torch, dev, rows, bad, gen)
 
 
 def notch_group_cases(torch, dev, rows, bad, gen):
-    """The 14 notches of one padded batch of 8 of each tile shape in one
+    """The 14 notches of one padded batch of 8 of each tile shape, and of
+    two padded 2048 x 66000 planes (2, 2688, 66688), in one
     `notch_filter_group` call, as `destripe.filter_subband` runs them: one
-    launch, each output within 1e-5 of max of its plain version and bit-
-    equal to its one-subband call, the call bit-equal to its repeat; the
-    kernel, the plain versions and the library calls (torch.fft's rfft *
-    g, irfft) of the 14 in ms by CUDA events, the kernel also by CUDA-graph
+    launch (and the plane's two K8l launches: 33344 and 16672 along x),
+    each output within 1e-5 of max of its plain version and bit-equal to
+    its one-subband call, the call bit-equal to its repeat; the kernel,
+    the plain versions and the library calls (torch.fft's rfft * g,
+    irfft) of the 14 in ms by CUDA events, the kernel also by CUDA-graph
     replay (the device's time alone: the wrapper's host time of 14
     subbands can hide it from events), and the sum of their bounds."""
     import numpy as np
@@ -2151,8 +2176,10 @@ def notch_group_cases(torch, dev, rows, bad, gen):
     from ipp_tpu_torch.ops import cuda_notch as cn
     from ipp_tpu_torch.ops import destripe as dsm
 
-    for H, W in NOTCH_TILES:
-        cases = notch_level_cases(((H, W),))
+    for B, H, W in [(8, H, W) for H, W in NOTCH_TILES] + [(2, 2688, 66688)]:
+        cases = notch_level_cases(((H, W),), B)
+        want_long = sum(cn.notch_is_long(shape, axis)
+                        for shape, axis, _ in cases)
         xs = [torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)
                                ).to(dev) for shape, _, _ in cases]
         axes = [axis for _, axis, _ in cases]
@@ -2175,7 +2202,8 @@ def notch_group_cases(torch, dev, rows, bad, gen):
         cn.reset_launch_counts()
         got = kfn()
         torch.cuda.synchronize()
-        launches = cn.LAUNCHES["notch"]
+        launches, long_launches = cn.LAUNCHES["notch"], cn.LAUNCHES[
+            "notch_long"]
         ref = pfn()
         errs = [err_of_max(a, b) for a, b in zip(got, ref)]
         abs_err = max(e[0] for e in errs)
@@ -2187,26 +2215,28 @@ def notch_group_cases(torch, dev, rows, bad, gen):
         plain_ms, lib_ms = time_ms(torch, pfn, 10), time_ms(torch, lfn, 10)
         bound_ms = sum(bound(*work_notch(x.numel(), x.shape[a]))[0]
                        for x, a in zip(xs, axes))
-        rows.append(dict(kernel="K8 group", tile=[8, H, W],
+        rows.append(dict(kernel="K8 group", tile=[B, H, W],
                          subbands=len(xs), launches=launches,
+                         long_launches=long_launches,
                          max_abs_err=abs_err, rel_err=rel, ms=ms,
                          graph_ms=graph, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
                          bound_by="bytes", group_equals_single=single,
                          two_calls_equal=twice))
-        say(f"  K8 group of {len(xs)} notches of a batch (8, {H}, {W}): "
-            f"{launches} launch, rel {rel:.2e}  kernel {ms:7.3f} ms (graph "
+        say(f"  K8 group of {len(xs)} notches of a batch ({B}, {H}, {W}): "
+            f"{launches} launch, {long_launches} K8l, rel {rel:.2e}  kernel "
+            f"{ms:7.3f} ms (graph "
             f"{graph:7.3f})  plain {plain_ms:7.3f}  library {lib_ms:7.3f}  "
             f"bound {bound_ms:6.3f} (bytes); group vs one-subband calls: "
             f"{'bit-equal' if single else 'DIFFER'}, two calls: "
             f"{'bit-equal' if twice else 'DIFFER'}")
-        if launches != 1 or len(xs) != 14:
-            bad.append(f"K8 group ({H}, {W}): {launches} launches of "
-                       f"{len(xs)} notches")
+        if launches != 1 or long_launches != want_long or len(xs) != 14:
+            bad.append(f"K8 group ({B}, {H}, {W}): {launches} launches and "
+                       f"{long_launches} K8l of {len(xs)} notches")
         if not rel <= 1e-5:
-            bad.append(f"K8 group ({H}, {W}): rel {rel:.3e}")
+            bad.append(f"K8 group ({B}, {H}, {W}): rel {rel:.3e}")
         if not (single and twice):
-            bad.append(f"K8 group ({H}, {W}): a subband differs from its "
+            bad.append(f"K8 group ({B}, {H}, {W}): a subband differs from its "
                        f"one-subband call or a call from its repeat")
         del got, ref, xs
 
@@ -3831,6 +3861,14 @@ CONV_CHECK = (0, 21, 42, 63)    # planes held against the CPU
 CONV_FLAGS = ["--destripe", "--sigma1", "250", "--sigma2", "250",
               "--wavelet", "db9", "--voxel", *map(str, CONV_VOXEL),
               "-dt", str(CONV_TARGET), "--terafly", "-zl", "0"]
+# the wide-plane run: horizontal and sagittal stitched planes (a rat brain
+# at the 15x objective's 0.42 um) whose padded side, 66688, takes K8's long
+# form; synthetic, no export
+WIDE_PLANES = ((2048, 66000), (66000, 2048))
+WIDE_COUNT = 2
+WIDE_FLAGS = ["--destripe", "--sigma1", "250", "--sigma2", "250",
+              "--wavelet", "db9", "-zl", "0"]
+WIDE_DROP = 3.0   # the stripe power's drop, at least (phase 6's)
 
 
 class StageClock:
@@ -3850,11 +3888,74 @@ class StageClock:
         return timed
 
 
+def run_convert(torch, argv):
+    """convert.main(argv) with its stages timed by a StageClock (read,
+    device dispatch, device wait, write, downsample, terafly export;
+    "other" the rest of the wall): (rc, wall s, stages, the ProcessConfig
+    it ran)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from ipp_tpu_torch.pipeline import convert as conv
+
+    clock, seen = StageClock(), {}
+    real = SimpleNamespace(
+        open=conv._open_source, batch=conv.process_batch_fn,
+        acc=conv.IsotropicAccumulator, terafly=conv.tif_series_to_terafly,
+        tio=conv.tio, convert=conv.convert)
+
+    def open_timed(*a, **k):
+        reader, nz = real.open(*a, **k)
+        return clock.wrap("read", reader), nz
+
+    class Fetch:   # the device result's wait, timed where the CLI reads it
+        def __init__(self, handle):
+            self.handle = handle
+
+        def copy_to_host_async(self):
+            self.handle.copy_to_host_async()
+
+        def __array__(self, dtype=None, copy=None):
+            return clock.wrap("device wait", np.asarray)(self.handle, dtype)
+
+    def batch_timed(*a, **k):
+        run = real.batch(*a, **k)
+        return lambda *b, **c: Fetch(clock.wrap("device dispatch", run)(
+            *b, **c))
+
+    class Acc(real.acc):
+        def add(self, plane):
+            return clock.wrap("downsample", super().add)(plane)
+
+    def convert_seen(*a, **k):
+        seen["cfg"] = a[2]
+        return real.convert(*a, **k)
+
+    conv._open_source, conv.process_batch_fn = open_timed, batch_timed
+    conv.IsotropicAccumulator, conv.convert = Acc, convert_seen
+    conv.tif_series_to_terafly = clock.wrap("terafly export", real.terafly)
+    conv.tio = SimpleNamespace(**{k: getattr(real.tio, k) for k in
+                                  dir(real.tio) if not k.startswith("__")})
+    conv.tio.imwrite = clock.wrap("write", real.tio.imwrite)
+    t0 = time.perf_counter()
+    try:
+        rc = conv.main(argv)
+    finally:
+        conv._open_source, conv.process_batch_fn = real.open, real.batch
+        conv.IsotropicAccumulator, conv.convert = real.acc, real.convert
+        conv.tif_series_to_terafly, conv.tio = real.terafly, real.tio
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stages = dict(clock.s)
+    stages["other"] = wall - sum(stages.values())
+    return rc, wall, stages, seen.get("cfg")
+
+
 def phase_convert(torch, dev, record, shared):
     """The converter CLI with --destripe, -dt 10 and a TeraFly export on
     a striped 64-plane 2000 x 2000 u16 series."""
     from concurrent.futures import ThreadPoolExecutor
-    from types import SimpleNamespace
 
     import numpy as np
 
@@ -3896,65 +3997,17 @@ def phase_convert(torch, dev, record, shared):
     say(f"  input: {CONV_PLANES} striped u16 planes of {STITCH_TILE} "
         f"written in {t_data:.1f} s; expect {want_k5} K5 launches")
 
-    clock, seen = StageClock(), {}
-    real = SimpleNamespace(
-        open=conv._open_source, batch=conv.process_batch_fn,
-        acc=conv.IsotropicAccumulator, terafly=conv.tif_series_to_terafly,
-        tio=conv.tio, convert=conv.convert)
-
-    def open_timed(*a, **k):
-        reader, nz = real.open(*a, **k)
-        return clock.wrap("read", reader), nz
-
-    class Fetch:   # the device result's wait, timed where the CLI reads it
-        def __init__(self, handle):
-            self.handle = handle
-
-        def copy_to_host_async(self):
-            self.handle.copy_to_host_async()
-
-        def __array__(self, dtype=None, copy=None):
-            return clock.wrap("device wait", np.asarray)(self.handle, dtype)
-
-    def batch_timed(*a, **k):
-        run = real.batch(*a, **k)
-        return lambda *b, **c: Fetch(clock.wrap("device dispatch", run)(
-            *b, **c))
-
-    class Acc(real.acc):
-        def add(self, plane):
-            return clock.wrap("downsample", super().add)(plane)
-
-    def convert_seen(*a, **k):
-        seen["cfg"] = a[2]
-        return real.convert(*a, **k)
-
-    conv._open_source, conv.process_batch_fn = open_timed, batch_timed
-    conv.IsotropicAccumulator, conv.convert = Acc, convert_seen
-    conv.tif_series_to_terafly = clock.wrap("terafly export", real.terafly)
-    conv.tio = SimpleNamespace(**{k: getattr(real.tio, k) for k in
-                                  dir(real.tio) if not k.startswith("__")})
-    conv.tio.imwrite = clock.wrap("write", real.tio.imwrite)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cd.reset_launch_counts()
     cn.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        rc = conv.main(["-i", str(src), "-o", str(out), *CONV_FLAGS])
-    finally:
-        conv._open_source, conv.process_batch_fn = real.open, real.batch
-        conv.IsotropicAccumulator, conv.convert = real.acc, real.convert
-        conv.tif_series_to_terafly, conv.tio = real.terafly, real.tio
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    rc, wall, stages, cfg = run_convert(
+        torch, ["-i", str(src), "-o", str(out), *CONV_FLAGS])
     k5 = cd.LAUNCHES["dwt_analysis"]
     k5s = cd.LAUNCHES["dwt_synthesis"]
     k8 = cn.LAUNCHES["notch"]
     peak = torch.cuda.max_memory_allocated()
     card = card_line()
-    stages = dict(clock.s)
-    stages["other"] = wall - sum(stages.values())
     say(f"  CLI rc {rc}: {CONV_PLANES} planes in {wall:.1f} s, "
         f"{n_px / wall / 1e6:.1f} Mpix/s ({card}); K5 launches {k5}, K5s "
         f"{k5s}; torch.cuda.max_memory_allocated {peak}")
@@ -3982,7 +4035,7 @@ def phase_convert(torch, dev, record, shared):
         raise AssertionError(f"series {series.shape} {series.dtype}")
     # four planes against the same chain on the CPU
     t0 = time.perf_counter()
-    cpu = process_img(np.stack([raw[z] for z in CONV_CHECK]), seen["cfg"],
+    cpu = process_img(np.stack([raw[z] for z in CONV_CHECK]), cfg,
                       device="cpu")
     t_cpu = time.perf_counter() - t0
     d1 = int(np.abs(cpu.astype(np.int64)
@@ -4012,6 +4065,124 @@ def phase_convert(torch, dev, record, shared):
         raise AssertionError(f"npz {got.shape} vs {want.shape}: {dn}")
     if not tf_ok:
         raise AssertionError("TeraFly level 0 != the series")
+    if cn.LAUNCHES["notch_long"]:
+        raise AssertionError(f"{cn.LAUNCHES['notch_long']} K8l launches on "
+                             f"2000 x 2000 planes")
+    convert_wide(torch, dev, record)
+
+
+def convert_wide(torch, dev, record):
+    """Phase 14's wide-plane run: convert --destripe (sigma 250, db9, no
+    export) on WIDE_COUNT striped u16 planes of each shape of WIDE_PLANES,
+    stitched planes whose padded side (66688) passes 65536, so the notch
+    lines of levels 1 and 2 along that side (33344; 16672, a generic pass
+    of 521 in two buffers) run in K8's long form.  Held to: rc 0, exact
+    K5, K5s, K8 and K8l launches (counted apart from phase 14's run), the
+    stripe power down, every plane within 1 count of the same chain on the
+    card with K8's plain version (torch.fft) in place of the kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import cuda_notch as cn
+    from ipp_tpu_torch.ops import destripe as dsm
+    from ipp_tpu_torch.ops.process import process_img
+
+    runs = record["convert"]["wide"] = []
+    for k, (h, w) in enumerate(WIDE_PLANES):
+        work = ROOT / "build" / "chip_smoke_convert" / f"wide{k}"
+        shutil.rmtree(work, ignore_errors=True)
+        src, out = work / "in", work / "tif"
+        src.mkdir(parents=True)
+        yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+        xx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+        field = 600 + 1400 * np.exp(-((yy - 0.4) ** 2 + (xx - 0.5) ** 2)
+                                    / 0.08)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(WIDE_COUNT) as pool:
+            raw = list(pool.map(lambda z: striped_tile(
+                np.random.default_rng(1400 + 10 * k + z), field),
+                range(WIDE_COUNT)))
+        for z, img in enumerate(raw):
+            write_u16_tiff(src / f"img_{z:06d}.tif", img)
+        t_data = time.perf_counter() - t0
+        del field
+        _, _, padded, levels = dsm._plan_padding((h, w), (250.0, 250.0), 0,
+                                                 "db9")
+        # one batch: K8 one grouped launch for the decomposition's notches
+        # (cH along x, cV along y of every level), K8l one for each in the
+        # long form
+        subs = [((WIDE_COUNT, padded[0] >> lv, padded[1] >> lv), axis)
+                for lv in range(1, levels + 1) for axis in (-1, -2)]
+        long_n = [shape[axis] for shape, axis in subs
+                  if cn.notch_is_long(shape, axis)]
+        want = dict(dwt_analysis=3 * levels, dwt_synthesis=3 * levels,
+                    notch=int(len(long_n) < len(subs)),
+                    notch_long=len(long_n))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cd.reset_launch_counts()
+        cn.reset_launch_counts()
+        rc, wall, stages, cfg = run_convert(
+            torch, ["-i", str(src), "-o", str(out), *WIDE_FLAGS])
+        launches = dict(cd.LAUNCHES, **cn.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        n_px = WIDE_COUNT * h * w
+        card = card_line()
+        say(f"  wide run, {WIDE_COUNT} planes of ({h}, {w}) (padded "
+            f"{padded}, {levels} levels) written in {t_data:.1f} s: CLI rc "
+            f"{rc} in {wall:.1f} s, {n_px / wall / 1e6:.1f} Mpix/s ({card}); "
+            f"K5 {launches['dwt_analysis']}, K5s "
+            f"{launches['dwt_synthesis']}, K8 {launches['notch']}, K8l "
+            f"{launches['notch_long']} (lines {long_n}); "
+            f"torch.cuda.max_memory_allocated {peak}")
+        say("  stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                         stages.items()))
+        rec = dict(shape=[h, w], planes=WIDE_COUNT, padded=list(padded),
+                   levels=levels, long_lines=long_n, pixels=n_px, wall_s=wall,
+                   mpix_s=n_px / wall / 1e6, data_s=t_data, stages_s=stages,
+                   launches=launches, want_launches=want,
+                   peak_mem_bytes=peak, card=card, rc=rc)
+        runs.append(rec)
+        if rc != 0:
+            raise AssertionError(f"wide convert ({h}, {w}): rc {rc}")
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"wide convert ({h}, {w}): launches "
+                                 f"{launches} != {want}")
+        series = read_series(out)
+        if series.shape != (WIDE_COUNT, h, w) or series.dtype != np.uint16:
+            raise AssertionError(f"wide series {series.shape} "
+                                 f"{series.dtype}")
+        p_in = stripe_power(torch, torch.from_numpy(np.stack(raw).astype(
+            np.int32)).to(dev))
+        p_out = stripe_power(torch, torch.from_numpy(series.astype(
+            np.int32)).to(dev))
+        drop = sum(p_in) / max(sum(p_out), 1e-30)
+        # the same chain on the card with K8's plain version
+        saved = dsm.notch_filter_group
+        dsm.notch_filter_group = cn.notch_filter_group_plain
+        try:
+            plain = process_img(np.stack(raw), cfg, device=dev)
+        finally:
+            dsm.notch_filter_group = saved
+        diff = int(np.abs(plain.astype(np.int64)
+                          - series.astype(np.int64)).max())
+        rec.update(stripe_power_in=p_in, stripe_power_out=p_out,
+                   stripe_drop=drop, plain_notch_max_diff=diff)
+        say(f"  stripe power (along x, along y): input {p_in[0]:.3e} "
+            f"{p_in[1]:.3e}, output {p_out[0]:.3e} {p_out[1]:.3e}: "
+            f"{drop:.1f}x lower; planes vs the chain with the plain notch "
+            f"on the card: max |diff| {diff} count(s)")
+        del raw, series, plain
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+        if not drop > WIDE_DROP:
+            raise AssertionError(f"wide convert ({h}, {w}): stripe power "
+                                 f"dropped only {drop:.2f}x")
+        if diff > 1:
+            raise AssertionError(f"wide convert ({h}, {w}): {diff} counts "
+                                 f"off the plain notch's chain")
 
 
 # -- phase 15 ----------------------------------------------------------------
@@ -5232,6 +5403,14 @@ def main() -> int:
         kernels.append(entry(tag, name, NOTCH_KERNEL[1], NOTCH_KERNEL[2],
                              record["destripe_cli"]["launches"][k8_name],
                              rows, at))
+    # K8l, the long form, at level 1 of two padded 2048 x 66000 planes along
+    # x, (2, 2688, 33344); its launches are phase 14's wide runs'
+    long_rows = [r for r in record["notch"] if r["kernel"] == "K8l"]
+    kernels.append(entry(
+        k8_tag + "l", k8_name + "_long", NOTCH_KERNEL[1], NOTCH_KERNEL[2],
+        sum(r["launches"]["notch_long"] for r in record["convert"]["wide"]),
+        long_rows, [r for r in long_rows if r["axis"] == -1
+                    and r["shape"] == [2, 2688, 33344]][0]))
     # K6 and K7 at the v1 RL block's work shape (K6: the inverse z stage,
     # K7: the FFT kernel on the forward y stage), launches from that RL run
     v1 = record["v1"]

@@ -85,11 +85,31 @@
 // into L2 too).
 // Where one pair's buffers exceed the 227 KB of shared memory (n above
 // ~27000, or ~13600 with a generic radix), they live in a scratch of device
-// memory the wrapper allocates, one a block, the blocks walk the items
-// (`notch_kernel<true>`, launched alone); the passes are the same code.
+// memory the wrapper allocates, one a block, the blocks walk the items: the
+// long form (`notch_kernel<true>`, launched alone, up to MAX_N = 2^20); the
+// passes are the same code, its index divisions 64-bit (`Div`).
+//
+// The chirp route (the long form only; `ops/cuda_notch.notch_route(n)`: a
+// line above 32768 whose odd factor left after 3, 5, 7, 11, 13 passes
+// 1024): Bluestein's chirp-z transform on the power-of-two passes of m =
+// pow2ceil(2n - 1).  With c[j] = exp(-i pi (j^2 mod 2n) / n) and h =
+// conj(c) laid out circularly (h[j] at j and m - j, j < n; 0 between), the
+// kernel's own passes with the complex gains Hm = DFT_m(h) / m (digit-
+// reversed) compute K(v) = DFT_m(conj(Hm . DFT_m(v))) = conj(v (*) h), the
+// conjugated circular convolution, which is linear for the first n outputs.
+// DFT(z)[k] = c[k] (z c (*) h)[k] (jk = (j^2 + k^2 - (k - j)^2) / 2), so
+//
+//   y = IDFT(G . DFT(z)) = conj(c) . K(pad(G / n . K(pad(c . z))))
+//
+// (conj(G/n . DFT(z)) . c = G/n . conj(z c (*) h), |c| = 1): the first
+// half's load multiplies by c, its store keeps G[k] / n times the first n
+// values (0 past them) in the buffer, the second half's store multiplies
+// by conj(c) and writes y_a + i y_b itself.  2 (2P - 1) steps for P passes
+// of m.
 //
 // Bound by bytes: 4 in and 4 out an element (8 n log2 n flops a line pair
-// are far below the bytes at these lengths).
+// are far below the bytes at these lengths; the long form reads and writes
+// its scratch once a step on top).
 //
 // The geometry and the steps are functions of (item, thread) that a host
 // compiler also takes, so tests/torch_notch_host/ runs them thread by thread
@@ -105,14 +125,15 @@ typedef long long i64;
 using ippdft::Plan;
 using ippdft::cmul;
 
-constexpr int MAX_N = 32768;             // ops/cuda_notch.NOTCH_MAX_N
+constexpr int MAX_N = 1 << 20;           // ops/cuda_notch.NOTCH_MAX_N
 constexpr int SMEM_LIMIT = 227 * 1024;
 constexpr int THREADS = 256;             // every block, every length
 constexpr int VALUES = 24;               // values a thread aims at a pass
 constexpr int MINB = 4;                  // blocks an SM (registers cut to 64)
+constexpr int MINB_LONG = 2;             // the long form's (128 registers)
 constexpr int TMIN = 16;                 // threads a pair at least
 constexpr int MAX_GROUP = 16;            // subbands a launch
-constexpr int DESC = 22;                 // int64 words of a subband's row
+constexpr int DESC = 24;                 // int64 words of a subband's row
 // for timing only (scripts/notch_bench.py --variants; wrong results): 1
 // runs no butterfly (the first pass loads, the last stores, nothing
 // between), 2 reads and writes no device memory
@@ -137,12 +158,21 @@ __host__ __device__ constexpr bool special(int r) {
   return ippdft::special(r) || r == 12;
 }
 
-// A plan K8 takes: the radices multiply to n, each is a specialised radix
-// but possibly the last, which is then the generic pass of an odd radix
-// (1 only for n = 1).
-inline bool notch_plan_ok(const Plan& pl) {
-  if (pl.n < 1 || pl.n > MAX_N || pl.npass < 1 ||
-      pl.npass > ippdft::MAX_PASSES)
+// The transform length of a line of n: n, or on the chirp route m =
+// pow2ceil(2n - 1), where the circular convolution of n values with the
+// 2n - 1 of the chirp is linear.
+__host__ __device__ inline int transform_length(int n, bool chirp) {
+  return chirp ? pow2ceil(2 * n - 1) : n;
+}
+
+// A plan K8 takes for lines of n: the radices multiply to the transform
+// length, each is a specialised radix but possibly the last, which is then
+// the generic pass of an odd radix (1 only for n = 1); the chirp route
+// (lines above 32768 only) has no generic pass.
+inline bool notch_plan_ok(const Plan& pl, int n, bool chirp) {
+  if (n < 1 || n > MAX_N || (chirp && n <= 32768) || pl.npass < 1 ||
+      pl.npass > ippdft::MAX_PASSES || pl.n != transform_length(n, chirp) ||
+      (chirp && pl.generic))
     return false;
   i64 prod = 1;
   for (int p = 0; p < pl.npass; ++p) {
@@ -157,7 +187,9 @@ inline bool notch_plan_ok(const Plan& pl) {
 // -- geometry -----------------------------------------------------------------
 
 struct Geo {
-  int n;
+  int n;         // the line length
+  int m;         // the transform length (n, or the chirp route's)
+  int chirp;     // 1: the chirp route
   int cols;      // 1: the lines are columns (axis -2)
   int H, W;      // a tile is (H, W)
   int CP;        // line pairs a block item
@@ -183,16 +215,18 @@ __host__ __device__ inline int pair_threads(int n) {
 
 // The geometry of (B, H, W) along the columns (`cols`) or the rows;
 // aligned8: the input and the output are 8-byte aligned; generic: the plan
-// ends in a generic pass (two buffers).  False for a shape K8 does not
-// take.
+// ends in a generic pass (two buffers); chirp: the chirp route (a buffer
+// of the transform length m).  False for a shape K8 does not take.
 inline bool geometry(i64 B, int H, int W, bool cols, bool aligned8,
-                     bool generic, Geo& g) {
+                     bool generic, bool chirp, Geo& g) {
   g.cols = cols;
   g.H = H;
   g.W = W;
   g.n = cols ? H : W;
   if (B < 1 || H < 1 || W < 1 || g.n > MAX_N) return false;
-  const int n = g.n;
+  g.chirp = chirp;
+  g.m = transform_length(g.n, chirp);
+  const int n = g.m;   // the buffers hold the transform
   const int t0 = pair_threads(n);
   g.CP = THREADS / t0;
   if (!cols) {
@@ -256,8 +290,12 @@ __host__ __device__ inline int at(const Lane& l, int e) {
   return q + (q >> 4) + l.base;
 }
 
-// hi 32 bits of a * b: i / M = mulhi(i, magic(M)) for i < 32768 and any M
-// up to 32768 but a power of two (the error i / 2^32 stays below 1 / M)
+// i / M by a multiply-high with magic = floor((2^B - 1) / M) + 1 for any M
+// >= 2: magic M = 2^B + e with 0 <= e < M, so i magic / 2^B = i / M + i e
+// / (M 2^B), exact while i e < 2^B.  B = 32 (one __umulhi) holds for i and
+// M below 32768, every index of the shared-memory form; the long form's
+// indices reach 2^20, so it takes B = 64 (__umul64hi), exact for every i, M
+// below 2^31.
 __host__ __device__ inline unsigned mulhi(unsigned a, unsigned b) {
 #ifdef __CUDA_ARCH__
   return __umulhi(a, b);
@@ -268,6 +306,32 @@ __host__ __device__ inline unsigned mulhi(unsigned a, unsigned b) {
 __host__ __device__ inline unsigned magic(int M) {
   return 0xFFFFFFFFu / (unsigned)M + 1u;
 }
+__host__ __device__ inline unsigned long long mulhi64(unsigned long long a,
+                                                      unsigned long long b) {
+#ifdef __CUDA_ARCH__
+  return __umul64hi(a, b);
+#else
+  return (unsigned long long)(((unsigned __int128)a * b) >> 64);
+#endif
+}
+
+template <bool LONG>
+struct Div {   // the shared-memory form: B = 32
+  unsigned mg;
+  __host__ __device__ explicit Div(int M) : mg(magic(M)) {}
+  __host__ __device__ int operator()(int i) const {
+    return (int)mulhi((unsigned)i, mg);
+  }
+};
+template <>
+struct Div<true> {   // the long form: B = 64
+  unsigned long long mg;
+  __host__ __device__ explicit Div(int M)
+      : mg(0xFFFFFFFFFFFFFFFFull / (unsigned)M + 1ull) {}
+  __host__ __device__ int operator()(int i) const {
+    return (int)mulhi64((unsigned long long)i, mg);
+  }
+};
 
 // Line pair c of item k in device memory: element e of line a at a + e *
 // stride, of line b at b + e * stride; `valid` 0 past the input's pairs,
@@ -303,15 +367,20 @@ __host__ __device__ inline Pair pair_of(const Geo& g, i64 k, int c) {
 
 // -- one subband ----------------------------------------------------------------
 
-// A subband of a launch: x -> y (B, H, W) f32, its twiddle table tw (n)
-// float2 exp(-2 pi i j / n), its gains gp (n) in the digit-reversed order
-// of the plan (ops/cuda_notch.notch_gains), its geometry and plan, and the
-// first item of it in the launch's numbering.
+// A subband of a launch: x -> y (B, H, W) f32, its twiddle table tw (m)
+// float2 exp(-2 pi i j / m), its gains gp (n) in the digit-reversed order
+// of the plan (ops/cuda_notch.notch_gains; the chirp route: G / n in
+// natural order), on the chirp route the chirp c (n) float2 and the
+// complex gains hm (m) float2 in the plan's digit-reversed order
+// (ops/cuda_notch.chirp_tables), its geometry and plan, and the first item
+// of it in the launch's numbering.
 struct Sub {
   const float* x;
   float* y;
   const float2* tw;
   const float* gp;
+  const float2* chirp;
+  const float2* hm;
   Geo g;
   Plan pl;
   i64 start;
@@ -319,22 +388,34 @@ struct Sub {
 
 // -- the steps ------------------------------------------------------------------
 
-enum Kind { DIF, MID, DIT, LOAD, STORE, GEN_DIF, GEN_DIT };
+enum Kind { DIF, MID, DIT, LOAD, STORE, GEN_DIF, GEN_DIT, MIDC };
 
-// Step s of an item: its kind and the pass it runs.  P specialised passes:
-// DIF 0 (from device memory) .. DIF P-2, MID (P-1), DIT P-2 .. DIT 0 (to
-// device memory); a generic last radix: GEN_DIF into the second buffer and
-// GEN_DIT back in place of MID; P = 1: LOAD first, the middle, STORE last
-// (GEN_DIT stores itself).
-__host__ __device__ inline int num_steps(const Plan& pl) {
+// Step s of an item: its kind, the pass it runs and its half (the chirp
+// route's two transforms; 0 elsewhere).  P specialised passes: DIF 0 (from
+// device memory) .. DIF P-2, MID (P-1), DIT P-2 .. DIT 0 (to device
+// memory); a generic last radix: GEN_DIF into the second buffer and GEN_DIT
+// back in place of MID; P = 1: LOAD first, the middle, STORE last (GEN_DIT
+// stores itself).  The chirp route: those 2P - 1 steps twice, MIDC (the
+// complex gains) in the middle, the first half's DIT 0 back into the
+// buffer.
+__host__ __device__ inline int num_steps(const Plan& pl, bool chirp) {
   const int P = pl.npass;
+  if (chirp) return 2 * (2 * P - 1);
   if (P == 1) return 3;
   return pl.generic ? 2 * P : 2 * P - 1;
 }
 
-__host__ __device__ inline void step_of(const Plan& pl, int s, int& kind,
-                                        int& pass) {
+__host__ __device__ inline void step_of(const Plan& pl, bool chirp, int s,
+                                        int& kind, int& pass, int& half) {
   const int P = pl.npass;
+  half = 0;
+  if (chirp) {
+    half = s >= 2 * P - 1;
+    if (half) s -= 2 * P - 1;
+    kind = s < P - 1 ? DIF : s == P - 1 ? MIDC : DIT;
+    pass = s < P ? s : 2 * P - 2 - s;
+    return;
+  }
   if (P == 1) {
     pass = 0;
     kind = s == 0 ? LOAD : s == 1 ? (pl.generic ? GEN_DIF : MID)
@@ -410,26 +491,28 @@ __device__ __forceinline__ void twiddle(float2 (&v)[R], float2 w) {
 }
 
 // One specialised pass of radix R over the pair's butterflies j, j + T, ...
-// (KIND DIF: DFT then twiddle; DIT: twiddle then DFT; MID: DFT, gain,
-// conjugation, DFT), elements read by src(e), written by dst(e, v).
-template <int R, int KIND, class Src, class Dst>
+// of a transform of n (KIND DIF: DFT then twiddle; DIT: twiddle then DFT;
+// MID: DFT, gain, conjugation, DFT; MIDC: the same with the complex gain
+// hm), elements read by src(e), written by dst(e, v).
+template <int R, int KIND, bool LONG, class Src, class Dst>
 __device__ __forceinline__ void radix_pass(int j, int T, int n, int L,
                                            const float2* __restrict__ tw,
                                            const float* __restrict__ gp,
+                                           const float2* __restrict__ hm,
                                            Src src, Dst dst) {
   const int M = L / R;
   const int NB = n / R;
   const int tscale = n / L;
   const bool pow2 = (M & (M - 1)) == 0;
   const int mshift = pow2 ? log2i(M) : 0;
-  const unsigned mg = pow2 ? 0u : magic(M);
+  const Div<LONG> div(pow2 ? 2 : M);
   for (int i = j; i < NB; i += T) {
     int b, m;
     if (pow2) {
       b = i >> mshift;
       m = i & (M - 1);
     } else {
-      b = (int)mulhi((unsigned)i, mg);
+      b = div(i);
       m = i - b * M;
     }
     const int base = b * L + m;
@@ -446,8 +529,15 @@ __device__ __forceinline__ void radix_pass(int j, int T, int n, int L,
           const float s = __ldg(&gp[base + k]);
           v[k] = make_float2(v[k].x * s, -(v[k].y * s));
         }
-        dft_r<R>(v);
       }
+      if (KIND == MIDC) {
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const float2 t = cmul(v[k], __ldg(&hm[base + k]));
+          v[k] = make_float2(t.x, -t.y);
+        }
+      }
+      if (KIND == MID || KIND == MIDC) dft_r<R>(v);
       if (KIND == DIF && tm != 0) twiddle<R>(v, __ldg(&tw[tm]));
     }
 #pragma unroll
@@ -455,24 +545,30 @@ __device__ __forceinline__ void radix_pass(int j, int T, int n, int L,
   }
 }
 
-template <int KIND, class Src, class Dst>
+template <int KIND, bool LONG, class Src, class Dst>
 __device__ __forceinline__ void any_radix(int R, int j, int T, int n, int L,
                                           const float2* __restrict__ tw,
                                           const float* __restrict__ gp,
+                                          const float2* __restrict__ hm,
                                           Src src, Dst dst) {
+#define IPP_NOTCH_RADIX(r)                                                \
+  case r:                                                                 \
+    radix_pass<r, KIND, LONG>(j, T, n, L, tw, gp, hm, src, dst);          \
+    break;
   switch (R) {
-    case 2: radix_pass<2, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 3: radix_pass<3, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 4: radix_pass<4, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 5: radix_pass<5, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 7: radix_pass<7, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 8: radix_pass<8, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 9: radix_pass<9, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 11: radix_pass<11, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 12: radix_pass<12, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 13: radix_pass<13, KIND>(j, T, n, L, tw, gp, src, dst); break;
-    case 16: radix_pass<16, KIND>(j, T, n, L, tw, gp, src, dst); break;
+    IPP_NOTCH_RADIX(2)
+    IPP_NOTCH_RADIX(3)
+    IPP_NOTCH_RADIX(4)
+    IPP_NOTCH_RADIX(5)
+    IPP_NOTCH_RADIX(7)
+    IPP_NOTCH_RADIX(8)
+    IPP_NOTCH_RADIX(9)
+    IPP_NOTCH_RADIX(11)
+    IPP_NOTCH_RADIX(12)
+    IPP_NOTCH_RADIX(13)
+    IPP_NOTCH_RADIX(16)
   }
+#undef IPP_NOTCH_RADIX
 }
 
 // The generic DFT of odd radix r over the n / r blocks of r consecutive
@@ -481,16 +577,16 @@ __device__ __forceinline__ void any_radix(int R, int j, int T, int n, int L,
 // r - k (their roots are conjugates); items run over the pair's T threads
 // with q fastest.  GAIN: the outputs times gp and conjugated (the forward
 // transform's end); dst(e, v) takes them.
-template <bool GAIN, class Src, class Dst>
+template <bool GAIN, bool LONG, class Src, class Dst>
 __device__ __forceinline__ void generic_radix(int j, int T, int n, int r,
                                               const float2* __restrict__ tw,
                                               const float* __restrict__ gp,
                                               Src src, Dst dst) {
   const int nb = n / r, h = r / 2;
   const int items = (h + 1) * nb;
-  const unsigned mg = magic(nb);
+  const Div<LONG> div(nb == 1 ? 2 : nb);
   for (int o = j; o < items; o += T) {
-    const int k = nb == 1 ? o : (int)mulhi((unsigned)o, mg);
+    const int k = nb == 1 ? o : div(o);
     const int q = o - k * nb;
     const int base = q * r;
     float2 a = src(base), bb = make_float2(0.f, 0.f);
@@ -522,19 +618,23 @@ __device__ __forceinline__ void generic_radix(int j, int T, int n, int r,
 
 // Step s of an item for the thread of lane l and line pair pr (lane_of,
 // pair_of: once an item): the subband's buffers A (buf) and B (buf +
-// g.buf, generic plans only).
+// g.buf, generic plans only).  LONG: the long form (64-bit divisions; the
+// chirp route).
+template <bool LONG>
 __device__ __forceinline__ void run_step(const Sub& sb, const Lane& l,
                                          const Pair& pr, float2* buf,
                                          int s) {
   const Geo& g = sb.g;
   const Plan& pl = sb.pl;
-  const int n = g.n;
+  const int n = g.n;    // the line
+  const int m = g.m;    // the transform (n but on the chirp route)
   const float* __restrict__ x = sb.x;
   float* __restrict__ y = sb.y;
   float2* A = buf;
   float2* Bf = buf + g.buf;
-  int kind, p;
-  step_of(pl, s, kind, p);
+  const bool chirp = LONG && g.chirp;   // only the long form takes it
+  int kind, p, half;
+  step_of(pl, chirp, s, kind, p, half);
   const int L = span_of(pl, p);
   const int R = pl.radix[p];
 
@@ -555,8 +655,8 @@ __device__ __forceinline__ void run_step(const Sub& sb, const Lane& l,
     }
     return v;
   };
-  // y_a + i y_b is the conjugate of what the inverse passes leave
-  auto to_global = [&](int e, float2 v) {
+  // stores y_a + i y_b
+  auto store = [&](int e, float2 v) {
     if (IPP_NOTCH_DIAG == 2) {
       if (v.x == 1234567.f) y[0] = v.y;   // keeps the passes alive
       return;
@@ -564,18 +664,20 @@ __device__ __forceinline__ void run_step(const Sub& sb, const Lane& l,
     if (!pr.valid) return;
     const i64 o = e * pr.stride;
     if (g.vec2) {
-      *reinterpret_cast<float2*>(y + pr.a + o) = make_float2(v.x, -v.y);
+      *reinterpret_cast<float2*>(y + pr.a + o) = v;
     } else {
       y[pr.a + o] = v.x;
-      if (pr.has_b) y[pr.b + o] = -v.y;
+      if (pr.has_b) y[pr.b + o] = v.y;
     }
   };
+  // y_a + i y_b is the conjugate of what the inverse passes leave
+  auto to_global = [&](int e, float2 v) { store(e, make_float2(v.x, -v.y)); };
   auto from_a = [&](int e) -> float2 { return A[at(l, e)]; };
   auto to_a = [&](int e, float2 v) { A[at(l, e)] = v; };
   auto from_b = [&](int e) -> float2 { return Bf[at(l, e)]; };
   auto to_b = [&](int e, float2 v) { Bf[at(l, e)] = v; };
 
-  const int last = num_steps(pl) - 1;
+  const int last = num_steps(pl, chirp) - 1;
   if (IPP_NOTCH_DIAG == 1 && s != 0 && s != last) return;
   switch (kind) {
     case LOAD:
@@ -585,29 +687,68 @@ __device__ __forceinline__ void run_step(const Sub& sb, const Lane& l,
       for (int e = l.j; e < n; e += g.T) to_global(e, from_a(e));
       break;
     case DIF:
-      if (p == 0)
-        any_radix<DIF>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_global, to_a);
-      else
-        any_radix<DIF>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_a, to_a);
+      if (p != 0 || half)
+        any_radix<DIF, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
+                             to_a);
+      else if (!chirp)
+        any_radix<DIF, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm,
+                             from_global, to_a);
+      else if constexpr (LONG)   // the chirp's first load: c . z, 0 past n
+        any_radix<DIF, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm,
+                             [&](int e) -> float2 {
+                               return e < n ? cmul(from_global(e),
+                                                   __ldg(&sb.chirp[e]))
+                                            : make_float2(0.f, 0.f);
+                             },
+                             to_a);
       break;
     case MID:
-      any_radix<MID>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_a, to_a);
+      any_radix<MID, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
+                           to_a);
+      break;
+    case MIDC:
+      if constexpr (LONG)
+        any_radix<MIDC, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
+                              to_a);
       break;
     case DIT:
-      if (p == 0)
-        any_radix<DIT>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_a, to_global);
-      else
-        any_radix<DIT>(R, l.j, g.T, n, L, sb.tw, sb.gp, from_a, to_a);
+      if (p != 0)
+        any_radix<DIT, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
+                             to_a);
+      else if (!chirp)
+        any_radix<DIT, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
+                             to_global);
+      else if constexpr (LONG) {
+        if (half == 0)   // G / n times the first n values, 0 past them
+          any_radix<DIT, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm,
+                               from_a, [&](int e, float2 v) {
+                                 float2 u = make_float2(0.f, 0.f);
+                                 if (e < n) {
+                                   const float s = __ldg(&sb.gp[e]);
+                                   u = make_float2(v.x * s, v.y * s);
+                                 }
+                                 to_a(e, u);
+                               });
+        else             // y = conj(c) . v
+          any_radix<DIT, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm,
+                               from_a, [&](int e, float2 v) {
+                                 if (e >= n) return;
+                                 const float2 c = __ldg(&sb.chirp[e]);
+                                 store(e, make_float2(c.x * v.x + c.y * v.y,
+                                                      c.x * v.y - c.y * v.x));
+                               });
+      }
       break;
     case GEN_DIF:
-      generic_radix<true>(l.j, g.T, n, R, sb.tw, sb.gp, from_a, to_b);
+      generic_radix<true, LONG>(l.j, g.T, m, R, sb.tw, sb.gp, from_a, to_b);
       break;
     case GEN_DIT:
       if (pl.npass == 1)
-        generic_radix<false>(l.j, g.T, n, R, sb.tw, sb.gp, from_b,
-                             to_global);
+        generic_radix<false, LONG>(l.j, g.T, m, R, sb.tw, sb.gp, from_b,
+                                   to_global);
       else
-        generic_radix<false>(l.j, g.T, n, R, sb.tw, sb.gp, from_b, to_a);
+        generic_radix<false, LONG>(l.j, g.T, m, R, sb.tw, sb.gp, from_b,
+                                   to_a);
       break;
   }
 }
@@ -632,9 +773,10 @@ __host__ __device__ inline int sub_of(const Group& grp, i64 t) {
 }
 
 // Fill a Group from `count` rows of DESC int64 words (x, y, tw, gp, B, H,
-// W, cols, npass, generic, radices[MAX_PASSES]); subbands sorted by length,
-// longest first.  False for a row K8 does not take or a group that mixes
-// scratch and shared-memory subbands or holds more than one of the former.
+// W, cols, npass, generic, radices[MAX_PASSES], chirp, hm; chirp and hm 0
+// but on the chirp route); subbands sorted by length, longest first.  False
+// for a row K8 does not take or a group that mixes scratch and
+// shared-memory subbands or holds more than one of the former.
 inline bool make_group(const i64* desc, int count, Group& grp) {
   if (count < 1 || count > MAX_GROUP) return false;
   grp.count = count;
@@ -650,20 +792,24 @@ inline bool make_group(const i64* desc, int count, Group& grp) {
     sb.y = reinterpret_cast<float*>(d[1]);
     sb.tw = reinterpret_cast<const float2*>(d[2]);
     sb.gp = reinterpret_cast<const float*>(d[3]);
+    sb.chirp = reinterpret_cast<const float2*>(d[10 + ippdft::MAX_PASSES]);
+    sb.hm = reinterpret_cast<const float2*>(d[11 + ippdft::MAX_PASSES]);
+    const bool chirp = sb.chirp != nullptr;
     const int cols = (int)d[7], npass = (int)d[8];
-    if (npass < 1 || npass > ippdft::MAX_PASSES || d[5] < 1 || d[6] < 1 ||
-        d[5] > MAX_N || d[6] > (1LL << 30))
+    const i64 n = cols ? d[5] : d[6], lines = cols ? d[6] : d[5];
+    if (npass < 1 || npass > ippdft::MAX_PASSES || n < 1 || n > MAX_N ||
+        lines < 1 || lines > (1LL << 30) || chirp != (sb.hm != nullptr))
       return false;
-    sb.pl.n = (int)(cols ? d[5] : d[6]);
+    sb.pl.n = (int)transform_length((int)n, chirp);
     sb.pl.npass = npass;
     sb.pl.generic = (int)d[9];
     for (int p = 0; p < ippdft::MAX_PASSES; ++p)
       sb.pl.radix[p] = p < npass ? (int)d[10 + p] : 1;
     const bool aligned8 = ((d[0] | d[1]) & 7) == 0;
-    if (!notch_plan_ok(sb.pl) ||
+    if (!notch_plan_ok(sb.pl, (int)n, chirp) ||
         !geometry(d[4], (int)d[5], (int)d[6], cols != 0, aligned8,
-                  sb.pl.generic != 0, sb.g) ||
-        sb.pl.n != sb.g.n)
+                  sb.pl.generic != 0, chirp, sb.g) ||
+        (chirp && sb.g.smem != 0))
       return false;
     order[q] = q;
   }
@@ -696,23 +842,23 @@ inline bool make_group(const i64* desc, int count, Group& grp) {
 
 // -- the kernel -----------------------------------------------------------------
 
-// Block b takes launch items b, b + grid, ...; SCRATCH: the buffers are the
-// block's part of grp.scratch (one subband whose buffers exceed shared
-// memory), else dynamic shared memory.
-template <bool SCRATCH>
-__global__ void __launch_bounds__(THREADS, MINB)
+// Block b takes launch items b, b + grid, ...; LONG: the long form, whose
+// buffers are the block's part of grp.scratch (one subband whose buffers
+// exceed shared memory), else dynamic shared memory.
+template <bool LONG>
+__global__ void __launch_bounds__(THREADS, LONG ? MINB_LONG : MINB)
 notch_kernel(const __grid_constant__ Group grp) {
   extern __shared__ float2 smem[];
-  float2* buf = SCRATCH ? grp.scratch + (i64)blockIdx.x * grp.scratch_slots
-                        : smem;
+  float2* buf = LONG ? grp.scratch + (i64)blockIdx.x * grp.scratch_slots
+                     : smem;
   const int tid = threadIdx.x;
   for (i64 t = blockIdx.x; t < grp.total; t += gridDim.x) {
     const Sub& sb = grp.sub[sub_of(grp, t)];
     const Lane l = lane_of(sb.g, tid);
     const Pair pr = pair_of(sb.g, t - sb.start, l.c);
-    const int steps = num_steps(sb.pl);
+    const int steps = num_steps(sb.pl, LONG && sb.g.chirp);
     for (int s = 0; s < steps; ++s) {
-      run_step(sb, l, pr, buf, s);
+      run_step<LONG>(sb, l, pr, buf, s);
       __syncthreads();
     }
   }

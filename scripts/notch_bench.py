@@ -2,7 +2,7 @@
 """Time K8, the destripe notch, on one CUDA card.
 
     python3 scripts/notch_bench.py [--variants] [--sweep] [--chain]
-                                   [--root DIR] [--tag T]
+                                   [--long] [--root DIR] [--tag T]
 
 At every notch the destripe chain runs on `chip_smoke.py` phase 6's padded
 batches of 8 (`chip_smoke.notch_level_cases`: cH along x and cV along y at
@@ -20,11 +20,23 @@ chiprun_out/notch_bench[_TAG].json.
 
 `--root DIR`: DIR holds another tree of the repository (an unpacked `git
 archive` of an earlier commit, `mkdir -p build/parent && git archive
-<commit> | tar -x -C build/parent`) whose K8 has the one-subband C entry
-`ipp_notch` (the form before the grouped launch); its library is built
-through DIR's own `_build.py`, and its K8 runs on the same inputs at every
-level shape, timed by graph replay in turns with this tree's (this, DIR,
-DIR, this), its error against the plain version beside.
+<commit> | tar -x -C build/parent`) whose K8 has the grouped C entry
+`ipp_notch_group` with rows of 22 words (the layout before the chirp
+route: this tree's rows without its two pointers); its library is built
+through DIR's own `_build.py`, and its K8 runs on the same inputs at
+every level shape, timed by graph replay in turns with this tree's
+(this, DIR, DIR, this), its error against the plain version beside, and
+its output compared with this tree's bit for bit (a difference fails the
+run).
+
+`--long`: K8's long form (K8l) at `chip_smoke.NOTCH_LONG_CASES` and a few
+more lengths past 32768 (35328, 45312, 65536, 65856, 131072, 2^20 - 1
+on the chirp route, and the mixed-radix lengths past 32768 with the chirp
+route forced in their place, `notch_route` patched for the call: where the
+route's threshold `CHIRP_P` stands against the generic pass), each
+against the plain version, then kernel / plain / library ms by CUDA
+events (one pair a block: a few lines run seconds, so no graph) and the
+bound.
 
 `--sweep`: at the level-1 shapes, K8 with other pass lists beside
 `notch_plan`'s (the table takes any plan K8 can run; the bench writes
@@ -64,8 +76,7 @@ from ipp_tpu_torch.ops import cuda_notch as cn  # noqa: E402
 from ipp_tpu_torch.ops import destripe as dsm  # noqa: E402
 from ipp_tpu_torch.ops._build import (_ARCH, _SIGNATURES, _nvcc, _run,  # noqa: E402
                                       build_info, load_library)
-from ipp_tpu_torch.ops.cuda_fft import (_dft_plan, _launch,  # noqa: E402
-                                        _stage_twiddles)
+from ipp_tpu_torch.ops.cuda_fft import _launch, _stage_twiddles  # noqa: E402
 
 VARIANTS = {"diag_nopasses": ["-DIPP_NOTCH_DIAG=1"],
             "diag_noglobal": ["-DIPP_NOTCH_DIAG=2"]}
@@ -189,7 +200,7 @@ def group_fn(lib, xs, gs, axes):
     counts = {"variant": 0}
 
     def run(launches=launches):   # the tables live as long as the call
-        for table, count, scratch, nscratch, _ in launches:
+        for _, table, count, scratch, nscratch, _ in launches:
             _launch("variant", xs[0].device, lib.ipp_notch_group,
                     table.ctypes.data, count, scratch, nscratch,
                     counts=counts)
@@ -207,8 +218,8 @@ def lib_fn(lib, x, g, axis):
 def plan_fn(lib, x, g, axis, plan):
     """K8 on the pass list `plan` in place of `notch_plan(n)`: a table row
     of csrc/notch.cu's layout (x, y, tw, gp, B, H, W, cols, passes,
-    generic, radices) with the gains of that plan, x -> one output
-    allocated here."""
+    generic, radices, no chirp tables) with the gains of that plan, x ->
+    one output allocated here."""
     _, B, H, W, n = cn._check(x, g, axis)
     y = torch.empty_like(x)
     tw = _stage_twiddles(x.device, n)
@@ -217,7 +228,8 @@ def plan_fn(lib, x, g, axis, plan):
     table = np.asarray([[x.data_ptr(), y.data_ptr(), tw.data_ptr(),
                          gp.data_ptr(), B, H, W, int(axis == -2), len(plan),
                          generic] + list(plan)
-                        + [1] * (cn.MAX_PASSES - len(plan))], np.int64)
+                        + [1] * (cn.MAX_PASSES - len(plan)) + [0, 0]],
+                       np.int64)
     counts = {"variant": 0}
 
     def run(keep=(tw, gp)):   # the tables live as long as the call
@@ -227,43 +239,83 @@ def plan_fn(lib, x, g, axis, plan):
     return run
 
 
-def parent_plan(n):
-    """The pass list of the one-subband K8 (no radix 12): the passes of
-    2^a, then 9, 3, 5, 7, 11, 13, then one generic odd radix."""
-    a = (n & -n).bit_length() - 1
-    m = n >> a
-    plan = cn._pow2_passes(a)
-    for r in (9, 3, 5, 7, 11, 13):
-        while m % r == 0:
-            plan.append(r)
-            m //= r
-    if m > 1 or not plan:
-        plan.append(m)
-    return tuple(plan)
-
-
 def parent_fn(lib, x, g, axis):
-    """The one-subband K8 of the parent tree (C entry `ipp_notch`: gains in
-    natural order, two buffers in shared memory at every level shape),
-    x -> one output allocated here."""
-    B = x.numel() // (x.shape[-2] * x.shape[-1])
-    H, W = x.shape[-2], x.shape[-1]
-    n = x.shape[axis]
-    k = np.arange(n)
-    gs = torch.from_numpy((g.astype(np.float64)[np.minimum(k, n - k)] / n)
-                          .astype(np.float32)).to(x.device)
-    tw = _stage_twiddles(x.device, n)
-    radices, npass, generic = _dft_plan(parent_plan(n))
+    """The K8 of the parent tree through its `ipp_notch_group` (rows of 22
+    words: this tree's row of x without the chirp route's two pointers,
+    which are 0 at every length the parent takes), x -> one output
+    allocated here."""
+    _, B, H, W, _ = cn._check(x, g, axis)
     y = torch.empty_like(x)
+    row, _, keep = cn._desc_row(x, y, np.ascontiguousarray(g, np.float32),
+                                B, H, W, axis)
+    assert row[-2:] == [0, 0]
+    table = np.asarray([row[:-2]], np.int64)
     counts = {"parent": 0}
 
-    def run(gs=gs):
-        _launch("parent", x.device, lib.ipp_notch, x.data_ptr(),
-                y.data_ptr(), tw.data_ptr(), gs.data_ptr(), B, H, W,
-                int(axis == -2), npass, radices, generic, None, 0,
-                counts=counts)
+    def run(keep=keep):   # the tables live as long as the call
+        _launch("parent", x.device, lib.ipp_notch_group, table.ctypes.data,
+                1, None, 0, counts=counts)
         return y
     return run
+
+
+# K8l beside chip_smoke.NOTCH_LONG_CASES: lines past 32768 of the wide
+# planes' other levels and sides, a power of two and a chirp line of 2^20
+LONG_MORE = [((1, 4, 35328), -1), ((1, 45312, 4), -2), ((1, 2, 65536), -1),
+             ((1, 4, 65856), -1), ((1, 131072, 2), -2),
+             ((1, 2, (1 << 20) - 1), -1), ((2, 1344, 16672), -1)]
+
+
+def long_rows(gen, dev):
+    """K8l at the long cases: error against the plain version, kernel /
+    plain / library ms by CUDA events, the bound; at every mixed-radix
+    case past NOTCH_SHORT_N also the chirp route forced in its place."""
+    out = []
+    cases = [(s, a, sg) for s, a, sg in cs.NOTCH_LONG_CASES] + [
+        (s, a, 2.0) for s, a in LONG_MORE]
+    real_route = cn.notch_route
+    for shape, axis, sigma in cases:
+        n = shape[axis]
+        x = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)
+                             ).to(dev)
+        g = dsm.notch(n // 2 + 1, 0.5 * sigma)
+        gt = torch.from_numpy(g).to(dev).reshape((-1, 1) if axis == -2
+                                                 else (-1,))
+        ref = cn.notch_filter_plain(x, g, axis)
+        lfn = lambda: torch.fft.irfft(  # noqa: E731
+            torch.fft.rfft(x, dim=axis) * gt, n=n, dim=axis)
+        plain = cs.time_ms(torch, lambda: cn.notch_filter_plain(x, g, axis),
+                           5)
+        lib_ms = cs.time_ms(torch, lfn, 5)
+        bound_ms, by = cs.bound(*cs.work_notch(x.numel(), n))
+        routes = [real_route(n)] + (["chirp"] if real_route(n) == "mixed"
+                                    and n > cn.NOTCH_SHORT_N else [])
+        for route in routes:
+            cn.notch_route = lambda m, r=route: (
+                r if m == n else real_route(m))
+            cn.notch_plan.cache_clear()
+            try:
+                kfn = lambda: cn.notch_filter(x, g, axis)  # noqa: E731
+                _, rel = cs.err_of_max(kfn(), ref)
+                ms = cs.time_ms(torch, kfn, 5)
+                plan = cn.notch_plan(n)
+            finally:
+                cn.notch_route = real_route
+                cn.notch_plan.cache_clear()
+            forced = route != real_route(n)
+            out.append(dict(shape=list(shape), axis=axis, n=n, route=route,
+                            forced=forced, plan=list(plan), rel_err=rel,
+                            ms=ms, plain_ms=plain, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=by))
+            print(f"  K8l {str(shape):<18s} axis {axis:2d} n {n:7d} "
+                  f"{route}{' (forced)' if forced else ''} plan {plan} rel "
+                  f"{rel:.2e}  kernel {ms:8.3f} ms  plain {plain:7.3f}  "
+                  f"library {lib_ms:7.3f}  bound {bound_ms:7.4f} ({by})")
+            if not rel <= 1e-5:
+                raise AssertionError(f"K8l {shape} axis {axis} {route}: "
+                                     f"rel {rel:.2e}")
+        del x, ref
+    return out
 
 
 def sweep_rows(gen, dev, lib):
@@ -370,12 +422,17 @@ def main() -> int:
             p1 = cs.graph_ms(torch, pf, 20)
             p2 = cs.graph_ms(torch, pf, 20)
             again = cs.graph_ms(torch, kfn, 20)
+            same = torch.equal(kfn(), pf())
             row.update(parent_rel_err=prel, parent_graph_ms=(p1 + p2) / 2,
-                       graph_ms_again=again)
-            old = (f"  parent {(p1 + p2) / 2:7.4f} (rel {prel:.1e}; this "
-                   f"again {again:7.4f})")
+                       graph_ms_again=again, parent_bit_equal=same)
+            old = (f"  parent {(p1 + p2) / 2:7.4f} (rel {prel:.1e}, "
+                   f"{'bit-equal' if same else 'DIFFERS'}; this again "
+                   f"{again:7.4f})")
             if not prel <= 1e-5:
                 bad.append(f"parent K8 {shape} axis {axis}: {prel:.2e}")
+            if not same:
+                bad.append(f"K8 {shape} axis {axis}: not bit-equal to the "
+                           f"parent's")
         rows.append(row)
         print(f"  K8 {str(shape):<17s} axis {axis:2d} n {n:5d} plan "
               f"{cn.notch_plan(n)} rel {rel:.2e}  kernel {ms:7.4f} ms (graph "
@@ -399,6 +456,7 @@ def main() -> int:
                   f"({vms / bound_ms:5.2f}x bound)")
         del x
     groups = group_rows(gen, dev)
+    longs = long_rows(gen, dev) if "--long" in sys.argv else []
     chain = chain_rows(PARENT) if "--chain" in sys.argv else []
     if "--sweep" in sys.argv:
         sweep = sweep_rows(gen, dev, lib)
@@ -407,7 +465,7 @@ def main() -> int:
     (out / f"notch_bench{'_' + tag if tag else ''}.json").write_text(
         json.dumps(dict(card=card, parent=str(PARENT), rows=rows,
                         groups=groups, variants=variant_rows, sweep=sweep,
-                        chain=chain,
+                        long=longs, chain=chain,
                         ptxas=[s for s in cs.ptxas_summary(info["ptxas"])
                                if "notch" in s]), indent=1))
     print(f"card: {cs.card_line()}")

@@ -6,12 +6,14 @@ on the card.
   `filter_coefficient` against the JAX package's `filter_coefficient`
   (jnp.fft on the CPU) at every line length the destripe planner gives
   (2000 x 2000 tiles: 1344 ... 21; 1600 x 2000 along y: 1152 ... 18; the
-  128^3 FNT cubes: 368 ... 23), on both axes, two tiles of three lines
-  (an odd last line): within 1e-5 of the reference's max (tighter than
-  the 1e-4 of tests/test_torch_destripe.py; both f32 FFTs).
-- `notch_plan`: the radices multiply to n, every pass is a specialised
-  radix but one generic odd pass last, for every n up to 4096 and a
-  sample up to `NOTCH_MAX_N`.
+  128^3 FNT cubes: 368 ... 23; a stitched plane of 2048 x 66000: 33344;
+  a prime past the mixed-radix route: 65537), on both axes, two tiles of
+  three lines (an odd last line): within 1e-5 of the reference's max
+  (tighter than the 1e-4 of tests/test_torch_destripe.py; both f32 FFTs).
+- `notch_route` and `notch_plan`: the radices multiply to the transform
+  length, every pass is a specialised radix but one generic odd pass
+  last, for every n up to 4096 and a sample up to `NOTCH_MAX_N`; the
+  lengths of the paths, the wide planes' among them.
 - `emulate_k8`, a PyTorch emulation of the kernel: the geometry
   (`notch_geometry`, the header's, printed by the host check), the item
   -> line pair -> line address maps of both layouts, the slot maps, the
@@ -20,16 +22,20 @@ on the card.
   forward DFT, the gains of `notch_gains` in the plan's digit-reversed
   order, the conjugation, the first inverse DFT in one step), the inverse
   passes on the conjugated data (the twiddle, then the forward DFT), the
-  store of y_b = -Im; against float64 numpy at every planner length,
-  every output written exactly once: 1e-5 of max.
+  store of y_b = -Im; on the chirp route the same passes twice around the
+  tables of `chirp_tables`; against float64 numpy at every planner
+  length and at long lengths of both routes, every output written
+  exactly once: 1e-5 of max.
 - The header itself, built with g++ against the stand-in
   `cuda_runtime.h` (tests/torch_notch_host/check.cpp) and run thread by
   thread against a float64 irfft(rfft(x) g): the planner lengths on both
-  axes, odd line counts, n = 1 and 2, primes, and lengths whose buffers
-  live in the device-memory scratch; each tile alone bit-equal to its
-  place in the batch; the 14 notches of a 2000^2 decomposition and two
-  FNT lengths in one table (`make_group`, as `ipp_notch_group` launches
-  them), each bit-equal to its one-subband run.
+  axes, odd line counts, n = 1 and 2, primes, lengths whose buffers live
+  in the device-memory scratch (the long form) and the chirp route; each
+  tile alone bit-equal to its place in the batch; the 14 notches of a
+  2000^2 decomposition and two FNT lengths in one table (`make_group`, as
+  `ipp_notch_group` launches them), and the 14 of a padded (2688, 66688)
+  plane as the wrapper launches them (one table, the two long subbands
+  alone), each bit-equal to its one-subband run.
 - `notch_filter_group`'s plain version against the one-subband calls and
   `filter_subband` against the JAX package's at small shapes; the
   wrapper route of `filter_subband`: one grouped call with all 2L
@@ -64,6 +70,10 @@ TILE_2000 = (1344, 672, 336, 168, 84, 42, 21)
 TILE_1600_Y = (1152, 576, 288, 144, 72, 36, 18)
 FNT = (368, 184, 92, 46, 23)
 LENGTHS = TILE_2000 + TILE_1600_Y + FNT
+# lines past 32768: a stitched plane of 2048 x 66000 padded to 66688 (cH
+# at level 1, generic pass of 521), of 20000 x 70000 (23), a power of two,
+# and a prime on the chirp route
+LONG = (33344, 35328, 65537, 131072)
 
 
 def _coef(rng, axis, n, lines=3, tiles=2):
@@ -92,7 +102,7 @@ def _rel(got, ref):
 
 # -- the plain version and filter_coefficient against the JAX package -----------
 
-@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("n", LENGTHS + (33344, 65537))
 @pytest.mark.parametrize("axis", (-1, -2))
 def test_filter_coefficient_matches_jax_at_the_planner_lengths(axis, n):
     rng = np.random.default_rng(n - axis)
@@ -111,13 +121,20 @@ def test_filter_coefficient_matches_jax_at_the_planner_lengths(axis, n):
 
 def check_plan(n):
     plan = K.notch_plan(n)
-    assert int(np.prod(plan)) == n
+    m = K.notch_length(n)
+    assert int(np.prod(plan)) == m
+    if K.notch_route(n) == "chirp":     # the power-of-two passes of m
+        assert n > K.NOTCH_SHORT_N and m == 1 << (2 * n - 2).bit_length()
+        assert all(r in (4, 8, 16) for r in plan)
+        return plan
+    assert m == n
     assert all(r in K.NOTCH_RADICES for r in plan[:-1])
     last = plan[-1]
     if last not in K.NOTCH_RADICES:       # the one generic pass: odd, last
         assert last % 2 == 1
         assert last == 1 or all(last % f for f in (3, 5, 7, 11, 13))
         assert (last == 1) == (n == 1)
+        assert n <= K.NOTCH_SHORT_N or last <= K.CHIRP_P
     return plan
 
 
@@ -126,9 +143,29 @@ def check_plan(n):
     (21, (3, 7)), (1152, (12, 12, 8)), (72, (8, 9)), (36, (12, 3)),
     (18, (2, 9)), (368, (16, 23)),
     (92, (4, 23)), (46, (2, 23)), (23, (23,)), (1, (1,)), (2, (2,)),
-    (32768, (8, 16, 16, 16)), (32749, (32749,))])
+    (32768, (8, 16, 16, 16)), (32749, (32749,)),
+    # level-1 lines of padded stitched planes (H, W): (2048, 66000),
+    # (20000, 70000), (24000, 90000), (12000, 131000) at levels 1 and 2
+    (33344, (8, 8, 521)), (35328, (12, 8, 16, 23)),
+    (45312, (12, 8, 8, 59)), (65856, (12, 16, 7, 7, 7)),
+    (32928, (12, 8, 7, 7, 7)), (1 << 20, (16, 16, 16, 16, 16)),
+    # the chirp route: the passes of pow2ceil(2n - 1)
+    (65537, (8, 8, 16, 16, 16)), (34023, (8, 8, 8, 16, 16))])
 def test_plan_at_the_lengths_of_the_paths(n, plan):
     assert check_plan(n) == plan
+
+
+@pytest.mark.parametrize("n,route,m", [
+    (32749, "mixed", 32749), (32768, "mixed", 32768),
+    (33344, "mixed", 33344), (2 ** 6 * 1021, "mixed", 2 ** 6 * 1021),
+    (34023, "chirp", 131072), (65537, "chirp", 262144),
+    (2 * 32771, "chirp", 262144), ((1 << 20) - 1, "chirp", 1 << 21),
+    (1 << 20, "mixed", 1 << 20)])
+def test_route_by_length(n, route, m):
+    """Up to 32768 every length keeps its mixed-radix plan; above it an
+    odd factor left past CHIRP_P (1031 = 34023 / 33, 1271 = 31 * 41 of
+    2^20 - 1) takes the chirp route on the passes of pow2ceil(2n - 1)."""
+    assert K.notch_route(n) == route and K.notch_length(n) == m
 
 
 def test_plan_factors_every_length_of_the_domain():
@@ -147,56 +184,80 @@ def _roots(radix):
         np.complex64))
 
 
-def emulate_passes(z, g, n):
-    """K8's arithmetic on z (..., n) complex64, step by step
-    (`notch_steps`): in-place pass p of radix R and span L (M = L / R)
-    takes butterfly i = b M + m to the elements b L + m + k M; forward
-    (DIF): DFT_R, then the twiddle w^(m k n / L) from `stage_twiddles(n)`;
-    the middle: the last forward DFT (M = 1, no twiddle), times the gains
-    of `notch_gains(g, n)` (the spectrum's digit-reversed order),
-    conjugated, the first inverse DFT; inverse (DIT) on the conjugated
-    data: the twiddle, then the forward DFT.  The roots of a specialised
-    radix are constants, those of the generic last radix come from the
-    table at ((j k) % r) n / r.  Returns the conjugate of what the last
-    pass leaves: y_a + i y_b."""
-    tab = torch.from_numpy(stage_twiddles(n).copy())
-    w = torch.complex(tab[:, 0], tab[:, 1])
-    gp = torch.from_numpy(K.notch_gains(g, n))
-    plan = K.notch_plan(n)
-    spans = [int(np.prod(plan[p:])) for p in range(len(plan))]
+def _butterflies(plan, p, m, w):
+    """Pass p of `plan` (radices multiplying to m): the elements of every
+    butterfly (NB, R), their twiddles from the table w (1 where m == 0)
+    and the pass's roots (a specialised radix's constants; the generic
+    last radix's from the table at ((j k) % r) m / r)."""
+    radix, L = plan[p], int(np.prod(plan[p:]))
+    M = L // radix
+    i = torch.arange(m // radix)
+    b, mm = i // M, i % M
+    k = torch.arange(radix)
+    e = (b * L + mm)[:, None] + k[None, :] * M          # (NB, R)
+    tw = w[(mm * (m // L))[:, None] * k[None, :]]
+    if radix in K.NOTCH_RADICES:
+        return e, tw, _roots(radix)
+    assert p == len(plan) - 1 and L == radix
+    return e, tw, w[(k[:, None] * k[None, :]) % radix * (m // radix)]
 
-    def butterflies(p):
-        radix, L = plan[p], spans[p]
-        M = L // radix
-        i = torch.arange(n // radix)
-        b, m = i // M, i % M
-        k = torch.arange(radix)
-        e = (b * L + m)[:, None] + k[None, :] * M          # (NB, R)
-        tw = w[(m * (n // L))[:, None] * k[None, :]]       # 1 where m == 0
-        if radix in K.NOTCH_RADICES:
-            roots = _roots(radix)
-        else:
-            assert p == len(plan) - 1 and L == radix
-            roots = w[(k[:, None] * k[None, :]) % radix * (n // radix)]
-        return e, tw, roots
 
-    for kind, p in K.notch_steps(plan):
+def _transform(z, plan, m, steps, w, gain):
+    """The steps of one transform on z (..., m) complex64: in-place pass p
+    of radix R and span L (M = L / R) takes butterfly i = b M + m to the
+    elements b L + m + k M; forward (DIF): DFT_R, then the twiddle; the
+    middle (MID, MIDC, GEN_DIF): the last forward DFT (M = 1, no twiddle),
+    times gain(v, e), conjugated, and (but GEN_DIF) the first inverse DFT;
+    inverse (DIT, GEN_DIT) on the conjugated data: the twiddle, then the
+    forward DFT.  Returns what the last pass leaves."""
+    for kind, p in steps:
         if kind in ("LOAD", "STORE"):
             continue
-        e, tw, roots = butterflies(p)
+        e, tw, roots = _butterflies(plan, p, m, w)
         v = z[..., e]
         if kind in ("DIT", "GEN_DIT"):
             v = (v * tw) @ roots
         elif kind == "DIF":
             v = (v @ roots) * tw
-        else:                                              # MID, GEN_DIF
+        else:                                              # the middle
             assert bool((tw == 1).all())
-            v = torch.conj((v @ roots) * gp[e])
-            if kind == "MID":
+            v = torch.conj(gain(v @ roots, e))
+            if kind != "GEN_DIF":
                 v = v @ roots
         z = z.clone()
         z[..., e] = v
-    return torch.conj(z)
+    return z
+
+
+def emulate_passes(z, g, n):
+    """K8's arithmetic on z (..., n) complex64, step by step
+    (`notch_steps`), the twiddles from the f32 table of the transform's
+    length.  Mixed-radix route: one transform with the gains of
+    `notch_gains(g, n)` (the spectrum's digit-reversed order); y_a + i y_b
+    is the conjugate of what it leaves.  Chirp route (m =
+    `notch_length(n)`, tables of `chirp_tables(n)`): K(v), one transform
+    of m with the complex gains hm, on c . z padded with zeros; G / n
+    times its first n values, padded; K again; times conj(c).  Returns y_a
+    + i y_b."""
+    plan, m = K.notch_plan(n), K.notch_length(n)
+    tab = torch.from_numpy(stage_twiddles(m).copy())
+    w = torch.complex(tab[:, 0], tab[:, 1])
+    gp = torch.from_numpy(K.notch_gains(g, n))
+    if K.notch_route(n) == "mixed":
+        return torch.conj(_transform(z, plan, n, K.notch_steps(plan), w,
+                                     lambda v, e: v * gp[e]))
+    c, hm = (torch.from_numpy(t.copy()) for t in K.chirp_tables(n))
+    c, hm = torch.complex(c[:, 0], c[:, 1]), torch.complex(hm[:, 0],
+                                                           hm[:, 1])
+    steps = K.notch_steps(plan, chirp=True)
+    half = steps[:len(steps) // 2]
+    assert steps == half + half
+
+    def k_of(v):   # K(pad(v)), its first n values
+        v = torch.cat([v, v.new_zeros(v.shape[:-1] + (m - n,))], -1)
+        return _transform(v, plan, m, half, w, lambda u, e: u * hm[e])[
+            ..., :n]
+    return torch.conj(c) * k_of(k_of(z * c) * gp)
 
 
 def pair_maps(geo, B, H, W):
@@ -228,9 +289,7 @@ def emulate_k8(x, g, axis):
     each output was written."""
     B, H, W = x.shape
     n = H if axis == -2 else W
-    geo = K.notch_geometry(B, H, W, axis == -2,
-                           generic=K.notch_plan(n)[-1] not in
-                           K.NOTCH_RADICES)
+    geo = K.notch_geometry(B, H, W, axis == -2, **K._flags(n))
     a, b, stride, valid, has_b = pair_maps(geo, B, H, W)
     e = torch.arange(n) * stride
     flat = x.reshape(-1)
@@ -260,6 +319,20 @@ def test_emulation_matches_float64_at_the_planner_lengths(axis, n):
     assert _rel(y.numpy(), _ref64(x, g, axis)) <= TOL
 
 
+@pytest.mark.parametrize("n", LONG)
+@pytest.mark.parametrize("axis", (-1, -2))
+def test_emulation_matches_float64_at_the_long_lengths(axis, n):
+    """Lines past 32768 on both routes, 2-3 lines a tile: the long
+    form's geometry (one pair a block item) and passes, the chirp
+    route's two transforms."""
+    rng = np.random.default_rng(3 * n - axis)
+    x = _coef(rng, axis, n, lines=3 if n < 65536 else 2, tiles=1)
+    g = _notch(n)
+    y, hits = emulate_k8(torch.from_numpy(x), g, axis)
+    assert bool((hits == 1).all()), "an output written 0 or 2 times"
+    assert _rel(y.numpy(), _ref64(x, g, axis)) <= TOL
+
+
 @pytest.mark.parametrize("B,H,W,axis", [
     (3, 1, 21, -1), (1, 7, 1, -1), (2, 1, 5, -2), (1, 1, 1, -1),
     (2, 4, 2, -2), (1, 3, 10, -2), (2, 9, 24, -2), (1, 40, 7, -2)])
@@ -278,19 +351,21 @@ def test_emulation_at_odd_and_tiny_shapes(B, H, W, axis):
 
 
 @pytest.mark.parametrize("n", LENGTHS + (1, 2, 3000, 14000, 14528, 14600,
-                                        27000, 28000))
+                                        27000, 28000) + LONG)
 @pytest.mark.parametrize("cols", (False, True))
 def test_slots_are_distinct_and_threads_cover_every_element(n, cols):
     """The slot map `at` of both layouts sends each (pair, element) of an
     item to its own slot of the buffer; the block's THREADS threads (whole
     warps) split into CP pairs of T (lane_of) and take every (pair, j)
-    once; every step's butterflies take each element of a pair exactly
-    once; shared memory within the limit, or none (the scratch) only where
-    one pair's buffers do not fit."""
+    once; every step's butterflies take each element of a pair's transform
+    (m = notch_length(n)) exactly once; shared memory within the limit, or
+    none (the scratch) only where one pair's buffers do not fit."""
     plan = K.notch_plan(n)
-    generic = plan[-1] not in K.NOTCH_RADICES
-    geo = K.notch_geometry(8, n, n, cols, generic=generic)
-    CP, T, e = geo["CP"], geo["T"], torch.arange(n)
+    flags = K._flags(n)
+    geo = K.notch_geometry(8, n, n, cols, **flags)
+    m = geo["m"]
+    assert m == K.notch_length(n)
+    CP, T, e = geo["CP"], geo["T"], torch.arange(m)
     assert CP * T == geo["threads"] == K.THREADS and K.THREADS % 32 == 0
     c = torch.arange(CP)[:, None]
     if cols:
@@ -304,9 +379,9 @@ def test_slots_are_distinct_and_threads_cover_every_element(n, cols):
     lc, lj = (tid % CP, tid // CP) if cols else (tid // T, tid % T)
     assert torch.unique(lc * T + lj).numel() == geo["threads"]
     assert int(lc.max()) == CP - 1 and int(lj.max()) == T - 1
-    for _, p in K.notch_steps(plan):
+    for _, p in K.notch_steps(plan, flags["chirp"]):
         radix, L = plan[p], int(np.prod(plan[p:]))
-        i = torch.arange(n // radix)
+        i = torch.arange(m // radix)
         elems = ((i // (L // radix)) * L + i % (L // radix))[:, None] \
             + torch.arange(radix)[None, :] * (L // radix)
         assert torch.equal(torch.sort(elems.reshape(-1)).values, e)
@@ -314,6 +389,7 @@ def test_slots_are_distinct_and_threads_cover_every_element(n, cols):
     assert (geo["smem"] > 0) == fits
     assert fits or CP == 1
     assert geo["smem"] <= K.SMEM_LIMIT
+    assert fits or n > 13000          # every long line past ~13600
 
 
 # -- the header on the host ------------------------------------------------------
@@ -321,12 +397,16 @@ def test_slots_are_distinct_and_threads_cover_every_element(n, cols):
 # (axis, B, H, W): every planner length on both axes, three lines a tile
 # (an odd last line) and two tiles; n = 1, 2; primes; a row without its
 # pad (14000) and the scratch (n >= 14528; two lines); a columns item
-# part-filled (W = 37)
+# part-filled (W = 37); lines past 32768 on both routes
 HOST_CASES = ([(-1, 2, 3, n) for n in LENGTHS]
               + [(-2, 2, n, 3) for n in LENGTHS]
               + [(-1, 2, 1, 1), (-2, 1, 2, 5), (-1, 3, 2, 97), (-2, 2, 97, 37),
                  (-1, 1, 2, 14000), (-1, 1, 1, 14530), (-2, 1, 14600, 2), (-1, 1, 1, 4099),
-                 (-2, 2, 1344, 37)])
+                 (-2, 2, 1344, 37),
+                 # the long form past 32768 (generic pass of 521) and the
+                 # chirp route (34023 = 33 * 1031), each tile alone too
+                 (-1, 1, 2, 33344), (-2, 1, 33344, 2), (-1, 2, 3, 34023),
+                 (-2, 1, 34023, 3)])
 
 
 @pytest.fixture(scope="module")
@@ -345,25 +425,27 @@ def host_check(tmp_path_factory):
 
 
 def _host_args(cases):
+    """The check's arguments: AXIS B H W ROUTE (0, 1 generic, 2 chirp)
+    and the plan of every case, "/" between cases."""
     args = []
     for axis, B, H, W in cases:
         n = H if axis == -2 else W
-        plan = K.notch_plan(n)
-        generic = int(plan[-1] not in K.NOTCH_RADICES)
-        args += [str(v) for v in (axis, B, H, W, generic, *plan)] + ["/"]
+        flags = K._flags(n)
+        route = 2 if flags["chirp"] else int(flags["generic"])
+        args += [str(v) for v in (axis, B, H, W, route, *K.notch_plan(n))]
+        args.append("/")
     return args[:-1]
 
 
 def _host_geometry(axis, B, H, W):
     """The geometry line the host check prints for a case."""
     n = H if axis == -2 else W
-    plan = K.notch_plan(n)
-    g = K.notch_geometry(B, H, W, axis == -2,
-                         generic=plan[-1] not in K.NOTCH_RADICES)
+    flags = K._flags(n)
+    g = K.notch_geometry(B, H, W, axis == -2, **flags)
     return (f"CP {g['CP']} T {g['T']} pitch {g['pitch']} buf {g['buf']} "
             f"nbuf {g['nbuf']} smem {g['smem']} tiles {g['tiles']} vec2 "
             f"{g['vec2']} items {g['items']} steps "
-            f"{len(K.notch_steps(plan))};")
+            f"{len(K.notch_steps(K.notch_plan(n), flags['chirp']))};")
 
 
 def test_header_on_the_host_matches_float64(host_check):
@@ -403,7 +485,32 @@ def test_header_group_on_the_host_equals_lone_runs(host_check):
                    reverse=True)
     assert lines[-1].startswith(f"group of {K.MAX_GROUP}:")
     assert f"order {' '.join(map(str, order))};" in lines[-1]
-    assert "; 0 differ from their lone runs" in lines[-1]
+    assert "; 0 alone; 0 differ from their lone runs" in lines[-1]
+
+
+# the 14 notches of a padded (2688, 66688) plane (a stitched 2048 x 66000
+# plane at sigma 250, 7 levels): cH along x, two rows, cV along y, five
+# columns; 33344 and 16672 (generic pass of 521, two buffers) in the long
+# form
+WIDE_CASES = ([(-1, 1, 2, 66688 >> lv) for lv in range(1, 8)]
+              + [(-2, 1, 2688 >> lv, 5) for lv in range(1, 8)])
+
+
+def test_header_wide_plane_group_on_the_host_equals_lone_runs(host_check):
+    """A decomposition with long subbands as the wrapper launches it
+    (`cuda_notch._launches`): the 12 that fit shared memory in one table,
+    33344 and 16672 each alone in the long form; every output bit-equal
+    to its one-subband run and within 1e-5 of float64."""
+    out = subprocess.run([str(host_check), "group",
+                          *_host_args(WIDE_CASES)], capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = out.stdout.splitlines()
+    assert len(lines) == len(WIDE_CASES) + 1
+    for case, line in zip(WIDE_CASES, lines):
+        assert _host_geometry(*case) in line, (case, line)
+    assert lines[-1].startswith("group of 12:")
+    assert "; 2 alone 33344 16672; 0 differ from their lone runs" in lines[-1]
 
 
 # -- the wrapper -------------------------------------------------------------------
@@ -416,7 +523,7 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing(rng):
         g = _notch(x.shape[axis])
         assert torch.equal(K.notch_filter(x, g, axis),
                            K.notch_filter_plain(x, g, axis))
-    assert K.LAUNCHES == {"notch": 0}
+    assert K.LAUNCHES == {"notch": 0, "notch_long": 0}
 
 
 @pytest.mark.parametrize("shape,dtype,glen,axis,err", [
@@ -426,7 +533,7 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing(rng):
     ((2, 8, 10), torch.float32, 6, 0, ValueError),     # not an axis it takes
     ((10,), torch.float32, 6, -2, ValueError),         # no axis -2
     ((2, 0), torch.float32, 1, -1, ValueError),        # n = 0
-    ((1, 32769), torch.float32, 16385, -1, ValueError),   # past the limit
+    ((1, 1048577), torch.float32, 524289, -1, ValueError),  # past the limit
 ])
 def test_wrapper_refuses_what_the_kernel_does_not_take(shape, dtype, glen,
                                                        axis, err):
@@ -484,7 +591,7 @@ def test_group_plain_equals_single_calls_and_jax_filter_subband(
     got = K.notch_filter_group(xs, gs, axes_l)
     for x, g, a, y in zip(xs, gs, axes_l, got):
         assert torch.equal(y, K.notch_filter(x, g, a))
-    assert K.LAUNCHES == {"notch": 0}
+    assert K.LAUNCHES == {"notch": 0, "notch_long": 0}
     assert K.notch_filter_group([], [], []) == []
     with pytest.raises(ValueError):
         K.notch_filter_group(xs, gs[:2], axes_l)

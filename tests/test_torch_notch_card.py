@@ -7,13 +7,19 @@ tests/test_torch_notch.py.
   2000 and 1600 x 2000 tiles), on both axes, and at lengths whose buffers
   live in the device-memory scratch, a large prime, odd line counts:
   within 1e-5 of the plain version's max (both f32), one launch a call.
+- The long form above 32768 on both axes, both routes: the level-1 lines
+  of wide stitched planes (33344, 35328, 45312, 65856), 65536, 131072 and
+  2^20, primes and large odd factors on the chirp route (65537, 2^20 - 1),
+  within 1e-5 of max; one "notch_long" launch a call.
 - A batch of 8 bit-equal to its 8 single tiles and a call to its repeat
-  (cuFFT was not, at n = 672 and 21 along y).
+  (cuFFT was not, at n = 672 and 21 along y); a batch of 4 wide subbands
+  (33344 on both axes, 65537 along x) the same.
 - The 14 notches of a padded decomposition of each tile shape in one
   `notch_filter_group` call: one launch, each output bit-equal to its
-  one-subband call and within 1e-5 of its plain version.
+  one-subband call and within 1e-5 of its plain version; the 14 of a
+  padded (2, 2688, 66688) plane: one launch and two of the long form.
 - `filter_coefficient` on a CUDA tensor with every torch.fft entry
-  refused.
+  refused, at short and long lengths.
 
     python -m pytest -m gpu tests/test_torch_notch_card.py
 """
@@ -56,10 +62,30 @@ def _level_shapes():
     return out
 
 
+def _want(shape, axis):
+    """The launches of one `notch_filter` call: the shared-memory kernel,
+    or the long form where a line pair's buffers do not fit."""
+    long = K.notch_is_long(shape, axis)
+    return {"notch": int(not long), "notch_long": int(long)}
+
+
+# lines past 32768: (2, 2688, 33344) is level 1 of two padded 2048 x 66000
+# planes, (2, 33344, 2688) of two 66000 x 2048; 35328, 45312 and 65856 of
+# 20000 x 70000, 24000 x 90000 and 12000 x 131000; 65537 and 2^20 - 1 on the
+# chirp route
+LONG_SHAPES = [((2, 2688, 33344), -1), ((2, 33344, 2688), -2),
+               ((1, 3, 35328), -1), ((1, 45312, 3), -2),
+               ((1, 2, 65536), -1), ((1, 65536, 3), -2),
+               ((1, 3, 65537), -1), ((2, 65537, 2), -2),
+               ((1, 3, 65856), -1), ((1, 131072, 2), -2),
+               ((1, 2, 131072), -1), ((1, 2, 1 << 20), -1),
+               ((1, 1 << 20, 2), -2), ((1, 3, (1 << 20) - 1), -1)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,axis", _level_shapes() + [
     ((2, 16, 14000), -1), ((2, 14600, 6), -2), ((1, 3, 32749), -1),
-    ((1, 2, 30000), -1), ((3, 97, 37), -2), ((5, 7, 1), -1)])
+    ((1, 2, 30000), -1), ((3, 97, 37), -2), ((5, 7, 1), -1)] + LONG_SHAPES)
 def test_kernel_matches_plain_on_the_card(cuda, shape, axis):
     rng = np.random.default_rng(sum(shape) - axis)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
@@ -67,7 +93,7 @@ def test_kernel_matches_plain_on_the_card(cuda, shape, axis):
     g = _notch(shape[axis])
     K.reset_launch_counts()
     got = K.notch_filter(x, g, axis)
-    assert K.LAUNCHES == {"notch": 1}
+    assert K.LAUNCHES == _want(shape, axis)
     ref = K.notch_filter_plain(x, g, axis)
     torch.cuda.synchronize()
     assert _rel(got.cpu().numpy(), ref.cpu().numpy()) <= TOL
@@ -92,6 +118,51 @@ def test_kernel_batch_equals_single_tiles_on_the_card(cuda, n, axis):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", [((4, 64, 33344), -1),
+                                        ((4, 33344, 64), -2),
+                                        ((4, 4, 65537), -1)])
+def test_long_batch_equals_single_tiles_on_the_card(cuda, shape, axis):
+    """The long form (one line pair a block, a scratch of device memory,
+    blocks walking the items) and the chirp route: a batch of 4 gives its
+    single tiles bit for bit, a call its repeat."""
+    rng = np.random.default_rng(shape[axis])
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda)
+    g = _notch(shape[axis])
+    K.reset_launch_counts()
+    got = K.notch_filter(x, g, axis)
+    assert K.LAUNCHES == {"notch": 0, "notch_long": 1}
+    assert torch.equal(got, K.notch_filter(x, g, axis))
+    for i in range(shape[0]):
+        assert torch.equal(got[i:i + 1], K.notch_filter(x[i:i + 1], g, axis))
+
+
+@pytest.mark.gpu
+def test_wide_plane_group_equals_one_subband_calls_on_the_card(cuda):
+    """cH along x and cV along y of levels 1-7 of two padded 2048 x 66000
+    planes (2, 2688, 66688), as filter_subband notches them: one launch
+    for the 12 whose buffers fit shared memory, one each for 33344 and
+    16672 along x (generic pass of 521, the long form); each bit-equal to
+    its one-subband call and within 1e-5 of its plain version."""
+    rng = np.random.default_rng(66688)
+    xs, gs, axes = [], [], []
+    for lv in range(1, 8):
+        for axis in (-1, -2):
+            shape = (2, 2688 >> lv, 66688 >> lv)
+            xs.append(torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(cuda))
+            gs.append(_notch(shape[axis]))
+            axes.append(axis)
+    K.reset_launch_counts()
+    got = K.notch_filter_group(xs, gs, axes)
+    assert K.LAUNCHES == {"notch": 1, "notch_long": 2}
+    for y, x, g, a in zip(got, xs, gs, axes):
+        assert torch.equal(y, K.notch_filter(x, g, a))
+        ref = K.notch_filter_plain(x, g, a)
+        assert _rel(y.cpu().numpy(), ref.cpu().numpy()) <= TOL
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("H,W", [(2688, 2688), (2304, 2688)])
 def test_group_equals_one_subband_calls_on_the_card(cuda, H, W):
     """cH along x and cV along y of levels 1-7 of a padded batch of 8 in
@@ -108,7 +179,7 @@ def test_group_equals_one_subband_calls_on_the_card(cuda, H, W):
             axes.append(axis)
     K.reset_launch_counts()
     got = K.notch_filter_group(xs, gs, axes)
-    assert K.LAUNCHES == {"notch": 1}
+    assert K.LAUNCHES == {"notch": 1, "notch_long": 0}
     for y, x, g, a in zip(got, xs, gs, axes):
         assert torch.equal(y, K.notch_filter(x, g, a))
         ref = K.notch_filter_plain(x, g, a)
@@ -129,7 +200,15 @@ def test_filter_coefficient_calls_no_torch_fft_on_the_card(cuda,
     for axis in (-1, -2):
         y = P.filter_coefficient(x, 0.3, axis=axis)
         assert y.shape == x.shape and bool(torch.isfinite(y).all())
-    assert K.LAUNCHES == {"notch": 2}
+    assert K.LAUNCHES == {"notch": 2, "notch_long": 0}
     y = P.filter_subband(x, 40.0, 2, "db3", axes=(-1, -2))
     assert y.shape == x.shape and bool(torch.isfinite(y).all())
-    assert K.LAUNCHES == {"notch": 3}   # one for the four notches
+    assert K.LAUNCHES == {"notch": 3, "notch_long": 0}   # the four notches
+    # the long form on both routes: 33344 (mixed), 65537 (chirp)
+    for n in (33344, 65537):
+        for shape, axis in (((2, 4, n), -1), ((2, n, 4), -2)):
+            xl = torch.from_numpy(np.random.default_rng(n).standard_normal(
+                shape).astype(np.float32)).to(cuda)
+            y = P.filter_coefficient(xl, 0.3, axis=axis)
+            assert y.shape == xl.shape and bool(torch.isfinite(y).all())
+    assert K.LAUNCHES == {"notch": 3, "notch_long": 4}

@@ -84,11 +84,12 @@ Phases:
    bound, a batch of 8 bit-equal to its 8 single tiles and a call to its
    repeat; K8's long form (K8l) the same at lines past 32768: level 1 of
    two padded 2048 x 66000 planes along x, (2, 2688, 33344), of two 66000
-   x 2048 along y, a prime on the chirp route (65537) and 2^20 on a few
-   lines; the 14 notches of a batch of each tile shape, and of the two
+   x 2048 along y, a prime on the chirp route (65537), 2^20 and 2^20 - 1
+   on a few lines, with its exact launches (3 a subband, 6 on the chirp
+   route); the 14 notches of a batch of each tile shape, and of the two
    padded 2048 x 66000 planes (2, 2688, 66688), in one grouped call
    (`notch_filter_group`, as `filter_subband` runs them): one launch (and
-   the plane's two K8l launches), each output bit-equal to its one-subband
+   the plane's six K8l launches), each output bit-equal to its one-subband
    call, ms by CUDA events and by graph replay against the summed bound;
    then the pystripe CLI end to end with process_images' stage-1
    settings (sigma 250/250, db9, reflect, bidirectional, dark 100, batch
@@ -195,7 +196,8 @@ Phases:
    series; Mpix/s with the read / device / write / downsample / export
    split; then the wide-plane run: convert --destripe (no export) on 2
    striped u16 planes of 2048 x 66000 and on 2 of 66000 x 2048 (padded to
-   66688: the notch lines of 33344 and 16672 take K8l): rc 0, exact K5,
+   66688: the notch lines of 33344 and 16672 take K8l, three launches
+   each): rc 0, exact K5,
    K5s, K8 and K8l launches (counted apart from the run before), the
    stripe power down more than 3x, every plane within 1 count of the same
    chain on the card with K8's plain version, Mpix/s with its split;
@@ -2094,18 +2096,21 @@ def notch_level_cases(tiles=NOTCH_TILES, batch=8):
 
 # K8's long form (K8l) past 32768: level 1 of two padded 2048 x 66000
 # planes along x and of two 66000 x 2048 along y (the sigma the chain
-# gives them), a prime on the chirp route and 2^20 on a few lines
+# gives them), a prime on the chirp route, 2^20 and 2^20 - 1 on a few
+# lines
 NOTCH_LONG_CASES = [((2, 2688, 33344), -1, 125.0),
                     ((2, 33344, 2688), -2, 125.0),
-                    ((1, 4, 65537), -1, 2.0), ((1, 2, 1 << 20), -1, 2.0)]
+                    ((1, 4, 65537), -1, 2.0), ((1, 2, 1 << 20), -1, 2.0),
+                    ((1, 2, (1 << 20) - 1), -1, 2.0)]
 
 
 def notch_cases(torch, dev, rows, bad):
     """K8 against its plain version (torch.fft) at every level shape of
     both tile shapes, on both axes, and K8l at NOTCH_LONG_CASES: <= 1e-5
     of max, kernel, plain and library (rfft * g, irfft) ms by CUDA
-    events, the bound; then the batch bit-equal to its single tiles and a
-    call to its repeat."""
+    events, the bound, the launches of one call (one "notch", or the
+    long form's `notch_long_launches`); then the batch bit-equal to its
+    single tiles and a call to its repeat."""
     import numpy as np
 
     from ipp_tpu_torch.ops import cuda_notch as cn
@@ -2130,9 +2135,14 @@ def notch_cases(torch, dev, rows, bad):
         def lfn(x=x, gt=gt, axis=axis, n=n):
             return torch.fft.irfft(torch.fft.rfft(x, dim=axis) * gt, n=n,
                                    dim=axis)
-        got, ref = kfn(), pfn()
+        cn.reset_launch_counts()
+        got = kfn()
+        launches = dict(cn.LAUNCHES)
+        ref = pfn()
         torch.cuda.synchronize()
         abs_err, rel = err_of_max(got, ref)
+        want = ({"notch": 0, "notch_long": cn.notch_long_launches(n)}
+                if kernel == "K8l" else {"notch": 1, "notch_long": 0})
         same = all(torch.equal(got[i:i + 1], kfn(x[i:i + 1]))
                    for i in range(shape[0]))
         twice = torch.equal(got, kfn())
@@ -2143,8 +2153,8 @@ def notch_cases(torch, dev, rows, bad):
                          route=cn.notch_route(n), max_abs_err=abs_err,
                          rel_err=rel, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, batch_equals_single=same,
-                         two_calls_equal=twice))
+                         bound_by=bound_by, launches=launches,
+                         batch_equals_single=same, two_calls_equal=twice))
         say(f"  {kernel:<3s} {str(shape):<18s} axis {axis:2d} n {n:5d} rel "
             f"{rel:.2e} abs {abs_err:.2e}  kernel {ms:7.3f} ms  plain "
             f"{plain_ms:7.3f}  "
@@ -2156,6 +2166,9 @@ def notch_cases(torch, dev, rows, bad):
         if not (same and twice):
             bad.append(f"{kernel} {shape} axis {axis}: a batch differs from "
                        f"its singles or a call from its repeat")
+        if launches != want:
+            bad.append(f"{kernel} {shape} axis {axis}: launches {launches} "
+                       f"!= {want}")
         del got, ref, x
     notch_group_cases(torch, dev, rows, bad, gen)
 
@@ -2164,7 +2177,8 @@ def notch_group_cases(torch, dev, rows, bad, gen):
     """The 14 notches of one padded batch of 8 of each tile shape, and of
     two padded 2048 x 66000 planes (2, 2688, 66688), in one
     `notch_filter_group` call, as `destripe.filter_subband` runs them: one
-    launch (and the plane's two K8l launches: 33344 and 16672 along x),
+    launch (and the plane's six K8l launches: three for each of 33344 and
+    16672 along x),
     each output within 1e-5 of max of its plain version and bit-equal to
     its one-subband call, the call bit-equal to its repeat; the kernel,
     the plain versions and the library calls (torch.fft's rfft * g,
@@ -2178,8 +2192,9 @@ def notch_group_cases(torch, dev, rows, bad, gen):
 
     for B, H, W in [(8, H, W) for H, W in NOTCH_TILES] + [(2, 2688, 66688)]:
         cases = notch_level_cases(((H, W),), B)
-        want_long = sum(cn.notch_is_long(shape, axis)
-                        for shape, axis, _ in cases)
+        want_long = sum(cn.notch_long_launches(shape[axis])
+                        for shape, axis, _ in cases
+                        if cn.notch_is_long(shape, axis))
         xs = [torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)
                                ).to(dev) for shape, _, _ in cases]
         axes = [axis for _, axis, _ in cases]
@@ -4075,9 +4090,10 @@ def convert_wide(torch, dev, record):
     """Phase 14's wide-plane run: convert --destripe (sigma 250, db9, no
     export) on WIDE_COUNT striped u16 planes of each shape of WIDE_PLANES,
     stitched planes whose padded side (66688) passes 65536, so the notch
-    lines of levels 1 and 2 along that side (33344; 16672, a generic pass
-    of 521 in two buffers) run in K8's long form.  Held to: rc 0, exact
-    K5, K5s, K8 and K8l launches (counted apart from phase 14's run), the
+    lines of levels 1 and 2 along that side (33344; 16672, past shared
+    memory, 521 on Rader's rows) run in K8's long form, three
+    launches each.  Held to: rc 0, exact K5, K5s, K8 and K8l launches
+    (counted apart from phase 14's run), the
     stripe power down, every plane within 1 count of the same chain on the
     card with K8's plain version (torch.fft) in place of the kernel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4111,15 +4127,15 @@ def convert_wide(torch, dev, record):
         _, _, padded, levels = dsm._plan_padding((h, w), (250.0, 250.0), 0,
                                                  "db9")
         # one batch: K8 one grouped launch for the decomposition's notches
-        # (cH along x, cV along y of every level), K8l one for each in the
-        # long form
+        # (cH along x, cV along y of every level), K8l its launches for
+        # each in the long form
         subs = [((WIDE_COUNT, padded[0] >> lv, padded[1] >> lv), axis)
                 for lv in range(1, levels + 1) for axis in (-1, -2)]
         long_n = [shape[axis] for shape, axis in subs
                   if cn.notch_is_long(shape, axis)]
         want = dict(dwt_analysis=3 * levels, dwt_synthesis=3 * levels,
                     notch=int(len(long_n) < len(subs)),
-                    notch_long=len(long_n))
+                    notch_long=sum(map(cn.notch_long_launches, long_n)))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cd.reset_launch_counts()

@@ -83,37 +83,69 @@
 // 48 values a thread were slower, 48 giving CP = 8 column pairs and
 // 64-byte runs at n = 1344; persistent blocks prefetching their next item
 // into L2 too).
-// Where one pair's buffers exceed the 227 KB of shared memory (n above
-// ~27000, or ~13600 with a generic radix), they live in a scratch of device
-// memory the wrapper allocates, one a block, the blocks walk the items: the
-// long form (`notch_kernel<true>`, launched alone, up to MAX_N = 2^20); the
-// passes are the same code, its index divisions 64-bit (`Div`).
 //
-// The chirp route (the long form only; `ops/cuda_notch.notch_route(n)`: a
-// line above 32768 whose odd factor left after 3, 5, 7, 11, 13 passes
-// 1024): Bluestein's chirp-z transform on the power-of-two passes of m =
-// pow2ceil(2n - 1).  With c[j] = exp(-i pi (j^2 mod 2n) / n) and h =
-// conj(c) laid out circularly (h[j] at j and m - j, j < n; 0 between), the
-// kernel's own passes with the complex gains Hm = DFT_m(h) / m (digit-
-// reversed) compute K(v) = DFT_m(conj(Hm . DFT_m(v))) = conj(v (*) h), the
-// conjugated circular convolution, which is linear for the first n outputs.
-// DFT(z)[k] = c[k] (z c (*) h)[k] (jk = (j^2 + k^2 - (k - j)^2) / 2), so
+// The long form K8l: lines whose pair's buffers pass the 227 KB of shared
+// memory (n above ~27000, or ~13600 with a generic radix), up to MAX_N =
+// 2^20, each subband in launches of its own.  The transform of length m
+// is split m = n1 n2 (`ops/cuda_notch.notch_long_plan(n)`, a function of n
+// alone), element j = n2 j1 + j2, frequency k = k1 + n1 k2, and runs as
+// the four-step FFT in three kernels over device memory, many blocks a
+// line pair:
+//   (a) `notch_long_kernel<0>`: a block takes a tile of C columns (pair,
+//     j2), n1 values each (j1), the forward passes of `plan1` on them in
+//     shared memory, and stores row r (the position where frequency k1
+//     lands) times the twiddle w_m^(j2 k1) (a table by row, `twr`, so a
+//     warp's twiddles are one run) at element r n2 + j2;
+//     along x a tile's columns are C neighbouring j2 (4C-byte runs of each
+//     line), along y CPt neighbouring column pairs by TJ j2 (8 CPt-byte
+//     runs);
+//   (b) `<1>`: a block takes R rows (pair, r) of n2 values, the middle as
+//     the shared-memory form runs it on a line of n2 (`plan2`'s forward
+//     passes, the gains G[k1 + n1 k2] / n in the digit order of both plans,
+//     the inverse passes; a generic radix in two buffers), and stores
+//     times w_m^(j2 k1): the conjugated inverse of the rows, turned back;
+//   (c) `<2>`: the tiles of (a) again, plan1's inverse passes, the store
+//     of y_a + i y_b at j = n2 j1 + j2.
+// Each kernel reads and writes one complex value an element: 3 x 16 bytes
+// a line pair's element where the shared-memory form moves 8.  The store of
+// each kernel takes the elements its loads took, so every kernel runs in
+// place; the storage between them is y itself (re in line 2i, im in line
+// 2i + 1; the float2 of a column pair) where every pair has both lines, else
+// a scratch of the subband's size the wrapper allocates.  A large odd factor
+// never reads device memory p times a value: a row whose odd factor passes
+// the generic limit (`ops/cuda_notch.GENERIC_MAX`) runs, n2 = p prime,
+// Rader's algorithm, the DFT of p as a cyclic convolution of p - 1 on the
+// specialised radices (`rows` 2: 520 = 8 5 13 for the 521 of 33344; in
+// long_step_b), else Bluestein's chirp-z transform inside the row (`rows`
+// 1, below) on the power-of-two passes of m2 = pow2ceil(2 n2 - 1); a line
+// with no split (a prime past ROW_MAX, 65537) takes the chirp route on
+// the whole line.
 //
-//   y = IDFT(G . DFT(z)) = conj(c) . K(pad(G / n . K(pad(c . z))))
+// The chirp-z transform (Bluestein): with c[j] = exp(-i pi (j^2 mod 2L) / L)
+// for a length L and h = conj(c) laid out circularly in M = pow2ceil(2L - 1)
+// (h[j] at j and M - j, j < L; 0 between), the passes of M with the complex
+// gains Hm = DFT_M(h) / M in the middle (digit-reversed) compute K(v) =
+// DFT_M(conj(Hm . DFT_M(v))) = conj(v (*) h), the conjugated circular
+// convolution, which is linear for the first L outputs, and DFT(z)[k] =
+// c[k] (z c (*) h)[k], so
 //
-// (conj(G/n . DFT(z)) . c = G/n . conj(z c (*) h), |c| = 1): the first
-// half's load multiplies by c, its store keeps G[k] / n times the first n
-// values (0 past them) in the buffer, the second half's store multiplies
-// by conj(c) and writes y_a + i y_b itself.  2 (2P - 1) steps for P passes
-// of m.
+//   IDFT(G . DFT(z)) = conj(c) . K(pad(G / L . K(pad(c . z)))).
+//
+// The whole-line chirp route (L = n, M = m): kernels a, b, c twice, the
+// first (a) multiplying by c at its load, (b) with Hm (in the four-step's
+// digit order) in place of G, the first (c) storing G / n times the first n
+// values into the scratch (a second (a) reads 0 past them), the second (c)
+// storing conj(c) times them: 6 launches.  Inside a row (L = n2, M = m2):
+// (b) loads c2 . a, runs K, G[k1 + n1 k2] / n on the first n2 values, K,
+// and stores c2 . conj(K(.)) times w_m^(j2 k1) (the conjugated inverse (c)
+// expects).
 //
 // Bound by bytes: 4 in and 4 out an element (8 n log2 n flops a line pair
-// are far below the bytes at these lengths; the long form reads and writes
-// its scratch once a step on top).
+// are far below the bytes at these lengths).
 //
 // The geometry and the steps are functions of (item, thread) that a host
 // compiler also takes, so tests/torch_notch_host/ runs them thread by thread
-// on the host; the kernel (CUDA only) runs them between barriers.
+// on the host; the kernels (CUDA only) run them between barriers.
 
 #pragma once
 
@@ -130,10 +162,18 @@ constexpr int SMEM_LIMIT = 227 * 1024;
 constexpr int THREADS = 256;             // every block, every length
 constexpr int VALUES = 24;               // values a thread aims at a pass
 constexpr int MINB = 4;                  // blocks an SM (registers cut to 64)
-constexpr int MINB_LONG = 2;             // the long form's (128 registers)
 constexpr int TMIN = 16;                 // threads a pair at least
 constexpr int MAX_GROUP = 16;            // subbands a launch
-constexpr int DESC = 24;                 // int64 words of a subband's row
+constexpr int DESC = 22;                 // int64 words of a subband's row
+// the long form (ops/cuda_notch mirrors these)
+constexpr int LONG_N1_MAX = 1024;        // the strided sub-transform, at most
+constexpr int ROW_MAX = 4096;            // a row's transform, at most
+constexpr int TILE_VALUES = 8192;        // a strided tile's slots, at most
+constexpr int TILE_CMAX = 32;            // columns of a tile, at most
+constexpr int ROW_SMEM = 100 * 1024;     // a row block's bytes (but one row)
+constexpr int ROWS_Y = 8;                // rows a block along y, at least
+constexpr int MINB_LONG = 3;             // the long kernels' blocks an SM
+constexpr int LDESC = 47;                // int64 words of a long subband
 // for timing only (scripts/notch_bench.py --variants; wrong results): 1
 // runs no butterfly (the first pass loads, the last stores, nothing
 // between), 2 reads and writes no device memory
@@ -158,21 +198,12 @@ __host__ __device__ constexpr bool special(int r) {
   return ippdft::special(r) || r == 12;
 }
 
-// The transform length of a line of n: n, or on the chirp route m =
-// pow2ceil(2n - 1), where the circular convolution of n values with the
-// 2n - 1 of the chirp is linear.
-__host__ __device__ inline int transform_length(int n, bool chirp) {
-  return chirp ? pow2ceil(2 * n - 1) : n;
-}
-
-// A plan K8 takes for lines of n: the radices multiply to the transform
-// length, each is a specialised radix but possibly the last, which is then
-// the generic pass of an odd radix (1 only for n = 1); the chirp route
-// (lines above 32768 only) has no generic pass.
-inline bool notch_plan_ok(const Plan& pl, int n, bool chirp) {
-  if (n < 1 || n > MAX_N || (chirp && n <= 32768) || pl.npass < 1 ||
-      pl.npass > ippdft::MAX_PASSES || pl.n != transform_length(n, chirp) ||
-      (chirp && pl.generic))
+// A plan K8 takes for a transform of `len`: the radices multiply to len,
+// each is a specialised radix but possibly the last, which is then the
+// generic pass of an odd radix (1 only for len = 1).
+inline bool plan_ok(const Plan& pl, int len) {
+  if (len < 1 || pl.npass < 1 || pl.npass > ippdft::MAX_PASSES ||
+      pl.n != len)
     return false;
   i64 prod = 1;
   for (int p = 0; p < pl.npass; ++p) {
@@ -188,8 +219,6 @@ inline bool notch_plan_ok(const Plan& pl, int n, bool chirp) {
 
 struct Geo {
   int n;         // the line length
-  int m;         // the transform length (n, or the chirp route's)
-  int chirp;     // 1: the chirp route
   int cols;      // 1: the lines are columns (axis -2)
   int H, W;      // a tile is (H, W)
   int CP;        // line pairs a block item
@@ -199,7 +228,7 @@ struct Geo {
   int pitch;     // rows: slots between pairs (odd)
   int buf;       // float2 slots of one buffer
   int nbuf;      // buffers: 2 with a generic radix, else 1
-  int smem;      // bytes of shared memory; 0: the buffers are in a scratch
+  int smem;      // bytes of shared memory; 0: past shared memory (K8l)
   int tiles;     // columns: items a tile (blocks of CP column pairs)
   int vec2;      // columns: float2 loads and stores
   i64 pairs;     // line pairs of the input
@@ -215,18 +244,15 @@ __host__ __device__ inline int pair_threads(int n) {
 
 // The geometry of (B, H, W) along the columns (`cols`) or the rows;
 // aligned8: the input and the output are 8-byte aligned; generic: the plan
-// ends in a generic pass (two buffers); chirp: the chirp route (a buffer
-// of the transform length m).  False for a shape K8 does not take.
+// ends in a generic pass (two buffers).  False for a shape K8 does not take.
 inline bool geometry(i64 B, int H, int W, bool cols, bool aligned8,
-                     bool generic, bool chirp, Geo& g) {
+                     bool generic, Geo& g) {
   g.cols = cols;
   g.H = H;
   g.W = W;
   g.n = cols ? H : W;
   if (B < 1 || H < 1 || W < 1 || g.n > MAX_N) return false;
-  g.chirp = chirp;
-  g.m = transform_length(g.n, chirp);
-  const int n = g.m;   // the buffers hold the transform
+  const int n = g.n;
   const int t0 = pair_threads(n);
   g.CP = THREADS / t0;
   if (!cols) {
@@ -290,12 +316,10 @@ __host__ __device__ inline int at(const Lane& l, int e) {
   return q + (q >> 4) + l.base;
 }
 
-// i / M by a multiply-high with magic = floor((2^B - 1) / M) + 1 for any M
-// >= 2: magic M = 2^B + e with 0 <= e < M, so i magic / 2^B = i / M + i e
-// / (M 2^B), exact while i e < 2^B.  B = 32 (one __umulhi) holds for i and
-// M below 32768, every index of the shared-memory form; the long form's
-// indices reach 2^20, so it takes B = 64 (__umul64hi), exact for every i, M
-// below 2^31.
+// i / M by a multiply-high with magic = floor((2^32 - 1) / M) + 1 for any M
+// >= 2: magic M = 2^32 + e with 0 <= e < M, so i magic / 2^32 = i / M + i e
+// / (M 2^32), exact while i e < 2^32, which holds for i and M below 32768:
+// every index of a transform (at most ROW_MAX in the long form).
 __host__ __device__ inline unsigned mulhi(unsigned a, unsigned b) {
 #ifdef __CUDA_ARCH__
   return __umulhi(a, b);
@@ -306,30 +330,12 @@ __host__ __device__ inline unsigned mulhi(unsigned a, unsigned b) {
 __host__ __device__ inline unsigned magic(int M) {
   return 0xFFFFFFFFu / (unsigned)M + 1u;
 }
-__host__ __device__ inline unsigned long long mulhi64(unsigned long long a,
-                                                      unsigned long long b) {
-#ifdef __CUDA_ARCH__
-  return __umul64hi(a, b);
-#else
-  return (unsigned long long)(((unsigned __int128)a * b) >> 64);
-#endif
-}
 
-template <bool LONG>
-struct Div {   // the shared-memory form: B = 32
+struct Div {
   unsigned mg;
   __host__ __device__ explicit Div(int M) : mg(magic(M)) {}
   __host__ __device__ int operator()(int i) const {
     return (int)mulhi((unsigned)i, mg);
-  }
-};
-template <>
-struct Div<true> {   // the long form: B = 64
-  unsigned long long mg;
-  __host__ __device__ explicit Div(int M)
-      : mg(0xFFFFFFFFFFFFFFFFull / (unsigned)M + 1ull) {}
-  __host__ __device__ int operator()(int i) const {
-    return (int)mulhi64((unsigned long long)i, mg);
   }
 };
 
@@ -367,20 +373,15 @@ __host__ __device__ inline Pair pair_of(const Geo& g, i64 k, int c) {
 
 // -- one subband ----------------------------------------------------------------
 
-// A subband of a launch: x -> y (B, H, W) f32, its twiddle table tw (m)
-// float2 exp(-2 pi i j / m), its gains gp (n) in the digit-reversed order
-// of the plan (ops/cuda_notch.notch_gains; the chirp route: G / n in
-// natural order), on the chirp route the chirp c (n) float2 and the
-// complex gains hm (m) float2 in the plan's digit-reversed order
-// (ops/cuda_notch.chirp_tables), its geometry and plan, and the first item
-// of it in the launch's numbering.
+// A subband of a launch: x -> y (B, H, W) f32, its twiddle table tw (n)
+// float2 exp(-2 pi i j / n), its gains gp (n) in the digit-reversed order
+// of the plan (ops/cuda_notch.notch_gains), its geometry and plan, and the
+// first item of it in the launch's numbering.
 struct Sub {
   const float* x;
   float* y;
   const float2* tw;
   const float* gp;
-  const float2* chirp;
-  const float2* hm;
   Geo g;
   Plan pl;
   i64 start;
@@ -390,14 +391,14 @@ struct Sub {
 
 enum Kind { DIF, MID, DIT, LOAD, STORE, GEN_DIF, GEN_DIT, MIDC };
 
-// Step s of an item: its kind, the pass it runs and its half (the chirp
-// route's two transforms; 0 elsewhere).  P specialised passes: DIF 0 (from
-// device memory) .. DIF P-2, MID (P-1), DIT P-2 .. DIT 0 (to device
-// memory); a generic last radix: GEN_DIF into the second buffer and GEN_DIT
-// back in place of MID; P = 1: LOAD first, the middle, STORE last (GEN_DIT
-// stores itself).  The chirp route: those 2P - 1 steps twice, MIDC (the
-// complex gains) in the middle, the first half's DIT 0 back into the
-// buffer.
+// Step s of an item: its kind, the pass it runs and its half (the chirp-z
+// transform's two; 0 elsewhere).  P specialised passes: DIF 0 (from device
+// memory) .. DIF P-2, MID (P-1), DIT P-2 .. DIT 0 (to device memory); a
+// generic last radix: GEN_DIF into the second buffer and GEN_DIT back in
+// place of MID; P = 1: LOAD first, the middle, STORE last (GEN_DIT stores
+// itself).  The chirp-z transform (P >= 2 power-of-two passes): those 2P -
+// 1 steps twice, MIDC (the complex gains) in the middle, the first half's
+// DIT 0 back into the buffer.
 __host__ __device__ inline int num_steps(const Plan& pl, bool chirp) {
   const int P = pl.npass;
   if (chirp) return 2 * (2 * P - 1);
@@ -493,19 +494,20 @@ __device__ __forceinline__ void twiddle(float2 (&v)[R], float2 w) {
 // One specialised pass of radix R over the pair's butterflies j, j + T, ...
 // of a transform of n (KIND DIF: DFT then twiddle; DIT: twiddle then DFT;
 // MID: DFT, gain, conjugation, DFT; MIDC: the same with the complex gain
-// hm), elements read by src(e), written by dst(e, v).
-template <int R, int KIND, bool LONG, class Src, class Dst>
+// hm, and the forward transform's value at frequency 0 into *sum where
+// sum is given), elements read by src(e), written by dst(e, v).
+template <int R, int KIND, class Src, class Dst>
 __device__ __forceinline__ void radix_pass(int j, int T, int n, int L,
                                            const float2* __restrict__ tw,
                                            const float* __restrict__ gp,
                                            const float2* __restrict__ hm,
-                                           Src src, Dst dst) {
+                                           Src src, Dst dst, float2* sum) {
   const int M = L / R;
   const int NB = n / R;
   const int tscale = n / L;
   const bool pow2 = (M & (M - 1)) == 0;
   const int mshift = pow2 ? log2i(M) : 0;
-  const Div<LONG> div(pow2 ? 2 : M);
+  const Div div(pow2 ? 2 : M);
   for (int i = j; i < NB; i += T) {
     int b, m;
     if (pow2) {
@@ -531,6 +533,7 @@ __device__ __forceinline__ void radix_pass(int j, int T, int n, int L,
         }
       }
       if (KIND == MIDC) {
+        if (sum != nullptr && base == 0) *sum = v[0];
 #pragma unroll
         for (int k = 0; k < R; ++k) {
           const float2 t = cmul(v[k], __ldg(&hm[base + k]));
@@ -545,15 +548,16 @@ __device__ __forceinline__ void radix_pass(int j, int T, int n, int L,
   }
 }
 
-template <int KIND, bool LONG, class Src, class Dst>
+template <int KIND, class Src, class Dst>
 __device__ __forceinline__ void any_radix(int R, int j, int T, int n, int L,
                                           const float2* __restrict__ tw,
                                           const float* __restrict__ gp,
                                           const float2* __restrict__ hm,
-                                          Src src, Dst dst) {
+                                          Src src, Dst dst,
+                                          float2* sum = nullptr) {
 #define IPP_NOTCH_RADIX(r)                                                \
   case r:                                                                 \
-    radix_pass<r, KIND, LONG>(j, T, n, L, tw, gp, hm, src, dst);          \
+    radix_pass<r, KIND>(j, T, n, L, tw, gp, hm, src, dst, sum);           \
     break;
   switch (R) {
     IPP_NOTCH_RADIX(2)
@@ -577,14 +581,14 @@ __device__ __forceinline__ void any_radix(int R, int j, int T, int n, int L,
 // r - k (their roots are conjugates); items run over the pair's T threads
 // with q fastest.  GAIN: the outputs times gp and conjugated (the forward
 // transform's end); dst(e, v) takes them.
-template <bool GAIN, bool LONG, class Src, class Dst>
+template <bool GAIN, class Src, class Dst>
 __device__ __forceinline__ void generic_radix(int j, int T, int n, int r,
                                               const float2* __restrict__ tw,
                                               const float* __restrict__ gp,
                                               Src src, Dst dst) {
   const int nb = n / r, h = r / 2;
   const int items = (h + 1) * nb;
-  const Div<LONG> div(nb == 1 ? 2 : nb);
+  const Div div(nb == 1 ? 2 : nb);
   for (int o = j; o < items; o += T) {
     const int k = nb == 1 ? o : div(o);
     const int q = o - k * nb;
@@ -618,23 +622,19 @@ __device__ __forceinline__ void generic_radix(int j, int T, int n, int r,
 
 // Step s of an item for the thread of lane l and line pair pr (lane_of,
 // pair_of: once an item): the subband's buffers A (buf) and B (buf +
-// g.buf, generic plans only).  LONG: the long form (64-bit divisions; the
-// chirp route).
-template <bool LONG>
+// g.buf, generic plans only).
 __device__ __forceinline__ void run_step(const Sub& sb, const Lane& l,
                                          const Pair& pr, float2* buf,
                                          int s) {
   const Geo& g = sb.g;
   const Plan& pl = sb.pl;
-  const int n = g.n;    // the line
-  const int m = g.m;    // the transform (n but on the chirp route)
+  const int n = g.n;
   const float* __restrict__ x = sb.x;
   float* __restrict__ y = sb.y;
   float2* A = buf;
   float2* Bf = buf + g.buf;
-  const bool chirp = LONG && g.chirp;   // only the long form takes it
   int kind, p, half;
-  step_of(pl, chirp, s, kind, p, half);
+  step_of(pl, false, s, kind, p, half);
   const int L = span_of(pl, p);
   const int R = pl.radix[p];
 
@@ -677,7 +677,7 @@ __device__ __forceinline__ void run_step(const Sub& sb, const Lane& l,
   auto from_b = [&](int e) -> float2 { return Bf[at(l, e)]; };
   auto to_b = [&](int e, float2 v) { Bf[at(l, e)] = v; };
 
-  const int last = num_steps(pl, chirp) - 1;
+  const int last = num_steps(pl, false) - 1;
   if (IPP_NOTCH_DIAG == 1 && s != 0 && s != last) return;
   switch (kind) {
     case LOAD:
@@ -687,68 +687,33 @@ __device__ __forceinline__ void run_step(const Sub& sb, const Lane& l,
       for (int e = l.j; e < n; e += g.T) to_global(e, from_a(e));
       break;
     case DIF:
-      if (p != 0 || half)
-        any_radix<DIF, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
-                             to_a);
-      else if (!chirp)
-        any_radix<DIF, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm,
-                             from_global, to_a);
-      else if constexpr (LONG)   // the chirp's first load: c . z, 0 past n
-        any_radix<DIF, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm,
-                             [&](int e) -> float2 {
-                               return e < n ? cmul(from_global(e),
-                                                   __ldg(&sb.chirp[e]))
-                                            : make_float2(0.f, 0.f);
-                             },
-                             to_a);
+      if (p != 0)
+        any_radix<DIF>(R, l.j, g.T, n, L, sb.tw, sb.gp, nullptr, from_a,
+                       to_a);
+      else
+        any_radix<DIF>(R, l.j, g.T, n, L, sb.tw, sb.gp, nullptr,
+                       from_global, to_a);
       break;
     case MID:
-      any_radix<MID, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
-                           to_a);
-      break;
-    case MIDC:
-      if constexpr (LONG)
-        any_radix<MIDC, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
-                              to_a);
+      any_radix<MID>(R, l.j, g.T, n, L, sb.tw, sb.gp, nullptr, from_a, to_a);
       break;
     case DIT:
       if (p != 0)
-        any_radix<DIT, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
-                             to_a);
-      else if (!chirp)
-        any_radix<DIT, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm, from_a,
-                             to_global);
-      else if constexpr (LONG) {
-        if (half == 0)   // G / n times the first n values, 0 past them
-          any_radix<DIT, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm,
-                               from_a, [&](int e, float2 v) {
-                                 float2 u = make_float2(0.f, 0.f);
-                                 if (e < n) {
-                                   const float s = __ldg(&sb.gp[e]);
-                                   u = make_float2(v.x * s, v.y * s);
-                                 }
-                                 to_a(e, u);
-                               });
-        else             // y = conj(c) . v
-          any_radix<DIT, LONG>(R, l.j, g.T, m, L, sb.tw, sb.gp, sb.hm,
-                               from_a, [&](int e, float2 v) {
-                                 if (e >= n) return;
-                                 const float2 c = __ldg(&sb.chirp[e]);
-                                 store(e, make_float2(c.x * v.x + c.y * v.y,
-                                                      c.x * v.y - c.y * v.x));
-                               });
-      }
+        any_radix<DIT>(R, l.j, g.T, n, L, sb.tw, sb.gp, nullptr, from_a,
+                       to_a);
+      else
+        any_radix<DIT>(R, l.j, g.T, n, L, sb.tw, sb.gp, nullptr, from_a,
+                       to_global);
       break;
     case GEN_DIF:
-      generic_radix<true, LONG>(l.j, g.T, m, R, sb.tw, sb.gp, from_a, to_b);
+      generic_radix<true>(l.j, g.T, n, R, sb.tw, sb.gp, from_a, to_b);
       break;
     case GEN_DIT:
       if (pl.npass == 1)
-        generic_radix<false, LONG>(l.j, g.T, m, R, sb.tw, sb.gp, from_b,
-                                   to_global);
+        generic_radix<false>(l.j, g.T, n, R, sb.tw, sb.gp, from_b,
+                             to_global);
       else
-        generic_radix<false, LONG>(l.j, g.T, m, R, sb.tw, sb.gp, from_b,
-                                   to_a);
+        generic_radix<false>(l.j, g.T, n, R, sb.tw, sb.gp, from_b, to_a);
       break;
   }
 }
@@ -759,8 +724,6 @@ struct Group {
   int count;
   int smem;          // dynamic shared memory of the launch
   i64 total;         // items of all subbands
-  i64 scratch_slots; // float2 slots of one block's scratch (0: none)
-  float2* scratch;
   Sub sub[MAX_GROUP];
 };
 
@@ -773,17 +736,14 @@ __host__ __device__ inline int sub_of(const Group& grp, i64 t) {
 }
 
 // Fill a Group from `count` rows of DESC int64 words (x, y, tw, gp, B, H,
-// W, cols, npass, generic, radices[MAX_PASSES], chirp, hm; chirp and hm 0
-// but on the chirp route); subbands sorted by length, longest first.  False
-// for a row K8 does not take or a group that mixes scratch and
-// shared-memory subbands or holds more than one of the former.
+// W, cols, npass, generic, radices[MAX_PASSES]); subbands sorted by length,
+// longest first.  False for a row K8 does not take, or one whose buffers
+// pass shared memory (the long form's).
 inline bool make_group(const i64* desc, int count, Group& grp) {
   if (count < 1 || count > MAX_GROUP) return false;
   grp.count = count;
   grp.smem = 0;
   grp.total = 0;
-  grp.scratch_slots = 0;
-  grp.scratch = nullptr;
   int order[MAX_GROUP];
   for (int q = 0; q < count; ++q) {
     const i64* d = desc + (i64)q * DESC;
@@ -792,24 +752,21 @@ inline bool make_group(const i64* desc, int count, Group& grp) {
     sb.y = reinterpret_cast<float*>(d[1]);
     sb.tw = reinterpret_cast<const float2*>(d[2]);
     sb.gp = reinterpret_cast<const float*>(d[3]);
-    sb.chirp = reinterpret_cast<const float2*>(d[10 + ippdft::MAX_PASSES]);
-    sb.hm = reinterpret_cast<const float2*>(d[11 + ippdft::MAX_PASSES]);
-    const bool chirp = sb.chirp != nullptr;
     const int cols = (int)d[7], npass = (int)d[8];
     const i64 n = cols ? d[5] : d[6], lines = cols ? d[6] : d[5];
     if (npass < 1 || npass > ippdft::MAX_PASSES || n < 1 || n > MAX_N ||
-        lines < 1 || lines > (1LL << 30) || chirp != (sb.hm != nullptr))
+        lines < 1 || lines > (1LL << 30))
       return false;
-    sb.pl.n = (int)transform_length((int)n, chirp);
+    sb.pl.n = (int)n;
     sb.pl.npass = npass;
     sb.pl.generic = (int)d[9];
     for (int p = 0; p < ippdft::MAX_PASSES; ++p)
       sb.pl.radix[p] = p < npass ? (int)d[10 + p] : 1;
     const bool aligned8 = ((d[0] | d[1]) & 7) == 0;
-    if (!notch_plan_ok(sb.pl, (int)n, chirp) ||
+    if (!plan_ok(sb.pl, (int)n) ||
         !geometry(d[4], (int)d[5], (int)d[6], cols != 0, aligned8,
-                  sb.pl.generic != 0, chirp, sb.g) ||
-        (chirp && sb.g.smem != 0))
+                  sb.pl.generic != 0, sb.g) ||
+        sb.g.smem == 0)
       return false;
     order[q] = q;
   }
@@ -823,42 +780,647 @@ inline bool make_group(const i64* desc, int count, Group& grp) {
     }
   Sub sorted[MAX_GROUP];
   for (int q = 0; q < count; ++q) sorted[q] = grp.sub[order[q]];
-  int scratch = 0;
   for (int q = 0; q < count; ++q) {
     Sub& sb = grp.sub[q];
     sb = sorted[q];
     sb.start = grp.total;
     grp.total += sb.g.items;
-    if (sb.g.smem == 0) {
-      ++scratch;
-      grp.scratch_slots = (i64)sb.g.nbuf * sb.g.buf;
-    }
     if (sb.g.smem > grp.smem) grp.smem = sb.g.smem;
   }
-  return scratch == 0 || (scratch == 1 && count == 1);
+  return true;
+}
+
+// -- the long form K8l: geometry ------------------------------------------------
+
+struct LongGeo {
+  int n;          // the line length
+  int m;          // the transform: n, or the whole-line chirp's
+  int n1, n2;     // m = n1 n2: the strided and the row sub-transforms
+  int m2;         // the row's transform: n2, or its chirp's
+  int chirp;      // 1: the whole-line chirp route
+  int rows;       // the rows: 0 mixed radix, 1 chirp-z, 2 Rader's
+  int cols;       // 1: the lines are columns (axis -2)
+  int H, W;
+  int WP;         // column pairs a tile row (columns only)
+  int ystore;     // 1: y is the storage between the kernels
+  int vec2;       // columns: float2 loads and stores of x and y
+  i64 B, pairs;
+  // the strided kernels (a, c): tiles of C columns (CPt pairs by TJ j2), T
+  // threads a column, one buffer for (a), nbufc for (c)
+  int C, cshift, T, CPt, cpshift, TJ, ntj, ngp, bufc, nbufc, smem_a, smem_c;
+  i64 items_ac;
+  // the row kernel (b): R rows a block, Tb threads a row
+  int R, rshift, Tb, tbshift, pitch, bufb, nbufb, ngr, smem_b;
+  i64 items_b;
+};
+
+// The long form's geometry of (B, H, W) along the columns (`cols`) or the
+// rows for the split n1 x n2 (m2 the row's transform, rows its kind,
+// generic1 / generic2: the sub-plans end in a generic pass); aligned8: x
+// and y 8-byte aligned; ystore: y serves as the storage.
+// ops/cuda_notch.notch_long_geometry mirrors it.
+inline void long_geometry(i64 B, int H, int W, bool cols, bool aligned8,
+                          int n1, int n2, int m2, bool chirp, int rows,
+                          bool generic1, bool generic2, bool ystore,
+                          LongGeo& g) {
+  g.cols = cols;
+  g.H = H;
+  g.W = W;
+  g.B = B;
+  g.n = cols ? H : W;
+  g.chirp = chirp;
+  g.rows = rows;
+  g.n1 = n1;
+  g.n2 = n2;
+  g.m = n1 * n2;
+  g.m2 = m2;
+  g.WP = cols ? cdiv(W, 2) : 0;
+  g.pairs = cols ? B * (i64)g.WP : B * (i64)cdiv(H, 2);
+  g.vec2 = cols && aligned8 && W % 2 == 0;
+  g.ystore = ystore;
+  // (a), (c): C columns of n1 values a tile
+  g.nbufc = generic1 ? 2 : 1;
+  g.C = TILE_CMAX;
+  while (g.C > 1 && g.C * n1 * g.nbufc > TILE_VALUES) g.C /= 2;
+  g.CPt = 1;
+  if (cols) {
+    g.CPt = pow2ceil(g.WP);
+    if (g.CPt > g.C) g.CPt = g.C;
+  }
+  g.TJ = g.C / g.CPt;
+  g.T = THREADS / g.C;
+  g.cshift = log2i(g.C);
+  g.cpshift = log2i(g.CPt);
+  g.ntj = cdiv(n2, g.TJ);
+  g.ngp = cols ? cdiv(g.WP, g.CPt) : 0;
+  g.items_ac = cols ? B * g.ngp * g.ntj : g.pairs * g.ntj;
+  const int lc = g.C * n1 - 1;
+  g.bufc = lc + (lc >> 4) + 1;
+  g.smem_a = 8 * g.bufc;
+  g.smem_c = 8 * g.nbufc * g.bufc;
+  // (b): R rows of m2 a block; Rader's: two buffers of the row's n2 values
+  // (it loads and stores them whole) and three values a row
+  g.nbufb = generic2 || rows == 2 ? 2 : 1;
+  const int len = rows == 2 ? n2 : m2;
+  g.R = THREADS / pair_threads(m2);
+  if (cols) {
+    if (g.R < ROWS_Y) g.R = ROWS_Y;
+    if (g.R > pow2ceil(g.WP)) g.R = pow2ceil(g.WP);
+  }
+  for (;;) {
+    if (cols) {
+      const int l = g.R * len - 1;
+      g.pitch = 0;
+      g.bufb = l + (l >> 4) + 1;
+    } else {
+      g.pitch = (len - 1 + ((len - 1) >> 4) + 1) | 1;
+      g.bufb = g.R * g.pitch;
+    }
+    g.smem_b = 8 * (g.nbufb * g.bufb + (rows == 2 ? 3 * g.R : 0));
+    if (g.R == 1 || g.smem_b <= ROW_SMEM) break;
+    g.R /= 2;
+  }
+  g.Tb = THREADS / g.R;
+  g.rshift = log2i(g.R);
+  g.tbshift = log2i(g.Tb);
+  g.ngr = cols ? cdiv(g.WP, g.R) : 0;
+  g.items_b = cols ? B * g.ngr * n1 : (g.pairs * n1 + g.R - 1) / g.R;
+}
+
+// Thread tid's column (a, c) or row (b) c of a block item and its index j
+// among the T threads of it, with the slots of lane_of: (a) and (c) and the
+// rows along y interleave their columns (l = e * C + c), the rows along x
+// lie one after another (c * pitch + e).
+__host__ __device__ inline Lane long_lane(const LongGeo& g, int kernel,
+                                          int tid) {
+  Lane l;
+  const bool row = kernel == 1;
+  const int CP = row ? g.R : g.C;
+  const int cshift = row ? g.rshift : g.cshift;
+  if (!row || g.cols) {
+    l.c = tid & (CP - 1);
+    l.j = tid >> cshift;
+    l.base = 0;
+    l.es = CP;
+    l.off = l.c;
+  } else {
+    l.c = tid >> g.tbshift;
+    l.j = tid & (g.Tb - 1);
+    l.base = l.c * g.pitch;
+    l.es = 1;
+    l.off = 0;
+  }
+  return l;
+}
+
+// A line pair's complex elements in memory: element e's real part at a + e
+// es, its imaginary part d further (or 0 where !has_b); vec2: one float2.
+struct At {
+  i64 a, d, es;
+  bool has_b, vec2;
+};
+
+__device__ __forceinline__ float2 ld(const float* __restrict__ p,
+                                     const At& t, int e) {
+  const i64 o = t.a + e * t.es;
+  if (t.vec2) return *reinterpret_cast<const float2*>(p + o);
+  return make_float2(p[o], t.has_b ? p[o + t.d] : 0.f);
+}
+
+__device__ __forceinline__ void st(float* __restrict__ p, const At& t, int e,
+                                   float2 v) {
+  const i64 o = t.a + e * t.es;
+  if (t.vec2) {
+    *reinterpret_cast<float2*>(p + o) = v;
+  } else {
+    p[o] = v.x;
+    if (t.has_b) p[o + t.d] = v.y;
+  }
+}
+
+// A column (pair, j2) of a strided tile or a row (pair, r): the pair in x
+// and y (io) and in the storage (sto), j = j2 or r; valid 0 past the
+// pairs or the row's n2.
+struct LCol {
+  At io, sto;
+  int j;
+  bool valid;
+};
+
+// the pair of row pairs q (along x) or of column pair jp of tile bt (along
+// y) in x / y and in the storage
+__host__ __device__ inline void pair_at(const LongGeo& g, i64 q, i64 bt,
+                                        int jp, LCol& c) {
+  if (!g.cols) {
+    const int hp = cdiv(g.H, 2);
+    const i64 b = q / hp;
+    const int i = (int)(q - b * hp);
+    c.io.a = (b * g.H + 2 * i) * (i64)g.W;
+    c.io.d = g.W;
+    c.io.es = 1;
+    c.io.has_b = 2 * i + 1 < g.H;
+    c.io.vec2 = false;
+    c.sto.a = 2 * q * g.m;
+    c.sto.es = 2;
+  } else {
+    c.io.a = bt * g.H * (i64)g.W + 2 * jp;
+    c.io.d = 1;
+    c.io.es = g.W;
+    c.io.has_b = 2 * jp + 1 < g.W;
+    c.io.vec2 = g.vec2;
+    c.sto.a = 2 * (bt * g.m * (i64)g.WP + jp);
+    c.sto.es = 2 * (i64)g.WP;
+  }
+  if (g.ystore) {
+    c.sto = c.io;
+  } else {
+    c.sto.d = 1;
+    c.sto.has_b = true;
+    c.sto.vec2 = true;
+  }
+}
+
+// column c of tile item k (kernels a, c)
+__host__ __device__ inline LCol long_col(const LongGeo& g, i64 k, int c) {
+  LCol r;
+  if (!g.cols) {
+    const i64 q = k / g.ntj;
+    const int jt = (int)(k - q * g.ntj);
+    r.j = jt * g.TJ + c;
+    r.valid = r.j < g.n2;
+    pair_at(g, q, 0, 0, r);
+  } else {
+    const i64 per = (i64)g.ngp * g.ntj;
+    const i64 bt = k / per;
+    const int rem = (int)(k - bt * per);
+    const int pg = rem / g.ntj, jt = rem - pg * g.ntj;
+    const int jp = pg * g.CPt + (c & (g.CPt - 1));
+    r.j = jt * g.TJ + (c >> g.cpshift);
+    r.valid = jp < g.WP && r.j < g.n2;
+    pair_at(g, 0, bt, r.valid ? jp : 0, r);
+  }
+  return r;
+}
+
+// row c of row item k (kernel b)
+__host__ __device__ inline LCol long_row(const LongGeo& g, i64 k, int c) {
+  LCol r;
+  if (!g.cols) {
+    const i64 u = k * g.R + c;
+    const i64 q = u / g.n1;
+    r.j = (int)(u - q * g.n1);
+    r.valid = q < g.pairs;
+    pair_at(g, r.valid ? q : 0, 0, 0, r);
+  } else {
+    const i64 per = (i64)g.ngr * g.n1;
+    const i64 bt = k / per;
+    const int rem = (int)(k - bt * per);
+    const int pg = rem / g.n1;
+    r.j = rem - pg * g.n1;
+    const int jp = pg * g.R + c;
+    r.valid = jp < g.WP;
+    pair_at(g, 0, bt, r.valid ? jp : 0, r);
+  }
+  return r;
+}
+
+// -- the long form: one subband -------------------------------------------------
+
+// x -> y (B, H, W); s: the scratch storage (null: y); the four-step's
+// twiddles by row twr (m: w_m^(j2 k1) at r n2 + j2, k1 the frequency at
+// row r), the passes' tables tw1 (n1) and tw2 (m2); gp the gains
+// (ops/cuda_notch.notch_long_tables: the direct route G / n at r m2 + the
+// row's digit order, with a row chirp or Rader's by row, r n2 + .; the
+// chirp route G / n natural); the whole-line chirp c (n) and its gains hm
+// (m, at r m2 + the row's digit order); the rows' chirp c2 (n2) and its gains hm2 (m2), or for
+// Rader's rows the powers perm (m2 = n2 - 1) of a primitive root and the
+// gains hm2 (m2) of the cyclic convolution.
+struct LongSub {
+  const float* x;
+  float* y;
+  float* s;
+  const float2* twr;
+  const float2* tw1;
+  const float2* tw2;
+  const float* gp;
+  const float2* chirp;
+  const float2* hm;
+  const float2* c2;
+  const int* perm;
+  const float2* hm2;
+  LongGeo g;
+  Plan p1, p2;
+};
+
+// steps of kernel a (0), b (1), c (2)
+__host__ __device__ inline int long_steps(const LongSub& sb, int kernel) {
+  const int P1 = sb.p1.npass;
+  if (kernel == 1)   // Rader's rows: a load and a store step besides
+    return num_steps(sb.p2, sb.g.rows != 0) + 2 * (sb.g.rows == 2);
+  if (kernel == 0) return P1 + (sb.p1.generic && P1 == 1);
+  return P1 + sb.p1.generic;
+}
+
+// Kernel a, step s: plan1's forward passes over the tile's column (the
+// first from device memory, x times the chirp or the scratch's first n on
+// the chirp route), the last storing row r times twr (w_m^(j2 k1)).
+__device__ __forceinline__ void long_step_a(const LongSub& sb, int half,
+                                            const Lane& l, const LCol& col,
+                                            float2* buf, int s) {
+  const LongGeo& g = sb.g;
+  const Plan& pl = sb.p1;
+  const int P = pl.npass, n1 = g.n1;
+  float* __restrict__ sto = g.ystore ? sb.y : sb.s;
+  auto gload = [&](int j1) -> float2 {
+    const int e = j1 * g.n2 + col.j;
+    if (!col.valid || (g.chirp && e >= g.n)) return make_float2(0.f, 0.f);
+    if (!g.chirp) return ld(sb.x, col.io, e);
+    if (half) return ld(sb.s, col.sto, e);
+    return cmul(ld(sb.x, col.io, e), __ldg(&sb.chirp[e]));
+  };
+  auto gstore = [&](int r, float2 v) {
+    if (!col.valid) return;
+    const int e = r * g.n2 + col.j;
+    st(sto, col.sto, e, cmul(v, __ldg(&sb.twr[e])));
+  };
+  auto from_a = [&](int e) -> float2 { return buf[at(l, e)]; };
+  auto to_a = [&](int e, float2 v) { buf[at(l, e)] = v; };
+  if (pl.generic && P == 1) {
+    if (s == 0)
+      for (int e = l.j; e < n1; e += g.T) to_a(e, gload(e));
+    else
+      generic_radix<false>(l.j, g.T, n1, pl.radix[0], sb.tw1, nullptr,
+                           from_a, gstore);
+    return;
+  }
+  const int R = pl.radix[s], L = span_of(pl, s);
+  const bool first = s == 0, last = s == P - 1;
+  if (last && pl.generic)
+    generic_radix<false>(l.j, g.T, n1, R, sb.tw1, nullptr, from_a, gstore);
+  else if (first && last)
+    any_radix<DIF>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, gload,
+                   gstore);
+  else if (first)
+    any_radix<DIF>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, gload,
+                   to_a);
+  else if (last)
+    any_radix<DIF>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, from_a,
+                   gstore);
+  else
+    any_radix<DIF>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, from_a,
+                   to_a);
+}
+
+// Kernel b, step s: the middle of the shared-memory form on row r of n2
+// (`step_of`: plan2's forward passes, G / n or the whole-line chirp's hm,
+// the inverse passes), the first step loading the row from the storage,
+// the last storing it times twr (w_m^(j2 k1)).  With the rows' chirp-z
+// transform (rows 1) K twice around G / n, c2 at the load, c2 . conj(v)
+// at the store.  With Rader's (rows 2, n2 = p prime, m2 = p - 1, g a
+// primitive root, perm[r] = g^r mod p): the forward DFT is A[0] = sum a,
+// A[g^-q] = a[0] + conj(K(u))[q], u[r] = a[g^r] (K of m2 points with the
+// gains hm2 of the cyclic convolution, in buffer A); the inverse of V = G
+// / n . A as the conjugate of the forward DFT of conj(V), which takes
+// u2[r] = conj(V[g^r]) = G (conj(a[0]) + K(u)[(m2 - r) % m2]) (K again, in
+// buffer B), D[0] = conj(V[0]) + sum u2, D[g^-q] = conj(V[0]) +
+// conj(K(u2))[q]; the store takes D times the twiddle.  The sums are the
+// forward transforms' values at frequency 0 (MIDC's sum), kept with a[0]
+// in three float2 a row after the buffers.  A first step copies the row
+// into B as it lies, which the first pass reads in the order of perm, and
+// the last K leaves D in A in natural order, which a last step stores:
+// both device-memory transfers run along the row.
+__device__ __forceinline__ void long_step_b(const LongSub& sb, const Lane& l,
+                                            const LCol& row, float2* buf,
+                                            int s) {
+  const LongGeo& g = sb.g;
+  const Plan& pl = sb.p2;
+  const int m2 = g.m2, n2 = g.n2, r = row.j;
+  const bool rc = g.rows == 1, rader = g.rows == 2;
+  float* __restrict__ sto = g.ystore ? sb.y : sb.s;
+  float2* Bf = buf + g.bufb;
+  float2* sc = buf + g.nbufb * g.bufb + 3 * l.c;   // Rader: a[0], two sums
+  if (rader && s == 0) {   // the row as it lies, into B
+    for (int e = l.j; e < n2; e += g.Tb)
+      Bf[at(l, e)] = row.valid ? ld(sto, row.sto, r * n2 + e)
+                               : make_float2(0.f, 0.f);
+    return;
+  }
+  if (rader && s == num_steps(pl, true) + 1) {   // D from A, along the row
+    for (int e = l.j; e < n2; e += g.Tb)
+      if (row.valid) {
+        const float2 v = buf[at(l, e)];
+        const int o = r * n2 + e;
+        st(sto, row.sto, o, cmul(v, __ldg(&sb.twr[o])));
+      }
+    return;
+  }
+  int kind, p, half;
+  step_of(pl, g.rows != 0, s - rader, kind, p, half);
+  // Rader's second transform runs in buffer B
+  float2* A = rader && half ? Bf : buf;
+  const int L = span_of(pl, p);
+  const int R = pl.radix[p];
+  const float* gp = sb.gp + (i64)r * (g.rows ? n2 : m2);
+  const float2* hm = g.chirp ? sb.hm + (i64)r * m2 : sb.hm2;
+  auto put = [&](int e, float2 v) {   // element e of the row, turned back
+    e += r * n2;
+    st(sto, row.sto, e, cmul(v, __ldg(&sb.twr[e])));
+  };
+  auto gload = [&](int e) -> float2 {
+    if (rader) return Bf[at(l, __ldg(&sb.perm[e]))];   // u[e] = a[g^e]
+    if (!row.valid || e >= n2) return make_float2(0.f, 0.f);
+    const float2 v = ld(sto, row.sto, r * n2 + e);
+    return rc ? cmul(v, __ldg(&sb.c2[e])) : v;
+  };
+  auto gstore = [&](int e, float2 v) {
+    if (!row.valid || e >= n2) return;
+    if (rc) v = cmul(__ldg(&sb.c2[e]), make_float2(v.x, -v.y));
+    put(e, v);
+  };
+  auto from_a = [&](int e) -> float2 { return A[at(l, e)]; };
+  auto to_a = [&](int e, float2 v) { A[at(l, e)] = v; };
+  auto from_b = [&](int e) -> float2 { return Bf[at(l, e)]; };
+  auto to_b = [&](int e, float2 v) { Bf[at(l, e)] = v; };
+  // the row chirp's first half ends in G / n times its first n2 values
+  auto to_a_gain = [&](int e, float2 v) {
+    const float k = e < n2 ? __ldg(&gp[e]) : 0.f;
+    to_a(e, make_float2(v.x * k, v.y * k));
+  };
+  // Rader's first half ends in u2[(m2 - q) % m2] = G (conj(a[0]) + v_q)
+  auto to_u2 = [&](int q, float2 v) {
+    const int e = q ? m2 - q : 0;
+    const float k = __ldg(&gp[1 + e]);
+    to_b(e, make_float2((sc[0].x + v.x) * k, (v.y - sc[0].y) * k));
+  };
+  // Rader's second: D[g^-q] = conj(V[0]) + conj(v_q), and D[0] with q =
+  // 0, into buffer A in natural order
+  auto to_d = [&](int q, float2 v) {
+    const float k = __ldg(&gp[0]);
+    const float2 v0 = make_float2((sc[0].x + sc[1].x) * k,
+                                  -((sc[0].y + sc[1].y) * k));
+    buf[at(l, __ldg(&sb.perm[q ? m2 - q : 0]))] =
+        make_float2(v0.x + v.x, v0.y - v.y);
+    if (q == 0) buf[at(l, 0)] = make_float2(v0.x + sc[2].x, v0.y + sc[2].y);
+  };
+  switch (kind) {
+    case LOAD:
+      for (int e = l.j; e < m2; e += g.Tb) to_a(e, gload(e));
+      break;
+    case STORE:
+      for (int e = l.j; e < m2; e += g.Tb) gstore(e, from_a(e));
+      break;
+    case DIF:
+      if (p != 0 || half) {
+        any_radix<DIF>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, from_a, to_a);
+      } else {
+        any_radix<DIF>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, gload, to_a);
+        if (rader && l.j == 0) sc[0] = Bf[at(l, 0)];
+      }
+      break;
+    case MID:
+      if (g.chirp)
+        any_radix<MIDC>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, from_a, to_a);
+      else
+        any_radix<MID>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, from_a, to_a);
+      break;
+    case MIDC:
+      any_radix<MIDC>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, from_a, to_a,
+                      rader ? sc + 1 + half : nullptr);
+      break;
+    case DIT:
+      if (p != 0)
+        any_radix<DIT>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, from_a, to_a);
+      else if (rader && half == 0)
+        any_radix<DIT>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, from_a, to_u2);
+      else if (rader)
+        any_radix<DIT>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, from_a, to_d);
+      else if (rc && half == 0)
+        any_radix<DIT>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, from_a,
+                       to_a_gain);
+      else
+        any_radix<DIT>(R, l.j, g.Tb, m2, L, sb.tw2, gp, hm, from_a, gstore);
+      break;
+    case GEN_DIF:
+      generic_radix<true>(l.j, g.Tb, m2, R, sb.tw2, gp, from_a, to_b);
+      break;
+    case GEN_DIT:
+      if (pl.npass == 1)
+        generic_radix<false>(l.j, g.Tb, m2, R, sb.tw2, gp, from_b, gstore);
+      else
+        generic_radix<false>(l.j, g.Tb, m2, R, sb.tw2, gp, from_b, to_a);
+      break;
+  }
+}
+
+// Kernel c, step s: plan1's inverse passes over the tile's column (a
+// generic last radix first, from a copy of the column into the second
+// buffer), the last storing j = n2 j1 + j2: y_a + i y_b on the direct
+// route; on the chirp route G / n times the first n values into the scratch
+// (half 0) or conj(c) times them into y (half 1).
+__device__ __forceinline__ void long_step_c(const LongSub& sb, int half,
+                                            const Lane& l, const LCol& col,
+                                            float2* buf, int s) {
+  const LongGeo& g = sb.g;
+  const Plan& pl = sb.p1;
+  const int P = pl.npass, n1 = g.n1;
+  float* __restrict__ sto = g.ystore ? sb.y : sb.s;
+  float2* A = buf;
+  float2* Bf = buf + g.bufc;
+  auto gload = [&](int r) -> float2 {
+    if (!col.valid) return make_float2(0.f, 0.f);
+    return ld(sto, col.sto, r * g.n2 + col.j);
+  };
+  auto gstore = [&](int j1, float2 v) {
+    const int e = j1 * g.n2 + col.j;
+    if (!col.valid || (g.chirp && e >= g.n)) return;
+    if (!g.chirp) {
+      st(sb.y, col.io, e, make_float2(v.x, -v.y));
+    } else if (half == 0) {
+      const float k = __ldg(&sb.gp[e]);
+      st(sb.s, col.sto, e, make_float2(v.x * k, v.y * k));
+    } else {
+      const float2 c = __ldg(&sb.chirp[e]);
+      st(sb.y, col.io, e, make_float2(c.x * v.x + c.y * v.y,
+                                      c.x * v.y - c.y * v.x));
+    }
+  };
+  auto from_a = [&](int e) -> float2 { return A[at(l, e)]; };
+  auto to_a = [&](int e, float2 v) { A[at(l, e)] = v; };
+  auto from_b = [&](int e) -> float2 { return Bf[at(l, e)]; };
+  auto to_b = [&](int e, float2 v) { Bf[at(l, e)] = v; };
+  if (pl.generic) {
+    if (s == 0) {
+      for (int e = l.j; e < n1; e += g.T) to_b(e, gload(e));
+    } else if (s == 1) {
+      if (P == 1)
+        generic_radix<false>(l.j, g.T, n1, pl.radix[0], sb.tw1, nullptr,
+                             from_b, gstore);
+      else
+        generic_radix<false>(l.j, g.T, n1, pl.radix[P - 1], sb.tw1,
+                             nullptr, from_b, to_a);
+    } else {
+      const int p = P - s;
+      const int R = pl.radix[p], L = span_of(pl, p);
+      if (p == 0)
+        any_radix<DIT>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, from_a,
+                       gstore);
+      else
+        any_radix<DIT>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, from_a,
+                       to_a);
+    }
+    return;
+  }
+  const int p = P - 1 - s;
+  const int R = pl.radix[p], L = span_of(pl, p);
+  if (s == 0 && p == 0)
+    any_radix<DIT>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, gload,
+                   gstore);
+  else if (s == 0)
+    any_radix<DIT>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, gload,
+                   to_a);
+  else if (p == 0)
+    any_radix<DIT>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, from_a,
+                   gstore);
+  else
+    any_radix<DIT>(R, l.j, g.T, n1, L, sb.tw1, nullptr, nullptr, from_a,
+                   to_a);
+}
+
+// Fill a LongSub from a row of LDESC int64 words: x, y, s, twr, tw1, tw2,
+// gp, chirp, hm, c2 or perm, hm2, B, H, W, cols, n1, n2, chirp route,
+// rows (0 mixed radix, 1 chirp-z, 2 Rader's), npass1, generic1, npass2,
+// generic2, radices1[MAX_PASSES], radices2[MAX_PASSES]
+// (ops/cuda_notch._long_row).  False for a row the long form does not take.
+inline bool make_long(const i64* d, LongSub& sb) {
+  sb.x = reinterpret_cast<const float*>(d[0]);
+  sb.y = reinterpret_cast<float*>(d[1]);
+  sb.s = reinterpret_cast<float*>(d[2]);
+  sb.twr = reinterpret_cast<const float2*>(d[3]);
+  sb.tw1 = reinterpret_cast<const float2*>(d[4]);
+  sb.tw2 = reinterpret_cast<const float2*>(d[5]);
+  sb.gp = reinterpret_cast<const float*>(d[6]);
+  sb.chirp = reinterpret_cast<const float2*>(d[7]);
+  sb.hm = reinterpret_cast<const float2*>(d[8]);
+  const i64 rows = d[18];
+  sb.c2 = rows == 1 ? reinterpret_cast<const float2*>(d[9]) : nullptr;
+  sb.perm = rows == 2 ? reinterpret_cast<const int*>(d[9]) : nullptr;
+  sb.hm2 = reinterpret_cast<const float2*>(d[10]);
+  const i64 B = d[11], H = d[12], W = d[13];
+  const bool cols = d[14] != 0, chirp = d[17] != 0;
+  const i64 n = cols ? H : W, lines = cols ? W : H;
+  const i64 n1 = d[15], n2 = d[16];
+  if (B < 1 || n < 2 || n > MAX_N || lines < 1 || lines > (1LL << 30) ||
+      n1 < 2 || n1 > LONG_N1_MAX || n2 < 2 || n2 > ROW_MAX || rows < 0 ||
+      rows > 2 || n1 * n2 != (chirp ? pow2ceil(2 * (int)n - 1) : n) ||
+      (chirp && rows) || !sb.x || !sb.y || !sb.twr || !sb.tw1 || !sb.tw2 ||
+      !sb.gp || (chirp && (!sb.chirp || !sb.hm || !sb.s)) ||
+      (rows && (!d[9] || !sb.hm2)))
+    return false;
+  const int m2 = rows == 1 ? pow2ceil(2 * (int)n2 - 1)
+                 : rows == 2 ? (int)n2 - 1 : (int)n2;
+  Plan* pls[2] = {&sb.p1, &sb.p2};
+  const int lens[2] = {(int)n1, m2};
+  for (int q = 0; q < 2; ++q) {
+    Plan& pl = *pls[q];
+    const int npass = (int)d[19 + 2 * q];
+    if (npass < 1 || npass > ippdft::MAX_PASSES) return false;
+    pl.n = lens[q];
+    pl.npass = npass;
+    pl.generic = (int)d[20 + 2 * q];
+    for (int p = 0; p < ippdft::MAX_PASSES; ++p)
+      pl.radix[p] = p < npass ? (int)d[23 + q * ippdft::MAX_PASSES + p] : 1;
+    if (!plan_ok(pl, lens[q])) return false;
+  }
+  if (m2 > ROW_MAX || ((chirp || rows) && sb.p2.generic) ||
+      (rows && sb.p2.npass < 2))
+    return false;
+  const bool aligned8 = ((d[0] | d[1]) & 7) == 0;
+  const bool ystore = sb.s == nullptr;
+  // y holds the storage only where every pair has both lines
+  if (ystore && (chirp || (cols ? W % 2 || !aligned8 : H % 2))) return false;
+  long_geometry(B, (int)H, (int)W, cols, aligned8, (int)n1, (int)n2, m2,
+                chirp, (int)rows, sb.p1.generic != 0, sb.p2.generic != 0,
+                ystore, sb.g);
+  return sb.g.smem_b <= SMEM_LIMIT && sb.g.smem_c <= SMEM_LIMIT;
 }
 
 #ifdef __CUDACC__
 
-// -- the kernel -----------------------------------------------------------------
+// -- the kernels ----------------------------------------------------------------
 
-// Block b takes launch items b, b + grid, ...; LONG: the long form, whose
-// buffers are the block's part of grp.scratch (one subband whose buffers
-// exceed shared memory), else dynamic shared memory.
-template <bool LONG>
-__global__ void __launch_bounds__(THREADS, LONG ? MINB_LONG : MINB)
+// Block b takes launch items b, b + grid, ...
+__global__ void __launch_bounds__(THREADS, MINB)
 notch_kernel(const __grid_constant__ Group grp) {
   extern __shared__ float2 smem[];
-  float2* buf = LONG ? grp.scratch + (i64)blockIdx.x * grp.scratch_slots
-                     : smem;
   const int tid = threadIdx.x;
   for (i64 t = blockIdx.x; t < grp.total; t += gridDim.x) {
     const Sub& sb = grp.sub[sub_of(grp, t)];
     const Lane l = lane_of(sb.g, tid);
     const Pair pr = pair_of(sb.g, t - sb.start, l.c);
-    const int steps = num_steps(sb.pl, LONG && sb.g.chirp);
+    const int steps = num_steps(sb.pl, false);
     for (int s = 0; s < steps; ++s) {
-      run_step<LONG>(sb, l, pr, buf, s);
+      run_step(sb, l, pr, smem, s);
+      __syncthreads();
+    }
+  }
+}
+
+// The long form's kernel a (KERNEL 0), b (1) or c (2); half: the chirp
+// route's second transform.
+template <int KERNEL>
+__global__ void __launch_bounds__(THREADS, MINB_LONG)
+notch_long_kernel(const __grid_constant__ LongSub sb, int half) {
+  extern __shared__ float2 smem[];
+  const Lane l = long_lane(sb.g, KERNEL, threadIdx.x);
+  const i64 items = KERNEL == 1 ? sb.g.items_b : sb.g.items_ac;
+  const int steps = long_steps(sb, KERNEL);
+  for (i64 t = blockIdx.x; t < items; t += gridDim.x) {
+    const LCol col = KERNEL == 1 ? long_row(sb.g, t, l.c)
+                                 : long_col(sb.g, t, l.c);
+    for (int s = 0; s < steps; ++s) {
+      if (KERNEL == 0) long_step_a(sb, half, l, col, smem, s);
+      if (KERNEL == 1) long_step_b(sb, l, col, smem, s);
+      if (KERNEL == 2) long_step_c(sb, half, l, col, smem, s);
       __syncthreads();
     }
   }
@@ -866,33 +1428,52 @@ notch_kernel(const __grid_constant__ Group grp) {
 
 // -- launch ---------------------------------------------------------------------
 
-// `count` subbands (rows of DESC words, see make_group) in one launch;
-// scratch: room for `nscratch` blocks' buffers (nbuf * Geo::buf float2
-// each), needed only for a lone subband whose buffers exceed shared memory
-// (the grid is then at most nscratch blocks).
-inline cudaError_t launch_group(const i64* desc, int count, float2* scratch,
-                                i64 nscratch, cudaStream_t st) {
+// `count` subbands (rows of DESC words, see make_group) in one launch.
+inline cudaError_t launch_group(const i64* desc, int count, cudaStream_t st) {
   Group grp;
   if (!make_group(desc, count, grp)) return cudaErrorInvalidValue;
   i64 grid = grp.total;
-  if (grp.scratch_slots) {
-    if (scratch == nullptr || nscratch < 1) return cudaErrorInvalidValue;
-    grp.scratch = scratch;
-    if (grid > nscratch) grid = nscratch;
-    if (grid > 2147483647LL) grid = 2147483647LL;
-    notch_kernel<true><<<(unsigned)grid, THREADS, 0, st>>>(grp);
-    return cudaGetLastError();
-  }
   if (grid > 2147483647LL) grid = 2147483647LL;
   if (grp.smem > 48 * 1024) {
     // per device, so set on every launch: it costs no device time
     const cudaError_t e = cudaFuncSetAttribute(
-        notch_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        grp.smem);
+        notch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, grp.smem);
     if (e != cudaSuccess) return e;
   }
-  notch_kernel<false><<<(unsigned)grid, THREADS, grp.smem, st>>>(grp);
+  notch_kernel<<<(unsigned)grid, THREADS, grp.smem, st>>>(grp);
   return cudaGetLastError();
+}
+
+template <int KERNEL>
+inline cudaError_t launch_long_kernel(const LongSub& sb, int half,
+                                      cudaStream_t st) {
+  const i64 items = KERNEL == 1 ? sb.g.items_b : sb.g.items_ac;
+  const int smem = KERNEL == 0 ? sb.g.smem_a
+                   : KERNEL == 1 ? sb.g.smem_b : sb.g.smem_c;
+  const i64 grid = items < 2147483647LL ? items : 2147483647LL;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        notch_long_kernel<KERNEL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  notch_long_kernel<KERNEL><<<(unsigned)grid, THREADS, smem, st>>>(sb, half);
+  return cudaGetLastError();
+}
+
+// The long form on one subband (a row of LDESC words, see make_long): its
+// kernels a, b, c in order, on the chirp route a, b, c again for its
+// second transform.
+inline cudaError_t launch_long(const i64* desc, cudaStream_t st) {
+  LongSub sb;
+  if (!make_long(desc, sb)) return cudaErrorInvalidValue;
+  for (int half = 0; half <= sb.g.chirp; ++half) {
+    cudaError_t e = launch_long_kernel<0>(sb, half, st);
+    if (e == cudaSuccess) e = launch_long_kernel<1>(sb, half, st);
+    if (e == cudaSuccess) e = launch_long_kernel<2>(sb, half, st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 #endif  // __CUDACC__

@@ -64,7 +64,8 @@ _SIGNATURES = {
     "ipp_dwt_analysis_knobs": [_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I,
                                _P],
     "ipp_dwt_synthesis": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
-    "ipp_notch_group": [_P, _I, _P, _L, _P],
+    "ipp_notch_group": [_P, _I, _P],
+    "ipp_notch_long": [_P, _P],
     "ipp_cplx_matmul": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     "ipp_dft_last": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _I, _I, _I, _I,
                      _P],

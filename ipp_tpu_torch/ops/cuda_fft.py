@@ -259,9 +259,11 @@ _COUNT_LOCK = threading.Lock()
 
 
 def _launch(name: str, device: torch.device, fn, *args,
-            counts: Optional[Dict[str, int]] = None) -> None:
+            counts: Optional[Dict[str, int]] = None,
+            kernels: int = 1) -> None:
     """Launch on the current stream of `device`, raise on a refused
-    launch, then count it in `counts` (default: this module's LAUNCHES)."""
+    launch, then count it in `counts` (default: this module's LAUNCHES),
+    `kernels` launches where the entry launches that many kernels."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -269,10 +271,10 @@ def _launch(name: str, device: torch.device, fn, *args,
         raise RuntimeError(f"{name}: kernel launch failed, "
                            f"cudaGetLastError() = {err}")
     with _COUNT_LOCK:
-        (LAUNCHES if counts is None else counts)[name] += 1
+        (LAUNCHES if counts is None else counts)[name] += kernels
         if counts is None:
             ENTRY_LAUNCHES[fn.__name__] = ENTRY_LAUNCHES.get(fn.__name__,
-                                                             0) + 1
+                                                             0) + kernels
 
 
 def _empty(shape, like: torch.Tensor) -> torch.Tensor:

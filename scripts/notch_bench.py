@@ -20,23 +20,29 @@ chiprun_out/notch_bench[_TAG].json.
 
 `--root DIR`: DIR holds another tree of the repository (an unpacked `git
 archive` of an earlier commit, `mkdir -p build/parent && git archive
-<commit> | tar -x -C build/parent`) whose K8 has the grouped C entry
-`ipp_notch_group` with rows of 22 words (the layout before the chirp
-route: this tree's rows without its two pointers); its library is built
-through DIR's own `_build.py`, and its K8 runs on the same inputs at
-every level shape, timed by graph replay in turns with this tree's
-(this, DIR, DIR, this), its error against the plain version beside, and
-its output compared with this tree's bit for bit (a difference fails the
-run).
+<commit> | tar -x -C build/parent`); its `ipp_tpu_torch` package is
+imported under another name (`parent_notch`), so its library builds
+through DIR's own `_build.py` and its wrapper builds its own tables: its
+K8 runs on the same inputs at every level shape, timed by graph replay in
+turns with this tree's (this, DIR, DIR, this), its error against the plain
+version beside, and its output compared with this tree's bit for bit (a
+difference fails the run); with `--long` its K8l too, by CUDA events in
+turns, beside this tree's.
 
 `--long`: K8's long form (K8l) at `chip_smoke.NOTCH_LONG_CASES` and a few
-more lengths past 32768 (35328, 45312, 65536, 65856, 131072, 2^20 - 1
-on the chirp route, and the mixed-radix lengths past 32768 with the chirp
-route forced in their place, `notch_route` patched for the call: where the
-route's threshold `CHIRP_P` stands against the generic pass), each
-against the plain version, then kernel / plain / library ms by CUDA
-events (one pair a block: a few lines run seconds, so no graph) and the
-bound.
+more lengths past shared memory (35328, 45312, 65536, 65856, 131072,
+16672, and 32512 / 32128 with an odd factor of 127 / 251 in their
+rows), each against the plain version, then kernel / plain / library ms
+by CUDA events, the bound and the launches; at every length whose rows
+hold a generic radix or a larger odd factor (23, 59, 127, 251, 521) the
+rows also forced three ways on the same split (`forced_plans`: table
+rows the bench writes itself through `cuda_notch._long_row` with the
+split given): the generic pass of p in the rows, Rader's algorithm (p
+prime, p - 1 on the specialised radices), the rows' chirp-z transform:
+where the threshold stands and which algorithm takes a large prime.
+Each K8l row also times `torch.fft` by graph replay beside the kernel's
+and splits the kernel's time among its launches from a torch.profiler
+trace of ten calls.
 
 `--sweep`: at the level-1 shapes, K8 with other pass lists beside
 `notch_plan`'s (the table takes any plan K8 can run; the bench writes
@@ -108,8 +114,9 @@ def build_variants(variants=VARIANTS):
     libs = {}
     for name in variants:
         lib = ctypes.CDLL(str(out / f"{name}.so"))
-        lib.ipp_notch_group.argtypes = _SIGNATURES["ipp_notch_group"]
-        lib.ipp_notch_group.restype = ctypes.c_int
+        for entry in ("ipp_notch_group", "ipp_notch_long"):
+            getattr(lib, entry).argtypes = _SIGNATURES[entry]
+            getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs, log
 
@@ -179,20 +186,26 @@ def chain_rows(parent):
     return out
 
 
-def parent_library(parent: Path):
-    """The kernel library of the tree at `parent`, built into its own build
-    directory by its own ops/_build.py (every C entry bound)."""
+def parent_notch(parent: Path):
+    """The `ops.cuda_notch` module of the tree at `parent`, its package
+    imported under the name parent_ipp_tpu_torch: its relative imports
+    resolve in that tree, its library builds through its own `_build.py`
+    into its own build directory."""
+    import importlib
     import importlib.util
 
+    name = "parent_ipp_tpu_torch"
+    pkg = parent / "ipp_tpu_torch"
     spec = importlib.util.spec_from_file_location(
-        "parent_build", parent / "ipp_tpu_torch" / "ops" / "_build.py")
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return mod.load_library()
+    return importlib.import_module(name + ".ops.cuda_notch")
 
 
 def group_fn(lib, xs, gs, axes):
-    """`notch_filter_group` through `lib`'s C entry (this build or a
+    """`notch_filter_group` through `lib`'s C entries (this build or a
     variant), xs -> outputs allocated here."""
     ys = [torch.empty_like(x) for x in xs]
     launches = cn._launches(
@@ -200,17 +213,16 @@ def group_fn(lib, xs, gs, axes):
     counts = {"variant": 0}
 
     def run(launches=launches):   # the tables live as long as the call
-        for _, table, count, scratch, nscratch, _ in launches:
-            _launch("variant", xs[0].device, lib.ipp_notch_group,
-                    table.ctypes.data, count, scratch, nscratch,
-                    counts=counts)
+        for _, entry, args, kernels, _ in launches:
+            _launch("variant", xs[0].device, getattr(lib, entry), *args,
+                    counts=counts, kernels=kernels)
         return ys
     return run
 
 
 def lib_fn(lib, x, g, axis):
-    """K8 through `lib`'s grouped C entry (this build or a variant), x ->
-    one output allocated here."""
+    """K8 through `lib`'s C entries (this build or a variant), x -> one
+    output allocated here."""
     run = group_fn(lib, [x], [g], [axis])
     return lambda: run()[0]
 
@@ -218,8 +230,8 @@ def lib_fn(lib, x, g, axis):
 def plan_fn(lib, x, g, axis, plan):
     """K8 on the pass list `plan` in place of `notch_plan(n)`: a table row
     of csrc/notch.cu's layout (x, y, tw, gp, B, H, W, cols, passes,
-    generic, radices, no chirp tables) with the gains of that plan, x ->
-    one output allocated here."""
+    generic, radices) with the gains of that plan, x -> one output
+    allocated here."""
     _, B, H, W, n = cn._check(x, g, axis)
     y = torch.empty_like(x)
     tw = _stage_twiddles(x.device, n)
@@ -228,52 +240,101 @@ def plan_fn(lib, x, g, axis, plan):
     table = np.asarray([[x.data_ptr(), y.data_ptr(), tw.data_ptr(),
                          gp.data_ptr(), B, H, W, int(axis == -2), len(plan),
                          generic] + list(plan)
-                        + [1] * (cn.MAX_PASSES - len(plan)) + [0, 0]],
-                       np.int64)
+                        + [1] * (cn.MAX_PASSES - len(plan))], np.int64)
     counts = {"variant": 0}
 
     def run(keep=(tw, gp)):   # the tables live as long as the call
         _launch("variant", x.device, lib.ipp_notch_group, table.ctypes.data,
-                1, None, 0, counts=counts)
+                1, counts=counts)
         return y
     return run
 
 
-def parent_fn(lib, x, g, axis):
-    """The K8 of the parent tree through its `ipp_notch_group` (rows of 22
-    words: this tree's row of x without the chirp route's two pointers,
-    which are 0 at every length the parent takes), x -> one output
-    allocated here."""
+# K8l beside chip_smoke.NOTCH_LONG_CASES: lines past shared memory of the
+# wide planes' other levels and sides, a power of two, and rows with a
+# generic radix of 127 and 251
+LONG_MORE = [((1, 4, 35328), -1), ((1, 45312, 4), -2), ((1, 2, 65536), -1),
+             ((1, 4, 65856), -1), ((1, 131072, 2), -2), ((2, 1344, 16672), -1),
+             ((1, 2, 32512), -1), ((1, 2, 32128), -1)]
+def forced_plans(n):
+    """{label: split} of lines of n beside `notch_long_plan(n)`'s where its
+    rows hold an odd factor past 13 (a generic radix, Rader's or the
+    chirp-z transform): the same n1 x n2 with the rows three ways, the
+    generic pass of `notch_plan(n2)`, Rader's algorithm (n2 prime, n2 - 1
+    on the specialised radices), the rows' chirp-z transform, each where
+    the kernel takes it.  The threshold `GENERIC_MAX` and the choice of
+    Rader's algorithm rest on these times."""
+    lp = cn.notch_long_plan(n)
+    if lp.route != "mixed" or (lp.rows == "mixed"
+                               and not cn._generic(lp.plan2)):
+        return {}
+    n2 = lp.n2
+    out = {"generic rows": lp._replace(rows="mixed", m2=n2,
+                                       plan2=cn.notch_plan(n2))}
+    sub = cn.notch_plan(n2 - 1)
+    if (all(n2 % d for d in range(2, int(n2 ** 0.5) + 1))
+            and not cn._generic(sub) and len(sub) >= 2):
+        out["rader rows"] = lp._replace(rows="rader", m2=n2 - 1, plan2=sub)
+    m2 = cn._pow2ceil(2 * n2 - 1)
+    if m2 <= cn.ROW_MAX:
+        out["chirp rows"] = lp._replace(rows="chirp", m2=m2, plan2=tuple(
+            cn._pow2_passes(m2.bit_length() - 1)))
+    return {k: v for k, v in out.items() if v != lp}
+
+
+def long_fn(lib, x, g, axis, plan):
+    """K8l on the split `plan`: the row `cuda_notch._long_row` writes for
+    it (its tables and gains for that split), x -> one output allocated
+    here; with its launches a call."""
     _, B, H, W, _ = cn._check(x, g, axis)
     y = torch.empty_like(x)
-    row, _, keep = cn._desc_row(x, y, np.ascontiguousarray(g, np.float32),
-                                B, H, W, axis)
-    assert row[-2:] == [0, 0]
-    table = np.asarray([row[:-2]], np.int64)
-    counts = {"parent": 0}
+    row, keep = cn._long_row(x, y, g, B, H, W, axis, plan)
+    table = np.asarray(row, np.int64)
+    kernels = 6 if plan.route == "chirp" else 3
+    counts = {"variant": 0}
 
-    def run(keep=keep):   # the tables live as long as the call
-        _launch("parent", x.device, lib.ipp_notch_group, table.ctypes.data,
-                1, None, 0, counts=counts)
+    def run(keep=(table, keep)):   # the tables live as long as the call
+        _launch("variant", x.device, lib.ipp_notch_long, table.ctypes.data,
+                counts=counts, kernels=kernels)
         return y
-    return run
+    return run, kernels
 
 
-# K8l beside chip_smoke.NOTCH_LONG_CASES: lines past 32768 of the wide
-# planes' other levels and sides, a power of two and a chirp line of 2^20
-LONG_MORE = [((1, 4, 35328), -1), ((1, 45312, 4), -2), ((1, 2, 65536), -1),
-             ((1, 4, 65856), -1), ((1, 131072, 2), -2),
-             ((1, 2, (1 << 20) - 1), -1), ((2, 1344, 16672), -1)]
+def kernel_split(fn, reps=10):
+    """The device ms of each kernel one call of fn launches, in launch
+    order (the long form's a, b, c, twice on the chirp route), from a
+    torch.profiler trace of `reps` calls: the mean of each place; None
+    where the trace holds no kernel of the long form."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if "notch_long_kernel" in e.name
+                  and e.time_range.elapsed_us() > 0),
+                 key=lambda e: e.time_range.start)
+    if not evs or len(evs) % reps:
+        return None
+    k = len(evs) // reps
+    return [sum(e.time_range.elapsed_us() for e in evs[j::k]) / reps / 1e3
+            for j in range(k)]
 
 
-def long_rows(gen, dev):
+def long_rows(gen, dev, lib, parent):
     """K8l at the long cases: error against the plain version, kernel /
-    plain / library ms by CUDA events, the bound; at every mixed-radix
-    case past NOTCH_SHORT_N also the chirp route forced in its place."""
+    plain / library ms by CUDA events, kernel and library by CUDA-graph
+    replay (the device's time alone), the bound, the launches, the ms of
+    each kernel from a profiler trace; the parent tree's K8l in turns
+    (this, parent, parent, this) where `parent` (its cuda_notch) is given;
+    the rows forced three ways where they hold an odd factor past 13
+    (`forced_plans`)."""
     out = []
     cases = [(s, a, sg) for s, a, sg in cs.NOTCH_LONG_CASES] + [
         (s, a, 2.0) for s, a in LONG_MORE]
-    real_route = cn.notch_route
     for shape, axis, sigma in cases:
         n = shape[axis]
         x = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)
@@ -287,32 +348,51 @@ def long_rows(gen, dev):
         plain = cs.time_ms(torch, lambda: cn.notch_filter_plain(x, g, axis),
                            5)
         lib_ms = cs.time_ms(torch, lfn, 5)
+        lib_graph = cs.graph_ms(torch, lfn, 10)
         bound_ms, by = cs.bound(*cs.work_notch(x.numel(), n))
-        routes = [real_route(n)] + (["chirp"] if real_route(n) == "mixed"
-                                    and n > cn.NOTCH_SHORT_N else [])
-        for route in routes:
-            cn.notch_route = lambda m, r=route: (
-                r if m == n else real_route(m))
-            cn.notch_plan.cache_clear()
-            try:
-                kfn = lambda: cn.notch_filter(x, g, axis)  # noqa: E731
+        wrapper = lambda: cn.notch_filter(x, g, axis)  # noqa: E731
+        variants = [("default", cn.notch_long_plan(n))] + list(
+            forced_plans(n).items())
+        for label, plan in variants:
+            if label == "default":
+                kfn = wrapper
+                cn.reset_launch_counts()
                 _, rel = cs.err_of_max(kfn(), ref)
-                ms = cs.time_ms(torch, kfn, 5)
-                plan = cn.notch_plan(n)
-            finally:
-                cn.notch_route = real_route
-                cn.notch_plan.cache_clear()
-            forced = route != real_route(n)
-            out.append(dict(shape=list(shape), axis=axis, n=n, route=route,
-                            forced=forced, plan=list(plan), rel_err=rel,
-                            ms=ms, plain_ms=plain, library_ms=lib_ms,
-                            bound_ms=bound_ms, bound_by=by))
-            print(f"  K8l {str(shape):<18s} axis {axis:2d} n {n:7d} "
-                  f"{route}{' (forced)' if forced else ''} plan {plan} rel "
-                  f"{rel:.2e}  kernel {ms:8.3f} ms  plain {plain:7.3f}  "
-                  f"library {lib_ms:7.3f}  bound {bound_ms:7.4f} ({by})")
+                launches = cn.LAUNCHES["notch_long"]
+            else:
+                kfn, launches = long_fn(lib, x, g, axis, plan)
+                _, rel = cs.err_of_max(kfn(), ref)
+            ms = cs.time_ms(torch, kfn, 10)
+            graph = cs.graph_ms(torch, kfn, 10)
+            split = kernel_split(kfn)
+            row = dict(shape=list(shape), axis=axis, n=n, variant=label,
+                       plan=plan._asdict(), rel_err=rel, launches=launches,
+                       ms=ms, graph_ms=graph, kernel_profile_ms=split,
+                       plain_ms=plain, library_ms=lib_ms,
+                       library_graph_ms=lib_graph, bound_ms=bound_ms,
+                       bound_by=by)
+            old = ""
+            if parent is not None and label == "default":
+                pfn = lambda: parent.notch_filter(x, g, axis)  # noqa: E731
+                _, prel = cs.err_of_max(pfn(), ref)
+                p1, p2 = (cs.time_ms(torch, pfn, 3) for _ in range(2))
+                again = cs.time_ms(torch, kfn, 10)
+                row.update(parent_rel_err=prel, parent_ms=(p1 + p2) / 2,
+                           ms_again=again)
+                old = (f"  parent {(p1 + p2) / 2:8.3f} (rel {prel:.1e}; "
+                       f"this again {again:8.3f})")
+            out.append(row)
+            parts = ("not measured" if split is None else
+                     " + ".join(f"{v:.3f}" for v in split))
+            print(f"  K8l {str(shape):<18s} axis {axis:2d} n {n:7d} {label} "
+                  f"split {plan.n1} x {plan.n2} rows {plan.rows} "
+                  f"{plan.plan1}:{plan.plan2} rel {rel:.2e} launches "
+                  f"{launches}  kernel {ms:8.3f} ms (graph {graph:8.3f}; "
+                  f"profile {parts}){old}  plain {plain:7.3f}  library "
+                  f"{lib_ms:7.3f} (graph {lib_graph:7.3f})  bound "
+                  f"{bound_ms:7.4f} ({by})", flush=True)
             if not rel <= 1e-5:
-                raise AssertionError(f"K8l {shape} axis {axis} {route}: "
+                raise AssertionError(f"K8l {shape} axis {axis} {label}: "
                                      f"rel {rel:.2e}")
         del x, ref
     return out
@@ -386,7 +466,7 @@ def main() -> int:
     for line in cs.ptxas_summary(info["ptxas"]):
         if "notch" in line:
             print(" ", line)
-    parent = parent_library(PARENT) if PARENT is not None else None
+    parent = parent_notch(PARENT) if PARENT is not None else None
     variants, sweep = {}, []
     if "--variants" in sys.argv:
         variants, log = build_variants()
@@ -417,7 +497,7 @@ def main() -> int:
                    plan=list(cn.notch_plan(n)), geometry=geo)
         old = ""
         if parent is not None:
-            pf = parent_fn(parent, x, g, axis)
+            pf = lambda: parent.notch_filter(x, g, axis)  # noqa: E731
             _, prel = cs.err_of_max(pf(), ref)
             p1 = cs.graph_ms(torch, pf, 20)
             p2 = cs.graph_ms(torch, pf, 20)
@@ -456,7 +536,7 @@ def main() -> int:
                   f"({vms / bound_ms:5.2f}x bound)")
         del x
     groups = group_rows(gen, dev)
-    longs = long_rows(gen, dev) if "--long" in sys.argv else []
+    longs = long_rows(gen, dev, lib, parent) if "--long" in sys.argv else []
     chain = chain_rows(PARENT) if "--chain" in sys.argv else []
     if "--sweep" in sys.argv:
         sweep = sweep_rows(gen, dev, lib)

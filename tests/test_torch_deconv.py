@@ -6,6 +6,12 @@ between its MXU walk and its XLA FFT (tests/test_deconv.py:217).  The port
 runs both of its routes here: the kernel walk (plain versions on the CPU)
 at an in-domain work shape, torch.fft elsewhere."""
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -111,17 +117,47 @@ def test_early_stop_runs_the_twins_iteration_count(rng, shape):
     np.testing.assert_allclose(got[INNER], ref[INNER], rtol=2e-3, atol=2e-1)
 
 
+def _jax_rl_in_child(tmp_path, vol, psf, kws):
+    """The JAX package's `richardson_lucy(vol, psf, **kw)` for each kw of
+    kws, run in a child process (tests/_jax_rl_child.py) with XLA's CPU
+    backend at optimisation level 0: at the walk shape its default
+    optimisation segfaults on the regularised call, which would kill this
+    worker.  Same inputs (by file), same keywords, XLA FFT."""
+    inp, out = tmp_path / "rl_in.npz", tmp_path / "rl_out.npz"
+    np.savez(inp, vol=vol, psf=psf)
+    root = str(Path(__file__).resolve().parent.parent)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        os.environ.get("XLA_FLAGS", "")
+        + " --xla_backend_optimization_level=0").strip(),
+        PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    res = subprocess.run(
+        [sys.executable, str(Path(__file__).with_name("_jax_rl_child.py")),
+         "--inp", str(inp), "--kwargs", json.dumps(kws), "--out", str(out)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    with np.load(out) as data:
+        return [data[f"r{i}"] for i in range(len(kws))]
+
+
 @pytest.mark.parametrize("shape", [WALK, FFT], ids=["walk", "fft"])
 @pytest.mark.parametrize("classic", [True, False], ids=["classic", "reference"])
-def test_regularised_richardson_lucy_matches_jax(rng, shape, classic):
+def test_regularised_richardson_lucy_matches_jax(rng, shape, classic,
+                                                 tmp_path):
+    """At the walk shape the JAX references run in a child process at
+    XLA optimisation level 0 (`_jax_rl_in_child`); the port's side runs
+    here."""
     psf = gaussian_psf((5, 5, 5), (1.0, 1.0, 1.0))
     vol = _beads(rng, shape, psf)
     kw = dict(niter=6, lam=0.1, regularize_interval=2, fft_shape=shape,
               classic=classic)
     got = dp.richardson_lucy(vol, psf, device="cpu", **kw).numpy()
-    ref = np.asarray(dj.richardson_lucy(vol, psf, **kw))
-    plain = np.asarray(dj.richardson_lucy(vol, psf, **{**kw, "lam": 0.0,
-                                                       "regularize_interval": 0}))
+    kws = [kw, {**kw, "lam": 0.0, "regularize_interval": 0}]
+    if shape == WALK:
+        ref, plain = _jax_rl_in_child(tmp_path, vol, psf, kws)
+    else:
+        ref, plain = (np.asarray(dj.richardson_lucy(vol, psf, **k))
+                      for k in kws)
     assert not np.allclose(ref, plain, rtol=1e-3)  # regularisation acted
     np.testing.assert_allclose(got[INNER], ref[INNER], rtol=2e-3, atol=2e-1)
 

@@ -7,17 +7,19 @@ tests/test_torch_notch.py.
   2000 and 1600 x 2000 tiles), on both axes, and at lengths whose buffers
   live in the device-memory scratch, a large prime, odd line counts:
   within 1e-5 of the plain version's max (both f32), one launch a call.
-- The long form above 32768 on both axes, both routes: the level-1 lines
-  of wide stitched planes (33344, 35328, 45312, 65856), 65536, 131072 and
-  2^20, primes and large odd factors on the chirp route (65537, 2^20 - 1),
-  within 1e-5 of max; one "notch_long" launch a call.
+- The long form K8l on both axes: the level-1 lines of wide stitched
+  planes (33344 with Rader's rows of 521, 35328, 45312,
+  65856), 65536, 131072 and 2^20, 2^20 - 1 (generic passes of 31 and 41),
+  a prime on the chirp route (65537), within 1e-5 of max; three
+  "notch_long" launches a call, six on the chirp route.
 - A batch of 8 bit-equal to its 8 single tiles and a call to its repeat
   (cuFFT was not, at n = 672 and 21 along y); a batch of 4 wide subbands
-  (33344 on both axes, 65537 along x) the same.
+  (33344 on both axes, 65537 along x, 2^20 - 1 on two lines) the same.
 - The 14 notches of a padded decomposition of each tile shape in one
   `notch_filter_group` call: one launch, each output bit-equal to its
   one-subband call and within 1e-5 of its plain version; the 14 of a
-  padded (2, 2688, 66688) plane: one launch and two of the long form.
+  padded (2, 2688, 66688) plane: one launch and the long form's three
+  for each of 33344 and 16672.
 - `filter_coefficient` on a CUDA tensor with every torch.fft entry
   refused, at short and long lengths.
 
@@ -66,20 +68,23 @@ def _want(shape, axis):
     """The launches of one `notch_filter` call: the shared-memory kernel,
     or the long form where a line pair's buffers do not fit."""
     long = K.notch_is_long(shape, axis)
-    return {"notch": int(not long), "notch_long": int(long)}
+    return {"notch": int(not long),
+            "notch_long": K.notch_long_launches(shape[axis]) if long else 0}
 
 
 # lines past 32768: (2, 2688, 33344) is level 1 of two padded 2048 x 66000
 # planes, (2, 33344, 2688) of two 66000 x 2048; 35328, 45312 and 65856 of
-# 20000 x 70000, 24000 x 90000 and 12000 x 131000; 65537 and 2^20 - 1 on the
-# chirp route
+# 20000 x 70000, 24000 x 90000 and 12000 x 131000; 65537 on the chirp
+# route; 2^20 - 1 split 1023 x 1025
 LONG_SHAPES = [((2, 2688, 33344), -1), ((2, 33344, 2688), -2),
                ((1, 3, 35328), -1), ((1, 45312, 3), -2),
                ((1, 2, 65536), -1), ((1, 65536, 3), -2),
                ((1, 3, 65537), -1), ((2, 65537, 2), -2),
                ((1, 3, 65856), -1), ((1, 131072, 2), -2),
                ((1, 2, 131072), -1), ((1, 2, 1 << 20), -1),
-               ((1, 1 << 20, 2), -2), ((1, 3, (1 << 20) - 1), -1)]
+               ((1, 1 << 20, 2), -2), ((1, 3, (1 << 20) - 1), -1),
+               ((1, (1 << 20) - 1, 2), -2), ((1, 2, 32512), -1),
+               ((1, 32128, 4), -2), ((1, 3, 34023), -1), ((1, 2, 13674), -1)]
 
 
 @pytest.mark.gpu
@@ -120,18 +125,22 @@ def test_kernel_batch_equals_single_tiles_on_the_card(cuda, n, axis):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,axis", [((4, 64, 33344), -1),
                                         ((4, 33344, 64), -2),
-                                        ((4, 4, 65537), -1)])
+                                        ((4, 4, 65537), -1),
+                                        ((4, 3, 35328), -1),
+                                        ((2, 2, (1 << 20) - 1), -1)])
 def test_long_batch_equals_single_tiles_on_the_card(cuda, shape, axis):
-    """The long form (one line pair a block, a scratch of device memory,
-    blocks walking the items) and the chirp route: a batch of 4 gives its
-    single tiles bit for bit, a call its repeat."""
+    """The long form (three kernels over device memory, many blocks a
+    line pair, y as the storage between them where every pair has both
+    lines, else a scratch of the subband's size) and the chirp route: a
+    batch of 4 gives its single tiles bit for bit, a call its repeat."""
     rng = np.random.default_rng(shape[axis])
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
         cuda)
     g = _notch(shape[axis])
     K.reset_launch_counts()
     got = K.notch_filter(x, g, axis)
-    assert K.LAUNCHES == {"notch": 0, "notch_long": 1}
+    assert K.LAUNCHES == {"notch": 0,
+                          "notch_long": K.notch_long_launches(shape[axis])}
     assert torch.equal(got, K.notch_filter(x, g, axis))
     for i in range(shape[0]):
         assert torch.equal(got[i:i + 1], K.notch_filter(x[i:i + 1], g, axis))
@@ -141,9 +150,10 @@ def test_long_batch_equals_single_tiles_on_the_card(cuda, shape, axis):
 def test_wide_plane_group_equals_one_subband_calls_on_the_card(cuda):
     """cH along x and cV along y of levels 1-7 of two padded 2048 x 66000
     planes (2, 2688, 66688), as filter_subband notches them: one launch
-    for the 12 whose buffers fit shared memory, one each for 33344 and
-    16672 along x (generic pass of 521, the long form); each bit-equal to
-    its one-subband call and within 1e-5 of its plain version."""
+    for the 12 whose buffers fit shared memory, three each for 33344 and
+    16672 along x (the long form, 521 on Rader's rows);
+    each bit-equal to its one-subband call and within 1e-5 of its plain
+    version."""
     rng = np.random.default_rng(66688)
     xs, gs, axes = [], [], []
     for lv in range(1, 8):
@@ -155,7 +165,7 @@ def test_wide_plane_group_equals_one_subband_calls_on_the_card(cuda):
             axes.append(axis)
     K.reset_launch_counts()
     got = K.notch_filter_group(xs, gs, axes)
-    assert K.LAUNCHES == {"notch": 1, "notch_long": 2}
+    assert K.LAUNCHES == {"notch": 1, "notch_long": 6}
     for y, x, g, a in zip(got, xs, gs, axes):
         assert torch.equal(y, K.notch_filter(x, g, a))
         ref = K.notch_filter_plain(x, g, a)
@@ -204,11 +214,12 @@ def test_filter_coefficient_calls_no_torch_fft_on_the_card(cuda,
     y = P.filter_subband(x, 40.0, 2, "db3", axes=(-1, -2))
     assert y.shape == x.shape and bool(torch.isfinite(y).all())
     assert K.LAUNCHES == {"notch": 3, "notch_long": 0}   # the four notches
-    # the long form on both routes: 33344 (mixed), 65537 (chirp)
+    # the long form on both routes: 33344 (mixed, 3 launches), 65537
+    # (chirp, 6)
     for n in (33344, 65537):
         for shape, axis in (((2, 4, n), -1), ((2, n, 4), -2)):
             xl = torch.from_numpy(np.random.default_rng(n).standard_normal(
                 shape).astype(np.float32)).to(cuda)
             y = P.filter_coefficient(xl, 0.3, axis=axis)
             assert y.shape == xl.shape and bool(torch.isfinite(y).all())
-    assert K.LAUNCHES == {"notch": 3, "notch_long": 4}
+    assert K.LAUNCHES == {"notch": 3, "notch_long": 18}

@@ -246,7 +246,21 @@ Phases:
    inflating its chunks once; the reads' ms beside those of the same
    arrays in classic format; convert with phase 14's flags from the
    fixture .ims and from its planes as TIFFs: 0 counts apart, K5's and
-   K5s's launches equal; h5py never imported.
+   K5s's launches equal; (e) the committed files of the structures real
+   sources carry (tests/torch_hdf5_fixtures: a split BDV master whose
+   setups are external links into lzf partitions, one of raw-stored
+   chunks; an .ims with a 5000-byte attribute among 14 dense ones and
+   committed datatypes; a BDV with a shared-message table of a B-tree
+   and a list index) read through hdf5.File, ImarisReader and BDVReader
+   bit-equal to their arrays regenerated from numpy seeds, attributes
+   equal, each chunk inflated once; the ms to open the master and reach
+   every setup and to read its lzf partitions (fixed costs at 0.42 MB);
+   lzf's rate at volume, the partitions' chunks repeated to 320 MB raw
+   and inflated on the reader's threads, on one, and by the decoder
+   alone; convert with phase 14's
+   flags from the master and from the .ims, each 0 counts off the same
+   planes converted as TIFFs, K5's, K5s's and K8's launches equal to the
+   TIFF run's; h5py never imported.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -275,6 +289,7 @@ build/chip_smoke/ (removed at the end).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import shutil
@@ -4928,7 +4943,8 @@ def phase_hdf5(torch, record, shared):
     and K5s's launches equal phase 14's; (c) tsv_tools crop-ims on
     a 16 x 300 x 400 ROI: equal to the planes' crop, inflating exactly the
     chunks the ROI overlaps; (d) the newer-format fixtures
-    (``hdf5_fixtures``)."""
+    (``hdf5_fixtures``); (e) the fixtures of the structures real sources
+    carry (``hdf5_structures``)."""
     import importlib.util
 
     import numpy as np
@@ -5068,6 +5084,9 @@ def phase_hdf5(torch, record, shared):
 
     # (d) the committed files of newer format (h5py libver='latest')
     checks.update(hdf5_fixtures(torch, rec, work, card))
+    # (e) the committed files of the structures real sources carry (split
+    # BDV masters, huge attributes, committed types, shared messages, lzf)
+    checks.update(hdf5_structures(torch, rec, work, card))
     checks["h5py never imported"] = "h5py" not in sys.modules
     rec["checks"] = checks
     say(f"  checks: {checks}")
@@ -5080,6 +5099,8 @@ def phase_hdf5(torch, record, shared):
 
 FIXTURES = ROOT / "tests" / "torch_hdf5_fixtures"
 FIXTURE_READS = 5          # timed reads of each fixture and its twin
+LZF_VOLUME_MB = 320        # raw MB of lzf chunks decoded for the rate
+LZF_REPEATS = 3            # timed passes of each lzf decode form
 
 
 def load_fixture_maker():
@@ -5104,6 +5125,62 @@ def read_all(hdf5, path, names):
             hdf5.reset_read_counts()
             out[name] = (f[name][...], hdf5.READ_COUNTS["chunks"])
     return out
+
+
+def lzf_volume(hdf5, path, names, mb=LZF_VOLUME_MB):
+    """The lzf rate at volume: the lzf-compressed chunks of `names` in
+    the split master's partitions (those with every filter on), repeated
+    to `mb` MB of raw bytes, each inflated by Dataset._inflate (a pread,
+    then the decoder through ctypes) as a read inflates it: on the
+    reader's inflate threads, on one thread, and the decoder alone on one
+    thread over buffers read before.  Raw MB/s out, best and median of
+    LZF_REPEATS; every pass's bytes equal the first inflate's."""
+    import numpy as np
+
+    from ipp_tpu_torch.io import hdf5_filters as hf
+
+    with hdf5.File(path) as f:
+        jobs, raw_pass, packed_pass = [], 0, 0
+        for name in names:
+            d = f[name]
+            for co in itertools.product(*[range(-(-n // c)) for n, c in
+                                          zip(d.shape, d.chunks)]):
+                w = d._find(tuple(i * c for i, c in zip(co, d.chunks)))
+                if w is not None and w[2] == 0:
+                    want = d._inflate(w)
+                    jobs.append((d, w, want))
+                    raw_pass += len(want)
+                    packed_pass += w[1]
+        reps = -(-int(mb * 1e6) // raw_pass)
+        work = jobs * reps
+        raw_mb = raw_pass * reps / 1e6
+        ok = True
+
+        def timed(run):
+            nonlocal ok
+            secs = []
+            for _ in range(LZF_REPEATS):
+                t0 = time.perf_counter()
+                got = run()
+                secs.append(time.perf_counter() - t0)
+                ok &= all(g == j[2] for g, j in zip(got, work))
+                del got
+            return dict(mb_s_best=raw_mb / min(secs),
+                        mb_s_median=raw_mb / float(np.median(secs)))
+
+        pool, threads = f._executor(), hdf5._threads()
+        on_pool = timed(lambda: list(pool.map(
+            lambda j: j[0]._inflate(j[1]), work)))
+        on_one = timed(lambda: [d._inflate(w) for d, w, _ in work])
+        bufs = [(d.file._reader.read(w[0], w[1]), d._filters[0][1])
+                for d, w, _ in jobs]
+        decoder = timed(lambda: [hf.lzf_decompress(b, cd)
+                                 for _ in range(reps) for b, cd in bufs])
+    return dict(raw_mb=raw_mb, packed_mb=packed_pass * reps / 1e6,
+                chunks=len(work), chunk_bytes=raw_pass // len(jobs),
+                threads=threads, inflate_threads=on_pool,
+                inflate_one_thread=on_one, decoder_one_thread=decoder,
+                equal=ok)
 
 
 def hdf5_fixtures(torch, rec, work, card):
@@ -5217,6 +5294,182 @@ def hdf5_fixtures(torch, rec, work, card):
         f"K5 launches {runs['ims']['k5']} / {runs['tif']['k5']}, K5s "
         f"{runs['ims']['k5s']} / {runs['tif']['k5s']}, max |diff| "
         f"{int(diff.max())}, {int((diff > 0).sum())} pixels off")
+    return checks
+
+
+def same_attrs(got, want) -> bool:
+    """The attributes' names, dtypes and values equal (any order)."""
+    import numpy as np
+
+    return sorted(got) == sorted(want) and all(
+        np.asarray(got[k]).dtype == np.asarray(v).dtype
+        and np.array_equal(got[k], v) for k, v in want.items())
+
+
+def hdf5_structures(torch, rec, work, card):
+    """Phase 17 (e): the fixtures of the structures that .ims and BDV
+    sources carry (tests/torch_hdf5_fixtures): a split BDV master whose
+    setups are external links into lzf partitions (one of raw-stored
+    chunks), an .ims with a 5000-byte attribute among 14 dense ones and
+    committed datatypes, a BDV with a shared-message table (a B-tree and
+    a list index).  Every dataset through hdf5.File bit-equal to its array
+    regenerated from its seed, each chunk inflated once; the attributes
+    equal; ImarisReader and BDVReader equal too; the ms to open the
+    master and reach every setup and to read its lzf partitions whole;
+    lzf's rate at volume (lzf_volume); convert
+    with phase 14's flags from the master and from the .ims, each 0
+    counts off the same planes converted as TIFFs, with K5's, K5s's and
+    K8's launches equal to the TIFF run's."""
+    import numpy as np
+
+    from ipp_tpu_torch.io import bdv as bdvm
+    from ipp_tpu_torch.io import hdf5
+    from ipp_tpu_torch.io import ims as imsm
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import cuda_notch as cn
+    from ipp_tpu_torch.pipeline import convert as conv
+
+    mk = load_fixture_maker()
+    data = mk.structure_arrays()
+    checks = {}
+    for path, want in data.items():
+        got = read_all(hdf5, path, want)
+        with hdf5.File(path) as f:
+            grid = {n: math.prod(-(-s // c) for s, c in zip(
+                f[n].shape, f[n].chunks)) if f[n].chunks else 0
+                for n in want}
+        checks[f"{path.name} == regenerated arrays"] = all(
+            got[n][0].dtype == a.dtype and np.array_equal(got[n][0], a)
+            for n, a in want.items())
+        checks[f"{path.name} chunks inflated == chunks"] = all(
+            got[n][1] == grid[n] for n in want)
+    with hdf5.File(mk.LONG_IMS) as f:
+        info = f["DataSetInfo/Image"].attrs
+        checks["long_attr.ims DataSetInfo/Image attributes == regenerated"] \
+            = same_attrs(info, mk.image_attrs()) and \
+            len(info["Description"]) == mk.DESCRIPTION_BYTES
+        t = f["__DATA_TYPES__/UInt16"]
+        checks["long_attr.ims committed type"] = isinstance(
+            t, hdf5.Datatype) and t.dtype == np.dtype("<u2") and \
+            f["DataSet/ResolutionLevel 0/TimePoint 0/Channel 0/Data"] \
+            .dtype == np.dtype("<u2")
+    with hdf5.File(mk.SOHM) as f:
+        kinds = [x["kind"] for x in f._reader.sohm.indexes]
+        checks["sohm_bdv.h5 attributes == regenerated, a B-tree and a "
+               "list index"] = kinds == [1, 0] and all(
+            same_attrs(f[f"t00000/s{s:02d}"].attrs, mk.sohm_attrs(s))
+            for s in range(mk.SOHM_SETUPS))
+    with hdf5.File(mk.SPLIT) as f:
+        d = f["t00000/s01/0/cells"]
+        checks["split_bdv.h5 setup 1 behind its external link, stored raw"] \
+            = d.file.filename == str(mk.PARTS[1]) and \
+            d._find((0, 0, 0))[2] == 1
+    ims = data[mk.LONG_IMS]
+    for level in (0, 1):
+        with imsm.ImarisReader(mk.LONG_IMS, resolution_level=level) as r:
+            back = np.stack([r[z] for z in range(len(r))])
+        checks[f"ImarisReader long_attr.ims level {level} == regenerated"] \
+            = bool(np.array_equal(back, ims[
+                f"DataSet/ResolutionLevel {level}/TimePoint 0/Channel 0/"
+                f"Data"]))
+    for path in (mk.SPLIT, mk.SOHM):
+        ok = True
+        for name, a in data[path].items():
+            if not name.endswith("/cells"):
+                continue
+            _, setup, level, _ = name.split("/")
+            r = bdvm.BDVReader(path, setup=int(setup[1:]), level=int(level))
+            ok &= bool(np.array_equal(np.stack([r[z] for z in range(
+                len(r))]), a.view(np.uint16)))
+            r.close()
+        checks[f"BDVReader {path.name} every setup and level == "
+               f"regenerated"] = ok
+
+    # the master opened down to every setup's cells and its lzf partitions
+    # read whole through it: at 0.42 MB, fixed costs (files opened,
+    # headers parsed, threads started), timed in ms; lzf's rate at volume
+    cells = [n for n in data[mk.SPLIT] if n.endswith("/cells")]
+    reads, opens = [], []
+    for _ in range(FIXTURE_READS):
+        t0 = time.perf_counter()
+        with hdf5.File(mk.SPLIT) as f:
+            shapes = [f[f"t00000/s{s:02d}/0/cells"].shape
+                      for s in range(len(mk.PARTS))]
+        opens.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        read_all(hdf5, mk.SPLIT, cells)
+        reads.append(1e3 * (time.perf_counter() - t0))
+    lzf = dict(raw_mb=sum(data[mk.SPLIT][n].nbytes for n in cells) / 1e6,
+               read_ms_min=min(reads), read_ms_median=float(np.median(reads)),
+               open_ms_min=min(opens), open_ms_median=float(np.median(opens)),
+               setups=len(shapes),
+               bytes=sum(p.stat().st_size for p in mk.PARTS),
+               volume=lzf_volume(hdf5, mk.SPLIT, cells))
+    vol = lzf["volume"]
+    checks[f"lzf at volume: {vol['chunks']} inflates equal to the first"] = \
+        vol["equal"]
+    say(f"  (e) split master: opened to every setup's cells in "
+        f"{lzf['open_ms_min']:.2f} ms min / {lzf['open_ms_median']:.2f} "
+        f"median of {FIXTURE_READS}; its lzf partitions ({lzf['raw_mb']:.3f}"
+        f" MB raw u16 of {lzf['bytes']} bytes) read whole in "
+        f"{lzf['read_ms_min']:.2f} ms min / {lzf['read_ms_median']:.2f} "
+        f"median, fixed costs ({card})")
+    say(f"  (e) lzf at volume: {vol['raw_mb']:.1f} MB raw from "
+        f"{vol['packed_mb']:.1f} MB packed, {vol['chunks']} chunks of "
+        f"{vol['chunk_bytes']} bytes (warm page cache): inflate on "
+        f"{vol['threads']} threads "
+        f"{vol['inflate_threads']['mb_s_best']:.1f} MB/s best / "
+        f"{vol['inflate_threads']['mb_s_median']:.1f} median of "
+        f"{LZF_REPEATS}; on one "
+        f"{vol['inflate_one_thread']['mb_s_best']:.1f} / "
+        f"{vol['inflate_one_thread']['mb_s_median']:.1f}; the decoder alone "
+        f"on one {vol['decoder_one_thread']['mb_s_best']:.1f} / "
+        f"{vol['decoder_one_thread']['mb_s_median']:.1f} ({card})")
+
+    # convert with phase 14's flags from the master, from the .ims and from
+    # the same planes as TIFFs, after a first run from the TIFFs that pays
+    # the chain's first calls at this plane shape
+    planes = mk.small_planes()
+    tif = work / "structures_tif"
+    tif.mkdir()
+    for z, plane in enumerate(planes):
+        write_u16_tiff(tif / f"img_{z:06d}.tif", plane)
+    runs = {}
+    for tag, source in (("first", tif), ("split bdv", mk.SPLIT),
+                        ("long-attribute ims", mk.LONG_IMS), ("tif", tif)):
+        cd.reset_launch_counts()
+        cn.reset_launch_counts()
+        out = work / f"st_{tag.replace(' ', '_')}"
+        t0 = time.perf_counter()
+        rc = conv.main(["-i", str(source), "-o", str(out), *CONV_FLAGS])
+        torch.cuda.synchronize()
+        runs[tag] = dict(rc=rc, wall_s=time.perf_counter() - t0,
+                         k5=cd.LAUNCHES["dwt_analysis"],
+                         k5s=cd.LAUNCHES["dwt_synthesis"],
+                         k8=cn.LAUNCHES["notch"] + cn.LAUNCHES["notch_long"],
+                         out=read_series(out))
+    twin = runs["tif"]
+    for tag in ("split bdv", "long-attribute ims"):
+        r = runs[tag]
+        diff = np.abs(r["out"].astype(np.int64) - twin["out"]) \
+            if r["out"].shape == twin["out"].shape else None
+        r["max_diff"] = None if diff is None else int(diff.max())
+        r["pixels_off"] = None if diff is None else int((diff > 0).sum())
+        checks[f"convert from the {tag} 0 counts off its TIFFs"] = \
+            r["rc"] == twin["rc"] == 0 and len(r["out"]) == len(planes) \
+            and r["max_diff"] == 0
+        checks[f"K5, K5s and K8 launches from the {tag} == the TIFFs', "
+               f"> 0"] = all(r[k] == twin[k] > 0 for k in ("k5", "k5s",
+                                                         "k8"))
+    rec["structures"] = dict(lzf=lzf, convert={
+        k: {a: b for a, b in r.items() if a != "out"}
+        for k, r in runs.items()})
+    say("  (e) convert " + " ".join(CONV_FLAGS[:7]) + " ...: " + "; ".join(
+        f"from the {k} rc {r['rc']} in {r['wall_s']:.2f} s, K5 / K5s / K8 "
+        f"launches {r['k5']} / {r['k5s']} / {r['k8']}"
+        + (f", max |diff| {r['max_diff']}, {r['pixels_off']} pixels off "
+           f"the TIFFs'" if "max_diff" in r else "")
+        for k, r in runs.items()))
     return checks
 
 
@@ -5336,7 +5589,8 @@ def main() -> int:
     phase(17, f"the Imaris and BigDataViewer exports and sources (the "
           f"port's HDF5 module): convert --imaris --bdv on phase 14's "
           f"{CONV_PLANES} planes, convert from the .ims, tsv_tools crop-ims, "
-          f"the newer-format fixtures",
+          f"the newer-format fixtures, the split BDV, long-attribute .ims "
+          f"and shared-message fixtures",
           phase_hdf5, torch, record, shared)
     for d in ("chip_smoke", "chip_smoke_tiles", "chip_smoke_stitch",
               "chip_smoke_convert", "chip_smoke_hdf5"):

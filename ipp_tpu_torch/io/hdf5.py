@@ -29,51 +29,66 @@ Reading: that format and what newer writers make (h5py with ``libver``
 ``'v108'``, ``'v110'``, ``'latest'`` or ``track_order=True``; any HDF5
 1.10+ writer), 8-byte offsets and lengths throughout:
 
-- superblocks 0 to 3 (a superblock extension only with messages that do
-  not change how objects are read); object headers of version 1 and 2
-  (``OHDR`` / ``OCHK``);
+- superblocks 0 to 3 (an extension with B-tree K, file space or
+  shared-message table messages); object headers of version 1 and 2
+  (``OHDR`` / ``OCHK``); shared messages (versions 1 to 3): in another
+  object header (committed datatypes, opened as ``Datatype`` objects
+  too) or in the shared-message table (io/hdf5_v2.py);
 - groups as symbol tables, as link messages in the header, or densely in
-  a fractal heap indexed by a version 2 B-tree; hard links (soft and
-  external links are listed and raise when followed); keys in name
-  order, or in creation order where the group tracks it, as h5py lists
-  them;
-- attributes (message versions 1 to 3) in the header or densely, in
-  h5py's order; fixed-point, IEEE float and fixed byte-string values,
-  and variable-length strings (from the global heap) as ``str``;
-- datasets contiguous, compact or chunked: layout version 3 (version 1
-  B-tree) and version 4 with each of its chunk indexes (single chunk,
-  implicit, fixed array, extensible array, version 2 B-tree), partial
-  edge chunks left unfiltered where the layout says so; fill value
-  messages of versions 1 to 3, filter pipelines of versions 1 and 2.
+  a fractal heap indexed by a version 2 B-tree; hard, soft and external
+  links, the last two followed as the library follows them (at most 16
+  in a row; a dangling one is a missing key; an external file found as
+  ``File._external`` says, opened read-only, kept and closed by the file
+  the user opened); keys in name order, or in creation order where the
+  group tracks it, as h5py lists them;
+- attributes (message versions 1 to 3) in the header or densely (huge
+  heap objects too), shared or with shared datatypes and dataspaces, in
+  h5py's order; variable-length strings (from the global heap) as
+  ``str``;
+- datatypes as h5py maps them: fixed-point (narrowed ones converted to
+  the full width), IEEE float (narrowed layouts converted to the float of
+  their size), fixed byte strings, enumerations (h5py's bool as
+  ``np.bool_``), compounds as structured dtypes of their stored offsets
+  and size, variable-length strings (``bytes`` in datasets);
+- datasets contiguous, compact, chunked or in external files: layout
+  version 3 (version 1 B-tree) and version 4 with each of its chunk
+  indexes (single chunk, implicit, fixed array, extensible array, version
+  2 B-tree), partial edge chunks left unfiltered where the layout says
+  so; fill value messages of versions 1 to 3, filter pipelines of
+  versions 1 and 2.
 
 Every checksum of a version 2 structure is verified (Jenkins' lookup3,
-io/hdf5_v2.py, which holds the heaps, B-trees and arrays).  Reading
-touches what a read needs: the chunk index is searched, never loaded
-whole; decompressed chunks sit in a small LRU cache that always keeps
-the last read's chunks (so a plane-by-plane sweep inflates each chunk
-once); ``READ_COUNTS["chunks"]`` counts chunks inflated.  Reads take ints
-and slices of step 1.  Filters on read: deflate, shuffle and fletcher32
-(checked).  These raise ``FormatError`` naming the structure: shared
-messages and the shared-message table; external links and external
-storage; virtual datasets; huge fractal-heap objects (a densely stored
-attribute over 64 KiB); any other filter (lzf, scaleoffset, nbit, szip)
-or datatype; offsets or lengths other than 8 bytes; a bad checksum.
+io/hdf5_v2.py, which holds the heaps, B-trees, arrays and the
+shared-message table).  Reading touches what a read needs: the chunk
+index is searched, never loaded whole; decompressed chunks sit in a small
+LRU cache that always keeps the last read's chunks (so a plane-by-plane
+sweep inflates each chunk once); ``READ_COUNTS["chunks"]`` counts chunks
+inflated, ``READ_COUNTS["external_bytes"]`` bytes read from external
+storage.  Reads take ints and slices of step 1.  Filters on read:
+deflate, shuffle, fletcher32 (checked), lzf, scaleoffset and nbit
+(io/hdf5_filters.py).  These raise ``FormatError`` naming the structure:
+virtual datasets; szip and any other filter; nbit on compound or array
+types; fractal heaps with I/O filters; offsets or lengths other than 8
+bytes; array, reference, opaque, bitfield and time types; layout
+messages of versions 1-2; a bad checksum.
 """
 
 from __future__ import annotations
 
 import bisect
 import itertools
+import math
 import os
 import struct
 import zlib
-from collections import OrderedDict, deque
+from collections import OrderedDict, deque, namedtuple
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import hdf5_filters as hf
 from . import hdf5_v2 as v2
 from .hdf5_v2 import UNDEF, FormatError
 
@@ -86,22 +101,27 @@ SNOD_SIZE = 8 + 2 * GROUP_LEAF_K * 40
 HEAP_FREE_NONE = 1      # the library's "no free block" (H5HL_FREE_NULL)
 # message types (spec IV.A.2)
 NIL, DATASPACE, LINK_INFO, DATATYPE, FILL = 0, 1, 2, 3, 5
-LINK, LAYOUT, GROUP_INFO, FILTERS, ATTRIBUTE = 6, 8, 10, 11, 12
-CONTINUATION, SYMBOL_TABLE, ATTR_INFO = 16, 17, 21
+LINK, EXTERNAL_FILES, LAYOUT, GROUP_INFO, FILTERS = 6, 7, 8, 10, 11
+ATTRIBUTE, CONTINUATION, SYMBOL_TABLE, ATTR_INFO = 12, 16, 17, 21
+SOHM_TABLE = 15       # the superblock extension's shared-message table
 # superblock extension messages that do not change how objects are read:
 # B-tree 'K' values, file space info
 SB_EXT_HARMLESS = {19, 23}
+# the library's limit on soft and external links followed in a row
+# (H5L_NUM_LINKS)
+MAX_LINKS = 16
 # chunk index types of a version 4 layout (spec IV.A.2.i)
 SINGLE, IMPLICIT, FIXED_ARRAY, EXT_ARRAY, BTREE2 = 1, 2, 3, 4, 5
 FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32 = 1, 2, 3
-# names of filters a version 2 pipeline stores without one
-_FILTER_NAMES = {4: "szip", 5: "nbit", 6: "scaleoffset"}
+FILTERS_READ = {FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32,
+                hf.FILTER_NBIT, hf.FILTER_SCALEOFFSET, hf.FILTER_LZF}
 # the read side keeps the last read's chunks and this many more bytes
 CACHE_BYTES = 64 << 20
 # slabs whose chunks may be in compression while the writer goes on
 PENDING_SLABS = 2
 
-READ_COUNTS: Dict[str, int] = {"chunks": 0}
+# chunks inflated; bytes read from external storage files
+READ_COUNTS: Dict[str, int] = {"chunks": 0, "external_bytes": 0}
 
 
 def reset_read_counts() -> None:
@@ -145,40 +165,182 @@ def _encode_dtype(dt: np.dtype) -> bytes:
                     f"float and fixed byte strings are)")
 
 
-def _decode_dtype(buf: bytes) -> np.dtype:
-    cls, version = buf[0] & 0x0F, buf[0] >> 4
-    bits = buf[1] | buf[2] << 8 | buf[3] << 16
-    (size,) = struct.unpack_from("<I", buf, 4)
-    if version not in (1, 2, 3):      # one layout for the classes read
+class _Type:
+    """A stored datatype as the reader returns it, as h5py maps it: dtype,
+    what a read gives; raw, the stored element (its itemsize the stored
+    size); convert, raw values -> dtype values (None: the same bytes)."""
+
+    def __init__(self, dtype, raw=None, convert=None):
+        self.dtype = np.dtype(dtype)
+        self.raw = self.dtype if raw is None else np.dtype(raw)
+        self.convert = convert
+
+    def values(self, raw: np.ndarray) -> np.ndarray:
+        return raw if self.convert is None else self.convert(raw)
+
+
+# h5py's variable-length str: read as str in attributes, as bytes in
+# datasets; stored as (length, global heap collection, object index)
+VLEN_STR = np.dtype(object)
+VLEN_REF = np.dtype([("n", "<u4"), ("heap", "<u8"), ("index", "<u4")])
+# h5py's bool: this enum over int8 (its cfg._f_name and cfg._t_name)
+_BOOL_MEMBERS = {b"FALSE": 0, b"TRUE": 1}
+_CLASS_NAMES = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound",
+                7: "reference", 8: "enumerated",
+                9: "variable-length sequence", 10: "array"}
+
+
+def _decode_dtype(buf: bytes) -> _Type:
+    return _parse_type(buf, 0)[0]
+
+
+def _name_at(buf: bytes, at: int, padded: bool) -> Tuple[bytes, int]:
+    """A NUL-ended name at buf[at:] and the offset past it (padded: the
+    name and its NUL to a multiple of 8, as datatype versions 1-2 store
+    member names)."""
+    end = buf.index(b"\0", at)
+    return buf[at:end], (at + (end - at + 8) // 8 * 8 if padded
+                         else end + 1)
+
+
+def _fixed_bits(raw, offset: int, precision: int, signed: bool, dt):
+    """Integers of `precision` bits at bit `offset` of their element, as
+    the library converts them to the full-width integer: shifted down,
+    sign-extended when signed."""
+    v = (raw.astype(np.uint64) >> np.uint64(offset)) & \
+        np.uint64((1 << precision) - 1)
+    if signed:
+        top = np.uint64(1 << (precision - 1))
+        v = (v ^ top).view(np.int64) - np.int64(1 << (precision - 1))
+    return v.astype(dt)
+
+
+def _custom_float(raw, sign: int, eloc: int, esize: int, mloc: int,
+                  msize: int, bias: int, implied: bool, dt):
+    """Floats of a non-IEEE layout (sign bit, exponent and mantissa
+    fields, bias) converted to the IEEE float of the same size: exact
+    while the value fits it (it does for the layouts nbit narrows)."""
+    v = raw.astype(np.uint64)
+
+    def field(at, n):
+        return ((v >> np.uint64(at)) & np.uint64((1 << n) - 1)).astype(
+            np.float64)
+
+    s = np.where(field(sign, 1) > 0, -1.0, 1.0)
+    e, m = field(eloc, esize), field(mloc, msize) / float(1 << msize)
+    top = float((1 << esize) - 1)
+    with np.errstate(over="ignore", invalid="ignore"):
+        normal = np.ldexp(m + (1.0 if implied else 0.0),
+                          (e - bias).astype(np.int64))
+        sub = np.ldexp(m, np.int64(1 - bias))
+        out = np.where(e == 0, sub, normal)
+        out = np.where(e == top, np.where(m == 0, np.inf, np.nan), out)
+        return (s * out).astype(dt)
+
+
+def _parse_type(buf: bytes, at: int) -> Tuple[_Type, int]:
+    """The datatype message at buf[at:] (versions 1 to 4: version 4, which
+    the library writes for compounds and enumerations under libver
+    'latest', lays them out as version 3 does) and the offset past it."""
+    cls, version = buf[at] & 0x0F, buf[at] >> 4
+    bits = buf[at + 1] | buf[at + 2] << 8 | buf[at + 3] << 16
+    (size,) = struct.unpack_from("<I", buf, at + 4)
+    p = at + 8
+    if version not in (1, 2, 3, 4):
         raise FormatError(f"datatype message version {version}")
     order = ">" if bits & 1 else "<"
     if cls == 0:
-        offset, precision = struct.unpack_from("<HH", buf, 8)
-        if size not in (1, 2, 4, 8) or offset != 0 or precision != 8 * size:
+        offset, precision = struct.unpack_from("<HH", buf, p)
+        signed = bool(bits & 8)
+        if size not in (1, 2, 4, 8) or precision == 0 or \
+                offset + precision > 8 * size:
             raise FormatError(f"fixed-point datatype of {size} bytes, "
                               f"offset {offset}, precision {precision}")
-        return np.dtype(f"{order}{'i' if bits & 8 else 'u'}{size}")
+        dt = np.dtype(f"{order}{'i' if signed else 'u'}{size}")
+        if offset == 0 and precision == 8 * size:
+            return _Type(dt), p + 4
+        # a narrowed integer (nbit's): read as the integer of its size
+        return _Type(dt, f"{order}u{size}", lambda r: _fixed_bits(
+            r, offset, precision, signed, dt)), p + 4
     if cls == 1:
         offset, precision, eloc, esize, mloc, msize, bias = \
-            struct.unpack_from("<HHBBBBI", buf, 8)
-        if bits & 0x40 or (size not in _FLOAT_LAYOUT) or offset != 0 or \
-                (bits >> 8 & 0xFF, eloc, esize, msize, bias) != \
-                _FLOAT_LAYOUT[size] or mloc != 0:
+            struct.unpack_from("<HHBBBBI", buf, p)
+        sign, norm = bits >> 8 & 0xFF, bits >> 4 & 3
+        if bits & 0x40 or size not in _FLOAT_LAYOUT or norm == 1 or \
+                max(sign + 1, eloc + esize, mloc + msize) > 8 * size:
             raise FormatError(f"floating-point datatype of {size} bytes "
-                              f"that is not IEEE 754")
-        return np.dtype(f"{order}f{size}")
+                              f"(sign bit {sign}, exponent {esize} bits, "
+                              f"mantissa {msize} bits) that does not "
+                              f"convert to an IEEE float of its size")
+        dt = np.dtype(f"{order}f{size}")
+        if offset == 0 and mloc == 0 and norm == 2 and \
+                (sign, eloc, esize, msize, bias) == _FLOAT_LAYOUT[size]:
+            return _Type(dt), p + 12
+        # a narrowed layout (nbit's): h5py reads the float of its size,
+        # which the library converts it to
+        return _Type(dt, f"{order}u{size}", lambda r: _custom_float(
+            r, sign, eloc, esize, mloc, msize, bias, norm == 2, dt)), p + 12
     if cls == 3:
-        return np.dtype(f"S{size}")
+        return _Type(f"S{size}"), p
     if cls == 9 and bits & 0x0F == 1:
-        return VLEN_STR
-    names = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound",
-             7: "reference", 8: "enumerated", 9: "variable-length sequence",
-             10: "array"}
-    raise FormatError(f"datatype class {cls} ({names.get(cls, 'unknown')})")
+        return _Type(VLEN_STR, VLEN_REF), _parse_type(buf, p)[1]
+    if cls == 8:
+        return _parse_enum(buf, p, bits & 0xFFFF, version)
+    if cls == 6:
+        return _parse_compound(buf, p, bits & 0xFFFF, version, size)
+    raise FormatError(f"datatype class {cls} "
+                      f"({_CLASS_NAMES.get(cls, 'unknown')})")
 
 
-# h5py's variable-length str; read in attributes only
-VLEN_STR = np.dtype(object)
+def _parse_enum(buf: bytes, p: int, n: int, version: int):
+    """An enumeration reads as its base integer type (with h5py's enum
+    metadata); h5py's bool (FALSE 0, TRUE 1) as np.bool_."""
+    base, p = _parse_type(buf, p)
+    if base.dtype.kind not in "iu":
+        raise FormatError(f"enumerated datatype over {base.dtype}")
+    names = []
+    for _ in range(n):
+        name, p = _name_at(buf, p, version < 3)
+        names.append(name)
+    values = base.values(np.frombuffer(buf, base.raw, n, p))
+    p += n * base.raw.itemsize
+    members = {k: int(v) for k, v in zip(names, values)}
+    if members == _BOOL_MEMBERS:
+        return _Type(np.bool_, base.raw,
+                     lambda r: base.values(r) != 0), p
+    meta = {"enum": {k.decode("utf-8", "replace"): v
+                     for k, v in members.items()}}
+    return _Type(np.dtype(base.dtype, metadata=meta), base.raw,
+                 base.convert), p
+
+
+def _parse_compound(buf: bytes, p: int, n: int, version: int, size: int):
+    """A compound reads as a numpy structured dtype of its members' names,
+    offsets and types, of the stored size (h5py's mapping)."""
+    names, formats, offsets = [], [], []
+    for _ in range(n):
+        name, p = _name_at(buf, p, version < 3)
+        if version == 1:
+            off, ndims = struct.unpack_from("<IB", buf, p)
+            p += 32      # offset, rank, permutation, four sizes
+            if ndims:
+                raise FormatError(f"compound member {name!r} of "
+                                  f"{ndims} dimensions (an array)")
+        elif version == 2:
+            (off,), p = struct.unpack_from("<I", buf, p), p + 4
+        else:
+            w = v2.enc_size(size)
+            off, p = v2.uint(buf, p, w), p + w
+        member, p = _parse_type(buf, p)
+        if member.dtype is VLEN_STR or (member.convert is not None and
+                                        member.dtype != np.bool_):
+            raise FormatError(f"compound member {name!r} of a type that "
+                              f"converts on read ({member.dtype})")
+        names.append(name.decode("utf-8"))
+        formats.append(member.dtype)
+        offsets.append(off)
+    return _Type({"names": names, "formats": formats, "offsets": offsets,
+                  "itemsize": size}), p
 
 
 # -- dataspaces --------------------------------------------------------------
@@ -230,6 +392,8 @@ class _Reader:
 
     def __init__(self, path: Path):
         self.path = path
+        self.sohm: Optional[v2.SharedMessageTable] = None
+        self._committed: Dict[Tuple[int, int], bytes] = {}
         self.fd = os.open(path, os.O_RDONLY)
         try:
             self._superblock()
@@ -274,12 +438,16 @@ class _Reader:
             base, ext, _, self.root = struct.unpack_from("<4Q", sb, 12)
         self.base = base + at if base == 0 and at else base
         if ext != UNDEF:
-            for t, _, _ in self.messages(ext):
-                if t not in SB_EXT_HARMLESS:
-                    raise FormatError(
-                        f"{self.path}: superblock extension message of type "
-                        f"{t}" + (" (the shared-message table)" if t == 15
-                                  else ""))
+            for t, _, d in self.messages(ext):
+                if t == SOHM_TABLE:
+                    if d[0] != 0:
+                        raise FormatError(f"shared-message table message "
+                                          f"version {d[0]}")
+                    addr, n = struct.unpack_from("<QB", d, 1)
+                    self.sohm = v2.SharedMessageTable(self, addr, n)
+                elif t not in SB_EXT_HARMLESS:
+                    raise FormatError(f"{self.path}: superblock extension "
+                                      f"message of type {t}")
 
     def messages(self, addr: int) -> List[Tuple[int, int, bytes]]:
         """(type, flags, data) of every message of the object header at
@@ -307,11 +475,9 @@ class _Reader:
                 self._message(out, blocks, addr, mtype, flags, data)
         return out, [None] * len(out), 0
 
-    @staticmethod
-    def _message(out, blocks, addr, mtype, flags, data) -> bool:
+    def _message(self, out, blocks, addr, mtype, flags, data) -> bool:
         if flags & 0x02:
-            raise FormatError(f"shared message of type {mtype} in "
-                              f"the object header at {addr}")
+            data = self.shared(mtype, data)
         if mtype == CONTINUATION:
             blocks.append(struct.unpack_from("<QQ", data))
         elif mtype != NIL:
@@ -355,6 +521,33 @@ class _Reader:
             v2.checked(block, "OCHK", where)
             start = 4
 
+    def shared(self, mtype: int, data: bytes) -> bytes:
+        """The message of type mtype a shared message names (versions 1
+        to 3): in another object header (a committed datatype), or in the
+        shared-message table's heap (version 3, type 1: a heap ID)."""
+        version, kind = data[0], data[1]
+        if version == 3 and kind == 1:
+            if self.sohm is None:
+                raise FormatError(f"{self.path}: a message of type {mtype} "
+                                  f"shared through a shared-message table "
+                                  f"the file does not have")
+            return self.sohm.message(mtype, data[2:10])
+        if version == 1:
+            (where,) = struct.unpack_from("<Q", data, 16)
+        elif version in (2, 3) and kind in (0, 2):
+            (where,) = struct.unpack_from("<Q", data, 2)
+        else:
+            raise FormatError(f"shared message version {version}, type "
+                              f"{kind}")
+        key = (where, mtype)
+        if key not in self._committed:
+            found = [d for t, _, d in self.messages(where) if t == mtype]
+            if not found:
+                raise FormatError(f"the object header at {where} holds no "
+                                  f"message of type {mtype} to share")
+            self._committed[key] = found[0]
+        return self._committed[key]
+
     def heap(self, addr: int) -> bytes:
         head = self.read(addr, 32)
         if head[:4] != b"HEAP":
@@ -378,8 +571,9 @@ class _Reader:
         return level, keys, children
 
     def links(self, btree: int, heap_addr: int) -> Dict[str, object]:
-        """name -> object header address (a soft link: what it is) of a
-        symbol-table group."""
+        """name -> object header address (a soft link: its ``_Link``,
+        the path in the group's local heap at the entry's scratch-pad
+        offset) of a symbol-table group."""
         heap, out = self.heap(heap_addr), {}
 
         def name(off):
@@ -397,15 +591,17 @@ class _Reader:
                 (n,) = struct.unpack_from("<H", node, 6)
                 ents = self.read(c + 8, 40 * n)
                 for i in range(n):
-                    off, hdr, cache = struct.unpack_from("<QQI", ents, 40 * i)
-                    out[name(off)] = "a soft link" if cache == 2 else hdr
+                    off, hdr, cache, _, value = struct.unpack_from(
+                        "<QQIII", ents, 40 * i)
+                    out[name(off)] = _Link(SOFT, name(value)) \
+                        if cache == 2 else hdr
 
         walk(btree)
         return out
 
     def link_messages(self, msgs, what: str) -> Dict[str, object]:
         """name -> object header address (or, for a soft or external
-        link, what it is) of a new-style group's links: link messages in
+        link, its ``_Link``) of a new-style group's links: link messages in
         its header, or the messages of dense storage (a fractal heap with
         a version 2 B-tree of names); in creation order where the link
         info message says it is tracked, else in name order."""
@@ -435,9 +631,16 @@ class _Reader:
             self.fd = -1
 
 
+SOFT, EXTERNAL = 1, 64     # link types (hard links are 0)
+# a soft link's path, or an external link's object path and file name
+_Link = namedtuple("_Link", "kind path file", defaults=(None,))
+
+
 def _decode_link(d: bytes):
-    """(name, object header address or what the link is, creation order
-    or None) of a link message (version 1)."""
+    """(name, object header address or the ``_Link``, creation order or
+    None) of a link message (version 1).  A soft link's value is its
+    path; an external link's a flags byte, then the file's name and the
+    object's path, each NUL-ended."""
     if d[0] != 1:
         raise FormatError(f"link message version {d[0]}")
     flags, p = d[1], 2
@@ -450,11 +653,22 @@ def _decode_link(d: bytes):
     width = 1 << (flags & 3)
     n = v2.uint(d, p, width)
     name = d[p + width:p + width + n].decode("utf-8")
+    p += width + n
     if kind in (None, 0):
-        return name, struct.unpack_from("<Q", d, p + width + n)[0], order
-    what = {1: "a soft link", 64: "an external link"}.get(
-        kind, f"a link of type {kind}")
-    return name, what, order
+        return name, struct.unpack_from("<Q", d, p)[0], order
+    (size,) = struct.unpack_from("<H", d, p)
+    value = d[p + 2:p + 2 + size]
+    if kind == SOFT:
+        return name, _Link(SOFT, value.split(b"\0")[0].decode("utf-8")), \
+            order
+    if kind == EXTERNAL:
+        if value[0] >> 4 != 0:
+            raise FormatError(f"external link {name!r} of version "
+                              f"{value[0] >> 4}")
+        file, path = value[1:].split(b"\0")[:2]
+        return name, _Link(EXTERNAL, path.decode("utf-8"),
+                           file.decode("utf-8")), order
+    return name, _Link(kind, ""), order
 
 
 def _decode_attribute(data: bytes, reader):
@@ -464,8 +678,7 @@ def _decode_attribute(data: bytes, reader):
     version = data[0]
     if version not in (1, 2, 3):
         raise FormatError(f"attribute message version {version}")
-    if version > 1 and data[1] & 3:
-        raise FormatError("attribute with a shared datatype or dataspace")
+    shared = data[1] if version > 1 else 0
     nlen, tlen, slen = struct.unpack_from("<HHH", data, 2)
     pos = 9 if version == 3 else 8
 
@@ -476,9 +689,15 @@ def _decode_attribute(data: bytes, reader):
         return out
 
     name = take(nlen).rstrip(b"\0").decode("utf-8")
-    dt, (shape, _) = _decode_dtype(take(tlen)), _decode_space(take(slen))
+    tbuf, sbuf = take(tlen), take(slen)
+    # a shared (committed) datatype, a shared dataspace
+    if shared & 1:
+        tbuf = reader.shared(DATATYPE, tbuf)
+    if shared & 2:
+        sbuf = reader.shared(DATASPACE, sbuf)
+    t, (shape, _) = _decode_dtype(tbuf), _decode_space(sbuf)
     count = int(np.prod(shape, dtype=np.int64))
-    if dt is VLEN_STR:
+    if t.dtype is VLEN_STR:
         value = np.empty(count, object)
         heaps: Dict[int, Dict[int, bytes]] = {}
         for i in range(count):
@@ -488,7 +707,8 @@ def _decode_attribute(data: bytes, reader):
             value[i] = heaps[addr][idx][:n].decode("utf-8") if n else ""
         value = value.reshape(shape)
     else:
-        value = np.frombuffer(data, dt, count, pos).reshape(shape).copy()
+        value = t.values(np.frombuffer(data, t.raw, count, pos).reshape(
+            shape).copy())
     return name, (value[()] if not shape else value)
 
 
@@ -517,11 +737,12 @@ class AttributeManager:
                     continue
                 h = v2.FractalHeap(reader, heap)
                 for rec in v2.BTree2(reader, names, 8).records():
-                    if rec[8] & 0x02:
-                        raise FormatError(f"{self._obj.name!r}: a shared "
-                                          f"attribute message")
+                    # a shared attribute: its ID is the shared-message
+                    # table's
                     found.append((struct.unpack_from("<I", rec, 9)[0],
-                                  h.get(rec[:8])))
+                                  reader.shared(ATTRIBUTE, bytes([3, 1])
+                                                + rec[:8])
+                                  if rec[8] & 0x02 else h.get(rec[:8])))
             items = [(o, _decode_attribute(d, reader)) for o, d in found]
             # h5py's order: creation order where the header tracks it
             items.sort(key=(lambda x: x[0]) if flags & 0x04
@@ -579,6 +800,34 @@ class _Node:
         return self.file._fh is not None or self.file._reader is not None
 
 
+def _open(file: "File", name: str, addr: int, hdr=None) -> _Node:
+    """The group, dataset or committed datatype whose object header is
+    at addr."""
+    hdr = file._reader.header(addr) if hdr is None else hdr
+    kinds = {t for t, _, _ in hdr[0]}
+    if LAYOUT in kinds:
+        return Dataset(file, name, addr, hdr)
+    if kinds & {SYMBOL_TABLE, LINK, LINK_INFO, GROUP_INFO}:
+        obj = Group(file, name, addr)
+    elif DATATYPE in kinds:
+        obj = Datatype(file, name, addr)
+    else:
+        raise FormatError(f"{name!r} is neither a group, a dataset nor a "
+                          f"committed datatype")
+    obj._hdr = hdr
+    return obj
+
+
+class Datatype(_Node):
+    """A committed (named) datatype, as h5py's ``f["t"]`` returns it:
+    ``.dtype``, ``.attrs``."""
+
+    @property
+    def dtype(self) -> np.dtype:
+        return _decode_dtype(next(d for t, _, d in self._messages()
+                                  if t == DATATYPE)).dtype
+
+
 class Group(_Node):
     """A group: ``g[path]``, ``g.get(path)``, ``create_group``,
     ``create_dataset``, ``.attrs``."""
@@ -590,8 +839,8 @@ class Group(_Node):
         self._links: Optional[Dict[str, object]] = None
 
     def _link_table(self) -> Dict[str, object]:
-        """name -> object header address (a str for a soft or external
-        link), in h5py's order."""
+        """name -> object header address (a ``_Link`` for a soft or
+        external link), in h5py's order."""
         if self._links is None:
             reader, msgs = self.file._reader, self._messages()
             table = [struct.unpack("<QQ", d[:16]) for t, _, d in msgs
@@ -607,35 +856,49 @@ class Group(_Node):
                                   f"table nor link messages")
         return self._links
 
-    def _child(self, key: str) -> Optional[_Node]:
+    def _child(self, key: str, budget: List[int]) -> Optional[_Node]:
+        """The object a link names, or None where there is none (a
+        dangling soft or external link too).  Soft and external links
+        are followed, at most MAX_LINKS in a row (budget)."""
         if key in self._children or self._addr is None:
             return self._children.get(key)
-        addr = self._link_table().get(key)
-        if addr is None:
+        link = self._link_table().get(key)
+        if link is None:
             return None
-        if isinstance(addr, str):
-            raise FormatError(f"{self._sub(key)!r} is {addr}; hard links "
+        if isinstance(link, int):
+            obj = self._children[key] = _open(self.file, self._sub(key), link)
+            return obj
+        # a soft or external link is followed anew each time, spending the
+        # budget; what it reaches keeps its own objects and caches
+        if link.kind not in (SOFT, EXTERNAL):
+            raise FormatError(f"{self._sub(key)!r} is a link of type "
+                              f"{link.kind}; hard, soft and external links "
                               f"are read")
-        hdr = self.file._reader.header(addr)
-        kinds = {t for t, _, _ in hdr[0]}
-        if LAYOUT in kinds:
-            obj = Dataset(self.file, self._sub(key), addr, hdr)
-        elif kinds & {SYMBOL_TABLE, LINK, LINK_INFO, GROUP_INFO}:
-            obj = Group(self.file, self._sub(key), addr)
-            obj._hdr = hdr
-        else:
-            raise FormatError(f"{self._sub(key)!r} is neither a group nor "
-                              f"a dataset")
-        self._children[key] = obj
+        if budget[0] <= 0:
+            raise RuntimeError(f"{self._sub(key)!r}: more than {MAX_LINKS} "
+                               f"soft or external links in a row (too many "
+                               f"links)")
+        budget[0] -= 1
+        if link.kind == EXTERNAL:
+            other = self.file._external(link.file)
+            return None if other is None else other._walk(
+                "/" + link.path.lstrip("/"), budget=budget)[2]
+        # absolute, or relative to the group that holds the link
+        obj = self._walk(link.path, budget=budget)[2]
+        if obj is not None and obj.file is self.file:
+            # h5py names it by the path that reached it
+            obj = _open(self.file, self._sub(key), obj._addr, obj._head())
         return obj
 
-    def _walk(self, path: str, create: bool = False):
+    def _walk(self, path: str, create: bool = False,
+              budget: Optional[List[int]] = None):
         node = self.file if path.startswith("/") else self
         parts = [p for p in path.split("/") if p]
+        budget = [MAX_LINKS] if budget is None else budget
         for i, part in enumerate(parts):
             if not isinstance(node, Group):
                 raise KeyError(f"{node.name!r} is a dataset, not a group")
-            nxt = node._child(part)
+            nxt = node._child(part, budget)
             if nxt is None:
                 if not create or i == len(parts) - 1:
                     return node, part, None
@@ -667,7 +930,20 @@ class Group(_Node):
             return default
 
     def __contains__(self, path) -> bool:
-        return self.get(path) is not None
+        """h5py's: the last link exists (a dangling one too) in a group
+        the path reaches."""
+        head, _, last = path.rstrip("/").rpartition("/")
+        if not last:
+            return path.startswith("/")
+        try:
+            parent = self[head] if head else \
+                self.file if path.startswith("/") else self
+        except KeyError:
+            return False
+        if not isinstance(parent, Group):
+            return False
+        return last in (parent._children if parent._addr is None
+                        else parent._link_table())
 
     def keys(self):
         """Link names as h5py lists them: in HDF5's (byte) order, or in
@@ -761,6 +1037,9 @@ class Dataset(_Node):
 
     @property
     def compression(self) -> Optional[str]:
+        if self._level is None and any(f == hf.FILTER_LZF
+                                       for f, _ in self._filters):
+            return "lzf"
         return None if self._level is None else "gzip"
 
     @property
@@ -803,22 +1082,26 @@ class Dataset(_Node):
     # -- reading -----------------------------------------------------------
 
     def _parse(self):
-        self._level, self._filters, self._fill = None, [], 0
+        self._level, self._filters = None, []
         layout = fill = None
+        self._efl: Optional[List[Tuple[str, int, int]]] = None
         for t, _, d in self._messages():
             if t == DATASPACE:
                 self.shape, self._maxshape = _decode_space(d)
             elif t == DATATYPE:
-                self.dtype = _decode_dtype(d)
+                self._type = _decode_dtype(d)
+                self.dtype = self._type.dtype
             elif t == LAYOUT:
                 layout = d
             elif t == FILTERS:
                 self._filters = self._decode_filters(d)
             elif t == FILL:
                 fill = d
-        if self.dtype is VLEN_STR:
-            raise FormatError(f"{self.name!r}: a dataset of variable-length "
-                              f"strings")
+            elif t == EXTERNAL_FILES:
+                self._efl = self._decode_efl(d)
+        self._fill = b"" if self.dtype is VLEN_STR else np.zeros((),
+                                                                self.dtype)
+        self._heaps: Dict[int, Dict[int, bytes]] = {}
         if layout[0] not in (3, 4):
             raise FormatError(f"{self.name!r}: layout message version "
                               f"{layout[0]}; versions 3 and 4 are read")
@@ -829,6 +1112,9 @@ class Dataset(_Node):
             self._compact = layout[4:4 + n]
         elif self._kind == 1:
             self._contiguous = struct.unpack_from("<Q", layout, 2)[0]
+            if self._efl is not None and self._contiguous != UNDEF:
+                raise FormatError(f"{self.name!r}: external storage and "
+                                  f"a contiguous address both")
         elif self._kind == 2:
             if layout[0] == 3:
                 nd = layout[2]
@@ -844,7 +1130,10 @@ class Dataset(_Node):
                               f"class 3)")
         else:
             raise FormatError(f"{self.name!r}: layout class {self._kind}")
-        if fill is not None:
+        if self._efl is not None and self._kind != 1:
+            raise FormatError(f"{self.name!r}: external storage on layout "
+                              f"class {self._kind}")
+        if fill is not None and self.dtype is not VLEN_STR:
             self._fill = self._decode_fill(fill)
 
     def _chunk_index(self, layout: bytes):
@@ -945,10 +1234,34 @@ class Dataset(_Node):
         else:
             raise FormatError(f"fill value message version {d[0]}")
         if n == 0:
-            return 0
-        if n != self.dtype.itemsize:
+            return np.zeros((), self.dtype)
+        if n != self._type.raw.itemsize:
             raise FormatError(f"{self.name!r}: a {n}-byte fill value")
-        return np.frombuffer(d, self.dtype, 1, at)[0]
+        return self._type.values(np.frombuffer(d, self._type.raw, 1,
+                                               at))[0]
+
+    def _decode_efl(self, d):
+        """(file path, offset in that file, bytes) of each slot of an
+        External Data Files message; names from its local heap, found in
+        HDF5_EXTFILE_PREFIX's directory (where ``${ORIGIN}`` stands for
+        this file's), else from the working directory.  The library reads
+        the variable when it starts; here it is read once, when the
+        dataset is opened."""
+        if d[0] != 1:
+            raise FormatError(f"{self.name!r}: external data files message "
+                              f"version {d[0]}")
+        _, used, heap = struct.unpack_from("<HHQ", d, 4)
+        names = self.file._reader.heap(heap)
+        prefix = os.environ.get("HDF5_EXTFILE_PREFIX", "").replace(
+            "${ORIGIN}", self.file._extpath()).rstrip("/")
+        out = []
+        for i in range(used):
+            off, where, size = struct.unpack_from("<QQQ", d, 16 + 24 * i)
+            name = names[off:names.index(b"\0", off)].decode("utf-8")
+            if prefix and not name.startswith("/"):
+                name = prefix + "/" + name
+            out.append((name, where, size))
+        return out
 
     def _decode_filters(self, d):
         """(id, client data) of each filter of a version 1 or 2 pipeline
@@ -968,12 +1281,16 @@ class Dataset(_Node):
             pos += nlen + (-nlen % 8 if d[0] == 1 else 0)
             cd = struct.unpack_from(f"<{ncd}I", d, pos)
             pos += 4 * ncd + (4 * (ncd % 2) if d[0] == 1 else 0)
-            if fid not in (FILTER_DEFLATE, FILTER_SHUFFLE, FILTER_FLETCHER32):
-                name = name or _FILTER_NAMES.get(fid, "unnamed")
+            if fid not in FILTERS_READ:
+                # a version 2 pipeline stores no name for filters 1-255
+                name = name or ("szip" if fid == 4 else "unnamed")
                 raise FormatError(f"{self.name!r}: filter {fid} ({name}); "
-                                  f"deflate, shuffle and fletcher32 are read")
+                                  f"deflate, shuffle, fletcher32, lzf, "
+                                  f"scaleoffset and nbit are read")
             if fid == FILTER_DEFLATE:
                 self._level = cd[0] if cd else None
+            elif fid == hf.FILTER_NBIT:
+                hf.nbit_check(cd)
             out.append((fid, cd))
         return out
 
@@ -1017,7 +1334,14 @@ class Dataset(_Node):
             if fid == FILTER_DEFLATE:
                 buf = zlib.decompress(buf)
             elif fid == FILTER_SHUFFLE:
-                buf = _unshuffle(buf, cd[0] if cd else self.dtype.itemsize)
+                buf = _unshuffle(buf, cd[0] if cd else
+                                 self._type.raw.itemsize)
+            elif fid == hf.FILTER_LZF:
+                buf = hf.lzf_decompress(buf, cd)
+            elif fid == hf.FILTER_SCALEOFFSET:
+                buf = hf.scaleoffset_decode(buf, cd)
+            elif fid == hf.FILTER_NBIT:
+                buf = hf.nbit_decode(buf, cd)
             else:
                 stored = struct.unpack("<I", buf[-4:])[0]
                 buf = buf[:-4]
@@ -1027,9 +1351,30 @@ class Dataset(_Node):
                                       f"mismatch in the chunk at {addr}")
         return buf
 
+    def _values(self, raw: np.ndarray) -> np.ndarray:
+        """Stored elements as h5py reads them: converted where the type
+        says so; variable-length strings from the global heap, as bytes."""
+        if self.dtype is not VLEN_STR:
+            return self._type.values(raw)
+        out = np.empty(raw.shape, object)
+        flat = out.reshape(-1)
+        for i, (n, heap, idx) in enumerate(raw.reshape(-1).tolist()):
+            if n == 0:
+                flat[i] = b""
+                continue
+            if heap not in self._heaps:
+                self._heaps[heap] = v2.global_heap_objects(
+                    self.file._reader, heap)
+            flat[i] = self._heaps[heap][idx][:n]
+        return out
+
+    def _filled(self, shape) -> np.ndarray:
+        out = np.empty(shape, self.dtype)
+        out[...] = self._fill
+        return out
+
     def _chunked(self, starts, stops) -> np.ndarray:
-        out = np.full([b - a for a, b in zip(starts, stops)], self._fill,
-                      self.dtype)
+        out = self._filled([b - a for a, b in zip(starts, stops)])
         if out.size == 0:
             return out
         grid = [range(a // c, (b - 1) // c + 1)
@@ -1047,9 +1392,10 @@ class Dataset(_Node):
             where = [w for _, w in todo]
             raws = (self.file._executor().map(self._inflate, where)
                     if len(todo) > 1 else [self._inflate(where[0])])
+            count = math.prod(self.chunks)
             for (co, _), raw in zip(todo, raws):
-                self._cache[co] = np.frombuffer(raw, self.dtype).reshape(
-                    self.chunks)
+                self._cache[co] = self._values(np.frombuffer(
+                    raw, self._type.raw, count).reshape(self.chunks))
             READ_COUNTS["chunks"] += len(todo)
         for co in coords:
             chunk = self._cache.get(co)
@@ -1075,23 +1421,89 @@ class Dataset(_Node):
         if self._addr is None:
             raise OSError(f"{self.name!r} was opened for writing")
         starts, stops, keep = self._box(key)
+        box = tuple(slice(a, b) for a, b in zip(starts, stops))
+        raw = self._type.raw
         if self._kind == 2:
             out = self._chunked(starts, stops)
+        elif self._efl is not None:
+            out = self._values(self._external_box(starts, stops))
+        elif self._kind == 1 and self._contiguous == UNDEF:
+            out = self._filled([b - a for a, b in zip(starts, stops)])
         else:
             if self._kind == 0:
-                flat = np.frombuffer(self._compact, self.dtype, self.size)
-            elif self._contiguous == UNDEF:
-                flat = np.full(self.size, self._fill, self.dtype)
+                flat = np.frombuffer(self._compact, raw, self.size)
             else:
-                flat = np.memmap(self.file._path, self.dtype, "r",
+                flat = np.memmap(self.file._path, raw, "r",
                                  self.file._reader.base + self._contiguous,
                                  (self.size,))
-            whole = flat.reshape(self.shape)
-            out = np.array(whole[tuple(slice(a, b) for a, b in
-                                       zip(starts, stops))])
-            del flat, whole
+            out = self._values(np.array(flat.reshape(self.shape)[box]))
+            del flat
         out = out.reshape([n for n, k in zip(out.shape, keep) if k])
         return out[()] if out.ndim == 0 else out
+
+    def _external_box(self, starts, stops) -> np.ndarray:
+        """The box's raw elements from external storage: the slots' files
+        laid end to end, read run by run: a run is the box's elements that
+        lie together (whole trailing axes merge into one), adjacent runs
+        one read; each slot's file opened once a box.  Bytes past a file's
+        end read as 0, as the library reads them."""
+        raw, shape = self._type.raw, [b - a for a, b in zip(starts, stops)]
+        if not shape:       # a scalar: a box of its one element
+            return self._external_box([0], [1]).reshape(())
+        if math.prod(shape) == 0:
+            return np.zeros(shape, raw)
+        # the axes after `lead` are read whole in each run
+        lead = len(shape)
+        while lead > 0 and (lead == len(shape) or (
+                starts[lead] == 0 and stops[lead] == self.shape[lead])):
+            lead -= 1
+        strides = [math.prod(self.shape[d + 1:]) for d in range(len(shape))]
+        run = (stops[lead] - starts[lead]) * strides[lead]
+        firsts = [sum((starts[d] + i) * strides[d] for d, i in
+                      enumerate(idx)) + starts[lead] * strides[lead]
+                  for idx in itertools.product(*[range(n)
+                                                 for n in shape[:lead]])]
+        spans: List[List[int]] = []
+        for f in firsts:
+            if spans and spans[-1][1] == f:
+                spans[-1][1] = f + run
+            else:
+                spans.append([f, f + run])
+        files: Dict[str, BinaryIO] = {}
+        try:
+            got = b"".join(self._external_read(
+                a * raw.itemsize, (b - a) * raw.itemsize, files)
+                for a, b in spans)
+        finally:
+            for fh in files.values():
+                fh.close()
+        return np.frombuffer(got, raw).reshape(shape)
+
+    def _external_read(self, at: int, n: int,
+                       files: Dict[str, BinaryIO]) -> bytes:
+        """n bytes at offset `at` of the dataset's external storage; the
+        slots' files opened into `files`, by path, where not open yet."""
+        out, pos = bytearray(n), 0
+        for path, where, size in self._efl:
+            if n == 0:
+                break
+            size = size if size != UNDEF else n + at
+            if at >= size:
+                at -= size
+                continue
+            take = min(n, size - at)
+            if path not in files:
+                files[path] = open(path, "rb")
+            fh = files[path]
+            fh.seek(where + at)
+            got = fh.read(take)
+            READ_COUNTS["external_bytes"] += len(got)
+            out[pos:pos + len(got)] = got
+            pos, n, at = pos + take, n - take, 0
+        if n:
+            raise FormatError(f"{self.name!r}: external storage ends "
+                              f"{n} bytes before the data")
+        return bytes(out)
 
     # -- writing -----------------------------------------------------------
 
@@ -1172,13 +1584,27 @@ class File(Group):
     """``File(path, "r")`` reads a classic HDF5 file; ``File(path, "w")``
     creates one (truncating), written out at ``close()``."""
 
-    def __init__(self, name, mode: str = "r"):
+    def __init__(self, name, mode: str = "r", _owner: "File" = None,
+                 _reader: Optional[_Reader] = None):
+        # h5py's: the name as given (an external file's: as the library
+        # builds it)
+        self.filename = os.fspath(name)
         self._path = Path(name)
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pending: deque = deque()
         self._reader, self._fh = None, None
+        # the file the user opened keeps every external file reached from
+        # it: Files by the name the library builds, readers by resolved
+        # path (one file reached under two names is read once)
+        self._owner = self if _owner is None else _owner
+        if self._owner is self:
+            self._files: Dict[str, "File"] = {}
+            self._readers: Dict[str, _Reader] = {}
         if mode == "r":
-            self._reader = _Reader(self._path)
+            self._reader = _Reader(self._path) if _reader is None \
+                else _reader
+            if self._owner is self:
+                self._readers[os.path.realpath(self._path)] = self._reader
             super().__init__(self, "/", self._reader.root)
         elif mode == "w":
             self._fh = open(self._path, "wb")
@@ -1192,7 +1618,45 @@ class File(Group):
         if self._fh is None:
             raise OSError(f"{self._path} is not open for writing")
 
+    def _extpath(self) -> str:
+        """The directory of this file as the library keeps it for
+        external links (H5_build_extpath): absolute, the rest as given."""
+        head = self.filename[:self.filename.rfind("/") + 1]
+        return head if self.filename.startswith("/") else \
+            os.getcwd() + "/" + head
+
+    def _external(self, name: str) -> Optional["File"]:
+        """The file an external link names, found as the library finds it
+        (H5F_prefix_open_file): the name itself if absolute (else its last
+        part from here on); in each directory of HDF5_EXT_PREFIX (read at
+        each traversal, as the library reads it); beside this file; in
+        the working directory.  None where no such file is."""
+        cands, base = [], name
+        if name.startswith("/"):
+            cands.append(name)
+            base = name[name.rfind("/") + 1:]
+        for prefix in os.environ.get("HDF5_EXT_PREFIX", "").split(":"):
+            if prefix:
+                sep = "" if prefix.endswith("/") else "/"
+                cands.append(prefix + sep + base)
+        cands += [self._extpath() + base, base]
+        found = next((c for c in cands if os.path.isfile(c)), None)
+        if found is None:
+            return None
+        owner = self._owner
+        if found not in owner._files:
+            real = os.path.realpath(found)
+            if real not in owner._readers:
+                owner._readers[real] = _Reader(Path(found))
+            owner._files[found] = File(found, "r", _owner=owner,
+                                       _reader=owner._readers[real])
+        return owner._files[found]
+
     def _executor(self) -> ThreadPoolExecutor:
+        """The inflate threads: the owner's, which its external files
+        share and its close shuts down."""
+        if self._owner is not self:
+            return self._owner._executor()
         if self._pool is None:
             self._pool = ThreadPoolExecutor(_threads())
         return self._pool
@@ -1224,9 +1688,15 @@ class File(Group):
             if self._fh is not None:
                 self._fh.close()
                 self._fh = None
-            if self._reader is not None:
-                self._reader.close()
-                self._reader = None
+            if self._reader is not None and self._owner is self:
+                # the external files reached from this one close with it
+                for reader in self._readers.values():
+                    reader.close()
+                for f in self._files.values():
+                    f._reader = None
+                self._readers.clear()
+                self._files.clear()
+            self._reader = None
 
     def __enter__(self):
         return self

@@ -8,10 +8,14 @@ or for groups and attribute sets past their compact limits:
   superblocks 2 and 3 and version 2 object headers); a mismatch raises
   ``FormatError`` naming the structure and its address;
 - fractal heaps (III.G: ``FRHP`` header, ``FHDB`` direct and ``FHIB``
-  indirect blocks through the doubling table; managed and tiny objects),
-  which hold the link and attribute messages of dense storage;
+  indirect blocks through the doubling table; managed, tiny and huge
+  objects), which hold the link and attribute messages of dense storage
+  and the messages of the shared-message table;
 - version 2 B-trees (III.A.2: ``BTHD``, ``BTIN``, ``BTLF``), read as an
   ordered walk of raw records or searched by a key;
+- the shared-message table (III.C: ``SMTB`` and its indexes, ``SMLI``
+  lists or version 2 B-trees of type 7), which resolves a shared
+  message's heap ID to the message;
 - fixed arrays (III.H: ``FAHD``, ``FADB`` with its pages) and extensible
   arrays (III.I: ``EAHD``, ``EAIB``, ``EASB``, ``EADB`` and their pages),
   two of the chunk indexes of a version 4 layout;
@@ -19,8 +23,7 @@ or for groups and attribute sets past their compact limits:
   strings.
 
 Each reader takes an object with ``read(address, nbytes) -> bytes`` and
-caches the blocks it has checked.  Huge fractal-heap objects and filtered
-heaps raise ``FormatError``.
+caches the blocks it has checked.  Filtered heaps raise ``FormatError``.
 """
 
 from __future__ import annotations
@@ -211,6 +214,13 @@ class FractalHeap:
         self.direct_rows = log2(self.max_direct) - log2(self.start) + 2
         self.first_row_bits = log2(self.start) + log2(self.width)
         self.tiny_ext = self.id_len - 1 > 16
+        # huge objects: an ID wide enough for an address and a length holds
+        # them (the direct form, whose B-tree is of type 3); a narrower ID
+        # holds a key of the huge-object B-tree of type 1 (H5HF__huge_init)
+        (self.huge_tree,) = struct.unpack_from("<Q", head, 22)
+        self.huge_direct = self.id_len - 1 >= 16
+        self.huge_key_size = min(self.id_len - 1, 8)
+        self._huge: Optional[BTree2] = None
         self._blocks: Dict[int, bytes] = {}
 
     def get(self, hid: bytes) -> bytes:
@@ -229,9 +239,33 @@ class FractalHeap:
                 n = ((hid[0] & 0x0F) << 8 | hid[1]) + 1
                 return hid[2:2 + n]
             return hid[1:2 + (hid[0] & 0x0F)]
-        raise FormatError(f"huge fractal-heap object in the heap at "
-                          f"{self.addr} (an object over the heap's "
-                          f"{self.max_man}-byte limit)")
+        if kind == 1:
+            return self._huge_object(hid)
+        raise FormatError(f"fractal heap ID of type {kind} in the heap at "
+                          f"{self.addr}")
+
+    def _huge_object(self, hid: bytes) -> bytes:
+        """An object over the heap's managed limit, read from the file at
+        its own address."""
+        if self.huge_direct:
+            addr, n = struct.unpack_from("<QQ", hid, 1)
+            return self.reader.read(addr, n)
+        if self.huge_tree == UNDEF:
+            raise FormatError(f"huge fractal-heap object ID in the heap at "
+                              f"{self.addr}, which has no huge-object "
+                              f"B-tree")
+        if self._huge is None:
+            # records: address, length, ID; the widths from the record size
+            self._huge = BTree2(self.reader, self.huge_tree, 1,
+                                key=lambda r: uint(r, (len(r) + 8) // 2,
+                                                   (len(r) - 8) // 2))
+        key = uint(hid, 1, self.huge_key_size)
+        rec = self._huge.find(key)
+        if rec is None:
+            raise FormatError(f"huge object {key} is not in the B-tree of "
+                              f"the heap at {self.addr}")
+        width = (len(rec) - 8) // 2
+        return self.reader.read(uint(rec, 0, 8), uint(rec, 8, width))
 
     def _row(self, local: int) -> Tuple[int, int, int]:
         """(row, row's first offset, block size) of a block table offset."""
@@ -451,6 +485,69 @@ class ExtensibleArray:
                               "extensible array page", at)[:-4]
             self._blocks[(addr, p)] = buf
         return buf
+
+
+# -- the shared-message table ------------------------------------------------
+
+SOHM_HEAP = 0      # a record's message is in the heap (1: in a header)
+
+
+class SharedMessageTable:
+    """The shared object header message table (``SMTB``, superblock
+    extension message 15): indexes each of some message types, holding
+    the messages in a fractal heap and their heap IDs in a list
+    (``SMLI``) or, past the list's limit, a version 2 B-tree of type 7.
+    ``message`` returns the message a shared message's heap ID names,
+    after checking that the index lists the ID."""
+
+    def __init__(self, reader, addr: int, nindexes: int):
+        size = 4 + 30 * nindexes + 4
+        buf = reader.read(addr, size)
+        if buf[:4] != b"SMTB":
+            raise FormatError(f"no shared-message table (SMTB) at {addr}")
+        checked(buf, "SMTB", addr)
+        self.reader, self.indexes = reader, []
+        for i in range(nindexes):
+            at = 4 + 30 * i
+            if buf[at] != 0:
+                raise FormatError(f"shared-message index version {buf[at]} "
+                                  f"at {addr}")
+            kind, flags, _, _, _, nmsgs, index, heap = struct.unpack_from(
+                "<BHIHHHQQ", buf, at + 1)
+            self.indexes.append(dict(kind=kind, flags=flags, nmsgs=nmsgs,
+                                     index=index, heap=heap, ids=None,
+                                     fheap=None))
+
+    def message(self, mtype: int, hid: bytes) -> bytes:
+        idx = [x for x in self.indexes if x["flags"] >> mtype & 1]
+        if not idx:
+            raise FormatError(f"a shared message of type {mtype}, which no "
+                              f"index of the shared-message table holds")
+        x = idx[0]
+        if x["ids"] is None:
+            x["ids"] = self._ids(x)
+            x["fheap"] = FractalHeap(self.reader, x["heap"])
+        if bytes(hid) not in x["ids"]:
+            raise FormatError(f"heap ID {bytes(hid).hex()} is not in the "
+                              f"shared-message index of type {mtype}")
+        return x["fheap"].get(hid)
+
+    def _ids(self, x) -> set:
+        """The heap IDs an index lists (its records of messages in the
+        heap)."""
+        if x["kind"] == 0:
+            n = x["nmsgs"]
+            buf = self.reader.read(x["index"], 4 + 17 * n + 4)
+            if buf[:4] != b"SMLI":
+                raise FormatError(f"no shared-message list (SMLI) at "
+                                  f"{x['index']}")
+            checked(buf, "SMLI", x["index"])
+            recs = [buf[4 + 17 * i:4 + 17 * (i + 1)] for i in range(n)]
+        elif x["kind"] == 1:
+            recs = list(BTree2(self.reader, x["index"], 7).records())
+        else:
+            raise FormatError(f"shared-message index of type {x['kind']}")
+        return {r[9:17] for r in recs if r[0] == SOHM_HEAP}
 
 
 # -- global heaps ------------------------------------------------------------

@@ -1,15 +1,17 @@
 """ctypes bindings for the native fastio runtime (fastio.cpp), the port's
 copy of ipp_tpu/native.
 
-Builds the shared library with g++ on first use, into
+Builds the shared library with g++ on first use (`build_shared`, which
+io/hdf5_filters.py uses for h5filters.cpp too), into
 `build/ipp_tpu_torch/` at the repository root (listed in .gitignore),
-under a name that carries a hash of fastio.cpp, through a temporary name
+under a name that carries a hash of the source, through a temporary name
 and an atomic rename (concurrent processes never load a half-written
-file).  Every entry point has a pure-Python fallback (ipp_tpu_torch.io.tiff
-/ zstandard): when the build fails, the calls return None / False and the
-callers read and write through numpy, as the reference does without its
-library.  This is host IO, a throughput optimisation mirroring the
-reference's C++ MEX IO (load_bl_tif.cpp / save_bl_tif.cpp / *_lz4_*).
+file).  Every fastio entry point has a pure-Python fallback
+(ipp_tpu_torch.io.tiff / zstandard): when the build fails, the calls
+return None / False and the callers read and write through numpy, as the
+reference does without its library.  This is host IO, a throughput
+optimisation mirroring the reference's C++ MEX IO (load_bl_tif.cpp /
+save_bl_tif.cpp / *_lz4_*).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["available", "read_block", "warn_zero_filled",
+__all__ = ["build_shared", "available", "read_block", "warn_zero_filled",
            "tiff_read", "tiff_write",
            "zstd_save", "zstd_load", "load_slab", "load_slab_serial",
            "load_slab_auto", "slab_mode"]
@@ -36,33 +38,54 @@ _build_lock = threading.Lock()
 _ABI_VERSION = 2  # must match fastio_abi_version() in fastio.cpp
 
 
-def _abi_version(lib: ctypes.CDLL) -> int:
+def library_path(src: Path) -> Path:
+    """Where `src` is built: build/ipp_tpu_torch/lib<stem>_<hash>.so."""
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return _BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build_shared(src: Path, abi_symbol: str, abi_version: int,
+                 flags: Sequence[str] = ("-O2",),
+                 libs: Sequence[str] = ()) -> ctypes.CDLL:
+    """`src` built with g++ (unless built already) and loaded; its
+    `abi_symbol()` must return `abi_version`, since a library whose ABI
+    differs from its bindings would corrupt memory.  Raises OSError when
+    the build, the load or that check fails."""
+    target = library_path(src)
     try:
-        fn = lib.fastio_abi_version
-        fn.restype = ctypes.c_int
-        return int(fn())
-    except AttributeError:  # pre-versioning .so
-        return 1
+        lib = ctypes.CDLL(str(target)) if target.exists() else None
+    except OSError:
+        lib = None
+    if lib is None:
+        target.parent.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_name(f".{target.name}.{os.getpid()}."
+                               f"{threading.get_ident()}.tmp")
+        try:
+            run = subprocess.run(
+                ["g++", *flags, "-std=c++17", "-shared", "-fPIC", str(src),
+                 "-o", str(tmp), *libs], capture_output=True, text=True,
+                timeout=300)
+            if run.returncode != 0:
+                raise OSError(f"g++ exit {run.returncode}: "
+                              f"{run.stderr.strip()[-2000:]}")
+            os.replace(tmp, target)
+        except subprocess.SubprocessError as e:
+            raise OSError(f"g++: {e}") from e
+        finally:
+            tmp.unlink(missing_ok=True)
+        lib = ctypes.CDLL(str(target))
+    try:
+        fn = getattr(lib, abi_symbol)
+    except AttributeError:
+        raise OSError(f"{target.name} has no {abi_symbol}") from None
+    fn.restype = ctypes.c_int
+    if fn() != abi_version:
+        raise OSError(f"{target.name}: ABI {fn()}, {abi_version} expected")
+    return lib
 
 
 def _library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"libfastio_{digest}.so"
-
-
-def _build(target: Path) -> Optional[ctypes.CDLL]:
-    tmp = target.with_name(f".{target.name}.{os.getpid()}.tmp")
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           str(_SRC), "-o", str(tmp), "-lz", "-lzstd"]
-    try:
-        target.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        os.replace(tmp, target)
-        return ctypes.CDLL(str(target))
-    except Exception:
-        return None
-    finally:
-        tmp.unlink(missing_ok=True)
+    return library_path(_SRC)
 
 
 def _get_lib() -> Optional[ctypes.CDLL]:
@@ -71,23 +94,12 @@ def _get_lib() -> Optional[ctypes.CDLL]:
         return _lib if _lib != "unavailable" else None
     with _build_lock:
         if _lib is None:
-            lib = None
-            target = _library_path()
-            if target.exists():
-                try:
-                    lib = ctypes.CDLL(str(target))
-                except OSError:
-                    lib = None
-            if lib is None:
-                lib = _build(target)
-            # a library whose ABI differs from these bindings would
-            # corrupt memory: refuse it
-            if lib is not None and _abi_version(lib) != _ABI_VERSION:
-                lib = None
-            if lib is not None:
+            try:
+                lib = build_shared(_SRC, "fastio_abi_version", _ABI_VERSION,
+                                   ("-O3", "-pthread"), ("-lz", "-lzstd"))
                 _configure(lib)
                 _lib = lib
-            else:
+            except OSError:
                 _lib = "unavailable"
     return _lib if _lib != "unavailable" else None
 

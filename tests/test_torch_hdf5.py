@@ -13,11 +13,13 @@ h5py, the oracle here (the card's host has no h5py).
   and compact layouts, attributes in continuation blocks, fill values;
   an ROI read inflates only the chunks it overlaps; files of newer format
   versions (superblocks 2 and 3, version 2 object headers, link-message
-  groups) read (tests/test_torch_hdf5_v2.py covers them in full); what
-  stays outside the read scope (unknown filters, shared messages,
-  external links, virtual datasets, huge fractal-heap objects) and
-  damaged files (truncated, a truncated version 4 chunk index) raise
-  FormatError naming the structure.
+  groups) read (tests/test_torch_hdf5_v2.py covers them in full); lzf,
+  scaleoffset, the shared-message table, external links and huge
+  fractal-heap objects read as h5py reads them
+  (tests/test_torch_hdf5_structures.py covers them in full); what stays
+  outside the read scope (szip, nbit on a compound type, 4-byte offsets,
+  virtual datasets) and damaged files (truncated, a truncated version 4
+  chunk index) raise FormatError naming the structure.
 """
 
 import ctypes
@@ -380,8 +382,29 @@ def _newer(tmp_path, kind):
             f.create_dataset("d", data=np.arange(100), chunks=(10,))
             f.create_dataset("e", data=np.arange(100), chunks=(10,))
     elif kind == "external":
+        with h5py.File(tmp_path / "other.h5", "w") as f:
+            f.create_dataset("d", data=np.arange(10), chunks=(4,))
         with h5py.File(p, "w", libver="latest") as f:
             f["d"] = h5py.ExternalLink("other.h5", "/d")
+    elif kind == "szip":
+        with h5py.File(p, "w") as f:
+            f.create_dataset("d", data=np.arange(100), chunks=(10,),
+                             compression="szip")
+    elif kind == "offsets4":
+        fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
+        fcpl.set_sizes(4, 4)
+        fid = h5py.h5f.create(str(p).encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl)
+        with h5py.File(fid) as f:
+            f.create_dataset("d", data=np.arange(10))
+    elif kind == "nbit_compound":
+        cdt = np.dtype([("a", "<i2"), ("b", "<f4")])
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk((10,))
+        dcpl.set_filter(5)           # H5Z_FILTER_NBIT
+        with h5py.File(p, "w") as f:
+            ds = h5py.h5d.create(f.id, b"d", h5py.h5t.py_create(cdt),
+                                 h5py.h5s.create_simple((30,)), dcpl=dcpl)
+            ds.write(h5py.h5s.ALL, h5py.h5s.ALL, np.zeros(30, cdt))
     elif kind == "virtual":
         with h5py.File(tmp_path / "src.h5", "w") as f:
             f.create_dataset("d", data=np.arange(10))
@@ -416,15 +439,32 @@ def test_newer_formats_read(tmp_path, kind):
             np.testing.assert_array_equal(f["d"][3:7], g["d"][3:7])
 
 
+@pytest.mark.parametrize("kind", ["lzf", "scaleoffset", "shared", "external",
+                                  "huge_attribute"])
+def test_structures_read_like_h5py(tmp_path, kind):
+    """Structures that raised before the reader took them in: the same
+    values, dtypes and attributes (in order) as h5py's."""
+    p = _newer(tmp_path, kind)
+    with h5py.File(p, "r") as f, H.File(p) as g:
+        a, b = f["d"], g["d"]
+        assert b.name == a.name and b.file.filename == a.file.filename
+        if isinstance(a, h5py.Dataset):
+            assert b.dtype == a.dtype and b.shape == a.shape
+            np.testing.assert_array_equal(b[...], a[()])
+            np.testing.assert_array_equal(g["e" if kind == "shared"
+                                            else "d"][3:9], a[3:9])
+        assert list(b.attrs) == list(a.attrs)
+        for k in a.attrs:
+            _same_attr(b.attrs[k], a.attrs[k])
+
+
 @pytest.mark.parametrize("kind,match", [
-    ("lzf", r"filter 32000 \(lzf\)"),
-    ("scaleoffset", r"filter 6 \(scaleoffset\)"),
     ("layout4", "past the end of the file"),
-    ("shared", "shared-message table"),
-    ("external", "is an external link"),
     ("virtual", r"virtual dataset \(layout class 3\)"),
-    ("huge_attribute", "huge fractal-heap object"),
-    ("truncated", "past the end of the file")])
+    ("truncated", "past the end of the file"),
+    ("szip", r"filter 4 \(szip\)"),
+    ("offsets4", "4-byte offsets"),
+    ("nbit_compound", r"filter 5 \(nbit\) on a compound type")])
 def test_structures_outside_the_read_scope_raise(tmp_path, kind, match):
     p = _newer(tmp_path, kind)
     with pytest.raises(H.FormatError, match=match):

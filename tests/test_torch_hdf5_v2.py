@@ -267,7 +267,8 @@ def test_tiny_heap_objects(tmp_path):
     assert heap.get(bytes([0x20 | 4]) + b"abcde") == b"abcde"
     heap.tiny_ext = True
     assert heap.get(bytes([0x20, 2]) + b"xyz") == b"xyz"
-    with pytest.raises(H.FormatError, match="huge fractal-heap object"):
+    with pytest.raises(H.FormatError, match="which has no huge-object "
+                                            "B-tree"):
         heap.get(bytes([0x10]) + bytes(6))
 
 

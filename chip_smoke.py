@@ -261,6 +261,23 @@ Phases:
    flags from the master and from the .ims, each 0 counts off the same
    planes converted as TIFFs, K5's, K5s's and K8's launches equal to the
    TIFF run's; h5py never imported.
+18. the host image codec (io/png.py, io/jpeg.py, io/bmp.py,
+   io/tiffcodec.py, io/avi.py on native/imgcodec.cpp) in a child process
+   (`--codec-child`) where importing PIL or cv2 fails: (a) phase 6's
+   destripe CLI on 2 of its stacks cut to 16 planes, written as 16-bit
+   PNG by the port, and on the same tiles as TIFFs: 0 counts apart, equal
+   K5, K5s and K8 launches; (b) convert --destripe (phase 14's wide-run
+   flags) on one stack made 8-bit JPEG (quality 95, the port's encoder)
+   and on its planes decoded by the port and written as TIFFs: 0 counts
+   apart, equal launches; (c) the committed fixtures
+   (tests/torch_image_fixtures: LZW and JPEG-in-TIFF, PNG, BMP, JPEG, made
+   by PIL) bit-equal to their seeds or, lossy, to the digest of PIL's
+   decode; (d) convert --movie to .avi on phase 14's first 16 planes (its
+   seeds), every frame read back by the port within MOVIE_MAE_MAX of its
+   8-bit source, and, where the host has OpenCV, counted by
+   cv2.VideoCapture here; (e) decode MB/s of a 2000^2 u16 PNG, u8 JPEG and
+   u16 LZW TIFF (predictor 2; written by PIL where the host has it), the
+   port's beside PIL's with the card's name and power limit.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -278,7 +295,8 @@ and phase 11 launch K6 and K7.
 
 Phases 8 and 9 read phase 4's series, phase 15 phase 14's, phase 16
 phase 4's, 6's and 12's inputs and outputs, phase 17 phase 14's input
-and output.  The script
+and output; phase 18 remakes what it takes of phases 6 and 14 from their
+seeds.  The script
 exits non-zero when there is no CUDA device, when the port is not beside
 it, or when any phase fails.  On success its last two lines are the kernels' JSON record
 and {"ok": true, "device": {...}}.
@@ -1945,6 +1963,36 @@ def striped_tile(rng, field):
     return np.clip(img, 0, 65535).astype(np.uint16)
 
 
+def tile_field(shape, k):
+    """The smooth field under stack k of phase 6's tree (its bright spot
+    moves down with k)."""
+    import numpy as np
+
+    h, w = shape
+    yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    return 600 + 1400 * np.exp(
+        -((yy - 0.3 - 0.1 * k) ** 2 + (xx - 0.45) ** 2) / 0.08)
+
+
+def tile_seed(k, z, seed=11):
+    """The seed of plane z of stack k in phase 6's tree."""
+    return seed + 1000 * k + z
+
+
+def series_field(shape):
+    """The smooth field under every plane of phase 14's series."""
+    import numpy as np
+
+    h, w = shape
+    yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    return 600 + 1400 * np.exp(-((yy - 0.4) ** 2 + (xx - 0.5) ** 2) / 0.08)
+
+
+SERIES_SEED = 140    # plane z of phase 14's series: SERIES_SEED + z
+
+
 def make_tile_tree(root, seed=11):
     """The phase-6 tile tree, written by the smoke's own TIFF writer;
     returns {stack dir: (planes, tile shape)}."""
@@ -1955,16 +2003,14 @@ def make_tile_tree(root, seed=11):
     jobs, stacks = [], {}
     k = 0
     for n_stacks, planes, (h, w) in TILE_STACKS:
-        yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
-        xx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
         for _ in range(n_stacks):
             d = root / f"Ex_488_Em_525/{100000 + 1000 * k}/{100000 + 1000 * k}_200000"
             d.mkdir(parents=True)
-            field = 600 + 1400 * np.exp(
-                -((yy - 0.3 - 0.1 * k) ** 2 + (xx - 0.45) ** 2) / 0.08)
+            field = tile_field((h, w), k)
             stacks[d] = (planes, (h, w))
             for z in range(planes):
-                jobs.append((d / f"{z * 20:06d}.tif", field, seed + 1000 * k + z))
+                jobs.append((d / f"{z * 20:06d}.tif", field,
+                             tile_seed(k, z, seed)))
             k += 1
 
     def one(job):
@@ -4003,14 +4049,12 @@ def phase_convert(torch, dev, record, shared):
     src, out = work / "in", work / "tif"
     src.mkdir(parents=True)
     h, w = STITCH_TILE
-    yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
-    xx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
-    field = 600 + 1400 * np.exp(-((yy - 0.4) ** 2 + (xx - 0.5) ** 2) / 0.08)
+    field = series_field((h, w))
     t0 = time.perf_counter()
     raw = {}
 
     def one(z):
-        img = striped_tile(np.random.default_rng(140 + z), field)
+        img = striped_tile(np.random.default_rng(SERIES_SEED + z), field)
         write_u16_tiff(src / f"img_{z:06d}.tif", img)
         if z in CONV_CHECK:
             raw[z] = img
@@ -4126,10 +4170,7 @@ def convert_wide(torch, dev, record):
         shutil.rmtree(work, ignore_errors=True)
         src, out = work / "in", work / "tif"
         src.mkdir(parents=True)
-        yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
-        xx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
-        field = 600 + 1400 * np.exp(-((yy - 0.4) ** 2 + (xx - 0.5) ** 2)
-                                    / 0.08)
+        field = series_field((h, w))
         t0 = time.perf_counter()
         with ThreadPoolExecutor(WIDE_COUNT) as pool:
             raw = list(pool.map(lambda z: striped_tile(
@@ -5475,6 +5516,362 @@ def hdf5_structures(torch, rec, work, card):
 
 # -- main ---------------------------------------------------------------------
 
+# -- phase 18 ----------------------------------------------------------------
+
+CODEC_STACKS = 2       # phase 6's tree cut to 2 stacks of 16 planes
+CODEC_PLANES = 16
+MOVIE_PLANES = 16      # phase 14's first planes
+MOVIE_MAE_MAX = 1.0    # mean |frame - its 8-bit source|, counts
+RATE_SIDE = 2000       # the planes whose decode MB/s are printed
+RATE_REPS = 5
+IMAGE_FIXTURES = ROOT / "tests" / "torch_image_fixtures"
+REFUSED = ("PIL", "cv2")
+
+
+def refuse_imports(names=REFUSED) -> None:
+    """Make every import of `names` fail in this process."""
+    import importlib.abc
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in names:
+                raise ImportError(f"{name} is refused in this process")
+
+    sys.meta_path.insert(0, Refuse())
+
+
+def codec_tiles(stacks, planes, seed=11):
+    """(stack index, plane index, tile): the first `stacks` stacks of phase
+    6's tree, `planes` planes each, from make_tile_tree's fields and
+    seeds."""
+    import numpy as np
+
+    for k in range(stacks):
+        field = tile_field(TILE_STACKS[0][2], k)
+        for z in range(planes):
+            yield k, z, striped_tile(
+                np.random.default_rng(tile_seed(k, z, seed)), field)
+
+
+def convert_series_planes(n):
+    """Phase 14's first n input planes, from its field and seeds."""
+    import numpy as np
+
+    field = series_field(STITCH_TILE)
+    return [striped_tile(np.random.default_rng(SERIES_SEED + z), field)
+            for z in range(n)]
+
+
+def same_tiles(a_root: Path, b_root: Path):
+    """(number of tiles, largest |a - b| over them) of two output trees,
+    which must hold the same files."""
+    import numpy as np
+
+    from ipp_tpu_torch.io import tiff as tio
+
+    names = sorted(p.relative_to(a_root) for p in a_root.rglob("*.tif"))
+    other = sorted(p.relative_to(b_root) for p in b_root.rglob("*.tif"))
+    if not names or names != other:
+        raise AssertionError(f"output trees differ: {len(names)} / "
+                             f"{len(other)} tiles")
+    worst = 0
+    for n in names:
+        a, b = tio.imread(a_root / n), tio.imread(b_root / n)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{n}: {a.shape} {a.dtype} / {b.shape} "
+                                 f"{b.dtype}")
+        worst = max(worst, int(np.abs(a.astype(np.int64) - b).max()))
+    return len(names), worst
+
+
+def best_rate(fn, nbytes, reps=RATE_REPS):
+    """MB/s of the fastest of `reps` calls of fn()."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return nbytes / best / 1e6
+
+
+def codec_child(work: Path) -> int:
+    """Phase 18's port side, in a process where PIL and cv2 cannot be
+    imported: (a) phase 6's destripe CLI on 16-bit PNG tiles (written by
+    the port) and on the same tiles as TIFFs, in turns, after the codec
+    library is built; (b) convert --destripe on an
+    8-bit JPEG plane series (quality 95, the port's encoder) and on its
+    planes decoded by the port and written as TIFFs; (c) the committed
+    fixtures; (d) convert --movie to .avi on phase 14's first 16 planes,
+    read back by the port; (e) the port's decode MB/s.  Writes
+    work/codec.json."""
+    refuse_imports()
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from ipp_tpu_torch.io import avi
+    from ipp_tpu_torch.io import generic2d as g2d
+    from ipp_tpu_torch.io import imgcodec
+    from ipp_tpu_torch.io import tiff as tio
+    from ipp_tpu_torch.io.jpeg import encode_jpeg
+    from ipp_tpu_torch.ops import cuda_dwt as cd
+    from ipp_tpu_torch.ops import cuda_notch as cn
+    from ipp_tpu_torch.pipeline import convert as conv
+    from ipp_tpu_torch.pipeline import pystripe_cli as psc
+
+    on_card = torch.cuda.is_available()
+    if on_card:
+        from ipp_tpu_torch.ops._build import load_library
+
+        load_library()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def launches():
+        return {k: dict(cd.LAUNCHES, **cn.LAUNCHES).get(k, 0)
+                for k in ("dwt_analysis", "dwt_synthesis", "notch")}
+
+    rec, checks = {}, {}
+    pool = ThreadPoolExecutor(8)
+
+    # (a) the destripe CLI on PNG tiles and on the same tiles as TIFFs
+    t0 = time.perf_counter()
+    tiles = list(codec_tiles(CODEC_STACKS, CODEC_PLANES))
+
+    def put(job):
+        k, z, tile = job
+        rel = Path(f"Ex_488_Em_525/{100000 + 1000 * k}/"
+                   f"{100000 + 1000 * k}_200000/{z * 20:06d}")
+        for kind in ("png", "tif"):
+            p = work / kind / rel.with_suffix(f".{kind}")
+            p.parent.mkdir(parents=True, exist_ok=True)
+            if kind == "png":
+                g2d.imwrite_generic(p, tile)
+            else:
+                write_u16_tiff(p, tile)
+
+    list(pool.map(put, tiles))
+    rec["tree_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()     # the codec library's build (g++), untimed
+    imgcodec.load()              # in the CLI runs below
+    rec["codec_build_s"] = time.perf_counter() - t0
+    runs = []
+    with DefaultMesh(None):
+        for i, kind in enumerate(("png", "tif", "tif", "png")):  # in turns
+            cd.reset_launch_counts()
+            cn.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = psc.main(["-i", str(work / kind), "-o",
+                           str(work / f"out_{kind}{i}"), *STAGE1])
+            sync()
+            runs.append(dict(kind=kind, rc=rc, launches=launches(),
+                             wall_s=time.perf_counter() - t0))
+    n, worst = same_tiles(work / "out_png0", work / "out_tif1")
+    walls = {k: [r["wall_s"] for r in runs if r["kind"] == k]
+             for k in ("png", "tif")}
+    rec["destripe"] = dict(runs=runs, tiles=n, max_count_diff=worst)
+    say(f"  (a) destripe CLI on {n} PNG tiles: {walls['png'][0]:.2f} / "
+        f"{walls['png'][1]:.2f} s, as TIFFs {walls['tif'][0]:.2f} / "
+        f"{walls['tif'][1]:.2f} s (in turns; the codec's build "
+        f"{rec['codec_build_s']:.1f} s before); max |PNG - TIFF| {worst} "
+        f"counts; launches {[r['launches'] for r in runs]}")
+    checks["destripe rc 0"] = all(r["rc"] == 0 for r in runs)
+    checks["PNG tiles 0 counts off TIFF"] = worst == 0 and \
+        n == len(tiles)
+    checks["PNG launches == TIFF launches"] = \
+        all(r["launches"] == runs[0]["launches"] for r in runs) and \
+        (not on_card or all(runs[0]["launches"].values()))
+
+    # (b) convert --destripe on a JPEG series and on its decoded planes
+    jdir, ddir = work / "jpg", work / "dec"
+    jdir.mkdir()
+    ddir.mkdir()
+
+    def put_jpeg(job):
+        k, z, tile = job
+        if k == 0:
+            img8 = np.clip(tile / 16.0, 0, 255).astype(np.uint8)
+            (jdir / f"img_{z:06d}.jpg").write_bytes(encode_jpeg(img8, 95))
+            tio.imwrite(ddir / f"img_{z:06d}.tif",
+                        g2d.read_plane(jdir / f"img_{z:06d}.jpg"))
+
+    list(pool.map(put_jpeg, tiles))
+    jruns = {}
+    with DefaultMesh(None):
+        for kind, src in (("jpg", jdir), ("dec", ddir)):
+            cd.reset_launch_counts()
+            cn.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = conv.main(["-i", str(src), "-o", str(work / f"conv_{kind}"),
+                            *WIDE_FLAGS])
+            sync()
+            jruns[kind] = dict(rc=rc, wall_s=time.perf_counter() - t0,
+                               launches=launches())
+    n, worst = same_tiles(work / "conv_jpg", work / "conv_dec")
+    rec["jpeg_convert"] = dict(runs=jruns, planes=n, max_count_diff=worst)
+    say(f"  (b) convert --destripe on {n} JPEG planes (q95): "
+        f"{jruns['jpg']['wall_s']:.1f} s; max |JPEG run - decoded-TIFF "
+        f"run| {worst} counts; launches {jruns['jpg']['launches']}")
+    checks["JPEG series 0 counts off its decoded TIFFs"] = \
+        jruns["jpg"]["rc"] == jruns["dec"]["rc"] == 0 and worst == 0 and \
+        n == CODEC_PLANES and jruns["jpg"]["launches"] == \
+        jruns["dec"]["launches"]
+
+    # (c) the committed fixtures, bit for bit
+    sys.path.insert(0, str(IMAGE_FIXTURES))
+    import make_fixtures as mk
+
+    manifest = json.loads((IMAGE_FIXTURES / "fixtures.json").read_text())
+    seeds = mk.seeds()
+    bad = []
+    for name, entry in manifest.items():
+        got = g2d.read_plane(IMAGE_FIXTURES / name)
+        if mk.digest(got) != entry["sha256"] or (
+                entry["lossless"] and not np.array_equal(got,
+                                                         seeds[entry["seed"]])):
+            bad.append(name)
+    rec["fixtures"] = dict(files=sorted(manifest), bad=bad)
+    say(f"  (c) {len(manifest)} fixtures, bit-equal but {bad}")
+    checks["fixtures bit-equal"] = not bad
+
+    # (d) convert --movie to .avi, read back by the port
+    sdir = work / "series"
+    sdir.mkdir()
+    planes = convert_series_planes(MOVIE_PLANES)
+    for z, p in enumerate(planes):
+        write_u16_tiff(sdir / f"img_{z:06d}.tif", p)
+    movie = work / "movie.avi"
+    t0 = time.perf_counter()
+    rc = conv.main(["-i", str(sdir), "-o", str(work / "movie_tif"),
+                    "--movie", str(movie)])
+    t_movie = time.perf_counter() - t0
+    sample = np.concatenate([planes[i].astype(np.float32).ravel() for i in
+                             sorted({0, len(planes) // 2, len(planes) - 1})])
+    lo, hi = np.percentile(sample, [0.1, 99.9])
+    hi = max(hi, lo + 1)
+    maes = []
+    for frame, plane in zip(avi.read_avi(movie), planes):
+        src = np.clip((plane.astype(np.float32) - lo) * (255.0 / (hi - lo)),
+                      0, 255).astype(np.uint8)
+        maes.append(float(np.abs(frame[..., 1].astype(np.float64)
+                                 - src).mean()))
+    info = avi.avi_info(movie)
+    rec["movie"] = dict(path=str(movie), frames=len(maes), rc=rc,
+                        mae=maes, bytes=movie.stat().st_size, wall_s=t_movie,
+                        fps=info.get("fps"))
+    say(f"  (d) convert --movie: rc {rc}, {len(maes)} frames, "
+        f"{movie.stat().st_size / 1e6:.1f} MB in {t_movie:.1f} s; mean "
+        f"|frame - source| {min(maes or [0]):.3f}-{max(maes or [0]):.3f} "
+        f"counts (bound {MOVIE_MAE_MAX})")
+    checks["movie frames counted"] = rc == 0 and len(maes) == MOVIE_PLANES
+    checks["movie frames within the bound"] = bool(maes) and \
+        max(maes) <= MOVIE_MAE_MAX
+
+    # (e) the port's decode MB/s (PIL's beside them in the parent)
+    rates = work / "rates"
+    tile = planes[0][:RATE_SIDE, :RATE_SIDE]
+    g2d.imwrite_generic(rates / "u16.png", tile)
+    g2d.imwrite_generic(rates / "u8.jpg", np.clip(tile / 16.0, 0, 255)
+                        .astype(np.uint8))
+    port = {}
+    for name in ("u16.png", "u8.jpg", "u16_lzw_p2.tif"):
+        p = rates / name
+        if p.exists():
+            nbytes = g2d.read_plane(p).nbytes
+            port[name] = best_rate(lambda: g2d.read_plane(p), nbytes)
+    rec["port_mb_s"] = port
+    checks["PIL and cv2 never imported"] = not [
+        m for m in sys.modules if m.split(".")[0] in REFUSED]
+    rec["checks"] = checks
+    (work / "codec.json").write_text(json.dumps(rec, indent=1))
+    pool.shutdown()
+    return 0
+
+
+def host_pil_rates(rates: Path, write: bool):
+    """With PIL on the host: write (write=True) the u16 LZW TIFF (predictor
+    2) of the rate plane, or time PIL's decode of every rate plane; None
+    without PIL."""
+    import importlib.util
+
+    import numpy as np
+
+    if importlib.util.find_spec("PIL") is None:
+        return None
+    from PIL import Image, TiffImagePlugin
+
+    if write:
+        pred = TiffImagePlugin.ImageFileDirectory_v2()
+        pred[317] = 2
+        tile = convert_series_planes(1)[0][:RATE_SIDE, :RATE_SIDE]
+        Image.fromarray(tile).save(rates / "u16_lzw_p2.tif",
+                                   compression="tiff_lzw", tiffinfo=pred)
+        return {}
+    out = {}
+    for p in sorted(rates.iterdir()):
+        nbytes = np.asarray(Image.open(p)).nbytes
+        out[p.name] = best_rate(lambda: np.asarray(Image.open(p)), nbytes)
+    return out
+
+
+def host_cv2_frames(movie: Path):
+    """The frames OpenCV reads from the movie; None without OpenCV."""
+    import importlib.util
+
+    if importlib.util.find_spec("cv2") is None:
+        return None
+    import cv2
+
+    cap = cv2.VideoCapture(str(movie))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def phase_codec(torch, record):
+    """The host image codec on the card's host: codec_child's run in a
+    process of its own with PIL and cv2 refused, then, here, OpenCV's count
+    of the movie's frames and PIL's decode MB/s beside the port's."""
+    card = card_line()
+    work = ROOT / "build" / "chip_smoke_codec"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "rates").mkdir(parents=True)
+    host_pil_rates(work / "rates", write=True)
+    torch.cuda.empty_cache()   # the child needs the card's memory
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--codec-child", str(work)], timeout=1200)
+    say(f"  child (PIL and cv2 refused): rc {child.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if child.returncode != 0 or not (work / "codec.json").exists():
+        raise AssertionError(f"codec child rc {child.returncode}")
+    rec = record["codec"] = json.loads((work / "codec.json").read_text())
+    rec["card"] = card
+    checks = rec["checks"]
+    frames = host_cv2_frames(Path(rec["movie"]["path"]))
+    rec["movie"]["cv2_frames"] = frames
+    if frames is not None:
+        checks["cv2 counts the movie's frames"] = frames == MOVIE_PLANES
+    pil = host_pil_rates(work / "rates", write=False)
+    rec["pil_mb_s"] = pil
+    for name, mb in rec["port_mb_s"].items():
+        theirs = (pil or {}).get(name)
+        say(f"  (e) decode {name} ({RATE_SIDE}^2): port {mb:.1f} MB/s, PIL "
+            + (f"{theirs:.1f} MB/s ({mb / theirs:.2f}x)" if theirs else
+               "not on this host") + f" ({card})")
+    say(f"  checks: {checks}")
+    bad = [k for k, ok in checks.items() if not ok]
+    shutil.rmtree(work, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"failed: {bad}")
+
+
 def main() -> int:
     try:
         import torch
@@ -5592,8 +5989,12 @@ def main() -> int:
           f"the newer-format fixtures, the split BDV, long-attribute .ims "
           f"and shared-message fixtures",
           phase_hdf5, torch, record, shared)
+    phase(18, f"the host image codec with PIL and cv2 refused: the "
+          f"destripe CLI on {CODEC_STACKS} stacks of {CODEC_PLANES} PNG "
+          f"tiles, convert on a JPEG series, the fixtures, convert --movie "
+          f".avi, decode MB/s", phase_codec, torch, record)
     for d in ("chip_smoke", "chip_smoke_tiles", "chip_smoke_stitch",
-              "chip_smoke_convert", "chip_smoke_hdf5"):
+              "chip_smoke_convert", "chip_smoke_hdf5", "chip_smoke_codec"):
         shutil.rmtree(ROOT / "build" / d, ignore_errors=True)
     peaks = {k: v["peak_mem_bytes"] for k, v in record.items()
              if isinstance(v, dict) and "peak_mem_bytes" in v}
@@ -5738,6 +6139,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--codec-child"]:
+        sys.exit(codec_child(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--mesh-child"]:
         sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]),
                             int(sys.argv[4]), sys.argv[5]))

@@ -9,27 +9,32 @@ The reference's TeraStitcher build ships two OPTIONAL 2D input plugins
   embeds a JVM + user-supplied bioformats_package.jar for proprietary
   formats
 
-Here the same role is filled by a PIL-backed codec: every opencv2D format
-plus JPEG-2000 (.jp2/.j2k, incl. 16-bit) and 16-bit PNG decode through
-`ipp_tpu.io.tiff.imread`'s PIL fallback, and tile/series discovery accepts
-these suffixes (geometry/stacks.py, pipeline/convert._open_source).
-Formats that genuinely need Bio-Formats (czi, nd2, lif, vsi, oib, ...)
-are out of scope — see docs/PARITY.md §"bioformats format table" for the
-per-format disposition.
+The JAX package fills the role with PIL; the port with codecs of its own,
+which return what ``np.asarray(PIL.Image.open(path))`` returns (io/png.py,
+io/jpeg.py, io/bmp.py, io/netpbm.py, io/tiffcodec.py; their docstrings
+list PIL's quirks) and write what PIL writes.  `read_plane` picks the
+codec by the file's signature, as PIL does, not by its suffix.  JPEG 2000
+(.jp2/.j2k) is the one format left on PIL, imported in that branch alone.
+Tile/series discovery accepts these suffixes (geometry/stacks.py,
+pipeline/convert._open_source).  Formats that genuinely need Bio-Formats
+(czi, nd2, lif, vsi, oib, ...) are out of scope — see docs/PARITY.md
+§"bioformats format table" for the per-format disposition.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import numpy as np
 
+from . import jpeg, png
 from . import tiff as _tio
 
 __all__ = ["GENERIC_2D_SUFFIXES", "PLANE_SUFFIXES", "imread_generic",
-           "imwrite_generic"]
+           "imwrite_generic", "read_plane"]
 
-# the opencv2D surface + JPEG-2000; all decodable by the shipped PIL
+# the opencv2D surface + JPEG-2000
 GENERIC_2D_SUFFIXES = (".png", ".jp2", ".j2k", ".jpg", ".jpeg", ".jpe",
                        ".bmp", ".dib", ".pbm", ".pgm", ".ppm")
 
@@ -37,26 +42,76 @@ GENERIC_2D_SUFFIXES = (".png", ".jp2", ".j2k", ".jpg", ".jpeg", ".jpe",
 # + the generic 2D set)
 PLANE_SUFFIXES = (".tif", ".tiff", ".raw") + GENERIC_2D_SUFFIXES
 
+_NEEDS_PIL = ("JPEG 2000 (.jp2 / .j2k) is read and written through PIL, "
+              "which is not installed (ROADMAP queue 1 item 20)")
+_JP2 = (b"\0\0\0\x0cjP  \r\n\x87\n", b"\xff\x4f\xff\x51")
+_TIFF = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
+
+
+def read_plane(path) -> np.ndarray:
+    """Decode one plane with the codec its first bytes name."""
+    from .imgcodec import CodecError
+
+    with open(path, "rb") as f:
+        head = f.read(16)
+    if head[:4] in _TIFF:
+        from .tiffcodec import read_tiff_plane
+
+        return read_tiff_plane(path)
+    if head.startswith(png.SIGNATURE):
+        return png.read_png(path)
+    if head.startswith(jpeg.SIGNATURE):
+        return jpeg.read_jpeg(path)
+    if head[:2] == b"BM":
+        from .bmp import read_bmp
+
+        return read_bmp(path)
+    from .netpbm import is_netpbm, read_netpbm
+
+    if is_netpbm(head):
+        return read_netpbm(path)
+    if head.startswith(_JP2):
+        return _pil_jpeg2000(path)
+    raise CodecError(f"{path}: not a TIFF, PNG, JPEG, BMP, PBM / PGM / PPM "
+                     f"or JPEG 2000 file (first bytes {head[:8]!r})")
+
+
+def _pil_jpeg2000(path, img: np.ndarray = None):
+    """Read (img None) or write a JPEG 2000 plane through PIL."""
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError(_NEEDS_PIL) from None
+    if img is None:
+        with Image.open(path) as im:
+            return np.asarray(im)
+    Image.fromarray(img).save(path, format="JPEG2000")
+
 
 def imread_generic(path) -> np.ndarray:
-    """Decode any generic 2D plane (PIL fallback path of io.tiff.imread;
-    16-bit PNG/JP2 come back as uint16)."""
+    """Decode any generic 2D plane (io.tiff.imread's last leg; 16-bit
+    PNG come back as uint16)."""
     return _tio.imread(path)
 
 
 def imwrite_generic(path, img: np.ndarray) -> None:
-    """Atomic PIL-encoded write for generic formats, format from the
-    suffix (the opencv2D writeData role)."""
-    import os
-
-    from PIL import Image
-
+    """Atomic write for generic formats, format from the suffix (the
+    opencv2D writeData role)."""
     path = Path(path)
     tmp = path.with_suffix(path.suffix + ".tmp")
-    # the .tmp suffix hides the real format from PIL: pass it explicitly
-    fmt = {".png": "PNG", ".jp2": "JPEG2000", ".j2k": "JPEG2000",
-           ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
-           ".bmp": "BMP", ".dib": "BMP",
-           ".pbm": "PPM", ".pgm": "PPM", ".ppm": "PPM"}[path.suffix.lower()]
-    Image.fromarray(img).save(tmp, format=fmt)
+    suffix = path.suffix.lower()
+    if suffix in (".jp2", ".j2k"):
+        _pil_jpeg2000(tmp, img)
+    else:
+        if suffix == ".png":
+            encode = png.encode_png
+        elif suffix in (".jpg", ".jpeg", ".jpe"):
+            encode = jpeg.encode_jpeg
+        elif suffix in (".bmp", ".dib"):
+            from .bmp import encode_bmp as encode
+        elif suffix in (".pbm", ".pgm", ".ppm"):
+            from .netpbm import encode_netpbm as encode
+        else:
+            raise KeyError(suffix)
+        tmp.write_bytes(encode(img))
     os.replace(tmp, path)

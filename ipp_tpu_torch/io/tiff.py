@@ -4,8 +4,11 @@ Replaces the reference's tifffile/PIL/bfconvert fallback chain
 (reference imread_tif_raw_png / imsave_tif, pystripe/core.py:200-334) with:
 
 - a from-scratch numpy TIFF parser (classic + BigTIFF, strips + tiles,
-  uncompressed / deflate / PackBits, grayscale u8/u16/u32/f32),
-- PIL as the compatibility fallback for exotic encodings (LZW, JPEG, ...),
+  uncompressed / deflate / PackBits / LZW / JPEG, grayscale u8/u16/u32/f32),
+- the port's own codecs where the reference falls back to PIL: planes the
+  numpy codec leaves (LZW and JPEG with their predictors and tables, PIL's
+  view of their samples: io/tiffcodec.py) and every other format, by the
+  file's signature (io/generic2d.read_plane),
 - atomic tmp->rename writes so readers never observe partial files
   (reference: pystripe/core.py:304-314),
 - bounded retry loops for flaky network filesystems
@@ -49,6 +52,7 @@ _T_TILE_LENGTH = 323
 _T_TILE_OFFSETS = 324
 _T_TILE_BYTE_COUNTS = 325
 _T_SAMPLE_FORMAT = 339
+_T_JPEG_TABLES = 347
 
 _TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
                11: 4, 12: 8, 16: 8, 17: 8, 18: 8}
@@ -80,7 +84,8 @@ def _unpackbits_decode(data: bytes, expected: int) -> bytes:
 class _TiffPage:
     def __init__(self, width, length, bits, compression, sample_format,
                  samples, rows_per_strip, strip_offsets, strip_counts,
-                 tile_w, tile_l, tile_offsets, tile_counts, predictor):
+                 tile_w, tile_l, tile_offsets, tile_counts, predictor,
+                 photometric=1, planar=1, jpeg_tables=b""):
         self.width = width
         self.length = length
         self.bits = bits
@@ -95,6 +100,9 @@ class _TiffPage:
         self.tile_offsets = tile_offsets
         self.tile_counts = tile_counts
         self.predictor = predictor
+        self.photometric = photometric
+        self.planar = planar
+        self.jpeg_tables = jpeg_tables
 
     @property
     def dtype(self) -> np.dtype:
@@ -179,17 +187,81 @@ def _page_from_tags(tags) -> _TiffPage:
         width, length, bits, comp, sfmt, samples, rps,
         tags.get(_T_STRIP_OFFSETS), tags.get(_T_STRIP_BYTE_COUNTS),
         one(_T_TILE_WIDTH), one(_T_TILE_LENGTH),
-        tags.get(_T_TILE_OFFSETS), tags.get(_T_TILE_BYTE_COUNTS), predictor)
+        tags.get(_T_TILE_OFFSETS), tags.get(_T_TILE_BYTE_COUNTS), predictor,
+        one(_T_PHOTOMETRIC, 1), one(_T_PLANAR_CONFIG, 1),
+        one(_T_JPEG_TABLES, b""))
 
 
-def _decompress(data: bytes, compression: int, expected: int) -> bytes:
+def _decompress(data: bytes, compression: int, expected: int,
+                tables: bytes = b"", photometric: int = 1) -> bytes:
+    """A strip's or tile's bytes.  LZW and JPEG decode in the codec
+    library (io/imgcodec.py); a JPEG strip that leaves its tables to the
+    page's JPEGTables (tag 347) needs them in `tables`.  JPEG components
+    turn from YCbCr to RGB only under photometric 6, as libtiff turns
+    them for PIL; under any other photometric they come as stored.
+    Predictors are _decode_chunk's."""
     if compression == 1:
         return data
     if compression in (8, 32946):  # deflate / old-style deflate
         return zlib.decompress(data)
     if compression == 32773:  # PackBits
         return _unpackbits_decode(data, expected)
+    if compression in (5, 7):  # LZW / JPEG
+        from . import imgcodec
+
+        try:
+            if compression == 5:
+                return imgcodec.lzw_decode(data, expected)
+            return imgcodec.jpeg_decode(data, tables,
+                                        photometric == 6).tobytes()
+        except imgcodec.CodecError as e:
+            raise TiffError(str(e)) from None
     raise TiffError(f"unsupported compression {compression}")
+
+
+def _undo_float_predictor(rows: np.ndarray, dtype: np.dtype,
+                          samples: int) -> np.ndarray:
+    """TIFF predictor 3 on (n, w * samples * itemsize) bytes: each row's
+    bytes summed along the row with a stride of `samples`, then the byte
+    planes (most significant first) interleaved into values."""
+    n, nbytes = rows.shape
+    size = dtype.itemsize
+    w = nbytes // (samples * size)
+    acc = rows.reshape(n, nbytes // samples, samples)
+    acc = np.cumsum(acc, axis=1, dtype=np.uint8).reshape(n, size, w * samples)
+    # byte plane k holds the k-th most significant byte of every value
+    be = np.ascontiguousarray(acc.transpose(0, 2, 1))
+    return be.view(dtype.newbyteorder(">")).reshape(n, w * samples)
+
+
+def _decode_chunk(raw: bytes, page: _TiffPage, dtype: np.dtype, rows: int,
+                  cols: int) -> np.ndarray:
+    """One strip or tile of `rows` x `cols` pixels as (rows, cols *
+    samples) values of `dtype`: decompressed, its predictor undone (2:
+    horizontal differencing; 3: floating point, bytes re-interleaved)."""
+    s = page.samples
+    expected = rows * cols * s * dtype.itemsize
+    if page.compression in (5, 7):
+        if page.planar == 2 and s > 1:
+            raise TiffError("TIFF with separate colour planes is not read")
+        if page.photometric == 6 and page.compression != 7:
+            raise TiffError("YCbCr TIFF outside JPEG is not read")
+        if page.compression == 7 and dtype.itemsize != 1:
+            raise TiffError("JPEG TIFF of more than 8 bits a sample")
+    raw = _decompress(raw, page.compression, expected, page.jpeg_tables,
+                      page.photometric)
+    if len(raw) < expected:
+        raise TiffError(f"a chunk of {len(raw)} bytes, {expected} expected")
+    if page.predictor == 3:
+        if dtype.kind != "f":
+            raise TiffError("predictor 3 on integer samples")
+        return _undo_float_predictor(
+            np.frombuffer(raw, np.uint8, expected).reshape(rows, -1),
+            dtype, s)
+    arr = np.frombuffer(raw, dtype, rows * cols * s).reshape(rows, cols * s)
+    if page.predictor == 2:
+        arr = _undo_predictor(arr.copy(), 2, s)
+    return arr
 
 
 def _undo_predictor(arr: np.ndarray, predictor: int,
@@ -255,11 +327,7 @@ def _read_striped(f, page: _TiffPage, dtype) -> np.ndarray:
         expected = nrows * w * s * itemsize
         f.seek(off)
         raw = f.read(counts[i] if counts[i] is not None else expected)
-        raw = _decompress(raw, page.compression, expected)
-        arr = np.frombuffer(raw[:expected], dtype=dtype).reshape(nrows, w * s)
-        if page.predictor == 2:
-            arr = _undo_predictor(arr.copy(), 2, s)
-        rows_out.append(arr)
+        rows_out.append(_decode_chunk(raw, page, dtype, nrows, w))
     img = np.concatenate(rows_out, axis=0)
     if s > 1:
         img = img.reshape(h, w, s)
@@ -276,18 +344,13 @@ def _read_tiled(f, page: _TiffPage, dtype) -> np.ndarray:
     ntx = -(-w // tw)
     nty = -(-h // tl)
     img = np.zeros((h, w * s), dtype=dtype.newbyteorder("="))
-    itemsize = dtype.itemsize
     for i, off in enumerate(page.tile_offsets):
         ty, tx = divmod(i, ntx)
         if ty >= nty:
             break
-        expected = tl * tw * s * itemsize
         f.seek(off)
-        raw = f.read(page.tile_counts[i])
-        raw = _decompress(raw, page.compression, expected)
-        tile = np.frombuffer(raw[:expected], dtype=dtype).reshape(tl, tw * s)
-        if page.predictor == 2:
-            tile = _undo_predictor(tile.copy(), 2, s)
+        tile = _decode_chunk(f.read(page.tile_counts[i]), page, dtype, tl,
+                             tw)
         y0, x0 = ty * tl, tx * tw * s
         ny = min(tl, h - y0)
         nx = min(tw * s, w * s - x0)
@@ -443,17 +506,10 @@ def read_tiff_partial(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
             ntx = -(-w // tw)
             for i, off in enumerate(page.tile_offsets):
                 ty, tx = divmod(i, ntx)
-                expected = tl * tw * s * dtype.itemsize
                 try:
                     f.seek(off)
-                    raw = _decompress(f.read(page.tile_counts[i]),
-                                      page.compression, expected)
-                    if len(raw) < expected:
-                        raise TiffError("short tile")
-                    tile = np.frombuffer(raw[:expected], dtype=dtype
-                                         ).reshape(tl, tw * s)
-                    if page.predictor == 2:
-                        tile = _undo_predictor(tile.copy(), 2, s)
+                    tile = _decode_chunk(f.read(page.tile_counts[i]), page,
+                                         dtype, tl, tw)
                     y0, x0 = ty * tl, tx * tw * s
                     ny = min(tl, h - y0)
                     nx = min(tw * s, w * s - x0)
@@ -472,14 +528,8 @@ def read_tiff_partial(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
                     f.seek(off)
                     raw = f.read(counts[i] if counts[i] is not None
                                  else expected)
-                    raw = _decompress(raw, page.compression, expected)
-                    if len(raw) < expected:
-                        raise TiffError("short strip")
-                    arr = np.frombuffer(raw[:expected], dtype=dtype
-                                        ).reshape(nrows, w * s)
-                    if page.predictor == 2:
-                        arr = _undo_predictor(arr.copy(), 2, s)
-                    img[i * rps:i * rps + nrows] = arr
+                    img[i * rps:i * rps + nrows] = _decode_chunk(
+                        raw, page, dtype, nrows, w)
                 except Exception:
                     failed += 1
         img = np.ascontiguousarray(img)
@@ -657,8 +707,9 @@ def write_tiff(path: Union[str, Path], img: np.ndarray,
 
 
 def imread(path: Union[str, Path], retries: int = NUM_RETRIES) -> np.ndarray:
-    """Robust image read: native C++ codec, numpy codec, then PIL fallback,
-    with retries (reference imread_tif_raw_png, pystripe/core.py:200-264)."""
+    """Robust image read: native C++ codec, then the codec the file's
+    signature names (io/generic2d.read_plane), with retries (reference
+    imread_tif_raw_png, pystripe/core.py:200-264)."""
     from ..utils import iostat
 
     if iostat.ACTIVE:
@@ -683,14 +734,10 @@ def _imread_impl(path: Union[str, Path], retries: int) -> np.ndarray:
                         return out
                 except Exception:
                     pass
-                try:
-                    return read_tiff(path)
-                except TiffError:
-                    pass
-            from PIL import Image
+            # the file's signature picks the codec, as PIL's does
+            from .generic2d import read_plane
 
-            with Image.open(path) as im:
-                return np.asarray(im)
+            return read_plane(path)
         except FileNotFoundError:
             raise
         except Exception as exc:  # noqa: BLE001 — retry any decode/IO error

@@ -187,7 +187,8 @@ def read_block(paths: Sequence, y0: int, y1: int, x0: int, x1: int,
 
     Planes the minimal C++ parser cannot decode (tiled layout, LZW,
     big-endian f32, ...) are re-read through the robust Python codec
-    (ipp_tpu_torch.io.tiff.imread: numpy parser + PIL fallback + retries); only
+    (ipp_tpu_torch.io.tiff.imread: numpy parser, the port's own codecs,
+    retries); only
     genuinely missing/corrupt files come back zero-filled — the reference's
     dummy-substitution semantics (tsv/volume.py:378-397)."""
     lib = _get_lib()

@@ -7,16 +7,18 @@ with optional 8-bit/destripe/resize, then TeraFly / Imaris / FNT-cube /
 MP4 exports — the reference shells out to MPI paraconverter, wine
 ImarisConvertiv, fnt-slice2cube and ffmpeg; here every export is native:
 io.terafly, io.ims, io.bdv, tif_series_to_fnt (nrrd cubes the
-fnt_cube_processor tooling rglobs), and tif_series_to_movie via cv2.)
+fnt_cube_processor tooling rglobs), and tif_series_to_movie through the
+port's Motion-JPEG AVI writer, io/avi.py.)
 
 Device work: the tile chain of each batch of planes (`process_batch_fn`;
 under `--destripe` the DWT through the CUDA kernel K5), the in-plane
 ladder of the isotropic downsample, the 16/8-bit conversion of its
 chunks and the final z resize of the npz.  Each batch's download overlaps
 the next batch's read and upload (`OneInFlight` over `HostArray`
-handles).  `--movie` encodes with OpenCV on the host, imported only
-there, as in the JAX package: without OpenCV that export raises
-ImportError.
+handles).  `--movie` encodes on the host: `.avi` (and any suffix but
+`.mp4`) with the port's own Motion-JPEG writer; `.mp4` with OpenCV,
+imported in that branch alone, which raises an ImportError naming cv2
+without it.
 """
 
 from __future__ import annotations
@@ -90,11 +92,11 @@ def tif_series_to_movie(tif_dir: Path, movie_path: Path, fps: int = 60,
                         frame_repeat: int = 1,
                         log: Optional[Logger] = None) -> Path:
     """Render a TIFF series to a video file (the ffmpeg leg of the
-    reference, convert.py:231-247) via cv2.VideoWriter.  Non-8-bit planes
-    are contrast-scaled by 0.1/99.9 percentiles sampled from a few planes
-    spread across the series."""
-    import cv2
-
+    reference, convert.py:231-247).  Non-8-bit planes are contrast-scaled
+    by 0.1/99.9 percentiles sampled from a few planes spread across the
+    series.  `.mp4` goes through OpenCV's mp4v writer (`_open_mp4`); every
+    other suffix is written as a Motion-JPEG AVI at quality 95 by the
+    port's own writer (io/avi.py), as OpenCV's MJPG writer does."""
     log = log or Logger()
     tif_dir = Path(tif_dir)
     movie_path = Path(movie_path)
@@ -113,26 +115,55 @@ def tif_series_to_movie(tif_dir: Path, movie_path: Path, fps: int = 60,
         for i in sample_idx])
     lo, hi = np.percentile(sample, [0.1, 99.9])
     hi = max(hi, lo + 1)
-    fourcc = cv2.VideoWriter_fourcc(
-        *("mp4v" if movie_path.suffix.lower() == ".mp4" else "MJPG"))
     movie_path.parent.mkdir(parents=True, exist_ok=True)
-    vw = cv2.VideoWriter(str(movie_path), fourcc, fps, (w, h))
-    if not vw.isOpened():
-        raise RuntimeError(
-            f"cv2.VideoWriter cannot open {movie_path} (codec missing?); "
-            "try an .avi extension (MJPG)")
-    for p in paths:
-        img = tio.imread(p)
-        if img.dtype != np.uint8:
-            img = np.clip((img.astype(np.float32) - lo) * (255.0 / (hi - lo)),
-                          0, 255).astype(np.uint8)
-        if img.ndim == 2:
-            img = cv2.cvtColor(img, cv2.COLOR_GRAY2BGR)
-        for _ in range(max(1, frame_repeat)):
-            vw.write(img)
-    vw.release()
+    if movie_path.suffix.lower() == ".mp4":
+        vw = _open_mp4(movie_path, fps, w, h)
+    else:
+        from ..io.avi import MjpegWriter
+
+        vw = MjpegWriter(movie_path, w, h, fps, quality=95)
+    try:
+        for p in paths:
+            img = tio.imread(p)
+            if img.dtype != np.uint8:
+                img = np.clip((img.astype(np.float32) - lo)
+                              * (255.0 / (hi - lo)), 0, 255).astype(np.uint8)
+            vw.write(img, repeat=max(1, frame_repeat))
+    finally:
+        vw.close()
     log.info(f"{len(paths)} frames -> {movie_path}")
     return movie_path
+
+
+def _open_mp4(path: Path, fps: int, w: int, h: int) -> "_Mp4Writer":
+    """OpenCV's mp4v writer, the one place the port imports cv2: an
+    MPEG-4 encoder is not part of the port (ROADMAP queue 1 item 20)."""
+    try:
+        import cv2
+    except ImportError:
+        raise ImportError(
+            f"writing {path.name} (.mp4) needs OpenCV (cv2), which is not "
+            f"installed; write an .avi (Motion-JPEG) instead") from None
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                         (w, h))
+    if not vw.isOpened():
+        raise RuntimeError(f"cv2.VideoWriter cannot open {path} (codec "
+                           f"missing?); try an .avi extension (MJPG)")
+    return _Mp4Writer(cv2, vw)
+
+
+class _Mp4Writer:
+    def __init__(self, cv2, vw):
+        self.cv2, self.vw = cv2, vw
+
+    def write(self, img: np.ndarray, repeat: int = 1) -> None:
+        if img.ndim == 2:
+            img = self.cv2.cvtColor(img, self.cv2.COLOR_GRAY2BGR)
+        for _ in range(repeat):
+            self.vw.write(img)
+
+    def close(self) -> None:
+        self.vw.release()
 
 
 def _open_source(src: Path, channel: int = 0):

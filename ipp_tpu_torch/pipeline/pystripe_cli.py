@@ -22,6 +22,7 @@ reference's per-GPU queue, pystripe/core.py:2021-2037).
 from __future__ import annotations
 
 import argparse
+import struct
 import sys
 from pathlib import Path
 from typing import List, Optional
@@ -29,6 +30,10 @@ from typing import List, Optional
 import numpy as np
 
 from ..io import tiff as tio
+from ..io.imgcodec import CodecError
+from ..io.png import png_shape
+from ..io.tiff import TiffError
+from ..io.tiffcodec import tiff_shape
 from ..ops.process import (ProcessConfig, _out_meta, is_uniform_2d,
                            needs_host_stats, process_batch_fn, process_img)
 from ..parallel.executor import TileTask, run_tile_pipeline
@@ -152,19 +157,19 @@ def batch_filter(input_dir: Path, output_dir: Path, cfg: ProcessConfig,
             results[i] = np.zeros(tile, dt)
         return np.stack([results[i] for i in range(len(batch))])
 
-    # cheap header probe (PIL lazy open decodes nothing) so the executor
+    # cheap header probe (the first IFD or IHDR alone) so the executor
     # can RAM-size its reader pool and shape dummy tiles up front
+    probes = {".tif": tiff_shape, ".tiff": tiff_shape, ".png": png_shape}
     expected_shape = None
     for t in tasks[:4]:
-        if t.input_path.suffix.lower() in (".tif", ".tiff", ".png"):
-            try:
-                from PIL import Image
-
-                with Image.open(t.input_path) as im:
-                    expected_shape = (im.size[1], im.size[0])
-                break
-            except Exception:  # noqa: BLE001 — corrupt first file: no hint
-                continue
+        probe = probes.get(t.input_path.suffix.lower())
+        if probe is None:
+            continue
+        try:
+            expected_shape = probe(t.input_path)
+            break
+        except (OSError, struct.error, TiffError, CodecError):
+            continue        # a corrupt first file: no hint from it
 
     return run_tile_pipeline(tasks, proc_batch,
                              expected_shape=expected_shape,

@@ -8,8 +8,8 @@ package's, on a small striped u16 series.
 - an exact chain (rotation, flip, 8-bit) with the BigDataViewer,
   TeraFly and precomputed exports: planes, exports and the u8 downsample
   byte-equal; a resumed run rewrites nothing;
-- `--movie`: the same frames from the same planes (OpenCV on the host,
-  the one place the port imports it)."""
+- `--movie`: the port's own Motion-JPEG AVI against the JAX package's
+  (OpenCV): read back by OpenCV, the same frames as far as JPEG allows."""
 
 import cv2
 import h5py
@@ -127,20 +127,48 @@ def test_exact_chain_and_exports_byte_equal(series, tmp_path):
                       for p in out["port"].glob("*.tif")}
 
 
+def _movie_sources(series, start, end):
+    """The 8-bit frames both writers render: planes scaled by the 0.1 /
+    99.9 percentiles of the first, middle and last plane."""
+    paths = sorted(series.glob("*.tif"))[start:end]
+    idx = sorted({0, len(paths) // 2, len(paths) - 1})
+    sample = np.concatenate([tio.imread(paths[i]).astype(np.float32).ravel()
+                             for i in idx])
+    lo, hi = np.percentile(sample, [0.1, 99.9])
+    hi = max(hi, lo + 1)
+    return [np.clip((tio.imread(p).astype(np.float32) - lo)
+                    * (255.0 / (hi - lo)), 0, 255).astype(np.uint8)
+            for p in paths]
+
+
 def test_movie_same_frames(series, tmp_path):
+    """The port writes .avi itself (Motion-JPEG, quality 95), the JAX
+    package through OpenCV's MJPG writer: read back by OpenCV, the same
+    frame count, size and fps, and each frame as close to its source plane
+    as the JAX package's: mean |error| at most 0.5 count above it (at
+    quality 95 the port's is 0.30 and OpenCV's FFmpeg writer's 0.87 here,
+    so the bound holds one way only)."""
     movies = {}
     for name, mod in (("port", P), ("jax", J)):
         movies[name] = mod.tif_series_to_movie(
             series, tmp_path / f"{name}.avi", fps=10, start=2, end=9)
-    frames = {}
+    frames, props = {}, {}
     for name, path in movies.items():
         cap = cv2.VideoCapture(str(path))
+        props[name] = (cap.get(cv2.CAP_PROP_FPS),
+                       cap.get(cv2.CAP_PROP_FRAME_WIDTH),
+                       cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
         frames[name] = []
         ok, f = cap.read()
         while ok:
             frames[name].append(f)
             ok, f = cap.read()
         cap.release()
+    assert props["port"] == props["jax"] == (10.0, 128.0, 96.0)
     assert len(frames["port"]) == len(frames["jax"]) == 7
-    for a, b in zip(frames["port"], frames["jax"]):
-        np.testing.assert_array_equal(a, b)
+    for src, a, b in zip(_movie_sources(series, 2, 9), frames["port"],
+                         frames["jax"]):
+        assert a.shape == b.shape == (96, 128, 3)
+        err = [np.abs(f[..., 1].astype(np.float64) - src).mean()
+               for f in (a, b)]
+        assert err[0] <= err[1] + 0.5, err

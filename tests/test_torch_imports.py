@@ -1,11 +1,13 @@
 """ipp_tpu_torch, chip_smoke.py and the port's kernel benches import no jax
 and no ipp_tpu module: the port keeps its own copies of the reference's
 host code (tests/test_torch_hostio.py holds them to their originals).
-They import OpenCV nowhere but in the converter's movie writer
-(`pipeline/convert.tif_series_to_movie`, host codec work, as in the JAX
-package): the card's host has no OpenCV.  They import h5py nowhere: the
-card's host has none, and the port reads and writes HDF5 through its own
-`io/hdf5.py`."""
+They import OpenCV nowhere but in the converter's `.mp4` branch
+(`pipeline/convert._open_mp4`; `.avi` movies are the port's own
+Motion-JPEG writer) and PIL nowhere but in the JPEG 2000 branch
+(`io/generic2d._pil_jpeg2000`): the card's host is promised neither, and
+the port reads and writes every other plane with its own codecs.  They
+import h5py nowhere: the card's host has none, and the port reads and
+writes HDF5 through its own `io/hdf5.py`."""
 
 import ast
 import os
@@ -75,13 +77,23 @@ def test_every_port_module_imports_without_jax(platform):
     assert out.stdout.startswith("OK")
 
 
-# the one place the port may import OpenCV: (file, enclosing function)
-CV2_ALLOWED = {("ipp_tpu_torch/pipeline/convert.py", "tif_series_to_movie")}
+# the one place the port may import each package: (file, enclosing
+# function); chip_smoke.py's phase 18 times PIL and counts a movie's
+# frames with OpenCV beside the port, where the host has them
+ALLOWED = {"cv2": {("ipp_tpu_torch/pipeline/convert.py", "_open_mp4"),
+                   ("chip_smoke.py", "host_cv2_frames")},
+           "PIL": {("ipp_tpu_torch/io/generic2d.py", "_pil_jpeg2000"),
+                   ("chip_smoke.py", "host_pil_rates")}}
 
 
-def _cv2_imports(tree):
-    """(enclosing function name or None, line) of every cv2 import."""
+def _package_imports(tree, package):
+    """(enclosing function name or None, line) of every import of
+    `package`: import statements, and __import__ or
+    importlib.import_module called with its name."""
     found = []
+
+    def named(name):
+        return name is not None and str(name).split(".")[0] == package
 
     def visit(node, func):
         for child in ast.iter_child_nodes(node):
@@ -89,10 +101,17 @@ def _cv2_imports(tree):
                 visit(child, child.name)
                 continue
             if isinstance(child, ast.Import):
-                if any(a.name.split(".")[0] == "cv2" for a in child.names):
+                if any(named(a.name) for a in child.names):
                     found.append((func, child.lineno))
-            elif isinstance(child, ast.ImportFrom) and child.module and \
-                    child.module.split(".")[0] == "cv2":
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 \
+                    and named(child.module):
+                found.append((func, child.lineno))
+            elif isinstance(child, ast.Call) and child.args and \
+                    isinstance(child.args[0], ast.Constant) and \
+                    named(child.args[0].value) and \
+                    getattr(child.func, "attr", getattr(child.func, "id",
+                                                        None)) \
+                    in ("import_module", "__import__"):
                 found.append((func, child.lineno))
             visit(child, func)
 
@@ -100,16 +119,36 @@ def _cv2_imports(tree):
     return found
 
 
+def _cv2_imports(tree):
+    return _package_imports(tree, "cv2")
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_opencv_but_in_the_movie_writer(path):
+    """cv2 only in the converter's .mp4 branch."""
     rel = str(path.relative_to(ROOT))
     for func, line in _cv2_imports(ast.parse(path.read_text())):
-        assert (rel, func) in CV2_ALLOWED, f"{rel}:{line} imports cv2"
+        assert (rel, func) in ALLOWED["cv2"], f"{rel}:{line} imports cv2"
 
 
 def test_the_movie_writer_is_the_one_opencv_import():
     tree = ast.parse((ROOT / "ipp_tpu_torch/pipeline/convert.py").read_text())
-    assert [f for f, _ in _cv2_imports(tree)] == ["tif_series_to_movie"]
+    assert [f for f, _ in _cv2_imports(tree)] == ["_open_mp4"]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_pil_but_in_the_jpeg2000_branch(path):
+    rel = str(path.relative_to(ROOT))
+    for func, line in _package_imports(ast.parse(path.read_text()), "PIL"):
+        assert (rel, func) in ALLOWED["PIL"], f"{rel}:{line} imports PIL"
+
+
+def test_the_jpeg2000_branch_is_the_one_pil_import():
+    tree = ast.parse((ROOT / "ipp_tpu_torch/io/generic2d.py").read_text())
+    assert [f for f, _ in _package_imports(tree, "PIL")] == ["_pil_jpeg2000"]
+    src = "import PIL\nfrom PIL import Image\n__import__('PIL.Image')\n"
+    assert [ln for _, ln in _package_imports(ast.parse(src), "PIL")] == \
+        [1, 2, 3]
 
 
 def _h5py_imports(tree):

@@ -263,7 +263,7 @@ Phases:
    TIFF run's; h5py never imported.
 18. the host image codec (io/png.py, io/jpeg.py, io/bmp.py,
    io/tiffcodec.py, io/avi.py on native/imgcodec.cpp) in a child process
-   (`--codec-child`) where importing PIL or cv2 fails: (a) phase 6's
+   (`--codec-child`) where importing PIL, cv2 or pandas fails: (a) phase 6's
    destripe CLI on 2 of its stacks cut to 16 planes, written as 16-bit
    PNG by the port, and on the same tiles as TIFFs: 0 counts apart, equal
    K5, K5s and K8 launches; (b) convert --destripe (phase 14's wide-run
@@ -275,9 +275,19 @@ Phases:
    decode; (d) convert --movie to .avi on phase 14's first 16 planes (its
    seeds), every frame read back by the port within MOVIE_MAE_MAX of its
    8-bit source, and, where the host has OpenCV, counted by
-   cv2.VideoCapture here; (e) decode MB/s of a 2000^2 u16 PNG, u8 JPEG and
-   u16 LZW TIFF (predictor 2; written by PIL where the host has it), the
-   port's beside PIL's with the card's name and power limit.
+   cv2.VideoCapture here; (e) decode MB/s of a 2000^2 u16 PNG, u8 JPEG,
+   u16 LZW TIFF (predictor 2; written by PIL where the host has it) and
+   u16 lossless JPEG 2000 (io/jpeg2000.py on native/j2k.cpp), the
+   port's beside PIL's with the card's name and power limit; (c) also
+   reads the JPEG 2000 fixtures (tests/torch_jpeg2000_fixtures, made by
+   PIL over OpenJPEG at its options) bit-equal to their digests; (f)
+   convert --destripe on phase 14's first 16 planes written as u16 .jp2
+   by the port and on the same planes as TIFFs: 0 counts apart, equal
+   launches; (g) the committed marker / SWC / ESWC / APO / recut-seed
+   fixtures (tests/torch_marker_fixtures) through the port's
+   utils/markers.py and reconops.py: every output byte-equal to the JAX
+   package's (written through pandas here); pandas is refused in the
+   child too.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -5144,14 +5154,15 @@ LZF_VOLUME_MB = 320        # raw MB of lzf chunks decoded for the rate
 LZF_REPEATS = 3            # timed passes of each lzf decode form
 
 
-def load_fixture_maker():
-    """tests/torch_hdf5_fixtures/make_fixtures.py, which regenerates the
+def load_fixture_maker(folder=FIXTURES, name="make_fixtures"):
+    """folder/make_fixtures.py loaded as module `name`; by default
+    tests/torch_hdf5_fixtures/make_fixtures.py, which regenerates the
     fixtures' arrays from their seeds with numpy alone (it imports h5py
     only to write them)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "make_fixtures", FIXTURES / "make_fixtures.py")
+        name, folder / "make_fixtures.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -5525,7 +5536,10 @@ MOVIE_MAE_MAX = 1.0    # mean |frame - its 8-bit source|, counts
 RATE_SIDE = 2000       # the planes whose decode MB/s are printed
 RATE_REPS = 5
 IMAGE_FIXTURES = ROOT / "tests" / "torch_image_fixtures"
-REFUSED = ("PIL", "cv2")
+JP2_FIXTURES = ROOT / "tests" / "torch_jpeg2000_fixtures"
+MARKER_FIXTURES = ROOT / "tests" / "torch_marker_fixtures"
+JP2_PLANES = 16        # phase 14's planes written as u16 .jp2 in (f)
+REFUSED = ("PIL", "cv2", "pandas")
 
 
 def refuse_imports(names=REFUSED) -> None:
@@ -5595,15 +5609,18 @@ def best_rate(fn, nbytes, reps=RATE_REPS):
 
 
 def codec_child(work: Path) -> int:
-    """Phase 18's port side, in a process where PIL and cv2 cannot be
-    imported: (a) phase 6's destripe CLI on 16-bit PNG tiles (written by
+    """Phase 18's port side, in a process where PIL, cv2 and pandas cannot
+    be imported: (a) phase 6's destripe CLI on 16-bit PNG tiles (written by
     the port) and on the same tiles as TIFFs, in turns, after the codec
     library is built; (b) convert --destripe on an
     8-bit JPEG plane series (quality 95, the port's encoder) and on its
     planes decoded by the port and written as TIFFs; (c) the committed
-    fixtures; (d) convert --movie to .avi on phase 14's first 16 planes,
-    read back by the port; (e) the port's decode MB/s.  Writes
-    work/codec.json."""
+    image and JPEG 2000 fixtures; (d) convert --movie to .avi on phase
+    14's first 16 planes, read back by the port; (f) convert --destripe on
+    phase 14's first 16 planes written as u16 .jp2 by the port and on the
+    same planes as TIFFs; (g) the committed marker / SWC / ESWC / APO /
+    seed fixtures through the port's utilities, against the JAX package's
+    outputs; (e) the port's decode MB/s.  Writes work/codec.json."""
     refuse_imports()
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5613,13 +5630,14 @@ def codec_child(work: Path) -> int:
     sys.path.insert(0, str(ROOT))
     from ipp_tpu_torch.io import avi
     from ipp_tpu_torch.io import generic2d as g2d
-    from ipp_tpu_torch.io import imgcodec
+    from ipp_tpu_torch.io import imgcodec, jpeg2000
     from ipp_tpu_torch.io import tiff as tio
     from ipp_tpu_torch.io.jpeg import encode_jpeg
     from ipp_tpu_torch.ops import cuda_dwt as cd
     from ipp_tpu_torch.ops import cuda_notch as cn
     from ipp_tpu_torch.pipeline import convert as conv
     from ipp_tpu_torch.pipeline import pystripe_cli as psc
+    from ipp_tpu_torch.utils import markers, reconops
 
     on_card = torch.cuda.is_available()
     if on_card:
@@ -5737,6 +5755,22 @@ def codec_child(work: Path) -> int:
     rec["fixtures"] = dict(files=sorted(manifest), bad=bad)
     say(f"  (c) {len(manifest)} fixtures, bit-equal but {bad}")
     checks["fixtures bit-equal"] = not bad
+    mk2 = load_fixture_maker(JP2_FIXTURES, "make_jp2_fixtures")
+    manifest = json.loads((JP2_FIXTURES / "fixtures.json").read_text())
+    seeds, bad = mk2.seeds(), []
+    for name, entry in manifest["files"].items():
+        got = g2d.read_plane(JP2_FIXTURES / name)
+        if mk2.digest(got) != entry["sha256"] or (
+                entry["lossless"] and not np.array_equal(got,
+                                                         seeds[entry["seed"]])):
+            bad.append(name)
+    rec["jp2_fixtures"] = dict(files=sorted(manifest["files"]), bad=bad,
+                               pil=manifest["pil"],
+                               openjpeg=manifest["openjpeg"])
+    say(f"  (c) {len(manifest['files'])} JPEG 2000 fixtures (PIL "
+        f"{manifest['pil']}, OpenJPEG {manifest['openjpeg']}), bit-equal "
+        f"but {bad}")
+    checks["JPEG 2000 fixtures bit-equal"] = not bad
 
     # (d) convert --movie to .avi, read back by the port
     sdir = work / "series"
@@ -5771,20 +5805,79 @@ def codec_child(work: Path) -> int:
     checks["movie frames within the bound"] = bool(maes) and \
         max(maes) <= MOVIE_MAE_MAX
 
+    # (f) convert --destripe on phase 14's planes as u16 .jp2 and as TIFFs
+    jp2dir, tifdir = work / "jp2", work / "jp2_tif"
+    jp2dir.mkdir()
+    tifdir.mkdir()
+    t0 = time.perf_counter()
+
+    def put_jp2(z):
+        g2d.imwrite_generic(jp2dir / f"img_{z:06d}.jp2", planes[z])
+        write_u16_tiff(tifdir / f"img_{z:06d}.tif", planes[z])
+
+    list(pool.map(put_jp2, range(JP2_PLANES)))
+    t_write = time.perf_counter() - t0
+    fruns = {}
+    with DefaultMesh(None):
+        for kind, src in (("jp2", jp2dir), ("tif", tifdir)):
+            cd.reset_launch_counts()
+            cn.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = conv.main(["-i", str(src), "-o", str(work / f"conv_{kind}"),
+                            *WIDE_FLAGS])
+            sync()
+            fruns[kind] = dict(rc=rc, wall_s=time.perf_counter() - t0,
+                               launches=launches())
+    n, worst = same_tiles(work / "conv_jp2", work / "conv_tif")
+    rec["jp2_convert"] = dict(runs=fruns, planes=n, max_count_diff=worst,
+                              write_s=t_write, bytes=sum(
+                                  p.stat().st_size for p in
+                                  jp2dir.iterdir()))
+    say(f"  (f) convert --destripe on {n} u16 .jp2 planes (the port's "
+        f"writer, {t_write:.1f} s for {JP2_PLANES}): "
+        f"{fruns['jp2']['wall_s']:.1f} s, as TIFFs "
+        f"{fruns['tif']['wall_s']:.1f} s; max |JP2 run - TIFF run| {worst} "
+        f"counts; launches {fruns['jp2']['launches']} / "
+        f"{fruns['tif']['launches']}")
+    checks["JP2 series 0 counts off TIFFs"] = \
+        fruns["jp2"]["rc"] == fruns["tif"]["rc"] == 0 and worst == 0 and \
+        n == JP2_PLANES
+    checks["JP2 launches == TIFF launches"] = \
+        fruns["jp2"]["launches"] == fruns["tif"]["launches"] and \
+        (not on_card or all(fruns["jp2"]["launches"].values()))
+
+    # (g) the marker / SWC fixtures through the port, byte for byte
+    mk3 = load_fixture_maker(MARKER_FIXTURES, "make_marker_fixtures")
+    want = json.loads((MARKER_FIXTURES / "fixtures.json").read_text())
+    t0 = time.perf_counter()
+    mk3.run(markers, reconops, mk3.INPUTS, work / "markers")
+    got = mk3.tree(work / "markers")
+    bad = sorted(k for k in set(got) | set(want["expected"])
+                 if got.get(k) != want["expected"].get(k))
+    rec["marker_fixtures"] = dict(files=len(want["expected"]), bad=bad,
+                                  pandas=want["pandas"],
+                                  wall_s=time.perf_counter() - t0)
+    say(f"  (g) {len(got)} marker / SWC / ESWC / APO / seed files through "
+        f"the port, byte-equal to the JAX package's (pandas "
+        f"{want['pandas']}) but {bad}")
+    checks["marker fixtures byte-equal"] = not bad and bool(got)
+
     # (e) the port's decode MB/s (PIL's beside them in the parent)
     rates = work / "rates"
     tile = planes[0][:RATE_SIDE, :RATE_SIDE]
     g2d.imwrite_generic(rates / "u16.png", tile)
     g2d.imwrite_generic(rates / "u8.jpg", np.clip(tile / 16.0, 0, 255)
                         .astype(np.uint8))
+    g2d.imwrite_generic(rates / "u16.jp2", tile)
+    jpeg2000.load()
     port = {}
-    for name in ("u16.png", "u8.jpg", "u16_lzw_p2.tif"):
+    for name in ("u16.png", "u8.jpg", "u16_lzw_p2.tif", "u16.jp2"):
         p = rates / name
         if p.exists():
             nbytes = g2d.read_plane(p).nbytes
             port[name] = best_rate(lambda: g2d.read_plane(p), nbytes)
     rec["port_mb_s"] = port
-    checks["PIL and cv2 never imported"] = not [
+    checks["PIL, cv2 and pandas never imported"] = not [
         m for m in sys.modules if m.split(".")[0] in REFUSED]
     rec["checks"] = checks
     (work / "codec.json").write_text(json.dumps(rec, indent=1))
@@ -5794,15 +5887,15 @@ def codec_child(work: Path) -> int:
 
 def host_pil_rates(rates: Path, write: bool):
     """With PIL on the host: write (write=True) the u16 LZW TIFF (predictor
-    2) of the rate plane, or time PIL's decode of every rate plane; None
-    without PIL."""
+    2) of the rate plane, or time PIL's decode of every rate plane (the
+    .jp2 only where PIL has OpenJPEG); None without PIL."""
     import importlib.util
 
     import numpy as np
 
     if importlib.util.find_spec("PIL") is None:
         return None
-    from PIL import Image, TiffImagePlugin
+    from PIL import Image, TiffImagePlugin, features
 
     if write:
         pred = TiffImagePlugin.ImageFileDirectory_v2()
@@ -5813,6 +5906,8 @@ def host_pil_rates(rates: Path, write: bool):
         return {}
     out = {}
     for p in sorted(rates.iterdir()):
+        if p.suffix == ".jp2" and not features.check("jpg_2000"):
+            continue
         nbytes = np.asarray(Image.open(p)).nbytes
         out[p.name] = best_rate(lambda: np.asarray(Image.open(p)), nbytes)
     return out
@@ -5836,8 +5931,9 @@ def host_cv2_frames(movie: Path):
 
 def phase_codec(torch, record):
     """The host image codec on the card's host: codec_child's run in a
-    process of its own with PIL and cv2 refused, then, here, OpenCV's count
-    of the movie's frames and PIL's decode MB/s beside the port's."""
+    process of its own with PIL, cv2 and pandas refused, then, here,
+    OpenCV's count of the movie's frames and PIL's decode MB/s beside the
+    port's."""
     card = card_line()
     work = ROOT / "build" / "chip_smoke_codec"
     shutil.rmtree(work, ignore_errors=True)
@@ -5847,7 +5943,7 @@ def phase_codec(torch, record):
     t0 = time.perf_counter()
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--codec-child", str(work)], timeout=1200)
-    say(f"  child (PIL and cv2 refused): rc {child.returncode} in "
+    say(f"  child (PIL, cv2 and pandas refused): rc {child.returncode} in "
         f"{time.perf_counter() - t0:.1f} s")
     if child.returncode != 0 or not (work / "codec.json").exists():
         raise AssertionError(f"codec child rc {child.returncode}")
@@ -5989,10 +6085,11 @@ def main() -> int:
           f"the newer-format fixtures, the split BDV, long-attribute .ims "
           f"and shared-message fixtures",
           phase_hdf5, torch, record, shared)
-    phase(18, f"the host image codec with PIL and cv2 refused: the "
+    phase(18, f"the host image codec with PIL, cv2 and pandas refused: the "
           f"destripe CLI on {CODEC_STACKS} stacks of {CODEC_PLANES} PNG "
           f"tiles, convert on a JPEG series, the fixtures, convert --movie "
-          f".avi, decode MB/s", phase_codec, torch, record)
+          f".avi, convert on {JP2_PLANES} .jp2 planes, the marker / SWC "
+          f"fixtures, decode MB/s", phase_codec, torch, record)
     for d in ("chip_smoke", "chip_smoke_tiles", "chip_smoke_stitch",
               "chip_smoke_convert", "chip_smoke_hdf5", "chip_smoke_codec"):
         shutil.rmtree(ROOT / "build" / d, ignore_errors=True)

@@ -10,7 +10,9 @@ bdv, precomputed; `native/` with `fastio.cpp`; `parallel/executor.py`,
 `stitch/place.py`; `pipeline/scan_stitch.py`, `flip.py`,
 `command_generator.py`; `utils/iostat.py`, `lagged.py`, `log.py`,
 `memory.py`, `progress.py`, `tifstack.py`, `checkfiles.py`, `cli.py`,
-`markers.py`, `reconops.py`; the tests pin each copy to its original).
+`markers.py`, `reconops.py`; the tests pin each copy to its original,
+`markers.py` and `reconops.py` outside their table code, which runs on
+`utils/csvtable.py` instead of pandas).
 
 Layout mirrors `ipp_tpu/`: `ops/` (DFT matrices, the hand-written CUDA
 kernels of the FFT walk and of the DWT and their wrappers,

@@ -12,9 +12,9 @@ The reference's TeraStitcher build ships two OPTIONAL 2D input plugins
 The JAX package fills the role with PIL; the port with codecs of its own,
 which return what ``np.asarray(PIL.Image.open(path))`` returns (io/png.py,
 io/jpeg.py, io/bmp.py, io/netpbm.py, io/tiffcodec.py; their docstrings
-list PIL's quirks) and write what PIL writes.  `read_plane` picks the
-codec by the file's signature, as PIL does, not by its suffix.  JPEG 2000
-(.jp2/.j2k) is the one format left on PIL, imported in that branch alone.
+list PIL's quirks, io/jpeg2000.py OpenJPEG's) and write what PIL writes.
+`read_plane` picks the codec by the file's signature, as PIL does, not by
+its suffix.  No format is left on PIL.
 Tile/series discovery accepts these suffixes (geometry/stacks.py,
 pipeline/convert._open_source).  Formats that genuinely need Bio-Formats
 (czi, nd2, lif, vsi, oib, ...) are out of scope — see docs/PARITY.md
@@ -28,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import jpeg, png
+from . import jpeg, jpeg2000, png
 from . import tiff as _tio
 
 __all__ = ["GENERIC_2D_SUFFIXES", "PLANE_SUFFIXES", "imread_generic",
@@ -42,9 +42,6 @@ GENERIC_2D_SUFFIXES = (".png", ".jp2", ".j2k", ".jpg", ".jpeg", ".jpe",
 # + the generic 2D set)
 PLANE_SUFFIXES = (".tif", ".tiff", ".raw") + GENERIC_2D_SUFFIXES
 
-_NEEDS_PIL = ("JPEG 2000 (.jp2 / .j2k) is read and written through PIL, "
-              "which is not installed (ROADMAP queue 1 item 20)")
-_JP2 = (b"\0\0\0\x0cjP  \r\n\x87\n", b"\xff\x4f\xff\x51")
 _TIFF = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 
 
@@ -70,22 +67,10 @@ def read_plane(path) -> np.ndarray:
 
     if is_netpbm(head):
         return read_netpbm(path)
-    if head.startswith(_JP2):
-        return _pil_jpeg2000(path)
+    if head.startswith(jpeg2000.SIGNATURES):
+        return jpeg2000.read_jpeg2000(path)
     raise CodecError(f"{path}: not a TIFF, PNG, JPEG, BMP, PBM / PGM / PPM "
                      f"or JPEG 2000 file (first bytes {head[:8]!r})")
-
-
-def _pil_jpeg2000(path, img: np.ndarray = None):
-    """Read (img None) or write a JPEG 2000 plane through PIL."""
-    try:
-        from PIL import Image
-    except ImportError:
-        raise ImportError(_NEEDS_PIL) from None
-    if img is None:
-        with Image.open(path) as im:
-            return np.asarray(im)
-    Image.fromarray(img).save(path, format="JPEG2000")
 
 
 def imread_generic(path) -> np.ndarray:
@@ -96,22 +81,22 @@ def imread_generic(path) -> np.ndarray:
 
 def imwrite_generic(path, img: np.ndarray) -> None:
     """Atomic write for generic formats, format from the suffix (the
-    opencv2D writeData role)."""
+    opencv2D writeData role).  JPEG 2000 is written with the JP2 boxes for
+    .j2k too, as PIL writes it through the .tmp name."""
     path = Path(path)
     tmp = path.with_suffix(path.suffix + ".tmp")
     suffix = path.suffix.lower()
-    if suffix in (".jp2", ".j2k"):
-        _pil_jpeg2000(tmp, img)
+    if suffix == ".png":
+        encode = png.encode_png
+    elif suffix in (".jpg", ".jpeg", ".jpe"):
+        encode = jpeg.encode_jpeg
+    elif suffix in (".jp2", ".j2k"):
+        encode = jpeg2000.encode_jpeg2000
+    elif suffix in (".bmp", ".dib"):
+        from .bmp import encode_bmp as encode
+    elif suffix in (".pbm", ".pgm", ".ppm"):
+        from .netpbm import encode_netpbm as encode
     else:
-        if suffix == ".png":
-            encode = png.encode_png
-        elif suffix in (".jpg", ".jpeg", ".jpe"):
-            encode = jpeg.encode_jpeg
-        elif suffix in (".bmp", ".dib"):
-            from .bmp import encode_bmp as encode
-        elif suffix in (".pbm", ".pgm", ".ppm"):
-            from .netpbm import encode_netpbm as encode
-        else:
-            raise KeyError(suffix)
-        tmp.write_bytes(encode(img))
+        raise KeyError(suffix)
+    tmp.write_bytes(encode(img))
     os.replace(tmp, path)

@@ -5,6 +5,11 @@ Equivalents of the reference's marker shuttles
 soma-coordinate converters, supplements/find_swc_location.py): read/write
 Vaa3D .marker CSVs, merge with de-duplication, and convert coordinates
 between pixel spaces (recut/terafly voxels <-> physical um <-> flipped axes).
+
+The JAX package's functions take and return pandas DataFrames; these take
+and return numpy structured arrays, one field a column with the dtype
+pandas infers, read and written by utils/csvtable.py (pandas' parser and
+writer rebuilt, so values and files equal the JAX package's bit for bit).
 """
 
 from __future__ import annotations
@@ -13,7 +18,8 @@ from pathlib import Path
 from typing import Sequence, Tuple
 
 import numpy as np
-import pandas as pd
+
+from . import csvtable as ct
 
 __all__ = ["read_marker", "write_marker", "merge_marker_files",
            "convert_coordinates", "recut_seeds_to_terafly_ano",
@@ -23,24 +29,28 @@ MARKER_COLUMNS = ["x", "y", "z", "radius", "shape", "name", "comment",
                   "color_r", "color_g", "color_b"]
 
 
-def read_marker(path) -> pd.DataFrame:
-    """Read a Vaa3D .marker file (comma-separated, # comments)."""
-    df = pd.read_csv(path, comment="#", header=None)
-    df = df.iloc[:, : len(MARKER_COLUMNS)]
-    df.columns = MARKER_COLUMNS[: df.shape[1]]
+def read_marker(path) -> np.ndarray:
+    """Read a Vaa3D .marker file (comma-separated, # comments) into a
+    structured array with the fields MARKER_COLUMNS."""
+    raw = ct.read_csv(path, comment="#", header=False)
+    found = ct.columns(raw)[: len(MARKER_COLUMNS)]
+    df = ct.table(MARKER_COLUMNS[: len(found)], [raw[k] for k in found])
     for col in MARKER_COLUMNS:
-        if col not in df.columns:
-            df[col] = {"radius": 0, "shape": 1, "name": "", "comment": "",
-                       "color_r": 255, "color_g": 0, "color_b": 0}.get(col, 0)
-    return df[MARKER_COLUMNS]
+        if col not in ct.columns(df):
+            df = ct.assign(df, col, {
+                "radius": 0, "shape": 1, "name": "", "comment": "",
+                "color_r": 255, "color_g": 0, "color_b": 0}.get(col, 0))
+    return ct.select(df, MARKER_COLUMNS)
 
 
-def write_marker(df: pd.DataFrame, path) -> Path:
+def write_marker(df, path) -> Path:
+    """Write the MARKER_COLUMNS of `df` (a structured array, or any
+    mapping of columns) as a Vaa3D .marker file."""
     path = Path(path)
     with open(path, "w") as f:
         f.write("#x, y, z, radius, shape, name, comment, color_r, color_g, "
                 "color_b\n")
-        df[MARKER_COLUMNS].to_csv(f, header=False, index=False)
+        ct.write_csv(f, df, MARKER_COLUMNS)
     return path
 
 
@@ -49,9 +59,9 @@ def merge_marker_files(paths: Sequence, out_path,
     """Concatenate marker files; optionally drop points within dedup_radius
     of an earlier point (reference merge_marker_files.py)."""
     frames = [read_marker(p) for p in paths]
-    merged = pd.concat(frames, ignore_index=True)
+    merged = ct.concat(frames)
     if dedup_radius > 0 and len(merged) > 1:
-        pts = merged[["x", "y", "z"]].to_numpy(float)
+        pts = np.stack([np.asarray(merged[k], float) for k in "xyz"], 1)
         keep = np.ones(len(pts), bool)
         for i in range(1, len(pts)):
             if not keep[: i].any():
@@ -60,26 +70,27 @@ def merge_marker_files(paths: Sequence, out_path,
             if (d < dedup_radius).any():
                 keep[i] = False
         merged = merged[keep]
-    return write_marker(merged.reset_index(drop=True), out_path)
+    return write_marker(merged, out_path)
 
 
 def convert_coordinates(
-    df: pd.DataFrame,
+    df: np.ndarray,
     voxel_source: Tuple[float, float, float] = (1.0, 1.0, 1.0),
     voxel_target: Tuple[float, float, float] = (1.0, 1.0, 1.0),
     flip_lengths: Tuple[float, float, float] = (0.0, 0.0, 0.0),
     offset: Tuple[float, float, float] = (0.0, 0.0, 0.0),
-) -> pd.DataFrame:
+) -> np.ndarray:
     """Coordinate shuttle between pixel spaces: scale by voxel ratio, flip
     axes of known length, add an offset (covers the recut/terafly/imaris
-    soma conversions of supplements/convert_recut_terafly_imaris)."""
-    out = df.copy()
+    soma conversions of supplements/convert_recut_terafly_imaris).  A new
+    structured array; `df` is left as it is."""
+    out = df
     for ax, s, t, L, off in zip("xyz", voxel_source, voxel_target,
                                 flip_lengths, offset):
-        v = out[ax] * (s / t)
+        v = ct.column(out, ax) * (s / t)
         if L and L > 0:
             v = L - v
-        out[ax] = v + off
+        out = ct.assign(out, ax, v + off)
     return out
 
 
@@ -100,23 +111,24 @@ def recut_seeds_to_terafly_ano(seeds_dir, color=(0, 0, 255),
     ano_file = seeds_dir / (seeds_dir.name + ".ano")
     apo_file = ano_file.parent / (ano_file.name + ".apo")
     eswc_file = ano_file.parent / (ano_file.name + ".eswc")
-    frames = [pd.read_csv(f, sep=",", comment="#",
+    frames = [ct.read_csv(f, sep=",", comment="#",
                           names=("x", "y", "z", "radius"), index_col=0)
               for f in sorted(seeds_dir.glob("marker_*"))]
-    df = pd.concat(frames).reset_index()
+    df = ct.concat(frames)
     vx, vy, vz = voxel
-    df["x"] /= vx
-    df["y"] /= vy
-    df["z"] /= vz
-    df["radius"] /= min(voxel)
+    df = ct.assign(df, "x", ct.column(df, "x") / vx)
+    df = ct.assign(df, "y", ct.column(df, "y") / vy)
+    df = ct.assign(df, "z", ct.column(df, "z") / vz)
+    df = ct.assign(df, "radius", ct.column(df, "radius") / min(voxel))
     r, g, b = color
     with open(apo_file, "w") as apo:
         apo.write("##n,orderinfo,name,comment,z,x,y,pixmax,intensity,"
                   "sdev,volsize,mass,,,,color_r,color_g,color_b\n")
-        for row in df.itertuples():
+        for index, (x, y, z, radius) in enumerate(
+                ct.rows(df, ("x", "y", "z", "radius"))):
             apo.write(
-                f"{row.Index},,,,{row.z},{row.x},{row.y},0.000,0.000,"
-                f"0.000,{4 / 3 * pi * row.radius ** 3},0.000,,,,"
+                f"{index},,,,{z},{x},{y},0.000,0.000,"
+                f"0.000,{4 / 3 * pi * radius ** 3},0.000,,,,"
                 f"{r},{g},{b}\n")
     ano_file.write_text(f"APOFILE={apo_file.name}\n"
                         f"SWCFILE={eswc_file.name}\n")
@@ -136,36 +148,41 @@ def terafly_apo_to_recut_seeds(apo_file, default_radius: float = 0.0,
 
     apo_file = Path(apo_file)
     vx, vy, vz = (float(v) for v in voxel)
-    df = pd.read_csv(apo_file).drop_duplicates().reset_index(drop=True)
+    df = ct.drop_duplicates(ct.read_csv(apo_file))
     recut = apo_file.parent / "recut_seeds_from_marker"
     if recut.exists():
         rmtree(recut)
     recut.mkdir()
     swc_path = recut / "seeds_for_Imaris_proofread.swc"
-    df["x_in_voxel"] = df["x"]
-    df["y_in_voxel"] = df["y"]
-    df["z_in_voxel"] = df["z"]
-    df["x"] *= vx
-    df["y"] *= vy
-    df["z"] *= vz
-    df["volsize_um"] = df["volsize"] * vx * vy * vz
+    df = ct.assign(df, "x_in_voxel", ct.column(df, "x"))
+    df = ct.assign(df, "y_in_voxel", ct.column(df, "y"))
+    df = ct.assign(df, "z_in_voxel", ct.column(df, "z"))
+    df = ct.assign(df, "x", ct.column(df, "x") * vx)
+    df = ct.assign(df, "y", ct.column(df, "y") * vy)
+    df = ct.assign(df, "z", ct.column(df, "z") * vz)
+    df = ct.assign(df, "volsize_um", ct.column(df, "volsize") * vx * vy * vz)
     for c in ("x", "y", "z", "volsize", "x_in_voxel", "y_in_voxel",
               "z_in_voxel"):
-        df[c] = df[c].round(0).astype(int)
+        v = ct.column(df, c)
+        df = ct.assign(df, c, ct.to_int(np.round(v, 0) if v.dtype.kind == "f"
+                                        else v))
+    names = ("x", "y", "z", "volsize", "volsize_um", "x_in_voxel",
+             "y_in_voxel", "z_in_voxel")
     with swc_path.open("w") as swc:
-        for row in df.itertuples():
-            r_um = (row.volsize_um * 3 / 4 / pi) ** (1 / 3)
+        for index, (x, y, z, volsize, volsize_um, x_vox, y_vox,
+                    z_vox) in enumerate(ct.rows(df, names)):
+            r_um = (volsize_um * 3 / 4 / pi) ** (1 / 3)
             if default_radius and default_radius > 0:
                 r_um = default_radius
             volume = round(4 / 3 * pi * r_um ** 3, 3)
-            with open(recut / f"marker_{row.x_in_voxel}_{row.y_in_voxel}"
-                              f"_{row.z_in_voxel}_{int(volume)}",
+            with open(recut / f"marker_{x_vox}_{y_vox}"
+                              f"_{z_vox}_{int(volume)}",
                       "w") as mf:
                 mf.write("# x,y,z,radius_um\n")
-                mf.write(f"{row.x},{row.y},{row.z},{r_um}")
-            r_vox = (row.volsize * 3 / 4 / pi) ** (1 / 3)
-            swc.write(f"{row.Index} 0 {row.x_in_voxel} {row.y_in_voxel} "
-                      f"{row.z_in_voxel} {r_vox} {-1}\n")
+                mf.write(f"{x},{y},{z},{r_um}")
+            r_vox = (volsize * 3 / 4 / pi) ** (1 / 3)
+            swc.write(f"{index} 0 {x_vox} {y_vox} "
+                      f"{z_vox} {r_vox} {-1}\n")
     return recut
 
 

@@ -1,8 +1,11 @@
 """Neuron-reconstruction file operations: SWC / ESWC / APO conversions.
 
-Re-design of the reference's supplements/reconops.py (431 LoC): pandas
-dataframes in, with axis flips, voxel rescaling, topological sorting, and
-format conversions.  The reference's Vaa3D plugin shell-outs (resample,
+Re-design of the reference's supplements/reconops.py (431 LoC): tables
+in, with axis flips, voxel rescaling, topological sorting, and
+format conversions.  The JAX package's tables are pandas DataFrames; the
+port's are numpy structured arrays, one field a column with the dtype
+pandas infers, read and written by utils/csvtable.py (pandas' parser and
+writer rebuilt, so values and files equal the JAX package's bit for bit).  The reference's Vaa3D plugin shell-outs (resample,
 N3DFix, inter-node pruning) are external binaries and are represented by
 `sort_swc` (implemented natively) plus documented extension points.
 """
@@ -13,7 +16,8 @@ from pathlib import Path
 from typing import Tuple
 
 import numpy as np
-import pandas as pd
+
+from . import csvtable as ct
 
 __all__ = ["SWC_COLUMNS", "ESWC_COLUMNS", "read_swc", "read_eswc",
            "read_apo", "write_swc", "write_eswc", "sort_swc",
@@ -23,69 +27,87 @@ SWC_COLUMNS = ["id", "type", "x", "y", "z", "radius", "parent_id"]
 ESWC_COLUMNS = ["seg_id", "level", "mode", "timestamp", "TFresindex"]
 
 
-def read_swc(path) -> pd.DataFrame:
-    return pd.read_csv(path, sep=r"\s+", comment="#", names=SWC_COLUMNS,
-                       index_col=False)
+def read_swc(path) -> np.ndarray:
+    """An SWC file (whitespace-separated, # comments) as a structured
+    array with the fields SWC_COLUMNS."""
+    return ct.read_csv(path, sep=None, comment="#", names=SWC_COLUMNS)
 
 
-def read_eswc(path) -> pd.DataFrame:
-    return pd.read_csv(path, sep=r"\s+", comment="#",
-                       names=SWC_COLUMNS + ESWC_COLUMNS, index_col=False)
+def read_eswc(path) -> np.ndarray:
+    """An ESWC file as a structured array with the fields SWC_COLUMNS +
+    ESWC_COLUMNS."""
+    return ct.read_csv(path, sep=None, comment="#",
+                       names=SWC_COLUMNS + ESWC_COLUMNS)
 
 
-def read_apo(path, radius: float = 12.0) -> pd.DataFrame:
+def read_apo(path, radius: float = 12.0) -> np.ndarray:
     """APO (cell annotation) -> SWC-like points (reference reconops
     main(): type=1, parent=-1, sequential ids)."""
-    df = pd.read_csv(path).drop_duplicates().reset_index(drop=True)
-    df.columns = [c.strip() for c in df.columns]
-    out = pd.DataFrame({
-        "id": np.arange(1, len(df) + 1),
-        "type": 1,
-        "x": df["x"], "y": df["y"], "z": df["z"],
-        "radius": radius,
-        "parent_id": -1,
-    })
-    return out
+    df = ct.drop_duplicates(ct.read_csv(path))
+    df = ct.table([c.strip() for c in ct.columns(df)],
+                  [df[c] for c in ct.columns(df)])
+    return ct.table(SWC_COLUMNS, [
+        np.arange(1, len(df) + 1), 1,
+        ct.column(df, "x"), ct.column(df, "y"), ct.column(df, "z"),
+        radius, -1])
 
 
-def write_swc(df: pd.DataFrame, path, comment: str = "") -> Path:
+def write_swc(df, path, comment: str = "") -> Path:
+    """Write the SWC_COLUMNS of `df` (a structured array, or any mapping
+    of columns) as an SWC file."""
     path = Path(path)
     with open(path, "w") as f:
         f.write(f"#{comment}\n#" + " ".join(SWC_COLUMNS) + "\n")
-        df[SWC_COLUMNS].to_csv(f, sep=" ", index=False, header=False)
+        ct.write_csv(f, df, SWC_COLUMNS, sep=" ")
     return path
 
 
-def write_eswc(df: pd.DataFrame, path, comment: str = "") -> Path:
+def write_eswc(df, path, comment: str = "") -> Path:
+    """Write `df` as an ESWC file; ESWC columns it lacks are 0."""
     path = Path(path)
-    out = df.copy()
+    out = df
     for col in ESWC_COLUMNS:
-        if col not in out.columns:
-            out[col] = 0
+        if col not in ct.columns(out):
+            out = ct.assign(out, col, 0)
     with open(path, "w") as f:
         f.write(f"#{comment}\n#" + " ".join(SWC_COLUMNS + ESWC_COLUMNS) + "\n")
-        out[SWC_COLUMNS + ESWC_COLUMNS].to_csv(f, sep=" ", index=False,
-                                               header=False)
+        ct.write_csv(f, out, SWC_COLUMNS + ESWC_COLUMNS, sep=" ")
     return path
 
 
-def flip_and_scale(df: pd.DataFrame,
+def flip_and_scale(df: np.ndarray,
                    flip_lengths: Tuple[float, float, float] = (0, 0, 0),
                    voxel_source: Tuple[float, float, float] = (1, 1, 1),
                    voxel_target: Tuple[float, float, float] = (1, 1, 1),
-                   ) -> pd.DataFrame:
+                   ) -> np.ndarray:
     """Axis flips (x -> L - x when L > 0) and voxel-size rescale
-    (reference reconops main(), x/y/z_axis_length + voxel args)."""
-    out = df.copy()
+    (reference reconops main(), x/y/z_axis_length + voxel args).  A new
+    structured array; `df` is left as it is."""
+    out = df
     for ax, L in zip("xyz", flip_lengths):
         if L and L > 0:
-            out[ax] = L - out[ax]
+            out = ct.assign(out, ax, L - ct.column(out, ax))
     for ax, s, t in zip("xyz", voxel_source, voxel_target):
-        out[ax] = out[ax] * (s / t)
+        out = ct.assign(out, ax, ct.column(out, ax) * (s / t))
     return out
 
 
-def sort_swc(df: pd.DataFrame) -> pd.DataFrame:
+def _nargsort(items: np.ndarray) -> np.ndarray:
+    """The order pandas' sort_values(by=[one column]) gives: numpy's
+    quicksort (not stable) over the values that are not NaN, NaN last."""
+    if items.dtype == object:
+        mask = np.array([v is None or (isinstance(v, float) and v != v)
+                         for v in items.tolist()], bool)
+    elif items.dtype.kind == "f":
+        mask = np.isnan(items)
+    else:
+        mask = np.zeros(len(items), bool)
+    idx = np.arange(len(items))
+    return np.concatenate([idx[~mask][items[~mask].argsort(kind="quicksort")],
+                           np.nonzero(mask)[0]])
+
+
+def sort_swc(df: np.ndarray) -> np.ndarray:
     """Topological re-id so every parent precedes its children and ids are
     contiguous from 1, matching the reference's traversal EXACTLY
     (reference sort_swc, supplements/reconops.py:59-102): rows sorted by
@@ -98,8 +120,10 @@ def sort_swc(df: pd.DataFrame) -> pd.DataFrame:
     Documented deviation: orphan nodes (parent id absent and not a root
     sentinel) are appended at the tail with parent -1 — the reference
     silently drops them."""
-    arr = (df[SWC_COLUMNS].sort_values(by=["id"], ascending=True)
-           .drop_duplicates().to_numpy(dtype=float))
+    sub = ct.select(df, SWC_COLUMNS)
+    sub = ct.drop_duplicates(sub[_nargsort(sub["id"])])
+    arr = np.stack([np.asarray(sub[k], dtype=float) for k in SWC_COLUMNS],
+                   axis=1)
     n = arr.shape[0]
     ids, parents = arr[:, 0], arr[:, 6]
     roots = list(np.where(parents == -1)[0])
@@ -140,16 +164,17 @@ def sort_swc(df: pd.DataFrame) -> pd.DataFrame:
             hits = np.where(old_ids == pid)[0]
             out[i, 6] = hits[0] + 1 if hits.size else -1
     out[:, 0] = np.arange(1, len(out) + 1)
-    res = pd.DataFrame(out, columns=SWC_COLUMNS)
+    res = ct.table(SWC_COLUMNS, list(out.T))
     for column in ("id", "type", "parent_id"):
-        res[column] = res[column].astype(int)
+        res = ct.assign(res, column, ct.to_int(res[column]))
     return res
 
 
-def swc_to_seeds(df: pd.DataFrame) -> pd.DataFrame:
+def swc_to_seeds(df: np.ndarray) -> np.ndarray:
     """Root nodes only (soma seeds) — the 'seed' output format of the
     reference converter."""
-    return df[df["parent_id"] == -1][["x", "y", "z", "radius"]].copy()
+    keep = ct.column(df, "parent_id") == -1
+    return ct.select(df, ["x", "y", "z", "radius"])[keep]
 
 
 # ---------------------------------------------------------------------------
@@ -159,14 +184,16 @@ def swc_to_seeds(df: pd.DataFrame) -> pd.DataFrame:
 
 def soma_of_swc(path) -> "np.ndarray":
     """(x, y, z) of the soma: the type-1 node, else the root (parent -1),
-    else the first node (reference get_soma_locations reads the same)."""
+    else the first node (reference get_soma_locations reads the same).
+    As in the JAX package, the root test reads a column "parent", which an
+    SWC table does not have: a file with no type-1 node raises KeyError."""
     df = read_swc(path)
-    soma = df[df["type"] == 1]
-    if soma.empty:
-        soma = df[df["parent"] == -1]
-    if soma.empty:
-        soma = df.iloc[:1]
-    r = soma.iloc[0]
+    soma = df[ct.column(df, "type") == 1]
+    if not len(soma):
+        soma = df[ct.column(df, "parent") == -1]
+    if not len(soma):
+        soma = df[:1]
+    r = soma[0]
     return np.array([r["x"], r["y"], r["z"]], dtype=np.float64)
 
 

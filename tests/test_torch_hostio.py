@@ -13,7 +13,9 @@ originals: each copy's source equals its original up to the package's
 name in imports and comments (and, in pipeline/command_generator.py, in
 the `python -m` module paths of the commands it writes, which name the
 port's CLIs; io/tiff.py and io/generic2d.py, which decode and write
-without PIL, equal theirs outside the definitions `DIFFERS` names,
+without PIL, and utils/markers.py and utils/reconops.py, which read and
+write their tables without pandas, equal theirs outside the definitions
+`DIFFERS` names,
 docstrings aside); a TIFF written by each package is
 byte-equal and reads back equal through the other; the native
 `read_block` equals the numpy path; an NRRD round-trip; and
@@ -45,8 +47,7 @@ VERBATIM = ["io/dcimg.py", "io/nrrd.py", "parallel/executor.py",
             "stitch/place.py", "io/terafly.py",
             "io/vaa3draw.py", "utils/tifstack.py",
             "pipeline/scan_stitch.py", "io/precomputed.py",
-            "pipeline/flip.py", "utils/checkfiles.py", "utils/cli.py",
-            "utils/markers.py", "utils/reconops.py"]
+            "pipeline/flip.py", "utils/checkfiles.py", "utils/cli.py"]
 # copies that equal the original once, besides the imports, each
 # (pattern, replacement) is applied: the command generator writes
 # `python -m <package>.pipeline.<cli>` commands, and the port's must run
@@ -66,15 +67,26 @@ RENAMED = {"pipeline/command_generator.py":
 # read_tiff_stack, read_tiff_partial) decodes through one _decode_chunk
 # that undoes predictors 2 and 3, and imread's last leg dispatches on the
 # file's signature; io/generic2d.py reads by signature and writes through
-# the port's encoders, PIL left to JPEG 2000
+# the port's encoders, JPEG 2000 (io/jpeg2000.py) among them, and no longer
+# imports PIL (no _pil_jpeg2000, no _NEEDS_PIL).  utils/markers.py and
+# utils/reconops.py hold their tables in numpy structured arrays, read and
+# written by utils/csvtable.py instead of pandas: the functions that touch
+# a table differ, the mesh code and swc_to_recut_seeds stay verbatim
 DIFFERS = {"io/tiff.py": ({"_TiffPage", "_page_from_tags", "_decompress",
                            "_read_striped", "_read_tiled",
                            "read_tiff_partial", "_imread_impl"},
                           {"_T_JPEG_TABLES", "_undo_float_predictor",
                            "_decode_chunk"}),
            "io/generic2d.py": ({"imwrite_generic", "__all__"},
-                               {"read_plane", "_pil_jpeg2000",
-                                "_NEEDS_PIL", "_JP2", "_TIFF"})}
+                               {"read_plane", "_TIFF"}),
+           "utils/markers.py": ({"read_marker", "write_marker",
+                                 "merge_marker_files", "convert_coordinates",
+                                 "recut_seeds_to_terafly_ano",
+                                 "terafly_apo_to_recut_seeds"}, set()),
+           "utils/reconops.py": ({"read_swc", "read_eswc", "read_apo",
+                                  "write_swc", "write_eswc", "flip_and_scale",
+                                  "sort_swc", "swc_to_seeds", "soma_of_swc"},
+                                 {"_nargsort"})}
 
 
 def _definitions(src: str) -> dict:

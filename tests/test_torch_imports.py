@@ -3,11 +3,14 @@ and no ipp_tpu module: the port keeps its own copies of the reference's
 host code (tests/test_torch_hostio.py holds them to their originals).
 They import OpenCV nowhere but in the converter's `.mp4` branch
 (`pipeline/convert._open_mp4`; `.avi` movies are the port's own
-Motion-JPEG writer) and PIL nowhere but in the JPEG 2000 branch
-(`io/generic2d._pil_jpeg2000`): the card's host is promised neither, and
-the port reads and writes every other plane with its own codecs.  They
-import h5py nowhere: the card's host has none, and the port reads and
-writes HDF5 through its own `io/hdf5.py`."""
+Motion-JPEG writer) and PIL nowhere in the package (chip_smoke.py times
+PIL beside the port where the host has it, in `host_pil_rates`): the
+card's host is promised neither, and the port reads and writes every
+plane, JPEG 2000 included, with its own codecs.  They import h5py
+nowhere: the card's host has none, and the port reads and writes HDF5
+through its own `io/hdf5.py`.  They import pandas nowhere: the port reads
+and writes the marker and SWC tables through its own
+`utils/csvtable.py`."""
 
 import ast
 import os
@@ -65,6 +68,9 @@ def test_every_port_module_imports_without_jax(platform):
             "ref = sorted(k for k in sys.modules\n"
             "             if k == 'ipp_tpu' or k.startswith('ipp_tpu.'))\n"
             "assert not ref, ref\n"
+            "banned = sorted(k for k in sys.modules\n"
+            "                if k.split('.')[0] in ('pandas', 'PIL'))\n"
+            "assert not banned, banned\n"
             "print('OK', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items()
            if k not in ("IPP_TPU_PLATFORM", "PYTHONSTARTUP")}
@@ -82,8 +88,7 @@ def test_every_port_module_imports_without_jax(platform):
 # frames with OpenCV beside the port, where the host has them
 ALLOWED = {"cv2": {("ipp_tpu_torch/pipeline/convert.py", "_open_mp4"),
                    ("chip_smoke.py", "host_cv2_frames")},
-           "PIL": {("ipp_tpu_torch/io/generic2d.py", "_pil_jpeg2000"),
-                   ("chip_smoke.py", "host_pil_rates")}}
+           "PIL": {("chip_smoke.py", "host_pil_rates")}}
 
 
 def _package_imports(tree, package):
@@ -138,17 +143,42 @@ def test_the_movie_writer_is_the_one_opencv_import():
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_pil_but_in_the_jpeg2000_branch(path):
+    """PIL nowhere but in chip_smoke.host_pil_rates (the JPEG 2000 branch
+    that held the package's last import reads and writes through
+    io/jpeg2000.py now)."""
     rel = str(path.relative_to(ROOT))
     for func, line in _package_imports(ast.parse(path.read_text()), "PIL"):
         assert (rel, func) in ALLOWED["PIL"], f"{rel}:{line} imports PIL"
 
 
 def test_the_jpeg2000_branch_is_the_one_pil_import():
+    """No module of the package imports PIL, JPEG 2000's branch
+    (io/generic2d.py) included; the guard sees every form of import."""
+    for path in PORT.rglob("*.py"):
+        assert not _package_imports(ast.parse(path.read_text()), "PIL"), \
+            path
     tree = ast.parse((ROOT / "ipp_tpu_torch/io/generic2d.py").read_text())
-    assert [f for f, _ in _package_imports(tree, "PIL")] == ["_pil_jpeg2000"]
+    assert "jpeg2000" in {a.name for n in ast.walk(tree)
+                          if isinstance(n, ast.ImportFrom) for a in n.names}
     src = "import PIL\nfrom PIL import Image\n__import__('PIL.Image')\n"
     assert [ln for _, ln in _package_imports(ast.parse(src), "PIL")] == \
         [1, 2, 3]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_pandas(path):
+    """pandas nowhere: the marker and SWC utilities read and write their
+    tables through utils/csvtable.py."""
+    rel = str(path.relative_to(ROOT))
+    found = _package_imports(ast.parse(path.read_text()), "pandas")
+    assert not found, f"{rel}:{[ln for _, ln in found]} imports pandas"
+
+
+def test_the_pandas_guard_sees_every_form():
+    src = ("import pandas as pd\nfrom pandas import DataFrame\n"
+           "importlib.import_module('pandas.io')\n__import__('pandas')\n")
+    assert [ln for _, ln in _package_imports(ast.parse(src), "pandas")] == \
+        [1, 2, 3, 4]
 
 
 def _h5py_imports(tree):

@@ -287,7 +287,11 @@ Phases:
    fixtures (tests/torch_marker_fixtures) through the port's
    utils/markers.py and reconops.py: every output byte-equal to the JAX
    package's (written through pandas here); pandas is refused in the
-   child too.
+   child too; (h) convert --destripe on (b)'s planes written as
+   progressive JPEG (quality 95) by PIL here: 0 counts off (b)'s run,
+   whose quantised coefficients they share, and equal launches (not run
+   where the host has no PIL); (e) also times a progressive 2000^2 u8
+   gray and RGB JPEG (PIL's) beside PIL.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -5539,6 +5543,8 @@ IMAGE_FIXTURES = ROOT / "tests" / "torch_image_fixtures"
 JP2_FIXTURES = ROOT / "tests" / "torch_jpeg2000_fixtures"
 MARKER_FIXTURES = ROOT / "tests" / "torch_marker_fixtures"
 JP2_PLANES = 16        # phase 14's planes written as u16 .jp2 in (f)
+PROGRESSIVE_DIR = "pjpg"  # (b)'s planes as progressive JPEGs, for (h)
+PROGRESSIVE_RATES = ("u8_prog.jpg", "rgb_prog.jpg")   # (e)'s, PIL's
 REFUSED = ("PIL", "cv2", "pandas")
 
 
@@ -5614,7 +5620,8 @@ def codec_child(work: Path) -> int:
     the port) and on the same tiles as TIFFs, in turns, after the codec
     library is built; (b) convert --destripe on an
     8-bit JPEG plane series (quality 95, the port's encoder) and on its
-    planes decoded by the port and written as TIFFs; (c) the committed
+    planes decoded by the port and written as TIFFs; (h) the same on those
+    planes as progressive JPEGs (PIL's, written before); (c) the committed
     image and JPEG 2000 fixtures; (d) convert --movie to .avi on phase
     14's first 16 planes, read back by the port; (f) convert --destripe on
     phase 14's first 16 planes written as u16 .jp2 by the port and on the
@@ -5738,6 +5745,37 @@ def codec_child(work: Path) -> int:
         jruns["jpg"]["rc"] == jruns["dec"]["rc"] == 0 and worst == 0 and \
         n == CODEC_PLANES and jruns["jpg"]["launches"] == \
         jruns["dec"]["launches"]
+
+    # (h) the same planes as progressive JPEGs: the same quantised
+    # coefficients as (b)'s baseline files, so the same planes and outputs
+    pdir = work / PROGRESSIVE_DIR
+    if not pdir.is_dir():
+        rec["progressive_convert"] = None
+        say("  (h) not run: the host has no PIL to write the progressive "
+            "series; (c) holds the decoder to the committed digests")
+    else:
+        with DefaultMesh(None):
+            cd.reset_launch_counts()
+            cn.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = conv.main(["-i", str(pdir), "-o", str(work / "conv_pjpg"),
+                            *WIDE_FLAGS])
+            sync()
+            prun = dict(rc=rc, wall_s=time.perf_counter() - t0,
+                        launches=launches())
+        n, worst = same_tiles(work / "conv_pjpg", work / "conv_jpg")
+        rec["progressive_convert"] = dict(run=prun, planes=n,
+                                          max_count_diff=worst)
+        say(f"  (h) convert --destripe on {n} progressive JPEG planes "
+            f"(PIL's, q95): {prun['wall_s']:.1f} s against "
+            f"{jruns['jpg']['wall_s']:.1f} s on (b)'s baseline files; max "
+            f"|progressive run - baseline run| {worst} counts; launches "
+            f"{prun['launches']} / {jruns['jpg']['launches']}")
+        checks["progressive JPEG series 0 counts off the baseline run"] = \
+            rc == 0 and worst == 0 and n == CODEC_PLANES
+        checks["progressive launches == baseline launches"] = \
+            prun["launches"] == jruns["jpg"]["launches"] and \
+            (not on_card or all(prun["launches"].values()))
 
     # (c) the committed fixtures, bit for bit
     sys.path.insert(0, str(IMAGE_FIXTURES))
@@ -5871,7 +5909,8 @@ def codec_child(work: Path) -> int:
     g2d.imwrite_generic(rates / "u16.jp2", tile)
     jpeg2000.load()
     port = {}
-    for name in ("u16.png", "u8.jpg", "u16_lzw_p2.tif", "u16.jp2"):
+    for name in ("u16.png", "u8.jpg", "u16_lzw_p2.tif", "u16.jp2",
+                 *PROGRESSIVE_RATES):
         p = rates / name
         if p.exists():
             nbytes = g2d.read_plane(p).nbytes
@@ -5885,10 +5924,13 @@ def codec_child(work: Path) -> int:
     return 0
 
 
-def host_pil_rates(rates: Path, write: bool):
+def host_pil_rates(work: Path, write: bool):
     """With PIL on the host: write (write=True) the u16 LZW TIFF (predictor
-    2) of the rate plane, or time PIL's decode of every rate plane (the
-    .jp2 only where PIL has OpenJPEG); None without PIL."""
+    2) of the rate plane and the progressive u8 gray and RGB JPEGs made of
+    it (PIL's defaults, progressive=True) into work/rates, and (b)'s 16
+    planes as progressive JPEGs (quality 95) into work/PROGRESSIVE_DIR for
+    (h); or time PIL's decode of every rate plane (the .jp2 only where PIL
+    has OpenJPEG); None without PIL."""
     import importlib.util
 
     import numpy as np
@@ -5897,12 +5939,23 @@ def host_pil_rates(rates: Path, write: bool):
         return None
     from PIL import Image, TiffImagePlugin, features
 
+    rates = work / "rates"
     if write:
         pred = TiffImagePlugin.ImageFileDirectory_v2()
         pred[317] = 2
         tile = convert_series_planes(1)[0][:RATE_SIDE, :RATE_SIDE]
         Image.fromarray(tile).save(rates / "u16_lzw_p2.tif",
                                    compression="tiff_lzw", tiffinfo=pred)
+        g = np.clip(tile / 16.0, 0, 255).astype(np.uint8)
+        rgb = np.stack([g, np.roll(g, 7, 1), np.roll(g, 13, 0)], -1)
+        for name, img in zip(PROGRESSIVE_RATES, (g, rgb)):
+            Image.fromarray(img).save(rates / name, progressive=True)
+        pdir = work / PROGRESSIVE_DIR
+        pdir.mkdir()
+        for _, z, tile in codec_tiles(1, CODEC_PLANES):   # (b)'s planes
+            img8 = np.clip(tile / 16.0, 0, 255).astype(np.uint8)
+            Image.fromarray(img8).save(pdir / f"img_{z:06d}.jpg",
+                                       quality=95, progressive=True)
         return {}
     out = {}
     for p in sorted(rates.iterdir()):
@@ -5930,7 +5983,8 @@ def host_cv2_frames(movie: Path):
 
 
 def phase_codec(torch, record):
-    """The host image codec on the card's host: codec_child's run in a
+    """The host image codec on the card's host: PIL's files for (e) and
+    (h) written here where the host has PIL, codec_child's run in a
     process of its own with PIL, cv2 and pandas refused, then, here,
     OpenCV's count of the movie's frames and PIL's decode MB/s beside the
     port's."""
@@ -5938,7 +5992,7 @@ def phase_codec(torch, record):
     work = ROOT / "build" / "chip_smoke_codec"
     shutil.rmtree(work, ignore_errors=True)
     (work / "rates").mkdir(parents=True)
-    host_pil_rates(work / "rates", write=True)
+    host_pil_rates(work, write=True)
     torch.cuda.empty_cache()   # the child needs the card's memory
     t0 = time.perf_counter()
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -5954,7 +6008,7 @@ def phase_codec(torch, record):
     rec["movie"]["cv2_frames"] = frames
     if frames is not None:
         checks["cv2 counts the movie's frames"] = frames == MOVIE_PLANES
-    pil = host_pil_rates(work / "rates", write=False)
+    pil = host_pil_rates(work, write=False)
     rec["pil_mb_s"] = pil
     for name, mb in rec["port_mb_s"].items():
         theirs = (pil or {}).get(name)
@@ -6089,7 +6143,8 @@ def main() -> int:
           f"destripe CLI on {CODEC_STACKS} stacks of {CODEC_PLANES} PNG "
           f"tiles, convert on a JPEG series, the fixtures, convert --movie "
           f".avi, convert on {JP2_PLANES} .jp2 planes, the marker / SWC "
-          f"fixtures, decode MB/s", phase_codec, torch, record)
+          f"fixtures, convert on a progressive JPEG series, decode MB/s",
+          phase_codec, torch, record)
     for d in ("chip_smoke", "chip_smoke_tiles", "chip_smoke_stitch",
               "chip_smoke_convert", "chip_smoke_hdf5", "chip_smoke_codec"):
         shutil.rmtree(ROOT / "build" / d, ignore_errors=True)

@@ -1,6 +1,7 @@
 """Bindings of the host image codec's byte loops (``native/imgcodec.cpp``).
 
-LZW decode, PNG unfiltering with Adam7, and JPEG decode and encode are
+LZW decode, PNG unfiltering with Adam7, and JPEG decode (sequential and
+progressive) and encode are
 sequential by nature, so they live in C++: built with g++ at first use into
 ``build/ipp_tpu_torch/`` (``native.build_shared``) and loaded through
 ctypes, which releases the GIL, so reader threads decode side by side.
@@ -107,11 +108,14 @@ def png_unfilter(raw: bytes, width: int, height: int, bits: int,
 def jpeg_decode(data: bytes, tables: bytes = b"",
                 colour: Optional[bool] = None) -> np.ndarray:
     """A JPEG stream's pixels: (h, w) u8 for one component, (h, w, 3) RGB
-    for three.  `tables`: an abbreviated tables-only stream (TIFF's
+    for three, (h, w, 4) CMYK for four (YCCK turned to CMYK; inverted, as
+    PIL's "CMYK;I" hands every four-component JPEG out).  Sequential or
+    progressive.  `tables`: an abbreviated tables-only stream (TIFF's
     JPEGTables) read before the stream.  `colour`: three components turn
     from YCbCr to RGB as the stream's markers say (None, as libjpeg), or
     always (True), or never (False, and then none may be subsampled):
-    libtiff's choice under photometric 6 and under any other."""
+    libtiff's choice under photometric 6 and under any other; with True or
+    False four components are refused."""
     fn = _library("JPEG").imgcodec_jpeg_decode
     flag = -1 if colour is None else int(bool(colour))
     info = (ctypes.c_int32 * 3)()

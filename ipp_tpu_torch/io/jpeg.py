@@ -1,14 +1,19 @@
-"""JPEG planes without PIL: baseline and extended-sequential Huffman JPEGs
-(SOF0 / SOF1), 8-bit, gray or YCbCr at any integral sampling factors, with
-restart intervals, read as ``np.asarray(PIL.Image.open(path))`` shows
-them: the same pixels as libjpeg(-turbo)'s decoder at its defaults (islow
-IDCT, fancy upsampling), (h, w) u8 or (h, w, 3) RGB.  Written as PIL
-writes them at its defaults: quality 75, one component for gray, YCbCr
-4:2:0 for RGB, JFIF APP0, the standard Huffman tables.
+"""JPEG planes without PIL: baseline, extended-sequential and progressive
+Huffman JPEGs (SOF0 / SOF1 / SOF2), 8-bit, gray, YCbCr (or RGB) at any
+integral sampling factors, and CMYK or YCCK, with restart intervals, read
+as ``np.asarray(PIL.Image.open(path))`` shows them: the same pixels as
+libjpeg(-turbo)'s decoder at its defaults (islow IDCT, fancy upsampling;
+for a progression cut short, libjpeg-turbo 2.1's block smoothing of the
+coefficients its scans left unrefined), (h, w) u8, (h, w, 3) RGB or
+(h, w, 4) CMYK, the latter inverted as PIL's "CMYK;I" hands out every
+four-component JPEG (YCCK turned to CMYK first).  Written as PIL writes
+them at its defaults: quality 75, one component for gray, YCbCr 4:2:0 for
+RGB, JFIF APP0, the standard Huffman tables.
 
 The codec itself is ``native/imgcodec.cpp`` (``io/imgcodec.py``).
-Progressive (SOF2), arithmetic-coded, lossless, hierarchical, 12-bit and
-CMYK / YCCK JPEGs raise ``CodecError`` naming what they are.
+Arithmetic-coded (SOF9-11, DAC), lossless (SOF3), hierarchical and 12-bit
+JPEGs raise ``CodecError`` naming what they are, as does a malformed
+progression.
 """
 
 from __future__ import annotations

@@ -8,15 +8,24 @@
 //   2047), as libtiff's LZWDecode reads it.
 // - PNG's row filters (None, Sub, Up, Average, Paeth) and Adam7's seven
 //   passes, into the packed rows of the whole image.
-// - JPEG decode: baseline and extended-sequential Huffman (SOF0 / SOF1),
-//   8-bit samples, 1 or 3 components at any integral sampling factors,
-//   restart intervals, abbreviated streams with their tables given apart
-//   (TIFF's JPEGTables).  The arithmetic is libjpeg(-turbo)'s decoder at its
-//   defaults, so the pixels equal what PIL shows: the integer "islow" IDCT
-//   with its range-limit table, fancy upsampling (h2v1, h1v2, h2v2 "triangle"
-//   filters with their biases; box replication for other ratios), the
-//   context rows at the image's edges replicated, and YCbCr -> RGB in 16-bit
-//   fixed point.
+// - JPEG decode: baseline, extended-sequential and progressive Huffman
+//   (SOF0 / SOF1 / SOF2), 8-bit samples, 1, 3 or 4 components at any
+//   integral sampling factors, restart intervals, abbreviated streams with
+//   their tables given apart (TIFF's JPEGTables).  The arithmetic is
+//   libjpeg(-turbo)'s decoder at its defaults, so the pixels equal what PIL
+//   shows: the integer "islow" IDCT with its range-limit table, fancy
+//   upsampling (h2v1, h1v2, h2v2 "triangle" filters with their biases; box
+//   replication for other ratios), the context rows at the image's edges
+//   replicated, and YCbCr -> RGB in 16-bit fixed point.  A progressive
+//   frame's scans (jdphuff.c: DC first and refine, AC first and refine,
+//   EOB runs) fill a coefficient buffer that is inverse-transformed after
+//   EOI; where its scans leave some of the first nine AC coefficients
+//   unrefined, libjpeg-turbo 2.1's block smoothing (jdcoefct.c, a 5 x 5
+//   neighbourhood of DC values) estimates them first.  Four components are
+//   CMYK, or YCCK under an Adobe transform other than 0 (jdcolor.c's
+//   ycck_cmyk_convert), handed out inverted as PIL's "CMYK;I" hands them.
+//   Refused by name: arithmetic coding (SOF9-11, DAC), lossless (SOF3),
+//   hierarchical (SOF5-7, SOF13-15), other precisions than 8, DNL.
 // - JPEG encode as libjpeg(-turbo) does at PIL's settings (islow forward
 //   DCT, the reciprocal quantiser, the standard Huffman tables, no
 //   optimisation): RGB -> YCbCr in fixed point, 4:2:0 by the (1, 2, 1, 2 ...)
@@ -208,6 +217,7 @@ struct Error {
 
 struct Huff {
   bool defined = false;
+  bool dc_ok = false;  // every symbol fits a DC table (0..15), as jdhuff.c asks
   uint8_t bits[17] = {0};
   uint8_t vals[256] = {0};
   // decoding
@@ -272,9 +282,11 @@ bool huff_derive(Huff& t) {
                 (r << 8) | (l + sz);
   }
   std::memset(t.size, 0, sizeof t.size);
+  t.dc_ok = true;
   for (int i = 0; i < lastp; ++i) {
     t.code[t.vals[i]] = static_cast<uint16_t>(huffcode[i]);
     t.size[t.vals[i]] = static_cast<uint8_t>(huffsize[i]);
+    if (t.vals[i] > 15) t.dc_ok = false;
   }
   t.defined = true;
   return true;
@@ -288,6 +300,16 @@ struct Component {
   std::vector<uint8_t> plane;  // bw * 8 by bh * 8 samples
   int pred = 0;
   bool seen = false;
+  // progressive: bw * bh blocks of 64 coefficients (natural order), dummy
+  // blocks included; the quantiser latched at the component's first scan
+  // (jdinput.c's latch_quant_tables); the point transform Al each
+  // coefficient was last sent with, -1 before its first scan
+  std::vector<int16_t> coef;
+  uint16_t q[64];
+  int coef_bits[64];
+  int16_t* block(int bx, int by) {
+    return coef.data() + (int64_t(by) * bw + bx) * 64;
+  }
 };
 
 struct BitReader {
@@ -296,6 +318,10 @@ struct BitReader {
   uint64_t acc = 0;
   int have = 0;
   int marker = 0;  // a marker met inside the entropy data
+  // zero bits put in after that marker or the end: the last `pad` bits of
+  // acc, so have < pad once a decode has taken bits the stream lacks
+  int64_t pad = 0;
+  bool overrun() const { return have < pad; }
   void fill() {
     if (!marker && end - p >= 8) {  // eight bytes at a time without 0xFF
       uint64_t w;
@@ -313,8 +339,10 @@ struct BitReader {
     }
     while (have <= 56) {
       int byte = 0;
+      bool real = false;
       if (!marker && p < end) {
         byte = *p;
+        real = true;
         if (byte == 0xFF) {
           int nxt = p + 1 < end ? p[1] : 0xD9;
           if (nxt == 0) {
@@ -322,11 +350,13 @@ struct BitReader {
           } else {
             marker = nxt;
             byte = 0;
+            real = false;
           }
         } else {
           ++p;
         }
       }
+      if (!real) pad += 8;
       acc |= static_cast<uint64_t>(byte) << (56 - have);
       have += 8;
     }
@@ -348,6 +378,7 @@ struct BitReader {
   void reset() {  // at a restart marker: drop the partial byte
     acc = 0;
     have = 0;
+    pad = 0;
   }
 };
 
@@ -531,7 +562,8 @@ struct Decoder {
   Huff dc[4], ac[4];
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int restart = 0;
-  bool frame = false, jfif = false, adobe = false;
+  bool frame = false, jfif = false, adobe = false, progressive = false;
+  int eobrun = 0;  // blocks left in the current AC scan's end-of-band run
   int adobe_transform = -1;
   Component comp[4];
   int mcux = 0, mcuy = 0;
@@ -586,9 +618,9 @@ struct Decoder {
   }
 
   bool read_sof(const uint8_t* p, int len, int marker) {
-    if (marker != 0xC0 && marker != 0xC1) {
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2) {
       static const char* names[16] = {
-          "", "", "progressive (SOF2)", "lossless (SOF3)", "", "hierarchical "
+          "", "", "", "lossless (SOF3)", "", "hierarchical "
           "(SOF5)", "hierarchical progressive (SOF6)", "hierarchical lossless "
           "(SOF7)", "", "arithmetic-coded (SOF9)", "arithmetic-coded "
           "progressive (SOF10)", "arithmetic-coded lossless (SOF11)", "",
@@ -596,12 +628,14 @@ struct Decoder {
           "hierarchical progressive (SOF14)", "arithmetic-coded hierarchical "
           "lossless (SOF15)"};
       std::snprintf(err->msg, sizeof err->msg,
-                    "unsupported JPEG: %s; baseline and extended-sequential "
-                    "Huffman JPEGs (SOF0 / SOF1) are read",
+                    "unsupported JPEG: %s; baseline, extended-sequential "
+                    "and progressive Huffman JPEGs (SOF0 / SOF1 / SOF2) are "
+                    "read",
                     names[marker - 0xC0]);
       return false;
     }
     if (frame) return fail("a second frame header");
+    progressive = marker == 0xC2;
     if (len < 6) return fail("a frame header cut short");
     if (p[0] != 8) {
       std::snprintf(err->msg, sizeof err->msg,
@@ -614,10 +648,10 @@ struct Decoder {
     ncomp = p[5];
     if (height == 0) return fail("unsupported JPEG: height 0 (DNL)");
     if (width == 0) return fail("a JPEG of width 0");
-    if (ncomp != 1 && ncomp != 3) {
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) {
       std::snprintf(err->msg, sizeof err->msg,
-                    "unsupported JPEG: %d components (CMYK / YCCK or other); "
-                    "gray and three-component JPEGs are read",
+                    "unsupported JPEG: %d components; gray, three- and "
+                    "four-component JPEGs are read",
                     ncomp);
       return false;
     }
@@ -643,7 +677,12 @@ struct Decoder {
       c.dh = static_cast<int>((int64_t(height) * c.v + vmax - 1) / vmax);
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
+      if (header_only) continue;
       c.plane.assign(static_cast<size_t>(c.bw) * 8 * c.bh * 8, 0);
+      if (progressive) {
+        c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      }
     }
     frame = true;
     return true;
@@ -684,30 +723,13 @@ struct Decoder {
     return true;
   }
 
-  bool read_scan(const uint8_t* p, int len, const uint8_t*& data,
-                 const uint8_t* end) {
-    if (!frame) return fail("a scan before the frame header");
-    int ns = p[0];
-    if (ns < 1 || ns > 4 || len < 4 + 2 * ns) return fail("a bad scan header");
-    Component* sc[4];
-    for (int i = 0; i < ns; ++i) {
-      int id = p[1 + 2 * i], t = p[2 + 2 * i];
-      sc[i] = nullptr;
-      for (int k = 0; k < ncomp; ++k)
-        if (comp[k].id == id) sc[i] = &comp[k];
-      if (!sc[i]) return fail("a scan names a component the frame lacks");
-      sc[i]->td = t >> 4;
-      sc[i]->ta = t & 15;
-      if (sc[i]->td > 3 || sc[i]->ta > 3 || !dc[sc[i]->td].defined ||
-          !ac[sc[i]->ta].defined)
-        return fail("a scan uses a Huffman table that is not defined");
-      if (!qdef[sc[i]->tq])
-        return fail("a component uses a quantisation table that is not "
-                    "defined");
-      sc[i]->pred = 0;
-      sc[i]->seen = true;
-    }
-    BitReader br{data, end};
+  // The MCUs of one scan over sc[0..ns-1] (one block each when the scan
+  // has one component: its ceil(dw / 8) x ceil(dh / 8) blocks, not the MCU
+  // grid), the bit reader reset and the DC predictions and EOB run cleared
+  // at every restart marker; block(br, c, bx, by) decodes one block.
+  template <class F>
+  bool walk_scan(BitReader& br, Component** sc, int ns, const uint8_t* end,
+                 F&& block) {
     int nx, ny;
     if (ns == 1) {
       nx = (sc[0]->dw + 7) / 8;
@@ -732,19 +754,102 @@ struct Decoder {
         br.marker = 0;
         br.reset();
         for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+        eobrun = 0;
         todo = restart;
       }
       int mx = static_cast<int>(m % nx), my = static_cast<int>(m / nx);
       if (ns == 1) {
-        decode_block(br, *sc[0], mx, my);
+        if (!block(br, *sc[0], mx, my)) return false;
       } else {
         for (int i = 0; i < ns; ++i)
           for (int v = 0; v < sc[i]->v; ++v)
             for (int h = 0; h < sc[i]->h; ++h)
-              decode_block(br, *sc[i], mx * sc[i]->h + h, my * sc[i]->v + v);
+              if (!block(br, *sc[i], mx * sc[i]->h + h, my * sc[i]->v + v))
+                return false;
       }
       --todo;
     }
+    return true;
+  }
+
+  bool read_scan(const uint8_t* p, int len, const uint8_t*& data,
+                 const uint8_t* end) {
+    if (!frame) return fail("a scan before the frame header");
+    int ns = p[0];
+    if (ns < 1 || ns > 4 || len < 4 + 2 * ns) return fail("a bad scan header");
+    // spectral selection and successive approximation (progressive only)
+    const int Ss = p[1 + 2 * ns], Se = p[2 + 2 * ns];
+    const int Ah = p[3 + 2 * ns] >> 4, Al = p[3 + 2 * ns] & 15;
+    const bool dc_scan = Ss == 0;
+    Component* sc[4];
+    for (int i = 0; i < ns; ++i) {
+      int id = p[1 + 2 * i], t = p[2 + 2 * i];
+      sc[i] = nullptr;
+      for (int k = 0; k < ncomp; ++k)
+        if (comp[k].id == id) sc[i] = &comp[k];
+      if (!sc[i]) return fail("a scan names a component the frame lacks");
+      sc[i]->td = t >> 4;
+      sc[i]->ta = t & 15;
+    }
+    if (progressive && !start_progressive_scan(sc, ns, Ss, Se, Ah, Al))
+      return false;
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      // the tables this scan decodes with (a DC refinement needs none)
+      bool need_dc = !progressive || (dc_scan && Ah == 0);
+      bool need_ac = !progressive || !dc_scan;
+      if ((need_dc && (c.td > 3 || !dc[c.td].defined)) ||
+          (need_ac && (c.ta > 3 || !ac[c.ta].defined)))
+        return fail("a scan uses a Huffman table that is not defined");
+      if (need_dc && !dc[c.td].dc_ok) return fail("a bad Huffman table");
+      if (!qdef[c.tq])
+        return fail("a component uses a quantisation table that is not "
+                    "defined");
+      if (progressive && !c.seen) std::memcpy(c.q, qt[c.tq], sizeof c.q);
+      c.pred = 0;
+      c.seen = true;
+    }
+    BitReader br{data, end};
+    bool ok;
+    if (!progressive) {
+      ok = walk_scan(br, sc, ns, end,
+                     [this](BitReader& b, Component& c, int x, int y) {
+                       return decode_block(b, c, x, y);
+                     });
+    } else {
+      eobrun = 0;
+      auto cut = [this](const BitReader& b) {
+        return !b.overrun() ||
+               fail("a progressive JPEG scan cut short (its data ends "
+                    "before its last block)");
+      };
+      if (dc_scan && Ah == 0) {
+        ok = walk_scan(br, sc, ns, end,
+                       [&](BitReader& b, Component& c, int x, int y) {
+                         dc_first(b, c, c.block(x, y), Al);
+                         return cut(b);
+                       });
+      } else if (dc_scan) {
+        ok = walk_scan(br, sc, ns, end,
+                       [&](BitReader& b, Component& c, int x, int y) {
+                         if (b.get(1)) c.block(x, y)[0] |= 1 << Al;
+                         return cut(b);
+                       });
+      } else if (Ah == 0) {
+        ok = walk_scan(br, sc, ns, end,
+                       [&](BitReader& b, Component& c, int x, int y) {
+                         ac_first(b, ac[c.ta], c.block(x, y), Ss, Se, Al);
+                         return cut(b);
+                       });
+      } else {
+        ok = walk_scan(br, sc, ns, end,
+                       [&](BitReader& b, Component& c, int x, int y) {
+                         ac_refine(b, ac[c.ta], c.block(x, y), Ss, Se, Al);
+                         return cut(b);
+                       });
+      }
+    }
+    if (!ok) return false;
     // move to the marker that ends the scan
     const uint8_t* q = br.p;
     while (q + 1 < end && !(q[0] == 0xFF && q[1] != 0 &&
@@ -752,6 +857,114 @@ struct Decoder {
       ++q;
     data = q;
     return true;
+  }
+
+  // jdphuff.c's start_pass_phuff_decoder: the scan's parameters checked
+  // (libjpeg's fatal errors, and here also its warnings of a bogus
+  // progression: every refusal names the fault), then each coefficient's
+  // point transform noted for the block smoothing.
+  bool start_progressive_scan(Component** sc, int ns, int Ss, int Se, int Ah,
+                              int Al) {
+    const char* why = nullptr;
+    if (Ss == 0 && Se != 0)
+      why = "a DC scan that carries AC coefficients";
+    else if (Ss > Se)
+      why = "Se before Ss";
+    else if (Se > 63)
+      why = "Se past coefficient 63";
+    else if (Ss > 0 && ns != 1)
+      why = "an AC scan over several components";
+    else if (Al > 13)
+      why = "Al past 13";
+    else if (Ah != 0 && Al != Ah - 1)
+      why = "a refinement whose Al is not Ah - 1";
+    for (int i = 0; i < ns && !why; ++i) {
+      const int* bits = sc[i]->coef_bits;
+      if (Ss > 0 && bits[0] < 0) why = "an AC scan before its DC scan";
+      for (int k = Ss; k <= Se && !why; ++k)
+        if (Ah != (bits[k] < 0 ? 0 : bits[k]))
+          why = "a refinement whose Ah does not follow the scan before it";
+    }
+    if (why) {
+      std::snprintf(err->msg, sizeof err->msg,
+                    "a malformed JPEG progression: %s (Ss %d, Se %d, Ah %d, "
+                    "Al %d)",
+                    why, Ss, Se, Ah, Al);
+      return false;
+    }
+    for (int i = 0; i < ns; ++i)
+      for (int k = Ss; k <= Se; ++k) sc[i]->coef_bits[k] = Al;
+    return true;
+  }
+
+  // jdphuff.c's decode_mcu_DC_first for one block
+  void dc_first(BitReader& br, Component& c, int16_t* blk, int Al) {
+    const int s = huff_decode(br, dc[c.td]);
+    c.pred += s ? extend(br.get(s), s) : 0;
+    blk[0] = static_cast<int16_t>(c.pred * (1 << Al));
+  }
+
+  // decode_mcu_AC_first: the band's values, shifted left by Al, or one
+  // block of an end-of-band run
+  void ac_first(BitReader& br, const Huff& t, int16_t* blk, int Ss, int Se,
+                int Al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = Ss; k <= Se; ++k) {
+      int rs = huff_decode(br, t), r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kZigzag[k]] = static_cast<int16_t>(extend(br.get(s), s) * (1 << Al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) + (r ? br.get(r) : 0) - 1;
+        break;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: a correction bit for every coefficient of the
+  // band already nonzero, new coefficients of +-(1 << Al) placed after
+  // their run of zeros, and within an end-of-band run the correction bits
+  // of each block's nonzero coefficients all the same
+  void ac_refine(BitReader& br, const Huff& t, int16_t* blk, int Ss, int Se,
+                 int Al) {
+    const int p1 = 1 << Al, m1 = -p1;
+    auto correct = [&](int16_t& coef) {
+      if (br.get(1) && (coef & p1) == 0)
+        coef = static_cast<int16_t>(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = Ss;
+    if (eobrun == 0) {
+      for (; k <= Se; ++k) {
+        int rs = huff_decode(br, t), r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;  // libjpeg warns when the size is not 1
+        } else if (r != 15) {
+          eobrun = (1 << r) + (r ? br.get(r) : 0);
+          break;  // the rest of the band is the run's
+        }
+        do {  // past r zeros, correcting the nonzero coefficients met
+          int16_t& coef = blk[kZigzag[k]];
+          if (coef)
+            correct(coef);
+          else if (--r < 0)
+            break;
+          ++k;
+        } while (k <= Se);
+        if (s) blk[kZigzag[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= Se; ++k) {
+        int16_t& coef = blk[kZigzag[k]];
+        if (coef) correct(coef);
+      }
+      --eobrun;
+    }
   }
 
   // Walk the markers of one stream; `tables_only`: an abbreviated
@@ -805,6 +1018,150 @@ struct Decoder {
     }
     if (tables_only) return true;
     return fail("a JPEG without its EOI marker (truncated)");
+  }
+
+  // After EOI, a progressive frame's blocks (those the output uses: ceil(dw
+  // / 8) x ceil(dh / 8) a component) through the IDCT into the planes, as
+  // libjpeg's decompress_data does, or decompress_smooth_data where
+  // smoothing_ok says so.
+  void finish_progressive() {
+    const bool smooth = smoothing_ok();
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      if (smooth) {
+        smooth_component(c);
+        continue;
+      }
+      const int wb = (c.dw + 7) / 8, hb = (c.dh + 7) / 8;
+      for (int by = 0; by < hb; ++by)
+        for (int bx = 0; bx < wb; ++bx) idct_to_plane(c, c.block(bx, by), bx, by);
+    }
+  }
+
+  void idct_to_plane(Component& c, const int16_t* blk, int bx, int by) {
+    idct_islow(blk, c.q, c.plane.data() + (int64_t(by) * 8 * c.bw + bx) * 8,
+               int64_t(c.bw) * 8);
+  }
+
+  // jdcoefct.c's smoothing_ok (libjpeg-turbo 2.1 and later, which keep ten
+  // coefficients): every component's DC sent and its quantisers of the DC
+  // and the first nine AC coefficients nonzero, and some component with
+  // one of those nine not sent to full precision.
+  bool smoothing_ok() const {
+    bool useful = false;
+    for (int i = 0; i < ncomp; ++i) {
+      const Component& c = comp[i];
+      for (int k = 0; k < 10; ++k)
+        if (c.q[kZigzag[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c's decompress_smooth_data for one component: the first nine
+  // AC coefficients that are still zero and not known exactly estimated
+  // from the DC values of the 5 x 5 blocks around (edges replicated); when
+  // no AC coefficient has been sent at all, the DC too.  The row
+  // neighbourhood follows libjpeg's counting, which in the last iMCU row
+  // takes the block rows of that row as every row's count.
+  void smooth_component(Component& c) {
+    const int* bits = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k)
+      if (bits[k] != -1) change_dc = false;
+    const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16],
+                  Q11 = c.q[9], Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10],
+                  Q21 = c.q[17], Q30 = c.q[24];
+    const int total = mcuy, last_row = total - 1;
+    const int hb = (c.dh + 7) / 8, last_col = (c.dw + 7) / 8 - 1;
+    int16_t ws[64];
+    // one estimate: applied when the coefficient is zero and not exact,
+    // limited below 1 << Al where Al > 0
+    auto est = [&](int zz, int64_t Q, int64_t sum) {
+      const int al = bits[zz], pos = kZigzag[zz];
+      if (al == 0 || ws[pos] != 0) return;
+      int64_t num = Q00 * sum;
+      int pred = static_cast<int>(((Q << 7) + (num >= 0 ? num : -num)) /
+                                  (Q << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      ws[pos] = static_cast<int16_t>(num >= 0 ? pred : -pred);
+    };
+    for (int im = 0; im < total; ++im) {
+      int rows = c.v;
+      if (im == last_row) {
+        rows = hb % c.v;
+        if (rows == 0) rows = c.v;
+      }
+      const int64_t image_rows = int64_t(rows) * total;
+      for (int br = 0; br < rows; ++br) {
+        const int64_t ibr = int64_t(im) * rows + br;
+        const int row = im * c.v + br;
+        const int prev = ibr > 0 ? row - 1 : row;
+        const int prev2 = ibr > 1 ? row - 2 : prev;
+        const int next = ibr < image_rows - 1 ? row + 1 : row;
+        const int next2 = ibr < image_rows - 2 ? row + 2 : next;
+        const int16_t* R[5] = {c.block(0, prev2), c.block(0, prev),
+                               c.block(0, row), c.block(0, next),
+                               c.block(0, next2)};
+        for (int bx = 0; bx <= last_col; ++bx) {
+          std::memcpy(ws, c.block(bx, row), sizeof ws);
+          // D[r][j]: DC01 .. DC25 of libjpeg, rows r = -2 .. 2 and columns
+          // j = -2 .. 2 around the block, the columns clamped to the row
+          int D[5][5];
+          for (int j = 0; j < 5; ++j) {
+            const int64_t col = std::min(std::max(bx + j - 2, 0), last_col);
+            for (int r = 0; r < 5; ++r) D[r][j] = R[r][64 * col];
+          }
+          const int(&a)[5] = D[0];
+          const int(&b)[5] = D[1];
+          const int(&m)[5] = D[2];
+          const int(&d)[5] = D[3];
+          const int(&e)[5] = D[4];
+          if (change_dc) {
+            est(1, Q01, -a[0] - a[1] + a[3] + a[4] - 3 * b[0] + 13 * b[1] -
+                            13 * b[3] + 3 * b[4] - 3 * m[0] + 38 * m[1] -
+                            38 * m[3] + 3 * m[4] - 3 * d[0] + 13 * d[1] -
+                            13 * d[3] + 3 * d[4] - e[0] - e[1] + e[3] + e[4]);
+            est(2, Q10, -a[0] - 3 * a[1] - 3 * a[2] - 3 * a[3] - a[4] - b[0] +
+                            13 * b[1] + 38 * b[2] + 13 * b[3] - b[4] + d[0] -
+                            13 * d[1] - 38 * d[2] - 13 * d[3] + d[4] + e[0] +
+                            3 * e[1] + 3 * e[2] + 3 * e[3] + e[4]);
+            est(3, Q20, a[2] + 2 * b[1] + 7 * b[2] + 2 * b[3] - 5 * m[1] -
+                            14 * m[2] - 5 * m[3] + 2 * d[1] + 7 * d[2] +
+                            2 * d[3] + e[2]);
+            est(4, Q11, -a[0] + a[4] + 9 * b[1] - 9 * b[3] - 9 * d[1] +
+                            9 * d[3] + e[0] - e[4]);
+            est(5, Q02, 2 * b[1] - 5 * b[2] + 2 * b[3] + m[0] + 7 * m[1] -
+                            14 * m[2] + 7 * m[3] + m[4] + 2 * d[1] - 5 * d[2] +
+                            2 * d[3]);
+            est(6, Q03, b[1] - b[3] + 2 * m[1] - 2 * m[3] + d[1] - d[3]);
+            est(7, Q12, b[1] - 3 * b[2] + b[3] - d[1] + 3 * d[2] - d[3]);
+            est(8, Q21, b[1] - b[3] - 3 * m[1] + 3 * m[3] + d[1] - d[3]);
+            est(9, Q30, b[1] + 2 * b[2] + b[3] - d[1] - 2 * d[2] - d[3]);
+            int64_t num = Q00 * (-2 * a[0] - 6 * a[1] - 8 * a[2] - 6 * a[3] -
+                                 2 * a[4] - 6 * b[0] + 6 * b[1] + 42 * b[2] +
+                                 6 * b[3] - 6 * b[4] - 8 * m[0] + 42 * m[1] +
+                                 152 * m[2] + 42 * m[3] - 8 * m[4] - 6 * d[0] +
+                                 6 * d[1] + 42 * d[2] + 6 * d[3] - 6 * d[4] -
+                                 2 * e[0] - 6 * e[1] - 8 * e[2] - 6 * e[3] -
+                                 2 * e[4]);
+            int pred = static_cast<int>(
+                ((Q00 << 7) + (num >= 0 ? num : -num)) / (Q00 << 8));
+            ws[0] = static_cast<int16_t>(num >= 0 ? pred : -pred);
+          } else {
+            est(1, Q01, -7 * m[0] + 50 * m[1] - 50 * m[3] + 7 * m[4]);
+            est(2, Q10, -7 * a[2] + 50 * b[2] - 50 * d[2] + 7 * e[2]);
+            est(3, Q20, -a[2] + 13 * b[2] - 24 * m[2] + 13 * d[2] - e[2]);
+            est(4, Q11, b[4] + d[0] - 10 * d[1] + 10 * d[3] - a[1] - d[4] +
+                            e[1] - e[3] + a[3] - b[0] + 10 * b[1] - 10 * b[3]);
+            est(5, Q02, -m[0] + 13 * m[1] - 24 * m[2] + 13 * m[3] - m[4]);
+          }
+          idct_to_plane(c, ws, bx, row);
+        }
+      }
+    }
   }
 
   bool ycc() const {  // jdapimin.c's default_decompress_parms, 3 components
@@ -896,9 +1253,31 @@ struct Decoder {
         std::memcpy(out + y * W, c.plane.data() + y * int64_t(c.bw) * 8, W);
       return;
     }
-    std::vector<uint8_t> f[3];
-    for (int i = 0; i < 3; ++i) upsample(comp[i], f[i]);
+    std::vector<uint8_t> f[4];
+    for (int i = 0; i < ncomp; ++i) upsample(comp[i], f[i]);
     const int64_t n = W * H;
+    const int* crr = kYcc.crr; const int* cbb = kYcc.cbb;
+    const int64_t* crg = kYcc.crg; const int64_t* cbg = kYcc.cbg;
+    auto clamp = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
+    if (ncomp == 4) {
+      // CMYK, or YCCK under an Adobe transform other than 0 (jdapimin.c),
+      // turned to CMYK as ycck_cmyk_convert does (C, M, Y = 255 - the RGB
+      // of Y, Cb, Cr; K as it is), then inverted as PIL's "CMYK;I"
+      if (adobe && adobe_transform != 0) {
+        for (int64_t i = 0; i < n; ++i) {
+          int y = f[0][i], cb = f[1][i], cr = f[2][i];
+          out[4 * i] = clamp(y + crr[cr]);
+          out[4 * i + 1] = clamp(y + static_cast<int>((cbg[cb] + crg[cr]) >> 16));
+          out[4 * i + 2] = clamp(y + cbb[cb]);
+          out[4 * i + 3] = static_cast<uint8_t>(255 - f[3][i]);
+        }
+      } else {
+        for (int64_t i = 0; i < n; ++i)
+          for (int k = 0; k < 4; ++k)
+            out[4 * i + k] = static_cast<uint8_t>(255 - f[k][i]);
+      }
+      return;
+    }
     if (colour == 0 || (colour < 0 && !ycc())) {
       for (int64_t i = 0; i < n; ++i) {
         out[3 * i] = f[0][i];
@@ -907,9 +1286,6 @@ struct Decoder {
       }
       return;
     }
-    const int* crr = kYcc.crr; const int* cbb = kYcc.cbb;
-    const int64_t* crg = kYcc.crg; const int64_t* cbg = kYcc.cbg;
-    auto clamp = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
     for (int64_t i = 0; i < n; ++i) {
       int y = f[0][i], cb = f[1][i], cr = f[2][i];
       out[3 * i] = clamp(y + crr[cr]);
@@ -1398,13 +1774,14 @@ int64_t imgcodec_png_unfilter(const uint8_t* raw, int64_t n, uint8_t* out,
   }
 }
 
-// JPEG decode.  info[0..2] get width, height and components out (1 or 3).
+// JPEG decode.  info[0..2] get width, height and components out (1, 3 or
+// 4: CMYK, inverted as PIL's "CMYK;I").
 // With out == nullptr only the markers up to the frame header are read.  tables:
 // an abbreviated tables-only stream read first, or nullptr.  colour: three
 // components turn from YCbCr to RGB as the markers say (-1, libjpeg's
 // default), never (0: libtiff's JPEG outside photometric YCbCr, which then
-// takes no subsampled component) or always (1).  0 on success, -1 with a
-// message in err.
+// takes no subsampled component) or always (1); a TIFF's flag (0 or 1)
+// refuses four components.  0 on success, -1 with a message in err.
 int32_t imgcodec_jpeg_decode(const uint8_t* data, int64_t n,
                              const uint8_t* tables, int64_t tn, uint8_t* out,
                              int64_t cap, int32_t* info, char* err,
@@ -1423,6 +1800,8 @@ int32_t imgcodec_jpeg_decode(const uint8_t* data, int64_t n,
     if (ok && out)
       for (int i = 0; i < d.ncomp; ++i)
         if (!d.comp[i].seen) ok = d.fail("a JPEG component without a scan");
+    if (ok && colour >= 0 && d.ncomp == 4)
+      ok = d.fail("a four-component JPEG inside a TIFF is not read");
     if (ok && colour == 0 && d.ncomp > 1)
       for (int i = 0; i < d.ncomp; ++i)
         if (d.comp[i].h != d.hmax || d.comp[i].v != d.vmax)
@@ -1435,8 +1814,10 @@ int32_t imgcodec_jpeg_decode(const uint8_t* data, int64_t n,
       if (out) {
         if (cap < int64_t(d.width) * d.height * d.ncomp)
           ok = d.fail("the output buffer is too small");
-        else
+        else {
+          if (d.progressive) d.finish_progressive();
           d.output(out);
+        }
       }
     }
   } catch (const std::exception& x) {

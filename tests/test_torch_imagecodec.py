@@ -264,19 +264,254 @@ def test_extended_sequential_jpeg_with_16_bit_tables_equals_pil(tmp_path):
     _same(tmp_path / "x.jpg")
 
 
+def _resegment(data, edit):
+    """A JPEG's segments before its first scan, each passed through
+    edit(marker, segment bytes) -> bytes, then the rest unchanged."""
+    i, out = 2, bytearray(data[:2])
+    while data[i + 1] != 0xDA:
+        n = struct.unpack(">H", data[i + 2:i + 4])[0]
+        out += edit(data[i + 1], bytearray(data[i:i + 2 + n]))
+        i += 2 + n
+    return bytes(out + data[i:])
+
+
 def test_jpeg_refuses_what_it_does_not_read_by_name(tmp_path):
+    """Arithmetic-coded, lossless, hierarchical and 12-bit JPEGs and a DAC
+    segment, made from a PIL baseline file by rewriting its markers, each
+    raise an error naming what they are; so does a file cut short."""
     rng = np.random.default_rng(0)
     img = _smooth(rng, 24, 24, 3).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG")
+    base = buf.getvalue()
+
+    def sof(marker, bits=8):
+        def edit(m, seg):
+            if m == 0xC0:
+                seg[1], seg[4] = marker, bits
+            return seg
+        return _resegment(base, edit)
+
+    dac = _resegment(base, lambda m, seg: (b"\xff\xcc\x00\x04\x00\x10" + seg)
+                     if m == 0xC4 and b"\xff\xcc" not in base else seg)
     p = tmp_path / "p.jpg"
-    Image.fromarray(img).save(p, progressive=True)
-    with pytest.raises(imgcodec.CodecError, match=r"progressive \(SOF2\)"):
-        gt.read_plane(p)
-    Image.fromarray(img).convert("CMYK").save(tmp_path / "c.jpg")
-    with pytest.raises(imgcodec.CodecError, match="4 components"):
-        gt.read_plane(tmp_path / "c.jpg")
-    p.write_bytes((tmp_path / "c.jpg").read_bytes()[:200])
+    for data, name in ((sof(0xC9), r"arithmetic-coded \(SOF9\)"),
+                       (sof(0xC3), r"lossless \(SOF3\)"),
+                       (sof(0xC5), r"hierarchical \(SOF5\)"),
+                       (dac, r"arithmetic coding \(DAC\)"),
+                       (sof(0xC1, 12), "12-bit samples")):
+        p.write_bytes(data)
+        with pytest.raises(imgcodec.CodecError, match=name):
+            gt.read_plane(p)
+    p.write_bytes(base[:200])
     with pytest.raises(imgcodec.CodecError):
         gt.read_plane(p)
+
+
+def _fixture_maker():
+    """tests/torch_image_fixtures/make_fixtures.py as a module."""
+    sys.path.insert(0, str(ROOT / "tests" / "torch_image_fixtures"))
+    try:
+        import make_fixtures
+    finally:
+        sys.path.pop(0)
+    return make_fixtures
+
+
+@pytest.mark.parametrize("size", JPEG_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ["gray", "444", "422", "420"])
+def test_progressive_jpeg_decode_equals_pil(tmp_path, kind, size):
+    """PIL's progressive JPEGs (libjpeg's scan script: DC first and
+    refine, spectral bands, successive approximation, optimised tables
+    before each scan) at qualities 30 and 95, and with a restart marker
+    every 1, 3 and 5 blocks (EOB runs cut at each)."""
+    rng = np.random.default_rng(size[0] * 100 + size[1] + 7)
+    img = _smooth(rng, *size, 0 if kind == "gray" else 3).astype(np.uint8)
+    sub = {"gray": {}, "444": {"subsampling": 0}, "422": {"subsampling": 1},
+           "420": {"subsampling": 2}}[kind]
+    for q, rst in ((30, 0), (95, 0), (75, 1), (75, 3), (75, 5)):
+        p = tmp_path / f"a{q}_{rst}.jpg"
+        Image.fromarray(img).save(p, quality=q, progressive=True,
+                                  restart_marker_blocks=rst, **sub)
+        _same(p)
+
+
+@pytest.mark.parametrize("case", ["prog", "prog-gray", "prog-rst",
+                                  "prog-rst-gray", "prog-411", "prog-440",
+                                  "prog-rst-odd"])
+def test_progressive_jpeg_decode_of_opencv_files_equals_pil(tmp_path, case):
+    """OpenCV's progressive files (IMWRITE_JPEG_PROGRESSIVE), with restart
+    intervals (RST_INTERVAL, in MCUs) and 4:1:1 and 4:4:0 sampling, which
+    PIL does not write."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(len(case) + 40)
+    shape = (45, 77) if case == "prog-rst-odd" else (48, 80)
+    img = _smooth(rng, *shape, 0 if "gray" in case else 3).astype(np.uint8)
+    flags = {"prog": {}, "prog-gray": {},
+             "prog-rst": dict(rst_interval=2),
+             "prog-rst-gray": dict(rst_interval=3),
+             "prog-rst-odd": dict(rst_interval=5, quality=90),
+             "prog-411": dict(
+                 sampling_factor=cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+             "prog-440": dict(
+                 sampling_factor=cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440)}[case]
+    p = tmp_path / "a.jpg"
+    p.write_bytes(_jpeg_cv2(img, progressive=1, **flags))
+    assert p.read_bytes()[:1000].count(b"\xff\xc2") == 1
+    _same(p)
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["seq", "prog"])
+@pytest.mark.parametrize("kind", ["cmyk", "ycck", "no-app14", "xform1"])
+def test_four_component_jpeg_equals_pil(tmp_path, kind, progressive):
+    """PIL's CMYK JPEGs (Adobe APP14, transform 0), the same bytes marked
+    YCCK (transform 2; 1 is taken as YCCK too) or without the segment
+    (CMYK assumed), at odd sizes, with and without subsampled components:
+    (h, w, 4), inverted as PIL's "CMYK;I" hands them out."""
+    rng = np.random.default_rng(31 + progressive)
+    for size in ((13, 21), (31, 7), (45, 77)):
+        cmyk = Image.frombytes("CMYK", size[::-1], _smooth(
+            rng, *size, 4).astype(np.uint8).tobytes())
+        for sub in ({}, {"subsampling": 2}):
+            buf = io.BytesIO()
+            cmyk.save(buf, format="JPEG", quality=80,
+                      progressive=progressive, **sub)
+            data = buf.getvalue()
+            if kind != "cmyk":
+                data = _fixture_maker().adobe_transform(
+                    data, {"ycck": 2, "xform1": 1, "no-app14": None}[kind])
+            assert (b"Adobe" in data) == (kind != "no-app14")
+            p = tmp_path / "c.jpg"
+            p.write_bytes(data)
+            assert _same(p).shape == size + (4,)
+
+
+def test_cmyk_jpeg_round_trips_through_pil_inversion(tmp_path):
+    """PIL writes a CMYK plane inverted (Adobe's convention) and reads it
+    back inverted: the port hands out what was written."""
+    plane = np.zeros((16, 24, 4), np.uint8) + np.array([200, 0, 0, 30],
+                                                       np.uint8)
+    Image.frombytes("CMYK", (24, 16), plane.tobytes()).save(
+        tmp_path / "c.jpg", quality=100)
+    np.testing.assert_array_equal(_same(tmp_path / "c.jpg"), plane)
+
+
+@pytest.mark.parametrize("kind", ["gray", "420", "444", "cmyk", "rst-422",
+                                  "420-17x33", "444-40x9"])
+def test_cut_progression_equals_pil(tmp_path, kind):
+    """A progressive file cut after each of its scans, EOI appended: where
+    the scans so far leave some of the first nine AC coefficients unknown
+    or not refined, libjpeg-turbo (2.1 and later) smooths the blocks from
+    their 5 x 5 neighbourhood's DC values first (after the first scan the
+    DC too), so the port does.  17 x 33 at 4:2:0 has a last iMCU row of
+    one luma block row (libjpeg counts the rows above it by that row's
+    count); 40 x 9 is two blocks wide (both neighbours of a block
+    clamped)."""
+    rng = np.random.default_rng(len(kind) + 50)
+    chans = {"gray": 0, "cmyk": 4}.get(kind, 3)
+    h, w = (17, 33) if "17x33" in kind else (40, 9) if "40x9" in kind \
+        else (37, 45)
+    img = _smooth(rng, h, w, chans).astype(np.uint8)
+    im = Image.frombytes("CMYK", (w, h), img.tobytes()) if chans == 4 \
+        else Image.fromarray(img)
+    sub = {"420": 2, "444": 0, "rst-422": 1}.get(
+        kind.split("-")[0] if "x" in kind else kind, -1)
+    buf = io.BytesIO()
+    im.save(buf, format="JPEG", quality=70, progressive=True,
+            subsampling=sub, restart_marker_blocks=3 if "rst" in kind else 0)
+    data = buf.getvalue()
+    mk = _fixture_maker()
+    scans = sum(m == 0xDA for m, _, _ in mk.jpeg_segments(data))
+    assert scans >= 6
+    p = tmp_path / "c.jpg"
+    seen = set()
+    for k in range(1, scans + 1):
+        p.write_bytes(mk.cut_after_scan(data, k))
+        seen.add(_same(p).tobytes())
+    assert len(seen) == scans            # every scan changes the pixels
+
+
+def test_malformed_progression_is_refused_by_name(tmp_path):
+    """Scan headers rewritten so the progression breaks its rules (Se
+    before Ss, an AC scan over several components, Al past 13, a
+    refinement whose Ah does not follow its first scan or whose Al is not
+    Ah - 1), and a scan whose data ends before its last block: each raises
+    an error naming the fault, none returns pixels."""
+    rng = np.random.default_rng(61)
+    buf = io.BytesIO()
+    Image.fromarray(_smooth(rng, 40, 56, 3).astype(np.uint8)).save(
+        buf, format="JPEG", progressive=True, quality=80)
+    data = buf.getvalue()
+    soss = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+
+    def scan(k, **edit):
+        """data with scan k's Ss / Se / Ah-Al bytes (and its component
+        count) rewritten."""
+        d = bytearray(data)
+        i = soss[k]
+        ns = d[i + 4]
+        at = i + 5 + 2 * ns
+        if "Ss" in edit:
+            d[at] = edit["Ss"]
+        if "Se" in edit:
+            d[at + 1] = edit["Se"]
+        if "AhAl" in edit:
+            d[at + 2] = edit["AhAl"]
+        return bytes(d)
+
+    # libjpeg's script: scan 0 the DC of all three components (Al 1), scan 1
+    # the luma's AC 1-5 (Al 2), scan 5 refines the luma's AC 1-63 (Ah 2)
+    cases = [(scan(1, Ss=5, Se=1), "Se before Ss"),
+             (scan(0, Se=5), "a DC scan that carries AC"),
+             (scan(1, AhAl=0x0E), "Al past 13"),
+             (scan(5, AhAl=0x32), "does not follow"),
+             (scan(5, AhAl=0x20), "Al is not Ah - 1")]
+    d = bytearray(data)       # scan 0 over three components, made an AC scan
+    d[soss[0] + 5 + 2 * 3] = 1
+    d[soss[0] + 6 + 2 * 3] = 5
+    cases.append((bytes(d), "an AC scan over several components"))
+    cut = _fixture_maker().cut_after_scan(data, 5)
+    cases.append((cut[:-42] + b"\xff\xd9", "cut short"))
+    p = tmp_path / "m.jpg"
+    for bad, why in cases:
+        p.write_bytes(bad)
+        with pytest.raises(imgcodec.CodecError, match=why):
+            gt.read_plane(p)
+
+
+def test_progressive_series_converts_within_one_count(tmp_path,
+                                                      monkeypatch):
+    """The slice as a whole: `convert --destripe` (test_torch_convert.py's
+    flags) on 12 striped 96 x 128 u8 planes written as progressive JPEGs,
+    the port's run within 1 count of the JAX package's."""
+    from ipp_tpu.pipeline import convert as J
+    from ipp_tpu_torch.pipeline import convert as P
+
+    monkeypatch.setenv("IPP_TPU_PLATFORM", "cpu")
+    monkeypatch.setenv("IPP_TPU_PROGRESS", "off")
+    src = tmp_path / "in"
+    src.mkdir()
+    rng = np.random.default_rng(66)
+    yy, xx = np.mgrid[0:96, 0:128].astype(np.float32)
+    for z in range(12):
+        img = 90 + 40 * np.sin(xx / 9.0 + z / 3.0) * np.cos(yy / 13.0)
+        img *= 1.0 + 0.3 * (rng.random(128) > 0.8)[None, :]
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            src / f"img_{z:06d}.jpg", quality=95, progressive=True)
+    flags = ["--destripe", "--sigma1", "24", "--sigma2", "24", "--wavelet",
+             "db3", "--voxel", "2", "1", "1", "-dt", "4", "-zl", "0"]
+    outs = {}
+    for name, main in (("port", P.main), ("jax", J.main)):
+        outs[name] = tmp_path / name
+        assert main(["-i", str(src), "-o", str(outs[name]), *flags]) == 0
+    names = sorted(p.relative_to(outs["jax"])
+                   for p in outs["jax"].rglob("*.tif"))
+    assert len(names) >= 12 and names == sorted(
+        p.relative_to(outs["port"]) for p in outs["port"].rglob("*.tif"))
+    for n in names:
+        a, b = tj.imread(outs["port"] / n), tj.imread(outs["jax"] / n)
+        assert a.dtype == b.dtype and a.shape == b.shape, n
+        assert np.abs(a.astype(np.float64) - b).max() <= 1, n
 
 
 @pytest.mark.parametrize("kind,quality", [("gray", 75), ("gray", 95),
@@ -866,7 +1101,8 @@ print("OK", json.dumps(errors))
 
 def test_reads_writes_destripes_and_movies_with_pil_and_cv2_refused(
         tmp_path):
-    """Every fixture kind reads, each lossless format writes, the destripe
+    """Every fixture kind reads (progressive and CMYK JPEG among them),
+    each lossless format writes, the destripe
     CLI runs on 16-bit PNG tiles 0 counts off the same tiles as TIFFs, and
     `convert --movie x.avi` runs, and JPEG 2000 planes write and read
     back, all in a process where importing PIL or cv2 fails; .mp4 raises
@@ -877,6 +1113,10 @@ def test_reads_writes_destripes_and_movies_with_pil_and_cv2_refused(
     img8 = _smooth(rng, 29, 37, 3).astype(np.uint8)
     Image.fromarray(img8).save(fix / "a.jpg")
     Image.fromarray(img8[..., 0]).save(fix / "g.jpg", quality=90)
+    Image.fromarray(img8).save(fix / "p.jpg", progressive=True,
+                               restart_marker_blocks=4)
+    Image.fromarray(img8).convert("CMYK").save(fix / "c.jpg",
+                                               progressive=True)
     Image.fromarray(img8).save(fix / "a.png")
     Image.fromarray(img8).save(fix / "a.bmp")
     Image.fromarray(img8[..., 1]).save(fix / "a.pgm")
@@ -919,11 +1159,7 @@ def test_fixtures_hold_their_seeds(tmp_path):
     same."""
     import json
 
-    sys.path.insert(0, str(ROOT / "tests" / "torch_image_fixtures"))
-    try:
-        import make_fixtures as mk
-    finally:
-        sys.path.pop(0)
+    mk = _fixture_maker()
     manifest = json.loads((mk.HERE / "fixtures.json").read_text())
     assert sorted(manifest) == sorted(mk.FILES)
     seeds = mk.seeds()
@@ -939,8 +1175,10 @@ def test_fixtures_hold_their_seeds(tmp_path):
 
 def test_corrupt_files_raise_and_never_crash(tmp_path):
     """Bytes flipped, runs zeroed and files cut short in a JPEG (with
-    restarts), a PNG (Adam7), an LZW TIFF and a BMP: each read returns an
-    array or raises the codec's error; the library never crashes."""
+    restarts), progressive JPEGs (RGB with restarts, CMYK; cut short with
+    and without EOI), a PNG (Adam7), an LZW TIFF and a BMP: each read
+    returns an array or raises the codec's error; the library never
+    crashes."""
     from ipp_tpu_torch.io import tiff as tt
 
     rng = np.random.default_rng(99)
@@ -950,11 +1188,20 @@ def test_corrupt_files_raise_and_never_crash(tmp_path):
     _tiff(tmp_path / "a.tif", img[..., 0], predictor=2, rps=8)
     good["a.tif"] = (tmp_path / "a.tif").read_bytes()
     good["a.bmp"] = _bmp(img, 24)
+    progressive = {"p.jpg": (Image.fromarray(img),
+                             dict(restart_marker_blocks=3)),
+                   "c.jpg": (Image.fromarray(img).convert("CMYK"), {})}
+    for name, (im, flags) in progressive.items():
+        buf = io.BytesIO()
+        im.save(buf, format="JPEG", progressive=True, **flags)
+        good[name] = buf.getvalue()
     for name, data in good.items():
         for trial in range(60):
             buf = bytearray(data)
             if trial % 3 == 0:
                 buf = buf[:int(rng.integers(4, len(buf)))]
+                if trial % 2 and name in progressive:
+                    buf += b"\xff\xd9"
             else:
                 at = rng.integers(2, len(buf), int(rng.integers(1, 8)))
                 for i in at:

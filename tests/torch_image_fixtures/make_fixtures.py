@@ -16,7 +16,18 @@ which a lossy file's decode must match bit for bit:
 - ``gray16.png``, ``rgb.png`` and ``pal4.png`` (4-bit palette: PIL reads
   the indices);
 - ``rgb.bmp`` (24 bits) and ``gray.bmp`` (8 bits with a gray ramp);
-- ``rgb420.jpg``: a JFIF JPEG, YCbCr 4:2:0, quality 85.
+- ``rgb420.jpg``: a JFIF JPEG, YCbCr 4:2:0, quality 85;
+- ``prog_gray.jpg``, ``prog_rgb420.jpg``, ``prog_rgb444.jpg``: progressive
+  JPEGs (``progressive=True``: libjpeg's scan script, optimised tables);
+  ``prog_rgb420_rst.jpg`` with a restart marker every 5 blocks;
+  ``prog_keep_rgb.jpg`` of RGB components (Adobe transform 0);
+- ``cmyk.jpg`` and ``prog_cmyk.jpg``: four components with PIL's Adobe
+  APP14 segment (transform 0); ``ycck.jpg``, the same bytes with that
+  transform set to 2 (libjpeg turns YCCK to CMYK); ``cmyk_noapp14.jpg``
+  without the segment (libjpeg assumes CMYK);
+- ``prog_rgb420_cut3.jpg``: ``prog_rgb420.jpg`` cut after its third scan,
+  EOI appended, which libjpeg-turbo decodes with its block smoothing of
+  the coefficients not yet refined.
 """
 
 from __future__ import annotations
@@ -45,6 +56,8 @@ def seeds() -> dict:
                          255).astype(np.uint8)
     out["gray"] = out["rgb"][..., 1].copy()
     out["idx4"] = rng.integers(0, 16, (h, w)).astype(np.uint8)
+    out["cmyk"] = np.concatenate(
+        [255 - out["rgb"], (80 * field).astype(np.uint8)[..., None]], -1)
     return out
 
 
@@ -54,7 +67,52 @@ FILES = {   # file -> (seed, lossless)
     "gray16.png": ("u16", True), "rgb.png": ("rgb", True),
     "pal4.png": ("idx4", True), "rgb.bmp": ("rgb", True),
     "gray.bmp": ("gray", True), "rgb420.jpg": ("rgb", False),
+    "prog_gray.jpg": ("gray", False), "prog_rgb420.jpg": ("rgb", False),
+    "prog_rgb444.jpg": ("rgb", False), "prog_rgb420_rst.jpg": ("rgb", False),
+    "prog_keep_rgb.jpg": ("rgb", False), "cmyk.jpg": ("cmyk", False),
+    "prog_cmyk.jpg": ("cmyk", False), "ycck.jpg": ("cmyk", False),
+    "cmyk_noapp14.jpg": ("cmyk", False),
+    "prog_rgb420_cut3.jpg": ("rgb", False),
 }
+
+
+def jpeg_segments(data: bytes):
+    """(marker, start, end) of each segment of a JPEG after SOI; a scan
+    runs to the marker after its entropy-coded data."""
+    i, out = 2, []
+    while i + 1 < len(data):
+        m = data[i + 1]
+        if m == 0xD9:
+            out.append((m, i, i + 2))
+            break
+        j = i + 2 + int.from_bytes(data[i + 2:i + 4], "big")
+        if m == 0xDA:
+            while not (data[j] == 0xFF and data[j + 1] != 0 and
+                       not 0xD0 <= data[j + 1] <= 0xD7):
+                j += 1
+        out.append((m, i, j))
+        i = j
+    return out
+
+
+def cut_after_scan(data: bytes, k: int) -> bytes:
+    """A JPEG cut after its k-th scan, EOI appended."""
+    scans = [end for m, _, end in jpeg_segments(data) if m == 0xDA]
+    return data[:scans[k - 1]] + b"\xff\xd9"
+
+
+def adobe_transform(data: bytes, transform) -> bytes:
+    """The Adobe APP14 segment's transform byte set (None: the segment
+    taken out)."""
+    out = bytearray(data[:2])
+    for m, a, b in jpeg_segments(data):
+        seg = bytearray(data[a:b])
+        if m == 0xEE and seg[4:9] == b"Adobe":
+            if transform is None:
+                continue
+            seg[15] = transform
+        out += seg
+    return bytes(out)
 
 
 def digest(a: np.ndarray) -> str:
@@ -85,6 +143,23 @@ def write(out: Path = HERE) -> dict:
     Image.fromarray(s["rgb"]).save(out / "rgb.bmp")
     Image.fromarray(s["gray"]).save(out / "gray.bmp")
     Image.fromarray(s["rgb"]).save(out / "rgb420.jpg", quality=85)
+    Image.fromarray(s["gray"]).save(out / "prog_gray.jpg", quality=85,
+                                    progressive=True)
+    for sub, name in ((2, "rgb420"), (0, "rgb444")):
+        Image.fromarray(s["rgb"]).save(out / f"prog_{name}.jpg", quality=85,
+                                       subsampling=sub, progressive=True)
+    Image.fromarray(s["rgb"]).save(out / "prog_rgb420_rst.jpg", quality=85,
+                                   progressive=True, restart_marker_blocks=5)
+    Image.fromarray(s["rgb"]).save(out / "prog_keep_rgb.jpg", quality=85,
+                                   progressive=True, keep_rgb=True)
+    cmyk = Image.frombytes("CMYK", SHAPE[::-1], s["cmyk"].tobytes())
+    cmyk.save(out / "cmyk.jpg", quality=85)
+    cmyk.save(out / "prog_cmyk.jpg", quality=85, progressive=True)
+    data = (out / "cmyk.jpg").read_bytes()
+    (out / "ycck.jpg").write_bytes(adobe_transform(data, 2))
+    (out / "cmyk_noapp14.jpg").write_bytes(adobe_transform(data, None))
+    (out / "prog_rgb420_cut3.jpg").write_bytes(
+        cut_after_scan((out / "prog_rgb420.jpg").read_bytes(), 3))
     manifest = {}
     for name, (seed, lossless) in FILES.items():
         a = np.asarray(Image.open(out / name))

@@ -321,9 +321,11 @@ build/chip_smoke/ (removed at the end).
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import itertools
 import json
 import math
+import os
 import shutil
 import struct
 import subprocess
@@ -5542,9 +5544,18 @@ RATE_REPS = 5
 IMAGE_FIXTURES = ROOT / "tests" / "torch_image_fixtures"
 JP2_FIXTURES = ROOT / "tests" / "torch_jpeg2000_fixtures"
 MARKER_FIXTURES = ROOT / "tests" / "torch_marker_fixtures"
+TIFF_FIXTURES = ROOT / "tests" / "torch_tiff_fixtures"
 JP2_PLANES = 16        # phase 14's planes written as u16 .jp2 in (f)
+# (i)'s trees: (a)'s tiles as zstd TIFFs with predictor 2 and as LZMA TIFFs,
+# at libtiff's fastest settings (zstd level 1, LZMA preset 1, through its
+# pseudo-tags 65564 / 65562; the samples are the same at any level); (e)'s
+# rate planes keep PIL's defaults
+ZSTD_KINDS = ("zstd", "lzma")
+PIL_FAST = {"zstd": (65564, 1), "lzma": (65562, 1)}
+ZERO_FILLED = "zero-filled undecodable plane"
 PROGRESSIVE_DIR = "pjpg"  # (b)'s planes as progressive JPEGs, for (h)
 PROGRESSIVE_RATES = ("u8_prog.jpg", "rgb_prog.jpg")   # (e)'s, PIL's
+ZSTD_RATES = ("u16_zstd.tif", "u16_zstd_p2.tif", "u16_lzma.tif")  # PIL's
 REFUSED = ("PIL", "cv2", "pandas")
 
 
@@ -5571,6 +5582,12 @@ def codec_tiles(stacks, planes, seed=11):
         for z in range(planes):
             yield k, z, striped_tile(
                 np.random.default_rng(tile_seed(k, z, seed)), field)
+
+
+def codec_rel(k, z, suffix="tif"):
+    """(a)'s path of plane z of stack k in its tree."""
+    return Path(f"Ex_488_Em_525/{100000 + 1000 * k}/"
+                f"{100000 + 1000 * k}_200000/{z * 20:06d}.{suffix}")
 
 
 def convert_series_planes(n):
@@ -5627,7 +5644,9 @@ def codec_child(work: Path) -> int:
     phase 14's first 16 planes written as u16 .jp2 by the port and on the
     same planes as TIFFs; (g) the committed marker / SWC / ESWC / APO /
     seed fixtures through the port's utilities, against the JAX package's
-    outputs; (e) the port's decode MB/s.  Writes work/codec.json."""
+    outputs; (i) the destripe CLI on (a)'s tiles as zstd TIFFs (predictor
+    2) and as LZMA TIFFs (PIL's, written before), and the stacks' block
+    reads; (e) the port's decode MB/s.  Writes work/codec.json."""
     refuse_imports()
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5637,7 +5656,10 @@ def codec_child(work: Path) -> int:
     sys.path.insert(0, str(ROOT))
     from ipp_tpu_torch.io import avi
     from ipp_tpu_torch.io import generic2d as g2d
-    from ipp_tpu_torch.io import imgcodec, jpeg2000
+    from ipp_tpu_torch import native
+    from ipp_tpu_torch.geometry.extent import VExtent
+    from ipp_tpu_torch.geometry.stacks import TileStack
+    from ipp_tpu_torch.io import imgcodec, jpeg2000, zstd
     from ipp_tpu_torch.io import tiff as tio
     from ipp_tpu_torch.io.jpeg import encode_jpeg
     from ipp_tpu_torch.ops import cuda_dwt as cd
@@ -5669,10 +5691,8 @@ def codec_child(work: Path) -> int:
 
     def put(job):
         k, z, tile = job
-        rel = Path(f"Ex_488_Em_525/{100000 + 1000 * k}/"
-                   f"{100000 + 1000 * k}_200000/{z * 20:06d}")
         for kind in ("png", "tif"):
-            p = work / kind / rel.with_suffix(f".{kind}")
+            p = work / kind / codec_rel(k, z, kind)
             p.parent.mkdir(parents=True, exist_ok=True)
             if kind == "png":
                 g2d.imwrite_generic(p, tile)
@@ -5809,6 +5829,29 @@ def codec_child(work: Path) -> int:
         f"{manifest['pil']}, OpenJPEG {manifest['openjpeg']}), bit-equal "
         f"but {bad}")
     checks["JPEG 2000 fixtures bit-equal"] = not bad
+    mk4 = load_fixture_maker(TIFF_FIXTURES, "make_tiff_fixtures")
+    manifest = json.loads((TIFF_FIXTURES / "fixtures.json").read_text())
+    bad = []
+    for name, entry in manifest["files"].items():
+        path = TIFF_FIXTURES / name
+        got = g2d.read_plane(path) if entry["twin"] else tio.read_tiff(path)
+        if mk4.digest(got) != entry["sha256"]:
+            bad.append(name)
+    for name, entry in manifest["frames"].items():
+        got = zstd.zstd_decode((TIFF_FIXTURES / "frames" / name).read_bytes(),
+                               entry["size"])
+        if hashlib.sha256(got).hexdigest() != entry["sha256"]:
+            bad.append(name)
+    rec["tiff_fixtures"] = dict(files=len(manifest["files"]),
+                                frames=len(manifest["frames"]), bad=bad,
+                                pil=manifest["pil"],
+                                libtiff=manifest["libtiff"],
+                                libzstd=manifest["libzstd"])
+    say(f"  (c) {len(manifest['files'])} zstd / LZMA TIFF fixtures and "
+        f"{len(manifest['frames'])} zstd frames (PIL {manifest['pil']}, "
+        f"libtiff {manifest['libtiff']}, libzstd {manifest['libzstd']}), "
+        f"bit-equal but {bad}")
+    checks["zstd / LZMA TIFF fixtures bit-equal"] = not bad
 
     # (d) convert --movie to .avi, read back by the port
     sdir = work / "series"
@@ -5900,6 +5943,71 @@ def codec_child(work: Path) -> int:
         f"{want['pandas']}) but {bad}")
     checks["marker fixtures byte-equal"] = not bad and bool(got)
 
+    # (i) the destripe CLI on (a)'s tiles as zstd and LZMA TIFFs
+    if not (work / "zstd").is_dir():
+        rec["zstd_destripe"] = None
+        say("  (i) not run: the host has no PIL to write the zstd and LZMA "
+            "tiles; (c) holds the decoders to the committed digests")
+    else:
+        built = native.available()
+        say(f"  (i) fastio {'built' if built else 'not built'} on this host: "
+            f"the stitch's block reads take "
+            f"{'native.read_block' if built else 'TileStack.imread'}'s "
+            f"zero-fill site")
+        iruns = {}
+        with DefaultMesh(None):
+            for kind in ZSTD_KINDS:
+                cd.reset_launch_counts()
+                cn.reset_launch_counts()
+                t0 = time.perf_counter()
+                rc = psc.main(["-i", str(work / kind), "-o",
+                               str(work / f"out_{kind}"), *STAGE1])
+                sync()
+                iruns[kind] = dict(rc=rc, launches=launches(),
+                                   wall_s=time.perf_counter() - t0)
+        import warnings
+
+        h, w = TILE_STACKS[0][2]
+        blocks = {}
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            for kind in ("zstd", "tif"):
+                blocks[kind] = [TileStack(
+                    row=0, col=k, dir_name=str(codec_rel(k, 0).parent),
+                    root_dir=str(work / kind)).imread(
+                        VExtent(0, w, 0, h, 0, CODEC_PLANES))
+                    for k in range(CODEC_STACKS)]
+        zero_filled = sum(ZERO_FILLED in str(x.message) for x in seen)
+        same_block = all(np.array_equal(a, b) for a, b in
+                         zip(blocks["zstd"], blocks["tif"]))
+        del blocks
+        diffs = {kind: same_tiles(work / f"out_{kind}", work / "out_tif1")
+                 for kind in ZSTD_KINDS}
+        rec["zstd_destripe"] = dict(
+            runs=iruns, fastio=built, tiles={k: v[0] for k, v in
+                                             diffs.items()},
+            max_count_diff={k: v[1] for k, v in diffs.items()},
+            block_equal=same_block, zero_filled=zero_filled,
+            bytes={kind: sum(p.stat().st_size for p in
+                             (work / kind).rglob("*.tif"))
+                   for kind in ZSTD_KINDS})
+        for kind in ZSTD_KINDS:
+            say(f"  (i) destripe CLI on {diffs[kind][0]} {kind} TIFF tiles: "
+                f"{iruns[kind]['wall_s']:.2f} s against (a)'s TIFF runs "
+                f"{walls['tif'][0]:.2f} / {walls['tif'][1]:.2f} s; max "
+                f"|{kind} - TIFF| {diffs[kind][1]} counts; launches "
+                f"{iruns[kind]['launches']} / {runs[1]['launches']}")
+        say(f"  (i) the two stacks' block reads ({CODEC_STACKS} x "
+            f"{CODEC_PLANES} zstd planes): equal to the TIFFs' "
+            f"{same_block}, {zero_filled} zero-fill warnings")
+        checks["zstd and LZMA tiles 0 counts off TIFF"] = all(
+            iruns[k]["rc"] == 0 and diffs[k] == (len(tiles), 0)
+            for k in ZSTD_KINDS)
+        checks["zstd and LZMA launches == TIFF launches"] = all(
+            iruns[k]["launches"] == runs[1]["launches"] for k in ZSTD_KINDS)
+        checks["zstd block reads equal, none zero-filled"] = \
+            same_block and zero_filled == 0
+
     # (e) the port's decode MB/s (PIL's beside them in the parent)
     rates = work / "rates"
     tile = planes[0][:RATE_SIDE, :RATE_SIDE]
@@ -5910,7 +6018,7 @@ def codec_child(work: Path) -> int:
     jpeg2000.load()
     port = {}
     for name in ("u16.png", "u8.jpg", "u16_lzw_p2.tif", "u16.jp2",
-                 *PROGRESSIVE_RATES):
+                 *PROGRESSIVE_RATES, *ZSTD_RATES):
         p = rates / name
         if p.exists():
             nbytes = g2d.read_plane(p).nbytes
@@ -5924,13 +6032,17 @@ def codec_child(work: Path) -> int:
     return 0
 
 
-def host_pil_rates(work: Path, write: bool):
+def host_pil_rates(work: Path, write: bool, tile=None):
     """With PIL on the host: write (write=True) the u16 LZW TIFF (predictor
-    2) of the rate plane and the progressive u8 gray and RGB JPEGs made of
-    it (PIL's defaults, progressive=True) into work/rates, and (b)'s 16
+    2), the u16 zstd TIFFs (with and without predictor 2) and the u16 LZMA
+    TIFF of the rate plane and the progressive u8 gray and RGB JPEGs made
+    of it (PIL's defaults, progressive=True) into work/rates, (b)'s 16
     planes as progressive JPEGs (quality 95) into work/PROGRESSIVE_DIR for
-    (h); or time PIL's decode of every rate plane (the .jp2 only where PIL
-    has OpenJPEG); None without PIL."""
+    (h), and (a)'s tiles as zstd and LZMA TIFFs for (i) in a pool of
+    processes, each calling this with `tile` = (stack, plane, tile shape)
+    (PIL holds the GIL while libtiff compresses); or time PIL's decode of
+    every rate plane (the .jp2 only where PIL has OpenJPEG); None without
+    PIL."""
     import importlib.util
 
     import numpy as np
@@ -5939,6 +6051,22 @@ def host_pil_rates(work: Path, write: bool):
         return None
     from PIL import Image, TiffImagePlugin, features
 
+    if tile is not None:    # one of (i)'s tiles, in both compressions
+        k, z, shape = tile
+        img = striped_tile(np.random.default_rng(tile_seed(k, z)),
+                           tile_field(shape, k))
+        for kind in ZSTD_KINDS:
+            info = TiffImagePlugin.ImageFileDirectory_v2()
+            tag, level = PIL_FAST[kind]
+            info[tag] = level
+            info.tagtype[tag] = 4
+            if kind == "zstd":
+                info[317] = 2
+            p = work / kind / codec_rel(k, z)
+            p.parent.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(img).save(p, compression=kind, tiffinfo=info)
+        return {}
+
     rates = work / "rates"
     if write:
         pred = TiffImagePlugin.ImageFileDirectory_v2()
@@ -5946,6 +6074,11 @@ def host_pil_rates(work: Path, write: bool):
         tile = convert_series_planes(1)[0][:RATE_SIDE, :RATE_SIDE]
         Image.fromarray(tile).save(rates / "u16_lzw_p2.tif",
                                    compression="tiff_lzw", tiffinfo=pred)
+        Image.fromarray(tile).save(rates / "u16_zstd_p2.tif",
+                                   compression="zstd", tiffinfo=pred)
+        for kind in ZSTD_KINDS:
+            Image.fromarray(tile).save(rates / f"u16_{kind}.tif",
+                                       compression=kind)
         g = np.clip(tile / 16.0, 0, 255).astype(np.uint8)
         rgb = np.stack([g, np.roll(g, 7, 1), np.roll(g, 13, 0)], -1)
         for name, img in zip(PROGRESSIVE_RATES, (g, rgb)):
@@ -5956,6 +6089,18 @@ def host_pil_rates(work: Path, write: bool):
             img8 = np.clip(tile / 16.0, 0, 255).astype(np.uint8)
             Image.fromarray(img8).save(pdir / f"img_{z:06d}.jpg",
                                        quality=95, progressive=True)
+        import functools
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        t0 = time.perf_counter()
+        jobs = [(k, z, TILE_STACKS[0][2]) for k in range(CODEC_STACKS)
+                for z in range(CODEC_PLANES)]
+        with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                                 multiprocessing.get_context("spawn")) as ex:
+            list(ex.map(functools.partial(host_pil_rates, work, True), jobs))
+        say(f"  PIL wrote (i)'s {len(jobs)} zstd and {len(jobs)} LZMA tiles "
+            f"in {time.perf_counter() - t0:.1f} s")
         return {}
     out = {}
     for p in sorted(rates.iterdir()):
@@ -5983,8 +6128,8 @@ def host_cv2_frames(movie: Path):
 
 
 def phase_codec(torch, record):
-    """The host image codec on the card's host: PIL's files for (e) and
-    (h) written here where the host has PIL, codec_child's run in a
+    """The host image codec on the card's host: PIL's files for (e), (h)
+    and (i) written here where the host has PIL, codec_child's run in a
     process of its own with PIL, cv2 and pandas refused, then, here,
     OpenCV's count of the movie's frames and PIL's decode MB/s beside the
     port's."""
@@ -6143,7 +6288,8 @@ def main() -> int:
           f"destripe CLI on {CODEC_STACKS} stacks of {CODEC_PLANES} PNG "
           f"tiles, convert on a JPEG series, the fixtures, convert --movie "
           f".avi, convert on {JP2_PLANES} .jp2 planes, the marker / SWC "
-          f"fixtures, convert on a progressive JPEG series, decode MB/s",
+          f"fixtures, convert on a progressive JPEG series, the destripe CLI "
+          f"on zstd and LZMA tiles, decode MB/s",
           phase_codec, torch, record)
     for d in ("chip_smoke", "chip_smoke_tiles", "chip_smoke_stitch",
               "chip_smoke_convert", "chip_smoke_hdf5", "chip_smoke_codec"):

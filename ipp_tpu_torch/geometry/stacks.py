@@ -191,6 +191,8 @@ class TileStack:
                 # as the native path) instead of aborting a multi-hour
                 # merge; slicing/shape errors still raise loudly
                 plane = self.read_plane(z)
+            except tio.UnsupportedTiffError:
+                raise   # an encoding the port does not read: never zeros
             except Exception:  # noqa: BLE001
                 import time as _time
 

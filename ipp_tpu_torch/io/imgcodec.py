@@ -20,8 +20,8 @@ import numpy as np
 
 from ..native import build_shared
 
-__all__ = ["CodecError", "load", "lzw_decode", "png_unfilter",
-           "jpeg_decode", "jpeg_encode"]
+__all__ = ["CodecError", "UnsupportedCodecError", "load", "lzw_decode",
+           "png_unfilter", "jpeg_decode", "jpeg_encode"]
 
 _SRC = Path(__file__).resolve().parent.parent / "native" / "imgcodec.cpp"
 _ABI_VERSION = 2      # imgcodec_abi_version() in imgcodec.cpp
@@ -33,6 +33,12 @@ _error: Optional[str] = None
 class CodecError(ValueError):
     """A plane the codec cannot read or write (also raised when its
     library did not build)."""
+
+
+class UnsupportedCodecError(CodecError):
+    """An encoding the codec refuses by name (old-style LZW, a JPEG
+    process it does not read, a zstd dictionary): well-formed data that
+    the port does not read, never a damaged file."""
 
 
 def load() -> None:
@@ -83,7 +89,8 @@ def lzw_decode(data: bytes, expected: int) -> bytes:
     out = np.empty(expected, np.uint8)
     got = fn(bytes(data), len(data), out.ctypes.data, expected)
     if got == -3:
-        raise CodecError("LZW: old-style (LSB-first) LZW is not read")
+        raise UnsupportedCodecError("LZW: old-style (LSB-first) LZW is not "
+                                    "read")
     if got < 0:
         raise CodecError("LZW: invalid data")
     return out[:got].tobytes()
@@ -123,13 +130,22 @@ def jpeg_decode(data: bytes, tables: bytes = b"",
     data = bytes(data)
     if fn(data, len(data), tables or None, len(tables), None, 0, info, err,
           256, flag) != 0:
-        raise CodecError(f"JPEG: {err.value.decode()}")
+        _jpeg_error(err.value.decode())
     w, h, nc = info[0], info[1], info[2]
     out = np.empty((h, w, nc) if nc > 1 else (h, w), np.uint8)
     if fn(data, len(data), tables or None, len(tables), out.ctypes.data,
           out.nbytes, info, err, 256, flag) != 0:
-        raise CodecError(f"JPEG: {err.value.decode()}")
+        _jpeg_error(err.value.decode())
     return out
+
+
+def _jpeg_error(msg: str):
+    """The decoder's message as the error it is: a JPEG process or layout
+    the codec does not read (its messages say "unsupported" or "not read")
+    or damaged data."""
+    if msg.startswith("unsupported") or msg.endswith("is not read"):
+        raise UnsupportedCodecError(f"JPEG: {msg}")
+    raise CodecError(f"JPEG: {msg}")
 
 
 def jpeg_encode(img: np.ndarray, quality: int = 75,

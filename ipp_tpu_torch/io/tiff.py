@@ -4,11 +4,18 @@ Replaces the reference's tifffile/PIL/bfconvert fallback chain
 (reference imread_tif_raw_png / imsave_tif, pystripe/core.py:200-334) with:
 
 - a from-scratch numpy TIFF parser (classic + BigTIFF, strips + tiles,
-  uncompressed / deflate / PackBits / LZW / JPEG, grayscale u8/u16/u32/f32),
+  uncompressed / deflate / PackBits / LZW / JPEG / zstd / LZMA, grayscale
+  u8/u16/u32/f32),
 - the port's own codecs where the reference falls back to PIL: planes the
-  numpy codec leaves (LZW and JPEG with their predictors and tables, PIL's
-  view of their samples: io/tiffcodec.py) and every other format, by the
-  file's signature (io/generic2d.read_plane),
+  numpy codec leaves (LZW and JPEG with their predictors and tables, zstd
+  through io/zstd.py, LZMA through Python's lzma module, PIL's view of
+  their samples: io/tiffcodec.py) and every other format, by the file's
+  signature (io/generic2d.read_plane),
+- loud refusals: an encoding the port does not read (CCITT, old-style
+  JPEG, PixarLog, SGILog, WebP, ..., 1- to 4-bit samples) raises
+  UnsupportedTiffError at once, without retries, and the readers that
+  zero-fill a damaged plane (native.read_block, TileStack.imread) let it
+  pass,
 - atomic tmp->rename writes so readers never observe partial files
   (reference: pystripe/core.py:304-314),
 - bounded retry loops for flaky network filesystems
@@ -29,8 +36,11 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
+from .imgcodec import UnsupportedCodecError
+
 __all__ = ["imread", "imwrite", "read_tiff", "read_tiff_partial",
-           "read_tiff_stack", "write_tiff_stack", "write_tiff", "TiffError"]
+           "read_tiff_stack", "write_tiff_stack", "write_tiff", "TiffError",
+           "UnsupportedTiffError"]
 
 NUM_RETRIES = 10
 RETRY_SLEEP = 0.2
@@ -62,6 +72,26 @@ _TYPE_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f",
 
 class TiffError(RuntimeError):
     pass
+
+
+class UnsupportedTiffError(TiffError):
+    """A well-formed TIFF in an encoding the port does not read (its
+    compression, sample size or layout is named): never retried, never
+    zero-filled."""
+
+
+# libtiff's registered compressions that the port does not read, by name
+_REFUSED = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
+            6: "old-style JPEG", 9: "JBIG (T.85)", 10: "JBIG2 (T.43)",
+            32766: "NeXT 2-bit RLE", 32771: "CCITT RLEW",
+            32809: "ThunderScan", 32895: "IT8 CT padding",
+            32896: "IT8 linework RLE", 32897: "IT8 monochrome picture",
+            32898: "IT8 binary line art", 32908: "PixarFilm",
+            32909: "PixarLog", 32947: "Kodak DCS", 34661: "JBIG",
+            34676: "SGILog", 34677: "SGILog24", 34712: "JPEG 2000",
+            34887: "LERC", 34892: "lossy JPEG (DNG)", 50001: "WebP",
+            50002: "JPEG XL"}
+_XZ_MAGIC = b"\xfd7zXZ\0"
 
 
 def _unpackbits_decode(data: bytes, expected: int) -> bytes:
@@ -177,6 +207,9 @@ def _page_from_tags(tags) -> _TiffPage:
     comp = one(_T_COMPRESSION, 1)
     sfmt = one(_T_SAMPLE_FORMAT, 1)
     samples = one(_T_SAMPLES_PER_PIXEL, 1)
+    if bits in (1, 2, 4) and 0 < samples <= 16:
+        raise UnsupportedTiffError(f"{bits}-bit samples are not read (8, 16, "
+                                   f"32 and 64 bits are)")
     if not (0 < bits <= 64 and bits % 8 == 0 and 0 < samples <= 16):
         raise TiffError(f"implausible bits/samples {bits}/{samples}")
     if int(width) * int(length) * samples * (bits // 8) > 1 << 36:
@@ -195,28 +228,67 @@ def _page_from_tags(tags) -> _TiffPage:
 def _decompress(data: bytes, compression: int, expected: int,
                 tables: bytes = b"", photometric: int = 1) -> bytes:
     """A strip's or tile's bytes.  LZW and JPEG decode in the codec
-    library (io/imgcodec.py); a JPEG strip that leaves its tables to the
-    page's JPEGTables (tag 347) needs them in `tables`.  JPEG components
-    turn from YCbCr to RGB only under photometric 6, as libtiff turns
-    them for PIL; under any other photometric they come as stored.
-    Predictors are _decode_chunk's."""
+    library (io/imgcodec.py), zstd in its own (io/zstd.py), LZMA (an .xz
+    stream, as libtiff writes it) through Python's lzma module; a JPEG
+    strip that leaves its tables to the page's JPEGTables (tag 347) needs
+    them in `tables`.  JPEG components turn from YCbCr to RGB only under
+    photometric 6, as libtiff turns them for PIL; under any other
+    photometric they come as stored.  Predictors are _decode_chunk's.  A
+    compression the port does not read raises UnsupportedTiffError naming
+    it."""
     if compression == 1:
         return data
     if compression in (8, 32946):  # deflate / old-style deflate
         return zlib.decompress(data)
     if compression == 32773:  # PackBits
         return _unpackbits_decode(data, expected)
-    if compression in (5, 7):  # LZW / JPEG
-        from . import imgcodec
+    if compression == 34925:
+        return _lzma_decode(data, expected)
+    if compression in (5, 7, 50000):  # LZW / JPEG / zstd
+        from . import imgcodec, zstd
 
         try:
             if compression == 5:
                 return imgcodec.lzw_decode(data, expected)
+            if compression == 50000:
+                return zstd.zstd_decode(data, expected)
             return imgcodec.jpeg_decode(data, tables,
                                         photometric == 6).tobytes()
+        except imgcodec.UnsupportedCodecError as e:
+            raise UnsupportedTiffError(str(e)) from None
         except imgcodec.CodecError as e:
             raise TiffError(str(e)) from None
-    raise TiffError(f"unsupported compression {compression}")
+    raise _refused(compression)
+
+
+def _refused(compression: int) -> TiffError:
+    """The error for a compression the port does not read: an
+    UnsupportedTiffError naming it where libtiff registers it, else a
+    TiffError (a damaged tag, most likely)."""
+    name = _REFUSED.get(compression)
+    if name is None:
+        return TiffError(f"unsupported compression {compression}")
+    return UnsupportedTiffError(
+        f"TIFF compression {compression} ({name}) is not read (none, "
+        f"deflate, PackBits, LZW, JPEG, LZMA and zstd are)")
+
+
+def _lzma_decode(data: bytes, expected: int) -> bytes:
+    """Up to `expected` bytes of the one .xz stream that libtiff's LZMA
+    codec writes a strip as."""
+    if not data.startswith(_XZ_MAGIC):
+        raise TiffError("LZMA: the strip is not an .xz stream")
+    try:
+        import lzma
+    except ImportError as e:
+        raise UnsupportedTiffError(
+            f"LZMA TIFF needs Python's _lzma module, which this Python lacks "
+            f"({e})") from None
+    try:
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(
+            data, max_length=expected)
+    except lzma.LZMAError as e:
+        raise TiffError(f"LZMA: {e}") from None
 
 
 def _undo_float_predictor(rows: np.ndarray, dtype: np.dtype,
@@ -241,13 +313,15 @@ def _decode_chunk(raw: bytes, page: _TiffPage, dtype: np.dtype, rows: int,
     horizontal differencing; 3: floating point, bytes re-interleaved)."""
     s = page.samples
     expected = rows * cols * s * dtype.itemsize
-    if page.compression in (5, 7):
+    if page.compression in (5, 7, 34925, 50000):    # PIL's (libtiff's)
         if page.planar == 2 and s > 1:
-            raise TiffError("TIFF with separate colour planes is not read")
+            raise UnsupportedTiffError("TIFF with separate colour planes is "
+                                       "not read")
         if page.photometric == 6 and page.compression != 7:
-            raise TiffError("YCbCr TIFF outside JPEG is not read")
+            raise UnsupportedTiffError("YCbCr TIFF outside JPEG is not read")
         if page.compression == 7 and dtype.itemsize != 1:
-            raise TiffError("JPEG TIFF of more than 8 bits a sample")
+            raise UnsupportedTiffError("JPEG TIFF of more than 8 bits a "
+                                       "sample")
     raw = _decompress(raw, page.compression, expected, page.jpeg_tables,
                       page.photometric)
     if len(raw) < expected:
@@ -260,6 +334,9 @@ def _decode_chunk(raw: bytes, page: _TiffPage, dtype: np.dtype, rows: int,
             dtype, s)
     arr = np.frombuffer(raw, dtype, rows * cols * s).reshape(rows, cols * s)
     if page.predictor == 2:
+        if dtype.kind == "f":   # libtiff differences a float's bits
+            bits = np.dtype(f"u{dtype.itemsize}").newbyteorder(dtype.byteorder)
+            return _undo_predictor(arr.view(bits).copy(), 2, s).view(dtype)
         arr = _undo_predictor(arr.copy(), 2, s)
     return arr
 
@@ -709,7 +786,8 @@ def write_tiff(path: Union[str, Path], img: np.ndarray,
 def imread(path: Union[str, Path], retries: int = NUM_RETRIES) -> np.ndarray:
     """Robust image read: native C++ codec, then the codec the file's
     signature names (io/generic2d.read_plane), with retries (reference
-    imread_tif_raw_png, pystripe/core.py:200-264)."""
+    imread_tif_raw_png, pystripe/core.py:200-264).  An encoding the port
+    refuses by name raises UnsupportedTiffError naming the file, at once."""
     from ..utils import iostat
 
     if iostat.ACTIVE:
@@ -740,6 +818,9 @@ def _imread_impl(path: Union[str, Path], retries: int) -> np.ndarray:
             return read_plane(path)
         except FileNotFoundError:
             raise
+        except (UnsupportedTiffError, UnsupportedCodecError) as exc:
+            # not a flaky read: the file holds what the port does not read
+            raise UnsupportedTiffError(f"{path}: {exc}") from None
         except Exception as exc:  # noqa: BLE001 — retry any decode/IO error
             last_exc = exc
             time.sleep(RETRY_SLEEP)

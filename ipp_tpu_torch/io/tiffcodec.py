@@ -1,5 +1,6 @@
-"""TIFF planes that the JAX package reads through PIL (libtiff): LZW (5)
-and JPEG (7), read as ``np.asarray(PIL.Image.open(path))`` shows them.
+"""TIFF planes that the JAX package reads through PIL (libtiff): LZW (5),
+JPEG (7), LZMA (34925) and zstd (50000), read as
+``np.asarray(PIL.Image.open(path))`` shows them.
 
 ``io/tiff.read_tiff`` decodes their strips and tiles (with JPEGTables,
 photometric and both predictors, as every reader of ``io/tiff`` does);
@@ -13,8 +14,9 @@ this module adds PIL's view of the samples:
   indices, as stored (also big-endian f32, which PIL returns with its
   bytes swapped, and big-endian u32, which PIL refuses).
 
-A TIFF of any other compression is read by ``io/tiff.read_tiff`` (the
-numpy codec), as the JAX package reads it.
+A TIFF of none, deflate or PackBits is read by ``io/tiff.read_tiff`` (the
+numpy codec), as the JAX package reads it; any other compression that
+libtiff registers raises ``UnsupportedTiffError`` naming it.
 """
 
 from __future__ import annotations
@@ -24,11 +26,12 @@ from pathlib import Path
 import numpy as np
 
 from .tiff import (TiffError, _page_from_tags, _parse_ifds,
-                   _read_tiff_header, read_tiff)
+                   _read_tiff_header, _refused, read_tiff)
 
 __all__ = ["read_tiff_plane", "tiff_shape"]
 
 _NUMPY_CODECS = (1, 8, 32946, 32773)   # the ones io/tiff reads itself
+_PIL_CODECS = (5, 7, 34925, 50000)     # the ones the JAX package gives PIL
 
 
 def _first_page(f):
@@ -67,7 +70,6 @@ def read_tiff_plane(path) -> np.ndarray:
     comp = tags.get(259, (1,))[0]
     if comp in _NUMPY_CODECS:
         return read_tiff(path)
-    if comp not in (5, 7):
-        raise TiffError(f"TIFF compression {comp} is not read (none, "
-                        f"deflate, PackBits, LZW and JPEG are)")
+    if comp not in _PIL_CODECS:
+        raise _refused(comp)
     return _pil_view(read_tiff(path), tags)

@@ -185,12 +185,14 @@ def read_block(paths: Sequence, y0: int, y1: int, x0: int, x1: int,
                dtype=np.uint16, nthreads: int = 8) -> Optional[np.ndarray]:
     """Threaded ROI block load: (len(paths), y1-y0, x1-x0).
 
-    Planes the minimal C++ parser cannot decode (tiled layout, LZW,
+    Planes the minimal C++ parser cannot decode (tiled layout, LZW, zstd,
     big-endian f32, ...) are re-read through the robust Python codec
     (ipp_tpu_torch.io.tiff.imread: numpy parser, the port's own codecs,
-    retries); only
+    retries), one after another on this thread; only
     genuinely missing/corrupt files come back zero-filled — the reference's
-    dummy-substitution semantics (tsv/volume.py:378-397)."""
+    dummy-substitution semantics (tsv/volume.py:378-397).  A plane in an
+    encoding the port does not read raises UnsupportedTiffError naming
+    it: zeros there would be a wrong result, not a dummy."""
     lib = _get_lib()
     if lib is None:
         return None
@@ -213,6 +215,8 @@ def read_block(paths: Sequence, y0: int, y1: int, x0: int, x1: int,
                 # TileStack.imread): a wrong-SIZED plane raises loudly
                 # below instead of silently zero-filling
                 img = _tio.imread(paths[z], retries=2)
+            except _tio.UnsupportedTiffError:
+                raise       # names the file and its encoding
             except Exception:
                 out[z] = 0  # genuinely missing/corrupt: dummy zeros
                 warn_zero_filled(paths[z])

@@ -43,7 +43,7 @@ ROOT = Path(__file__).resolve().parent.parent
 VERBATIM = ["io/dcimg.py", "io/nrrd.py", "parallel/executor.py",
             "parallel/sandbox.py", "utils/iostat.py", "utils/lagged.py",
             "utils/log.py", "utils/memory.py", "utils/progress.py",
-            "geometry/extent.py", "geometry/stacks.py", "io/raw.py",
+            "geometry/extent.py", "io/raw.py",
             "stitch/place.py", "io/terafly.py",
             "io/vaa3draw.py", "utils/tifstack.py",
             "pipeline/scan_stitch.py", "io/precomputed.py",
@@ -71,12 +71,20 @@ RENAMED = {"pipeline/command_generator.py":
 # imports PIL (no _pil_jpeg2000, no _NEEDS_PIL).  utils/markers.py and
 # utils/reconops.py hold their tables in numpy structured arrays, read and
 # written by utils/csvtable.py instead of pandas: the functions that touch
-# a table differ, the mesh code and swc_to_recut_seeds stay verbatim
+# a table differ, the mesh code and swc_to_recut_seeds stay verbatim.
+# io/tiff.py also reads zstd (through io/zstd.py) and LZMA strips, and
+# raises UnsupportedTiffError (a TiffError) for an encoding it refuses by
+# name, which imread does not retry; geometry/stacks.py's TileStack.imread
+# lets that error pass where it zero-fills a damaged plane, since zeros
+# there would be a wrong result, not the reference's dummy plane
 DIFFERS = {"io/tiff.py": ({"_TiffPage", "_page_from_tags", "_decompress",
                            "_read_striped", "_read_tiled",
-                           "read_tiff_partial", "_imread_impl"},
+                           "read_tiff_partial", "_imread_impl", "__all__"},
                           {"_T_JPEG_TABLES", "_undo_float_predictor",
-                           "_decode_chunk"}),
+                           "_decode_chunk", "UnsupportedTiffError",
+                           "_REFUSED", "_XZ_MAGIC", "_lzma_decode",
+                           "_refused"}),
+           "geometry/stacks.py": ({"TileStack"}, set()),
            "io/generic2d.py": ({"imwrite_generic", "__all__"},
                                {"read_plane", "_TIFF"}),
            "utils/markers.py": ({"read_marker", "write_marker",

@@ -8,8 +8,14 @@ max.  Then a second run with bleach correction (the merge's coif15
 destripe through K5's plain version here), background subtraction (the
 lightsheet stage on the merged planes) and 8-bit output; the placement
 XML of each package driving the other's merge; `--rgb-composite` raising
-NotImplementedError; and both parsers agreeing on a full flag set."""
+NotImplementedError; and both parsers agreeing on a full flag set.  The
+same tiles as zstd TIFFs (predictor 2) give a byte-equal series; a tile in
+an encoding the port refuses raises a named error from every reader, and a
+truncated one is still zero-filled with a warning."""
 
+import shutil
+import struct
+import warnings
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -20,6 +26,10 @@ from ipp_tpu.io import tiff as tio
 from ipp_tpu.pipeline import align_channels as AC
 from ipp_tpu.pipeline import merge_channels as JM
 from ipp_tpu.pipeline import process_images as J
+from ipp_tpu_torch import native as native_t
+from ipp_tpu_torch.geometry.extent import VExtent
+from ipp_tpu_torch.geometry.stacks import TileStack
+from ipp_tpu_torch.io import tiff as tio_t
 from ipp_tpu_torch.pipeline import process_images as P
 from tests.synth import cut_tiles, make_phantom, write_tile_grid
 
@@ -253,3 +263,91 @@ FULL = ["--input", "in", "-t", "pre", "--no-need_raw_png_to_tiff_conversion",
 def test_parsers_agree(argv):
     assert vars(P.build_parser().parse_args(argv)) == \
         vars(J.build_parser().parse_args(argv))
+
+
+def test_zstd_tiles_stitch_byte_equal_to_uncompressed(raw, runs):
+    """The raw tiles rewritten as zstd TIFFs with predictor 2 (PIL's
+    libtiff): the port's series is byte-equal to its run on the
+    uncompressed tiles (before the port read zstd, every plane was
+    zeros)."""
+    from PIL import Image, TiffImagePlugin
+
+    pred = TiffImagePlugin.ImageFileDirectory_v2()
+    pred[317] = 2
+    root = raw / "zstd_tree"
+    shutil.copytree(raw / "raw", root / "raw")
+    tiles = sorted((root / "raw").rglob("*.tif"))
+    assert tiles
+    for p in tiles:
+        plane = tio.imread(p)
+        Image.fromarray(plane).save(p, compression="zstd", tiffinfo=pred)
+    assert np.array_equal(tio_t.read_tiff(tiles[-1]), plane)
+    st = _run(P.main, root, "port")
+    names = _series(runs["port"] / CH)
+    assert names and _series(st / CH) == names
+    for n in names:
+        assert (st / CH / n).read_bytes() == \
+            (runs["port"] / CH / n).read_bytes(), n
+
+
+def _tile_dir(tmp_path, n=3):
+    """n plain 20 x 24 u16 tiles; returns (dir, planes)."""
+    d = tmp_path / "tiles"
+    d.mkdir()
+    planes = [np.full((20, 24), 100 * (z + 1), np.uint16) for z in range(n)]
+    for z, p in enumerate(planes):
+        tio_t.write_tiff(d / f"{z:06d}.tif", p)
+    return d, planes
+
+
+def _set_compression(path, value):
+    """Rewrite the compression tag (259) of a one-page little-endian TIFF."""
+    b = bytearray(path.read_bytes())
+    ifd = struct.unpack_from("<I", b, 4)[0]
+    for i in range(struct.unpack_from("<H", b, ifd)[0]):
+        at = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", b, at)[0] == 259:
+            struct.pack_into("<H", b, at + 8, value)
+    path.write_bytes(bytes(b))
+
+
+@pytest.mark.parametrize("fastio", [True, False], ids=["fastio", "no-fastio"])
+def test_refused_encoding_raises_by_name_without_retries(tmp_path, fastio,
+                                                         monkeypatch):
+    """A tile whose compression is SGILog (34676): read_block, TileStack.imread
+    and imread raise UnsupportedTiffError naming the file and the
+    encoding, at once (no retry sleeps), where they used to zero-fill."""
+    d, _ = _tile_dir(tmp_path)
+    bad = d / "000001.tif"
+    _set_compression(bad, 34676)
+    sleeps = []
+    monkeypatch.setattr(tio_t.time, "sleep", sleeps.append)
+    if not fastio:
+        monkeypatch.setattr(native_t, "read_block", lambda *a, **k: None)
+    stack = TileStack(row=0, col=0, dir_name="tiles", root_dir=str(tmp_path))
+    calls = [lambda: tio_t.imread(bad),
+             lambda: stack.imread(VExtent(0, 24, 0, 20, 0, 3))]
+    if fastio:
+        calls.append(lambda: native_t.read_block(sorted(d.glob("*.tif")),
+                                                 0, 20, 0, 24))
+    for call in calls:
+        with pytest.raises(tio_t.UnsupportedTiffError,
+                           match=r"000001\.tif.*34676 \(SGILog\)"):
+            call()
+    assert sleeps == []
+
+
+def test_truncated_tile_is_still_zero_filled(tmp_path):
+    d, planes = _tile_dir(tmp_path)
+    bad = d / "000001.tif"
+    bad.write_bytes(bad.read_bytes()[:-200])
+    stack = TileStack(row=0, col=0, dir_name="tiles", root_dir=str(tmp_path))
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        blocks = [native_t.read_block(sorted(d.glob("*.tif")), 0, 20, 0, 24),
+                  stack.imread(VExtent(0, 24, 0, 20, 0, 3))]
+    assert len([w for w in seen if "zero-filled" in str(w.message)]) == 2
+    for blk in blocks:
+        assert np.array_equal(blk[0], planes[0])
+        assert not blk[1].any()
+        assert np.array_equal(blk[2], planes[2])

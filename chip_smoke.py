@@ -291,7 +291,17 @@ Phases:
    progressive JPEG (quality 95) by PIL here: 0 counts off (b)'s run,
    whose quantised coefficients they share, and equal launches (not run
    where the host has no PIL); (e) also times a progressive 2000^2 u8
-   gray and RGB JPEG (PIL's) beside PIL.
+   gray and RGB JPEG (PIL's) beside PIL; (i) the destripe CLI on (a)'s
+   tiles as zstd and LZMA TIFFs (PIL's) and the stacks' block reads, with
+   the reason fastio did not build where it did not; (j) convert
+   --destripe on (b)'s planes cut to 4 bits as LZW TIFFs (the fixture
+   maker's writer) and on the arrays imread returns for them written as
+   u8 TIFFs: 0 counts apart, equal launches; (e) also times a 2000^2
+   1-bit plane as Group 4, Group 3 2-D and CCITT RLE (PIL's) and as a
+   4-bit LZW TIFF beside PIL, each array equal to PIL's; (c) also holds
+   the bilevel, sub-byte and separate-plane TIFF fixtures
+   (tests/torch_tiff_fixtures/bilevel) to their digests and refusals.
+   (i) and (j) need PIL on the host to write their files.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -5556,6 +5566,12 @@ ZERO_FILLED = "zero-filled undecodable plane"
 PROGRESSIVE_DIR = "pjpg"  # (b)'s planes as progressive JPEGs, for (h)
 PROGRESSIVE_RATES = ("u8_prog.jpg", "rgb_prog.jpg")   # (e)'s, PIL's
 ZSTD_RATES = ("u16_zstd.tif", "u16_zstd_p2.tif", "u16_lzma.tif")  # PIL's
+# (j)'s rate planes: the rate plane thresholded to 1 bit, as PIL writes it
+# (compression, Group3Options), and cut to 4 bits as an LZW TIFF
+BILEVEL_RATES = {"bw_g4.tif": ("group4", 0), "bw_g3_2d.tif": ("group3", 1),
+                 "bw_rle.tif": ("tiff_ccitt", 0)}
+LZW4_RATE = "u4_lzw.tif"
+LZW4_DIR = "lzw4"      # (b)'s planes cut to 4 bits as LZW TIFFs, for (j)
 REFUSED = ("PIL", "cv2", "pandas")
 
 
@@ -5631,6 +5647,25 @@ def best_rate(fn, nbytes, reps=RATE_REPS):
     return nbytes / best / 1e6
 
 
+def lzw4_plane(work: Path, z: int) -> None:
+    """Plane z of (b)'s series (z < 0: the rate plane) cut to 4 bits and
+    written as an LZW TIFF of 64-row strips by the TIFF fixture maker's
+    writer (PIL writes no 4-bit TIFF), in a process of its own: the
+    maker's LZW encoder is Python."""
+    import numpy as np
+
+    mk = load_fixture_maker(TIFF_FIXTURES, "make_tiff_fixtures")
+    if z < 0:
+        tile = convert_series_planes(1)[0][:RATE_SIDE, :RATE_SIDE]
+        path = work / "rates" / LZW4_RATE
+    else:
+        tile = striped_tile(np.random.default_rng(tile_seed(0, z)),
+                            tile_field(TILE_STACKS[0][2], 0))
+        path = work / LZW4_DIR / f"img_{z:06d}.tif"
+    img4 = np.clip(tile / 16.0, 0, 255).astype(np.uint8) >> 4
+    mk.write_tiff(path, img4, mk.lzw_compress, 5, bits=4, rows=64)
+
+
 def codec_child(work: Path) -> int:
     """Phase 18's port side, in a process where PIL, cv2 and pandas cannot
     be imported: (a) phase 6's destripe CLI on 16-bit PNG tiles (written by
@@ -5646,7 +5681,9 @@ def codec_child(work: Path) -> int:
     seed fixtures through the port's utilities, against the JAX package's
     outputs; (i) the destripe CLI on (a)'s tiles as zstd TIFFs (predictor
     2) and as LZMA TIFFs (PIL's, written before), and the stacks' block
-    reads; (e) the port's decode MB/s.  Writes work/codec.json."""
+    reads; (j) convert --destripe on (b)'s planes as 4-bit LZW TIFFs
+    (written before) and on the arrays imread returns for them, written
+    as u8 TIFFs; (e) the port's decode MB/s.  Writes work/codec.json."""
     refuse_imports()
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5852,6 +5889,26 @@ def codec_child(work: Path) -> int:
         f"libtiff {manifest['libtiff']}, libzstd {manifest['libzstd']}), "
         f"bit-equal but {bad}")
     checks["zstd / LZMA TIFF fixtures bit-equal"] = not bad
+    bdir = TIFF_FIXTURES / "bilevel"
+    manifest = json.loads((bdir / "bilevel.json").read_text())
+    bad = []
+    for name, entry in manifest["files"].items():
+        try:
+            got = mk4.digest(g2d.read_plane(bdir / name))
+        except tio.UnsupportedTiffError:
+            got = "refused"
+        # PIL reads separate planes that the JAX package's reader fails on
+        want = entry.get("sha256", "refused") if not (
+            name.startswith("own_planar") and entry["compression"] in
+            ("none", "deflate", "packbits")) else "refused"
+        if got != want:
+            bad.append(name)
+    rec["bilevel_fixtures"] = dict(files=len(manifest["files"]), bad=bad)
+    say(f"  (c) {len(manifest['files'])} bilevel, sub-byte and separate-"
+        f"plane TIFF fixtures (PIL {manifest['pil']}, libtiff "
+        f"{manifest['libtiff']}), bit-equal or refused as the JAX package "
+        f"reads them but {bad}")
+    checks["bilevel TIFF fixtures bit-equal"] = not bad
 
     # (d) convert --movie to .avi, read back by the port
     sdir = work / "series"
@@ -5954,6 +6011,11 @@ def codec_child(work: Path) -> int:
             f"the stitch's block reads take "
             f"{'native.read_block' if built else 'TileStack.imread'}'s "
             f"zero-fill site")
+        if not built:
+            why = (native.build_error() or "").splitlines()[-6:]
+            rec["fastio_error"] = why
+            say("  (i) fastio's build failed:\n" +
+                "\n".join(f"      {ln}" for ln in why))
         iruns = {}
         with DefaultMesh(None):
             for kind in ZSTD_KINDS:
@@ -6008,6 +6070,44 @@ def codec_child(work: Path) -> int:
         checks["zstd block reads equal, none zero-filled"] = \
             same_block and zero_filled == 0
 
+    # (j) convert --destripe on (b)'s planes as 4-bit LZW TIFFs and on the
+    # arrays imread returns for them (u8, 17 times the 4-bit values)
+    ldir = work / LZW4_DIR
+    if not ldir.is_dir():
+        rec["lzw4_convert"] = None
+        say("  (j) not run: the host has no PIL to write the 1- and 4-bit "
+            "planes; (c) holds the decoders to the committed digests")
+    else:
+        udir = work / "lzw4_u8"
+        udir.mkdir()
+        list(pool.map(lambda p: tio.imwrite(udir / p.name, tio.imread(p)),
+                      sorted(ldir.glob("*.tif"))))
+        lruns = {}
+        with DefaultMesh(None):
+            for kind, src in (("lzw4", ldir), ("u8", udir)):
+                cd.reset_launch_counts()
+                cn.reset_launch_counts()
+                t0 = time.perf_counter()
+                rc = conv.main(["-i", str(src), "-o",
+                                str(work / f"conv_{kind}"), *WIDE_FLAGS])
+                sync()
+                lruns[kind] = dict(rc=rc, wall_s=time.perf_counter() - t0,
+                                   launches=launches())
+        n, worst = same_tiles(work / "conv_lzw4", work / "conv_u8")
+        rec["lzw4_convert"] = dict(runs=lruns, planes=n,
+                                   max_count_diff=worst)
+        say(f"  (j) convert --destripe on {n} 4-bit LZW planes: "
+            f"{lruns['lzw4']['wall_s']:.1f} s, on their arrays as u8 TIFFs "
+            f"{lruns['u8']['wall_s']:.1f} s; max |4-bit run - u8 run| "
+            f"{worst} counts; launches {lruns['lzw4']['launches']} / "
+            f"{lruns['u8']['launches']}")
+        checks["4-bit LZW series 0 counts off its u8 TIFFs"] = \
+            lruns["lzw4"]["rc"] == lruns["u8"]["rc"] == 0 and worst == 0 \
+            and n == CODEC_PLANES
+        checks["4-bit LZW launches == u8 TIFF launches"] = \
+            lruns["lzw4"]["launches"] == lruns["u8"]["launches"] and \
+            (not on_card or all(lruns["lzw4"]["launches"].values()))
+
     # (e) the port's decode MB/s (PIL's beside them in the parent)
     rates = work / "rates"
     tile = planes[0][:RATE_SIDE, :RATE_SIDE]
@@ -6017,13 +6117,16 @@ def codec_child(work: Path) -> int:
     g2d.imwrite_generic(rates / "u16.jp2", tile)
     jpeg2000.load()
     port = {}
+    digests = {}
     for name in ("u16.png", "u8.jpg", "u16_lzw_p2.tif", "u16.jp2",
-                 *PROGRESSIVE_RATES, *ZSTD_RATES):
+                 *PROGRESSIVE_RATES, *ZSTD_RATES, *BILEVEL_RATES, LZW4_RATE):
         p = rates / name
         if p.exists():
-            nbytes = g2d.read_plane(p).nbytes
-            port[name] = best_rate(lambda: g2d.read_plane(p), nbytes)
+            got = g2d.read_plane(p)
+            digests[name] = mk4.digest(got)
+            port[name] = best_rate(lambda: g2d.read_plane(p), got.nbytes)
     rec["port_mb_s"] = port
+    rec["port_sha256"] = digests
     checks["PIL, cv2 and pandas never imported"] = not [
         m for m in sys.modules if m.split(".")[0] in REFUSED]
     rec["checks"] = checks
@@ -6035,14 +6138,16 @@ def codec_child(work: Path) -> int:
 def host_pil_rates(work: Path, write: bool, tile=None):
     """With PIL on the host: write (write=True) the u16 LZW TIFF (predictor
     2), the u16 zstd TIFFs (with and without predictor 2) and the u16 LZMA
-    TIFF of the rate plane and the progressive u8 gray and RGB JPEGs made
-    of it (PIL's defaults, progressive=True) into work/rates, (b)'s 16
+    TIFF of the rate plane, the progressive u8 gray and RGB JPEGs made of
+    it (PIL's defaults, progressive=True) and its 1-bit thresholding as
+    Group 4, Group 3 2-D and CCITT RLE TIFFs into work/rates, (b)'s 16
     planes as progressive JPEGs (quality 95) into work/PROGRESSIVE_DIR for
-    (h), and (a)'s tiles as zstd and LZMA TIFFs for (i) in a pool of
-    processes, each calling this with `tile` = (stack, plane, tile shape)
-    (PIL holds the GIL while libtiff compresses); or time PIL's decode of
-    every rate plane (the .jp2 only where PIL has OpenJPEG); None without
-    PIL."""
+    (h), and, in a pool of processes, (a)'s tiles as zstd and LZMA TIFFs
+    for (i), each calling this with `tile` = (stack, plane, tile shape)
+    (PIL holds the GIL while libtiff compresses), and (b)'s planes and the
+    rate plane as 4-bit LZW TIFFs for (j) (lzw4_plane); or time PIL's
+    decode of every rate plane (the .jp2 only where PIL has OpenJPEG), with
+    the digest of its array; None without PIL."""
     import importlib.util
 
     import numpy as np
@@ -6083,12 +6188,19 @@ def host_pil_rates(work: Path, write: bool, tile=None):
         rgb = np.stack([g, np.roll(g, 7, 1), np.roll(g, 13, 0)], -1)
         for name, img in zip(PROGRESSIVE_RATES, (g, rgb)):
             Image.fromarray(img).save(rates / name, progressive=True)
+        bw = Image.fromarray(tile > np.median(tile))     # (j)'s rate planes
+        for name, (comp, options) in BILEVEL_RATES.items():
+            info = TiffImagePlugin.ImageFileDirectory_v2()
+            if options:
+                info[292] = options
+            bw.save(rates / name, compression=comp, tiffinfo=info)
         pdir = work / PROGRESSIVE_DIR
         pdir.mkdir()
         for _, z, tile in codec_tiles(1, CODEC_PLANES):   # (b)'s planes
             img8 = np.clip(tile / 16.0, 0, 255).astype(np.uint8)
             Image.fromarray(img8).save(pdir / f"img_{z:06d}.jpg",
                                        quality=95, progressive=True)
+        (work / LZW4_DIR).mkdir()
         import functools
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
@@ -6099,15 +6211,21 @@ def host_pil_rates(work: Path, write: bool, tile=None):
         with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
                                  multiprocessing.get_context("spawn")) as ex:
             list(ex.map(functools.partial(host_pil_rates, work, True), jobs))
+            list(ex.map(functools.partial(lzw4_plane, work),
+                        range(-1, CODEC_PLANES)))
         say(f"  PIL wrote (i)'s {len(jobs)} zstd and {len(jobs)} LZMA tiles "
-            f"in {time.perf_counter() - t0:.1f} s")
+            f"and (j)'s 1-bit planes, the maker's writer (j)'s "
+            f"{CODEC_PLANES + 1} 4-bit LZW planes, in "
+            f"{time.perf_counter() - t0:.1f} s")
         return {}
+    mk = load_fixture_maker(TIFF_FIXTURES, "make_tiff_fixtures")
     out = {}
     for p in sorted(rates.iterdir()):
         if p.suffix == ".jp2" and not features.check("jpg_2000"):
             continue
-        nbytes = np.asarray(Image.open(p)).nbytes
-        out[p.name] = best_rate(lambda: np.asarray(Image.open(p)), nbytes)
+        arr = np.asarray(Image.open(p))
+        out[p.name] = dict(mb_s=best_rate(lambda: np.asarray(Image.open(p)),
+                                          arr.nbytes), sha256=mk.digest(arr))
     return out
 
 
@@ -6154,9 +6272,14 @@ def phase_codec(torch, record):
     if frames is not None:
         checks["cv2 counts the movie's frames"] = frames == MOVIE_PLANES
     pil = host_pil_rates(work, write=False)
-    rec["pil_mb_s"] = pil
+    rec["pil_mb_s"] = pil and {k: v["mb_s"] for k, v in pil.items()}
+    if pil is not None:
+        # (j)'s planes as the port reads them, equal to PIL's
+        j = [*BILEVEL_RATES, LZW4_RATE]
+        checks["1- and 4-bit rate planes equal PIL's"] = all(
+            rec["port_sha256"].get(n) == pil[n]["sha256"] for n in j)
     for name, mb in rec["port_mb_s"].items():
-        theirs = (pil or {}).get(name)
+        theirs = (rec["pil_mb_s"] or {}).get(name)
         say(f"  (e) decode {name} ({RATE_SIDE}^2): port {mb:.1f} MB/s, PIL "
             + (f"{theirs:.1f} MB/s ({mb / theirs:.2f}x)" if theirs else
                "not on this host") + f" ({card})")

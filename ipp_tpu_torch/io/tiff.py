@@ -4,15 +4,18 @@ Replaces the reference's tifffile/PIL/bfconvert fallback chain
 (reference imread_tif_raw_png / imsave_tif, pystripe/core.py:200-334) with:
 
 - a from-scratch numpy TIFF parser (classic + BigTIFF, strips + tiles,
-  uncompressed / deflate / PackBits / LZW / JPEG / zstd / LZMA, grayscale
-  u8/u16/u32/f32),
+  uncompressed / deflate / PackBits / LZW / JPEG / zstd / LZMA / CCITT
+  fax, grayscale u8/u16/u32/f32, 1-, 2- and 4-bit samples),
 - the port's own codecs where the reference falls back to PIL: planes the
   numpy codec leaves (LZW and JPEG with their predictors and tables, zstd
-  through io/zstd.py, LZMA through Python's lzma module, PIL's view of
-  their samples: io/tiffcodec.py) and every other format, by the file's
+  through io/zstd.py, LZMA through Python's lzma module, CCITT RLE, Group
+  3 and Group 4 fax through io/ccitt.py, 1- to 4-bit samples, FillOrder 2,
+  separate colour planes in LZW, JPEG, zstd and LZMA, PIL's view of their
+  samples: io/tiffcodec.py) and every other format, by the file's
   signature (io/generic2d.read_plane),
-- loud refusals: an encoding the port does not read (CCITT, old-style
-  JPEG, PixarLog, SGILog, WebP, ..., 1- to 4-bit samples) raises
+- loud refusals: an encoding the port does not read (old-style JPEG,
+  PixarLog, SGILog, WebP, ..., a predictor on sub-byte samples, separate
+  colour planes outside LZW, JPEG, zstd and LZMA) raises
   UnsupportedTiffError at once, without retries, and the readers that
   zero-fill a damaged plane (native.read_block, TileStack.imread) let it
   pass,
@@ -51,11 +54,13 @@ _T_LENGTH = 257
 _T_BITS = 258
 _T_COMPRESSION = 259
 _T_PHOTOMETRIC = 262
+_T_FILL_ORDER = 266
 _T_STRIP_OFFSETS = 273
 _T_SAMPLES_PER_PIXEL = 277
 _T_ROWS_PER_STRIP = 278
 _T_STRIP_BYTE_COUNTS = 279
 _T_PLANAR_CONFIG = 284
+_T_GROUP3_OPTIONS = 292
 _T_PREDICTOR = 317
 _T_TILE_WIDTH = 322
 _T_TILE_LENGTH = 323
@@ -81,8 +86,7 @@ class UnsupportedTiffError(TiffError):
 
 
 # libtiff's registered compressions that the port does not read, by name
-_REFUSED = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
-            6: "old-style JPEG", 9: "JBIG (T.85)", 10: "JBIG2 (T.43)",
+_REFUSED = {6: "old-style JPEG", 9: "JBIG (T.85)", 10: "JBIG2 (T.43)",
             32766: "NeXT 2-bit RLE", 32771: "CCITT RLEW",
             32809: "ThunderScan", 32895: "IT8 CT padding",
             32896: "IT8 linework RLE", 32897: "IT8 monochrome picture",
@@ -92,6 +96,19 @@ _REFUSED = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
             34887: "LERC", 34892: "lossy JPEG (DNG)", 50001: "WebP",
             50002: "JPEG XL"}
 _XZ_MAGIC = b"\xfd7zXZ\0"
+_FAX = (2, 3, 4)                 # CCITT RLE, Group 3, Group 4
+# the compressions the JAX package gives PIL (libtiff): LZW, JPEG, LZMA,
+# zstd and fax; it gives PIL every page of 1- to 4-bit samples too
+_LIBTIFF = _FAX + (5, 7, 34925, 50000)
+# compressions under which libtiff applies a predictor (and refuses one on
+# sub-byte samples)
+_PREDICTED = (5, 8, 32946, 34925, 50000)
+# separate colour planes are read in LZW, JPEG, LZMA and zstd, which the
+# JAX package gives PIL; its own reader fails on them in these
+_PLANAR_REFUSED = {1: "uncompressed", 8: "deflate", 32946: "deflate",
+                   32773: "PackBits"}
+# each byte with its bits in reverse order (FillOrder 2)
+_BIT_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 
 def _unpackbits_decode(data: bytes, expected: int) -> bytes:
@@ -115,7 +132,8 @@ class _TiffPage:
     def __init__(self, width, length, bits, compression, sample_format,
                  samples, rows_per_strip, strip_offsets, strip_counts,
                  tile_w, tile_l, tile_offsets, tile_counts, predictor,
-                 photometric=1, planar=1, jpeg_tables=b""):
+                 photometric=1, planar=1, jpeg_tables=b"",
+                 fill_order=1, fax_options=0):
         self.width = width
         self.length = length
         self.bits = bits
@@ -133,11 +151,28 @@ class _TiffPage:
         self.photometric = photometric
         self.planar = planar
         self.jpeg_tables = jpeg_tables
+        self.fill_order = fill_order
+        self.fax_options = fax_options     # Group3Options under compression 3
 
     @property
     def dtype(self) -> np.dtype:
+        """The stored samples' type (uint8 for 1- to 4-bit samples)."""
         kind = {1: "u", 2: "i", 3: "f"}.get(self.sample_format, "u")
-        return np.dtype(f"{kind}{self.bits // 8}")
+        return np.dtype(f"{kind}{max(1, self.bits // 8)}")
+
+    @property
+    def libtiff(self) -> bool:
+        """Whether the JAX package reads this page through PIL (libtiff)
+        rather than its own numpy reader."""
+        return self.bits < 8 or self.compression in _LIBTIFF
+
+    @property
+    def reverse_bits(self) -> bool:
+        """FillOrder 2 as libtiff reads it: the raw bytes of every chunk
+        reversed, for every codec but JPEG (the fax codecs read them
+        reversed, which is the same)."""
+        return (self.fill_order == 2 and self.compression != 7
+                and self.libtiff)
 
 
 def _parse_ifds(f, byteorder: str, big: bool):
@@ -207,35 +242,62 @@ def _page_from_tags(tags) -> _TiffPage:
     comp = one(_T_COMPRESSION, 1)
     sfmt = one(_T_SAMPLE_FORMAT, 1)
     samples = one(_T_SAMPLES_PER_PIXEL, 1)
-    if bits in (1, 2, 4) and 0 < samples <= 16:
-        raise UnsupportedTiffError(f"{bits}-bit samples are not read (8, 16, "
-                                   f"32 and 64 bits are)")
-    if not (0 < bits <= 64 and bits % 8 == 0 and 0 < samples <= 16):
+    if not (0 < samples <= 16 and (bits in (1, 2, 4) or
+                                   (0 < bits <= 64 and bits % 8 == 0))):
         raise TiffError(f"implausible bits/samples {bits}/{samples}")
-    if int(width) * int(length) * samples * (bits // 8) > 1 << 36:
+    if int(width) * int(length) * samples * bits > 1 << 39:
         raise TiffError("implausible plane size")
     rps = one(_T_ROWS_PER_STRIP, length)
     predictor = one(_T_PREDICTOR, 1)
-    return _TiffPage(
+    planar = one(_T_PLANAR_CONFIG, 1)
+    fill = one(_T_FILL_ORDER, 1)
+    page = _TiffPage(
         width, length, bits, comp, sfmt, samples, rps,
         tags.get(_T_STRIP_OFFSETS), tags.get(_T_STRIP_BYTE_COUNTS),
         one(_T_TILE_WIDTH), one(_T_TILE_LENGTH),
         tags.get(_T_TILE_OFFSETS), tags.get(_T_TILE_BYTE_COUNTS), predictor,
-        one(_T_PHOTOMETRIC, 1), one(_T_PLANAR_CONFIG, 1),
-        one(_T_JPEG_TABLES, b""))
+        one(_T_PHOTOMETRIC, 1), planar, one(_T_JPEG_TABLES, b""), fill,
+        one(_T_GROUP3_OPTIONS, 0) if comp == 3 else 0)
+    if bits < 8:
+        if samples != 1:
+            raise UnsupportedTiffError(
+                f"{bits}-bit samples, {samples} a pixel, are not read (one "
+                f"a pixel is)")
+        if sfmt != 1:
+            raise UnsupportedTiffError(f"{bits}-bit samples of SampleFormat "
+                                       f"{sfmt} are not read")
+        if predictor != 1 and comp in _PREDICTED:
+            raise UnsupportedTiffError(
+                f"predictor {predictor} on {bits}-bit samples is not read "
+                f"(libtiff refuses it)")
+    if comp in _FAX and bits != 1:
+        raise UnsupportedTiffError(f"CCITT fax of {bits}-bit samples is not "
+                                   f"read (libtiff reads 1-bit fax only)")
+    if page.libtiff and fill not in (1, 2):   # PIL knows no other
+        raise UnsupportedTiffError(f"FillOrder {fill} is not read")
+    if planar == 2 and samples > 1 and comp in _PLANAR_REFUSED:
+        raise UnsupportedTiffError(
+            f"TIFF with separate colour planes is not read "
+            f"{_PLANAR_REFUSED[comp]} (LZW, JPEG, LZMA and zstd are)")
+    if planar == 2 and samples > 1 and page.photometric == 6:
+        raise UnsupportedTiffError("YCbCr TIFF with separate colour planes "
+                                   "is not read")
+    return page
 
 
-def _decompress(data: bytes, compression: int, expected: int,
-                tables: bytes = b"", photometric: int = 1) -> bytes:
-    """A strip's or tile's bytes.  LZW and JPEG decode in the codec
-    library (io/imgcodec.py), zstd in its own (io/zstd.py), LZMA (an .xz
-    stream, as libtiff writes it) through Python's lzma module; a JPEG
-    strip that leaves its tables to the page's JPEGTables (tag 347) needs
-    them in `tables`.  JPEG components turn from YCbCr to RGB only under
-    photometric 6, as libtiff turns them for PIL; under any other
-    photometric they come as stored.  Predictors are _decode_chunk's.  A
-    compression the port does not read raises UnsupportedTiffError naming
-    it."""
+def _decompress(data: bytes, page: _TiffPage, expected: int, rows: int,
+                cols: int) -> bytes:
+    """The bytes of a strip or tile of `rows` x `cols` pixels.  LZW and
+    JPEG decode in the codec library (io/imgcodec.py), zstd in its own
+    (io/zstd.py), CCITT fax in its own (io/ccitt.py, with the page's
+    Group3Options), LZMA (an .xz stream, as libtiff writes it) through
+    Python's lzma module; a JPEG strip that leaves its tables to the
+    page's JPEGTables (tag 347) takes them from there.  JPEG components
+    turn from YCbCr to RGB only under photometric 6, as libtiff turns them
+    for PIL; under any other photometric they come as stored.  Predictors
+    are _decode_chunk's.  A compression the port does not read raises
+    UnsupportedTiffError naming it."""
+    compression = page.compression
     if compression == 1:
         return data
     if compression in (8, 32946):  # deflate / old-style deflate
@@ -244,16 +306,19 @@ def _decompress(data: bytes, compression: int, expected: int,
         return _unpackbits_decode(data, expected)
     if compression == 34925:
         return _lzma_decode(data, expected)
-    if compression in (5, 7, 50000):  # LZW / JPEG / zstd
-        from . import imgcodec, zstd
+    if compression in _FAX + (5, 7, 50000):  # fax / LZW / JPEG / zstd
+        from . import ccitt, imgcodec, zstd
 
         try:
             if compression == 5:
                 return imgcodec.lzw_decode(data, expected)
             if compression == 50000:
                 return zstd.zstd_decode(data, expected)
-            return imgcodec.jpeg_decode(data, tables,
-                                        photometric == 6).tobytes()
+            if compression in _FAX:
+                return ccitt.ccitt_decode(data, rows, cols, compression,
+                                          page.fax_options)
+            return imgcodec.jpeg_decode(data, page.jpeg_tables,
+                                        page.photometric == 6).tobytes()
         except imgcodec.UnsupportedCodecError as e:
             raise UnsupportedTiffError(str(e)) from None
         except imgcodec.CodecError as e:
@@ -270,7 +335,7 @@ def _refused(compression: int) -> TiffError:
         return TiffError(f"unsupported compression {compression}")
     return UnsupportedTiffError(
         f"TIFF compression {compression} ({name}) is not read (none, "
-        f"deflate, PackBits, LZW, JPEG, LZMA and zstd are)")
+        f"deflate, PackBits, LZW, JPEG, LZMA, zstd and CCITT fax are)")
 
 
 def _lzma_decode(data: bytes, expected: int) -> bytes:
@@ -307,25 +372,34 @@ def _undo_float_predictor(rows: np.ndarray, dtype: np.dtype,
 
 
 def _decode_chunk(raw: bytes, page: _TiffPage, dtype: np.dtype, rows: int,
-                  cols: int) -> np.ndarray:
-    """One strip or tile of `rows` x `cols` pixels as (rows, cols *
-    samples) values of `dtype`: decompressed, its predictor undone (2:
-    horizontal differencing; 3: floating point, bytes re-interleaved)."""
-    s = page.samples
-    expected = rows * cols * s * dtype.itemsize
+                  cols: int, samples: int) -> np.ndarray:
+    """One strip or tile of `rows` x `cols` pixels of `samples` samples
+    as (rows, cols * samples) values of `dtype`: its bits reversed under
+    FillOrder 2, decompressed, its predictor undone (2: horizontal
+    differencing; 3: floating point, bytes re-interleaved), or, for 1- to
+    4-bit samples, each row (padded to a byte) unpacked, most significant
+    bits first, into one uint8 a sample (no predictor: libtiff ignores it
+    in none, PackBits and fax)."""
+    s = samples
+    if page.bits < 8:
+        stride = (cols * page.bits + 7) // 8
+        expected = rows * stride
+    else:
+        expected = rows * cols * s * dtype.itemsize
     if page.compression in (5, 7, 34925, 50000):    # PIL's (libtiff's)
-        if page.planar == 2 and s > 1:
-            raise UnsupportedTiffError("TIFF with separate colour planes is "
-                                       "not read")
         if page.photometric == 6 and page.compression != 7:
             raise UnsupportedTiffError("YCbCr TIFF outside JPEG is not read")
-        if page.compression == 7 and dtype.itemsize != 1:
-            raise UnsupportedTiffError("JPEG TIFF of more than 8 bits a "
-                                       "sample")
-    raw = _decompress(raw, page.compression, expected, page.jpeg_tables,
-                      page.photometric)
+        if page.compression == 7 and page.bits != 8:
+            raise UnsupportedTiffError(f"JPEG TIFF of {page.bits}-bit "
+                                       f"samples is not read (8-bit is)")
+    if page.reverse_bits:
+        raw = raw.translate(_BIT_REVERSED)
+    raw = _decompress(raw, page, expected, rows, cols)
     if len(raw) < expected:
         raise TiffError(f"a chunk of {len(raw)} bytes, {expected} expected")
+    if page.bits < 8:
+        return _unpack_bits(np.frombuffer(raw, np.uint8, expected).reshape(
+            rows, stride), page.bits, cols)
     if page.predictor == 3:
         if dtype.kind != "f":
             raise TiffError("predictor 3 on integer samples")
@@ -339,6 +413,24 @@ def _decode_chunk(raw: bytes, page: _TiffPage, dtype: np.dtype, rows: int,
             return _undo_predictor(arr.view(bits).copy(), 2, s).view(dtype)
         arr = _undo_predictor(arr.copy(), 2, s)
     return arr
+
+
+def _unpack_bits(rows: np.ndarray, bits: int, cols: int) -> np.ndarray:
+    """(n, stride) bytes of packed `bits`-bit samples, most significant
+    first, as (n, cols) uint8 values."""
+    if bits == 1:
+        return np.unpackbits(rows, axis=1, count=cols)
+    # each byte's 2 or 4 samples in one 16- or 32-bit table entry
+    return _UNPACKED[bits].take(rows).view(np.uint8).reshape(
+        len(rows), -1)[:, :cols]
+
+
+# byte -> its samples at 2 and 4 bits, most significant first, as one
+# uint32 / uint16 (its bytes in order)
+_UNPACKED = {b: ((np.arange(256, dtype=np.uint8)[:, None]
+                  >> np.arange(8 - b, -1, -b, dtype=np.uint8))
+                 & np.uint8((1 << b) - 1)).view(f"u{8 // b}").ravel()
+             for b in (2, 4)}
 
 
 def _undo_predictor(arr: np.ndarray, predictor: int,
@@ -382,57 +474,100 @@ def read_tiff(path: Union[str, Path], page_index: int = 0) -> np.ndarray:
         for idx, tags in enumerate(_parse_ifds(f, bo, big)):
             if idx != page_index:
                 continue
-            page = _page_from_tags(tags)
-            dtype = page.dtype.newbyteorder(bo)
-            if page.tile_offsets:
-                return _read_tiled(f, page, dtype)
-            return _read_striped(f, page, dtype)
+            return _read_page(f, _page_from_tags(tags), bo)[0]
     raise TiffError(f"page {page_index} not found")
 
 
-def _read_striped(f, page: _TiffPage, dtype) -> np.ndarray:
+def _read_page(f, page: _TiffPage, bo: str,
+               salvage: bool = False) -> Tuple[np.ndarray, int]:
+    """(the page's samples, the chunks that did not decode): (h, w) or
+    (h, w, samples).  Without `salvage` a chunk that does not decode
+    raises; with it, it stays zero and is counted."""
+    dtype = page.dtype.newbyteorder(bo)
     h, w, s = page.length, page.width, page.samples
+    out = np.zeros((h, w, s), dtype.newbyteorder("="))
+    if page.tile_offsets:
+        failed = _read_tiled(f, page, dtype, out, salvage)
+    else:
+        failed = _read_striped(f, page, dtype, out, salvage)
+    return (out if s > 1 else out.reshape(h, w)), failed
+
+
+def _planes(page: _TiffPage) -> int:
+    """Chunks that hold one sample each, one plane after another
+    (PlanarConfiguration 2), or all samples together."""
+    return page.samples if page.planar == 2 else 1
+
+
+def _read_chunk(f, page: _TiffPage, dtype, out: np.ndarray, off: int,
+                count: Optional[int], y0: int, x0: int, rows: int, cols: int,
+                plane: int) -> None:
+    """Decode one strip or tile of `rows` x `cols` pixels at `off` and put
+    it at (y0, x0) of `out`, in sample `plane` of separate planes."""
+    h, w, s = out.shape
+    cs = s // _planes(page)
+    if count is None:   # no byte counts: as many as the samples fill
+        count = rows * ((cols * cs * page.bits + 7) // 8)
+    f.seek(off)
+    raw = f.read(count)
+    if page.libtiff and len(raw) < count:   # libtiff's read error
+        raise TiffError(f"the file ends inside a chunk ({len(raw)} of its "
+                        f"{count} bytes)")
+    chunk = _decode_chunk(raw, page, dtype, rows, cols, cs)
+    ny, nx = min(rows, h - y0), min(cols, w - x0)
+    out[y0:y0 + ny, x0:x0 + nx, plane * cs:(plane + 1) * cs] = \
+        chunk.reshape(rows, cols, cs)[:ny, :nx]
+
+
+def _read_striped(f, page: _TiffPage, dtype, out: np.ndarray,
+                  salvage: bool) -> int:
+    """Fill `out` from the page's strips: each plane's strips in turn
+    under separate planes.  Returns the strips that did not decode (with
+    `salvage`; otherwise the first raises, as a missing strip does)."""
+    h, w = page.length, page.width
     rps = min(page.rows_per_strip, h)
-    rows_out = []
+    per_plane = -(-h // rps)
     offsets = page.strip_offsets
     counts = page.strip_counts or [None] * len(offsets)
-    itemsize = dtype.itemsize
-    for i, off in enumerate(offsets):
-        nrows = min(rps, h - i * rps)
-        if nrows <= 0:
-            break
-        expected = nrows * w * s * itemsize
-        f.seek(off)
-        raw = f.read(counts[i] if counts[i] is not None else expected)
-        rows_out.append(_decode_chunk(raw, page, dtype, nrows, w))
-    img = np.concatenate(rows_out, axis=0)
-    if s > 1:
-        img = img.reshape(h, w, s)
-    else:
-        img = img.reshape(h, w)
-    if img.dtype.byteorder not in ("=", "|") and img.dtype != np.dtype(img.dtype.str[1:]):
-        img = img.astype(img.dtype.newbyteorder("="))
-    return img
+    if len(offsets) < per_plane * _planes(page) and not salvage:
+        planes = (f" ({_planes(page)} separate colour planes of {per_plane})"
+                  if _planes(page) > 1 else "")
+        raise TiffError(f"{len(offsets)} strips, {per_plane * _planes(page)} "
+                        f"expected{planes}")
+    failed = 0
+    for i, off in enumerate(offsets[:per_plane * _planes(page)]):
+        plane, k = divmod(i, per_plane)
+        try:
+            _read_chunk(f, page, dtype, out, off, counts[i], k * rps, 0,
+                        min(rps, h - k * rps), w, plane)
+        except Exception:
+            if not salvage:
+                raise
+            failed += 1
+    return failed
 
 
-def _read_tiled(f, page: _TiffPage, dtype) -> np.ndarray:
-    h, w, s = page.length, page.width, page.samples
+def _read_tiled(f, page: _TiffPage, dtype, out: np.ndarray,
+                salvage: bool) -> int:
+    """Fill `out` from the page's tiles (edge tiles cut to the page): each
+    plane's tiles in turn under separate planes; missing tiles stay zero.
+    Returns the tiles that did not decode (with `salvage`; otherwise the
+    first raises)."""
     tw, tl = page.tile_w, page.tile_l
-    ntx = -(-w // tw)
-    nty = -(-h // tl)
-    img = np.zeros((h, w * s), dtype=dtype.newbyteorder("="))
-    for i, off in enumerate(page.tile_offsets):
-        ty, tx = divmod(i, ntx)
-        if ty >= nty:
-            break
-        f.seek(off)
-        tile = _decode_chunk(f.read(page.tile_counts[i]), page, dtype, tl,
-                             tw)
-        y0, x0 = ty * tl, tx * tw * s
-        ny = min(tl, h - y0)
-        nx = min(tw * s, w * s - x0)
-        img[y0:y0 + ny, x0:x0 + nx] = tile[:ny, :nx]
-    return img.reshape(h, w, s) if s > 1 else img
+    ntx = -(-page.width // tw)
+    per_plane = ntx * -(-page.length // tl)
+    failed = 0
+    for i, off in enumerate(page.tile_offsets[:per_plane * _planes(page)]):
+        plane, k = divmod(i, per_plane)
+        ty, tx = divmod(k, ntx)
+        try:
+            _read_chunk(f, page, dtype, out, off, page.tile_counts[i],
+                        ty * tl, tx * tw, tl, tw, plane)
+        except Exception:
+            if not salvage:
+                raise
+            failed += 1
+    return failed
 
 
 def read_tiff_stack(path: Union[str, Path]) -> np.ndarray:
@@ -443,12 +578,7 @@ def read_tiff_stack(path: Union[str, Path]) -> np.ndarray:
         bo, big = _read_tiff_header(f)
         planes = []
         for tags in _parse_ifds(f, bo, big):
-            page = _page_from_tags(tags)
-            dtype = page.dtype.newbyteorder(bo)
-            if page.tile_offsets:
-                planes.append(_read_tiled(f, page, dtype))
-            else:
-                planes.append(_read_striped(f, page, dtype))
+            planes.append(_read_page(f, _page_from_tags(tags), bo)[0])
             if len(planes) > 65535:
                 raise TiffError("implausible page count (IFD cycle?)")
     if not planes:
@@ -573,46 +703,7 @@ def read_tiff_partial(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
     with open(path, "rb") as f:
         bo, big = _read_tiff_header(f)
         tags = next(iter(_parse_ifds(f, bo, big)))
-        page = _page_from_tags(tags)
-        dtype = page.dtype.newbyteorder(bo)
-        h, w, s = page.length, page.width, page.samples
-        img = np.zeros((h, w * s), dtype.newbyteorder("="))
-        failed = 0
-        if page.tile_offsets:
-            tw, tl = page.tile_w, page.tile_l
-            ntx = -(-w // tw)
-            for i, off in enumerate(page.tile_offsets):
-                ty, tx = divmod(i, ntx)
-                try:
-                    f.seek(off)
-                    tile = _decode_chunk(f.read(page.tile_counts[i]), page,
-                                         dtype, tl, tw)
-                    y0, x0 = ty * tl, tx * tw * s
-                    ny = min(tl, h - y0)
-                    nx = min(tw * s, w * s - x0)
-                    img[y0:y0 + ny, x0:x0 + nx] = tile[:ny, :nx]
-                except Exception:
-                    failed += 1
-        else:
-            rps = min(page.rows_per_strip, h)
-            counts = page.strip_counts or [None] * len(page.strip_offsets)
-            for i, off in enumerate(page.strip_offsets):
-                nrows = min(rps, h - i * rps)
-                if nrows <= 0:
-                    break
-                expected = nrows * w * s * dtype.itemsize
-                try:
-                    f.seek(off)
-                    raw = f.read(counts[i] if counts[i] is not None
-                                 else expected)
-                    img[i * rps:i * rps + nrows] = _decode_chunk(
-                        raw, page, dtype, nrows, w)
-                except Exception:
-                    failed += 1
-        img = np.ascontiguousarray(img)
-        if img.dtype.byteorder not in ("=", "|"):
-            img = img.astype(img.dtype.newbyteorder("="))
-        return (img.reshape(h, w, s) if s > 1 else img.reshape(h, w)), failed
+        return _read_page(f, _page_from_tags(tags), bo, salvage=True)
 
 
 def write_tiff(path: Union[str, Path], img: np.ndarray,
@@ -825,13 +916,19 @@ def _imread_impl(path: Union[str, Path], retries: int) -> np.ndarray:
             last_exc = exc
             time.sleep(RETRY_SLEEP)
     # repair chain of last resort: salvage whatever strips/tiles still
-    # decode (the reference's bfconvert repair role, pystripe/core.py:228)
+    # decode (the reference's bfconvert repair role, pystripe/core.py:228);
+    # not sub-byte samples or separate colour planes, which the JAX
+    # package's salvage does not read
     if path.suffix.lower() in (".tif", ".tiff"):
         try:
-            img, failed = read_tiff_partial(path)
-            if failed == 0 or img.any():
-                print(f"salvaged {path} with {failed} unreadable chunks")
-                return img
+            with open(path, "rb") as f:
+                bo, big = _read_tiff_header(f)
+                page = _page_from_tags(next(iter(_parse_ifds(f, bo, big))))
+            if page.bits >= 8 and _planes(page) == 1:
+                img, failed = read_tiff_partial(path)
+                if failed == 0 or img.any():
+                    print(f"salvaged {path} with {failed} unreadable chunks")
+                    return img
         except Exception:  # noqa: BLE001
             pass
     raise TiffError(f"failed to read {path}: {last_exc}")

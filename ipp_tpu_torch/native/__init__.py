@@ -26,7 +26,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["build_shared", "available", "read_block", "warn_zero_filled",
+__all__ = ["build_shared", "available", "build_error", "read_block",
+           "warn_zero_filled",
            "tiff_read", "tiff_write",
            "zstd_save", "zstd_load", "load_slab", "load_slab_serial",
            "load_slab_auto", "slab_mode"]
@@ -34,6 +35,7 @@ __all__ = ["build_shared", "available", "read_block", "warn_zero_filled",
 _SRC = Path(__file__).resolve().parent / "fastio.cpp"
 _BUILD_DIR = _SRC.parent.parent.parent / "build" / "ipp_tpu_torch"
 _lib = None
+_build_error: Optional[str] = None
 _build_lock = threading.Lock()
 _ABI_VERSION = 2  # must match fastio_abi_version() in fastio.cpp
 
@@ -89,7 +91,7 @@ def _library_path() -> Path:
 
 
 def _get_lib() -> Optional[ctypes.CDLL]:
-    global _lib
+    global _lib, _build_error
     if _lib is not None:
         return _lib if _lib != "unavailable" else None
     with _build_lock:
@@ -99,9 +101,17 @@ def _get_lib() -> Optional[ctypes.CDLL]:
                                    ("-O3", "-pthread"), ("-lz", "-lzstd"))
                 _configure(lib)
                 _lib = lib
-            except OSError:
+            except OSError as e:    # the callers fall back to numpy
                 _lib = "unavailable"
+                _build_error = f"{type(e).__name__}: {e}"
     return _lib if _lib != "unavailable" else None
+
+
+def build_error() -> Optional[str]:
+    """Why fastio did not build or load (g++'s message, its last 2000
+    characters), after a call that tried; None when it built or no call
+    has tried yet."""
+    return _build_error
 
 
 def _configure(lib: ctypes.CDLL) -> None:

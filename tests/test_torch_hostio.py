@@ -72,18 +72,28 @@ RENAMED = {"pipeline/command_generator.py":
 # utils/reconops.py hold their tables in numpy structured arrays, read and
 # written by utils/csvtable.py instead of pandas: the functions that touch
 # a table differ, the mesh code and swc_to_recut_seeds stay verbatim.
-# io/tiff.py also reads zstd (through io/zstd.py) and LZMA strips, and
-# raises UnsupportedTiffError (a TiffError) for an encoding it refuses by
-# name, which imread does not retry; geometry/stacks.py's TileStack.imread
-# lets that error pass where it zero-fills a damaged plane, since zeros
-# there would be a wrong result, not the reference's dummy plane
+# io/tiff.py also reads zstd (through io/zstd.py) and LZMA strips, CCITT
+# fax (through io/ccitt.py), 1- to 4-bit samples with FillOrder 2, and
+# separate colour planes, and raises UnsupportedTiffError (a TiffError)
+# for an encoding it refuses by name, which imread does not retry; its
+# read_tiff, read_tiff_stack and read_tiff_partial fill one array through
+# _read_page, chunk by chunk (_read_chunk), and imread does not salvage
+# what the JAX package's salvage does not read; geometry/stacks.py's
+# TileStack.imread lets that error pass where it zero-fills a damaged
+# plane, since zeros there would be a wrong result, not the reference's
+# dummy plane
 DIFFERS = {"io/tiff.py": ({"_TiffPage", "_page_from_tags", "_decompress",
-                           "_read_striped", "_read_tiled",
-                           "read_tiff_partial", "_imread_impl", "__all__"},
-                          {"_T_JPEG_TABLES", "_undo_float_predictor",
-                           "_decode_chunk", "UnsupportedTiffError",
-                           "_REFUSED", "_XZ_MAGIC", "_lzma_decode",
-                           "_refused"}),
+                           "_read_striped", "_read_tiled", "read_tiff",
+                           "read_tiff_stack", "read_tiff_partial",
+                           "_imread_impl", "__all__"},
+                          {"_T_JPEG_TABLES", "_T_FILL_ORDER",
+                           "_T_GROUP3_OPTIONS",
+                           "_undo_float_predictor", "_decode_chunk",
+                           "_unpack_bits", "_UNPACKED", "_read_page", "_read_chunk",
+                           "_planes", "UnsupportedTiffError", "_REFUSED",
+                           "_XZ_MAGIC", "_FAX", "_LIBTIFF", "_PREDICTED",
+                           "_PLANAR_REFUSED", "_BIT_REVERSED",
+                           "_lzma_decode", "_refused"}),
            "geometry/stacks.py": ({"TileStack"}, set()),
            "io/generic2d.py": ({"imwrite_generic", "__all__"},
                                {"read_plane", "_TIFF"}),

@@ -221,9 +221,12 @@ def test_lzma_without_its_module_raises_naming_it(monkeypatch):
     (284, 2, "separate colour planes"), (262, 6, "YCbCr")])
 def test_planar_and_ycbcr_zstd_are_refused_by_name(tmp_path, tag, value,
                                                    match):
-    """A zstd RGB fixture with its planar configuration or photometric tag
-    rewritten raises UnsupportedTiffError, as LZW does (PIL 12.1 reads
-    both: a divergence left loud, ROADMAP item 20)."""
+    """A zstd RGB fixture with its photometric tag rewritten to YCbCr
+    raises UnsupportedTiffError, as LZW does (PIL 12.1 reads it: a
+    divergence left loud, ROADMAP item 20).  With its planar configuration
+    rewritten to separate planes it holds one strip where its three planes
+    need three: that raises a TiffError naming the planes, as PIL
+    (libtiff) raises, and is never salvaged into an array."""
     import struct
 
     path = tmp_path / "rgb.tif"
@@ -234,15 +237,18 @@ def test_planar_and_ycbcr_zstd_are_refused_by_name(tmp_path, tag, value,
         if struct.unpack_from("<H", b, at)[0] == tag:
             struct.pack_into("<H", b, at + 8, value)
     path.write_bytes(bytes(b))
-    for read in (tiff_t.read_tiff, tiff_t.imread):
-        with pytest.raises(tiff_t.UnsupportedTiffError, match=match):
+    error = tiff_t.UnsupportedTiffError if tag == 262 else tiff_t.TiffError
+    for read in (tiff_t.read_tiff, lambda p: tiff_t.imread(p, retries=1)):
+        with pytest.raises(error, match=match):
             read(path)
 
 
 @pytest.mark.parametrize("bits", [1, 4])
 def test_sub_byte_samples_are_refused_by_name(tmp_path, bits):
-    """1- and 4-bit TIFF (the bits-per-sample tag rewritten in a plain
-    file) raise UnsupportedTiffError naming the sample size."""
+    """1- and 4-bit TIFF of three samples a pixel (the bits-per-sample and
+    samples-per-pixel tags rewritten in a plain file), which PIL does not
+    read, raise UnsupportedTiffError naming the sample size (one sample a
+    pixel is read: test_torch_tiff_bilevel.py)."""
     import struct
 
     path = tmp_path / "bits.tif"
@@ -251,8 +257,9 @@ def test_sub_byte_samples_are_refused_by_name(tmp_path, bits):
     ifd = struct.unpack_from("<I", b, 4)[0]
     for i in range(struct.unpack_from("<H", b, ifd)[0]):
         at = ifd + 2 + 12 * i
-        if struct.unpack_from("<H", b, at)[0] == 258:
-            struct.pack_into("<H", b, at + 8, bits)
+        tag = struct.unpack_from("<H", b, at)[0]
+        if tag in (258, 277):
+            struct.pack_into("<H", b, at + 8, bits if tag == 258 else 3)
     path.write_bytes(bytes(b))
     with pytest.raises(tiff_t.UnsupportedTiffError,
                        match=f"{bits}-bit samples"):

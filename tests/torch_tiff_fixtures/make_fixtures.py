@@ -290,33 +290,54 @@ def _walk_block(b: bytes, seen: set) -> None:
 # ---------------------------------------------------------- TIFF write --
 
 def write_tiff(path: Path, a: np.ndarray, compress, compression: int, *,
-               tile: int = 0, rows: int = 0, predictor: int = 1) -> None:
+               tile: int = 0, rows: int = 0, predictor: int = 1,
+               bits: int = 0, planar: int = 1, photometric: int = -1,
+               tags: dict = None) -> None:
     """A classic little-endian TIFF of the (h, w) or (h, w, s) plane `a`:
     strips of `rows` rows (all rows by default) or `tile` x `tile` tiles
     (edge tiles padded with zeros, as tifffile writes them), each chunk
-    through `predictor` then `compress(bytes) -> bytes`."""
+    through `predictor` then `compress(bytes) -> bytes`.  `bits` (1, 2 or
+    4) packs each row of one-sample values, most significant bits first,
+    to a byte (stored as given: no predictor); `planar` 2 writes each
+    sample's chunks in turn; `photometric` (2 for 3 samples or more, else
+    1, by default) and `tags` ({tag: (type, values)}, added last) go into
+    the IFD; FillOrder 2 among them reverses each compressed chunk's bits,
+    as libtiff writes it."""
     a = np.ascontiguousarray(a)
     h, w = a.shape[:2]
     s = a.shape[2] if a.ndim == 3 else 1
+    a = a.reshape(h, w, s)
+    planes = [a[..., k:k + 1] for k in range(s)] if planar == 2 else [a]
+    tags = dict(tags or {})
+    flip = tags.get(266, (3, [1]))[1][0] == 2
+
+    def put(t: np.ndarray) -> bytes:
+        data = pack_bits(t[..., 0], bits) if bits else _predict(t, predictor)
+        out = compress(data)
+        return out.translate(BIT_REVERSED) if flip else out
+
     chunks = []
-    if tile:
-        for y in range(0, h, tile):
-            for x in range(0, w, tile):
-                t = np.zeros((tile, tile, s), a.dtype)
-                part = a[y:y + tile, x:x + tile].reshape(
-                    min(tile, h - y), min(tile, w - x), s)
-                t[:part.shape[0], :part.shape[1]] = part
-                chunks.append(compress(_predict(t, predictor)))
-    else:
-        rows = rows or h
-        for y in range(0, h, rows):
-            chunks.append(compress(_predict(
-                a[y:y + rows].reshape(-1, w, s), predictor)))
-    sf = {"u": 1, "i": 2, "f": 3}[a.dtype.kind]
+    for plane in planes:
+        cs = plane.shape[2]
+        if tile:
+            for y in range(0, h, tile):
+                for x in range(0, w, tile):
+                    t = np.zeros((tile, tile, cs), a.dtype)
+                    part = plane[y:y + tile, x:x + tile]
+                    t[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(put(t))
+        else:
+            rows = rows or h
+            for y in range(0, h, rows):
+                chunks.append(put(plane[y:y + rows]))
+    sf = {"u": 1, "i": 2, "f": 3, "b": 1}[a.dtype.kind]
+    if photometric < 0:
+        photometric = 2 if s >= 3 else 1
     tags = {256: (4, [w]), 257: (4, [h]),
-            258: (3, [a.dtype.itemsize * 8] * s), 259: (3, [compression]),
-            262: (3, [2 if s >= 3 else 1]), 277: (3, [s]), 284: (3, [1]),
-            317: (3, [predictor]), 339: (3, [sf] * s)}
+            258: (3, [bits or a.dtype.itemsize * 8] * s),
+            259: (3, [compression]), 262: (3, [photometric]), 277: (3, [s]),
+            284: (3, [planar]), 317: (3, [predictor]), 339: (3, [sf] * s),
+            **tags}
     if tile:
         tags.update({322: (3, [tile]), 323: (3, [tile]),
                      325: (4, [len(c) for c in chunks])})
@@ -324,6 +345,7 @@ def write_tiff(path: Path, a: np.ndarray, compress, compression: int, *,
     else:
         tags.update({278: (4, [rows]), 279: (4, [len(c) for c in chunks])})
         offsets_tag = 273
+    tags = {t: v for t, v in tags.items() if v is not None}
     tags[offsets_tag] = (4, [0] * len(chunks))
     fmt = {3: "H", 4: "I"}
 
@@ -351,6 +373,17 @@ def write_tiff(path: Path, a: np.ndarray, compress, compression: int, *,
     out = layout()
     assert len(out) == start
     path.write_bytes(bytes(out) + b"".join(chunks))
+
+
+BIT_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def pack_bits(a: np.ndarray, bits: int) -> bytes:
+    """(rows, cols) values below 2**bits, each row packed most significant
+    bits first and padded to a byte."""
+    rows, cols = a.shape
+    b = (a.astype(np.uint8)[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+    return np.packbits(b.reshape(rows, cols * bits), axis=1).tobytes()
 
 
 def _predict(t: np.ndarray, predictor: int) -> bytes:
@@ -724,11 +757,356 @@ def coverage(manifest: dict) -> set:
     return seen
 
 
+# ---------------------------------------- bilevel, sub-byte and planar --
+
+BILEVEL = HERE / "bilevel"
+BW_SHAPE = (21, 37)      # a width that is no multiple of 8
+RUNS_WIDTH = 2700
+PIL_1BIT = {             # PIL's compression -> (file tag, tiffinfo)
+    "raw": ("none", {}), "packbits": ("packbits", {}),
+    "tiff_adobe_deflate": ("deflate", {}), "tiff_lzw": ("lzw", {}),
+    "zstd": ("zstd", {}), "lzma": ("lzma", {}), "tiff_ccitt": ("rle", {}),
+    "group3": ("g3", {}), "group3/2d": ("g3_2d", {292: 1}),
+    "group3/2d fill": ("g3_2d_fill", {292: 5}),
+    "group3/fill": ("g3_fill", {292: 4}), "group4": ("g4", {})}
+VARIANTS = {"one": {}, "strips": {278: 4}, "fill2": {266: 2},
+            "photo0": {262: 0}, "all": {262: 0, 266: 2, 278: 4}}
+# this module's writer: compression name -> TIFF compression
+OWN_CODECS = {"none": 1, "packbits": 32773, "deflate": 8, "lzw": 5,
+              "zstd": ZSTD, "lzma": LZMA}
+FAX_CODECS = {"rle": (2, 0), "g3": (3, 0), "g3_2d": (3, 1), "g4": (4, 0)}
+
+
+def every_run(width: int = RUNS_WIDTH) -> np.ndarray:
+    """Rows in which every run length T.4 codes occurs in both colours: a
+    white run of each length followed by 5 black, and 3 white then a
+    black run of each length: the terminating lengths 0 to 63, make-up
+    lengths from 64 to past 2560 (two make-up codes) with terminating
+    remainders, and a whole row."""
+    lengths = (list(range(64)) + [64 * m + (7 * m) % 64 for m in range(1, 41)]
+               + [2600, width - 5])
+    rows = []
+    for n in lengths:
+        white = np.zeros(width, bool)
+        white[n:n + 5] = True
+        black = np.zeros(width, bool)
+        black[3:3 + n] = True
+        rows += [white, black]
+    rows += [np.zeros(width, bool), np.ones(width, bool)]
+    return np.stack(rows)
+
+
+def bilevel_seeds() -> dict:
+    """name -> the array a bilevel, sub-byte or planar fixture is made
+    from."""
+    h, w = BW_SHAPE
+    rng = np.random.default_rng(280)
+    yy, xx = np.mgrid[0:h, 0:w]
+    bw = ((yy - 10) ** 2 + (xx - 17) ** 2 < 60) ^ (rng.random((h, w)) < 0.1)
+    bw[3:6, 2:35] = True
+    field = yy * 3 + xx * 2 + rng.integers(0, 3, (h, w))
+    smooth = 0.5 + 0.4 * np.sin(xx / 6.0 + yy / 9.0)
+    rgb = np.clip(smooth[..., None] * [220, 160, 90]
+                  + rng.normal(0, 4, (h, w, 3)), 0, 255).astype(np.uint8)
+    alpha = (40 + 5 * xx + yy).astype(np.uint8)[..., None]
+    out = {"bw": bw, "bw_runs": every_run(),
+           "g2": (field % 4).astype(np.uint8),
+           "g4": (field % 16).astype(np.uint8),
+           "u8": rgb[..., 0].copy(),
+           "rgb8": rgb, "rgba8": np.concatenate([rgb, alpha], 2),
+           "la8": np.concatenate([rgb[..., :1], alpha], 2)}
+    for k in ("rgb8", "rgba8", "la8"):
+        out[k.replace("8", "16")] = out[k].astype(np.uint16) * 257 + \
+            rng.integers(0, 200, out[k].shape).astype(np.uint16)
+    return out
+
+
+def packbits_compress(data: bytes) -> bytes:
+    """PackBits: runs of 3 to 128 equal bytes, literals between."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (
+                j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def lzw_compress(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it (MSB first, early change, Clear at
+    4094)."""
+    out = bytearray()
+    acc = nacc = 0
+    nbits = 9
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << nbits) | code
+        nacc += nbits
+        while nacc >= 8:
+            out.append((acc >> (nacc - 8)) & 0xFF)
+            nacc -= 8
+        acc &= (1 << nacc) - 1
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    put(256)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4094:
+            put(256)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, nbits = 258, 9
+        elif nxt > (1 << nbits) - 1:
+            nbits += 1
+        w = bytes([c])
+    if w:
+        put(table[w])
+        nxt += 1
+        if nxt > (1 << nbits) - 1 and nbits < 12:
+            nbits += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def pil_chunks(data: bytes) -> list:
+    """The strips' or tiles' bytes of a one-page TIFF in memory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        p = Path(d) / "t.tif"
+        p.write_bytes(data)
+        return chunks_of(p)
+
+
+def fax_compress(name: str, cols: int):
+    """A chunk of 1-bit rows `cols` wide as PIL's libtiff fax encoder
+    writes it (`name` in FAX_CODECS)."""
+    import io
+
+    from PIL import Image, TiffImagePlugin
+
+    scheme, options = FAX_CODECS[name]
+    pil = {2: "tiff_ccitt", 3: "group3", 4: "group4"}[scheme]
+
+    def enc(data: bytes) -> bytes:
+        stride = (cols + 7) // 8
+        rows = np.frombuffer(data, np.uint8).reshape(-1, stride)
+        img = np.unpackbits(rows, axis=1, count=cols).astype(bool)
+        info = TiffImagePlugin.ImageFileDirectory_v2()
+        if options:
+            info[292] = options
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "TIFF", compression=pil,
+                                  tiffinfo=info)
+        (chunk,) = pil_chunks(buf.getvalue())
+        return chunk
+    return enc
+
+
+def jpeg_compress(cols: int):
+    """A chunk of 8-bit gray rows `cols` wide as a whole JPEG stream
+    (PIL's encoder, quality 95)."""
+    import io
+
+    from PIL import Image
+
+    def enc(data: bytes) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(np.frombuffer(data, np.uint8).reshape(-1, cols)).save(
+            buf, "JPEG", quality=95)
+        return buf.getvalue()
+    return enc
+
+
+def codec(name: str, cols: int = 0):
+    """(compress, TIFF compression) of a compression name."""
+    if name in FAX_CODECS:
+        return fax_compress(name, cols), FAX_CODECS[name][0]
+    if name == "jpeg":
+        return jpeg_compress(cols), 7
+    return {"none": lambda d: d, "packbits": packbits_compress,
+            "deflate": zlib_compress, "lzw": lzw_compress,
+            "zstd": zstd_compress, "lzma": lzma_compress}[name], \
+        OWN_CODECS[name]
+
+
+def fax_tags(name: str) -> dict:
+    """Group3Options of a two-dimensional T.4 chunk from fax_compress."""
+    options = FAX_CODECS.get(name, (0, 0))[1]
+    return {292: (4, [options])} if options else {}
+
+
+def zlib_compress(data: bytes) -> bytes:
+    import zlib
+
+    return zlib.compress(data)
+
+
+def palette(bits: int) -> tuple:
+    """A ColorMap of 2**bits entries (SHORT, red then green then blue)."""
+    n = 1 << bits
+    ramp = [int(65535 * i / (n - 1)) for i in range(n)]
+    return (3, ramp + ramp[::-1] + [ramp[i // 2] for i in range(n)])
+
+
+def own_bilevel_files() -> dict:
+    """This module's bilevel, sub-byte and planar files: name -> (seed,
+    compression name, write_tiff options)."""
+    files = {}
+    for bits, seed in ((2, "g2"), (4, "g4")):
+        for c in OWN_CODECS:
+            files[f"own_{bits}bit_{c}_strips.tif"] = (
+                seed, c, dict(bits=bits, rows=4))
+            files[f"own_{bits}bit_{c}_tiles.tif"] = (
+                seed, c, dict(bits=bits, tile=16, photometric=0))
+            files[f"own_{bits}bit_{c}_palette.tif"] = (
+                seed, c, dict(bits=bits, rows=8, photometric=3,
+                              tags={320: palette(bits), 266: (3, [2])}))
+    for c in list(OWN_CODECS) + list(FAX_CODECS):
+        files[f"own_1bit_{c}_tiles.tif"] = ("bw", c, dict(bits=1, tile=16))
+    files.update({
+        "own_1bit_lzw_palette.tif": ("bw", "lzw", dict(
+            bits=1, rows=8, photometric=3, tags={320: palette(1)})),
+        # no PhotometricInterpretation: PIL takes 0, white is zero
+        "own_1bit_none_nophoto.tif": ("bw", "none", dict(
+            bits=1, tags={262: None})),
+        "own_8bit_lzw_nophoto.tif": ("u8", "lzw", dict(tags={262: None})),
+        # a predictor on sub-byte samples: libtiff refuses it where it
+        # applies one (LZW, deflate, zstd, LZMA), ignores it elsewhere
+        "own_4bit_lzw_p2.tif": ("g4", "lzw", dict(bits=4, predictor=2)),
+        "own_1bit_deflate_p2.tif": ("bw", "deflate", dict(bits=1,
+                                                           predictor=2)),
+        "own_4bit_packbits_p2.tif": ("g4", "packbits", dict(bits=4,
+                                                             predictor=2)),
+        "own_1bit_g4_p2.tif": ("bw", "g4", dict(bits=1, predictor=2)),
+        # gray + alpha in one plane without ExtraSamples: PIL has no mode
+        "own_lzw_la8_noextra.tif": ("la8", "lzw", dict(rows=8)),
+        # PIL reads no 4-bit RGB, nor 2-bit samples as RGB
+        "own_4bit_none_rgb.tif": ("g4", "none", dict(
+            bits=4, tags={258: (3, [4, 4, 4]), 277: (3, [3]),
+                          262: (3, [2])})),
+        "own_2bit_none_photo2.tif": ("g2", "none", dict(
+            bits=2, photometric=2)),
+    })
+    for kind in ("la8", "rgb8", "rgba8", "la16", "rgb16", "rgba16"):
+        extra = {338: (3, [2])} if "a" in kind else {}   # unassociated
+        for c in ("lzw", "zstd", "lzma"):
+            files[f"own_planar_{c}_{kind}_strips.tif"] = (
+                kind, c, dict(planar=2, rows=4, tags=extra))
+            files[f"own_planar_{c}_{kind}_tiles.tif"] = (
+                kind, c, dict(planar=2, tile=16, tags=extra))
+    for c in ("lzw", "zstd", "lzma"):
+        files[f"own_planar_{c}_rgb16_p2_strips.tif"] = (
+            "rgb16", c, dict(planar=2, rows=4, predictor=2))
+        files[f"own_planar_{c}_rgba8_p2_tiles.tif"] = (
+            "rgba8", c, dict(planar=2, tile=16, predictor=2,
+                             tags={338: (3, [2])}))
+    # separate planes as whole gray JPEG streams, which libtiff reads
+    files["own_planar_jpeg_rgb8_strips.tif"] = ("rgb8", "jpeg", dict(
+        planar=2, rows=8))
+    files["own_planar_jpeg_rgb8_tiles.tif"] = ("rgb8", "jpeg", dict(
+        planar=2, tile=16))
+    # where the JAX package's own reader fails on separate planes
+    for c in ("none", "deflate", "packbits"):
+        files[f"own_planar_{c}_rgb8_strips.tif"] = (
+            "rgb8", c, dict(planar=2, rows=8))
+    return files
+
+
+def write_bilevel(out: Path = BILEVEL) -> dict:
+    """Write every bilevel, sub-byte and planar fixture into `out`, with
+    PIL's reading of each, and return the manifest."""
+    import PIL
+    from PIL import Image, TiffImagePlugin, features
+
+    s = bilevel_seeds()
+    out.mkdir(parents=True, exist_ok=True)
+    files = {}
+    for comp, (tag, base) in PIL_1BIT.items():
+        for variant, extra in VARIANTS.items():
+            info = TiffImagePlugin.ImageFileDirectory_v2()
+            for k, v in {**base, **extra}.items():
+                info[k] = v
+            name = f"pil_1bit_{tag}_{variant}.tif"
+            Image.fromarray(s["bw"]).save(out / name,
+                                          compression=comp.split("/")[0],
+                                          tiffinfo=info)
+            files[name] = dict(seed="bw", writer="pil", compression=tag,
+                               options={str(k): v for k, v in
+                                        {**base, **extra}.items()})
+    for tag in FAX_CODECS:
+        name = f"pil_1bit_{tag}_runs.tif"
+        compress, comp = codec(tag, RUNS_WIDTH)
+        write_tiff(out / name, s["bw_runs"], compress, comp, bits=1,
+                   rows=64, tags=fax_tags(tag))
+        files[name] = dict(seed="bw_runs", writer="pil fax", compression=tag,
+                           options=dict(rows=64))
+    info = TiffImagePlugin.ImageFileDirectory_v2()
+    info[266] = 2
+    Image.fromarray(s["u8"]).save(out / "pil_8bit_lzw_fill2.tif",
+                                  compression="tiff_lzw", tiffinfo=info)
+    files["pil_8bit_lzw_fill2.tif"] = dict(seed="u8", writer="pil",
+                                           compression="lzw",
+                                           options={"266": 2})
+    for name, (seed, c, options) in own_bilevel_files().items():
+        a = s[seed]
+        compress, comp = codec(c, options.get("tile") or a.shape[1])
+        options = dict(options, tags={**fax_tags(c),
+                                      **options.get("tags", {})})
+        write_tiff(out / name, a, compress, comp, **options)
+        files[name] = dict(seed=seed, writer="own", compression=c,
+                           options={k: v for k, v in options.items()
+                                    if k != "tags"})
+    for name, entry in files.items():
+        try:
+            with Image.open(out / name) as im:
+                got = np.asarray(im)
+            entry["pil"] = "reads"
+            entry["sha256"] = digest(got)
+        except Exception as e:   # noqa: BLE001 — PIL refuses the layout
+            entry["pil"] = f"raises {type(e).__name__}"
+    manifest = dict(pil=PIL.__version__, libtiff=features.version("libtiff"),
+                    files=files)
+    (out / "bilevel.json").write_text(json.dumps(manifest, indent=1) + "\n")
+    return manifest
+
+
 if __name__ == "__main__":
-    m = write()
-    size = sum(p.stat().st_size for p in HERE.rglob("*") if p.is_file())
-    missing = sorted(set(MODES + HEADERS) - coverage(m))
-    print(f"{len(m['files'])} TIFFs ({sum(e['twin'] for e in m['files'].values())}"
-          f" read by PIL), {len(m['frames'])} frames, {size / 1e3:.0f} kB; "
-          f"PIL {m['pil']}, libtiff {m['libtiff']}, libzstd {m['libzstd']}; "
-          f"modes missing: {missing}")
+    import sys
+
+    which = sys.argv[1:] or ["zstd", "bilevel"]
+    if "zstd" in which:
+        m = write()
+        size = sum(p.stat().st_size for p in HERE.glob("*") if p.is_file())
+        size += sum(p.stat().st_size for p in FRAMES.glob("*"))
+        missing = sorted(set(MODES + HEADERS) - coverage(m))
+        print(f"{len(m['files'])} TIFFs "
+              f"({sum(e['twin'] for e in m['files'].values())}"
+              f" read by PIL), {len(m['frames'])} frames, {size / 1e3:.0f} "
+              f"kB; PIL {m['pil']}, libtiff {m['libtiff']}, libzstd "
+              f"{m['libzstd']}; modes missing: {missing}")
+    if "bilevel" in which:
+        m = write_bilevel()
+        size = sum(p.stat().st_size for p in BILEVEL.glob("*"))
+        reads = sum(e["pil"] == "reads" for e in m["files"].values())
+        print(f"bilevel: {len(m['files'])} TIFFs ({reads} read by PIL), "
+              f"{size / 1e3:.0f} kB; PIL {m['pil']}, libtiff {m['libtiff']}")

@@ -301,7 +301,16 @@ Phases:
    4-bit LZW TIFF beside PIL, each array equal to PIL's; (c) also holds
    the bilevel, sub-byte and separate-plane TIFF fixtures
    (tests/torch_tiff_fixtures/bilevel) to their digests and refusals.
-   (i) and (j) need PIL on the host to write their files.
+   (i) and (j) need PIL on the host to write their files.  (k), here
+   and on every host: fastio must build from the checkout (fastio.cpp on
+   the port's own Zstandard codec, no libzstd; the phase fails and prints
+   `native.build_error()` where it does not); a (64, 1024, 1024) u16
+   Poisson volume, made on the card from a seed, cut into 16 bricks,
+   through zstd_save at level 3, zstd_load and load_slab on 8 threads,
+   byte-equal, the ratio and MB/s beside libzstd's where libzstd.so.1
+   loads through ctypes; then TileStack.imread over (a)'s TIFF stacks
+   through fastio's read_block and through the per-plane path, in turns,
+   equal arrays, the seconds of each.
 
 Every kernel case records its time, its plain version's, one PyTorch
 library call's that computes the same function (torch.matmul, torch.fft,
@@ -6135,6 +6144,153 @@ def codec_child(work: Path) -> int:
     return 0
 
 
+FASTIO_VOLUME = (64, 1024, 1024)   # (k)'s u16 Poisson volume
+FASTIO_GRID = 4                    # cut into 4 x 4 bricks of 64 x 256^2
+FASTIO_ROUNDS = 3                  # read_block timings, each path in turns
+
+
+def libzstd_ratio(bricks, level=3):
+    """The system libzstd's ratio and MB/s on `bricks` (8 threads), or
+    None where libzstd.so.1 does not load: timed beside the port's own
+    encoder, never used by the port."""
+    import ctypes
+    import ctypes.util
+    from concurrent.futures import ThreadPoolExecutor
+
+    try:
+        z = ctypes.CDLL(ctypes.util.find_library("zstd") or "libzstd.so.1")
+    except OSError:
+        return None
+    z.ZSTD_compress.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                ctypes.c_void_p, ctypes.c_size_t,
+                                ctypes.c_int]
+    z.ZSTD_compress.restype = ctypes.c_size_t
+    z.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+    z.ZSTD_compressBound.restype = ctypes.c_size_t
+
+    def one(b):
+        cap = z.ZSTD_compressBound(b.nbytes)
+        out = ctypes.create_string_buffer(cap)
+        return z.ZSTD_compress(out, cap, b.ctypes.data, b.nbytes, level)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        sizes = list(pool.map(one, bricks))
+    wall = time.perf_counter() - t0
+    raw = sum(b.nbytes for b in bricks)
+    return dict(ratio=raw / sum(sizes), mb_s=raw / wall / 1e6)
+
+
+def fastio_bricks(torch, dev, work: Path):
+    """(k), first half: fastio must build on this host from the checkout's
+    sources (no libzstd).  A (64, 1024, 1024) u16 Poisson volume, made on
+    the card from a seed, cut into 16 bricks, through zstd_save at level 3,
+    zstd_load and load_slab on 8 threads: byte-equal, the ratio and MB/s
+    beside libzstd's where it loads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ipp_tpu_torch import native
+
+    t0 = time.perf_counter()
+    built = native.available()
+    say(f"  (k) fastio {'built' if built else 'NOT built'} "
+        f"({time.perf_counter() - t0:.1f} s: g++ on fastio.cpp and the "
+        f"port's zstd.cpp, zstd_enc.cpp, zstd_api.cpp)")
+    if not built:
+        say("  (k) fastio's build failed:\n" + "\n".join(
+            f"      {ln}" for ln in (native.build_error() or "").splitlines()))
+        raise AssertionError("fastio did not build")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    nz, ny, nx = FASTIO_VOLUME
+    yy = torch.linspace(0, 6.28, ny, device=dev)[:, None]
+    xx = torch.linspace(0, 6.28, nx, device=dev)[None, :]
+    lam = (100 + 400 * (torch.sin(yy) * torch.cos(xx)).clamp(min=0))
+    vol = torch.poisson(lam.expand(nz, ny, nx).contiguous(), generator=gen)
+    vol = vol.to(torch.int32).cpu().numpy().astype(np.uint16)
+    by, bx = ny // FASTIO_GRID, nx // FASTIO_GRID
+    cuts = [(y, x) for y in range(0, ny, by) for x in range(0, nx, bx)]
+    bricks = [np.ascontiguousarray(vol[:, y:y + by, x:x + bx])
+              for y, x in cuts]
+    paths = [work / f"brick_{y}_{x}.zst" for y, x in cuts]
+    raw = vol.nbytes
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        saved = list(pool.map(lambda a: native.zstd_save(a[0], a[1], 3),
+                              zip(paths, bricks)))
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = list(pool.map(lambda p: native.zstd_load(p, (nz, by, bx),
+                                                          np.uint16), paths))
+        t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slab = native.load_slab([(str(p), y, x, by, bx)
+                             for p, (y, x) in zip(paths, cuts)],
+                            nz, ny, nx, np.uint16, nthreads=8)
+    t_slab = time.perf_counter() - t0
+    packed = sum(p.stat().st_size - 16 for p in paths)
+    ref = libzstd_ratio(bricks)
+    rec = dict(built=True, bricks=len(bricks), raw_bytes=raw,
+               packed_bytes=packed, ratio=raw / packed,
+               save_mb_s=raw / t_save / 1e6, load_mb_s=raw / t_load / 1e6,
+               slab_mb_s=raw / t_slab / 1e6, libzstd=ref,
+               saved=all(saved),
+               bricks_equal=all(a is not None and np.array_equal(a, b)
+                                for a, b in zip(loaded, bricks)),
+               slab_equal=slab is not None and np.array_equal(slab, vol))
+    say(f"  (k) {len(bricks)} bricks of {FASTIO_VOLUME[0]} x {by} x {bx} u16 "
+        f"at level 3: ratio {rec['ratio']:.4f} (libzstd "
+        + (f"{ref['ratio']:.4f}, {ref['mb_s']:.0f} MB/s" if ref else
+           "not on this host")
+        + f"); zstd_save {rec['save_mb_s']:.0f} MB/s, zstd_load "
+        f"{rec['load_mb_s']:.0f} MB/s, load_slab {rec['slab_mb_s']:.0f} "
+        f"MB/s (8 threads); bricks equal {rec['bricks_equal']}, slab equal "
+        f"{rec['slab_equal']} ({card_line()})")
+    for p in paths:
+        p.unlink()
+    return rec
+
+
+def fastio_reads(work: Path):
+    """(k), second half: TileStack.imread over (a)'s TIFF stacks through
+    fastio's read_block, and through the per-plane path it takes where
+    fastio is not built, in turns: equal arrays, seconds of each."""
+    import numpy as np
+
+    from ipp_tpu_torch import native
+    from ipp_tpu_torch.geometry.extent import VExtent
+    from ipp_tpu_torch.geometry.stacks import TileStack
+
+    h, w = TILE_STACKS[0][2]
+    lib = native._lib
+    times = {"native": [], "per_plane": []}
+    blocks = {}
+    try:
+        for _ in range(FASTIO_ROUNDS):
+            for kind in times:
+                native._lib = lib if kind == "native" else "unavailable"
+                t0 = time.perf_counter()
+                blocks[kind] = [TileStack(
+                    row=0, col=k, dir_name=str(codec_rel(k, 0).parent),
+                    root_dir=str(work / "tif")).imread(
+                        VExtent(0, w, 0, h, 0, CODEC_PLANES))
+                    for k in range(CODEC_STACKS)]
+                times[kind].append(time.perf_counter() - t0)
+    finally:
+        native._lib = lib
+    same = all(np.array_equal(a, b) for a, b in
+               zip(blocks["native"], blocks["per_plane"]))
+    mb = sum(b.nbytes for b in blocks["native"]) / 1e6
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    say(f"  (k) (a)'s {CODEC_STACKS} x {CODEC_PLANES} TIFF planes ({mb:.0f} "
+        f"MB) through TileStack.imread: read_block {med['native']:.3f} s "
+        f"({mb / med['native']:.0f} MB/s), per plane "
+        f"{med['per_plane']:.3f} s ({mb / med['per_plane']:.0f} MB/s), "
+        f"medians of {FASTIO_ROUNDS} in turns; equal {same}")
+    return dict(read_s=times, read_mb=mb, reads_equal=same)
+
+
 def host_pil_rates(work: Path, write: bool, tile=None):
     """With PIL on the host: write (write=True) the u16 LZW TIFF (predictor
     2), the u16 zstd TIFFs (with and without predictor 2) and the u16 LZMA
@@ -6256,6 +6412,9 @@ def phase_codec(torch, record):
     shutil.rmtree(work, ignore_errors=True)
     (work / "rates").mkdir(parents=True)
     host_pil_rates(work, write=True)
+    t0 = time.perf_counter()
+    fastio = fastio_bricks(torch, torch.device("cuda", 0), work)
+    k_s = time.perf_counter() - t0
     torch.cuda.empty_cache()   # the child needs the card's memory
     t0 = time.perf_counter()
     child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -6267,6 +6426,15 @@ def phase_codec(torch, record):
     rec = record["codec"] = json.loads((work / "codec.json").read_text())
     rec["card"] = card
     checks = rec["checks"]
+    t0 = time.perf_counter()
+    fastio.update(fastio_reads(work))
+    fastio["seconds"] = k_s + time.perf_counter() - t0
+    say(f"  (k) {fastio['seconds']:.1f} s")
+    rec["fastio"] = fastio
+    checks["fastio built"] = fastio["built"]
+    checks["fastio bricks and slab byte-equal"] = \
+        fastio["saved"] and fastio["bricks_equal"] and fastio["slab_equal"]
+    checks["read_block equal to the per-plane path"] = fastio["reads_equal"]
     frames = host_cv2_frames(Path(rec["movie"]["path"]))
     rec["movie"]["cv2_frames"] = frames
     if frames is not None:

@@ -24,6 +24,7 @@ from .imgcodec import CodecError, UnsupportedCodecError
 __all__ = ["ccitt_decode", "load"]
 
 _SRC = Path(__file__).resolve().parent.parent / "native" / "ccitt.cpp"
+_FLAGS = ("-O3",)
 _ABI_VERSION = 1      # ccitt_abi_version() in ccitt.cpp
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -42,7 +43,7 @@ def _library() -> ctypes.CDLL:
         if _lib is None and _error is None:
             try:
                 lib = build_shared(_SRC, "ccitt_abi_version", _ABI_VERSION,
-                                   ("-O3",))
+                                   _FLAGS)
                 c = ctypes
                 lib.ccitt_decode.argtypes = [
                     c.c_char_p, c.c_int64, c.c_void_p, c.c_int64, c.c_int64,

@@ -801,7 +801,12 @@ def write_tiff(path: Union[str, Path], img: np.ndarray,
     extra_base = ifd_off + ifd_size
     packed_entries = []
     strip_off_patch = None
-    for tag, typ, count, values in entries:
+    # out-of-line values in tag order, but the strip byte counts before the
+    # strip offsets, as native/fastio.cpp lays them out: a plane of many
+    # strips is byte-equal whichever writer runs
+    rank = {_T_STRIP_BYTE_COUNTS: _T_STRIP_OFFSETS - 0.5}
+    for tag, typ, count, values in sorted(entries,
+                                          key=lambda e: rank.get(e[0], e[0])):
         fmt = _TYPE_FMT[typ]
         size = struct.calcsize(fmt) * count
         data = struct.pack(bo + fmt * count, *values)
@@ -819,6 +824,8 @@ def write_tiff(path: Union[str, Path], img: np.ndarray,
         packed_entries.append((tag, typ, count, val_field, voff, size))
         if tag == _T_STRIP_OFFSETS:
             strip_off_patch = (val_is_offset, voff, typ, count)
+
+    packed_entries.sort(key=lambda e: e[0])
 
     data_base = extra_base + len(extra)
     if data_base % 2:

@@ -2,16 +2,20 @@
 copy of ipp_tpu/native.
 
 Builds the shared library with g++ on first use (`build_shared`, which
-io/hdf5_filters.py uses for h5filters.cpp too), into
-`build/ipp_tpu_torch/` at the repository root (listed in .gitignore),
-under a name that carries a hash of the source, through a temporary name
-and an atomic rename (concurrent processes never load a half-written
-file).  Every fastio entry point has a pure-Python fallback
-(ipp_tpu_torch.io.tiff / zstandard): when the build fails, the calls
-return None / False and the callers read and write through numpy, as the
-reference does without its library.  This is host IO, a throughput
-optimisation mirroring the reference's C++ MEX IO (load_bl_tif.cpp /
-save_bl_tif.cpp / *_lz4_*).
+the port's other host codecs use too), into `build/ipp_tpu_torch/` at the
+repository root (listed in .gitignore), under a name that carries a hash
+of its sources, headers and g++ flags, through a temporary name and an
+atomic rename (concurrent processes never load a half-written file).
+fastio.cpp includes <zstd.h>; the port's own `native/include/zstd.h`
+answers it, on the port's Zstandard codec (zstd.cpp decodes, zstd_enc.cpp
+encodes, zstd_api.cpp gives libzstd's four calls), so the library needs
+g++ and zlib only, never libzstd.  When the build fails anyway,
+`build_error()` says why: the TIFF calls return None / False and the
+callers read and write through numpy (ipp_tpu_torch.io.tiff), as the
+reference does without its library; the brick cache calls (`zstd_save`,
+`zstd_load`, `load_slab`) return False / None and have no fallback.
+This is host IO, a throughput optimisation mirroring the reference's C++
+MEX IO (load_bl_tif.cpp / save_bl_tif.cpp / *_lz4_*).
 """
 
 from __future__ import annotations
@@ -33,6 +37,14 @@ __all__ = ["build_shared", "available", "build_error", "read_block",
            "load_slab_auto", "slab_mode"]
 
 _SRC = Path(__file__).resolve().parent / "fastio.cpp"
+# fastio's build: the port's Zstandard codec beside it, its zstd.h first on
+# the include path; -Bsymbolic binds fastio's ZSTD_* calls to these, even
+# where another module has loaded libzstd globally
+_ZSTD_SOURCES = tuple(_SRC.parent / f for f in ("zstd.cpp", "zstd_enc.cpp",
+                                                "zstd_api.cpp"))
+_INCLUDE = (_SRC.parent / "include",)
+_FLAGS = ("-O3", "-pthread", "-Wl,-Bsymbolic")
+_LIBS = ("-lz",)
 _BUILD_DIR = _SRC.parent.parent.parent / "build" / "ipp_tpu_torch"
 _lib = None
 _build_error: Optional[str] = None
@@ -40,20 +52,31 @@ _build_lock = threading.Lock()
 _ABI_VERSION = 2  # must match fastio_abi_version() in fastio.cpp
 
 
-def library_path(src: Path) -> Path:
-    """Where `src` is built: build/ipp_tpu_torch/lib<stem>_<hash>.so."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"lib{src.stem}_{digest}.so"
+def library_path(src: Path, flags: Sequence[str] = ("-O2",),
+                 libs: Sequence[str] = (), sources: Sequence[Path] = (),
+                 include: Sequence[Path] = ()) -> Path:
+    """Where `build_shared` builds `src` with these arguments:
+    build/ipp_tpu_torch/lib<stem>_<hash>.so, the hash over every source,
+    every header in the include directories and the flags, so that a
+    change to any one of them builds a new library."""
+    h = hashlib.sha256()
+    headers = sorted(f for d in include for f in Path(d).rglob("*.h"))
+    for f in (src, *sources, *headers):
+        h.update(Path(f).name.encode() + b"\0" + Path(f).read_bytes())
+    h.update("\0".join((*flags, *libs)).encode())
+    return _BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_shared(src: Path, abi_symbol: str, abi_version: int,
                  flags: Sequence[str] = ("-O2",),
-                 libs: Sequence[str] = ()) -> ctypes.CDLL:
-    """`src` built with g++ (unless built already) and loaded; its
+                 libs: Sequence[str] = (), sources: Sequence[Path] = (),
+                 include: Sequence[Path] = ()) -> ctypes.CDLL:
+    """`src` and `sources` built with g++ into one library (unless built
+    already), `include` first on the include path, and loaded; its
     `abi_symbol()` must return `abi_version`, since a library whose ABI
     differs from its bindings would corrupt memory.  Raises OSError when
     the build, the load or that check fails."""
-    target = library_path(src)
+    target = library_path(src, flags, libs, sources, include)
     try:
         lib = ctypes.CDLL(str(target)) if target.exists() else None
     except OSError:
@@ -64,9 +87,10 @@ def build_shared(src: Path, abi_symbol: str, abi_version: int,
                                f"{threading.get_ident()}.tmp")
         try:
             run = subprocess.run(
-                ["g++", *flags, "-std=c++17", "-shared", "-fPIC", str(src),
-                 "-o", str(tmp), *libs], capture_output=True, text=True,
-                timeout=300)
+                ["g++", *flags, "-std=c++17", "-shared", "-fPIC",
+                 *(f"-I{d}" for d in include), str(src),
+                 *(str(f) for f in sources), "-o", str(tmp), *libs],
+                capture_output=True, text=True, timeout=300)
             if run.returncode != 0:
                 raise OSError(f"g++ exit {run.returncode}: "
                               f"{run.stderr.strip()[-2000:]}")
@@ -87,7 +111,7 @@ def build_shared(src: Path, abi_symbol: str, abi_version: int,
 
 
 def _library_path() -> Path:
-    return library_path(_SRC)
+    return library_path(_SRC, _FLAGS, _LIBS, _ZSTD_SOURCES, _INCLUDE)
 
 
 def _get_lib() -> Optional[ctypes.CDLL]:
@@ -98,7 +122,7 @@ def _get_lib() -> Optional[ctypes.CDLL]:
         if _lib is None:
             try:
                 lib = build_shared(_SRC, "fastio_abi_version", _ABI_VERSION,
-                                   ("-O3", "-pthread"), ("-lz", "-lzstd"))
+                                   _FLAGS, _LIBS, _ZSTD_SOURCES, _INCLUDE)
                 _configure(lib)
                 _lib = lib
             except OSError as e:    # the callers fall back to numpy

@@ -6,10 +6,13 @@
 // load_lz4_mex.c / load_slab_lz4.cpp: compressed brick cache), built for
 // the TIFF subset this framework writes (classic+BigTIFF, grayscale
 // u8/u16/u32/f32, strips, compression none/deflate/packbits) with zstd
-// replacing LZ4 (zstd is what this image ships).
+// replacing LZ4.
 //
 // Exposed as a C ABI consumed via ctypes (ipp_tpu_torch/native/__init__.py).
-// Built on first use by ipp_tpu_torch/native/__init__.py (g++ -O3 -shared -fPIC ... -lz -lzstd).
+// Built on first use by ipp_tpu_torch/native/__init__.py with the port's own
+// Zstandard codec, no libzstd: g++ -O3 -pthread -Wl,-Bsymbolic -std=c++17
+// -shared -fPIC -I native/include fastio.cpp zstd.cpp zstd_enc.cpp
+// zstd_api.cpp -lz (<zstd.h> below is native/include/zstd.h).
 
 #include <atomic>
 #include <cstdint>

@@ -81,11 +81,13 @@ RENAMED = {"pipeline/command_generator.py":
 # what the JAX package's salvage does not read; geometry/stacks.py's
 # TileStack.imread lets that error pass where it zero-fills a damaged
 # plane, since zeros there would be a wrong result, not the reference's
-# dummy plane
+# dummy plane.  io/tiff.py's write_tiff lays out a plane's strip byte
+# counts before its strip offsets, as native/fastio.cpp does, so that a
+# plane of many strips is byte-equal whether or not fastio built
 DIFFERS = {"io/tiff.py": ({"_TiffPage", "_page_from_tags", "_decompress",
                            "_read_striped", "_read_tiled", "read_tiff",
                            "read_tiff_stack", "read_tiff_partial",
-                           "_imread_impl", "__all__"},
+                           "_imread_impl", "write_tiff", "__all__"},
                           {"_T_JPEG_TABLES", "_T_FILL_ORDER",
                            "_T_GROUP3_OPTIONS",
                            "_undo_float_predictor", "_decode_chunk",

@@ -28,7 +28,7 @@ SHARED = set()
 BENCHES = ["stage_fft_bench.py", "dft_fft_bench.py", "rdft_y_bench.py",
            "dwt_bench.py", "mesh_bench.py", "rdft_dense_bench.py",
            "stage_mixed_bench.py", "stage_large_bench.py",
-           "cplx_dense_bench.py"]
+           "cplx_dense_bench.py", "fastio_bench.py", "zstd_sizes.py"]
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + [ROOT / "scripts" / b for b in BENCHES])
 MODULES = sorted(

@@ -148,7 +148,7 @@ def _strip(name, i=0):
 
 def test_fax_library_builds_into_the_build_tree():
     ccitt.load()
-    path = native_t.library_path(ccitt._SRC)
+    path = native_t.library_path(ccitt._SRC, ccitt._FLAGS)
     assert path.parent == ROOT / "build" / "ipp_tpu_torch" and path.exists()
 
 
